@@ -1,0 +1,89 @@
+"""The CUDA kernels against their plain versions on the card.
+
+These tests need an NVIDIA card (``-m cuda``) and skip without one.  They
+import no JAX, so they run on a machine that has only PyTorch:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+Cases are those of ``tests/test_kernels.py`` (the ragged GEMM included)
+plus G = 7 paged attention and ``lens = 0``.  Tolerances: int8 exact;
+fp32 GEMM 2e-4 and fp32 attention 3e-5 (fp32 sums in another order, no
+TF32); bf16 2e-2 (one bf16 ulp of the outputs).
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels import ops, ref  # noqa: E402
+
+GEMM_SHAPES = [(64, 128, 128), (100, 200, 300), (256, 256, 512),
+               (33, 257, 129), (8, 896, 896)]
+FLASH_CASES = [(128, 128, 4, 2, 32, True), (128, 128, 4, 2, 32, False),
+               (64, 256, 8, 8, 64, True), (96, 96, 6, 1, 16, True),
+               (96, 96, 6, 1, 16, False), (100, 100, 14, 2, 128, True)]
+PAGED_CASES = [(3, 8, 2, 32, 16, 4), (2, 4, 4, 64, 8, 6),
+               (1, 16, 1, 16, 32, 2), (3, 14, 2, 64, 16, 5)]   # G = 7
+
+
+def _paged_inputs(b, h, kh, d, page, mp, seed=0, lens=None):
+    rng = np.random.default_rng(seed)
+    P = b * mp + 4
+    q = rng.standard_normal((b, h, d), np.float32)
+    kp = rng.standard_normal((P, page, kh, d), np.float32)
+    vp = rng.standard_normal((P, page, kh, d), np.float32)
+    table = rng.permutation(P)[:b * mp].reshape(b, mp).astype(np.int32)
+    if lens is None:
+        lens = rng.integers(1, page * mp, size=(b,))
+    return q, kp, vp, table, np.asarray(lens, np.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+def test_cuda_kernels_match_plain_versions(dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the kernels are CUDA C++")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(0)
+    tol = {"float32": 2e-4, "bfloat16": 2e-2, "int8": 0}[dtype]
+    for m, n, k in GEMM_SHAPES:
+        if dtype == "int8":
+            a = torch.from_numpy(rng.integers(-127, 127, (m, k))
+                                 .astype(np.int8)).to(dev)
+            b = torch.from_numpy(rng.integers(-127, 127, (k, n))
+                                 .astype(np.int8)).to(dev)
+        else:
+            dt = getattr(torch, dtype)
+            a = torch.from_numpy(rng.standard_normal((m, k), np.float32)
+                                 ).to(dev, dt)
+            b = torch.from_numpy(rng.standard_normal((k, n), np.float32)
+                                 ).to(dev, dt)
+        for bb in (b, b.t().contiguous().t()):
+            got, want = ops.streaming_gemm(a, bb), ref.gemm_ref(a, bb)
+            np.testing.assert_allclose(got.cpu().float().numpy(),
+                                       want.cpu().float().numpy(),
+                                       rtol=tol, atol=tol)
+    if dtype == "int8":
+        return
+    dt = getattr(torch, dtype)
+    att_tol = 3e-5 if dtype == "float32" else 2e-2
+    for tq, tk, h, kh, d, causal in FLASH_CASES:
+        q = torch.from_numpy(rng.standard_normal((2, tq, h, d), np.float32))
+        k = torch.from_numpy(rng.standard_normal((2, tk, kh, d), np.float32))
+        v = torch.from_numpy(rng.standard_normal((2, tk, kh, d), np.float32))
+        q, k, v = (t.to(dev, dt) for t in (q, k, v))
+        got = ops.flash_attention(q, k, v, causal=causal)
+        want = ops.flash_attention(q.cpu(), k.cpu(), v.cpu(), causal=causal)
+        np.testing.assert_allclose(got.cpu().float().numpy(),
+                                   want.float().numpy(), rtol=att_tol,
+                                   atol=att_tol)
+    for case in PAGED_CASES:
+        for lens in (None, [0] * case[0]):
+            args = _paged_inputs(*case, lens=lens)
+            cpu = [torch.from_numpy(a) for a in args]
+            cpu[:3] = [t.to(dt) for t in cpu[:3]]
+            got = ops.paged_attention(*(t.to(dev) for t in cpu))
+            want = ops.paged_attention(*cpu)
+            np.testing.assert_allclose(got.cpu().float().numpy(),
+                                       want.float().numpy(), rtol=att_tol,
+                                       atol=att_tol)
