@@ -14,13 +14,17 @@ Phases, in order; any failure raises and exits non-zero:
    function (a yardstick the port never calls), and the least time the
    card could take (bytes over 3.35 TB/s or operations over the bf16
    peak of 989 TFLOP/s, whichever is larger).  CUDA events, warm-up,
-   the median of 10 runs, L2 flushed before each run.
+   the median of 10 runs, L2 flushed before each run.  GEMM at decode
+   (M = 8) and prefill (M = 256) shapes, each marked ``on_path`` (the
+   ``kernels`` line sums only those), flash at 64, 256 and 512 tokens,
+   and ragged cases of both checked without timing.
 3. Serve qwen2-0.5b at full width (random weights from ``--seed``) with
    ``ServingEngine``: 8 slots, 16-token (4 KB) pages, 16 requests of
    64-512 prompt tokens and 32 new tokens each.  Launch counts are
    zeroed just before and read just after; every kernel must have run.
 4. Profile five full-batch decode steps: device time by kernel beside
-   the unprofiled wall time per step (the device's busy share).
+   the unprofiled wall time per step (the device's busy share); each
+   GEMM and paged wrapper call must be exactly one device kernel.
 5. Run one request (64-token prefill + 4 decode steps) on the card and
    again on the CPU, where every wrapper takes its plain version, and
    compare the logits.
@@ -44,6 +48,7 @@ BF16_TOL = 2e-2                 # one bf16 ulp of O(1) outputs, with margin
 # after sums in other orders, and flash probabilities rounded to bf16 on
 # the card but not in the plain version
 E2E_TOL = 5e-2
+SPIN_CYCLES = 1_000_000         # ~0.5 ms at the H100's 1.98 GHz SM clock
 
 
 def bound(nbytes, flops):
@@ -62,8 +67,11 @@ def card_line():
 class Timer:
     """Median CUDA-event time of ``fn`` in ms.  Before each run a 256 MB
     buffer is zeroed, which evicts the 50 MB L2 (the main path meets its
-    weights cold) and keeps the card busy while the host enqueues the
-    timed launch, so host overhead is not counted."""
+    weights cold), and the card then spins for ~0.5 ms
+    (``torch.cuda._sleep``), so the host has enqueued the start event,
+    the timed launch and the end event before the card reaches them:
+    host overhead (~50 us per wrapper call) and host stalls are not
+    counted, only the launch and the kernel on the card."""
 
     def __init__(self, torch, device):
         self.torch = torch
@@ -77,6 +85,7 @@ class Timer:
         times = []
         for _ in range(reps):
             self.flush.zero_()
+            torch.cuda._sleep(SPIN_CYCLES)
             s = torch.cuda.Event(enable_timing=True)
             e = torch.cuda.Event(enable_timing=True)
             s.record()
@@ -105,6 +114,7 @@ def check_close(name, got, want, tol):
 def phase_kernels(torch, args, dev, timer):
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.streaming_gemm import plan as gemm_plan
 
     g = torch.Generator(device=dev).manual_seed(args.seed)
     bf16 = torch.bfloat16
@@ -112,8 +122,21 @@ def phase_kernels(torch, args, dev, timer):
     def randn(*shape, scale=1.0):
         return (torch.randn(shape, generator=g, device=dev) * scale).to(bf16)
 
+    def summary(per_shape):
+        """The kernel line's numbers: sums over the shapes the main path
+        runs (``on_path``); the rest are printed and kept per shape."""
+        on = [r for r in per_shape if r["on_path"]]
+        return {**{k: sum(r[k] for r in on)
+                   for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
+                "bound_by": "bytes" if sum(r["bound_by"] == "bytes"
+                                           for r in on) * 2 >= len(on)
+                else "operations",
+                "timed_as": "sum over the on_path entries of per_shape"}
+
     rows = {}
-    # ---- streaming GEMM: every projection, the MLP and the tied lm_head
+    # ---- streaming GEMM: every projection, the MLP and the tied lm_head;
+    # decode runs M = 8, prefill M = 64-512 (256 here) but never the
+    # lm_head at M = 256 (only each prompt's last token reaches it)
     embed = randn(152064, 896, scale=0.02)
     per_shape = []
     for M in (8, 256):
@@ -128,49 +151,87 @@ def phase_kernels(torch, args, dev, timer):
             err = check_close(f"gemm {M}x{K}x{N}", ops.streaming_gemm(x, b),
                               ref.gemm_ref(x, b), BF16_TOL)
             bms, by = bound(2 * (M * K + K * N + M * N), 2 * M * N * K)
-            r = {"shape": [M, K, N], "b": what, "max_abs_err": err,
+            r = {"shape": [M, K, N], "b": what,
+                 "on_path": not (M == 256 and N == 152064),
+                 "plan": list(gemm_plan(M, N, K)), "max_abs_err": err,
                  "ms": timer(lambda: ops.streaming_gemm(x, b)),
                  "plain_ms": timer(lambda: ref.gemm_ref(x, b)),
                  "library_ms": timer(lambda: torch.matmul(x, b)),
                  "bound_ms": bms, "bound_by": by}
             per_shape.append(r)
-            print(f"[gemm] M={M} K={K} N={N} ({what}): err {err:.3g} "
-                  f"(tol {BF16_TOL}) kernel {r['ms']:.4f} ms plain "
-                  f"{r['plain_ms']:.4f} ms matmul {r['library_ms']:.4f} ms "
-                  f"bound {bms:.4f} ms ({by})", flush=True)
+            print(f"[gemm] M={M} K={K} N={N} ({what}, plan {r['plan']}, "
+                  f"on_path {r['on_path']}): err {err:.3g} (tol {BF16_TOL}) "
+                  f"kernel {r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms "
+                  f"matmul {r['library_ms']:.4f} ms bound {bms:.4f} ms "
+                  f"({by})", flush=True)
+    # ragged edges through the split-K kernel: M, N and K off the tiles
+    ragged = []
+    for M, K, N, kcontig in ((5, 4824, 896, False), (37, 896, 1000, True),
+                             (300, 4824, 136, False), (1, 896, 152000, True)):
+        x = randn(M, K)
+        b = randn(N, K, scale=K ** -0.5).t() if kcontig \
+            else randn(K, N, scale=K ** -0.5)
+        err = check_close(f"gemm ragged {M}x{K}x{N}",
+                          ops.streaming_gemm(x, b), ref.gemm_ref(x, b),
+                          BF16_TOL)
+        ragged.append({"shape": [M, K, N], "b_kcontig": kcontig,
+                       "plan": list(gemm_plan(M, N, K)), "max_abs_err": err})
+        print(f"[gemm] ragged M={M} K={K} N={N} kcontig {kcontig}: err "
+              f"{err:.3g} (tol {BF16_TOL})", flush=True)
     rows["streaming_gemm"] = {
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/streaming_gemm.cu",
         "replaces": "src/repro/kernels/streaming_gemm.py:30",
         "tol": BF16_TOL,
-        "max_abs_err": max(r["max_abs_err"] for r in per_shape),
-        **{k: sum(r[k] for r in per_shape)
-           for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
-        "bound_by": "bytes" if sum(r["bound_by"] == "bytes"
-                                   for r in per_shape) * 2 >= len(per_shape)
-        else "operations",
-        "timed_as": "sum over per_shape", "per_shape": per_shape}
+        "max_abs_err": max(r["max_abs_err"] for r in per_shape + ragged),
+        **summary(per_shape), "per_shape": per_shape, "ragged": ragged}
 
-    # ---- flash attention: prefill of a 256-token prompt
-    B, T, H, KH, D = 1, 256, 14, 2, 64
-    q, k, v = randn(B, T, H, D), randn(B, T, KH, D), randn(B, T, KH, D)
-    err = check_close("flash", ops.flash_attention(q, k, v, causal=True),
-                      ref.flash_gqa_ref(q, k, v, True), BF16_TOL)
-    pairs = T * (T + 1) // 2
-    bms, by = bound(2 * (2 * B * T * H * D + 2 * B * T * KH * D),
-                    4 * B * H * D * pairs)
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    lib_ms = timer(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, enable_gqa=True))
+    # ---- flash attention: prefill of 64-, 256- and 512-token prompts
+    B, H, KH, D = 1, 14, 2, 64
+    per_shape = []
+    for T in (64, 256, 512):
+        q, k, v = randn(B, T, H, D), randn(B, T, KH, D), randn(B, T, KH, D)
+        err = check_close(f"flash T={T}",
+                          ops.flash_attention(q, k, v, causal=True),
+                          ref.flash_gqa_ref(q, k, v, True), BF16_TOL)
+        pairs = T * (T + 1) // 2
+        bms, by = bound(2 * (2 * B * T * H * D + 2 * B * T * KH * D),
+                        4 * B * H * D * pairs)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        r = {"shape": {"q": [B, T, H, D], "kv": [B, T, KH, D],
+                       "causal": True}, "on_path": True,
+             "max_abs_err": err,
+             "ms": timer(lambda: ops.flash_attention(q, k, v, causal=True)),
+             "plain_ms": timer(lambda: ref.flash_gqa_ref(q, k, v, True)),
+             "library_ms": timer(lambda: F.scaled_dot_product_attention(
+                 qt, kt, vt, is_causal=True, enable_gqa=True)),
+             "bound_ms": bms, "bound_by": by}
+        per_shape.append(r)
+        print(f"[flash_attention] T={T}: err {err:.3g} (tol {BF16_TOL}) "
+              f"kernel {r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms sdpa "
+              f"{r['library_ms']:.4f} ms bound {bms:.4f} ms ({by})",
+              flush=True)
+    ragged = []
+    for Tq, Tk, H_, KH_, D_, causal in ((100, 96, 14, 2, 64, True),
+                                        (100, 96, 14, 2, 16, False),
+                                        (96, 100, 7, 1, 128, True)):
+        q = randn(2, Tq, H_, D_)
+        k, v = randn(2, Tk, KH_, D_), randn(2, Tk, KH_, D_)
+        err = check_close(f"flash ragged {Tq}/{Tk} D={D_}",
+                          ops.flash_attention(q, k, v, causal=causal),
+                          ref.flash_gqa_ref(q, k, v, causal), BF16_TOL)
+        ragged.append({"tq_tk": [Tq, Tk], "heads": [H_, KH_], "d": D_,
+                       "causal": causal, "max_abs_err": err})
+        print(f"[flash_attention] ragged Tq={Tq} Tk={Tk} H={H_}/{KH_} "
+              f"D={D_} causal {causal}: err {err:.3g} (tol {BF16_TOL})",
+              flush=True)
     rows["flash_attention"] = {
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:23",
-        "tol": BF16_TOL, "max_abs_err": err,
-        "ms": timer(lambda: ops.flash_attention(q, k, v, causal=True)),
-        "plain_ms": timer(lambda: ref.flash_gqa_ref(q, k, v, True)),
-        "library_ms": lib_ms, "bound_ms": bms, "bound_by": by,
-        "shape": {"q": [B, T, H, D], "kv": [B, T, KH, D], "causal": True}}
+        "tol": BF16_TOL,
+        "max_abs_err": max(r["max_abs_err"] for r in per_shape + ragged),
+        **summary(per_shape), "per_shape": per_shape, "ragged": ragged}
 
     # ---- paged attention: one decode step of 8 sequences
     B, H, KH, D, page, max_pages = 8, 14, 2, 64, 16, 64
@@ -197,12 +258,11 @@ def phase_kernels(torch, args, dev, timer):
         "library_ms": None, "bound_ms": bms, "bound_by": by,
         "shape": {"q": [B, H, D], "pool": [P, page, KH, D],
                   "lens": lens.tolist()}}
-    for name in ("flash_attention", "paged_attention"):
-        r = rows[name]
-        print(f"[{name}] err {r['max_abs_err']:.3g} (tol {r['tol']}) "
-              f"kernel {r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms "
-              f"library {r['library_ms']} ms bound {r['bound_ms']:.4f} ms "
-              f"({r['bound_by']})", flush=True)
+    r = rows["paged_attention"]
+    print(f"[paged_attention] err {r['max_abs_err']:.3g} (tol {r['tol']}) "
+          f"kernel {r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms "
+          f"library {r['library_ms']} ms bound {r['bound_ms']:.4f} ms "
+          f"({r['bound_by']})", flush=True)
     return rows
 
 
@@ -304,8 +364,10 @@ def phase_card_vs_cpu(torch, args, cfg, params):
 
 
 def _kernel_group(name):
-    for key, group in (("gemm_", "streaming_gemm"),
-                       ("flash_fwd", "flash_attention"),
+    for key, group in (("gemm_bf16", "streaming_gemm"),
+                       ("gemm_simt", "streaming_gemm"),
+                       ("flash_bf16", "flash_attention"),
+                       ("flash_f32", "flash_attention"),
                        ("paged_fwd", "paged_attention")):
         if key in name:
             return group
@@ -345,6 +407,7 @@ def phase_profile(torch, args, cfg, params, n_steps=5):
         torch.cuda.synchronize()
     per_step = {k: n / n_steps for k, n in ops.LAUNCHES.items()}
     groups: dict = {}
+    kernels: dict = {}
     from torch.autograd import DeviceType
     for ev in prof.key_averages():
         if ev.device_type != DeviceType.CUDA:   # host ops would double-count
@@ -355,13 +418,21 @@ def phase_profile(torch, args, cfg, params, n_steps=5):
         if us > 0:
             g = _kernel_group(ev.key)
             groups[g] = groups.get(g, 0.0) + us / 1e3 / n_steps
+            kernels[g] = kernels.get(g, 0) + ev.count / n_steps
     busy = sum(groups.values())
     res = {"slots": 8, "context": "256-276", "steps": n_steps,
            "wall_ms_per_step": wall_ms,
            "device_ms_per_step": groups or "not measured",
            "device_busy_share": busy / wall_ms if groups else
-           "not measured", "launches_per_step": per_step}
+           "not measured", "launches_per_step": per_step,
+           "device_kernels_per_step": kernels or "not measured"}
     print("[decode_profile] " + json.dumps(res), flush=True)
+    # one device kernel per wrapper call: no hidden second pass
+    for name in ("streaming_gemm", "paged_attention"):
+        if kernels and kernels.get(name) != per_step[name]:
+            raise AssertionError(f"{name}: {kernels.get(name)} device "
+                                 f"kernels per step for {per_step[name]} "
+                                 f"wrapper calls")
     return res
 
 

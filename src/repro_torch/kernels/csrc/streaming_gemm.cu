@@ -1,26 +1,48 @@
-// MatrixFlow streaming GEMM for Hopper (sm_90a): C = A * B.
+// MatrixFlow streaming GEMM for Hopper (sm_90a): C = A * B.  Replaces the
+// Pallas kernel _gemm_kernel of src/repro/kernels/streaming_gemm.py.
+//
+// On the H100 every main-path shape is bound by bytes (decode M <= 8
+// reads each weight byte for a handful of rows); what holds a kernel
+// back at these sizes is memory-level parallelism: enough CTAs, and
+// enough bytes in flight in each, to cover the memory latency.
 //
 // Two kernels:
-//  * gemm_bf16_mma — bf16 inputs, fp32 accumulation on the tensor cores
-//    through mma.sync m16n8k16.  A 64x64 output tile per CTA walks K in
-//    32-deep tiles; a cp.async double buffer (stages 0/1 = the paper's
-//    A0/A1, B0/B1) loads tile k+1 while tile k is multiplied.  B is read
-//    either row-major (K x N, N contiguous) or K-contiguous (element
-//    (k, n) at B[n*ldb + k]), so the tied lm_head reads embed^T in place.
-//    Needs 16-byte aligned rows along the contiguous dimension; ragged
-//    M / N / K tile edges are zero-filled by cp.async's src-size operand.
+//  * gemm_bf16 — bf16 inputs, fp32 accumulation on the tensor cores
+//    through mma.sync m16n8k16, split-K inside a thread-block cluster.
+//    The product is computed transposed, C^T = B^T A^T: the weight's N
+//    fills the mma's 16-row dimension and the tokens fill its n8
+//    dimension, so a decode tile of 8 tokens stages 8 rows of A and
+//    wastes no mma work on zero rows.  A cluster of S CTAs (S <= 8,
+//    grid z) shares one BM x BN output tile; CTA r walks k-tiles
+//    [r*nk/S, (r+1)*nk/S) of 64 (128-byte rows along K) through a
+//    cp.async ring of 3-8 stages (as many as 64 KB holds), with ldmatrix
+//    fragments (ldmatrix.trans for row-major B).  Each CTA parks its
+//    fp32 partial in its own shared memory; after a cluster barrier, CTA
+//    r sums slice r of the tile over ranks 0..S-1 in that fixed order,
+//    read through distributed shared memory, and stores it once in bf16.
+//    One launch, no workspace, no atomics: the result is the same bits
+//    on every run.  B is read either row-major (K x N, N contiguous) or
+//    K-contiguous (element (k, n) at B[n*ldb + k]), so the tied lm_head
+//    reads embed^T in place.  Needs 16-byte aligned rows along the
+//    contiguous dimension; ragged M / N / K edges are zero-filled by
+//    cp.async's src-size operand.  The tile (BM, BN) and the split S
+//    come from the caller (``plan`` in streaming_gemm.py).
 //  * gemm_simt — any strides, fp32 / bf16 / int8 inputs, scalar FMA
 //    with an fp32 (int32 for int8) accumulator: full fp32 for fp32
 //    inputs (no TF32) and exact int8 sums that wrap on the int8 store.
 //
 // Each launcher returns cudaGetLastError() of its launch.
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int BM = 64, BN = 64, BK = 32, PAD = 8, MMA_THREADS = 128;
+constexpr int BK = 64, PAD = 8, MMA_THREADS = 128, MAX_SPLITS = 8;
+constexpr int RING_BUDGET = 64 * 1024;  // bytes of cp.async ring per CTA
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
                                            bool pred) {
@@ -34,8 +56,32 @@ __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
 
-__device__ __forceinline__ void cp_async_wait1() {
-  asm volatile("cp.async.wait_group 1;\n" ::);
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t* r, const void* p) {
+  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(s));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t* r, const void* p) {
+  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(s));
+}
+
+__device__ __forceinline__ void ldsm_x2(uint32_t* r, const void* p) {
+  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(s));
 }
 
 __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
@@ -47,124 +93,242 @@ __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-__device__ __forceinline__ uint32_t pack2(__nv_bfloat16 lo,
-                                          __nv_bfloat16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
-}
-
-template <bool B_KCONTIG>
-struct BTile {
+// Tile geometry of gemm_bf16<BM, BN, B_KCONTIG>.  Four warps: WM along
+// the tokens, WN along the weight's N, and WK over the four k16 steps of
+// a k-tile (small tiles give each warp every other k16 step instead of
+// idling warps); the WK partials are summed with the cluster's.
+template <int BM, int BN, bool B_KCONTIG>
+struct Geo {
+  static constexpr int WM = BM >= 32 ? 2 : 1;
+  static constexpr int WN = BN / 16 < 4 / WM ? BN / 16 : 4 / WM;
+  static constexpr int WK = 4 / (WM * WN);
+  static constexpr int TM = BM / WM, TN = BN / WN;  // tokens, n per warp
+  static constexpr int FM = TM / 8, FN = TN / 16;   // mma tiles per warp
+  static constexpr int A_LD = BK + PAD;
   // K-contiguous B is staged as [n][k]; row-major B as [k][n]
-  static constexpr int ROWS = B_KCONTIG ? BN : BK;
-  static constexpr int COLS = B_KCONTIG ? BK + PAD : BN + PAD;
+  static constexpr int B_ROWS = B_KCONTIG ? BN : BK;
+  static constexpr int B_LD = B_KCONTIG ? BK + PAD : BN + PAD;
+  static constexpr int A_ELEMS = BM * A_LD, B_ELEMS = B_ROWS * B_LD;
+  static constexpr int STAGE_BYTES = 2 * (A_ELEMS + B_ELEMS);
+  static constexpr int S_RAW = RING_BUDGET / STAGE_BYTES;
+  static constexpr int STAGES = S_RAW < 3 ? 3 : (S_RAW > 8 ? 8 : S_RAW);
+  static constexpr int RED_LD = BN + 4;  // fp32 partial [WK][BM][RED_LD]
+  static constexpr int RING_BYTES = STAGES * STAGE_BYTES;
+  static constexpr int RED_BYTES = 4 * WK * BM * RED_LD;
+  static constexpr int SMEM = RING_BYTES > RED_BYTES ? RING_BYTES : RED_BYTES;
+  static_assert(WM * WN * WK == 4 && TN % 16 == 0 && TM % 8 == 0, "tile");
 };
 
-template <bool B_KCONTIG>
+template <int BM, int BN, bool B_KCONTIG>
 __global__ void __launch_bounds__(MMA_THREADS)
-    gemm_bf16_mma(const __nv_bfloat16* __restrict__ A,
-                  const __nv_bfloat16* __restrict__ B,
-                  __nv_bfloat16* __restrict__ C, int M, int N, int K,
-                  int64_t lda, int64_t ldb, int64_t ldc) {
-  __shared__ __align__(16) __nv_bfloat16 As[2][BM][BK + PAD];
-  __shared__ __align__(16)
-      __nv_bfloat16 Bs[2][BTile<B_KCONTIG>::ROWS][BTile<B_KCONTIG>::COLS];
+    gemm_bf16(const __nv_bfloat16* __restrict__ A,
+              const __nv_bfloat16* __restrict__ B,
+              __nv_bfloat16* __restrict__ C, int M, int N, int K,
+              int64_t lda, int64_t ldb, int64_t ldc) {
+  using G = Geo<BM, BN, B_KCONTIG>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* Bs = As + G::STAGES * G::A_ELEMS;
+  float* red = reinterpret_cast<float*>(smem_raw);  // after the main loop
 
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int splits = static_cast<int>(cluster.num_blocks());
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, tig = lane & 3;      // mma fragment coordinates
-  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
+  const int g = lane >> 2, tig = lane & 3;  // mma fragment coordinates
+  const int wk = warp % G::WK, wn = (warp / G::WK) % G::WN,
+            wm = warp / (G::WK * G::WN);
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const int nk = (K + BK - 1) / BK;
+  const int kt0 = rank * nk / splits, kt1 = (rank + 1) * nk / splits;
+  const int nt = kt1 - kt0;
 
-  auto load_tile = [&](int stage, int k0) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {  // A: 64 rows x 4 chunks of 8
-      int c = tid + i * MMA_THREADS;
-      int row = c >> 2, col = (c & 3) * 8;
-      int gm = m0 + row, gk = k0 + col;
-      bool ok = gm < M && gk < K;
-      cp_async16(&As[stage][row][col], ok ? A + gm * lda + gk : A, ok);
+  auto load_tile = [&](int stage, int kt) {
+    const int k0 = kt * BK;
+    __nv_bfloat16* as = As + stage * G::A_ELEMS;
+    __nv_bfloat16* bs = Bs + stage * G::B_ELEMS;
+    for (int c = tid; c < BM * (BK / 8); c += MMA_THREADS) {
+      const int row = c / (BK / 8), col = (c % (BK / 8)) * 8;
+      const int gm = m0 + row, gk = k0 + col;
+      const bool ok = gm < M && gk < K;
+      cp_async16(as + row * G::A_LD + col, ok ? A + gm * lda + gk : A, ok);
     }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      int c = tid + i * MMA_THREADS;
-      if constexpr (B_KCONTIG) {  // 64 n-rows x 4 chunks of 8 along k
-        int row = c >> 2, col = (c & 3) * 8;
-        int gn = n0 + row, gk = k0 + col;
-        bool ok = gn < N && gk < K;
-        cp_async16(&Bs[stage][row][col], ok ? B + gn * ldb + gk : B, ok);
-      } else {          // 32 k-rows x 8 chunks of 8 along n
-        int row = c >> 3, col = (c & 7) * 8;
-        int gk = k0 + row, gn = n0 + col;
-        bool ok = gk < K && gn < N;
-        cp_async16(&Bs[stage][row][col], ok ? B + gk * ldb + gn : B, ok);
+    if constexpr (B_KCONTIG) {  // BN n-rows x 8 chunks of 8 along k
+      for (int c = tid; c < BN * (BK / 8); c += MMA_THREADS) {
+        const int row = c / (BK / 8), col = (c % (BK / 8)) * 8;
+        const int gn = n0 + row, gk = k0 + col;
+        const bool ok = gn < N && gk < K;
+        cp_async16(bs + row * G::B_LD + col, ok ? B + gn * ldb + gk : B, ok);
+      }
+    } else {                    // BK k-rows x BN/8 chunks of 8 along n
+      for (int c = tid; c < BK * (BN / 8); c += MMA_THREADS) {
+        const int row = c / (BN / 8), col = (c % (BN / 8)) * 8;
+        const int gk = k0 + row, gn = n0 + col;
+        const bool ok = gk < K && gn < N;
+        cp_async16(bs + row * G::B_LD + col, ok ? B + gk * ldb + gn : B, ok);
       }
     }
   };
 
-  float acc[2][4][4];
+  float acc[G::FN][G::FM][4];
 #pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
+  for (int i = 0; i < G::FN; ++i)
 #pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
+    for (int j = 0; j < G::FM; ++j)
 #pragma unroll
-      for (int r = 0; r < 4; ++r) acc[mi][ni][r] = 0.f;
+      for (int r = 0; r < 4; ++r) acc[i][j][r] = 0.f;
 
-  const int nk = (K + BK - 1) / BK;
-  load_tile(0, 0);
-  cp_async_commit();
-  for (int kt = 0; kt < nk; ++kt) {
-    const int s = kt & 1;
-    if (kt + 1 < nk) load_tile(s ^ 1, (kt + 1) * BK);
+#pragma unroll
+  for (int s = 0; s < G::STAGES - 1; ++s) {
+    if (s < nt) load_tile(s, kt0 + s);
     cp_async_commit();  // possibly empty: keeps the group count uniform
-    cp_async_wait1();   // tile kt has landed
-    __syncthreads();
+  }
+  for (int it = 0; it < nt; ++it) {
+    cp_async_wait<G::STAGES - 2>();  // tile it has landed
+    __syncthreads();                 // ... for every thread; stage
+                                     // (it - 1) % STAGES is free again
+    const int nx = it + G::STAGES - 1;
+    if (nx < nt) load_tile(nx % G::STAGES, kt0 + nx);
+    cp_async_commit();
+    const __nv_bfloat16* as = As + (it % G::STAGES) * G::A_ELEMS;
+    const __nv_bfloat16* bs = Bs + (it % G::STAGES) * G::B_ELEMS;
 #pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      uint32_t af[2][4], bfr[4][2];
+    for (int ks = wk; ks < BK / 16; ks += G::WK) {
+      const int kk = ks * 16;
+      uint32_t wf[G::FN][4], tf[G::FM][2];
 #pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-        const int r = wm + mi * 16 + g, c = kk + tig * 2;
-        af[mi][0] = *reinterpret_cast<const uint32_t*>(&As[s][r][c]);
-        af[mi][1] = *reinterpret_cast<const uint32_t*>(&As[s][r + 8][c]);
-        af[mi][2] = *reinterpret_cast<const uint32_t*>(&As[s][r][c + 8]);
-        af[mi][3] =
-            *reinterpret_cast<const uint32_t*>(&As[s][r + 8][c + 8]);
-      }
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const int n = wn + ni * 8 + g, k = kk + tig * 2;
+      for (int i = 0; i < G::FN; ++i) {  // B^T rows n, cols k: mma A
+        const int nb = wn * G::TN + i * 16;
         if constexpr (B_KCONTIG) {
-          bfr[ni][0] = *reinterpret_cast<const uint32_t*>(&Bs[s][n][k]);
-          bfr[ni][1] =
-              *reinterpret_cast<const uint32_t*>(&Bs[s][n][k + 8]);
+          ldsm_x4(wf[i], bs + (nb + (lane & 15)) * G::B_LD + kk +
+                             (lane >> 4) * 8);
         } else {
-          bfr[ni][0] = pack2(Bs[s][k][n], Bs[s][k + 1][n]);
-          bfr[ni][1] = pack2(Bs[s][k + 8][n], Bs[s][k + 9][n]);
+          const int mat = lane >> 3;
+          ldsm_x4_t(wf[i], bs + (kk + (lane & 7) + (mat >> 1) * 8) * G::B_LD +
+                               nb + (mat & 1) * 8);
         }
       }
 #pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
+      for (int j = 0; j < G::FM; ++j)  // A^T cols = tokens: mma B
+        ldsm_x2(tf[j], as + (wm * G::TM + j * 8 + (lane & 7)) * G::A_LD +
+                           kk + ((lane >> 3) & 1) * 8);
 #pragma unroll
-        for (int ni = 0; ni < 4; ++ni) mma_bf16(acc[mi][ni], af[mi], bfr[ni]);
+      for (int i = 0; i < G::FN; ++i)
+#pragma unroll
+        for (int j = 0; j < G::FM; ++j) mma_bf16(acc[i][j], wf[i], tf[j]);
     }
-    __syncthreads();  // stage s is refilled by the next iteration's load
   }
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is dead: reuse it for the partials
 
+  // acc[i][j]: rows n (g, g + 8) x cols tokens (2 tig, 2 tig + 1)
+  float* mine = red + wk * BM * G::RED_LD;
 #pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
+  for (int i = 0; i < G::FN; ++i)
 #pragma unroll
-    for (int ni = 0; ni < 4; ++ni) {
-      const int r = m0 + wm + mi * 16 + g;
-      const int c = n0 + wn + ni * 8 + tig * 2;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int rr = r + h * 8;
-        if (rr >= M) continue;
-        if (c < N) C[rr * ldc + c] = __float2bfloat16(acc[mi][ni][2 * h]);
-        if (c + 1 < N)
-          C[rr * ldc + c + 1] = __float2bfloat16(acc[mi][ni][2 * h + 1]);
-      }
+    for (int j = 0; j < G::FM; ++j) {
+      const int n = wn * G::TN + i * 16 + g, t = wm * G::TM + j * 8 + 2 * tig;
+      mine[t * G::RED_LD + n] = acc[i][j][0];
+      mine[(t + 1) * G::RED_LD + n] = acc[i][j][1];
+      mine[t * G::RED_LD + n + 8] = acc[i][j][2];
+      mine[(t + 1) * G::RED_LD + n + 8] = acc[i][j][3];
     }
+  cluster.sync();  // every CTA's partial is written and visible
+
+  // CTA `rank` finishes pairs [rank*P/S, (rank+1)*P/S) of the tile,
+  // summing ranks 0..S-1 (and their WK warp partials) in fixed order.
+  constexpr int P = BM * BN / 2;
+  const int p0 = rank * P / splits, p1 = (rank + 1) * P / splits;
+  for (int p = p0 + tid; p < p1; p += MMA_THREADS) {
+    const int t = (2 * p) / BN, n = (2 * p) % BN;
+    float2 v[MAX_SPLITS][G::WK];  // all loads in flight before the sums
+#pragma unroll
+    for (int r = 0; r < MAX_SPLITS; ++r)
+      if (r < splits) {
+        const float* peer = r == rank ? red : cluster.map_shared_rank(red, r);
+#pragma unroll
+        for (int w = 0; w < G::WK; ++w)
+          v[r][w] = *reinterpret_cast<const float2*>(
+              peer + (w * BM + t) * G::RED_LD + n);
+      }
+    float2 sum = make_float2(0.f, 0.f);
+#pragma unroll
+    for (int r = 0; r < MAX_SPLITS; ++r)
+      if (r < splits) {
+#pragma unroll
+        for (int w = 0; w < G::WK; ++w) {
+          sum.x += v[r][w].x;
+          sum.y += v[r][w].y;
+        }
+      }
+    const int gm = m0 + t, gn = n0 + n;
+    if (gm >= M || gn >= N) continue;
+    __nv_bfloat16* c = C + gm * ldc + gn;
+    if (gn + 1 < N && (reinterpret_cast<uintptr_t>(c) & 3) == 0) {
+      *reinterpret_cast<__nv_bfloat162*>(c) = __floats2bfloat162_rn(sum.x,
+                                                                    sum.y);
+    } else {
+      c[0] = __float2bfloat16(sum.x);
+      if (gn + 1 < N) c[1] = __float2bfloat16(sum.y);
+    }
+  }
+  cluster.sync();  // no CTA leaves while a peer still reads its partial
+}
+
+template <int BM, int BN, bool B_KCONTIG>
+int launch_bf16(const void* A, const void* B, void* C, int M, int N, int K,
+                int64_t lda, int64_t ldb, int64_t ldc, int splits,
+                cudaStream_t st) {
+  using G = Geo<BM, BN, B_KCONTIG>;
+  auto kern = gemm_bf16<BM, BN, B_KCONTIG>;
+  // once per instantiation and process (the port drives one card)
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, G::SMEM);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((N + BN - 1) / BN, (M + BM - 1) / BM, splits);
+  cfg.blockDim = dim3(MMA_THREADS);
+  cfg.dynamicSmemBytes = G::SMEM;
+  cfg.stream = st;
+  cudaLaunchAttribute at[1];
+  at[0].id = cudaLaunchAttributeClusterDimension;
+  at[0].val.clusterDim.x = 1;
+  at[0].val.clusterDim.y = 1;
+  at[0].val.clusterDim.z = splits;
+  cfg.attrs = at;
+  cfg.numAttrs = 1;
+  cudaError_t err = cudaLaunchKernelEx(
+      &cfg, kern, static_cast<const __nv_bfloat16*>(A),
+      static_cast<const __nv_bfloat16*>(B), static_cast<__nv_bfloat16*>(C),
+      M, N, K, lda, ldb, ldc);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int BM, bool KC>
+int dispatch_bn(int bn, const void* A, const void* B, void* C, int M, int N,
+                int K, int64_t lda, int64_t ldb, int64_t ldc, int splits,
+                cudaStream_t st) {
+  switch (bn) {
+    case 32: return launch_bf16<BM, 32, KC>(A, B, C, M, N, K, lda, ldb, ldc, splits, st);
+    case 64: return launch_bf16<BM, 64, KC>(A, B, C, M, N, K, lda, ldb, ldc, splits, st);
+    case 128: return launch_bf16<BM, 128, KC>(A, B, C, M, N, K, lda, ldb, ldc, splits, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+template <bool KC>
+int dispatch_bm(int bm, int bn, const void* A, const void* B, void* C, int M,
+                int N, int K, int64_t lda, int64_t ldb, int64_t ldc,
+                int splits, cudaStream_t st) {
+  switch (bm) {
+    case 8: return dispatch_bn<8, KC>(bn, A, B, C, M, N, K, lda, ldb, ldc, splits, st);
+    case 16: return dispatch_bn<16, KC>(bn, A, B, C, M, N, K, lda, ldb, ldc, splits, st);
+    case 32: return dispatch_bn<32, KC>(bn, A, B, C, M, N, K, lda, ldb, ldc, splits, st);
+    case 64: return dispatch_bn<64, KC>(bn, A, B, C, M, N, K, lda, ldb, ldc, splits, st);
+    case 128: return dispatch_bn<128, KC>(bn, A, B, C, M, N, K, lda, ldb, ldc, splits, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 // ------------------------------------------------------------ SIMT path
@@ -234,21 +398,20 @@ __global__ void __launch_bounds__(SIMT_THREADS)
 
 }  // namespace
 
-extern "C" int sg_gemm_bf16_mma(const void* A, const void* B, void* C, int M,
-                                int N, int K, int64_t lda, int64_t ldb,
-                                int b_kcontig, int64_t ldc, void* stream) {
-  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
+// The tile (bm x bn, bk), the split and the layout come from the caller;
+// bk must be 64 and 1 <= splits <= 8.
+extern "C" int sg_gemm_bf16(const void* A, const void* B, void* C, int M,
+                            int N, int K, int64_t lda, int64_t ldb,
+                            int b_kcontig, int64_t ldc, int bm, int bn,
+                            int bk, int splits, void* stream) {
+  if (bk != BK || splits < 1 || splits > MAX_SPLITS)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  auto a = static_cast<const __nv_bfloat16*>(A);
-  auto b = static_cast<const __nv_bfloat16*>(B);
-  auto c = static_cast<__nv_bfloat16*>(C);
   if (b_kcontig)
-    gemm_bf16_mma<true><<<grid, MMA_THREADS, 0, st>>>(a, b, c, M, N, K, lda,
-                                                      ldb, ldc);
-  else
-    gemm_bf16_mma<false><<<grid, MMA_THREADS, 0, st>>>(a, b, c, M, N, K, lda,
-                                                       ldb, ldc);
-  return static_cast<int>(cudaGetLastError());
+    return dispatch_bm<true>(bm, bn, A, B, C, M, N, K, lda, ldb, ldc, splits,
+                             st);
+  return dispatch_bm<false>(bm, bn, A, B, C, M, N, K, lda, ldb, ldc, splits,
+                            st);
 }
 
 // dtype: 0 = float32, 1 = bfloat16, 2 = int8

@@ -17,19 +17,11 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device
 from repro_torch.models import decoding as D
 from repro_torch.models import transformer as T
 from repro_torch.models.params import init_tree
 from repro_torch.serving.kv_cache import PagedCacheConfig, PagedKVCache
-
-
-def resolve_device(device="cuda") -> torch.device:
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "CUDA is not available: pass device='cpu' to run the plain "
-            "PyTorch versions of the kernels on the host")
-    return dev
 
 
 class Model:

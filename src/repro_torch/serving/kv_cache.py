@@ -24,6 +24,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.device import resolve_device
+
 
 def _itemsize(dtype: str) -> int:
     return torch.empty((), dtype=getattr(torch, dtype)).element_size()
@@ -148,12 +150,13 @@ class DecodeView:
 
 class PagedKVCache(PageTable):
     """Every layer's paged K/V pool plus one page table for up to
-    ``max_seqs`` sequences."""
+    ``max_seqs`` sequences.  The pools live on the card unless the
+    caller passes ``device="cpu"``."""
 
     def __init__(self, cfg: PagedCacheConfig, max_seqs: int,
-                 n_layers: int, device="cpu"):
+                 n_layers: int, device="cuda"):
         super().__init__(cfg, max_seqs)
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         shape = (n_layers, cfg.n_pages, cfg.page_tokens, cfg.n_kv_heads,
                  cfg.head_dim)
         dt = getattr(torch, cfg.dtype)

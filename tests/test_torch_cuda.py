@@ -6,10 +6,17 @@ import no JAX, so they run on a machine that has only PyTorch:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Cases are those of ``tests/test_kernels.py`` (the ragged GEMM included)
-plus G = 7 paged attention and ``lens = 0``.  Tolerances: int8 exact;
-fp32 GEMM 2e-4 and fp32 attention 3e-5 (fp32 sums in another order, no
-TF32); bf16 2e-2 (one bf16 ulp of the outputs).
+plus G = 7 paged attention and ``lens = 0``; then the bf16 kernels'
+own cases: the split-K GEMM at decode widths (M in {1, 5, 8, 16}), N =
+128, K not a multiple of splits x 64, a K-contiguous B as the lm_head's
+``embed.T``, bitwise-equal repeated runs and one launch per call; the
+tensor-core flash kernel at ragged Tq/Tk, D in {16, 128} and G = 7.
+Tolerances: int8 exact; fp32 GEMM 2e-4 and fp32 attention 3e-5 (fp32
+sums in another order, no TF32); bf16 2e-2 (one bf16 ulp of the
+outputs).
 """
+import importlib
+
 import numpy as np
 import pytest
 
@@ -24,6 +31,26 @@ FLASH_CASES = [(128, 128, 4, 2, 32, True), (128, 128, 4, 2, 32, False),
                (96, 96, 6, 1, 16, False), (100, 100, 14, 2, 128, True)]
 PAGED_CASES = [(3, 8, 2, 32, 16, 4), (2, 4, 4, 64, 8, 6),
                (1, 16, 1, 16, 32, 2), (3, 14, 2, 64, 16, 5)]   # G = 7
+# (M, N, K): decode widths, N = 128, and K = 4824 (76 k-tiles of 64 minus
+# a partial one) split 8 ways, so no split is a whole multiple of 64 x 8
+SPLITK_SHAPES = [(1, 896, 896), (5, 128, 896), (8, 896, 4824),
+                 (16, 4864, 896), (8, 896, 4864), (16, 128, 200)]
+# (Tq, Tk, H, KH, D, causal)
+FLASH_BF16_CASES = [(100, 96, 14, 2, 64, True), (100, 96, 14, 2, 64, False),
+                    (96, 100, 7, 1, 16, True), (100, 96, 14, 2, 128, True),
+                    (257, 257, 14, 2, 64, True), (64, 64, 4, 4, 32, True)]
+SG = importlib.import_module("repro_torch.kernels.streaming_gemm")
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the kernels are CUDA C++")
+    return torch.device("cuda")
+
+
+def _bf16(rng, shape, dev, scale=1.0):
+    x = rng.standard_normal(shape, np.float32) * scale
+    return torch.from_numpy(x).to(dev, torch.bfloat16)
 
 
 def _paged_inputs(b, h, kh, d, page, mp, seed=0, lens=None):
@@ -87,3 +114,59 @@ def test_cuda_kernels_match_plain_versions(dtype):
             np.testing.assert_allclose(got.cpu().float().numpy(),
                                        want.float().numpy(), rtol=att_tol,
                                        atol=att_tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,k", SPLITK_SHAPES)
+def test_cuda_splitk_gemm_matches_plain_version(m, n, k):
+    dev = _card()
+    rng = np.random.default_rng(m * 7 + n + k)
+    a = _bf16(rng, (m, k), dev)
+    w = _bf16(rng, (k, n), dev, scale=k ** -0.5)
+    emb = _bf16(rng, (n, k), dev, scale=k ** -0.5)    # B = emb.T in place
+    for b in (w, emb.t()):
+        got, want = ops.streaming_gemm(a, b), ref.gemm_ref(a, b)
+        np.testing.assert_allclose(got.cpu().float().numpy(),
+                                   want.cpu().float().numpy(),
+                                   rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.cuda
+def test_cuda_splitk_gemm_is_deterministic_and_one_launch():
+    """The cluster sums its partials in a fixed rank order with no
+    atomics: repeated runs give the same bits.  Each call is one kernel
+    launch (no second reduction pass)."""
+    from torch.profiler import ProfilerActivity, profile
+    dev = _card()
+    rng = np.random.default_rng(3)
+    a = _bf16(rng, (8, 4864), dev)
+    b = _bf16(rng, (4864, 896), dev, scale=4864 ** -0.5)
+    assert SG.plan(8, 896, 4864)[3] > 1
+    first = ops.streaming_gemm(a, b)
+    for _ in range(5):
+        assert torch.equal(ops.streaming_gemm(a, b), first)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            ops.streaming_gemm(a, b)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    gemm = [n for n in names if "gemm_bf16" in n]
+    assert len(gemm) == 3, names
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tq,tk,h,kh,d,causal", FLASH_BF16_CASES)
+def test_cuda_tensor_core_flash_matches_plain_version(tq, tk, h, kh, d,
+                                                       causal):
+    dev = _card()
+    rng = np.random.default_rng(tq + tk + d)
+    q = _bf16(rng, (2, tq, h, d), dev)
+    k = _bf16(rng, (2, tk, kh, d), dev)
+    v = _bf16(rng, (2, tk, kh, d), dev)
+    got = ops.flash_attention(q, k, v, causal=causal)
+    want = ref.flash_gqa_ref(q, k, v, causal)
+    np.testing.assert_allclose(got.cpu().float().numpy(),
+                               want.cpu().float().numpy(), rtol=2e-2,
+                               atol=2e-2)

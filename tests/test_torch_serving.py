@@ -110,7 +110,7 @@ def test_paged_cache_alloc_free_invariants():
     cfg = PagedCacheConfig(n_pages=16, page_tokens=8, n_kv_heads=2,
                            head_dim=16, max_pages_per_seq=4)
     assert cfg.page_bytes == 8 * 2 * 16 * 2
-    cache = PagedKVCache(cfg, max_seqs=3, n_layers=1)
+    cache = PagedKVCache(cfg, max_seqs=3, n_layers=1, device="cpu")
     assert cache.alloc_seq(0, prompt_len=20)     # 3 pages
     cache.prompt_index([0], 20)
     assert cache.pages_in_use == 3
@@ -135,6 +135,17 @@ def test_entry_points_default_to_cuda():
         Model(cfg)
     with pytest.raises(RuntimeError, match="CUDA"):
         ServingEngine(cfg, None)
+
+
+def test_paged_cache_defaults_to_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the CUDA default is usable")
+    cfg = PagedCacheConfig(n_pages=4, page_tokens=8, n_kv_heads=2,
+                           head_dim=16, max_pages_per_seq=2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        PagedKVCache(cfg, max_seqs=1, n_layers=1)
+    assert PagedKVCache(cfg, max_seqs=1, n_layers=1,
+                        device="cpu").k_pages.device.type == "cpu"
 
 
 def test_unported_paths_raise():
