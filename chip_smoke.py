@@ -17,7 +17,11 @@ Phases, in order; any failure raises and exits non-zero:
    the median of 10 runs, L2 flushed before each run.  GEMM at decode
    (M = 8) and prefill (M = 256) shapes, each marked ``on_path`` (the
    ``kernels`` line sums only those), flash at 64, 256 and 512 tokens,
-   and ragged cases of both checked without timing.
+   and ragged cases of both checked without timing; paged attention at
+   a ragged mix of lengths up to 1,024, at 8 x 272 tokens (on the path),
+   8 x 1,024 and 1 x 1,024, each beside SDPA over the same K/V gathered
+   into a contiguous cache (what the page indirection costs; a
+   yardstick the port never calls).
 3. Serve qwen2-0.5b at full width (random weights from ``--seed``) with
    ``ServingEngine``: 8 slots, 16-token (4 KB) pages, 16 requests of
    64-512 prompt tokens and 32 new tokens each.  Launch counts are
@@ -114,6 +118,7 @@ def check_close(name, got, want, tol):
 def phase_kernels(torch, args, dev, timer):
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.paged_attention import plan as paged_plan
     from repro_torch.kernels.streaming_gemm import plan as gemm_plan
 
     g = torch.Generator(device=dev).manual_seed(args.seed)
@@ -122,12 +127,12 @@ def phase_kernels(torch, args, dev, timer):
     def randn(*shape, scale=1.0):
         return (torch.randn(shape, generator=g, device=dev) * scale).to(bf16)
 
-    def summary(per_shape):
+    def summary(per_shape,
+                keys=("ms", "plain_ms", "library_ms", "bound_ms")):
         """The kernel line's numbers: sums over the shapes the main path
         runs (``on_path``); the rest are printed and kept per shape."""
         on = [r for r in per_shape if r["on_path"]]
-        return {**{k: sum(r[k] for r in on)
-                   for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
+        return {**{k: sum(r[k] for r in on) for k in keys},
                 "bound_by": "bytes" if sum(r["bound_by"] == "bytes"
                                            for r in on) * 2 >= len(on)
                 else "operations",
@@ -233,7 +238,11 @@ def phase_kernels(torch, args, dev, timer):
         "max_abs_err": max(r["max_abs_err"] for r in per_shape + ragged),
         **summary(per_shape), "per_shape": per_shape, "ragged": ragged}
 
-    # ---- paged attention: one decode step of 8 sequences
+    # ---- paged attention: one decode step.  First PR 12's ragged mix
+    # (lens 1-1,024, the first 1,024; kept first and unchanged), then
+    # the decode profile's context, the longest context and a lone long
+    # request.  Only shapes whose lengths the serving phase reaches
+    # (prompts <= 512 plus 32 new tokens) are ``on_path``.
     B, H, KH, D, page, max_pages = 8, 14, 2, 64, 16, 64
     lens = torch.randint(1, 1025, (B,), generator=g, device=dev)
     lens[0] = 1024
@@ -243,26 +252,63 @@ def phase_kernels(torch, args, dev, timer):
         .reshape(B, max_pages).to(torch.int32)
     q = randn(B, H, D)
     kp, vp = randn(P, page, KH, D), randn(P, page, KH, D)
-    err = check_close("paged", ops.paged_attention(q, kp, vp, table, lens),
-                      ref.paged_ref(q, kp, vp, table, lens), BF16_TOL)
-    n_tok = int(lens.sum())
-    bms, by = bound(2 * 2 * B * H * D + 4 * B * (max_pages + 1)
-                    + 2 * 2 * n_tok * KH * D, 4 * H * D * n_tok)
+
+    def fixed(n, length):
+        return torch.full((n,), length, dtype=torch.int32, device=dev)
+
+    per_shape = []
+    for what, ln in (("mixed", lens), ("8 x 272", fixed(B, 272)),
+                     ("8 x 1024", fixed(B, 1024)),
+                     ("1 x 1024", fixed(1, 1024))):
+        n = ln.shape[0]
+        qq, tt = q[:n].contiguous(), table[:n].contiguous()
+        err = check_close(f"paged {what}",
+                          ops.paged_attention(qq, kp, vp, tt, ln),
+                          ref.paged_ref(qq, kp, vp, tt, ln), BF16_TOL)
+        n_tok = int(ln.sum())
+        bms, by = bound(2 * 2 * n * H * D + 4 * n * (max_pages + 1)
+                        + 2 * 2 * n_tok * KH * D, 4 * H * D * n_tok)
+        # yardstick, never called by the port: SDPA over the same K/V
+        # already gathered into a contiguous (n, KH, 1024, D) cache with
+        # a length mask, i.e. attention without the page indirection
+        kc = kp[tt.long()].reshape(n, max_pages * page, KH, D) \
+            .transpose(1, 2).contiguous()
+        vc = vp[tt.long()].reshape(n, max_pages * page, KH, D) \
+            .transpose(1, 2).contiguous()
+        mask = (torch.arange(max_pages * page, device=dev)[None]
+                < ln[:, None])[:, None, None, :]
+        q4 = qq[:, :, None, :]
+
+        def sdpa():
+            return F.scaled_dot_product_attention(q4, kc, vc,
+                                                  attn_mask=mask,
+                                                  enable_gqa=True)
+
+        check_close(f"paged {what} contiguous SDPA", sdpa()[:, :, 0],
+                    ref.paged_ref(qq, kp, vp, tt, ln), BF16_TOL)
+        r = {"shape": {"q": [n, H, D], "pool": [P, page, KH, D],
+                       "lens": ln.tolist()}, "what": what,
+             "on_path": int(ln.max()) <= 512 + 32,
+             "plan": paged_plan(n, KH, max_pages), "max_abs_err": err,
+             "ms": timer(lambda: ops.paged_attention(qq, kp, vp, tt, ln)),
+             "plain_ms": timer(lambda: ref.paged_ref(qq, kp, vp, tt, ln)),
+             "contiguous_sdpa_ms": timer(sdpa),
+             "bound_ms": bms, "bound_by": by}
+        per_shape.append(r)
+        print(f"[paged_attention] {what} (plan S={r['plan']}, on_path "
+              f"{r['on_path']}): err {err:.3g} (tol {BF16_TOL}) kernel "
+              f"{r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms contiguous "
+              f"SDPA {r['contiguous_sdpa_ms']:.4f} ms bound {bms:.4f} ms "
+              f"({by})", flush=True)
     rows["paged_attention"] = {
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
         "replaces": "src/repro/kernels/paged_attention.py:34",
-        "tol": BF16_TOL, "max_abs_err": err,
-        "ms": timer(lambda: ops.paged_attention(q, kp, vp, table, lens)),
-        "plain_ms": timer(lambda: ref.paged_ref(q, kp, vp, table, lens)),
-        "library_ms": None, "bound_ms": bms, "bound_by": by,
-        "shape": {"q": [B, H, D], "pool": [P, page, KH, D],
-                  "lens": lens.tolist()}}
-    r = rows["paged_attention"]
-    print(f"[paged_attention] err {r['max_abs_err']:.3g} (tol {r['tol']}) "
-          f"kernel {r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms "
-          f"library {r['library_ms']} ms bound {r['bound_ms']:.4f} ms "
-          f"({r['bound_by']})", flush=True)
+        "tol": BF16_TOL,
+        "max_abs_err": max(r["max_abs_err"] for r in per_shape),
+        **summary(per_shape, ("ms", "plain_ms", "contiguous_sdpa_ms",
+                              "bound_ms")),
+        "library_ms": None, "per_shape": per_shape}
     return rows
 
 

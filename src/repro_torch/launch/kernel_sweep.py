@@ -1,17 +1,23 @@
 """Sweep the launch plans of the bf16 kernels on the card.
 
-    python -m repro_torch.launch.kernel_sweep [--out PATH] [--reps N]
+    python -m repro_torch.launch.kernel_sweep [--only gemm|flash|paged]
+        [--out PATH] [--reps N]
 
 For every main-path shape of qwen2-0.5b (GEMM at decode M = 8 and
-prefill M = 256; causal prefill attention at 64-512 tokens) it runs the
-kernel at every tile / split the kernel accepts, checks each result
-against the plain version, and reports the device time of each from
-``torch.profiler`` (the mean over ``--reps`` launches, the L2 flushed
-before each), beside the plan that ``plan`` picks and the device time of
-the library call (``torch.matmul``, SDPA) on the same inputs.
+prefill M = 256; causal prefill attention at 64-512 tokens; paged decode
+attention over a 64-page table at a ragged mix of lengths, 8 x 272,
+8 x 1,024 and 1 x 1,024 tokens) it runs the kernel at every tile / split
+the kernel accepts, checks each result against the plain version, and
+reports the device time of each from ``torch.profiler`` (the mean over
+``--reps`` launches, the L2 flushed before each), beside the plan that
+``plan`` picks and the device time of the library call (``torch.matmul``,
+SDPA) on the same inputs; for paged attention, where no library call
+reads a page table, SDPA over the same K/V gathered into a contiguous
+cache with a length mask.
 
-This is the tool that chose the rules of ``streaming_gemm.plan`` and
-``flash_attention.plan``; it needs a card and exits without one.
+This is the tool that chose the rules of ``streaming_gemm.plan``,
+``flash_attention.plan`` and ``paged_attention.plan``; it needs a card
+and exits without one.
 """
 from __future__ import annotations
 
@@ -29,6 +35,7 @@ from repro_torch.kernels import _build, ops, ref
 
 SG = importlib.import_module("repro_torch.kernels.streaming_gemm")
 FA = importlib.import_module("repro_torch.kernels.flash_attention")
+PA = importlib.import_module("repro_torch.kernels.paged_attention")
 GEMM_KN = ((896, 896), (896, 128), (896, 4864), (4864, 896), (896, 152064))
 
 
@@ -46,7 +53,7 @@ def _device_ms(fn, flush, reps):
     for ev in prof.key_averages():
         if ev.device_type != torch.autograd.DeviceType.CUDA:
             continue
-        if "elementwise" in ev.key or "fill" in ev.key.lower():
+        if "fill" in ev.key.lower():
             continue                               # the flush
         total += ev.self_device_time_total / 1e3
     return total / reps
@@ -84,6 +91,8 @@ def _gemm_plans(M, K):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--only", choices=("gemm", "flash", "paged"),
+                    help="sweep one kernel (default: all three)")
     ap.add_argument("--out", default="build/kernel_sweep.json")
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
@@ -109,7 +118,19 @@ def main(argv=None):
          "--format=csv,noheader"], capture_output=True, text=True
     ).stdout.strip()
     print(f"[card] {card}", flush=True)
-    result = {"card": card, "gemm": [], "flash": []}
+    result = {"card": card, "gemm": [], "flash": [], "paged": []}
+    if args.only in (None, "gemm"):
+        _sweep_gemm(result, randn, dms, main_fn)
+    if args.only in (None, "flash"):
+        _sweep_flash(result, randn, dms, F)
+    if args.only in (None, "paged"):
+        _sweep_paged(result, randn, dms, F, g, dev)
+    Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+    with open(args.out, "w") as f:
+        json.dump(result, f, indent=1)
+
+
+def _sweep_gemm(result, randn, dms, main_fn):
     embed = randn(152064, 896, scale=0.02)
     for M in (8, 256):
         for K, N in GEMM_KN:
@@ -135,6 +156,9 @@ def main(argv=None):
             result["gemm"].append(row)
             print("[gemm] " + json.dumps({k: v for k, v in row.items()
                                           if k != "all"}), flush=True)
+
+
+def _sweep_flash(result, randn, dms, F):
     for B, T in ((1, 64), (1, 256), (1, 512), (8, 256)):
         q, k, v = randn(B, T, 14, 64), randn(B, T, 2, 64), randn(B, T, 2, 64)
         want = ref.flash_gqa_ref(q, k, v, True).float()
@@ -159,9 +183,54 @@ def main(argv=None):
                        qt, kt, vt, is_causal=True, enable_gqa=True))}
         result["flash"].append(row)
         print("[flash] " + json.dumps(row), flush=True)
-    Path(args.out).parent.mkdir(parents=True, exist_ok=True)
-    with open(args.out, "w") as f:
-        json.dump(result, f, indent=1)
+
+
+def _sweep_paged(result, randn, dms, F, g, dev):
+    """Every cluster size S = 1..8 at ``chip_smoke.py``'s paged shapes
+    (the ragged mix is a draw of its own: lengths 1-1,024, the first
+    1,024)."""
+    B, H, KH, D, page, mp = 8, 14, 2, 64, 16, 64
+    P = B * mp + 16
+    mixed = torch.randint(1, 1025, (B,), generator=g, device=dev)
+    mixed[0] = 1024
+    table = torch.randperm(P, generator=g, device=dev)[:B * mp] \
+        .reshape(B, mp).to(torch.int32)
+    q = randn(B, H, D)
+    kp, vp = randn(P, page, KH, D), randn(P, page, KH, D)
+    for what, lens in (("mixed", mixed.tolist()), ("8 x 272", [272] * B),
+                       ("8 x 1024", [1024] * B), ("1 x 1024", [1024])):
+        n = len(lens)
+        ln = torch.tensor(lens, dtype=torch.int32, device=dev)
+        qq, tt = q[:n].contiguous(), table[:n].contiguous()
+        want = ref.paged_ref(qq, kp, vp, tt, ln).float()
+        chosen = PA.plan(n, KH, mp)
+        times, plan = {}, PA.plan
+        try:
+            for s in range(1, PA.MAX_SPLITS + 1):
+                PA.plan = lambda *_, s=s: s
+                out = ops.paged_attention(qq, kp, vp, tt, ln).float()
+                err = (out - want).abs().max().item()
+                if err > 2e-2 + 2e-2 * want.abs().max().item():
+                    raise AssertionError(f"paged {what} S={s}: {err}")
+                t = dms(lambda: ops.paged_attention(qq, kp, vp, tt, ln))
+                if t > 0:         # a window the profiler dropped reads 0
+                    times[s] = t
+        finally:
+            PA.plan = plan
+        kc = kp[tt.long()].reshape(n, mp * page, KH, D).transpose(1, 2) \
+            .contiguous()
+        vc = vp[tt.long()].reshape(n, mp * page, KH, D).transpose(1, 2) \
+            .contiguous()
+        mask = (torch.arange(mp * page, device=dev)[None]
+                < ln[:, None])[:, None, None, :]
+        row = {"what": what, "b": n, "lens": lens, "plan": chosen,
+               "plan_ms": times.get(chosen), "splits_ms": times,
+               "contiguous_sdpa_ms": dms(
+                   lambda: F.scaled_dot_product_attention(
+                       qq[:, :, None], kc, vc, attn_mask=mask,
+                       enable_gqa=True))}
+        result["paged"].append(row)
+        print("[paged] " + json.dumps(row), flush=True)
 
 
 if __name__ == "__main__":

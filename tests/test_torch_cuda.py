@@ -10,7 +10,9 @@ plus G = 7 paged attention and ``lens = 0``; then the bf16 kernels'
 own cases: the split-K GEMM at decode widths (M in {1, 5, 8, 16}), N =
 128, K not a multiple of splits x 64, a K-contiguous B as the lm_head's
 ``embed.T``, bitwise-equal repeated runs and one launch per call; the
-tensor-core flash kernel at ragged Tq/Tk, D in {16, 128} and G = 7.
+tensor-core flash kernel at ragged Tq/Tk, D in {16, 128} and G = 7; the
+cluster-split paged kernel at every split S = 1..8 with edge lengths,
+at the main path's shape, bitwise repeatable and one launch per call.
 Tolerances: int8 exact; fp32 GEMM 2e-4 and fp32 attention 3e-5 (fp32
 sums in another order, no TF32); bf16 2e-2 (one bf16 ulp of the
 outputs).
@@ -40,6 +42,7 @@ FLASH_BF16_CASES = [(100, 96, 14, 2, 64, True), (100, 96, 14, 2, 64, False),
                     (96, 100, 7, 1, 16, True), (100, 96, 14, 2, 128, True),
                     (257, 257, 14, 2, 64, True), (64, 64, 4, 4, 32, True)]
 SG = importlib.import_module("repro_torch.kernels.streaming_gemm")
+PA = importlib.import_module("repro_torch.kernels.paged_attention")
 
 
 def _card():
@@ -170,3 +173,96 @@ def test_cuda_tensor_core_flash_matches_plain_version(tq, tk, h, kh, d,
     np.testing.assert_allclose(got.cpu().float().numpy(),
                                want.cpu().float().numpy(), rtol=2e-2,
                                atol=2e-2)
+
+
+# (H, KH, D, page, max_pages): the main path's G = 7 at D 64, G = 4 at
+# page 8, G = 16 at D 128 (G·D = 2048, fp32 ring of 32-token pages), and
+# bf16 D 16 at page 8 (8-byte K slices)
+PAGED_SPLIT_SHAPES = [(14, 2, 64, 16, 8), (8, 2, 32, 8, 12),
+                      (16, 1, 128, 32, 6), (4, 4, 16, 8, 7)]
+
+
+def _paged_card(shape, lens, dtype, dev, seed=0):
+    h, kh, d, page, mp = shape
+    args = _paged_inputs(len(lens), h, kh, d, page, mp, seed=seed,
+                         lens=lens)
+    cpu = [torch.from_numpy(a) for a in args]
+    cpu[:3] = [t.to(dtype) for t in cpu[:3]]
+    return [t.to(dev) for t in cpu]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("splits", range(1, 9))
+def test_cuda_paged_every_split_at_edge_lengths(splits, dtype, monkeypatch):
+    """Every cluster size S = 1..8, forced through ``plan``, on one batch
+    whose lengths are 0, 1, page - 1, page, page + 1 and the full table:
+    ranks with no page, a rank with a partial page, more ranks than
+    pages.  fp32 within 3e-5, bf16 within 2e-2 of the plain version."""
+    dev = _card()
+    monkeypatch.setattr(PA, "plan", lambda *_: splits)
+    dt = getattr(torch, dtype)
+    tol = 3e-5 if dtype == "float32" else 2e-2
+    for shape in PAGED_SPLIT_SHAPES:
+        page, mp = shape[3], shape[4]
+        lens = [0, 1, page - 1, page, page + 1, page * mp]
+        args = _paged_card(shape, lens, dt, dev, seed=splits)
+        got = ops.paged_attention(*args)
+        want = ref.paged_ref(*args)
+        np.testing.assert_allclose(got.cpu().float().numpy(),
+                                   want.cpu().float().numpy(), rtol=tol,
+                                   atol=tol, err_msg=str(shape))
+        assert not got[0].float().abs().max().item()
+
+
+@pytest.mark.cuda
+def test_cuda_paged_main_path_shape():
+    """B 8, H 14 / KH 2 (G = 7), D 64, 16-token pages, a 64-page table,
+    at the plan the wrapper picks, for ragged lengths and for the decode
+    profile's 272 tokens."""
+    dev = _card()
+    assert PA.plan(8, 2, 64) == 8
+    rng = np.random.default_rng(5)
+    for lens in (rng.integers(1, 1025, 8), [272] * 8, [1024] * 8):
+        args = _paged_card((14, 2, 64, 16, 64), list(lens), torch.bfloat16,
+                           dev)
+        np.testing.assert_allclose(
+            ops.paged_attention(*args).cpu().float().numpy(),
+            ref.paged_ref(*args).cpu().float().numpy(), rtol=2e-2,
+            atol=2e-2)
+
+
+@pytest.mark.cuda
+def test_cuda_paged_is_deterministic_and_one_launch():
+    """The warps' and the cluster's states merge in a fixed order with
+    no atomics: repeated runs give the same bits.  Each call is one
+    kernel launch (no second reduction pass)."""
+    from torch.profiler import ProfilerActivity, profile
+    dev = _card()
+    args = _paged_card((14, 2, 64, 16, 64), [1024, 700, 272, 1, 0, 16, 17,
+                                             555], torch.bfloat16, dev)
+    first = ops.paged_attention(*args)
+    for _ in range(5):
+        assert torch.equal(ops.paged_attention(*args), first)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            ops.paged_attention(*args)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len([n for n in names if "paged_fwd" in n]) == 3, names
+
+
+@pytest.mark.cuda
+def test_cuda_paged_shared_memory_estimate_matches_the_kernel():
+    """The wrapper's shared-memory check computes what the kernel
+    launches with."""
+    import ctypes
+    from repro_torch.kernels import _build
+    _card()
+    fn = _build.function("paged_attention", "pa_smem_bytes",
+                         [ctypes.c_int] * 6)
+    for case in ((7, 64, 16, 64, 4, 2), (16, 128, 32, 6, 2, 4),
+                 (128, 16, 8, 1000, 4, 2)):
+        assert fn(*case) == PA.smem_bytes(*case)
