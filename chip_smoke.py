@@ -16,8 +16,10 @@ Phases, in order; any failure raises and exits non-zero:
    peak of 989 TFLOP/s, whichever is larger).  CUDA events, warm-up,
    the median of 10 runs, L2 flushed before each run.  GEMM at decode
    (M = 8) and prefill (M = 256) shapes, each marked ``on_path`` (the
-   ``kernels`` line sums only those), flash at 64, 256 and 512 tokens,
-   and ragged cases of both checked without timing; paged attention at
+   ``kernels`` line sums only those), flash at 64, 256 and 512 tokens;
+   the layer projections at M = 512 and 4,096 and flash at 1 x 8 and
+   8 x 512 tokens, which phase 6c runs, as entries off the path; and
+   ragged cases of both checked without timing; paged attention at
    a ragged mix of lengths up to 1,024, at 8 x 272 tokens (on the path),
    8 x 1,024 and 1 x 1,024, each beside SDPA over the same K/V gathered
    into a contiguous cache (what the page indirection costs; a
@@ -32,7 +34,26 @@ Phases, in order; any failure raises and exits non-zero:
 5. Run one request (64-token prefill + 4 decode steps) on the card and
    again on the CPU, where every wrapper takes its plain version, and
    compare the logits.
-6. Print the ``kernels`` JSON line, the card line, and last the result
+6. Page streaming (``repro_torch.core``), printed as one
+   ``{"streaming": {...}}`` line: (a) Algorithm 1 (``gemm_streamed``) on
+   fp16 1024 x 1024 x 1024 in DevMem, DM and DC, twice each in turns,
+   every DMA_IN one 4 KB copy from pinned memory, held against an
+   fp32-accumulated product within 1e-2 and against the traffic a CPU
+   store meters for the same plan; (b) the decode-step plan of 8
+   prefilled slots (64-512 tokens, 16-token pages) over layer 0 of the
+   live pool, in DM, against the plain paged attention in fp32 on the
+   plan's fp16-cast inputs (rtol 1e-4, atol 1e-5) and against the paged
+   kernel within 5e-3 x max|output| (its bf16 rounding), with 2 lookups
+   per held page; (c) all 24 layers behind a ``LayerStreamer``
+   (DM and DC weights packed one pinned row per layer, one copy per
+   fetch on a side stream, DC caching 8 layers) at 1 x 8, 1 x 512 and
+   8 x 512 tokens, three passes per mode in turns: outputs bitwise equal
+   across modes, bytes per pass 24 (DM) and 16 (DC from pass 2) layers,
+   beside a bare copy of the 24 layers from pinned memory; prints each
+   mode's median pass, DM's GB/s, DevMem/DM, the overlap share (copy +
+   compute - DM) / min(copy, compute), and a profiled DM pass (kernel
+   and copy time on the device, the copy time under kernels).
+7. Print the ``kernels`` JSON line, the card line, and last the result
    line ``{"ok": true, "device": {...}}``.
 """
 import argparse
@@ -105,13 +126,16 @@ def require(cond, msg):
         raise AssertionError(msg)
 
 
-def check_close(name, got, want, tol):
-    err = (got.float() - want.float()).abs()
-    lim = tol + tol * want.float().abs()
+def check_close(name, got, want, tol, rtol=None):
+    """``|got - want| <= tol + rtol |want|`` elementwise (``rtol``
+    defaults to ``tol``), in float64."""
+    rtol = tol if rtol is None else rtol
+    err = (got.double() - want.double()).abs()
+    lim = tol + rtol * want.double().abs()
     bad = int((err > lim).sum())
-    if bad or not bool(got.float().isfinite().all()):
-        raise AssertionError(f"{name}: {bad} elements outside tol {tol}, "
-                             f"max_abs_err {err.max().item()}")
+    if bad or not bool(got.double().isfinite().all()):
+        raise AssertionError(f"{name}: {bad} elements outside tol {tol} "
+                             f"rtol {rtol}, max_abs_err {err.max().item()}")
     return err.max().item()
 
 
@@ -141,13 +165,17 @@ def phase_kernels(torch, args, dev, timer):
     rows = {}
     # ---- streaming GEMM: every projection, the MLP and the tied lm_head;
     # decode runs M = 8, prefill M = 64-512 (256 here) but never the
-    # lm_head at M = 256 (only each prompt's last token reaches it)
+    # lm_head at M = 256 (only each prompt's last token reaches it).
+    # The layer streamer of phase 6c also runs the layer's projections
+    # at M = 512 and 4,096 (1 x 512 and 8 x 512 tokens), off the
+    # serving path.
     embed = randn(152064, 896, scale=0.02)
+    layer_kn = ((896, 896), (896, 128), (896, 4864), (4864, 896))
     per_shape = []
-    for M in (8, 256):
+    for M in (8, 256, 512, 4096):
         a = randn(M, 896)
-        for K, N in ((896, 896), (896, 128), (896, 4864), (4864, 896),
-                     (896, 152064)):
+        serving = M in (8, 256)
+        for K, N in layer_kn + (((896, 152064),) if serving else ()):
             if K == 896 and N == 152064:
                 b, what = embed.t(), "lm_head embed.T"
             else:
@@ -157,7 +185,7 @@ def phase_kernels(torch, args, dev, timer):
                               ref.gemm_ref(x, b), BF16_TOL)
             bms, by = bound(2 * (M * K + K * N + M * N), 2 * M * N * K)
             r = {"shape": [M, K, N], "b": what,
-                 "on_path": not (M == 256 and N == 152064),
+                 "on_path": serving and not (M == 256 and N == 152064),
                  "plan": list(gemm_plan(M, N, K)), "max_abs_err": err,
                  "ms": timer(lambda: ops.streaming_gemm(x, b)),
                  "plain_ms": timer(lambda: ref.gemm_ref(x, b)),
@@ -191,12 +219,13 @@ def phase_kernels(torch, args, dev, timer):
         "max_abs_err": max(r["max_abs_err"] for r in per_shape + ragged),
         **summary(per_shape), "per_shape": per_shape, "ragged": ragged}
 
-    # ---- flash attention: prefill of 64-, 256- and 512-token prompts
-    B, H, KH, D = 1, 14, 2, 64
+    # ---- flash attention: prefill of 64-, 256- and 512-token prompts;
+    # off the serving path, the layer streamer's 1 x 8 and 8 x 512
+    H, KH, D = 14, 2, 64
     per_shape = []
-    for T in (64, 256, 512):
+    for B, T in ((1, 64), (1, 256), (1, 512), (1, 8), (8, 512)):
         q, k, v = randn(B, T, H, D), randn(B, T, KH, D), randn(B, T, KH, D)
-        err = check_close(f"flash T={T}",
+        err = check_close(f"flash B={B} T={T}",
                           ops.flash_attention(q, k, v, causal=True),
                           ref.flash_gqa_ref(q, k, v, True), BF16_TOL)
         pairs = T * (T + 1) // 2
@@ -204,7 +233,7 @@ def phase_kernels(torch, args, dev, timer):
                         4 * B * H * D * pairs)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         r = {"shape": {"q": [B, T, H, D], "kv": [B, T, KH, D],
-                       "causal": True}, "on_path": True,
+                       "causal": True}, "on_path": B == 1 and T >= 64,
              "max_abs_err": err,
              "ms": timer(lambda: ops.flash_attention(q, k, v, causal=True)),
              "plain_ms": timer(lambda: ref.flash_gqa_ref(q, k, v, True)),
@@ -212,7 +241,8 @@ def phase_kernels(torch, args, dev, timer):
                  qt, kt, vt, is_causal=True, enable_gqa=True)),
              "bound_ms": bms, "bound_by": by}
         per_shape.append(r)
-        print(f"[flash_attention] T={T}: err {err:.3g} (tol {BF16_TOL}) "
+        print(f"[flash_attention] B={B} T={T} (on_path {r['on_path']}): "
+              f"err {err:.3g} (tol {BF16_TOL}) "
               f"kernel {r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms sdpa "
               f"{r['library_ms']:.4f} ms bound {bms:.4f} ms ({by})",
               flush=True)
@@ -482,6 +512,275 @@ def phase_profile(torch, args, cfg, params, n_steps=5):
     return res
 
 
+def _median_ms(seconds):
+    return statistics.median(seconds) * 1e3
+
+
+def _streaming_gemm(torch, args, dev):
+    """(a) Algorithm 1 on the card: ``gemm_streamed`` on fp16 A, B of
+    1024 x 1024 x 1024 in DevMem, DM and DC, against an fp32-accumulated
+    product of the same inputs, with the traffic a CPU store meters for
+    the same plan."""
+    from repro_torch.core import plan as P
+    from repro_torch.core import streaming as S
+    from repro_torch.core.modes import MemoryMode, PageStore
+
+    n = 1024
+    g = torch.Generator(device=dev).manual_seed(args.seed + 10)
+    a = torch.randn((n, n), generator=g, device=dev).half()
+    b = torch.randn((n, n), generator=g, device=dev).half()
+    want = (a.float() @ b.float()).double().cpu()
+    plan = P.gemm_plan(n, n, n, torch.float16)
+    counts = S.tile_counts(n, n, n, torch.float16)
+    loads = counts["a_page_loads"] + counts["b_page_loads"]
+    keys = [ev.page for ev in plan.events if ev.kind is P.EventKind.DMA_IN]
+    page = torch.zeros((16, 128), dtype=torch.float16)
+    res = {"shape": [n, n, n], "dtype": "float16", "events":
+           len(plan.events), "dma_in": len(keys), "tol": 1e-2}
+    modes = (MemoryMode.DEVMEM, MemoryMode.DM, MemoryMode.DC)
+    walls = {m: [] for m in modes}
+    for mode in modes + modes[::-1]:      # in turns: drift falls on all
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, store = S.gemm_streamed(a, b, mode, device=dev)
+        walls[mode].append(time.perf_counter() - t0)
+        err = check_close(f"gemm_streamed {mode.value}", out, want, 1e-2)
+        # the same plan metered by a store on the CPU
+        cpu = PageStore({k: page for k in set(keys)}, mode, device="cpu")
+        for k in keys:
+            cpu.get(k)
+        require(vars(store.stats) == vars(cpu.stats),
+                f"{mode.value}: card {store.stats} != CPU {cpu.stats}")
+        require(store.stats.lookups == loads, (mode, store.stats, loads))
+        wall = statistics.mean(walls[mode])
+        h2d = store.stats.host_to_device_bytes
+        res[mode.value] = {
+            "wall_ms": wall * 1e3, "runs_ms": [w * 1e3 for w in walls[mode]],
+            "max_abs_err": err, "lookups": store.stats.lookups,
+            "pages_fetched_per_s": store.stats.lookups / wall,
+            "h2d_bytes": h2d, "h2d_pages_per_s": h2d / 4096 / wall,
+            "h2d_gb_per_s": h2d / wall / 1e9,
+            "cache_hits": store.stats.cache_hits}
+    require(res["DevMem"]["h2d_bytes"] == 0, "DevMem streamed bytes")
+    require(res["DM"]["h2d_bytes"] == loads * 4096, "DM bytes")
+    require(res["DM"]["h2d_bytes"] >= res["DC"]["h2d_bytes"], "DM < DC")
+    return res
+
+
+def _streaming_decode_plan(torch, args, cfg, params, dev):
+    """(b) The decode-step plan of 8 freshly prefilled slots, executed
+    in DM over layer 0 of the live full-width pool, against the paged
+    kernel on the same q, pool, table and lens."""
+    import numpy as np
+    from repro_torch.core import streaming as S
+    from repro_torch.core.modes import MemoryMode
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models.model import Model
+
+    rng = np.random.default_rng(args.seed + 11)
+    model = Model(cfg, device=dev)
+    cache = model.init_cache(8, 1024, page_tokens=16)
+    slots = list(range(8))
+    lens = [int(t) for t in rng.integers(64, 513, 8)]
+    for slot, n in enumerate(lens):
+        cache.alloc_seq(slot, n)
+        model.prefill(params, torch.as_tensor(
+            rng.integers(1, cfg.vocab_size - 1, n), device=dev)[None],
+            cache, [slot])
+    plan = cache.decode_step_plan(slots, n_q_heads=cfg.n_heads)
+    kd, vd = cache.page_dicts(slots, 0)
+    H, hd = cfg.n_heads, cfg.resolved_head_dim
+    g = torch.Generator(device=dev).manual_seed(args.seed + 12)
+    q = torch.randn((8, H * hd), generator=g, device=dev).to(torch.bfloat16)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs, store = S.execute_plan(plan, {"q": q}, MemoryMode.DM,
+                                 paged={"k": kd, "v": vd}, device=dev)
+    wall = time.perf_counter() - t0
+    got = outs["decode_out"].view(8, H, hd)
+    table = torch.from_numpy(cache.tables[slots])
+    lens_t = torch.from_numpy(cache.lens[slots].copy())
+    # the plan pages its operands as fp16 (every 2-byte plan is fp16);
+    # the plain version on those inputs, in fp32, as the CPU tests hold
+    # it (rtol 1e-4, atol 1e-5): a wrong or missing page cannot pass
+    oracle = ref.paged_ref(*(t.cpu().half().double() for t in (
+        q.view(8, H, hd), cache.k_pages[0], cache.v_pages[0])),
+        table, lens_t)
+    err_plain = check_close("decode plan vs plain fp32", got, oracle,
+                            1e-5, rtol=1e-4)
+    # the hand kernel takes the bf16 values and rounds its output to
+    # bf16: at most half an ulp, 2^-8 |x| = 3.9e-3 |x|
+    want = ops.paged_attention(q.view(8, H, hd), cache.k_pages[0],
+                               cache.v_pages[0], table.to(dev),
+                               lens_t.to(dev)).cpu()
+    max_want = want.float().abs().max().item()
+    err = check_close("decode plan vs paged kernel", got, want,
+                      5e-3 * max_want, rtol=0.0)
+    held = int(cache.held[slots].sum())
+    require(store.stats.lookups == 2 * held,
+            f"decode plan lookups {store.stats.lookups} != 2 x {held}")
+    return {"lens": lens, "pages_held": held, "events": len(plan.events),
+            "lookups": store.stats.lookups,
+            "h2d_bytes": store.stats.host_to_device_bytes,
+            "wall_ms": wall * 1e3, "max_abs_out": max_want,
+            "max_abs_err_vs_plain_fp32": err_plain,
+            "tol_vs_plain_fp32": {"rtol": 1e-4, "atol": 1e-5},
+            "max_abs_err": err, "tol": 5e-3 * max_want}
+
+
+def _device_overlap(torch, prof):
+    """Kernel and host-to-device copy time of a profiled window, on the
+    device: busy ms of each, the copy time that ran under a kernel, and
+    the window's span."""
+    from torch.autograd import DeviceType
+
+    ker, mem = [], []
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        iv = (e.time_range.start, e.time_range.end)
+        (mem if "memcpy" in e.name.lower() else ker).append(iv)
+    if not ker:
+        return "not measured"
+
+    def merged(ivs):
+        out = []
+        for a, b in sorted(ivs):
+            if out and a <= out[-1][1]:
+                out[-1][1] = max(out[-1][1], b)
+            else:
+                out.append([a, b])
+        return out
+
+    k, m = merged(ker), merged(mem)
+    under, i = 0.0, 0
+    for a, b in m:
+        while i < len(k) and k[i][1] <= a:
+            i += 1
+        j = i
+        while j < len(k) and k[j][0] < b:
+            under += min(b, k[j][1]) - max(a, k[j][0])
+            j += 1
+    span = max(iv[1] for iv in ker + mem) - min(iv[0] for iv in ker + mem)
+    ms = lambda ivs: sum(b - a for a, b in ivs) / 1e3  # noqa: E731
+    return {"kernel_ms": ms(k), "h2d_copy_ms": ms(m),
+            "copy_under_kernels_ms": under / 1e3, "span_ms": span / 1e3,
+            "kernel_busy_share": ms(k) / (span / 1e3)}
+
+
+def _streaming_layers(torch, args, cfg, params, dev, passes=3):
+    """(c) All 24 decoder layers behind a ``LayerStreamer`` in DevMem, DM
+    and DC (8 cached layers), at 8, 512 and 4,096 tokens per pass, beside
+    a bare copy of the 24 layers from pinned memory.  The three modes'
+    passes take turns (DevMem, DM, DC, then the reverse), so that drift
+    in the host's speed falls on all three alike; then one DM pass is
+    profiled for the device's view of copy and compute."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.modes import MemoryMode
+    from repro_torch.core.offload import LayerStreamer, stack_layers
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import tree_map
+
+    L = cfg.n_layers
+    stacked = stack_layers(params["layers"])
+    leaves = []
+    tree_map(leaves.append, stacked)
+    pinned = [a.cpu().pin_memory() for a in leaves]
+    layer_bytes = sum(a.numel() * a.element_size() // L for a in leaves)
+
+    def copy_all():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for a in pinned:
+            a.to(dev, non_blocking=True)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    copy_all()
+    copy_ms = _median_ms([copy_all() for _ in range(passes)])
+    del pinned
+    res = {"layers": L, "layer_bytes": layer_bytes,
+           "model_bytes": L * layer_bytes, "dc_cache_layers": 8,
+           "pinned_copy_ms": copy_ms,
+           "pinned_h2d_gb_per_s": L * layer_bytes / copy_ms / 1e6,
+           "sizes": {}}
+    g = torch.Generator(device=dev).manual_seed(args.seed + 13)
+    modes = ((MemoryMode.DEVMEM, 0), (MemoryMode.DM, 0), (MemoryMode.DC, 8))
+    for B, Tn in ((1, 8), (1, 512), (8, 512)):
+        x0 = torch.randn((B, Tn, cfg.d_model), generator=g,
+                         device=dev).to(torch.bfloat16)
+        pos = torch.arange(Tn, device=dev)[None].expand(B, Tn)
+
+        def fn(lp, x):
+            return T.dense_layer_fwd(lp, x, cfg, pos)[0]
+
+        LayerStreamer(stacked, L, MemoryMode.DEVMEM, device=dev).run(fn, x0)
+        streamers = {m: LayerStreamer(stacked, L, m, cache_layers=c,
+                                      device=dev) for m, c in modes}
+        walls = {m: [] for m in streamers}
+        sent = {m: [] for m in streamers}
+        outs = {}
+        for r in range(passes):
+            for m in (list(streamers) if r % 2 == 0
+                      else list(streamers)[::-1]):
+                before = streamers[m].stats.host_to_device_bytes
+                y, rep = streamers[m].run(fn, x0)
+                walls[m].append(rep.wall_s)
+                sent[m].append(rep.bytes_streamed - before)
+                outs.setdefault(m, y)
+                require(torch.equal(y, outs[m]), f"{m.value} repeat")
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            streamers[MemoryMode.DM].run(fn, x0)
+        del streamers
+        row = {m.value: {"pass_ms": [w * 1e3 for w in walls[m]],
+                         "median_ms": _median_ms(walls[m]),
+                         "bytes_per_pass": sent[m]} for m in walls}
+        for m in (MemoryMode.DM, MemoryMode.DC):
+            require(torch.equal(outs[m], outs[MemoryMode.DEVMEM]),
+                    f"{m.value} output differs from DevMem at {B}x{Tn}")
+        require(bool(outs[MemoryMode.DEVMEM].float().isfinite().all()),
+                "streamed layers gave non-finite values")
+        require(row["DevMem"]["bytes_per_pass"] == [0] * passes, "DevMem")
+        require(row["DM"]["bytes_per_pass"] == [L * layer_bytes] * passes,
+                f"DM bytes {row['DM']['bytes_per_pass']}")
+        require(row["DC"]["bytes_per_pass"] == [L * layer_bytes] + [
+            (L - min(8, L)) * layer_bytes] * (passes - 1),
+            f"DC bytes {row['DC']['bytes_per_pass']}")
+        dev_ms, dm_ms = row["DevMem"]["median_ms"], row["DM"]["median_ms"]
+        row["dm_gb_per_s"] = L * layer_bytes / dm_ms / 1e6
+        row["devmem_over_dm"] = dev_ms / dm_ms
+        row["overlap_share"] = (copy_ms + dev_ms - dm_ms) / min(copy_ms,
+                                                                dev_ms)
+        row["dm_profiled_pass"] = _device_overlap(torch, prof)
+        res["sizes"][f"{B}x{Tn}"] = row
+    return res
+
+
+def phase_streaming(torch, args, cfg, params):
+    """The page-streaming layer on the card: (a) Algorithm 1 through the
+    page store, (b) the decode-step plan over a live pool against the
+    paged kernel, (c) layer-ahead weight streaming from pinned memory
+    against resident weights.  Launch counts are zeroed before and read
+    after; the phase must reach all three kernels."""
+    from repro_torch.kernels import ops
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    ops.reset_launches()
+    res = {"gemm_streamed": _streaming_gemm(torch, args, dev),
+           "decode_plan": _streaming_decode_plan(torch, args, cfg, params,
+                                                 dev),
+           "layer_streamer": _streaming_layers(torch, args, cfg, params,
+                                               dev)}
+    res["launches"] = dict(ops.LAUNCHES)
+    res["seconds"] = time.perf_counter() - t0
+    print(json.dumps({"streaming": res}), flush=True)
+    missing = [k for k, n in res["launches"].items() if n <= 0]
+    require(not missing, f"streaming phase never launched {missing}")
+    return res
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -513,6 +812,7 @@ def main():
     serving = phase_serving(torch, args, cfg, params)
     phase_profile(torch, args, cfg, params)
     phase_card_vs_cpu(torch, args, cfg, params)
+    phase_streaming(torch, args, cfg, params)
 
     kernels = [{"name": name, **rows[name],
                 "launches": serving["launches"][name]} for name in rows]

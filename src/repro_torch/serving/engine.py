@@ -13,8 +13,15 @@ slots of its contiguous cache every step, which is harmless there; on a
 paged pool a retired slot's stale table row may point at a page another
 sequence owns, so writing its K/V would corrupt live KV.
 
-Not ported yet: ``record_plans`` / ``plan_only`` (they need the plan IR),
-the open-loop path, prefix caching and preemption.
+``record_plans=True`` records the reference's closed-loop plan trace
+(``trace``): one ``prefill_plan`` record per admission and one
+multi-layer GQA ``decode_step_plan`` record per step, each tagged with
+the step index and the slot -> request-uid mapping.  The plans' page ids
+come from a shadow ``PageTable`` (no device pools) that follows the
+batch composition, as in the reference, not from the live pool.
+
+Not ported yet: ``plan_only``, the open-loop path, prefix caching and
+preemption.
 """
 from __future__ import annotations
 
@@ -28,6 +35,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.model import Model
+from repro_torch.serving.kv_cache import PagedCacheConfig, PageTable
 
 
 @dataclasses.dataclass
@@ -39,6 +47,22 @@ class Request:
     first_token_s: Optional[float] = None
     done_s: Optional[float] = None
     output: list = dataclasses.field(default_factory=list)
+    # index into the engine's plan trace at submission time
+    arrival_event: int = 0
+
+
+@dataclasses.dataclass
+class PlanRecord:
+    """One record of a serving plan trace: a prompt prefill (one per
+    admission) or a batched multi-layer decode step, tagged with the
+    engine step index and the slot -> request-uid mapping."""
+    kind: str                       # "prefill" | "decode"
+    step_idx: int                   # engine decode-step counter
+    slots: tuple                    # slot ids this plan covers
+    uids: tuple                     # request uid per slot
+    plan: object                    # core.plan.StreamPlan / TemplatedPlan
+    arrival_event: int = 0          # prefill: requester's arrival index
+    n_tokens: int = 0               # prefill: tokens this plan covers
 
 
 @dataclasses.dataclass
@@ -62,10 +86,11 @@ class ServingEngine:
                  kv_page_tokens: int = 8,
                  kv_pool_pages: Optional[int] = None, device="cuda",
                  record_plans: bool = False, plan_only: bool = False):
-        if record_plans or plan_only:
-            raise NotImplementedError(
-                "record_plans / plan_only need the plan IR, which is not "
-                "ported yet")
+        """``record_plans`` keeps a ``PlanRecord`` per admission and per
+        decode step, template-instanced (``plan.PLAN_TEMPLATES``), with
+        page ids from a shadow ``PageTable``."""
+        if plan_only:
+            raise NotImplementedError("plan_only is not ported yet")
         self.cfg = cfg
         self.model = Model(cfg, device=device)
         self.device = self.model.device
@@ -82,10 +107,31 @@ class ServingEngine:
         self._remaining = np.zeros((slots,), np.int32)
         self.n_finished = 0
         self.deferred_admissions = 0
+        self.trace: list[PlanRecord] = []
+        self.n_records = 0
+        self._table: Optional[PageTable] = None
+        if record_plans:
+            c = self.cache.cfg
+            self._table = PageTable(
+                PagedCacheConfig(
+                    n_pages=c.n_pages, page_tokens=c.page_tokens,
+                    n_kv_heads=c.n_kv_heads, head_dim=c.head_dim,
+                    max_pages_per_seq=c.max_pages_per_seq, dtype=c.dtype),
+                max_seqs=slots, templated=True)
+
+    @property
+    def step_plans(self) -> list:
+        """The decode plans of the recorded trace, in step order."""
+        return [r.plan for r in self.trace if r.kind == "decode"]
+
+    def _record(self, rec: PlanRecord) -> None:
+        self.n_records += 1
+        self.trace.append(rec)
 
     # ------------------------------------------------------------- API
     def submit(self, req: Request):
         req.submitted_s = time.perf_counter()
+        req.arrival_event = self.n_records
         self.queue.append(req)
 
     def preempt(self, *args, **kwargs):
@@ -133,6 +179,20 @@ class ServingEngine:
             self._remaining[slot] = req.max_new_tokens - 1
             self.slot_req[slot] = req
             self.stats.tokens_out += 1
+            if self._table is not None:
+                if not self._table.alloc_seq(slot, len(req.prompt)) or \
+                        not self._table.note_tokens(
+                            slot, int(self.cache.lens[slot])):
+                    raise RuntimeError("shadow KV table out of pages")
+                self._record(PlanRecord(
+                    "prefill", self.stats.decode_steps, (slot,),
+                    (req.uid,),
+                    self._table.prefill_plan(
+                        slot, len(req.prompt), n_q_heads=self.cfg.n_heads,
+                        d_model=self.cfg.d_model, d_ff=self.cfg.d_ff,
+                        n_layers=self.cfg.n_layers),
+                    arrival_event=req.arrival_event,
+                    n_tokens=len(req.prompt)))
 
     def _retire(self, slot: int):
         req = self.slot_req[slot]
@@ -140,6 +200,8 @@ class ServingEngine:
         self.slot_req[slot] = None
         self.n_finished += 1
         self.cache.free_seq(slot)
+        if self._table is not None:
+            self._table.free_seq(slot)
 
     def step(self):
         """One engine iteration: admit + one batched decode step over
@@ -148,11 +210,25 @@ class ServingEngine:
         active = [i for i, r in enumerate(self.slot_req) if r is not None]
         if not active:
             return False
+        if self._table is not None:
+            # the step streams each active slot's resident KV pages; the
+            # new token's KV lands before the next step
+            self._record(PlanRecord(
+                "decode", self.stats.decode_steps, tuple(active),
+                tuple(self.slot_req[s].uid for s in active),
+                self._table.decode_step_plan(
+                    active, n_q_heads=self.cfg.n_heads,
+                    n_layers=self.cfg.n_layers)))
         toks = torch.as_tensor(self._next_tokens[active],
                                device=self.device)
         logits = self.model.decode_step(self.params, self.cache, toks,
                                         active)
         self.stats.decode_steps += 1
+        if self._table is not None:
+            for slot in active:
+                if not self._table.note_tokens(
+                        slot, int(self.cache.lens[slot])):
+                    raise RuntimeError("shadow KV table out of pages")
         nxt = torch.argmax(logits[:, :self.cfg.vocab_size], dim=-1).cpu()
         for i, slot in enumerate(active):
             req = self.slot_req[slot]

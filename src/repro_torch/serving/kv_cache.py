@@ -7,10 +7,12 @@ consumes.  With KH = 2, hd = 64 and bf16, ``page_tokens = 16`` gives the
 paper's 4,096-byte page.
 
 ``PageTable`` is the reference's bookkeeping (``alloc_seq``,
-``free_seq``, ``ensure_capacity``, ``note_tokens``, ``validate``)
-without the plan builders, which need the plan IR and come later.
-``PagedKVCache`` adds torch pools of shape (L, P, page, KH, hd) on the
-device, one table shared by every layer.
+``free_seq``, ``ensure_capacity``, ``note_tokens``, ``validate``) and
+its StreamPlan builders (``decode_step_plan``, ``prefill_plan``,
+``shared_prefill_plan``), whose page ids come verbatim from the tables.
+The swap and prefix-cache bookkeeping of the reference is not ported
+yet.  ``PagedKVCache`` adds torch pools of shape (L, P, page, KH, hd)
+on the device, one table shared by every layer.
 
 Unlike the reference's ``PagedKVCache.append_token``, which writes for
 every slot passed — active or not — the port writes only for active
@@ -24,6 +26,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.core import plan as plan_ir
 from repro_torch.device import resolve_device
 
 
@@ -48,11 +51,17 @@ class PagedCacheConfig:
 
 class PageTable:
     """Host-side paged-KV bookkeeping: free list, per-sequence page
-    tables and lengths.  Holds no device pools."""
+    tables and lengths, and the plan builders.  Holds no device pools,
+    so the serving engine can shadow its cache with one of these to
+    emit a StreamPlan per step at bookkeeping cost."""
 
-    def __init__(self, cfg: PagedCacheConfig, max_seqs: int):
+    def __init__(self, cfg: PagedCacheConfig, max_seqs: int,
+                 templated: bool = False):
         self.cfg = cfg
         self.max_seqs = max_seqs
+        # route the plan builders through plan.PLAN_TEMPLATES: one
+        # compile per geometry, page-id relabels per step
+        self.templated = templated
         self._free = list(range(cfg.n_pages - 1, -1, -1))
         self.tables = np.zeros((max_seqs, cfg.max_pages_per_seq), np.int32)
         self.lens = np.zeros((max_seqs,), np.int32)
@@ -134,6 +143,58 @@ class PageTable:
         require(union == pool, f"pool leak: {sorted(pool - union)} "
                 f"unaccounted, {sorted(union - pool)} phantom")
 
+    # ------------------------------------------------------- streaming
+    def decode_step_plan(self, slots, out: str = "decode_out", *,
+                         n_q_heads=None, n_layers: int = 1):
+        """StreamPlan for one batched decode step over these slots:
+        DMA_IN page ids taken verbatim from the page tables, so the
+        plan's page traffic is the pool traffic.  ``n_q_heads`` enables
+        GQA fan-out over the shared KV pages; ``n_layers`` composes the
+        per-layer stack (this table stands in for every layer's)."""
+        tables = [self.tables[s, :int(self.held[s])]
+                  if self.active[s] else [] for s in slots]
+        lens = [int(self.lens[s]) if self.active[s] else 0
+                for s in slots]
+        build = plan_ir.PLAN_TEMPLATES.decode_step if self.templated \
+            else plan_ir.decode_step_plan
+        return build(
+            tables, lens, self.cfg.page_tokens, self.cfg.n_kv_heads,
+            self.cfg.head_dim, _itemsize(self.cfg.dtype), out=out,
+            n_q_heads=n_q_heads, n_layers=n_layers)
+
+    def prefill_plan(self, slot: int, prompt_len=None, *, n_q_heads=None,
+                     d_model=None, d_ff=None, n_layers: int = 1,
+                     span=None, out: str = "prefill_out"):
+        """StreamPlan for prefilling ``slot``'s prompt into the pages it
+        holds (see ``plan.prefill_plan``); ``span=(t0, t1)`` prefills
+        only that page-aligned token window."""
+        held = int(self.held[slot])
+        if prompt_len is None:
+            prompt_len = int(self.lens[slot]) or held * \
+                self.cfg.page_tokens
+        build = plan_ir.PLAN_TEMPLATES.prefill if self.templated \
+            else plan_ir.prefill_plan
+        return build(
+            self.tables[slot, :held], prompt_len, self.cfg.page_tokens,
+            self.cfg.n_kv_heads, self.cfg.head_dim,
+            _itemsize(self.cfg.dtype), n_q_heads=n_q_heads,
+            d_model=d_model, d_ff=d_ff, n_layers=n_layers, span=span,
+            out=out, name=f"prefill.s{slot}")
+
+    def shared_prefill_plan(self, pages, prompt_len: int, *,
+                            n_q_heads=None, d_model=None, d_ff=None,
+                            n_layers: int = 1, out: str = "prefix_out"):
+        """StreamPlan prefilling a shared page run (a prefix-cache
+        system prompt) that belongs to no slot."""
+        build = plan_ir.PLAN_TEMPLATES.prefill if self.templated \
+            else plan_ir.prefill_plan
+        return build(
+            np.asarray(pages, np.int32), prompt_len,
+            self.cfg.page_tokens, self.cfg.n_kv_heads,
+            self.cfg.head_dim, _itemsize(self.cfg.dtype),
+            n_q_heads=n_q_heads, d_model=d_model, d_ff=d_ff,
+            n_layers=n_layers, out=out, name="prefix")
+
     @property
     def pages_in_use(self) -> int:
         return self.cfg.n_pages - len(self._free)
@@ -202,6 +263,15 @@ class PagedKVCache(PageTable):
             write_index=torch.from_numpy(widx).to(dev),
             table=torch.from_numpy(self.tables[slots]).to(dev),
             lens=torch.from_numpy(self.lens[slots].copy()).to(dev))
+
+    def page_dicts(self, slots, layer: int = 0):
+        """``({page_id: page}, {page_id: page})`` views of ``layer``'s K
+        and V pools for the pages the given slots hold: the ``paged``
+        input of ``core.streaming.execute_plan``."""
+        pids = sorted({int(p) for s in slots if self.active[s]
+                       for p in self.tables[s, :int(self.held[s])]})
+        k, v = self.k_pages[layer], self.v_pages[layer]
+        return {p: k[p] for p in pids}, {p: v[p] for p in pids}
 
     def layer_flat(self, layer: int):
         """This layer's (k, v) pools viewed as (P·page, KH, hd) rows."""

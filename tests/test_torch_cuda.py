@@ -13,6 +13,11 @@ own cases: the split-K GEMM at decode widths (M in {1, 5, 8, 16}), N =
 tensor-core flash kernel at ragged Tq/Tk, D in {16, 128} and G = 7; the
 cluster-split paged kernel at every split S = 1..8 with edge lengths,
 at the main path's shape, bitwise repeatable and one launch per call.
+Last, page streaming on the card: the page store's pinned host pages
+and device pages, the layer streamer's side-stream fetches (DM and DC
+equal DevMem bit for bit through the GEMM kernel), Algorithm 1 on the
+card against its CPU run, and a decode-step plan against the paged
+kernel.
 Tolerances: int8 exact; fp32 GEMM 2e-4 and fp32 attention 3e-5 (fp32
 sums in another order, no TF32); bf16 2e-2 (one bf16 ulp of the
 outputs).
@@ -266,3 +271,126 @@ def test_cuda_paged_shared_memory_estimate_matches_the_kernel():
     for case in ((7, 64, 16, 64, 4, 2), (16, 128, 32, 6, 2, 4),
                  (128, 16, 8, 1000, 4, 2)):
         assert fn(*case) == PA.smem_bytes(*case)
+
+
+# ------------------------------------------- page streaming on the card
+@pytest.mark.cuda
+def test_cuda_page_store_pins_host_pages_and_serves_device_pages():
+    from repro_torch.core.modes import MemoryMode, PageStore
+    dev = _card()
+    pages = {i: torch.full((16, 128), float(i), dtype=torch.float16)
+             for i in range(6)}
+    for mode in MemoryMode:
+        store = PageStore(pages, mode, cache_pages=2, device=dev)
+        if mode is MemoryMode.DEVMEM:
+            assert all(p.is_cuda for p in store._resident.values())
+        else:
+            assert all(p.device.type == "cpu" and p.is_pinned()
+                       for p in store._host.values())
+        for i in (0, 1, 0, 5, 1):
+            got = store.get(i)
+            assert got.is_cuda and torch.equal(got.cpu(), pages[i])
+        assert all(p.is_cuda for p in store._cache.values())
+        sent = store.stats.host_to_device_bytes
+        assert sent == {MemoryMode.DEVMEM: 0, MemoryMode.DM: 5 * 4096,
+                        MemoryMode.DC: 4 * 4096}[mode]
+
+
+@pytest.mark.cuda
+def test_cuda_layer_streamer_side_stream_dm_equals_devmem():
+    """Layers whose function runs the streaming GEMM kernel: DM and DC
+    fetch on a side stream from pinned memory, and give DevMem's bits."""
+    from repro_torch.core.modes import MemoryMode
+    from repro_torch.core.offload import LayerStreamer
+    dev = _card()
+    L, d = 8, 896
+    rng = np.random.default_rng(11)
+    stacked = {"w": _bf16(rng, (L, d, d), "cpu", d ** -0.5),
+               "b": _bf16(rng, (L, d), "cpu")}
+    x0 = _bf16(rng, (8, d), dev)
+    fn = lambda p, x: torch.tanh(ops.streaming_gemm(x, p["w"]) + p["b"])  # noqa: E731
+    ops.reset_launches()
+    outs = {}
+    for mode in MemoryMode:
+        s = LayerStreamer(stacked, L, mode, cache_layers=3, device=dev)
+        if mode is MemoryMode.DEVMEM:
+            assert s._copy_stream is None and s._stacked[0].is_cuda
+        else:          # one pinned row per layer, one copy per fetch
+            assert s._host.is_pinned() and s._host.shape[0] == L
+            assert s._copy_stream != torch.cuda.current_stream(dev)
+        for _ in range(2):
+            outs[mode], rep = s.run(fn, x0)
+        fetched = {MemoryMode.DEVMEM: 0, MemoryMode.DM: 2 * L,
+                   MemoryMode.DC: 2 * L - 3}[mode]
+        assert rep.bytes_streamed == fetched * s._layer_bytes
+    assert ops.LAUNCHES["streaming_gemm"] == 3 * 2 * L
+    assert torch.equal(outs[MemoryMode.DM], outs[MemoryMode.DEVMEM])
+    assert torch.equal(outs[MemoryMode.DC], outs[MemoryMode.DEVMEM])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["int8", "float16", "float32"])
+def test_cuda_gemm_streamed_equals_its_cpu_run(dtype):
+    """Algorithm 1 on the card (pages on the card, H2D copies from
+    pinned pages in DM/DC) against the same walk on the CPU: int8
+    exact, floats to fp32 rounding; equal traffic."""
+    from repro_torch.core import streaming as S
+    from repro_torch.core.modes import MemoryMode
+    dev = _card()
+    assert not torch.backends.cuda.matmul.allow_tf32
+    rng = np.random.default_rng(12)
+    if dtype == "int8":
+        a = torch.from_numpy(rng.integers(-128, 128, (50, 600)).astype(
+            np.int8))
+        b = torch.from_numpy(rng.integers(-128, 128, (600, 70)).astype(
+            np.int8))
+    else:
+        a = torch.from_numpy(rng.standard_normal((50, 600))).to(
+            getattr(torch, dtype))
+        b = torch.from_numpy(rng.standard_normal((600, 70))).to(
+            getattr(torch, dtype))
+    for mode in MemoryMode:
+        got, store = S.gemm_streamed(a.to(dev), b.to(dev), mode,
+                                     cache_pages=16, device=dev)
+        want, cstore = S.gemm_streamed(a, b, mode, cache_pages=16,
+                                       device="cpu")
+        assert vars(store.stats) == vars(cstore.stats)
+        if dtype == "int8":
+            assert torch.equal(got, want)
+        else:
+            np.testing.assert_allclose(got.numpy(), want.numpy(),
+                                       rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_decode_plan_matches_the_paged_kernel():
+    """A GQA decode-step plan (H 14 / KH 2, D 64, 16-token pages)
+    executed over a bf16 pool on the card, in DM, against
+    ``ops.paged_attention`` on the same q, pool, table and lens."""
+    from repro_torch.core import streaming as S
+    from repro_torch.core.modes import MemoryMode
+    from repro_torch.serving.kv_cache import PagedCacheConfig, PagedKVCache
+    dev = _card()
+    cfg = PagedCacheConfig(n_pages=64, page_tokens=16, n_kv_heads=2,
+                           head_dim=64, max_pages_per_seq=16)
+    cache = PagedKVCache(cfg, max_seqs=4, n_layers=2, device=dev)
+    rng = np.random.default_rng(13)
+    cache.k_pages.copy_(_bf16(rng, tuple(cache.k_pages.shape), dev))
+    cache.v_pages.copy_(_bf16(rng, tuple(cache.v_pages.shape), dev))
+    for slot, n in enumerate((200, 1, 16, 97)):
+        cache.alloc_seq(slot, n)
+        cache.prompt_index([slot], n)
+    slots = [0, 1, 2, 3]
+    plan = cache.decode_step_plan(slots, n_q_heads=14)
+    kd, vd = cache.page_dicts(slots, layer=1)
+    q = _bf16(rng, (4, 14 * 64), dev)
+    outs, store = S.execute_plan(plan, {"q": q}, MemoryMode.DM,
+                                 paged={"k": kd, "v": vd}, device=dev)
+    want = ops.paged_attention(
+        q.view(4, 14, 64), cache.k_pages[1], cache.v_pages[1],
+        torch.from_numpy(cache.tables[slots]).to(dev),
+        torch.from_numpy(cache.lens[slots].copy()).to(dev))
+    np.testing.assert_allclose(
+        outs["decode_out"].view(4, 14, 64).float().numpy(),
+        want.float().cpu().numpy(), rtol=2e-2, atol=2e-2)
+    assert store.stats.lookups == 2 * int(cache.held[slots].sum())

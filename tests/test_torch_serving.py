@@ -18,6 +18,10 @@ from repro_torch.serving.engine import Request, ServingEngine  # noqa: E402
 from repro_torch.serving.kv_cache import (PagedCacheConfig,  # noqa: E402
                                           PagedKVCache)
 
+COMPILED_COLS = ("trace_ids", "trace_nbytes", "trace_is_out", "in_lane",
+                 "op_kind", "op_val", "grp_end", "n_lanes", "seg_op",
+                 "seg_trace")
+
 ARCH = "qwen2_0_5b"
 
 
@@ -57,6 +61,39 @@ def test_greedy_tokens_match_reference_engine(weights, slots):
     assert stats.tokens_out == sum(len(r.output) for r in reqs)
     eng.cache.validate()
     assert eng.cache.pages_in_use == 0
+
+
+@pytest.mark.parametrize("slots", [3, 2])
+def test_recorded_plan_trace_matches_reference_engine(weights, slots):
+    """``record_plans``: the port engine's closed-loop trace equals the
+    reference engine's record for record (kind, step, slots, uids,
+    token counts, arrival index) and each record's compiled arrays are
+    bitwise equal, with the page ids taken from the shadow table."""
+    rp, pp = weights
+    ref_eng = RefEngine(ref_reduced(ARCH), rp, slots=slots, max_seq=64,
+                        record_plans=True)
+    eng = ServingEngine(get_reduced(ARCH), pp, slots=slots, max_seq=64,
+                        device="cpu", record_plans=True)
+    for e, cls in ((ref_eng, RefRequest), (eng, Request)):
+        for r in _requests(5, np.random.default_rng(7), cls):
+            e.submit(r)
+        e.run_until_drained()
+    assert len(eng.trace) == len(ref_eng.trace) == eng.n_records
+    assert [r.kind for r in eng.trace].count("prefill") == 5
+    assert len(eng.step_plans) == eng.stats.decode_steps
+    for got, want in zip(eng.trace, ref_eng.trace):
+        assert (got.kind, got.step_idx, got.slots, got.uids, got.n_tokens,
+                got.arrival_event) == \
+            (want.kind, want.step_idx, want.slots, want.uids,
+             want.n_tokens, want.arrival_event)
+        assert got.plan.name == want.plan.name
+        a, b = got.plan.compile(), want.plan.compile()
+        assert a.n_events == b.n_events and a.page_keys == b.page_keys
+        for f in COMPILED_COLS:
+            x, y = getattr(a, f), getattr(b, f)
+            assert x.dtype == y.dtype and np.array_equal(x, y), f
+    eng._table.validate()
+    assert eng._table.pages_in_use == 0
 
 
 def test_retired_slot_stale_table_does_not_touch_live_kv(weights):
@@ -151,7 +188,7 @@ def test_paged_cache_defaults_to_cuda():
 def test_unported_paths_raise():
     cfg = get_reduced(ARCH)
     with pytest.raises(NotImplementedError):
-        ServingEngine(cfg, None, device="cpu", record_plans=True)
+        ServingEngine(cfg, None, device="cpu", plan_only=True)
     from repro_torch.configs import get_config
     with pytest.raises(NotImplementedError):
         get_config("deepseek-v3-671b")
