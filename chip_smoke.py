@@ -27,10 +27,12 @@ Phases, in order; any failure raises and exits non-zero:
 3. Serve qwen2-0.5b at full width (random weights from ``--seed``) with
    ``ServingEngine``: 8 slots, 16-token (4 KB) pages, 16 requests of
    64-512 prompt tokens and 32 new tokens each.  Launch counts are
-   zeroed just before and read just after; every kernel must have run.
+   zeroed just before and read just after; every kernel of the dense
+   path must have run.
 4. Profile five full-batch decode steps: device time by kernel beside
    the unprofiled wall time per step (the device's busy share); each
-   GEMM and paged wrapper call must be exactly one device kernel.
+   GEMM and paged wrapper call must be exactly one device kernel.  A
+   window the profiler recorded empty is profiled again (3 at most).
 5. Run one request (64-token prefill + 4 decode steps) on the card and
    again on the CPU, where every wrapper takes its plain version, and
    compare the logits.
@@ -53,8 +55,27 @@ Phases, in order; any failure raises and exits non-zero:
    mode's median pass, DM's GB/s, DevMem/DM, the overlap share (copy +
    compute - DM) / min(copy, compute), and a profiled DM pass (kernel
    and copy time on the device, the copy time under kernels).
-7. Print the ``kernels`` JSON line, the card line, and last the result
-   line ``{"ok": true, "device": {...}}``.
+7. The MoE path, after the dense weights are freed: qwen2-moe-a2.7b at
+   full width and depth (24 layers, d 2,048, 60 routed experts of d_ff
+   1,408, top-4, 4 shared; 28.6 GB of random bf16 weights from
+   ``--seed``).  (a) The expert-grouped GEMM against its plain version
+   and timed beside ``torch.bmm`` over the whole buffer, at decode (C =
+   8) and 512-token prefill (C = 512) with counts from routing random
+   tokens through layer 0's router, for gate/up and down over the
+   model's expert weights; ragged cases (counts 0, C and mid-tile; N and
+   K off the tiles); then the 2-D GEMM (q, the router, the shared
+   experts, the untied lm_head), flash (16/16 heads of 128) and paged
+   attention at the MoE path's shapes, kept as each row's ``moe_path``.
+   (b) Serving as in phase 3 with 16 new tokens; all four wrappers
+   must run.  (c) Three full-batch decode steps profiled as in phase 4;
+   each grouped wrapper call one device kernel.  (d) Two full-width
+   layers, a 64-token prefill and 4 decode steps on the card and on
+   the CPU: each (layer, token)'s expert set recorded on both sides,
+   at least 0.97 of them equal, and the logits within E2E_TOL x
+   max(1, max|logit|) at the positions routed alike in every layer.
+8. Print the ``kernels`` JSON line (each kernel's launches from its own
+   path's serving run, both paths' counts beside), the card line, and
+   last the result line ``{"ok": true, "device": {...}}``.
 """
 import argparse
 import json
@@ -73,6 +94,13 @@ BF16_TOL = 2e-2                 # one bf16 ulp of O(1) outputs, with margin
 # after sums in other orders, and flash probabilities rounded to bf16 on
 # the card but not in the plain version
 E2E_TOL = 5e-2
+DENSE_KERNELS = ("streaming_gemm", "flash_attention", "paged_attention")
+MOE_ARCH = "qwen2-moe-a2.7b"
+MOE_PATH_KERNELS = ("streaming_gemm", "streaming_gemm_grouped",
+                    "flash_attention", "paged_attention")
+# card vs CPU expert choices: a 1-ulp difference in a bf16 router logit
+# may flip one top-4 choice at a near-tie; wrong routing agrees far less
+ROUTING_AGREEMENT_MIN = 0.97
 SPIN_CYCLES = 1_000_000         # ~0.5 ms at the H100's 1.98 GHz SM clock
 
 
@@ -139,10 +167,120 @@ def check_close(name, got, want, tol, rtol=None):
     return err.max().item()
 
 
-def phase_kernels(torch, args, dev, timer):
+def summary(per_shape, keys=("ms", "plain_ms", "library_ms", "bound_ms")):
+    """A kernel line's numbers: sums over the shapes the main path runs
+    (``on_path``); the rest are printed and kept per shape."""
+    on = [r for r in per_shape if r["on_path"]]
+    return {**{k: sum(r[k] for r in on) for k in keys},
+            "bound_by": "bytes" if sum(r["bound_by"] == "bytes"
+                                       for r in on) * 2 >= len(on)
+            else "operations",
+            "timed_as": "sum over the on_path entries of per_shape"}
+
+
+def gemm_entry(torch, timer, x, b, what, on_path):
+    """The 2-D GEMM wrapper at one shape: checked against its plain
+    version, then the kernel, the plain version, ``torch.matmul`` and
+    the bound."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.streaming_gemm import plan as gemm_plan
+    M, K = x.shape
+    N = b.shape[1]
+    err = check_close(f"gemm {M}x{K}x{N}", ops.streaming_gemm(x, b),
+                      ref.gemm_ref(x, b), BF16_TOL)
+    bms, by = bound(2 * (M * K + K * N + M * N), 2 * M * N * K)
+    r = {"shape": [M, K, N], "b": what, "on_path": on_path,
+         "plan": list(gemm_plan(M, N, K)), "max_abs_err": err,
+         "ms": timer(lambda: ops.streaming_gemm(x, b)),
+         "plain_ms": timer(lambda: ref.gemm_ref(x, b)),
+         "library_ms": timer(lambda: torch.matmul(x, b)),
+         "bound_ms": bms, "bound_by": by}
+    print(f"[gemm] M={M} K={K} N={N} ({what}, plan {r['plan']}, "
+          f"on_path {on_path}): err {err:.3g} (tol {BF16_TOL}) "
+          f"kernel {r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms "
+          f"matmul {r['library_ms']:.4f} ms bound {bms:.4f} ms ({by})",
+          flush=True)
+    return r
+
+
+def flash_entry(torch, timer, q, k, v, on_path):
+    """Causal flash attention at one shape, as ``gemm_entry``; the
+    library call is SDPA."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+    B, T, H, D = q.shape
+    KH = k.shape[2]
+    err = check_close(f"flash B={B} T={T} H={H}/{KH} D={D}",
+                      ops.flash_attention(q, k, v, causal=True),
+                      ref.flash_gqa_ref(q, k, v, True), BF16_TOL)
+    pairs = T * (T + 1) // 2
+    bms, by = bound(2 * (2 * B * T * H * D + 2 * B * T * KH * D),
+                    4 * B * H * D * pairs)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    r = {"shape": {"q": [B, T, H, D], "kv": [B, T, KH, D], "causal": True},
+         "on_path": on_path, "max_abs_err": err,
+         "ms": timer(lambda: ops.flash_attention(q, k, v, causal=True)),
+         "plain_ms": timer(lambda: ref.flash_gqa_ref(q, k, v, True)),
+         "library_ms": timer(lambda: F.scaled_dot_product_attention(
+             qt, kt, vt, is_causal=True, enable_gqa=True)),
+         "bound_ms": bms, "bound_by": by}
+    print(f"[flash_attention] B={B} T={T} H={H}/{KH} D={D} (on_path "
+          f"{on_path}): err {err:.3g} (tol {BF16_TOL}) kernel "
+          f"{r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms sdpa "
+          f"{r['library_ms']:.4f} ms bound {bms:.4f} ms ({by})", flush=True)
+    return r
+
+
+def paged_entry(torch, timer, what, q, kp, vp, table, ln, on_path):
+    """Paged decode attention at one shape, as ``gemm_entry``, beside
+    SDPA over the same K/V gathered into a contiguous cache with a
+    length mask (attention without the page indirection; a yardstick the
+    port never calls)."""
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.paged_attention import plan as paged_plan
+    n, H, D = q.shape
+    P, page, KH, _ = kp.shape
+    max_pages = table.shape[1]
+    err = check_close(f"paged {what}", ops.paged_attention(q, kp, vp, table,
+                                                           ln),
+                      ref.paged_ref(q, kp, vp, table, ln), BF16_TOL)
+    n_tok = int(ln.sum())
+    bms, by = bound(2 * 2 * n * H * D + 4 * n * (max_pages + 1)
+                    + 2 * 2 * n_tok * KH * D, 4 * H * D * n_tok)
+    kc = kp[table.long()].reshape(n, max_pages * page, KH, D) \
+        .transpose(1, 2).contiguous()
+    vc = vp[table.long()].reshape(n, max_pages * page, KH, D) \
+        .transpose(1, 2).contiguous()
+    mask = (torch.arange(max_pages * page, device=q.device)[None]
+            < ln[:, None])[:, None, None, :]
+    q4 = q[:, :, None, :]
+
+    def sdpa():
+        return F.scaled_dot_product_attention(q4, kc, vc, attn_mask=mask,
+                                              enable_gqa=True)
+
+    check_close(f"paged {what} contiguous SDPA", sdpa()[:, :, 0],
+                ref.paged_ref(q, kp, vp, table, ln), BF16_TOL)
+    r = {"shape": {"q": [n, H, D], "pool": [P, page, KH, D],
+                   "lens": ln.tolist()}, "what": what, "on_path": on_path,
+         "plan": paged_plan(n, KH, max_pages), "max_abs_err": err,
+         "ms": timer(lambda: ops.paged_attention(q, kp, vp, table, ln)),
+         "plain_ms": timer(lambda: ref.paged_ref(q, kp, vp, table, ln)),
+         "contiguous_sdpa_ms": timer(sdpa), "bound_ms": bms, "bound_by": by}
+    print(f"[paged_attention] {what} H={H}/{KH} D={D} (plan S={r['plan']}, "
+          f"on_path {on_path}): err {err:.3g} (tol {BF16_TOL}) kernel "
+          f"{r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms contiguous SDPA "
+          f"{r['contiguous_sdpa_ms']:.4f} ms bound {bms:.4f} ms ({by})",
+          flush=True)
+    return r
+
+
+PAGED_KEYS = ("ms", "plain_ms", "contiguous_sdpa_ms", "bound_ms")
+
+
+def phase_kernels(torch, args, dev, timer):
+    from repro_torch.kernels import ops, ref
     from repro_torch.kernels.streaming_gemm import plan as gemm_plan
 
     g = torch.Generator(device=dev).manual_seed(args.seed)
@@ -150,17 +288,6 @@ def phase_kernels(torch, args, dev, timer):
 
     def randn(*shape, scale=1.0):
         return (torch.randn(shape, generator=g, device=dev) * scale).to(bf16)
-
-    def summary(per_shape,
-                keys=("ms", "plain_ms", "library_ms", "bound_ms")):
-        """The kernel line's numbers: sums over the shapes the main path
-        runs (``on_path``); the rest are printed and kept per shape."""
-        on = [r for r in per_shape if r["on_path"]]
-        return {**{k: sum(r[k] for r in on) for k in keys},
-                "bound_by": "bytes" if sum(r["bound_by"] == "bytes"
-                                           for r in on) * 2 >= len(on)
-                else "operations",
-                "timed_as": "sum over the on_path entries of per_shape"}
 
     rows = {}
     # ---- streaming GEMM: every projection, the MLP and the tied lm_head;
@@ -181,22 +308,9 @@ def phase_kernels(torch, args, dev, timer):
             else:
                 b, what = randn(K, N, scale=K ** -0.5), "weight"
             x = a if K == 896 else randn(M, K)
-            err = check_close(f"gemm {M}x{K}x{N}", ops.streaming_gemm(x, b),
-                              ref.gemm_ref(x, b), BF16_TOL)
-            bms, by = bound(2 * (M * K + K * N + M * N), 2 * M * N * K)
-            r = {"shape": [M, K, N], "b": what,
-                 "on_path": serving and not (M == 256 and N == 152064),
-                 "plan": list(gemm_plan(M, N, K)), "max_abs_err": err,
-                 "ms": timer(lambda: ops.streaming_gemm(x, b)),
-                 "plain_ms": timer(lambda: ref.gemm_ref(x, b)),
-                 "library_ms": timer(lambda: torch.matmul(x, b)),
-                 "bound_ms": bms, "bound_by": by}
-            per_shape.append(r)
-            print(f"[gemm] M={M} K={K} N={N} ({what}, plan {r['plan']}, "
-                  f"on_path {r['on_path']}): err {err:.3g} (tol {BF16_TOL}) "
-                  f"kernel {r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms "
-                  f"matmul {r['library_ms']:.4f} ms bound {bms:.4f} ms "
-                  f"({by})", flush=True)
+            per_shape.append(gemm_entry(
+                torch, timer, x, b, what,
+                serving and not (M == 256 and N == 152064)))
     # ragged edges through the split-K kernel: M, N and K off the tiles
     ragged = []
     for M, K, N, kcontig in ((5, 4824, 896, False), (37, 896, 1000, True),
@@ -225,27 +339,8 @@ def phase_kernels(torch, args, dev, timer):
     per_shape = []
     for B, T in ((1, 64), (1, 256), (1, 512), (1, 8), (8, 512)):
         q, k, v = randn(B, T, H, D), randn(B, T, KH, D), randn(B, T, KH, D)
-        err = check_close(f"flash B={B} T={T}",
-                          ops.flash_attention(q, k, v, causal=True),
-                          ref.flash_gqa_ref(q, k, v, True), BF16_TOL)
-        pairs = T * (T + 1) // 2
-        bms, by = bound(2 * (2 * B * T * H * D + 2 * B * T * KH * D),
-                        4 * B * H * D * pairs)
-        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        r = {"shape": {"q": [B, T, H, D], "kv": [B, T, KH, D],
-                       "causal": True}, "on_path": B == 1 and T >= 64,
-             "max_abs_err": err,
-             "ms": timer(lambda: ops.flash_attention(q, k, v, causal=True)),
-             "plain_ms": timer(lambda: ref.flash_gqa_ref(q, k, v, True)),
-             "library_ms": timer(lambda: F.scaled_dot_product_attention(
-                 qt, kt, vt, is_causal=True, enable_gqa=True)),
-             "bound_ms": bms, "bound_by": by}
-        per_shape.append(r)
-        print(f"[flash_attention] B={B} T={T} (on_path {r['on_path']}): "
-              f"err {err:.3g} (tol {BF16_TOL}) "
-              f"kernel {r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms sdpa "
-              f"{r['library_ms']:.4f} ms bound {bms:.4f} ms ({by})",
-              flush=True)
+        per_shape.append(flash_entry(torch, timer, q, k, v,
+                                     B == 1 and T >= 64))
     ragged = []
     for Tq, Tk, H_, KH_, D_, causal in ((100, 96, 14, 2, 64, True),
                                         (100, 96, 14, 2, 16, False),
@@ -291,58 +386,26 @@ def phase_kernels(torch, args, dev, timer):
                      ("8 x 1024", fixed(B, 1024)),
                      ("1 x 1024", fixed(1, 1024))):
         n = ln.shape[0]
-        qq, tt = q[:n].contiguous(), table[:n].contiguous()
-        err = check_close(f"paged {what}",
-                          ops.paged_attention(qq, kp, vp, tt, ln),
-                          ref.paged_ref(qq, kp, vp, tt, ln), BF16_TOL)
-        n_tok = int(ln.sum())
-        bms, by = bound(2 * 2 * n * H * D + 4 * n * (max_pages + 1)
-                        + 2 * 2 * n_tok * KH * D, 4 * H * D * n_tok)
-        # yardstick, never called by the port: SDPA over the same K/V
-        # already gathered into a contiguous (n, KH, 1024, D) cache with
-        # a length mask, i.e. attention without the page indirection
-        kc = kp[tt.long()].reshape(n, max_pages * page, KH, D) \
-            .transpose(1, 2).contiguous()
-        vc = vp[tt.long()].reshape(n, max_pages * page, KH, D) \
-            .transpose(1, 2).contiguous()
-        mask = (torch.arange(max_pages * page, device=dev)[None]
-                < ln[:, None])[:, None, None, :]
-        q4 = qq[:, :, None, :]
-
-        def sdpa():
-            return F.scaled_dot_product_attention(q4, kc, vc,
-                                                  attn_mask=mask,
-                                                  enable_gqa=True)
-
-        check_close(f"paged {what} contiguous SDPA", sdpa()[:, :, 0],
-                    ref.paged_ref(qq, kp, vp, tt, ln), BF16_TOL)
-        r = {"shape": {"q": [n, H, D], "pool": [P, page, KH, D],
-                       "lens": ln.tolist()}, "what": what,
-             "on_path": int(ln.max()) <= 512 + 32,
-             "plan": paged_plan(n, KH, max_pages), "max_abs_err": err,
-             "ms": timer(lambda: ops.paged_attention(qq, kp, vp, tt, ln)),
-             "plain_ms": timer(lambda: ref.paged_ref(qq, kp, vp, tt, ln)),
-             "contiguous_sdpa_ms": timer(sdpa),
-             "bound_ms": bms, "bound_by": by}
-        per_shape.append(r)
-        print(f"[paged_attention] {what} (plan S={r['plan']}, on_path "
-              f"{r['on_path']}): err {err:.3g} (tol {BF16_TOL}) kernel "
-              f"{r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms contiguous "
-              f"SDPA {r['contiguous_sdpa_ms']:.4f} ms bound {bms:.4f} ms "
-              f"({by})", flush=True)
+        per_shape.append(paged_entry(
+            torch, timer, what, q[:n].contiguous(), kp, vp,
+            table[:n].contiguous(), ln, int(ln.max()) <= 512 + 32))
     rows["paged_attention"] = {
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
         "replaces": "src/repro/kernels/paged_attention.py:34",
         "tol": BF16_TOL,
         "max_abs_err": max(r["max_abs_err"] for r in per_shape),
-        **summary(per_shape, ("ms", "plain_ms", "contiguous_sdpa_ms",
-                              "bound_ms")),
+        **summary(per_shape, PAGED_KEYS),
         "library_ms": None, "per_shape": per_shape}
     return rows
 
 
-def phase_serving(torch, args, cfg, params):
+def phase_serving(torch, args, cfg, params, kernels, new_tokens=32,
+                  tag="serving"):
+    """Serve 16 requests of 64-512 prompt tokens and ``new_tokens`` new
+    tokens each on 8 slots of 16-token pages (``max_seq`` 1,024), after
+    an untimed warm-up request.  The launch counts are zeroed just
+    before and read just after; each of ``kernels`` must have run."""
     import numpy as np
     from repro_torch.kernels import ops
     from repro_torch.serving.engine import Request, ServingEngine
@@ -362,7 +425,7 @@ def phase_serving(torch, args, cfg, params):
     pool_mb = 2 * eng.cache.k_pages.numel() * 2 / 1e6
     reqs = [Request(uid=i, prompt=rng.integers(
         1, cfg.vocab_size - 1, int(rng.integers(64, 513))).astype(np.int32),
-        max_new_tokens=32) for i in range(16)]
+        max_new_tokens=new_tokens) for i in range(16)]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
@@ -382,14 +445,14 @@ def phase_serving(torch, args, cfg, params):
     eng.cache.validate()
     require(eng.cache.pages_in_use == 0, "pages leaked after the drain")
     for r in reqs:
-        require(len(r.output) == 32 and all(
+        require(len(r.output) == new_tokens and all(
             0 <= t < cfg.vocab_size for t in r.output), (r.uid, r.output))
-    missing = [k for k, n in launches.items() if n <= 0]
+    missing = [k for k in kernels if launches[k] <= 0]
     require(not missing, f"main path never launched {missing}")
     ttft = sorted(r.first_token_s - r.submitted_s for r in reqs)
     tokens = sum(len(r.output) for r in reqs)
-    res = {"requests": len(reqs), "tokens_out": tokens, "wall_s": wall,
-           "tokens_per_s": tokens / wall,
+    res = {"model": cfg.name, "requests": len(reqs), "tokens_out": tokens,
+           "wall_s": wall, "tokens_per_s": tokens / wall,
            "ttft_p50_ms": float(np.percentile(ttft, 50)) * 1e3,
            "ttft_p95_ms": float(np.percentile(ttft, 95)) * 1e3,
            "decode_step_median_ms": statistics.median(decode_ms),
@@ -399,7 +462,7 @@ def phase_serving(torch, args, cfg, params):
            "kv_pool_mb": pool_mb,
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
            "validate": "ok"}
-    print("[serving] " + json.dumps(res), flush=True)
+    print(f"[{tag}] " + json.dumps(res), flush=True)
     return res
 
 
@@ -440,7 +503,8 @@ def phase_card_vs_cpu(torch, args, cfg, params):
 
 
 def _kernel_group(name):
-    for key, group in (("gemm_bf16", "streaming_gemm"),
+    for key, group in (("gemm_bf16_grouped", "streaming_gemm_grouped"),
+                       ("gemm_bf16", "streaming_gemm"),
                        ("gemm_simt", "streaming_gemm"),
                        ("flash_bf16", "flash_attention"),
                        ("flash_f32", "flash_attention"),
@@ -450,13 +514,21 @@ def _kernel_group(name):
     return "other (torch ops)"
 
 
-def phase_profile(torch, args, cfg, params, n_steps=5):
+def phase_profile(torch, args, cfg, params, n_steps=5, tag="decode_profile",
+                  one_kernel=("streaming_gemm", "paged_attention"),
+                  tries=3):
     """Where a full-batch decode step's time goes: ``torch.profiler``
     device time by kernel over ``n_steps`` decode steps of 8 slots
     (prompts of 256 tokens), beside the same steps' unprofiled wall
     time.  The profiler only reads the device's kernel times here; the
-    wall time comes from the unprofiled steps before it."""
+    wall time comes from the unprofiled steps before it.  Each wrapper
+    of ``one_kernel`` must make exactly one device kernel per call.  The
+    profiler now and then drops a window or part of one: a window with
+    no device kernel, or with fewer kernels of such a wrapper than its
+    calls, is profiled again, up to ``tries`` windows; then the check
+    fails on what the last window read."""
     import numpy as np
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels import ops
     from repro_torch.serving.engine import Request, ServingEngine
@@ -467,7 +539,7 @@ def phase_profile(torch, args, cfg, params, n_steps=5):
     for i in range(8):
         eng.submit(Request(uid=i, prompt=rng.integers(
             1, cfg.vocab_size - 1, 256).astype(np.int32),
-            max_new_tokens=4 * n_steps))
+            max_new_tokens=(2 + tries) * n_steps + 2))
     eng.step()                          # admits all 8, one decode step
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -475,37 +547,45 @@ def phase_profile(torch, args, cfg, params, n_steps=5):
         eng.step()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / n_steps
-    ops.reset_launches()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(n_steps):
-            eng.step()
-        torch.cuda.synchronize()
-    per_step = {k: n / n_steps for k, n in ops.LAUNCHES.items()}
-    groups: dict = {}
-    kernels: dict = {}
-    from torch.autograd import DeviceType
-    for ev in prof.key_averages():
-        if ev.device_type != DeviceType.CUDA:   # host ops would double-count
-            continue
-        us = getattr(ev, "self_device_time_total", None)
-        if us is None:
-            us = getattr(ev, "self_cuda_time_total", 0)
-        if us > 0:
-            g = _kernel_group(ev.key)
-            groups[g] = groups.get(g, 0.0) + us / 1e3 / n_steps
-            kernels[g] = kernels.get(g, 0) + ev.count / n_steps
+    for window in range(1, tries + 1):
+        ops.reset_launches()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n_steps):
+                eng.step()
+            torch.cuda.synchronize()
+        per_step = {k: n / n_steps for k, n in ops.LAUNCHES.items()}
+        groups: dict = {}
+        kernels: dict = {}
+        for ev in prof.key_averages():
+            if ev.device_type != DeviceType.CUDA:  # host ops double-count
+                continue
+            us = getattr(ev, "self_device_time_total", None)
+            if us is None:
+                us = getattr(ev, "self_cuda_time_total", 0)
+            if us > 0:
+                g = _kernel_group(ev.key)
+                groups[g] = groups.get(g, 0.0) + us / 1e3 / n_steps
+                kernels[g] = kernels.get(g, 0) + ev.count / n_steps
+        short = [n for n in one_kernel if kernels.get(n, 0) < per_step[n]]
+        if groups and not short:
+            break
+        print(f"[{tag}] window {window}: the profiler lost device kernels "
+              f"({short or 'all'})", flush=True)
+    require(groups, f"{tag}: {tries} profiler windows held no device kernel")
     busy = sum(groups.values())
-    res = {"slots": 8, "context": "256-276", "steps": n_steps,
-           "wall_ms_per_step": wall_ms,
-           "device_ms_per_step": groups or "not measured",
-           "device_busy_share": busy / wall_ms if groups else
-           "not measured", "launches_per_step": per_step,
-           "device_kernels_per_step": kernels or "not measured"}
-    print("[decode_profile] " + json.dumps(res), flush=True)
+    res = {"model": cfg.name, "slots": 8,
+           "context": f"256-{256 + (1 + window) * n_steps}",
+           "steps": n_steps, "windows": window,
+           "wall_ms_per_step": wall_ms, "device_ms_per_step": groups,
+           "device_busy_share": busy / wall_ms,
+           "launches_per_step": per_step,
+           "device_kernels_per_step": kernels,
+           "device_kernels_total_per_step": sum(kernels.values())}
+    print(f"[{tag}] " + json.dumps(res), flush=True)
     # one device kernel per wrapper call: no hidden second pass
-    for name in ("streaming_gemm", "paged_attention"):
-        if kernels and kernels.get(name) != per_step[name]:
+    for name in one_kernel:
+        if kernels.get(name) != per_step[name]:
             raise AssertionError(f"{name}: {kernels.get(name)} device "
                                  f"kernels per step for {per_step[name]} "
                                  f"wrapper calls")
@@ -776,8 +856,271 @@ def phase_streaming(torch, args, cfg, params):
     res["launches"] = dict(ops.LAUNCHES)
     res["seconds"] = time.perf_counter() - t0
     print(json.dumps({"streaming": res}), flush=True)
-    missing = [k for k, n in res["launches"].items() if n <= 0]
+    missing = [k for k in DENSE_KERNELS if res["launches"][k] <= 0]
     require(not missing, f"streaming phase never launched {missing}")
+    return res
+
+
+def _grouped_entry(torch, timer, what, a, b, counts, on_path):
+    """The expert-grouped GEMM at one shape: rows below each expert's
+    count against the plain version; the kernel, the plain version and
+    ``torch.bmm`` over the whole (E, C, K) buffer (a yardstick the port
+    never calls); the bound counts only the experts and rows this
+    routing touches."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.streaming_gemm import plan_grouped
+    E, C, K = a.shape
+    N = b.shape[2]
+    got = ops.grouped_streaming_gemm(a, b, counts)
+    rows = torch.arange(C, device=a.device)[None, :] < counts[:, None]
+    err = check_close(f"grouped {what}", got[rows],
+                      ref.grouped_gemm_ref(a, b)[rows], BF16_TOL)
+    kept = int(counts.sum())
+    touched = int((counts > 0).sum())
+    bms, by = bound(2 * (touched * K * N + kept * (K + N)),
+                    2 * kept * K * N)
+    r = {"what": what, "shape": {"a": [E, C, K], "b": [E, K, N]},
+         "rows": kept, "experts_touched": touched, "on_path": on_path,
+         "plan": list(plan_grouped(E, C, N, K)), "max_abs_err": err,
+         "ms": timer(lambda: ops.grouped_streaming_gemm(a, b, counts)),
+         "plain_ms": timer(lambda: ref.grouped_gemm_ref(a, b)),
+         "library_ms": timer(lambda: torch.bmm(a, b)),
+         "bound_ms": bms, "bound_by": by}
+    print(f"[grouped_gemm] {what} E={E} C={C} K={K} N={N} rows {kept} "
+          f"experts {touched} (plan {r['plan']}): err {err:.3g} (tol "
+          f"{BF16_TOL}) kernel {r['ms']:.4f} ms plain {r['plain_ms']:.4f} "
+          f"ms bmm {r['library_ms']:.4f} ms bound {bms:.4f} ms ({by})",
+          flush=True)
+    return r
+
+
+def _moe_kernels(torch, args, cfg, params, dev, timer, rows):
+    """(a) Every kernel at the shapes the MoE path gives it.  The grouped
+    GEMM at decode (C = 8, counts from routing 8 tokens through layer
+    0's router) and at a 512-token prefill (C = 512), for gate/up
+    (2,048 -> 1,408) and down (1,408 -> 2,048) over the model's own
+    expert weights, and ragged cases (counts 0, C and mid-tile; N and K
+    off the tiles) checked without timing.  Then the 2-D GEMM, flash
+    and paged attention at the MoE path's shapes, as entries of their
+    rows' ``moe_path``."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import moe as MOE
+
+    g = torch.Generator(device=dev).manual_seed(args.seed + 20)
+    bf16 = torch.bfloat16
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(bf16)
+
+    E, d, f = cfg.moe.n_routed_experts, cfg.d_model, cfg.moe.d_ff_expert
+    lp = params["layers"][0]
+
+    def buffer(counts, C, K):
+        a = randn(E, C, K)
+        a[torch.arange(C, device=dev)[None, :] >= counts[:, None]] = 0
+        return a
+
+    per_shape = []
+    for what, n in (("decode", 8), ("prefill", 512)):
+        _, top_e, _ = MOE._route(lp["moe"], randn(n, d), cfg)
+        counts = torch.bincount(top_e.reshape(-1), minlength=E) \
+            .to(torch.int32)
+        C = MOE.routed_capacity(n * cfg.moe.top_k, E, n)
+        for prod, K, w in (("gate/up", d, lp["moe"]["wi_gate"]),
+                           ("down", f, lp["moe"]["wo"])):
+            per_shape.append(_grouped_entry(
+                torch, timer, f"{what} {prod}", buffer(counts, C, K), w,
+                counts, True))
+    ragged = []
+    for E_, C, N, K in ((7, 40, 200, 136), (5, 300, 136, 264)):
+        b = randn(E_, K, N, scale=K ** -0.5)
+        for counts in ([0, C, 1, C - 3, 17, 2, 39][:E_], [0] * E_, [C] * E_):
+            cnt = torch.tensor(counts, dtype=torch.int32, device=dev)
+            a = randn(E_, C, K)
+            a[torch.arange(C, device=dev)[None, :] >= cnt[:, None]] = 0
+            got = ops.grouped_streaming_gemm(a, b, cnt)
+            keep = torch.arange(C, device=dev)[None, :] < cnt[:, None]
+            err = check_close(f"grouped ragged {E_}x{C}x{K}x{N} {counts}",
+                              got[keep], ref.grouped_gemm_ref(a, b)[keep],
+                              BF16_TOL) if any(counts) else 0.0
+            ragged.append({"shape": [E_, C, K, N], "counts": counts,
+                           "max_abs_err": err})
+            print(f"[grouped_gemm] ragged E={E_} C={C} K={K} N={N} counts "
+                  f"{counts}: err {err:.3g} (tol {BF16_TOL})", flush=True)
+    torch.cuda.synchronize()
+    rows["streaming_gemm_grouped"] = {
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/streaming_gemm.cu",
+        "replaces": "src/repro/kernels/streaming_gemm.py:30",
+        "note": "the streaming GEMM per expert; the reference computes "
+                "these products as an XLA einsum (src/repro/models/"
+                "moe.py:115-118)",
+        "tol": BF16_TOL,
+        "max_abs_err": max(r["max_abs_err"] for r in per_shape + ragged),
+        **summary(per_shape), "per_shape": per_shape, "ragged": ragged}
+
+    # ---- the 2-D GEMM: q/k/v/o (2,048 x 2,048), the router (2,048 x 60,
+    # the scalar kernel: N % 8 != 0), the shared experts (2,048 x 5,632,
+    # 5,632 x 2,048) at decode and prefill, the untied lm_head at decode
+    attn, moe = lp["attn"], lp["moe"]
+    per_shape = []
+    for M in (8, 256):
+        a = randn(M, d)
+        for K, w, what in ((d, attn["wq"].reshape(d, -1), "wq"),
+                           (d, moe["router"], "router"),
+                           (d, moe["shared_wi_gate"], "shared_wi_gate"),
+                           (moe["shared_wo"].shape[0], moe["shared_wo"],
+                            "shared_wo")):
+            per_shape.append(gemm_entry(
+                torch, timer, a if K == d else randn(M, K), w, what, True))
+    per_shape.append(gemm_entry(torch, timer, randn(8, d),
+                                params["lm_head"], "lm_head", True))
+    _moe_path(rows["streaming_gemm"], per_shape)
+
+    # ---- flash at head dim 128, 16 query heads over 16 KV heads (G = 1)
+    H, KH, D = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    per_shape = [flash_entry(torch, timer, randn(1, T, H, D),
+                             randn(1, T, KH, D), randn(1, T, KH, D), True)
+                 for T in (64, 256, 512)]
+    _moe_path(rows["flash_attention"], per_shape)
+
+    # ---- paged decode attention: 8 x (16, 128) queries over 16 KV heads
+    B, page, max_pages = 8, 16, 64
+    P = B * max_pages + 16
+    table = torch.randperm(P, generator=g, device=dev)[:B * max_pages] \
+        .reshape(B, max_pages).to(torch.int32)
+    q = randn(B, H, D)
+    kp, vp = randn(P, page, KH, D), randn(P, page, KH, D)
+    mixed = torch.randint(64, 529, (B,), generator=g, device=dev) \
+        .to(torch.int32)
+    fixed = torch.full((B,), 272, dtype=torch.int32, device=dev)
+    per_shape = [paged_entry(torch, timer, what, q, kp, vp, table, ln, True)
+                 for what, ln in (("mixed 64-528", mixed), ("8 x 272", fixed))]
+    _moe_path(rows["paged_attention"], per_shape, PAGED_KEYS)
+
+
+def _moe_path(row, per_shape, keys=("ms", "plain_ms", "library_ms",
+                                    "bound_ms")):
+    row["moe_path"] = {**summary(per_shape, keys), "per_shape": per_shape}
+    row["max_abs_err"] = max(row["max_abs_err"],
+                             *(r["max_abs_err"] for r in per_shape))
+
+
+def _record_routes(moe_module, log):
+    """Wrap ``moe_module.apply_moe`` so that every call appends its
+    tokens' sorted expert sets (n, k) to ``log``; returns the original."""
+    orig = moe_module.apply_moe
+
+    def wrapped(p, x, cfg, *a, **kw):
+        _, top_e, _ = moe_module._route(p, x.reshape(-1, x.shape[-1]), cfg)
+        log.append(top_e.sort(-1).values.cpu())
+        return orig(p, x, cfg, *a, **kw)
+
+    moe_module.apply_moe = wrapped
+    return orig
+
+
+def _moe_card_vs_cpu(torch, args, cfg, params, n_layers=2):
+    """(d) Two full-width layers of the MoE model, one 64-token prefill
+    and 4 decode steps, on the card and on the CPU (every wrapper's
+    plain version).  Each (layer, token)'s expert set is recorded on
+    both sides; the share that agree must reach
+    ``ROUTING_AGREEMENT_MIN``, and the logits at the positions whose
+    routing agrees in every layer must be within E2E_TOL·max(1,
+    max|logit|)."""
+    import dataclasses
+
+    import numpy as np
+    from repro_torch.models import moe as MOE
+    from repro_torch.models.model import Model
+    from repro_torch.models.params import params_to
+
+    cfg2 = dataclasses.replace(cfg, n_layers=n_layers)
+    p2 = {**params, "layers": params["layers"][:n_layers]}
+    rng = np.random.default_rng(args.seed + 3)
+    prompt = torch.as_tensor(rng.integers(1, cfg.vocab_size - 1, 64))
+    forced = rng.integers(1, cfg.vocab_size - 1, 4)
+
+    def run(device, p):
+        log = []
+        orig = _record_routes(MOE, log)
+        try:
+            m = Model(cfg2, device=device)
+            cache = m.init_cache(1, 128, page_tokens=16)
+            cache.alloc_seq(0, 64)
+            out = [m.prefill(p, prompt[None].to(m.device), cache, [0])]
+            for t in forced:
+                out.append(m.decode_step(p, cache, torch.tensor(
+                    [int(t)], device=m.device), [0]))
+        finally:
+            MOE.apply_moe = orig
+        return torch.cat(out).float().cpu(), log
+
+    t0 = time.perf_counter()
+    card, card_routes = run("cuda", p2)
+    cpu, cpu_routes = run("cpu", params_to(p2, "cpu"))
+    require(card.shape == (5, cfg.padded_vocab) and
+            bool(card.isfinite().all()), "card logits malformed")
+    require(len(card_routes) == len(cpu_routes) == 5 * n_layers,
+            "routing records")
+    same = [(a == b).all(-1) for a, b in zip(card_routes, cpu_routes)]
+    share = float(torch.cat(same).float().mean())
+    # the position each output row reads: the prompt's last token, then
+    # each decode token; it agrees if it does in every layer
+    agree = [bool(all(s[-1] for s in same[i * n_layers:(i + 1) * n_layers]))
+             for i in range(5)]
+    idx = [i for i, ok in enumerate(agree) if ok]
+    scale = max(1.0, cpu.abs().max().item())
+    err = (card[idx] - cpu[idx]).abs().max().item() if idx else None
+    res = {"layers": n_layers, "routing_agreement": share,
+           "routing_agreement_min": ROUTING_AGREEMENT_MIN,
+           "assignments": int(sum(s.numel() for s in same)),
+           "positions_compared": len(idx), "positions": 5,
+           "max_abs_err": err, "max_abs_logit": cpu.abs().max().item(),
+           "tol": E2E_TOL * scale,
+           "argmax_agree": int((card.argmax(-1) == cpu.argmax(-1)).sum()),
+           "seconds": time.perf_counter() - t0}
+    print("[moe_card_vs_cpu] " + json.dumps(res), flush=True)
+    require(share >= ROUTING_AGREEMENT_MIN,
+            f"card and CPU routing agree on {share:.3f} of the tokens")
+    require(idx, "no position routed alike on the card and the CPU")
+    require(err <= E2E_TOL * scale,
+            f"MoE card vs CPU logits differ by {err}")
+    return res
+
+
+def phase_moe(torch, args, rows):
+    """7. The MoE path: full-width qwen2-moe-a2.7b with random weights
+    from ``--seed`` (24 layers, 60 routed experts of d_ff 1,408, top-4,
+    4 shared; 28.6 GB in bf16).  (a) every kernel at the MoE path's
+    shapes, (b) serving through ``ServingEngine`` (launch counts zeroed
+    before; all four wrappers must run), (c) a profile of 3 full-batch
+    decode steps (each grouped wrapper call one device kernel), (d) two
+    layers on the card against the CPU, routing-aware."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+
+    dev = torch.device("cuda")
+    cfg = get_config(MOE_ARCH)
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(args.seed)
+    params = Model(cfg, device=dev).init(g)
+    torch.cuda.synchronize()
+    res = {"init_s": time.perf_counter() - t0,
+           "weights_gb": torch.cuda.memory_allocated() / 1e9}
+    print(f"[moe] {cfg.name}: {res['weights_gb']:.2f} GB of weights on "
+          f"the card in {res['init_s']:.1f} s", flush=True)
+    timer = Timer(torch, dev)
+    _moe_kernels(torch, args, cfg, params, dev, timer, rows)
+    del timer
+    res["serving"] = phase_serving(torch, args, cfg, params,
+                                   MOE_PATH_KERNELS, new_tokens=16,
+                                   tag="moe_serving")
+    res["decode_profile"] = phase_profile(
+        torch, args, cfg, params, n_steps=3, tag="moe_decode_profile",
+        one_kernel=MOE_PATH_KERNELS[:2] + ("paged_attention",))
+    res["card_vs_cpu"] = _moe_card_vs_cpu(torch, args, cfg, params)
+    res["seconds"] = time.perf_counter() - t0
     return res
 
 
@@ -809,13 +1152,23 @@ def main():
     cfg = get_config("qwen2-0.5b")
     g = torch.Generator(device=dev).manual_seed(args.seed)
     params = Model(cfg, device=dev).init(g)
-    serving = phase_serving(torch, args, cfg, params)
+    serving = phase_serving(torch, args, cfg, params, DENSE_KERNELS)
     phase_profile(torch, args, cfg, params)
     phase_card_vs_cpu(torch, args, cfg, params)
     phase_streaming(torch, args, cfg, params)
+    del params
+    torch.cuda.empty_cache()
+    moe = phase_moe(torch, args, rows)
 
+    # launches: each kernel's count from its own main path's serving run
+    # (the grouped GEMM's is the MoE path); both paths' counts beside
+    paths = {cfg.name: serving["launches"],
+             MOE_ARCH: moe["serving"]["launches"]}
     kernels = [{"name": name, **rows[name],
-                "launches": serving["launches"][name]} for name in rows]
+                "launches": paths[MOE_ARCH if name == "streaming_gemm_grouped"
+                                  else cfg.name][name],
+                "launches_by_path": {p: n[name] for p, n in paths.items()}}
+               for name in rows]
     print(json.dumps({"kernels": kernels, "card": card}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,7 @@
-"""Model configuration dataclass — the port's own copy of the reference
-``ModelConfig`` (same fields, same defaults, same derived properties),
-so that the port never imports the JAX package.
+"""Model configuration dataclasses — the port's own copies of the
+reference ``ModelConfig`` and ``MoEConfig`` (same fields, same
+defaults, same derived properties), so that the port never imports the
+JAX package.
 """
 from __future__ import annotations
 
@@ -10,6 +11,17 @@ from typing import Optional
 
 def _round_up(x: int, m: int) -> int:
     return (x + m - 1) // m * m
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    n_routed_experts: int
+    top_k: int
+    d_ff_expert: int
+    n_shared_experts: int = 0
+    # layers [0, first_dense_layers) use a dense FFN instead of MoE
+    first_dense_layers: int = 0
+    router_aux_coef: float = 0.001
 
 
 @dataclass(frozen=True)
@@ -30,8 +42,8 @@ class ModelConfig:
     act: str = "silu"            # silu | gelu
     glu: bool = True             # gated FFN (SwiGLU/GeGLU) vs plain MLP
     tie_embeddings: bool = False
-    # MoE / MLA / SSM sub-configs: not ported yet, always None here
-    moe: Optional[object] = None
+    moe: Optional[MoEConfig] = None
+    # MLA / SSM sub-configs: not ported yet, always None here
     mla: Optional[object] = None
     ssm: Optional[object] = None
     mtp: bool = False

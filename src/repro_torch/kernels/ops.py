@@ -17,9 +17,10 @@ import torch
 from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import flash_cuda
 from repro_torch.kernels.paged_attention import paged_cuda
-from repro_torch.kernels.streaming_gemm import gemm_cuda
+from repro_torch.kernels.streaming_gemm import gemm_cuda, grouped_gemm_cuda
 
-LAUNCHES = {"streaming_gemm": 0, "flash_attention": 0, "paged_attention": 0}
+LAUNCHES = {"streaming_gemm": 0, "streaming_gemm_grouped": 0,
+            "flash_attention": 0, "paged_attention": 0}
 
 
 def reset_launches() -> None:
@@ -35,6 +36,21 @@ def streaming_gemm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         return ref.gemm_ref(a, b)
     out = gemm_cuda(a, b)
     LAUNCHES["streaming_gemm"] += 1
+    return out
+
+
+def grouped_streaming_gemm(a: torch.Tensor, b: torch.Tensor,
+                           counts: torch.Tensor) -> torch.Tensor:
+    """C[e] = A[e] @ B[e] for a (E, C, K), b (E, K, N), one launch for
+    all experts; ``counts`` (E,) int32 holds each expert's kept rows.
+    The kernel writes only rows below the count; the plain version
+    computes every row.  Either way the caller must select rows at or
+    beyond the count away, never scale them (on the card they hold
+    whatever the memory held)."""
+    if not a.is_cuda:
+        return ref.grouped_gemm_ref(a, b)
+    out = grouped_gemm_cuda(a, b, counts)
+    LAUNCHES["streaming_gemm_grouped"] += 1
     return out
 
 

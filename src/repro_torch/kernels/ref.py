@@ -28,6 +28,14 @@ def gemm_ref(a, b, out_dtype=None):
     return acc.to(torch.int32).to(out_dtype).to(a.device)
 
 
+def grouped_gemm_ref(a, b):
+    """C[e] = A[e] @ B[e] for a (E, C, K), b (E, K, N): the reference's
+    ``einsum("ecd,edf->ecf")``, accumulated in float32 and cast once to
+    ``a.dtype``.  Every row is computed; the kernel writes only the rows
+    below each expert's count, so compare those."""
+    return torch.einsum("ecd,edf->ecf", a.float(), b.float()).to(a.dtype)
+
+
 def flash_ref(q, k, v, causal=True):
     """q: (BH, Tq, D); k, v: (BH, Tk, D)."""
     BH, Tq, D = q.shape

@@ -1,7 +1,7 @@
 """Sweep the launch plans of the bf16 kernels on the card.
 
-    python -m repro_torch.launch.kernel_sweep [--only gemm|flash|paged]
-        [--out PATH] [--reps N]
+    python -m repro_torch.launch.kernel_sweep
+        [--only gemm|grouped|flash|paged] [--out PATH] [--reps N]
 
 For every main-path shape of qwen2-0.5b (GEMM at decode M = 8 and
 prefill M = 256; causal prefill attention at 64-512 tokens; paged decode
@@ -13,7 +13,11 @@ reports the device time of each from ``torch.profiler`` (the mean over
 ``plan`` picks and the device time of the library call (``torch.matmul``,
 SDPA) on the same inputs; for paged attention, where no library call
 reads a page table, SDPA over the same K/V gathered into a contiguous
-cache with a length mask.
+cache with a length mask.  The expert-grouped GEMM runs at
+qwen2-moe-a2.7b's gate/up (2,048 -> 1,408) and down (1,408 -> 2,048)
+products over 60 experts, at decode (C = 8, 8 tokens routed top-4) and
+prefill (C = 512, 512 tokens), each at every bn and split, beside
+``torch.bmm`` over the whole (E, C, K) buffer.
 
 This is the tool that chose the rules of ``streaming_gemm.plan``,
 ``flash_attention.plan`` and ``paged_attention.plan``; it needs a card
@@ -91,8 +95,8 @@ def _gemm_plans(M, K):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--only", choices=("gemm", "flash", "paged"),
-                    help="sweep one kernel (default: all three)")
+    ap.add_argument("--only", choices=("gemm", "grouped", "flash", "paged"),
+                    help="sweep one kernel (default: all)")
     ap.add_argument("--out", default="build/kernel_sweep.json")
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
@@ -118,9 +122,12 @@ def main(argv=None):
          "--format=csv,noheader"], capture_output=True, text=True
     ).stdout.strip()
     print(f"[card] {card}", flush=True)
-    result = {"card": card, "gemm": [], "flash": [], "paged": []}
+    result = {"card": card, "gemm": [], "grouped": [], "flash": [],
+              "paged": []}
     if args.only in (None, "gemm"):
         _sweep_gemm(result, randn, dms, main_fn)
+    if args.only in (None, "grouped"):
+        _sweep_grouped(result, randn, dms, g, dev)
     if args.only in (None, "flash"):
         _sweep_flash(result, randn, dms, F)
     if args.only in (None, "paged"):
@@ -156,6 +163,50 @@ def _sweep_gemm(result, randn, dms, main_fn):
             result["gemm"].append(row)
             print("[gemm] " + json.dumps({k: v for k, v in row.items()
                                           if k != "all"}), flush=True)
+
+
+def _sweep_grouped(result, randn, dms, g, dev):
+    E, k, d, f = 60, 4, 2048, 1408
+    for what, n in (("decode", 8), ("prefill", 512)):
+        top_e = torch.rand((n, E), generator=g, device=dev).topk(k).indices
+        counts = torch.bincount(top_e.reshape(-1), minlength=E) \
+            .to(torch.int32)
+        C = n
+        rows = torch.arange(C, device=dev)[None, :] < counts[:, None]
+        for prod, K, N in (("gate/up", d, f), ("down", f, d)):
+            a = randn(E, C, K)
+            a[~rows] = 0
+            b = randn(E, K, N, scale=K ** -0.5)
+            want = ref.grouped_gemm_ref(a, b)[rows].float()
+            chosen = SG.plan_grouped(E, C, N, K)
+            times, plan_grouped = {}, SG.plan_grouped
+            try:
+                for bn in (64, 128):
+                    for s in range(1, SG.MAX_SPLITS + 1):
+                        if s > 1 and -(-K // SG.BK) // s < SG.MIN_K_TILES:
+                            continue
+                        plan = (chosen[0], bn, SG.BK, s)
+                        SG.plan_grouped = lambda *_, p=plan: p
+                        got = ops.grouped_streaming_gemm(a, b, counts)
+                        err = (got[rows].float() - want).abs().max().item()
+                        if err > 2e-2 + 2e-2 * want.abs().max().item():
+                            raise AssertionError(f"grouped {what} {prod} "
+                                                 f"{plan}: {err}")
+                        t = dms(lambda: ops.grouped_streaming_gemm(
+                            a, b, counts))
+                        if t > 0:  # a window the profiler dropped reads 0
+                            times[plan] = t
+            finally:
+                SG.plan_grouped = plan_grouped
+            ranked = sorted(times, key=times.get)
+            row = {"what": f"{what} {prod}", "shape": [E, C, K, N],
+                   "rows": int(counts.sum()),
+                   "experts_touched": int((counts > 0).sum()),
+                   "plan": list(chosen), "plan_ms": times.get(chosen),
+                   "best": [[list(p), times[p]] for p in ranked[:6]],
+                   "library_ms": dms(lambda: torch.bmm(a, b))}
+            result["grouped"].append(row)
+            print("[grouped] " + json.dumps(row), flush=True)
 
 
 def _sweep_flash(result, randn, dms, F):

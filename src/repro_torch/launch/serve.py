@@ -3,6 +3,12 @@ paged KV cache, with the hand-written kernels on the card.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \
         --requests 8 --slots 4 --page-tokens 16
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch qwen2-moe-a2.7b --slots 8 --page-tokens 16
+
+Every ported architecture serves through the same path (``--arch``:
+qwen2-0.5b, dense; qwen2-moe-a2.7b, MoE, whose expert FFNs run through
+the expert-grouped streaming GEMM).
 
 Weights are random, drawn from ``--seed``.  ``--device cpu`` runs the
 plain PyTorch versions of the kernels on the host (use ``--reduced``

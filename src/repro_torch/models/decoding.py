@@ -1,10 +1,17 @@
-"""Prefill + single-token decode over the paged KV cache, dense branch.
+"""Prefill + single-token decode over the paged KV cache, dense and MoE
+branches.
 
 The reference keeps a contiguous (L, B, S, KH, hd) cache; the port
 keeps the paged pools of ``serving.kv_cache.PagedKVCache`` (one table
-shared by all layers), so decode attention runs through
+shared by all layers; an MoE model's ``dense_layers`` take the first
+pool layers), so decode attention runs through
 ``ops.paged_attention``.  The cache dtype is bf16, as in the reference,
 and prompt K/V is cast into it.
+
+MoE layers route losslessly while serving, as the reference does:
+capacity ``B * Tq`` at prefill and ``n`` (the active slots) at decode,
+so no token is dropped and each token's output is independent of the
+others in its batch.
 """
 from __future__ import annotations
 
@@ -12,6 +19,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
 from repro_torch.models import transformer as T
 
 
@@ -24,8 +32,12 @@ def prefill(params, cfg: ModelConfig, tokens, cache, slots):
     x = T.embed_tokens(params, cfg, tokens)
     positions = torch.arange(Tq, device=x.device).expand(B, Tq)
     rows = cache.prompt_index(slots, Tq)                  # (B, T)
-    for layer, lp in enumerate(params["layers"]):
-        x, (k, v) = T.dense_layer_fwd(lp, x, cfg, positions)
+    for layer, (lp, is_moe) in enumerate(T.layer_stack(params, cfg)):
+        if is_moe:
+            x, _, (k, v) = T.moe_layer_fwd(lp, x, cfg, positions,
+                                           capacity=B * Tq)
+        else:
+            x, (k, v) = T.dense_layer_fwd(lp, x, cfg, positions)
         kf, vf = cache.layer_flat(layer)
         kf[rows] = k.to(kf.dtype)
         vf[rows] = v.to(vf.dtype)
@@ -33,11 +45,15 @@ def prefill(params, cfg: ModelConfig, tokens, cache, slots):
     return T.lm_head(params, cfg, x)
 
 
-def _dense_decode_layer(lp, x, cfg, k_pool, v_pool, view):
+def _decode_layer(lp, is_moe, x, cfg, k_pool, v_pool, view):
     h = L.apply_norm(lp["ln1"], x, cfg)
     x = x + L.attention_decode(lp["attn"], h, cfg, k_pool, v_pool, view)
     h = L.apply_norm(lp["ln2"], x, cfg)
-    return x + L.apply_mlp(lp["mlp"], h, cfg)
+    if not is_moe:
+        return x + L.apply_mlp(lp["mlp"], h, cfg)
+    # lossless capacity (C = n tokens) at decode: no token dropping
+    y, _ = MOE.apply_moe(lp["moe"], h[:, None], cfg, capacity=x.shape[0])
+    return x + y[:, 0]
 
 
 def decode_step(params, cfg: ModelConfig, cache, tokens, slots):
@@ -46,8 +62,8 @@ def decode_step(params, cfg: ModelConfig, cache, tokens, slots):
     (n, padded_vocab).  Only the given slots are written or read."""
     view = cache.append_view(slots)
     x = params["embed"][tokens].to(torch.bfloat16)
-    for layer, lp in enumerate(params["layers"]):
-        x = _dense_decode_layer(lp, x, cfg, cache.k_pages[layer],
-                                cache.v_pages[layer], view)
+    for layer, (lp, is_moe) in enumerate(T.layer_stack(params, cfg)):
+        x = _decode_layer(lp, is_moe, x, cfg, cache.k_pages[layer],
+                          cache.v_pages[layer], view)
     x = L.apply_norm(params["final_norm"], x, cfg)
     return T.lm_head(params, cfg, x)

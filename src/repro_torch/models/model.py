@@ -1,4 +1,4 @@
-"""Unified model API used by the server, dense decoders.
+"""Unified model API used by the server: dense and MoE decoders.
 
 ``Model(cfg, device=...)`` exposes:
     init(generator) -> params
@@ -38,7 +38,8 @@ class Model:
     def init_cache(self, slots: int, max_seq: int, page_tokens: int = 8,
                    n_pages: Optional[int] = None) -> PagedKVCache:
         """A paged pool where, by default, every slot can grow to
-        ``max_seq`` tokens."""
+        ``max_seq`` tokens; one pool layer per decoder layer of every
+        stack (an MoE model's dense layers first)."""
         cfg = self.cfg
         pages_per_seq = -(-max_seq // page_tokens)
         return PagedKVCache(

@@ -81,10 +81,11 @@ def from_reference(params_np, cfg) -> dict:
     """The reference's parameter pytree (leaves as numpy arrays, e.g.
     ``jax.tree.map(np.asarray, params)``) -> the port's weights.
 
-    The stacked leading ``L`` axis of ``params_np["layers"]`` is split
-    into a list of per-layer trees; every leaf keeps its dtype and
-    per-layer shape."""
-    if cfg.family != "dense":
+    The stacked leading ``L`` axis of each layer stack (``layers``, and
+    an MoE model's ``dense_layers``) is split into a list of per-layer
+    trees; every leaf keeps its dtype and per-layer shape (an expert
+    leaf stays (E, d, f), the router (d, E))."""
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet")
 
@@ -93,10 +94,14 @@ def from_reference(params_np, cfg) -> dict:
             return {k: conv(v) for k, v in tree.items()}
         return to_torch(np.asarray(tree))
 
-    out = {k: conv(v) for k, v in params_np.items() if k != "layers"}
-    layers = conv(params_np["layers"])
-    out["layers"] = [tree_map(lambda a, i=i: a[i].clone(), layers)
-                     for i in range(cfg.n_layers)]
+    nd = cfg.moe.first_dense_layers if cfg.family == "moe" else 0
+    stacks = {"dense_layers": nd, "layers": cfg.n_layers - nd}
+    out = {k: conv(v) for k, v in params_np.items() if k not in stacks}
+    for name, n in stacks.items():
+        if n:
+            layers = conv(params_np[name])
+            out[name] = [tree_map(lambda a, i=i: a[i].clone(), layers)
+                         for i in range(n)]
     return out
 
 

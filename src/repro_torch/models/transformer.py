@@ -1,8 +1,10 @@
-"""Model assembly, dense branch: parameter tree, embedding, the dense
-decoder layer and the (tied) lm_head.
+"""Model assembly, dense and MoE branches: parameter tree, embedding,
+the dense and MoE decoder layers and the lm_head (tied or not).
 
 The reference scans a stacked layer tree with ``lax.scan``; the port
-loops over a list of per-layer trees.
+loops over a list of per-layer trees.  An MoE model may start with
+``first_dense_layers`` dense layers (a ``dense_layers`` stack before
+``layers``), as in the reference.
 """
 from __future__ import annotations
 
@@ -11,6 +13,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
 from repro_torch.models.params import PSpec, stack
 
 
@@ -19,8 +22,13 @@ def dense_layer_pspecs(cfg: ModelConfig):
             "ln2": L.norm_pspec(cfg), "mlp": L.mlp_pspecs(cfg)}
 
 
+def moe_layer_pspecs(cfg: ModelConfig):
+    return {"ln1": L.norm_pspec(cfg), "attn": L.attention_pspecs(cfg),
+            "ln2": L.norm_pspec(cfg), "moe": MOE.moe_pspecs(cfg)}
+
+
 def lm_pspecs(cfg: ModelConfig):
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet")
     d, V = cfg.d_model, cfg.padded_vocab
@@ -28,8 +36,22 @@ def lm_pspecs(cfg: ModelConfig):
     if not cfg.tie_embeddings:
         p["lm_head"] = PSpec((d, V), ("embed", "vocab"))
     p["final_norm"] = L.norm_pspec(cfg)
-    p["layers"] = stack(dense_layer_pspecs(cfg), cfg.n_layers)
+    if cfg.family == "dense":
+        p["layers"] = stack(dense_layer_pspecs(cfg), cfg.n_layers)
+        return p
+    nd = cfg.moe.first_dense_layers
+    if nd:
+        p["dense_layers"] = stack(dense_layer_pspecs(cfg), nd)
+    p["layers"] = stack(moe_layer_pspecs(cfg), cfg.n_layers - nd)
     return p
+
+
+def layer_stack(params, cfg: ModelConfig) -> list:
+    """``(layer tree, is_moe)`` for every layer in order; the index in
+    the list is the layer's KV-cache layer."""
+    is_moe = cfg.family == "moe"
+    return [(lp, False) for lp in params.get("dense_layers", [])] + \
+        [(lp, is_moe) for lp in params["layers"]]
 
 
 def embed_tokens(params, cfg: ModelConfig, tokens):
@@ -43,6 +65,17 @@ def dense_layer_fwd(lp, x, cfg: ModelConfig, positions):
     x = x + a
     h = L.apply_norm(lp["ln2"], x, cfg)
     return x + L.apply_mlp(lp["mlp"], h, cfg), kv
+
+
+def moe_layer_fwd(lp, x, cfg: ModelConfig, positions, capacity=None):
+    """Prefill body of one MoE layer.  Returns (x', aux, (k, v));
+    ``capacity`` as in ``moe.apply_moe``."""
+    h = L.apply_norm(lp["ln1"], x, cfg)
+    a, kv = L.attention_train(lp["attn"], h, cfg, positions)
+    x = x + a
+    h = L.apply_norm(lp["ln2"], x, cfg)
+    y, aux = MOE.apply_moe(lp["moe"], h, cfg, capacity=capacity)
+    return x + y, aux, kv
 
 
 def lm_head(params, cfg: ModelConfig, h):

@@ -2,6 +2,9 @@
 reference: model code reads chunk sizes from here so a launcher can
 sweep them without touching architecture configs.
 
+``moe_local_dispatch`` picks the row-local MoE dispatch
+(``models.moe._apply_moe_local``).
+
 The paged INT8 KV cache (``kv_cache_quant``) is not ported yet: setting
 it raises ``NotImplementedError``.
 """
@@ -19,6 +22,7 @@ class Tuning:
     q_chunk: int = 512             # chunked-attention query page
     kv_chunk: int = 1024           # chunked-attention KV page
     kv_cache_quant: bool = False   # INT8 paged KV (not ported yet)
+    moe_local_dispatch: bool = False   # row-local MoE dispatch
 
     def __post_init__(self):
         if self.kv_cache_quant:

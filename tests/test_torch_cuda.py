@@ -13,6 +13,9 @@ own cases: the split-K GEMM at decode widths (M in {1, 5, 8, 16}), N =
 tensor-core flash kernel at ragged Tq/Tk, D in {16, 128} and G = 7; the
 cluster-split paged kernel at every split S = 1..8 with edge lengths,
 at the main path's shape, bitwise repeatable and one launch per call.
+The expert-grouped GEMM of the MoE layers at qwen2-moe-a2.7b's decode
+and prefill shapes and at ragged ones (N and K off the tiles), with
+counts of 0, C and mid-tile, bitwise repeatable and one launch per call.
 Last, page streaming on the card: the page store's pinned host pages
 and device pages, the layer streamer's side-stream fetches (DM and DC
 equal DevMem bit for bit through the GEMM kernel), Algorithm 1 on the
@@ -59,6 +62,58 @@ def _card():
 def _bf16(rng, shape, dev, scale=1.0):
     x = rng.standard_normal(shape, np.float32) * scale
     return torch.from_numpy(x).to(dev, torch.bfloat16)
+
+
+def _device_kernels(fn, reps=3, tries=3):
+    """Names of the device kernels that ``reps`` calls of ``fn`` launch,
+    from ``torch.profiler``.  Every call launches at least one kernel,
+    so a window that recorded fewer kernels than calls lost events (the
+    profiler now and then drops a window, or part of one): it is
+    profiled again after a pause, up to ``tries`` times."""
+    import time
+    from torch.profiler import ProfilerActivity, profile
+    for attempt in range(tries):
+        if attempt:
+            time.sleep(0.5)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if len(names) >= reps:
+            return names
+    return names
+
+
+def _graph_node_types(fn, reps=3):
+    """The node types of the CUDA graph that ``reps`` calls of ``fn``
+    capture (0 is a kernel; a memset or copy would show as another
+    type): one node a launch, read from the graph and not from a
+    profiler trace."""
+    import ctypes
+    cu = ctypes.CDLL("libcuda.so.1")
+    cu.cuGraphGetNodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                   ctypes.POINTER(ctypes.c_size_t)]
+    cu.cuGraphNodeGetType.argtypes = [ctypes.c_void_p,
+                                      ctypes.POINTER(ctypes.c_int)]
+    g = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            fn()
+    graph = ctypes.c_void_p(g.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    assert cu.cuGraphGetNodes(graph, None, ctypes.byref(n)) == 0
+    nodes = (ctypes.c_void_p * n.value)()
+    assert cu.cuGraphGetNodes(graph, nodes, ctypes.byref(n)) == 0
+    types = []
+    for node in nodes:
+        t = ctypes.c_int(-1)
+        assert cu.cuGraphNodeGetType(node, ctypes.byref(t)) == 0
+        types.append(t.value)
+    g.reset()
+    return types
 
 
 def _paged_inputs(b, h, kh, d, page, mp, seed=0, lens=None):
@@ -144,7 +199,6 @@ def test_cuda_splitk_gemm_is_deterministic_and_one_launch():
     """The cluster sums its partials in a fixed rank order with no
     atomics: repeated runs give the same bits.  Each call is one kernel
     launch (no second reduction pass)."""
-    from torch.profiler import ProfilerActivity, profile
     dev = _card()
     rng = np.random.default_rng(3)
     a = _bf16(rng, (8, 4864), dev)
@@ -153,13 +207,7 @@ def test_cuda_splitk_gemm_is_deterministic_and_one_launch():
     first = ops.streaming_gemm(a, b)
     for _ in range(5):
         assert torch.equal(ops.streaming_gemm(a, b), first)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(3):
-            ops.streaming_gemm(a, b)
-        torch.cuda.synchronize()
-    names = [e.name for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA]
+    names = _device_kernels(lambda: ops.streaming_gemm(a, b))
     gemm = [n for n in names if "gemm_bf16" in n]
     assert len(gemm) == 3, names
 
@@ -242,20 +290,13 @@ def test_cuda_paged_is_deterministic_and_one_launch():
     """The warps' and the cluster's states merge in a fixed order with
     no atomics: repeated runs give the same bits.  Each call is one
     kernel launch (no second reduction pass)."""
-    from torch.profiler import ProfilerActivity, profile
     dev = _card()
     args = _paged_card((14, 2, 64, 16, 64), [1024, 700, 272, 1, 0, 16, 17,
                                              555], torch.bfloat16, dev)
     first = ops.paged_attention(*args)
     for _ in range(5):
         assert torch.equal(ops.paged_attention(*args), first)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(3):
-            ops.paged_attention(*args)
-        torch.cuda.synchronize()
-    names = [e.name for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA]
+    names = _device_kernels(lambda: ops.paged_attention(*args))
     assert len([n for n in names if "paged_fwd" in n]) == 3, names
 
 
@@ -271,6 +312,93 @@ def test_cuda_paged_shared_memory_estimate_matches_the_kernel():
     for case in ((7, 64, 16, 64, 4, 2), (16, 128, 32, 6, 2, 4),
                  (128, 16, 8, 1000, 4, 2)):
         assert fn(*case) == PA.smem_bytes(*case)
+
+
+# ----------------------------------------------- expert-grouped GEMM
+# (E, C, N, K): qwen2-moe-a2.7b's gate/up and down products at decode
+# (C = 8) and at a 64-token prefill, then N and K off the 64/128 tiles
+GROUPED_SHAPES = [(60, 8, 1408, 2048), (60, 8, 2048, 1408),
+                  (60, 64, 1408, 2048), (7, 40, 200, 136), (5, 300, 136, 264)]
+
+
+def _grouped_inputs(shape, counts, dev, seed=0):
+    """A (E, C, K) with rows at or beyond each count zeroed (as the MoE
+    dispatch leaves them), expert weights (E, K, N), counts on the card."""
+    E, C, N, K = shape
+    rng = np.random.default_rng(seed)
+    a = _bf16(rng, (E, C, K), dev)
+    counts = torch.as_tensor(counts, dtype=torch.int32, device=dev)
+    a[torch.arange(C, device=dev)[None, :] >= counts[:, None]] = 0
+    b = _bf16(rng, (E, K, N), dev, scale=K ** -0.5)
+    return a, b, counts
+
+
+def _grouped_counts(E, C, rng):
+    """Per expert: 0, C, 1, a count that ends inside an m-tile, random."""
+    fixed = [0, C, 1, max(1, C - 3)]
+    return [fixed[e] if e < len(fixed) else int(rng.integers(0, C + 1))
+            for e in range(E)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", GROUPED_SHAPES, ids=str)
+def test_cuda_grouped_gemm_matches_plain_version(shape):
+    """Rows below each expert's count within 2e-2 of the plain version,
+    for mixed counts, all counts 0 (every CTA leaves at once) and all
+    counts C."""
+    dev = _card()
+    E, C, N, K = shape
+    rng = np.random.default_rng(sum(shape))
+    for counts in (_grouped_counts(E, C, rng), [0] * E, [C] * E):
+        a, b, cnt = _grouped_inputs(shape, counts, dev, seed=C)
+        before = ops.LAUNCHES["streaming_gemm_grouped"]
+        got = ops.grouped_streaming_gemm(a, b, cnt)
+        assert ops.LAUNCHES["streaming_gemm_grouped"] == before + 1
+        want = ref.grouped_gemm_ref(a, b)
+        torch.cuda.synchronize()
+        rows = torch.arange(C, device=dev)[None, :] < cnt[:, None]
+        assert got.shape == (E, C, N) and got.dtype == torch.bfloat16
+        np.testing.assert_allclose(got[rows].cpu().float().numpy(),
+                                   want[rows].cpu().float().numpy(),
+                                   rtol=2e-2, atol=2e-2, err_msg=str(counts))
+
+
+@pytest.mark.cuda
+def test_cuda_grouped_gemm_is_deterministic_and_one_launch():
+    """The same bits on every run, and one device kernel per call: three
+    calls captured into a CUDA graph are three kernel nodes and nothing
+    else.  (Counted from the graph: a profiler window opened after
+    another one in the same process read 0 or 1 of the 3 kernels in
+    most full runs of this file on the H100, while the first window of
+    a process always read all 3.)"""
+    dev = _card()
+    shape = GROUPED_SHAPES[0]
+    rng = np.random.default_rng(7)
+    a, b, cnt = _grouped_inputs(shape, _grouped_counts(60, 8, rng), dev)
+    rows = torch.arange(8, device=dev)[None, :] < cnt[:, None]
+    first = ops.grouped_streaming_gemm(a, b, cnt)[rows]
+    for _ in range(5):
+        assert torch.equal(ops.grouped_streaming_gemm(a, b, cnt)[rows], first)
+    before = ops.LAUNCHES["streaming_gemm_grouped"]
+    types = _graph_node_types(lambda: ops.grouped_streaming_gemm(a, b, cnt))
+    assert types == [0, 0, 0], types
+    assert ops.LAUNCHES["streaming_gemm_grouped"] == before + 3
+
+
+@pytest.mark.cuda
+def test_cuda_grouped_gemm_refuses_what_it_cannot_take():
+    dev = _card()
+    a = torch.zeros((4, 8, 64), dtype=torch.bfloat16, device=dev)
+    b = torch.zeros((4, 64, 64), dtype=torch.bfloat16, device=dev)
+    cnt = torch.full((4,), 8, dtype=torch.int32, device=dev)
+    with pytest.raises(TypeError):
+        ops.grouped_streaming_gemm(a.float(), b.float(), cnt)
+    with pytest.raises(ValueError):
+        ops.grouped_streaming_gemm(a, b.transpose(1, 2), cnt)
+    with pytest.raises(ValueError):
+        ops.grouped_streaming_gemm(a, b, cnt.long())
+    with pytest.raises(ValueError):
+        ops.grouped_streaming_gemm(a, b, cnt.cpu())
 
 
 # ------------------------------------------- page streaming on the card

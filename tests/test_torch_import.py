@@ -26,6 +26,8 @@ def _port_modules() -> list:
 def test_port_imports_no_jax():
     mods = _port_modules()
     assert "repro_torch.kernels.ops" in mods and len(mods) >= 15
+    assert {"repro_torch.models.moe",
+            "repro_torch.configs.qwen2_moe_a2_7b"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
