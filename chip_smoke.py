@@ -73,8 +73,25 @@ Phases, in order; any failure raises and exits non-zero:
    the CPU: each (layer, token)'s expert set recorded on both sides,
    at least 0.97 of them equal, and the logits within E2E_TOL x
    max(1, max|logit|) at the positions routed alike in every layer.
-8. Print the ``kernels`` JSON line (each kernel's launches from its own
-   path's serving run, both paths' counts beside), the card line, and
+8. The dense variants, after the MoE weights are freed: internvl2-2b
+   (vlm; 3.78 GB), chatglm3-6b (2-D RoPE, 32 / 2 heads of 128; 12.49 GB)
+   and granite-20b (layernorm, non-gated GELU MLP, MQA 48 / 1 heads of
+   128: the paged kernel in 3 query-head groups; 40.63 GB) in turn, each
+   at full width and depth with random bf16 weights from ``--seed`` and
+   freed before the next.  (a) Each kernel at the arch's shapes, kept as
+   each row's ``<arch>_path``: the GEMM at M = 8 and 256 over layer 0's
+   q/k/v/o and MLP weights and the untied lm_head at M = 8, flash at 256
+   tokens, paged at 8 x 272 and a ragged mix up to 1,024, and an edge
+   case (lens 0, 1, a page boundary, the full table) at the arch's group
+   count.  (b) Serving as in phase 3 with 8 requests of 64-256 prompt
+   tokens and 8 new tokens; all three wrappers must run.  (c) Three
+   full-batch decode steps profiled as in phase 4.  (d) The first two
+   layers, a 64-token prefill and 4 decode steps on the card and on the
+   CPU, logits within E2E_TOL x max(1, max|logit|); internvl2-2b also
+   prefills from 256 seeded bf16 embeddings of width 2,048 on both.
+   Each sub-phase's seconds are printed.
+9. Print the ``kernels`` JSON line (each kernel's launches from its own
+   path's serving run, every path's counts beside), the card line, and
    last the result line ``{"ok": true, "device": {...}}``.
 """
 import argparse
@@ -238,10 +255,11 @@ def paged_entry(torch, timer, what, q, kp, vp, table, ln, on_path):
     port never calls)."""
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
-    from repro_torch.kernels.paged_attention import plan as paged_plan
+    from repro_torch.kernels.paged_attention import launch_plan
     n, H, D = q.shape
     P, page, KH, _ = kp.shape
     max_pages = table.shape[1]
+    groups, splits = launch_plan(n, H, KH, D, max_pages)
     err = check_close(f"paged {what}", ops.paged_attention(q, kp, vp, table,
                                                            ln),
                       ref.paged_ref(q, kp, vp, table, ln), BF16_TOL)
@@ -264,14 +282,16 @@ def paged_entry(torch, timer, what, q, kp, vp, table, ln, on_path):
                 ref.paged_ref(q, kp, vp, table, ln), BF16_TOL)
     r = {"shape": {"q": [n, H, D], "pool": [P, page, KH, D],
                    "lens": ln.tolist()}, "what": what, "on_path": on_path,
-         "plan": paged_plan(n, KH, max_pages), "max_abs_err": err,
+         "plan": splits,
+         "head_groups": groups, "max_abs_err": err,
          "ms": timer(lambda: ops.paged_attention(q, kp, vp, table, ln)),
          "plain_ms": timer(lambda: ref.paged_ref(q, kp, vp, table, ln)),
          "contiguous_sdpa_ms": timer(sdpa), "bound_ms": bms, "bound_by": by}
-    print(f"[paged_attention] {what} H={H}/{KH} D={D} (plan S={r['plan']}, "
-          f"on_path {on_path}): err {err:.3g} (tol {BF16_TOL}) kernel "
-          f"{r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms contiguous SDPA "
-          f"{r['contiguous_sdpa_ms']:.4f} ms bound {bms:.4f} ms ({by})",
+    print(f"[paged_attention] {what} H={H}/{KH} D={D} (groups {groups}, "
+          f"plan S={r['plan']}, on_path {on_path}): err {err:.3g} (tol "
+          f"{BF16_TOL}) kernel {r['ms']:.4f} ms plain {r['plain_ms']:.4f} "
+          f"ms contiguous SDPA {r['contiguous_sdpa_ms']:.4f} ms bound "
+          f"{bms:.4f} ms ({by})",
           flush=True)
     return r
 
@@ -401,11 +421,12 @@ def phase_kernels(torch, args, dev, timer):
 
 
 def phase_serving(torch, args, cfg, params, kernels, new_tokens=32,
-                  tag="serving"):
-    """Serve 16 requests of 64-512 prompt tokens and ``new_tokens`` new
-    tokens each on 8 slots of 16-token pages (``max_seq`` 1,024), after
-    an untimed warm-up request.  The launch counts are zeroed just
-    before and read just after; each of ``kernels`` must have run."""
+                  tag="serving", n_requests=16, prompt_max=512):
+    """Serve ``n_requests`` requests of 64-``prompt_max`` prompt tokens
+    and ``new_tokens`` new tokens each on 8 slots of 16-token pages
+    (``max_seq`` 1,024), after an untimed warm-up request.  The launch
+    counts are zeroed just before and read just after; each of
+    ``kernels`` must have run."""
     import numpy as np
     from repro_torch.kernels import ops
     from repro_torch.serving.engine import Request, ServingEngine
@@ -424,8 +445,9 @@ def phase_serving(torch, args, cfg, params, kernels, new_tokens=32,
     eng = engine()
     pool_mb = 2 * eng.cache.k_pages.numel() * 2 / 1e6
     reqs = [Request(uid=i, prompt=rng.integers(
-        1, cfg.vocab_size - 1, int(rng.integers(64, 513))).astype(np.int32),
-        max_new_tokens=new_tokens) for i in range(16)]
+        1, cfg.vocab_size - 1, int(rng.integers(64, prompt_max + 1)))
+        .astype(np.int32), max_new_tokens=new_tokens)
+        for i in range(n_requests)]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
@@ -466,39 +488,66 @@ def phase_serving(torch, args, cfg, params, kernels, new_tokens=32,
     return res
 
 
-def phase_card_vs_cpu(torch, args, cfg, params):
+def phase_card_vs_cpu(torch, args, cfg, params, n_layers=None,
+                      tag="card_vs_cpu"):
+    """One request, a 64-token prefill and 4 decode steps, on the card and
+    on the CPU (every wrapper's plain version), logits within E2E_TOL x
+    max(1, max|logit|); with ``n_layers``, only the first ``n_layers``
+    layers (full width).  For a config that takes embeddings, also a
+    prefill from 256 seeded bf16 embeddings, held the same way."""
+    import dataclasses
+
     import numpy as np
     from repro_torch.models.model import Model
     from repro_torch.models.params import params_to
 
+    if n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+        params = {**params, "layers": params["layers"][:n_layers]}
     rng = np.random.default_rng(args.seed + 1)
     prompt = torch.as_tensor(rng.integers(1, cfg.vocab_size - 1, 64))
     forced = rng.integers(1, cfg.vocab_size - 1, 4)
+    emb = torch.from_numpy(rng.standard_normal(
+        (1, 256, cfg.d_model), np.float32) * 0.02).to(torch.bfloat16) \
+        if cfg.embedding_inputs else None
 
     def run(device, p):
         m = Model(cfg, device=device)
-        cache = m.init_cache(1, 128, page_tokens=16)
+        cache = m.init_cache(2, 256, page_tokens=16)
         cache.alloc_seq(0, 64)
         out = [m.prefill(p, prompt[None].to(m.device), cache, [0])]
         for t in forced:
             out.append(m.decode_step(p, cache, torch.tensor(
                 [int(t)], device=m.device), [0]))
+        if emb is not None:
+            cache.alloc_seq(1, emb.shape[1])
+            out.append(m.prefill(p, None, cache, [1],
+                                 embeddings=emb.to(m.device)))
         return torch.cat(out).float().cpu()
 
     t0 = time.perf_counter()
     card = run("cuda", params)
     cpu = run("cpu", params_to(params, "cpu"))
-    require(card.shape == (5, cfg.padded_vocab) and
+    rows = 5 + (emb is not None)
+    require(card.shape == (rows, cfg.padded_vocab) and
             bool(card.isfinite().all()), "card logits malformed")
-    err = (card - cpu).abs().max().item()
-    scale = max(1.0, cpu.abs().max().item())
-    res = {"max_abs_err": err, "max_abs_logit": cpu.abs().max().item(),
-           "tol": E2E_TOL * scale,
-           "argmax_agree": int((card.argmax(-1) == cpu.argmax(-1)).sum()),
-           "seconds": time.perf_counter() - t0}
-    print("[card_vs_cpu] " + json.dumps(res), flush=True)
-    if err > E2E_TOL * scale:
-        raise AssertionError(f"card vs CPU logits differ by {err}")
+    res = {"layers": cfg.n_layers}
+    # the token request's 5 rows, then the embedding prefill's row
+    for what, sl in (("tokens", slice(0, 5)), ("embeddings", slice(5, 6))):
+        if sl.start >= rows:
+            continue
+        err = (card[sl] - cpu[sl]).abs().max().item()
+        top = cpu[sl].abs().max().item()
+        res[what] = {"max_abs_err": err, "max_abs_logit": top,
+                     "tol": E2E_TOL * max(1.0, top), "argmax_agree": int(
+                         (card[sl].argmax(-1) == cpu[sl].argmax(-1)).sum())}
+    res["seconds"] = time.perf_counter() - t0
+    print(f"[{tag}] " + json.dumps(res), flush=True)
+    for what in ("tokens", "embeddings"):
+        if what in res:
+            require(res[what]["max_abs_err"] <= res[what]["tol"],
+                    f"{tag} {what}: card vs CPU logits differ by "
+                    f"{res[what]['max_abs_err']}")
     return res
 
 
@@ -975,14 +1024,14 @@ def _moe_kernels(torch, args, cfg, params, dev, timer, rows):
                 torch, timer, a if K == d else randn(M, K), w, what, True))
     per_shape.append(gemm_entry(torch, timer, randn(8, d),
                                 params["lm_head"], "lm_head", True))
-    _moe_path(rows["streaming_gemm"], per_shape)
+    _add_path(rows["streaming_gemm"], per_shape, "moe_path")
 
     # ---- flash at head dim 128, 16 query heads over 16 KV heads (G = 1)
     H, KH, D = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     per_shape = [flash_entry(torch, timer, randn(1, T, H, D),
                              randn(1, T, KH, D), randn(1, T, KH, D), True)
                  for T in (64, 256, 512)]
-    _moe_path(rows["flash_attention"], per_shape)
+    _add_path(rows["flash_attention"], per_shape, "moe_path")
 
     # ---- paged decode attention: 8 x (16, 128) queries over 16 KV heads
     B, page, max_pages = 8, 16, 64
@@ -996,12 +1045,14 @@ def _moe_kernels(torch, args, cfg, params, dev, timer, rows):
     fixed = torch.full((B,), 272, dtype=torch.int32, device=dev)
     per_shape = [paged_entry(torch, timer, what, q, kp, vp, table, ln, True)
                  for what, ln in (("mixed 64-528", mixed), ("8 x 272", fixed))]
-    _moe_path(rows["paged_attention"], per_shape, PAGED_KEYS)
+    _add_path(rows["paged_attention"], per_shape, "moe_path", PAGED_KEYS)
 
 
-def _moe_path(row, per_shape, keys=("ms", "plain_ms", "library_ms",
-                                    "bound_ms")):
-    row["moe_path"] = {**summary(per_shape, keys), "per_shape": per_shape}
+def _add_path(row, per_shape, key, keys=("ms", "plain_ms", "library_ms",
+                                         "bound_ms")):
+    """Keep one path's entries of a kernel as ``row[key]``, summed as the
+    ``kernels`` line sums them."""
+    row[key] = {**summary(per_shape, keys), "per_shape": per_shape}
     row["max_abs_err"] = max(row["max_abs_err"],
                              *(r["max_abs_err"] for r in per_shape))
 
@@ -1124,6 +1175,135 @@ def phase_moe(torch, args, rows):
     return res
 
 
+# ------------------------------------------------ 8. the dense variants
+DENSE_ARCHS = ("internvl2-2b", "chatglm3-6b", "granite-20b")
+
+
+def _dense_kernels(torch, args, cfg, params, dev, timer, rows):
+    """(a) Every kernel at one dense arch's shapes, kept as each row's
+    ``<arch>_path``.  The GEMM at M = 8 and 256 over layer 0's own q, k,
+    v, o and MLP weights, and the untied lm_head at M = 8; flash at T =
+    256 with the arch's heads; paged attention at 8 x 272 tokens (the
+    decode profile's context, on the path) and at a ragged mix of
+    64-1,024 (beyond the serving phase's 264, off the path), then one
+    edge case checked without timing (lens 0, 1, a page boundary and
+    the full table) at the arch's query-head group count."""
+    from repro_torch.kernels import ops, ref
+
+    g = torch.Generator(device=dev).manual_seed(args.seed + 30)
+    bf16 = torch.bfloat16
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(bf16)
+
+    key = f"{cfg.name}_path"
+    d, H, KH, D = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                   cfg.resolved_head_dim)
+    attn, mlp = params["layers"][0]["attn"], params["layers"][0]["mlp"]
+    weights = [(attn[n].reshape(d, -1), n) for n in ("wq", "wk", "wv")]
+    weights.append((attn["wo"].reshape(-1, d), "wo"))
+    weights += [(mlp[n], f"mlp {n}") for n in
+                (("wi_gate", "wi_up", "wo") if cfg.glu else ("wi", "wo"))]
+    per_shape = []
+    for M in (8, 256):
+        a = randn(M, d)
+        for w, what in weights:
+            x = a if w.shape[0] == d else randn(M, w.shape[0])
+            per_shape.append(gemm_entry(torch, timer, x, w, what, True))
+    per_shape.append(gemm_entry(torch, timer, randn(8, d),
+                                params["lm_head"], "lm_head", True))
+    _add_path(rows["streaming_gemm"], per_shape, key)
+
+    T = 256
+    per_shape = [flash_entry(torch, timer, randn(1, T, H, D),
+                             randn(1, T, KH, D), randn(1, T, KH, D), True)]
+    _add_path(rows["flash_attention"], per_shape, key)
+
+    B, page, max_pages = 8, 16, 64
+    P = B * max_pages + 16
+    table = torch.randperm(P, generator=g, device=dev)[:B * max_pages] \
+        .reshape(B, max_pages).to(torch.int32)
+    q = randn(B, H, D)
+    kp, vp = randn(P, page, KH, D), randn(P, page, KH, D)
+    mixed = torch.randint(64, 1025, (B,), generator=g, device=dev) \
+        .to(torch.int32)
+    mixed[0] = 1024
+    fixed = torch.full((B,), 272, dtype=torch.int32, device=dev)
+    per_shape = [paged_entry(torch, timer, what, q, kp, vp, table, ln,
+                             on_path)
+                 for what, ln, on_path in (("8 x 272", fixed, True),
+                                           ("mixed 64-1024", mixed, False))]
+    groups = per_shape[0]["head_groups"]
+    edge = torch.tensor([0, 1, page, page * max_pages], dtype=torch.int32,
+                        device=dev)
+    err = check_close(f"paged edge {cfg.name}", ops.paged_attention(
+        q[:4].contiguous(), kp, vp, table[:4].contiguous(), edge),
+        ref.paged_ref(q[:4], kp, vp, table[:4], edge), BF16_TOL)
+    print(f"[paged_attention] edge H={H}/{KH} D={D} groups {groups} lens "
+          f"{edge.tolist()}: err {err:.3g} (tol {BF16_TOL})", flush=True)
+    _add_path(rows["paged_attention"], per_shape, key, PAGED_KEYS)
+    rows["paged_attention"][key].update(
+        {"head_groups": groups,
+         "edge": {"lens": edge.tolist(), "max_abs_err": err}})
+    rows["paged_attention"]["max_abs_err"] = max(
+        rows["paged_attention"]["max_abs_err"], err)
+
+
+def phase_dense_variants(torch, args, rows):
+    """8. internvl2-2b (vlm), chatglm3-6b (2-D RoPE) and granite-20b
+    (layernorm, non-gated GELU MLP, MQA: the paged kernel's query-head
+    groups) in turn, each at full width and depth with random bf16
+    weights from ``--seed``, freed before the next: (a) every kernel at
+    its shapes, (b) serving 8 requests of 64-256 prompt tokens and 8 new
+    tokens through ``ServingEngine`` (launch counts zeroed before; all
+    three wrappers must run), (c) a profile of 3 full-batch decode steps
+    (each GEMM and paged wrapper call one device kernel), (d) two layers
+    on the card against the CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+
+    dev = torch.device("cuda")
+    out = {}
+    for arch in DENSE_ARCHS:
+        cfg = get_config(arch)
+        t0 = time.perf_counter()
+        g = torch.Generator(device=dev).manual_seed(args.seed)
+        params = Model(cfg, device=dev).init(g)
+        torch.cuda.synchronize()
+        res = {"init_s": time.perf_counter() - t0,
+               "weights_gb": torch.cuda.memory_allocated() / 1e9}
+        print(f"[{arch}] {res['weights_gb']:.2f} GB of weights on the card "
+              f"in {res['init_s']:.1f} s", flush=True)
+        t = time.perf_counter()
+        timer = Timer(torch, dev)
+        _dense_kernels(torch, args, cfg, params, dev, timer, rows)
+        del timer
+        res["kernels_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        res["serving"] = phase_serving(
+            torch, args, cfg, params, DENSE_KERNELS, new_tokens=8,
+            tag=f"{arch} serving", n_requests=8, prompt_max=256)
+        res["serving_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        res["decode_profile"] = phase_profile(
+            torch, args, cfg, params, n_steps=3,
+            tag=f"{arch} decode_profile")
+        res["profile_s"] = time.perf_counter() - t
+        res["card_vs_cpu"] = phase_card_vs_cpu(
+            torch, args, cfg, params, n_layers=2,
+            tag=f"{arch} card_vs_cpu")
+        res["seconds"] = time.perf_counter() - t0
+        print(f"[{arch}] seconds: init {res['init_s']:.1f} kernels "
+              f"{res['kernels_s']:.1f} serving {res['serving_s']:.1f} "
+              f"profile {res['profile_s']:.1f} card_vs_cpu "
+              f"{res['card_vs_cpu']['seconds']:.1f} total "
+              f"{res['seconds']:.1f}", flush=True)
+        out[arch] = res
+        del params
+        torch.cuda.empty_cache()
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1159,11 +1339,14 @@ def main():
     del params
     torch.cuda.empty_cache()
     moe = phase_moe(torch, args, rows)
+    torch.cuda.empty_cache()
+    variants = phase_dense_variants(torch, args, rows)
 
     # launches: each kernel's count from its own main path's serving run
-    # (the grouped GEMM's is the MoE path); both paths' counts beside
+    # (the grouped GEMM's is the MoE path); every path's counts beside
     paths = {cfg.name: serving["launches"],
-             MOE_ARCH: moe["serving"]["launches"]}
+             MOE_ARCH: moe["serving"]["launches"],
+             **{a: v["serving"]["launches"] for a, v in variants.items()}}
     kernels = [{"name": name, **rows[name],
                 "launches": paths[MOE_ARCH if name == "streaming_gemm_grouped"
                                   else cfg.name][name],

@@ -13,7 +13,7 @@
 // parallelism and fewer serial steps:
 //
 //  * The pages of a sequence are split over a thread-block cluster of S
-//    CTAs (S <= 8 from the caller, grid (S, KH, B)).  Each CTA reads
+//    CTAs (S <= 8 from the caller, grid (S, KH · groups, B)).  Each CTA reads
 //    lens[b] itself and takes pages [rank·c, min(n, (rank+1)·c)) with
 //    n = ceil(len / page) (at most the table's width) and c = ceil(n / S),
 //    so the split needs no host read of lens.  A CTA with no page keeps
@@ -42,6 +42,15 @@
 //    through distributed shared memory, each CTA finishing 1/S of the
 //    output elements.  No workspace, no atomics: the same bits on every
 //    run.
+//  * A CTA keeps its heads' G·D query values and fp32 state in registers
+//    and shared memory, at most 2,048 of them.  Where a KV head has more
+//    (granite-20b: 48 query heads of 128 over one KV head), the caller
+//    splits its G query heads into `groups` equal groups of at most
+//    2,048 values, and grid row y = kh · groups + group takes the query
+//    heads [y · G', (y + 1) · G') with G' = H / (KH · groups), walking
+//    KV head kh's pages.  Each group reads those pages again (512 B a
+//    token under MQA at D 128, mostly from L2).  groups = 1 is the
+//    launch of before.
 //
 // What still bounds it: about 7 us of fixed cost per launch (the
 // cluster launch, two dependent round trips to device memory for the
@@ -223,17 +232,18 @@ __device__ __forceinline__ int pair_col(int lane, int j) {
 }
 
 // T: pool dtype; D: head dim; MP: output element pairs a lane holds
-// (ceil(G·D / 64) <= MP).
+// (ceil(G·D / 64) <= MP, G the CTA's query heads).
 template <typename T, int D, int MP>
 __global__ void __launch_bounds__(THREADS, 1)
     paged_fwd(const T* __restrict__ q, const T* __restrict__ kp,
               const T* __restrict__ vp, const int* __restrict__ table,
               const int* __restrict__ lens, T* __restrict__ o, int H, int KH,
-              int page, int max_pages, int splits, int walkers,
+              int groups, int page, int max_pages, int splits, int walkers,
               float qscale) {
   extern __shared__ __align__(16) unsigned char smem[];
   cg::cluster_group cluster = cg::this_cluster();
-  const int G = H / KH, GD = G * D;
+  // this CTA's query heads: G of them, from head blockIdx.y · G
+  const int G = H / (KH * groups), GD = G * D;
   const Layout L = layout(G, D, page, max_pages, walkers, sizeof(T));
   float* qs = reinterpret_cast<float*>(smem + L.qs);
   float* cm = reinterpret_cast<float*>(smem + L.cm);
@@ -243,7 +253,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   float* inv_l = reinterpret_cast<float*>(smem + L.inv_l);
   int* ids = reinterpret_cast<int*>(smem + L.ids);
 
-  const int rank = blockIdx.x, kh = blockIdx.y, b = blockIdx.z;
+  const int rank = blockIdx.x, kh = blockIdx.y / groups, b = blockIdx.z;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int len = lens[b];
   const int n = len > 0 ? min(cdiv(len, page), max_pages) : 0;
@@ -252,7 +262,7 @@ __global__ void __launch_bounds__(THREADS, 1)
 
   // q, the length and the whole table row are loaded together (none
   // waits for another); the CTA's range then indexes the row
-  const T* qb = q + (static_cast<int64_t>(b) * H + kh * G) * D;
+  const T* qb = q + (static_cast<int64_t>(b) * H + blockIdx.y * G) * D;
   for (int i = tid; i < GD; i += THREADS) qs[i] = to_f(qb[i]) * qscale;
   for (int i = tid; i < max_pages; i += THREADS)
     ids[i] = table[static_cast<int64_t>(b) * max_pages + i];
@@ -465,7 +475,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
   __syncthreads();
   const int e0 = rank * GD / splits, e1 = (rank + 1) * GD / splits;
-  T* ob = o + (static_cast<int64_t>(b) * H + kh * G) * D;
+  T* ob = o + (static_cast<int64_t>(b) * H + blockIdx.y * G) * D;
   for (int e = e0 + tid; e < e1; e += THREADS) {
     const int g = e / D;
     float a = 0.f;
@@ -479,16 +489,18 @@ __global__ void __launch_bounds__(THREADS, 1)
 
 template <typename T, int D, int MP>
 int launch(const void* q, const void* kp, const void* vp, const int* table,
-           const int* lens, void* o, int B, int H, int KH, int page,
-           int max_pages, int splits, int walkers, cudaStream_t stream) {
+           const int* lens, void* o, int B, int H, int KH, int groups,
+           int page, int max_pages, int splits, int walkers,
+           cudaStream_t stream) {
   auto kern = paged_fwd<T, D, MP>;
   static const cudaError_t attr = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  const Layout L = layout(H / KH, D, page, max_pages, walkers, sizeof(T));
+  const Layout L = layout(H / (KH * groups), D, page, max_pages, walkers,
+                          sizeof(T));
   if (L.bytes > MAX_SMEM) return static_cast<int>(cudaErrorInvalidValue);
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(splits, KH, B);
+  cfg.gridDim = dim3(splits, KH * groups, B);
   cfg.blockDim = dim3(THREADS);
   cfg.dynamicSmemBytes = L.bytes;
   cfg.stream = stream;
@@ -501,49 +513,52 @@ int launch(const void* q, const void* kp, const void* vp, const int* table,
   cfg.numAttrs = 1;
   cudaError_t err = cudaLaunchKernelEx(
       &cfg, kern, static_cast<const T*>(q), static_cast<const T*>(kp),
-      static_cast<const T*>(vp), table, lens, static_cast<T*>(o), H, KH, page,
-      max_pages, splits, walkers, LOG2E / sqrtf(static_cast<float>(D)));
+      static_cast<const T*>(vp), table, lens, static_cast<T*>(o), H, KH,
+      groups, page, max_pages, splits, walkers,
+      LOG2E / sqrtf(static_cast<float>(D)));
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
-// MP, the pairs a lane holds, is the least of 8, 16, 32 that covers G·D:
-// every pair is computed, so a tier sized to G·D keeps the waste small.
+// MP, the pairs a lane holds, is the least of 8, 16, 32 that covers the
+// CTA's G·D: every pair is computed, so a tier sized to G·D keeps the
+// waste small.
 template <typename T, int D>
 int launch_d(const void* q, const void* kp, const void* vp, const int* tb,
-             const int* ln, void* o, int B, int H, int KH, int page, int mp,
-             int splits, int walkers, cudaStream_t st) {
-  const int gd = (H / KH) * D;
+             const int* ln, void* o, int B, int H, int KH, int gr, int page,
+             int mp, int splits, int walkers, cudaStream_t st) {
+  const int gd = (H / (KH * gr)) * D;
   if (gd <= 8 * 64)
-    return launch<T, D, 8>(q, kp, vp, tb, ln, o, B, H, KH, page, mp, splits,
-                           walkers, st);
+    return launch<T, D, 8>(q, kp, vp, tb, ln, o, B, H, KH, gr, page, mp,
+                           splits, walkers, st);
   if (gd <= 16 * 64)
-    return launch<T, D, 16>(q, kp, vp, tb, ln, o, B, H, KH, page, mp, splits,
-                            walkers, st);
-  return launch<T, D, 32>(q, kp, vp, tb, ln, o, B, H, KH, page, mp, splits,
-                          walkers, st);
+    return launch<T, D, 16>(q, kp, vp, tb, ln, o, B, H, KH, gr, page, mp,
+                            splits, walkers, st);
+  return launch<T, D, 32>(q, kp, vp, tb, ln, o, B, H, KH, gr, page, mp,
+                          splits, walkers, st);
 }
 
 template <typename T>
 int launch_t(const void* q, const void* kp, const void* vp, const int* tb,
-             const int* ln, void* o, int B, int H, int KH, int D, int page,
-             int mp, int splits, int walkers, cudaStream_t st) {
+             const int* ln, void* o, int B, int H, int KH, int gr, int D,
+             int page, int mp, int splits, int walkers, cudaStream_t st) {
   switch (D) {
-    case 16: return launch_d<T, 16>(q, kp, vp, tb, ln, o, B, H, KH, page, mp,
-                                    splits, walkers, st);
-    case 32: return launch_d<T, 32>(q, kp, vp, tb, ln, o, B, H, KH, page, mp,
-                                    splits, walkers, st);
-    case 64: return launch_d<T, 64>(q, kp, vp, tb, ln, o, B, H, KH, page, mp,
-                                    splits, walkers, st);
-    case 128: return launch_d<T, 128>(q, kp, vp, tb, ln, o, B, H, KH, page,
-                                      mp, splits, walkers, st);
+    case 16: return launch_d<T, 16>(q, kp, vp, tb, ln, o, B, H, KH, gr, page,
+                                    mp, splits, walkers, st);
+    case 32: return launch_d<T, 32>(q, kp, vp, tb, ln, o, B, H, KH, gr, page,
+                                    mp, splits, walkers, st);
+    case 64: return launch_d<T, 64>(q, kp, vp, tb, ln, o, B, H, KH, gr, page,
+                                    mp, splits, walkers, st);
+    case 128: return launch_d<T, 128>(q, kp, vp, tb, ln, o, B, H, KH, gr,
+                                      page, mp, splits, walkers, st);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
-// Bytes of dynamic shared memory the kernel takes (the wrapper's check).
+// Bytes of dynamic shared memory the kernel takes for a CTA of G query
+// heads (the wrapper's check).
 extern "C" int pa_smem_bytes(int G, int D, int page, int max_pages,
                              int walkers, int esz) {
   return layout(G, D, page, max_pages, walkers, esz).bytes;
@@ -551,26 +566,29 @@ extern "C" int pa_smem_bytes(int G, int D, int page, int max_pages,
 
 // q: (B, H, D); pools: (P, page, KH, D); table: (B, max_pages) int32;
 // lens: (B,) int32; o: (B, H, D) — all contiguous, on the device, pools
-// 16-byte aligned.  dtype: 0 = float32, 1 = bfloat16.  Needs D in {16,
-// 32, 64, 128}, page in {8, 16, 32}, (H / KH) * D <= 2048, 1 <= splits
-// <= 8 and 1 <= walkers <= 4.
+// 16-byte aligned.  dtype: 0 = float32, 1 = bfloat16.  Each KV head's
+// H / KH query heads are split into `groups` groups of CTAs.  Needs D in
+// {16, 32, 64, 128}, page in {8, 16, 32}, KH · groups dividing H,
+// (H / (KH · groups)) * D <= 2048, 1 <= splits <= 8 and
+// 1 <= walkers <= 4.
 extern "C" int pa_forward(int dtype, const void* q, const void* kp,
                           const void* vp, const void* table,
                           const void* lens, void* o, int B, int H, int KH,
-                          int D, int page, int max_pages, int splits,
-                          int walkers, void* stream) {
-  if ((H / KH) * D > 2048 || splits < 1 || splits > MAX_SPLITS ||
-      walkers < 1 || walkers > WARPS ||
+                          int groups, int D, int page, int max_pages,
+                          int splits, int walkers, void* stream) {
+  if (KH < 1 || groups < 1 || H % (KH * groups) ||
+      (H / (KH * groups)) * D > 2048 || splits < 1 ||
+      splits > MAX_SPLITS || walkers < 1 || walkers > WARPS ||
       (page != 8 && page != 16 && page != 32))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   auto tb = static_cast<const int*>(table);
   auto ln = static_cast<const int*>(lens);
   if (dtype == 0)
-    return launch_t<float>(q, kp, vp, tb, ln, o, B, H, KH, D, page,
+    return launch_t<float>(q, kp, vp, tb, ln, o, B, H, KH, groups, D, page,
                            max_pages, splits, walkers, st);
   if (dtype == 1)
-    return launch_t<__nv_bfloat16>(q, kp, vp, tb, ln, o, B, H, KH, D, page,
-                                   max_pages, splits, walkers, st);
+    return launch_t<__nv_bfloat16>(q, kp, vp, tb, ln, o, B, H, KH, groups,
+                                   D, page, max_pages, splits, walkers, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

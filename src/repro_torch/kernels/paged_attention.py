@@ -31,6 +31,16 @@ What the design does about it:
   through shared and distributed shared memory: one launch, no
   workspace, no atomics, the same bits on every run.
 
+- A CTA holds its heads' G·D query values and fp32 state in registers
+  and shared memory, at most ``MAX_GROUP_ELEMS`` (2,048) of them.  Where
+  G·D is larger (granite-20b's MQA: 48 heads of 128 over one KV head,
+  6,144), ``head_groups`` splits the G query heads of a KV head into
+  equal groups of at most 2,048 values, and each group gets its own CTAs
+  (grid y = KH · groups) in the same launch.  Each group walks its KV
+  head's pages again: under MQA a token's K and V are 512 B, so three
+  groups read 1 KB more a token, mostly from L2.  Shapes with G·D <=
+  2,048 take one group and launch as before.
+
 What still bounds it: a fixed cost of about 7 µs per launch (the
 cluster launch, its barriers and merge, and two dependent round trips to
 device memory: the length and table row, then the first pages — the
@@ -49,37 +59,60 @@ from repro_torch.kernels import _build
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 128)
 PAGE_SIZES = (8, 16, 32)
-MAX_GROUP_ELEMS = 2048      # (H / KH) * D: 32 fp32 pairs per lane
+MAX_GROUP_ELEMS = 2048      # a CTA's heads x D: 32 fp32 pairs per lane
 MAX_SMEM_BYTES = 227 * 1024
 SMS = 132                   # H100 SXM streaming multiprocessors
 MAX_SPLITS = 8              # portable thread-block cluster size
 WARPS = 4                   # warps per CTA, each walking its own pages
 _VP, _I32 = ctypes.c_void_p, ctypes.c_int
 _ARGS = [_I32, _VP, _VP, _VP, _VP, _VP, _VP, _I32, _I32, _I32, _I32, _I32,
-         _I32, _I32, _I32, _VP]
+         _I32, _I32, _I32, _I32, _VP]
 
 
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
+def head_groups(G: int, D: int) -> int:
+    """How many groups of CTAs share the G query heads of a KV head: one
+    while G·D <= ``MAX_GROUP_ELEMS``, else the fewest count of at least
+    ⌈G·D / MAX_GROUP_ELEMS⌉ that divides G (3 groups of 16 heads at G
+    48, D 128)."""
+    n = _cdiv(G * D, MAX_GROUP_ELEMS)
+    while G % n:
+        n += 1
+    return n
+
+
 def plan(B: int, KH: int, max_pages: int) -> int:
-    """How many CTAs (one cluster) share each (sequence, KV head)'s pages:
-    the fewest for which the grid B·KH·S covers the card's SMs, at most
+    """How many CTAs (one cluster) share each grid row's pages: the
+    fewest for which the grid B·KH·S covers the card's SMs, at most
     ``MAX_SPLITS`` and at most half the table's width (so a full table
-    gives every CTA at least two pages).  Reads only the table's width,
-    never ``lens``, which lives on the device."""
+    gives every CTA at least two pages).  ``KH`` counts the grid's rows
+    per sequence, KV heads times ``head_groups``: take both from
+    ``launch_plan``.  Reads only the table's width, never ``lens``,
+    which lives on the device."""
     return max(1, min(MAX_SPLITS, _cdiv(max_pages, 2),
                       _cdiv(SMS, max(B * KH, 1))))
 
 
+def launch_plan(B: int, H: int, KH: int, D: int,
+                max_pages: int) -> tuple[int, int]:
+    """The launch's ``(groups, splits)`` for B sequences of H query heads
+    of D over KH KV heads: the ``head_groups`` of a KV head's H / KH
+    query heads, and the ``plan`` of the B · KH · groups grid rows."""
+    groups = head_groups(H // KH, D)
+    return groups, plan(B, KH * groups, max_pages)
+
+
 def smem_bytes(G: int, D: int, page: int, max_pages: int, walkers: int,
                esz: int) -> int:
-    """The kernel's dynamic shared memory, as ``layout`` in the source
-    computes it: fp32 scratch (q, each warp's p and (m, l), the CTA's
-    state, the merge weights), the sequence's table row, then the walking
-    warps' two-slot K/V rings of rows padded by 16 bytes, which the
-    warps' fp32 partial states take over after the page loop."""
+    """The kernel's dynamic shared memory for a CTA of G query heads (a
+    head group's), as ``layout`` in the source computes it: fp32 scratch
+    (q, each warp's p and (m, l), the CTA's state, the merge weights),
+    the sequence's table row, then the walking warps' two-slot K/V rings
+    of rows padded by 16 bytes, which the warps' fp32 partial states take
+    over after the page loop."""
     words = (2 * G * D + WARPS * G * page + 3 * WARPS * G + 3 * G
              + MAX_SPLITS * G + max_pages)
     ring = walkers * 2 * 2 * page * (D * esz + 16)
@@ -122,11 +155,9 @@ def paged_cuda(q, k_pages, v_pages, table, lens) -> torch.Tensor:
         raise ValueError("paged_cuda needs contiguous operands")
     if k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
         raise ValueError("paged_cuda: cp.async needs 16-byte aligned pools")
-    G = H // KH
-    if G * D > MAX_GROUP_ELEMS:
-        raise ValueError(f"paged: G*D = {G * D} > {MAX_GROUP_ELEMS}")
     max_pages = table.shape[1]
-    splits = plan(B, KH, max_pages)
+    groups, splits = launch_plan(B, H, KH, D, max_pages)
+    G = H // (KH * groups)                  # query heads per CTA
     esz = q.element_size()
     n_walk = walkers(G, D, page, max_pages, esz)
     smem = smem_bytes(G, D, page, max_pages, n_walk, esz)
@@ -139,7 +170,7 @@ def paged_cuda(q, k_pages, v_pages, table, lens) -> torch.Tensor:
     code = _build.function("paged_attention", "pa_forward", _ARGS)(
         _DTYPES[q.dtype], _build.ptr(q), _build.ptr(k_pages),
         _build.ptr(v_pages), _build.ptr(table), _build.ptr(lens),
-        _build.ptr(out), B, H, KH, D, page, max_pages, splits, n_walk,
-        _build.stream(q.device))
+        _build.ptr(out), B, H, KH, groups, D, page, max_pages, splits,
+        n_walk, _build.stream(q.device))
     _build.check(code, "paged_attention")
     return out

@@ -13,7 +13,12 @@ reports the device time of each from ``torch.profiler`` (the mean over
 ``plan`` picks and the device time of the library call (``torch.matmul``,
 SDPA) on the same inputs; for paged attention, where no library call
 reads a page table, SDPA over the same K/V gathered into a contiguous
-cache with a length mask.  The expert-grouped GEMM runs at
+cache with a length mask.  granite-20b's shapes are swept beside them:
+its GEMM widths (d 6,144: q/o 6,144 x 6,144, k/v 6,144 x 128, the
+non-gated MLP 6,144 x 24,576 and back, the lm_head 6,144 x 49,152 at
+decode) and its paged decode attention (48 query heads of 128 over one
+KV head, 3 query-head groups) at 8 x 272 tokens and a ragged mix up to
+1,024.  The expert-grouped GEMM runs at
 qwen2-moe-a2.7b's gate/up (2,048 -> 1,408) and down (1,408 -> 2,048)
 products over 60 experts, at decode (C = 8, 8 tokens routed top-4) and
 prefill (C = 512, 512 tokens), each at every bn and split, beside
@@ -41,6 +46,8 @@ SG = importlib.import_module("repro_torch.kernels.streaming_gemm")
 FA = importlib.import_module("repro_torch.kernels.flash_attention")
 PA = importlib.import_module("repro_torch.kernels.paged_attention")
 GEMM_KN = ((896, 896), (896, 128), (896, 4864), (4864, 896), (896, 152064))
+GRANITE_KN = ((6144, 6144), (6144, 128), (6144, 24576), (24576, 6144),
+              (6144, 49152))
 
 
 def _device_ms(fn, flush, reps):
@@ -139,30 +146,30 @@ def main(argv=None):
 
 def _sweep_gemm(result, randn, dms, main_fn):
     embed = randn(152064, 896, scale=0.02)
-    for M in (8, 256):
-        for K, N in GEMM_KN:
-            if M == 256 and N == 152064:
-                continue                    # not on the main path
-            a = randn(M, K)
-            b = embed.t() if N == 152064 else randn(K, N, scale=K ** -0.5)
-            want = ref.gemm_ref(a, b).float()
-            times = {}
-            for plan in _gemm_plans(M, K):
-                err = (_launch(main_fn, a, b, plan).float() - want).abs().max()
-                if err.item() > 2e-2 + 2e-2 * want.abs().max().item():
-                    raise AssertionError(f"gemm {M}x{K}x{N} {plan}: {err}")
-                t = dms(lambda: _launch(main_fn, a, b, plan))
-                if t > 0:         # a window the profiler dropped reads 0
-                    times[plan] = t
-            ranked = sorted(times, key=times.get)
-            row = {"shape": [M, K, N], "plan": list(SG.plan(M, N, K)),
-                   "plan_ms": times.get(SG.plan(M, N, K)),
-                   "best": [[list(p), times[p]] for p in ranked[:6]],
-                   "all": [[list(p), times[p]] for p in ranked],
-                   "library_ms": dms(lambda: torch.matmul(a, b))}
-            result["gemm"].append(row)
-            print("[gemm] " + json.dumps({k: v for k, v in row.items()
-                                          if k != "all"}), flush=True)
+    for M, K, N in [(M, K, N) for kn in (GEMM_KN, GRANITE_KN)
+                    for M in (8, 256) for K, N in kn]:
+        if M == 256 and N in (152064, 49152):
+            continue                    # the lm_head runs at decode only
+        a = randn(M, K)
+        b = embed.t() if N == 152064 else randn(K, N, scale=K ** -0.5)
+        want = ref.gemm_ref(a, b).float()
+        times = {}
+        for plan in _gemm_plans(M, K):
+            err = (_launch(main_fn, a, b, plan).float() - want).abs().max()
+            if err.item() > 2e-2 + 2e-2 * want.abs().max().item():
+                raise AssertionError(f"gemm {M}x{K}x{N} {plan}: {err}")
+            t = dms(lambda: _launch(main_fn, a, b, plan))
+            if t > 0:         # a window the profiler dropped reads 0
+                times[plan] = t
+        ranked = sorted(times, key=times.get)
+        row = {"shape": [M, K, N], "plan": list(SG.plan(M, N, K)),
+               "plan_ms": times.get(SG.plan(M, N, K)),
+               "best": [[list(p), times[p]] for p in ranked[:6]],
+               "all": [[list(p), times[p]] for p in ranked],
+               "library_ms": dms(lambda: torch.matmul(a, b))}
+        result["gemm"].append(row)
+        print("[gemm] " + json.dumps({k: v for k, v in row.items()
+                                      if k != "all"}), flush=True)
 
 
 def _sweep_grouped(result, randn, dms, g, dev):
@@ -237,10 +244,18 @@ def _sweep_flash(result, randn, dms, F):
 
 
 def _sweep_paged(result, randn, dms, F, g, dev):
-    """Every cluster size S = 1..8 at ``chip_smoke.py``'s paged shapes
-    (the ragged mix is a draw of its own: lengths 1-1,024, the first
-    1,024)."""
-    B, H, KH, D, page, mp = 8, 14, 2, 64, 16, 64
+    """Every cluster size S = 1..8 at ``chip_smoke.py``'s paged shapes,
+    qwen2-0.5b's (14 / 2 heads of 64) and granite-20b's (48 / 1 heads of
+    128, 3 query-head groups), beside one group's work alone (16 / 1
+    heads of 128: what the second and third groups' CTAs and page reads
+    add); each ragged mix is a draw of its own: lengths 1-1,024, the
+    first 1,024."""
+    for H, KH, D in ((14, 2, 64), (48, 1, 128), (16, 1, 128)):
+        _sweep_paged_heads(result, randn, dms, F, g, dev, H, KH, D)
+
+
+def _sweep_paged_heads(result, randn, dms, F, g, dev, H, KH, D):
+    B, page, mp = 8, 16, 64
     P = B * mp + 16
     mixed = torch.randint(1, 1025, (B,), generator=g, device=dev)
     mixed[0] = 1024
@@ -254,7 +269,7 @@ def _sweep_paged(result, randn, dms, F, g, dev):
         ln = torch.tensor(lens, dtype=torch.int32, device=dev)
         qq, tt = q[:n].contiguous(), table[:n].contiguous()
         want = ref.paged_ref(qq, kp, vp, tt, ln).float()
-        chosen = PA.plan(n, KH, mp)
+        groups, chosen = PA.launch_plan(n, H, KH, D, mp)
         times, plan = {}, PA.plan
         try:
             for s in range(1, PA.MAX_SPLITS + 1):
@@ -274,7 +289,8 @@ def _sweep_paged(result, randn, dms, F, g, dev):
             .contiguous()
         mask = (torch.arange(mp * page, device=dev)[None]
                 < ln[:, None])[:, None, None, :]
-        row = {"what": what, "b": n, "lens": lens, "plan": chosen,
+        row = {"what": what, "heads": [H, KH, D], "groups": groups,
+               "b": n, "lens": lens, "plan": chosen,
                "plan_ms": times.get(chosen), "splits_ms": times,
                "contiguous_sdpa_ms": dms(
                    lambda: F.scaled_dot_product_attention(

@@ -1,5 +1,5 @@
-"""Prefill + single-token decode over the paged KV cache, dense and MoE
-branches.
+"""Prefill + single-token decode over the paged KV cache, dense, vlm and
+MoE branches.
 
 The reference keeps a contiguous (L, B, S, KH, hd) cache; the port
 keeps the paged pools of ``serving.kv_cache.PagedKVCache`` (one table
@@ -23,13 +23,24 @@ from repro_torch.models import moe as MOE
 from repro_torch.models import transformer as T
 
 
-def prefill(params, cfg: ModelConfig, tokens, cache, slots):
+def prefill(params, cfg: ModelConfig, tokens, cache, slots, *,
+            embeddings=None):
     """tokens: (B, T) prompt ids, one row per cache slot in ``slots``
-    (allocated with ``alloc_seq``).  Writes every layer's K/V into the
-    slots' pages, sets their lengths to T and returns the last-token
-    logits (B, padded_vocab)."""
-    B, Tq = tokens.shape
-    x = T.embed_tokens(params, cfg, tokens)
+    (allocated with ``alloc_seq``); or, for a config with
+    ``embedding_inputs`` (vlm), ``embeddings`` (B, T, d) in their place,
+    precomputed patch embeddings cast to bf16 (``tokens`` None).  Writes
+    every layer's K/V into the slots' pages, sets their lengths to T
+    and returns the last-token logits (B, padded_vocab)."""
+    if (tokens is None) == (embeddings is None):
+        raise ValueError("prefill takes token ids or embeddings, "
+                         "exactly one of the two")
+    if embeddings is not None:
+        if not cfg.embedding_inputs:
+            raise ValueError(f"{cfg.name} takes token ids, not embeddings")
+        x = embeddings.to(torch.bfloat16)
+    else:
+        x = T.embed_tokens(params, cfg, tokens)
+    B, Tq = x.shape[:2]
     positions = torch.arange(Tq, device=x.device).expand(B, Tq)
     rows = cache.prompt_index(slots, Tq)                  # (B, T)
     for layer, (lp, is_moe) in enumerate(T.layer_stack(params, cfg)):

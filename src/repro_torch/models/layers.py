@@ -4,8 +4,8 @@ MLP.
 Every projection and MLP GEMM goes through ``ops.streaming_gemm``;
 prefill attention goes through ``ops.flash_attention`` and decode
 attention through ``ops.paged_attention`` over the paged KV pool.  The
-bias, residual adds, norms, RoPE, SiLU and the KV scatter stay plain
-torch ops, as they were plain XLA in the reference.
+biases, residual adds, norms, RoPE, the activation and the KV scatter
+stay plain torch ops, as they were plain XLA in the reference.
 
 The dtype flow follows the reference: activations are bf16, norms and
 RoPE compute in fp32 and cast back, GEMMs accumulate in fp32 and return
@@ -140,16 +140,24 @@ def decode_attention(q, k_cache, v_cache, cache_len):
 
 # ---------------------------------------------------------------- MLP
 def mlp_pspecs(cfg: ModelConfig, d_ff: Optional[int] = None):
+    """The gated (``wi_gate``, ``wi_up``) or plain (``wi``, ``bi``,
+    ``bo``) MLP, leaves in the reference's order."""
     d, f = cfg.d_model, d_ff or cfg.d_ff
-    if not cfg.glu:
-        raise NotImplementedError("non-gated MLP is not ported yet")
-    return {"wo": PSpec((f, d), ("mlp", "embed")),
-            "wi_gate": PSpec((d, f), ("embed", "mlp")),
-            "wi_up": PSpec((d, f), ("embed", "mlp"))}
+    p = {"wo": PSpec((f, d), ("mlp", "embed"))}
+    if cfg.glu:
+        p["wi_gate"] = PSpec((d, f), ("embed", "mlp"))
+        p["wi_up"] = PSpec((d, f), ("embed", "mlp"))
+    else:
+        p["wi"] = PSpec((d, f), ("embed", "mlp"))
+        p["bi"] = PSpec((f,), ("mlp",), "zeros")
+        p["bo"] = PSpec((d,), ("embed_act",), "zeros")
+    return p
 
 
 def apply_act(x, cfg: ModelConfig):
-    return F.silu(x) if cfg.act == "silu" else F.gelu(x)
+    # jax.nn.gelu, the reference's GELU, defaults to the tanh form
+    return F.silu(x) if cfg.act == "silu" \
+        else F.gelu(x, approximate="tanh")
 
 
 def _gemm(x, w):
@@ -160,8 +168,11 @@ def _gemm(x, w):
 
 
 def apply_mlp(p, x, cfg: ModelConfig):
-    h = apply_act(_gemm(x, p["wi_gate"]), cfg) * _gemm(x, p["wi_up"])
-    return _gemm(h, p["wo"])
+    if cfg.glu:
+        h = apply_act(_gemm(x, p["wi_gate"]), cfg) * _gemm(x, p["wi_up"])
+        return _gemm(h, p["wo"])
+    h = apply_act(_gemm(x, p["wi"]) + p["bi"], cfg)
+    return _gemm(h, p["wo"]) + p["bo"]
 
 
 # ------------------------------------------------------- GQA attention

@@ -1,9 +1,9 @@
-"""Unified model API used by the server: dense and MoE decoders.
+"""Unified model API used by the server: dense, vlm and MoE decoders.
 
 ``Model(cfg, device=...)`` exposes:
     init(generator) -> params
     init_cache(slots, max_seq, page_tokens, n_pages) -> PagedKVCache
-    prefill(params, tokens, cache, slots) -> logits
+    prefill(params, tokens, cache, slots, embeddings=None) -> logits
     decode_step(params, cache, tokens, slots) -> logits
 
 The device defaults to ``"cuda"``; without a card the constructor
@@ -50,8 +50,12 @@ class Model:
                 max_pages_per_seq=pages_per_seq),
             max_seqs=slots, n_layers=cfg.n_layers, device=self.device)
 
-    def prefill(self, params, tokens, cache: PagedKVCache, slots):
-        return D.prefill(params, self.cfg, tokens, cache, slots)
+    def prefill(self, params, tokens, cache: PagedKVCache, slots, *,
+                embeddings=None):
+        """Token ids (B, T), or ``tokens=None`` and (B, T, d)
+        ``embeddings`` for a vlm config; decode takes token ids."""
+        return D.prefill(params, self.cfg, tokens, cache, slots,
+                         embeddings=embeddings)
 
     def decode_step(self, params, cache: PagedKVCache, tokens, slots):
         return D.decode_step(params, self.cfg, cache, tokens, slots)

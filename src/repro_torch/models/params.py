@@ -85,7 +85,7 @@ def from_reference(params_np, cfg) -> dict:
     an MoE model's ``dense_layers``) is split into a list of per-layer
     trees; every leaf keeps its dtype and per-layer shape (an expert
     leaf stays (E, d, f), the router (d, E))."""
-    if cfg.family not in ("dense", "moe"):
+    if cfg.family not in ("dense", "vlm", "moe"):
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet")
 

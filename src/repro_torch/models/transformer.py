@@ -1,5 +1,7 @@
-"""Model assembly, dense and MoE branches: parameter tree, embedding,
-the dense and MoE decoder layers and the lm_head (tied or not).
+"""Model assembly, dense, vlm and MoE branches: parameter tree,
+embedding, the dense and MoE decoder layers and the lm_head (tied or
+not).  A vlm model is the dense decoder; only its prefill input differs
+(precomputed embeddings, ``decoding.prefill``).
 
 The reference scans a stacked layer tree with ``lax.scan``; the port
 loops over a list of per-layer trees.  An MoE model may start with
@@ -28,7 +30,7 @@ def moe_layer_pspecs(cfg: ModelConfig):
 
 
 def lm_pspecs(cfg: ModelConfig):
-    if cfg.family not in ("dense", "moe"):
+    if cfg.family not in ("dense", "vlm", "moe"):
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet")
     d, V = cfg.d_model, cfg.padded_vocab
@@ -36,7 +38,7 @@ def lm_pspecs(cfg: ModelConfig):
     if not cfg.tie_embeddings:
         p["lm_head"] = PSpec((d, V), ("embed", "vocab"))
     p["final_norm"] = L.norm_pspec(cfg)
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "vlm"):
         p["layers"] = stack(dense_layer_pspecs(cfg), cfg.n_layers)
         return p
     nd = cfg.moe.first_dense_layers

@@ -12,7 +12,9 @@ own cases: the split-K GEMM at decode widths (M in {1, 5, 8, 16}), N =
 ``embed.T``, bitwise-equal repeated runs and one launch per call; the
 tensor-core flash kernel at ragged Tq/Tk, D in {16, 128} and G = 7; the
 cluster-split paged kernel at every split S = 1..8 with edge lengths,
-at the main path's shape, bitwise repeatable and one launch per call.
+at the main path's shape, bitwise repeatable and one launch per call;
+the same for its query-head groups at granite-20b's G·D = 6,144 (48
+heads of 128 over one KV head, 3 groups) and at 2 KV heads of 2 groups.
 The expert-grouped GEMM of the MoE layers at qwen2-moe-a2.7b's decode
 and prefill shapes and at ragged ones (N and K off the tiles), with
 counts of 0, C and mid-tile, bitwise repeatable and one launch per call.
@@ -310,8 +312,63 @@ def test_cuda_paged_shared_memory_estimate_matches_the_kernel():
     fn = _build.function("paged_attention", "pa_smem_bytes",
                          [ctypes.c_int] * 6)
     for case in ((7, 64, 16, 64, 4, 2), (16, 128, 32, 6, 2, 4),
-                 (128, 16, 8, 1000, 4, 2)):
+                 (128, 16, 8, 1000, 4, 2),
+                 # a granite head group (16 of 48 heads of 128)
+                 (16, 128, 16, 64, 4, 2), (16, 128, 16, 64, 4, 4),
+                 (16, 128, 32, 64, 2, 4), (16, 128, 16, 4096, 4, 2)):
         assert fn(*case) == PA.smem_bytes(*case)
+
+
+# (H, KH, D, page, max_pages): granite-20b's MQA (48 query heads of 128
+# over one KV head: 3 groups of 16), and 2 KV heads of 32 heads of 128
+# (2 groups each, G·D 4,096) at 8-token pages
+PAGED_GROUP_SHAPES = [(48, 1, 128, 16, 6), (64, 2, 128, 8, 5)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("splits", range(1, 9))
+def test_cuda_paged_head_groups_every_split_at_edge_lengths(splits, dtype,
+                                                           monkeypatch):
+    """G·D > 2,048 through the query-head groups, every cluster size S =
+    1..8 forced through ``plan``, lengths 0, 1, page - 1, page, page + 1
+    and the full table; fp32 within 3e-5, bf16 within 2e-2."""
+    dev = _card()
+    monkeypatch.setattr(PA, "plan", lambda *_: splits)
+    dt = getattr(torch, dtype)
+    tol = 3e-5 if dtype == "float32" else 2e-2
+    for shape in PAGED_GROUP_SHAPES:
+        h, kh, d, page, mp = shape
+        assert PA.head_groups(h // kh, d) > 1
+        lens = [0, 1, page - 1, page, page + 1, page * mp]
+        args = _paged_card(shape, lens, dt, dev, seed=splits)
+        got = ops.paged_attention(*args)
+        want = ref.paged_ref(*args)
+        np.testing.assert_allclose(got.cpu().float().numpy(),
+                                   want.cpu().float().numpy(), rtol=tol,
+                                   atol=tol, err_msg=str(shape))
+        assert not got[0].float().abs().max().item()
+
+
+@pytest.mark.cuda
+def test_cuda_paged_head_groups_deterministic_and_one_launch():
+    """granite's decode shape (8 sequences, 48 / 1 heads of 128, 16-token
+    pages, a 64-page table) at the plan the wrapper picks: within 2e-2
+    of the plain version, the same bits on every run, and one kernel
+    launch per call whatever the group count (the groups share one
+    grid)."""
+    dev = _card()
+    assert PA.launch_plan(8, 48, 1, 128, 64) == (3, 6)
+    args = _paged_card((48, 1, 128, 16, 64), [1024, 700, 272, 1, 0, 16, 17,
+                                              555], torch.bfloat16, dev)
+    first = ops.paged_attention(*args)
+    np.testing.assert_allclose(first.cpu().float().numpy(),
+                               ref.paged_ref(*args).cpu().float().numpy(),
+                               rtol=2e-2, atol=2e-2)
+    for _ in range(5):
+        assert torch.equal(ops.paged_attention(*args), first)
+    names = _device_kernels(lambda: ops.paged_attention(*args))
+    assert len([n for n in names if "paged_fwd" in n]) == 3, names
 
 
 # ----------------------------------------------- expert-grouped GEMM

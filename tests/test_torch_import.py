@@ -27,7 +27,10 @@ def test_port_imports_no_jax():
     mods = _port_modules()
     assert "repro_torch.kernels.ops" in mods and len(mods) >= 15
     assert {"repro_torch.models.moe",
-            "repro_torch.configs.qwen2_moe_a2_7b"} <= set(mods)
+            "repro_torch.configs.qwen2_moe_a2_7b",
+            "repro_torch.configs.internvl2_2b",
+            "repro_torch.configs.chatglm3_6b",
+            "repro_torch.configs.granite_20b"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

@@ -1,5 +1,8 @@
-"""The port's dense model against the reference on qwen2-0.5b-reduced,
-with the reference's bf16 weights bridged into the port.
+"""The port's dense and vlm models against the reference on the reduced
+qwen2-0.5b, chatglm3-6b (2-D RoPE), granite-20b (layernorm, non-gated
+GELU MLP, MQA) and internvl2-2b (tokens here; embeddings in
+``test_torch_dense_variants.py``), with the reference's bf16 weights
+bridged into the port.
 
 Both run in bf16 with the same dtype flow (the reference cannot serve
 with fp32 weights: its bf16 activations meet them inside ``lax.scan``).
@@ -7,10 +10,13 @@ The port runs on the CPU, where the kernel wrappers take their plain
 versions, and decodes through the paged cache; the reference decodes
 its contiguous cache with XLA attention.
 
-Tolerance: |Δlogit| <= 1e-2 at logits of size <= 0.5.  The gap is bf16
-rounding at different places: GEMM outputs rounded after fp32 sums in
-another order, and decode probabilities that the reference rounds to
-bf16 before PV while the paged path keeps them fp32 (as its Pallas
+Tolerance: |Δlogit| <= max(1e-2, 1.5e-2 · max|logit|).  qwen2's tied
+head keeps its logits under 0.65, where that is the 1e-2 this file has
+always held it to; the untied heads of the other three give logits up
+to 3.  The gap is bf16 rounding at different places, so it grows with
+the values rounded: GEMM outputs rounded after fp32 sums in another
+order, and decode probabilities that the reference rounds to bf16
+before PV while the paged path keeps them fp32 (as its Pallas
 counterpart does).
 """
 import numpy as np
@@ -30,14 +36,16 @@ from repro_torch.models.model import Model  # noqa: E402
 from repro_torch.models.params import from_reference  # noqa: E402
 
 ATOL = 1e-2
+RTOL_MAX = 1.5e-2       # of the largest |logit|
 ARCH = "qwen2_0_5b"
+ARCHS = ["qwen2_0_5b", "chatglm3_6b", "granite_20b", "internvl2_2b"]
 
 
-@pytest.fixture(scope="module")
-def pair():
-    rm = RefModel(ref_reduced(ARCH), remat="none")
+@pytest.fixture(scope="module", params=ARCHS)
+def pair(request):
+    rm = RefModel(ref_reduced(request.param), remat="none")
     rp = rm.init(jax.random.PRNGKey(0))
-    cfg = get_reduced(ARCH)
+    cfg = get_reduced(request.param)
     pp = from_reference(jax.tree.map(np.asarray, rp), cfg)
     return rm, rp, Model(cfg, device="cpu"), pp
 
@@ -45,6 +53,16 @@ def pair():
 def _np(x):
     return x.float().numpy() if isinstance(x, torch.Tensor) \
         else np.asarray(x, np.float32)
+
+
+def logit_tol(logits):
+    return max(ATOL, RTOL_MAX * float(np.abs(_np(logits)).max()))
+
+
+def _close(got, want):
+    want = _np(want)
+    tol = logit_tol(want)
+    np.testing.assert_allclose(_np(got), want, atol=tol, rtol=0)
 
 
 def test_prefill_logits_match_reference(pair):
@@ -58,7 +76,7 @@ def test_prefill_logits_match_reference(pair):
     got = pm.prefill(pp, torch.as_tensor(toks, dtype=torch.int64), cache,
                      [0, 1])
     assert got.dtype == torch.bfloat16
-    np.testing.assert_allclose(_np(got), _np(want), atol=ATOL, rtol=0)
+    _close(got, want)
     assert (_np(got).argmax(-1) == _np(want).argmax(-1)).all()
     assert list(cache.lens[:2]) == [12, 12]
 
@@ -95,13 +113,12 @@ def test_teacher_forced_decode_mixed_lengths_matches_reference(pair):
         cache.alloc_seq(slot, len(p))
         got = pm.prefill(pp, torch.as_tensor(p[None], dtype=torch.int64),
                          cache, [slot])
-        np.testing.assert_allclose(_np(got[0]), _np(rlog[slot]),
-                                   atol=ATOL, rtol=0)
+        _close(got[0], rlog[slot])
     for step in range(4):
         rcache, want = rm.decode_step(rp, rcache, jnp.asarray(forced[step]))
         got = pm.decode_step(pp, cache, torch.as_tensor(
             forced[step], dtype=torch.int64), [0, 1, 2])
-        np.testing.assert_allclose(_np(got), _np(want), atol=ATOL, rtol=0)
+        _close(got, want)
     assert list(cache.lens[:3]) == [9, 13, 18]
     cache.validate()
 
@@ -121,7 +138,7 @@ def test_prefill_then_decode_matches_longer_prefill(pair):
         cache2.alloc_seq(s, 16)
     pm.prefill(pp, toks[:, :-1], cache2, [0, 1])
     dec = pm.decode_step(pp, cache2, toks[:, -1], [0, 1])
-    np.testing.assert_allclose(_np(dec), _np(full), atol=ATOL, rtol=0)
+    _close(dec, full)
 
 
 def test_norm_and_rope_match_reference():

@@ -27,16 +27,25 @@ def _leaves(tree, prefix=""):
         yield prefix, tree
 
 
-@pytest.fixture(scope="module")
-def bridged():
-    cfg = ref_reduced("qwen2_0_5b")
+ARCHS = ["qwen2_0_5b", "chatglm3_6b", "granite_20b", "internvl2_2b"]
+# leaves outside the layers (embed, an untied lm_head, the final norm's
+# scale and a layernorm's bias) and in each layer (norms, q/k/v/o and
+# their biases, the gated or plain MLP)
+N_LEAVES = {"qwen2_0_5b": (2, 12), "chatglm3_6b": (3, 12),
+            "granite_20b": (4, 12), "internvl2_2b": (3, 9)}
+
+
+@pytest.fixture(scope="module", params=ARCHS)
+def bridged(request):
+    cfg = ref_reduced(request.param)
     rp = RefModel(cfg, remat="none").init(jax.random.PRNGKey(0))
     rp_np = jax.tree.map(np.asarray, rp)
-    return rp_np, from_reference(rp_np, get_reduced("qwen2_0_5b"))
+    return request.param, rp_np, from_reference(rp_np,
+                                                get_reduced(request.param))
 
 
 def test_from_reference_equals_reference_leaf_by_leaf(bridged):
-    rp_np, pp = bridged
+    arch, rp_np, pp = bridged
     n = 0
     for path, ref_leaf in _leaves({k: v for k, v in rp_np.items()
                                    if k != "layers"}):
@@ -49,7 +58,8 @@ def test_from_reference_equals_reference_leaf_by_leaf(bridged):
         for path, ref_leaf in _leaves(ref_layer):
             _assert_same(got[path], ref_leaf)
             n += 1
-    assert n == 2 + 2 * 12      # embed, final norm; 12 leaves per layer
+    top, per_layer = N_LEAVES[arch]
+    assert n == top + 2 * per_layer
 
 
 def _assert_same(t, a):
@@ -58,25 +68,28 @@ def _assert_same(t, a):
     np.testing.assert_array_equal(t.float().numpy(), a.astype(np.float32))
 
 
+@pytest.mark.parametrize("arch", ARCHS)
 @pytest.mark.parametrize("reduced", [True, False])
-def test_pspec_tree_matches_reference(reduced):
+def test_pspec_tree_matches_reference(reduced, arch):
     """Same leaves, shapes, init laws and dtypes as the reference tree,
     with the stacked L axis split into a list of layers."""
-    arch = "qwen2_0_5b"
     rcfg = ref_reduced(arch) if reduced else ref_config(arch)
     pcfg = get_reduced(arch) if reduced else get_config(arch)
     rspec = RT.lm_pspecs(rcfg)
     pspec = PT.lm_pspecs(pcfg)
     assert len(pspec["layers"]) == pcfg.n_layers
     rlayer = dict(_leaves(rspec["layers"]))
+    assert sorted(k for k, _ in _leaves(pspec["layers"][0])) == \
+        sorted(rlayer)
+    assert set(pspec) == set(rspec)
     for path, p in _leaves(pspec["layers"][0]):
         r = rlayer[path]
         assert (pcfg.n_layers,) + p.shape == r.shape
         assert (p.init, p.scale, p.dtype) == (r.init, r.scale, r.dtype)
         assert p.shape[p.fan_axis] == r.shape[r.fan_axis]
-    for key in ("embed", "final_norm"):
+    for key in set(rspec) - {"layers"}:
         for (path, p), (_, r) in zip(_leaves(pspec[key]),
-                                     _leaves(rspec[key])):
+                                     _leaves(rspec[key]), strict=True):
             assert (p.shape, p.init, p.scale, p.dtype) == \
                 (r.shape, r.init, r.scale, r.dtype), path
 

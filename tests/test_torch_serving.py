@@ -1,4 +1,6 @@
 """The port's serving engine and paged cache against the reference."""
+import functools
+
 import numpy as np
 import pytest
 
@@ -23,14 +25,20 @@ COMPILED_COLS = ("trace_ids", "trace_nbytes", "trace_is_out", "in_lane",
                  "seg_trace")
 
 ARCH = "qwen2_0_5b"
+ARCHS = ["qwen2_0_5b", "chatglm3_6b", "granite_20b", "internvl2_2b"]
+
+
+@functools.lru_cache(maxsize=None)
+def _weights(arch):
+    rp = RefModel(ref_reduced(arch), remat="none").init(
+        jax.random.PRNGKey(0))
+    return rp, from_reference(jax.tree.map(np.asarray, rp),
+                              get_reduced(arch))
 
 
 @pytest.fixture(scope="module")
 def weights():
-    rp = RefModel(ref_reduced(ARCH), remat="none").init(
-        jax.random.PRNGKey(0))
-    return rp, from_reference(jax.tree.map(np.asarray, rp),
-                              get_reduced(ARCH))
+    return _weights(ARCH)
 
 
 def _requests(n, rng, cls):
@@ -42,21 +50,86 @@ def _requests(n, rng, cls):
                 max_new_tokens=5) for i in range(n)]
 
 
+def _bf16_ulp(*xs):
+    """One bf16 ulp at the largest magnitude of ``xs``."""
+    m = max(abs(float(x)) for x in xs)
+    return torch.finfo(torch.bfloat16).eps * 2.0 ** np.floor(np.log2(m)) \
+        if m > 0 else 0.0
+
+
+def _port_logits(arch, pp, prompt, toks):
+    """The port's logits for the token after ``prompt + toks[:i]``, for
+    i = 0 .. len(toks): the prompt's prefill, then ``toks`` decoded
+    token by token."""
+    m = Model(get_reduced(arch), device="cpu")
+    cache = m.init_cache(1, 64)
+    cache.alloc_seq(0, len(prompt))
+    out = [m.prefill(pp, torch.as_tensor(prompt[None], dtype=torch.int64),
+                     cache, [0])[0].float()]
+    for t in toks:
+        out.append(m.decode_step(pp, cache, torch.tensor([int(t)]),
+                                 [0])[0].float())
+    return out
+
+
+def _ref_picks(arch, rp, prompt, toks):
+    """The reference's greedy pick after ``prompt + toks[:i]``, for
+    i = 0 .. len(toks), teacher-forced on ``toks``."""
+    rm = RefModel(ref_reduced(arch), remat="none")
+    cache, lg = rm.prefill(rp, {"tokens": jnp.asarray(prompt[None])}, 64)
+    picks = [int(np.asarray(lg[0], np.float32).argmax())]
+    for t in toks:
+        cache, lg = rm.decode_step(rp, cache, jnp.asarray([int(t)]))
+        picks.append(int(np.asarray(lg[0], np.float32).argmax()))
+    return picks
+
+
+def _assert_tie(lg, got, want, where):
+    """``got`` (the port's pick on its own logits ``lg``) and ``want``
+    lie within one bf16 ulp of each other."""
+    a, b = lg[got].item(), lg[want].item()
+    assert 0 <= a - b <= _bf16_ulp(a, b), (where, got, want, a, b)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
 @pytest.mark.parametrize("slots", [1, 3])
-def test_greedy_tokens_match_reference_engine(weights, slots):
-    rp, pp = weights
-    ref_eng = RefEngine(ref_reduced(ARCH), rp, slots=slots, max_seq=64)
+def test_greedy_tokens_match_reference_engine(slots, arch):
+    """Every request's tokens equal the reference engine's; qwen2's
+    exactly, as they always have.  The other three may leave the
+    reference only at an exact tie: the two picks within one bf16 ulp
+    of each other on the port's own logits (the reduced granite's
+    logits of ~2 tie in bf16, and argmax then takes the lower id on the
+    port's side).  Every token before such a tie equals the
+    reference's, and every token after it is the reference's greedy
+    pick teacher-forced on the port's own tokens, up to the same kind
+    of tie."""
+    rp, pp = _weights(arch)
+    ref_eng = RefEngine(ref_reduced(arch), rp, slots=slots, max_seq=64)
     ref_reqs = _requests(5, np.random.default_rng(7), RefRequest)
     for r in ref_reqs:
         ref_eng.submit(r)
     ref_eng.run_until_drained()
-    eng = ServingEngine(get_reduced(ARCH), pp, slots=slots, max_seq=64,
+    eng = ServingEngine(get_reduced(arch), pp, slots=slots, max_seq=64,
                         device="cpu")
     reqs = _requests(5, np.random.default_rng(7), Request)
     for r in reqs:
         eng.submit(r)
     stats = eng.run_until_drained()
-    assert [r.output for r in reqs] == [r.output for r in ref_reqs]
+    if arch == ARCH:
+        assert [r.output for r in reqs] == [r.output for r in ref_reqs]
+    for r, want in zip(reqs, ref_reqs):
+        assert len(r.output) == len(want.output) == 5
+        j = next((i for i, (a, b) in enumerate(zip(r.output, want.output))
+                  if a != b), None)
+        if j is None:
+            continue
+        assert r.output[:j] == want.output[:j]
+        lg = _port_logits(arch, pp, r.prompt, r.output[:-1])
+        _assert_tie(lg[j], r.output[j], want.output[j], (r.uid, j))
+        ref = _ref_picks(arch, rp, r.prompt, r.output[:-1])
+        for i in range(j + 1, len(r.output)):
+            if r.output[i] != ref[i]:
+                _assert_tie(lg[i], r.output[i], ref[i], (r.uid, i))
     assert stats.drained and stats.prefills == 5
     assert stats.tokens_out == sum(len(r.output) for r in reqs)
     eng.cache.validate()
