@@ -74,23 +74,39 @@ Phases, in order; any failure raises and exits non-zero:
    at least 0.97 of them equal, and the logits within E2E_TOL x
    max(1, max|logit|) at the positions routed alike in every layer.
 8. The dense variants, after the MoE weights are freed: internvl2-2b
-   (vlm; 3.78 GB), chatglm3-6b (2-D RoPE, 32 / 2 heads of 128; 12.49 GB)
-   and granite-20b (layernorm, non-gated GELU MLP, MQA 48 / 1 heads of
-   128: the paged kernel in 3 query-head groups; 40.63 GB) in turn, each
-   at full width and depth with random bf16 weights from ``--seed`` and
-   freed before the next.  (a) Each kernel at the arch's shapes, kept as
-   each row's ``<arch>_path``: the GEMM at M = 8 and 256 over layer 0's
-   q/k/v/o and MLP weights and the untied lm_head at M = 8, flash at 256
-   tokens, paged at 8 x 272 and a ragged mix up to 1,024, and an edge
-   case (lens 0, 1, a page boundary, the full table) at the arch's group
-   count.  (b) Serving as in phase 3 with 8 requests of 64-256 prompt
-   tokens and 8 new tokens; all three wrappers must run.  (c) Three
-   full-batch decode steps profiled as in phase 4.  (d) The first two
-   layers, a 64-token prefill and 4 decode steps on the card and on the
-   CPU, logits within E2E_TOL x max(1, max|logit|); internvl2-2b also
-   prefills from 256 seeded bf16 embeddings of width 2,048 on both.
-   Each sub-phase's seconds are printed.
-9. Print the ``kernels`` JSON line (each kernel's launches from its own
+   (vlm; 3.78 GB), chatglm3-6b (2-D RoPE, 32 / 2 heads of 128; 12.49 GB),
+   granite-20b (layernorm, non-gated GELU MLP, MQA 48 / 1 heads of
+   128: the paged kernel in 3 query-head groups; 40.63 GB) and
+   qwen1.5-32b (64 layers, d 5,120, 40 / 40 heads of 128; 70.39 GB) in
+   turn, each at full width and depth with random bf16 weights from
+   ``--seed`` and freed before the next.  (a) Each kernel at the arch's
+   shapes, kept as each row's ``<arch>_path``: the GEMM at M = 8 and 256
+   over layer 0's q/k/v/o and MLP weights and the untied lm_head at M =
+   8, flash at 256 tokens, paged at 8 x 272 and a ragged mix up to
+   1,024, and an edge case (lens 0, 1, a page boundary, the full table)
+   at the arch's group count.  (b) Serving as in phase 3 with 8 requests
+   of 64-256 prompt tokens and 8 new tokens, over a KV pool sized from
+   the memory the card has left beside the weights (less a stated
+   margin, at most 8 x 1,024 tokens; printed); all three wrappers must
+   run.  (c) Three full-batch decode steps profiled as in phase 4.  (d)
+   The first two layers, a 64-token prefill and 4 decode steps on the
+   card and on the CPU, logits within E2E_TOL x max(1, max|logit|);
+   internvl2-2b also prefills from 256 seeded bf16 embeddings of width
+   2,048 on both.  Each sub-phase's seconds are printed.
+9. whisper-tiny (encoder-decoder: 4 + 4 layers, d 384, 6 / 6 heads of
+   64; random bf16 weights from ``--seed``) through ``Model`` at full
+   width and depth.  (a) Each kernel at its shapes, kept as each row's
+   ``whisper-tiny_path``: the GEMM at the encoder's M = 12,000 and the
+   decoder's M = 8 and the lm_head, flash non-causal over 1,500 frames
+   (self-attention, and the 4-token prompt's cross-attention), paged
+   attention over the 94-page cross table and the self table.  (b) A
+   batched greedy loop: 8 clips of 1,500 seeded frames, the 4-token
+   start-of-transcript prompt, 64 new tokens each; prints the encoder
+   ms, TTFT, the median decode step, tokens/s and the peak memory; all
+   three wrappers must run.  (c) Three decode steps profiled as in phase
+   4.  (d) The whole model, 2 clips, a prefill and 4 decode steps on the
+   card and on the CPU, logits within E2E_TOL x max(1, max|logit|).
+10. Print the ``kernels`` JSON line (each kernel's launches from its own
    path's serving run, every path's counts beside), the card line, and
    last the result line ``{"ok": true, "device": {...}}``.
 """
@@ -220,31 +236,38 @@ def gemm_entry(torch, timer, x, b, what, on_path):
     return r
 
 
-def flash_entry(torch, timer, q, k, v, on_path):
-    """Causal flash attention at one shape, as ``gemm_entry``; the
-    library call is SDPA."""
+def flash_entry(torch, timer, q, k, v, on_path, causal=True):
+    """Flash attention at one shape, causal or full (then with Tq != Tk
+    allowed, called as the model calls it: ``bk = Tk``), as
+    ``gemm_entry``; the library call is SDPA."""
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
-    B, T, H, D = q.shape
-    KH = k.shape[2]
-    err = check_close(f"flash B={B} T={T} H={H}/{KH} D={D}",
-                      ops.flash_attention(q, k, v, causal=True),
-                      ref.flash_gqa_ref(q, k, v, True), BF16_TOL)
-    pairs = T * (T + 1) // 2
-    bms, by = bound(2 * (2 * B * T * H * D + 2 * B * T * KH * D),
+    B, Tq, H, D = q.shape
+    Tk, KH = k.shape[1], k.shape[2]
+
+    def kernel():
+        return ops.flash_attention(q, k, v, causal=causal, bk=Tk)
+
+    err = check_close(f"flash B={B} Tq={Tq} Tk={Tk} H={H}/{KH} D={D} "
+                      f"causal {causal}", kernel(),
+                      ref.flash_gqa_ref(q, k, v, causal), BF16_TOL)
+    pairs = Tq * (Tq + 1) // 2 if causal else Tq * Tk
+    bms, by = bound(2 * (2 * B * Tq * H * D + 2 * B * Tk * KH * D),
                     4 * B * H * D * pairs)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    r = {"shape": {"q": [B, T, H, D], "kv": [B, T, KH, D], "causal": True},
+    r = {"shape": {"q": [B, Tq, H, D], "kv": [B, Tk, KH, D],
+                   "causal": causal},
          "on_path": on_path, "max_abs_err": err,
-         "ms": timer(lambda: ops.flash_attention(q, k, v, causal=True)),
-         "plain_ms": timer(lambda: ref.flash_gqa_ref(q, k, v, True)),
+         "ms": timer(kernel),
+         "plain_ms": timer(lambda: ref.flash_gqa_ref(q, k, v, causal)),
          "library_ms": timer(lambda: F.scaled_dot_product_attention(
-             qt, kt, vt, is_causal=True, enable_gqa=True)),
+             qt, kt, vt, is_causal=causal, enable_gqa=True)),
          "bound_ms": bms, "bound_by": by}
-    print(f"[flash_attention] B={B} T={T} H={H}/{KH} D={D} (on_path "
-          f"{on_path}): err {err:.3g} (tol {BF16_TOL}) kernel "
-          f"{r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms sdpa "
-          f"{r['library_ms']:.4f} ms bound {bms:.4f} ms ({by})", flush=True)
+    print(f"[flash_attention] B={B} Tq={Tq} Tk={Tk} H={H}/{KH} D={D} "
+          f"causal {causal} (on_path {on_path}): err {err:.3g} (tol "
+          f"{BF16_TOL}) kernel {r['ms']:.4f} ms plain {r['plain_ms']:.4f} "
+          f"ms sdpa {r['library_ms']:.4f} ms bound {bms:.4f} ms ({by})",
+          flush=True)
     return r
 
 
@@ -421,11 +444,13 @@ def phase_kernels(torch, args, dev, timer):
 
 
 def phase_serving(torch, args, cfg, params, kernels, new_tokens=32,
-                  tag="serving", n_requests=16, prompt_max=512):
+                  tag="serving", n_requests=16, prompt_max=512,
+                  pool_pages=None):
     """Serve ``n_requests`` requests of 64-``prompt_max`` prompt tokens
     and ``new_tokens`` new tokens each on 8 slots of 16-token pages
-    (``max_seq`` 1,024), after an untimed warm-up request.  The launch
-    counts are zeroed just before and read just after; each of
+    (``max_seq`` 1,024; a pool of ``pool_pages`` pages, by default room
+    for every slot's 1,024), after an untimed warm-up request.  The
+    launch counts are zeroed just before and read just after; each of
     ``kernels`` must have run."""
     import numpy as np
     from repro_torch.kernels import ops
@@ -433,7 +458,8 @@ def phase_serving(torch, args, cfg, params, kernels, new_tokens=32,
 
     def engine():
         return ServingEngine(cfg, params, slots=8, max_seq=1024,
-                             kv_page_tokens=16, device="cuda")
+                             kv_page_tokens=16, kv_pool_pages=pool_pages,
+                             device="cuda")
 
     rng = np.random.default_rng(args.seed)
     warm = engine()                       # first-call set-up, not timed
@@ -481,7 +507,7 @@ def phase_serving(torch, args, cfg, params, kernels, new_tokens=32,
            "decode_steps": eng.stats.decode_steps,
            "decode_only_steps": len(decode_ms),
            "prefills": eng.stats.prefills, "launches": launches,
-           "kv_pool_mb": pool_mb,
+           "kv_pool_mb": pool_mb, "kv_pool_pages": eng.cache.cfg.n_pages,
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
            "validate": "ok"}
     print(f"[{tag}] " + json.dumps(res), flush=True)
@@ -565,35 +591,45 @@ def _kernel_group(name):
 
 def phase_profile(torch, args, cfg, params, n_steps=5, tag="decode_profile",
                   one_kernel=("streaming_gemm", "paged_attention"),
-                  tries=3):
-    """Where a full-batch decode step's time goes: ``torch.profiler``
-    device time by kernel over ``n_steps`` decode steps of 8 slots
-    (prompts of 256 tokens), beside the same steps' unprofiled wall
-    time.  The profiler only reads the device's kernel times here; the
-    wall time comes from the unprofiled steps before it.  Each wrapper
-    of ``one_kernel`` must make exactly one device kernel per call.  The
-    profiler now and then drops a window or part of one: a window with
-    no device kernel, or with fewer kernels of such a wrapper than its
-    calls, is profiled again, up to ``tries`` windows; then the check
-    fails on what the last window read."""
+                  tries=3, pool_pages=None):
+    """Where a full-batch decode step's time goes: ``profile_steps`` over
+    the engine's decode steps of 8 slots (prompts of 256 tokens)."""
     import numpy as np
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    from repro_torch.kernels import ops
     from repro_torch.serving.engine import Request, ServingEngine
 
     rng = np.random.default_rng(args.seed + 2)
     eng = ServingEngine(cfg, params, slots=8, max_seq=1024,
-                        kv_page_tokens=16, device="cuda")
+                        kv_page_tokens=16, kv_pool_pages=pool_pages,
+                        device="cuda")
     for i in range(8):
         eng.submit(Request(uid=i, prompt=rng.integers(
             1, cfg.vocab_size - 1, 256).astype(np.int32),
             max_new_tokens=(2 + tries) * n_steps + 2))
     eng.step()                          # admits all 8, one decode step
+    return profile_steps(torch, eng.step, cfg.name, 256, n_steps, tag,
+                         one_kernel, tries)
+
+
+def profile_steps(torch, step, model, context, n_steps, tag, one_kernel,
+                  tries=3):
+    """``torch.profiler`` device time by kernel over ``n_steps`` calls of
+    ``step`` (one decode step of 8 slots whose context starts at
+    ``context`` tokens), beside the same number of unprofiled steps'
+    wall time before it.  The profiler only reads the device's kernel
+    times here; the wall time comes from the unprofiled steps.  Each
+    wrapper of ``one_kernel`` must make exactly one device kernel per
+    call.  The profiler now and then drops a window or part of one: a
+    window with no device kernel, or with fewer kernels of such a
+    wrapper than its calls, is profiled again, up to ``tries`` windows;
+    then the check fails on what the last window read."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import ops
+
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(n_steps):
-        eng.step()
+        step()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / n_steps
     for window in range(1, tries + 1):
@@ -601,7 +637,7 @@ def phase_profile(torch, args, cfg, params, n_steps=5, tag="decode_profile",
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(n_steps):
-                eng.step()
+                step()
             torch.cuda.synchronize()
         per_step = {k: n / n_steps for k, n in ops.LAUNCHES.items()}
         groups: dict = {}
@@ -623,8 +659,8 @@ def phase_profile(torch, args, cfg, params, n_steps=5, tag="decode_profile",
               f"({short or 'all'})", flush=True)
     require(groups, f"{tag}: {tries} profiler windows held no device kernel")
     busy = sum(groups.values())
-    res = {"model": cfg.name, "slots": 8,
-           "context": f"256-{256 + (1 + window) * n_steps}",
+    res = {"model": model, "slots": 8,
+           "context": f"{context}-{context + (1 + window) * n_steps}",
            "steps": n_steps, "windows": window,
            "wall_ms_per_step": wall_ms, "device_ms_per_step": groups,
            "device_busy_share": busy / wall_ms,
@@ -1176,7 +1212,35 @@ def phase_moe(torch, args, rows):
 
 
 # ------------------------------------------------ 8. the dense variants
-DENSE_ARCHS = ("internvl2-2b", "chatglm3-6b", "granite-20b")
+DENSE_ARCHS = ("internvl2-2b", "chatglm3-6b", "granite-20b", "qwen1.5-32b")
+# room the KV pool leaves on the card beside the weights: prefill
+# activations (a 256-token prompt's MLP at d_ff 27,392 is 42 MB), the
+# lm_head's logits, the engines' small tensors and the caching
+# allocator's rounding and holes
+POOL_MARGIN_BYTES = 2 * 2**30
+
+
+def kv_pool_pages(torch, cfg, slots=8, max_seq=1024, page_tokens=16):
+    """The serving phases' KV pool in pages: what the card's free memory
+    holds after the weights (``mem_get_info`` and the allocator's cached
+    free bytes) less ``POOL_MARGIN_BYTES``, at most every slot's
+    ``max_seq`` tokens.  Every dense variant but qwen1.5-32b (70.4 GB of
+    weights) gets that cap."""
+    torch.cuda.empty_cache()
+    free, _ = torch.cuda.mem_get_info()
+    free += torch.cuda.memory_reserved() - torch.cuda.memory_allocated()
+    page_bytes = 2 * cfg.n_layers * page_tokens * cfg.n_kv_heads * \
+        cfg.resolved_head_dim * 2
+    cap = slots * -(-max_seq // page_tokens)
+    pages = min(cap, (free - POOL_MARGIN_BYTES) // page_bytes)
+    print(f"[{cfg.name}] KV pool: {pages} pages of {page_tokens} tokens "
+          f"({pages * page_tokens} tokens, {pages * page_bytes / 1e9:.2f} "
+          f"GB) from {free / 1e9:.2f} GB free less "
+          f"{POOL_MARGIN_BYTES / 1e9:.2f} GB, cap {cap} pages", flush=True)
+    require(pages >= slots * -(-(256 + 17) // page_tokens),
+            f"{cfg.name}: the card holds {pages} KV pages beside the "
+            "weights, too few for 8 slots of 273 tokens")
+    return int(pages)
 
 
 def _dense_kernels(torch, args, cfg, params, dev, timer, rows):
@@ -1279,15 +1343,17 @@ def phase_dense_variants(torch, args, rows):
         _dense_kernels(torch, args, cfg, params, dev, timer, rows)
         del timer
         res["kernels_s"] = time.perf_counter() - t
+        pages = kv_pool_pages(torch, cfg)
         t = time.perf_counter()
         res["serving"] = phase_serving(
             torch, args, cfg, params, DENSE_KERNELS, new_tokens=8,
-            tag=f"{arch} serving", n_requests=8, prompt_max=256)
+            tag=f"{arch} serving", n_requests=8, prompt_max=256,
+            pool_pages=pages)
         res["serving_s"] = time.perf_counter() - t
         t = time.perf_counter()
         res["decode_profile"] = phase_profile(
             torch, args, cfg, params, n_steps=3,
-            tag=f"{arch} decode_profile")
+            tag=f"{arch} decode_profile", pool_pages=pages)
         res["profile_s"] = time.perf_counter() - t
         res["card_vs_cpu"] = phase_card_vs_cpu(
             torch, args, cfg, params, n_layers=2,
@@ -1302,6 +1368,284 @@ def phase_dense_variants(torch, args, rows):
         del params
         torch.cuda.empty_cache()
     return out
+
+
+# ------------------------------------------------------ 9. whisper-tiny
+WHISPER_ARCH = "whisper-tiny"
+WHISPER_CLIPS = 8
+WHISPER_FRAMES = 1500   # 30 s of audio at 50 frames/s after the conv stem
+# the start-of-transcript prompt: <|startoftranscript|> <|en|>
+# <|transcribe|> <|notimestamps|> in Whisper's multilingual vocabulary
+WHISPER_PROMPT = (50258, 50259, 50359, 50363)
+
+
+def _whisper_kernels(torch, args, cfg, params, dev, timer, rows):
+    """(a) Every kernel at whisper-tiny's shapes, kept as each row's
+    ``whisper-tiny_path``: the GEMM at the encoder's M = 12,000 (8 clips
+    of 1,500 frames) over encoder layer 0's q/k/v/o and MLP and decoder
+    layer 0's cross K/V projections, and at the decoder's M = 8 over its
+    self q/k/v/o, cross q/o and MLP, and the 384 x 51,968 lm_head; flash
+    non-causal over 1,500 keys, self-attention (8, 1,500, 6, 64) and the
+    prompt's cross-attention q (8, 4, 6, 64); paged attention over the
+    cross table (8 x 1,500 tokens, 16-token pages, 94 pages) and over
+    the self table at the greedy loop's middle context (8 x 36, 5
+    pages)."""
+    g = torch.Generator(device=dev).manual_seed(args.seed + 40)
+    bf16 = torch.bfloat16
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(bf16)
+
+    key = f"{cfg.name}_path"
+    d, H, KH, D = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                   cfg.resolved_head_dim)
+    enc, dec = params["enc_layers"][0], params["layers"][0]
+
+    def attn(p, names, tag):
+        return [(p[n].reshape(d, -1) if n != "wo" else p[n].reshape(-1, d),
+                 f"{tag} {n}") for n in names]
+
+    def mlp(p, tag):
+        return [(p["mlp"][n], f"{tag} mlp {n}") for n in ("wi", "wo")]
+
+    B, Te = WHISPER_CLIPS, WHISPER_FRAMES
+    encoder = (attn(enc["attn"], ("wq", "wk", "wv", "wo"), "enc")
+               + mlp(enc, "enc") + attn(dec["xattn"], ("wk", "wv"), "cross"))
+    decoder = (attn(dec["attn"], ("wq", "wk", "wv", "wo"), "self")
+               + attn(dec["xattn"], ("wq", "wo"), "cross") + mlp(dec, "dec"))
+    per_shape = []
+    for M, weights in ((B * Te, encoder), (B, decoder)):
+        a = randn(M, d)
+        for w, what in weights:
+            x = a if w.shape[0] == d else randn(M, w.shape[0])
+            per_shape.append(gemm_entry(torch, timer, x, w, what, True))
+    per_shape.append(gemm_entry(torch, timer, randn(B, d),
+                                params["lm_head"], "lm_head", True))
+    _add_path(rows["streaming_gemm"], per_shape, key)
+
+    k, v = randn(B, Te, KH, D), randn(B, Te, KH, D)
+    per_shape = [flash_entry(torch, timer, randn(B, Tq, H, D), k, v, True,
+                             causal=False)
+                 for Tq in (Te, len(WHISPER_PROMPT))]
+    _add_path(rows["flash_attention"], per_shape, key)
+
+    page = 16
+    per_shape = []
+    for what, length in (("cross 8 x 1500", Te), ("self 8 x 36", 36)):
+        mp = -(-length // page)
+        P = B * mp + 16
+        table = torch.randperm(P, generator=g, device=dev)[:B * mp] \
+            .reshape(B, mp).to(torch.int32)
+        ln = torch.full((B,), length, dtype=torch.int32, device=dev)
+        per_shape.append(paged_entry(
+            torch, timer, what, randn(B, H, D), randn(P, page, KH, D),
+            randn(P, page, KH, D), table, ln, True))
+    _add_path(rows["paged_attention"], per_shape, key, PAGED_KEYS)
+
+
+def _whisper_clips(torch, cfg, g, n):
+    """``n`` clips of 1,500 seeded frames (x 0.02, as the reference's
+    ``make_concrete_batch`` draws them) and the start-of-transcript
+    prompt for each, on ``g``'s device."""
+    frames = torch.randn((n, WHISPER_FRAMES, cfg.d_model), generator=g,
+                         device=g.device) * 0.02
+    prompt = torch.tensor(WHISPER_PROMPT, device=g.device).expand(n, -1)
+    return frames, prompt
+
+
+def _whisper_prefilled(model, params, frames, prompt, max_seq):
+    """A cache whose slots 0..n-1 hold the prompt's self KV and the
+    clips' encoder KV, and the prefill's logits."""
+    n = frames.shape[0]
+    cache = model.init_cache(n, max_seq, page_tokens=16,
+                             enc_seq=frames.shape[1])
+    for s in range(n):
+        cache.alloc_seq(s, prompt.shape[1])
+    logits = model.prefill(params, prompt, cache, list(range(n)),
+                           audio_frames=frames)
+    return cache, logits
+
+
+def _whisper_greedy(torch, args, cfg, params, new_tokens=64):
+    """(b) The batched greedy loop: 8 clips, the 4-token prompt, then
+    ``new_tokens`` tokens each (the prefill's and ``new_tokens - 1``
+    decode steps), after an untimed warm-up of 3.  Prints the encoder's
+    time alone (the median of 3), TTFT (prefill, its encoder included,
+    to the first tokens), the median decode step, tokens/s over the run
+    and the peak device memory.  Launch counts are zeroed just before
+    the run and read just after; all three wrappers must have run."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.models.model import Model
+
+    dev = torch.device("cuda")
+    m = Model(cfg, device=dev)
+    g = torch.Generator(device=dev).manual_seed(args.seed + 41)
+    frames, prompt = _whisper_clips(torch, cfg, g, WHISPER_CLIPS)
+    slots = list(range(WHISPER_CLIPS))
+    V = cfg.vocab_size
+
+    def run(n_new):
+        t0 = time.perf_counter()
+        cache, logits = _whisper_prefilled(m, params, frames, prompt,
+                                           prompt.shape[1] + new_tokens)
+        out = [logits[:, :V].argmax(-1)]
+        torch.cuda.synchronize()
+        ttft = time.perf_counter() - t0
+        steps = []
+        for _ in range(n_new - 1):
+            ts = time.perf_counter()
+            out.append(m.decode_step(params, cache, out[-1], slots)[
+                :, :V].argmax(-1))
+            torch.cuda.synchronize()
+            steps.append(time.perf_counter() - ts)
+        wall = time.perf_counter() - t0
+        return cache, torch.stack(out, 1), ttft, steps, wall
+
+    run(3)                                # first-call set-up, not timed
+    enc_s = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        T.encode(params, cfg, frames)
+        torch.cuda.synchronize()
+        enc_s.append(time.perf_counter() - t)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    cache, toks, ttft, steps, wall = run(new_tokens)
+    launches = dict(ops.LAUNCHES)
+    require(tuple(toks.shape) == (WHISPER_CLIPS, new_tokens) and
+            bool(((toks >= 0) & (toks < V)).all()), "greedy tokens")
+    require(list(cache.lens[:WHISPER_CLIPS]) ==
+            [prompt.shape[1] + new_tokens - 1] * WHISPER_CLIPS and
+            list(cache.cross.lens[:WHISPER_CLIPS]) ==
+            [WHISPER_FRAMES] * WHISPER_CLIPS, "cache lengths")
+    cache.validate()
+    for s in slots:
+        cache.free_seq(s)
+    cache.validate()
+    require(cache.pages_in_use == cache.cross.pages_in_use == 0,
+            "pages leaked after the loop")
+    missing = [k for k in DENSE_KERNELS if launches[k] <= 0]
+    require(not missing, f"whisper path never launched {missing}")
+    n_out = int(toks.numel())
+    res = {"model": cfg.name, "clips": WHISPER_CLIPS,
+           "frames": WHISPER_FRAMES, "prompt": list(WHISPER_PROMPT),
+           "tokens_out": n_out, "encoder_ms": _median_ms(enc_s),
+           "ttft_ms": ttft * 1e3, "decode_step_median_ms": _median_ms(steps),
+           "decode_steps": len(steps), "wall_s": wall,
+           "tokens_per_s": n_out / wall,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "launches": launches, "validate": "ok"}
+    print(f"[{cfg.name} greedy] " + json.dumps(res), flush=True)
+    return res
+
+
+def _whisper_profile(torch, args, cfg, params):
+    """(c) ``profile_steps`` over decode steps of the 8 clips, each GEMM
+    and paged wrapper call one device kernel."""
+    from repro_torch.models.model import Model
+
+    dev = torch.device("cuda")
+    m = Model(cfg, device=dev)
+    g = torch.Generator(device=dev).manual_seed(args.seed + 42)
+    frames, prompt = _whisper_clips(torch, cfg, g, WHISPER_CLIPS)
+    cache, logits = _whisper_prefilled(m, params, frames, prompt, 64)
+    slots = list(range(WHISPER_CLIPS))
+    state = {"tok": logits[:, :cfg.vocab_size].argmax(-1)}
+
+    def step():
+        state["tok"] = m.decode_step(params, cache, state["tok"], slots)[
+            :, :cfg.vocab_size].argmax(-1)
+
+    step()
+    return profile_steps(torch, step, cfg.name, prompt.shape[1] + 1, 3,
+                         f"{cfg.name} decode_profile",
+                         ("streaming_gemm", "paged_attention"))
+
+
+def _whisper_card_vs_cpu(torch, args, cfg, params, n_clips=2):
+    """(d) The whole model, ``n_clips`` clips of 1,500 seeded frames with
+    the prompt, a prefill and 4 decode steps of seeded tokens, on the
+    card and on the CPU (every wrapper's plain version): logits within
+    E2E_TOL x max(1, max|logit|)."""
+    import numpy as np
+    from repro_torch.models.model import Model
+    from repro_torch.models.params import params_to
+
+    rng = np.random.default_rng(args.seed + 4)
+    frames = torch.from_numpy(rng.standard_normal(
+        (n_clips, WHISPER_FRAMES, cfg.d_model), np.float32) * 0.02)
+    prompt = torch.tensor(WHISPER_PROMPT).expand(n_clips, -1)
+    forced = torch.from_numpy(rng.integers(1, cfg.vocab_size - 1,
+                                           (4, n_clips)))
+
+    def run(device, p):
+        m = Model(cfg, device=device)
+        cache, logits = _whisper_prefilled(
+            m, p, frames.to(m.device), prompt.to(m.device), 16)
+        out = [logits]
+        for t in forced:
+            out.append(m.decode_step(p, cache, t.to(m.device),
+                                     list(range(n_clips))))
+        return torch.cat(out).float().cpu()
+
+    t0 = time.perf_counter()
+    card = run("cuda", params)
+    cpu = run("cpu", params_to(params, "cpu"))
+    require(card.shape == (5 * n_clips, cfg.padded_vocab) and
+            bool(card.isfinite().all()), "card logits malformed")
+    err = (card - cpu).abs().max().item()
+    top = cpu.abs().max().item()
+    res = {"clips": n_clips, "layers": [cfg.n_encoder_layers, cfg.n_layers],
+           "max_abs_err": err, "max_abs_logit": top,
+           "tol": E2E_TOL * max(1.0, top),
+           "argmax_agree": int((card.argmax(-1) == cpu.argmax(-1)).sum()),
+           "rows": int(card.shape[0]), "seconds": time.perf_counter() - t0}
+    print(f"[{cfg.name} card_vs_cpu] " + json.dumps(res), flush=True)
+    require(err <= res["tol"], f"whisper card vs CPU logits differ by {err}")
+    return res
+
+
+def phase_whisper(torch, args, rows):
+    """9. whisper-tiny at full width and depth (4 + 4 layers, d 384, 6 / 6
+    heads of 64, random bf16 weights from ``--seed``), through ``Model``
+    (the engine prefills token ids only): (a) every kernel at its
+    shapes, (b) the batched greedy loop over 8 clips of 1,500 frames,
+    (c) a profile of 3 decode steps, (d) the whole model on the card
+    against the CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+
+    dev = torch.device("cuda")
+    cfg = get_config(WHISPER_ARCH)
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(args.seed)
+    params = Model(cfg, device=dev).init(g)
+    torch.cuda.synchronize()
+    res = {"init_s": time.perf_counter() - t0,
+           "weights_gb": torch.cuda.memory_allocated() / 1e9}
+    print(f"[{cfg.name}] {res['weights_gb']:.3f} GB of weights on the "
+          f"card in {res['init_s']:.1f} s", flush=True)
+    t = time.perf_counter()
+    timer = Timer(torch, dev)
+    _whisper_kernels(torch, args, cfg, params, dev, timer, rows)
+    del timer
+    res["kernels_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    res["greedy"] = _whisper_greedy(torch, args, cfg, params)
+    res["greedy_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    res["decode_profile"] = _whisper_profile(torch, args, cfg, params)
+    res["profile_s"] = time.perf_counter() - t
+    res["card_vs_cpu"] = _whisper_card_vs_cpu(torch, args, cfg, params)
+    res["seconds"] = time.perf_counter() - t0
+    print(f"[{cfg.name}] seconds: init {res['init_s']:.1f} kernels "
+          f"{res['kernels_s']:.1f} greedy {res['greedy_s']:.1f} profile "
+          f"{res['profile_s']:.1f} card_vs_cpu "
+          f"{res['card_vs_cpu']['seconds']:.1f} total "
+          f"{res['seconds']:.1f}", flush=True)
+    return res
 
 
 def main():
@@ -1341,12 +1685,15 @@ def main():
     moe = phase_moe(torch, args, rows)
     torch.cuda.empty_cache()
     variants = phase_dense_variants(torch, args, rows)
+    torch.cuda.empty_cache()
+    whisper = phase_whisper(torch, args, rows)
 
     # launches: each kernel's count from its own main path's serving run
     # (the grouped GEMM's is the MoE path); every path's counts beside
     paths = {cfg.name: serving["launches"],
              MOE_ARCH: moe["serving"]["launches"],
-             **{a: v["serving"]["launches"] for a, v in variants.items()}}
+             **{a: v["serving"]["launches"] for a, v in variants.items()},
+             WHISPER_ARCH: whisper["greedy"]["launches"]}
     kernels = [{"name": name, **rows[name],
                 "launches": paths[MOE_ARCH if name == "streaming_gemm_grouped"
                                   else cfg.name][name],

@@ -47,6 +47,7 @@ class ModelConfig:
     mla: Optional[object] = None
     ssm: Optional[object] = None
     mtp: bool = False
+    # encoder-decoder (whisper): n_layers == decoder layers
     n_encoder_layers: int = 0
     embedding_inputs: bool = False
     # vocab padding so TP shards divide evenly; logits beyond vocab_size masked
@@ -61,3 +62,7 @@ class ModelConfig:
     @property
     def padded_vocab(self) -> int:
         return _round_up(self.vocab_size, self.vocab_pad_multiple)
+
+    @property
+    def is_encoder_decoder(self) -> bool:
+        return self.n_encoder_layers > 0

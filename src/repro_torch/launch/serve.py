@@ -7,6 +7,8 @@ paged KV cache, with the hand-written kernels on the card.
         --arch qwen2-moe-a2.7b --slots 8 --page-tokens 16
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch granite-20b --slots 8 --page-tokens 16
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch qwen1.5-32b --slots 8 --page-tokens 16
 
 Every ported architecture serves through the same path (``--arch``):
 qwen2-0.5b, dense; qwen2-moe-a2.7b, MoE, whose expert FFNs run through
@@ -14,7 +16,11 @@ the expert-grouped streaming GEMM; internvl2-2b, the vlm family's
 language model (served from token prompts; ``Model.prefill`` also takes
 precomputed patch embeddings); chatglm3-6b, 2-D RoPE; granite-20b,
 layernorm, a non-gated GELU MLP and MQA (48 query heads over one KV
-head, which the paged kernel splits into query-head groups).
+head, which the paged kernel splits into query-head groups);
+qwen1.5-32b, 64 layers of 40 / 40 heads (70.4 GB of weights).  The
+encoder-decoder whisper-tiny is refused by the engine, as in the
+reference: it runs through ``Model.prefill(..., audio_frames=...)`` and
+``Model.decode_step``.
 
 Weights are random, drawn from ``--seed``.  ``--device cpu`` runs the
 plain PyTorch versions of the kernels on the host (use ``--reduced``

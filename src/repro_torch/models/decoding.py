@@ -1,5 +1,5 @@
-"""Prefill + single-token decode over the paged KV cache, dense, vlm and
-MoE branches.
+"""Prefill + single-token decode over the paged KV cache, dense, vlm,
+MoE and audio branches.
 
 The reference keeps a contiguous (L, B, S, KH, hd) cache; the port
 keeps the paged pools of ``serving.kv_cache.PagedKVCache`` (one table
@@ -12,6 +12,11 @@ MoE layers route losslessly while serving, as the reference does:
 capacity ``B * Tq`` at prefill and ``n`` (the active slots) at decode,
 so no token is dropped and each token's output is independent of the
 others in its batch.
+
+An audio model (whisper) keeps its encoder's K/V in a second paged
+cache, ``cache.cross``: prefill writes it once, and decode attends over
+it with ``ops.paged_attention`` at lens = Te, the reference's
+``decode_attention(q, xk, xv, Te)`` over a paged layout.
 """
 from __future__ import annotations
 
@@ -24,13 +29,24 @@ from repro_torch.models import transformer as T
 
 
 def prefill(params, cfg: ModelConfig, tokens, cache, slots, *,
-            embeddings=None):
+            embeddings=None, audio_frames=None):
     """tokens: (B, T) prompt ids, one row per cache slot in ``slots``
     (allocated with ``alloc_seq``); or, for a config with
     ``embedding_inputs`` (vlm), ``embeddings`` (B, T, d) in their place,
     precomputed patch embeddings cast to bf16 (``tokens`` None).  Writes
     every layer's K/V into the slots' pages, sets their lengths to T
-    and returns the last-token logits (B, padded_vocab)."""
+    and returns the last-token logits (B, padded_vocab).
+
+    An audio config (whisper) takes ``audio_frames`` (B, Te, d) beside
+    the decoder's ``tokens``: see ``_prefill_audio``."""
+    if cfg.family == "audio":
+        if embeddings is not None or audio_frames is None or tokens is None:
+            raise ValueError(f"{cfg.name} prefills decoder token ids with "
+                             "audio_frames, and takes no embeddings")
+        return _prefill_audio(params, cfg, tokens, audio_frames, cache,
+                              slots)
+    if audio_frames is not None:
+        raise ValueError(f"{cfg.name} takes no audio_frames")
     if (tokens is None) == (embeddings is None):
         raise ValueError("prefill takes token ids or embeddings, "
                          "exactly one of the two")
@@ -49,16 +65,56 @@ def prefill(params, cfg: ModelConfig, tokens, cache, slots, *,
                                            capacity=B * Tq)
         else:
             x, (k, v) = T.dense_layer_fwd(lp, x, cfg, positions)
-        kf, vf = cache.layer_flat(layer)
-        kf[rows] = k.to(kf.dtype)
-        vf[rows] = v.to(vf.dtype)
+        _write(cache, layer, rows, k, v)
     x = L.apply_norm(params["final_norm"], x[:, -1], cfg)
     return T.lm_head(params, cfg, x)
 
 
-def _decode_layer(lp, is_moe, x, cfg, k_pool, v_pool, view):
+def _write(cache, layer, rows, k, v):
+    kf, vf = cache.layer_flat(layer)
+    kf[rows] = k.to(kf.dtype)
+    vf[rows] = v.to(vf.dtype)
+
+
+def _prefill_audio(params, cfg: ModelConfig, tokens, frames, cache, slots):
+    """Whisper's prefill (reference ``decoding.prefill``, audio branch):
+    encode the frames with full attention; embed the decoder tokens and
+    add ``pos_embed[:Td]``; run each decoder layer
+    (``transformer.cross_layer_fwd``), its self K/V into ``cache`` and
+    its encoder K/V into ``cache.cross``, where each slot takes Te
+    tokens.  The slots' cross pages must be free."""
+    cross = cache.cross
+    B, Te = frames.shape[:2]
+    for slot in slots:
+        if cross.active[slot]:
+            raise ValueError(f"slot {slot} still holds encoder KV: free "
+                             "it before a new prefill")
+        if not cross.alloc_seq(slot, Te):
+            raise RuntimeError("out of cross-attention KV pages")
+    xrows = cross.prompt_index(slots, Te)                  # (B, Te)
+    enc = T.encode(params, cfg, frames)
+    x = T.embed_tokens(params, cfg, tokens)
+    Td = x.shape[1]
+    x = x + params["pos_embed"][:Td].to(x.dtype)
+    positions = torch.arange(Td, device=x.device).expand(B, Td)
+    rows = cache.prompt_index(slots, Td)
+    for layer, (lp, _) in enumerate(T.layer_stack(params, cfg)):
+        x, kv, xkv = T.cross_layer_fwd(lp, x, enc, cfg, positions)
+        _write(cache, layer, rows, *kv)
+        _write(cross, layer, xrows, *xkv)
+    x = L.apply_norm(params["final_norm"], x[:, -1], cfg)
+    return T.lm_head(params, cfg, x)
+
+
+def _decode_layer(lp, is_moe, x, cfg, k_pool, v_pool, view, cross=None):
+    """``cross``: an encoder-decoder's (k_pool, v_pool, read view) of
+    this layer's encoder KV, attended between self-attention and the
+    MLP."""
     h = L.apply_norm(lp["ln1"], x, cfg)
     x = x + L.attention_decode(lp["attn"], h, cfg, k_pool, v_pool, view)
+    if cross is not None:
+        h = L.apply_norm(lp["ln_x"], x, cfg)
+        x = x + L.cross_attention_decode(lp["xattn"], h, *cross)
     h = L.apply_norm(lp["ln2"], x, cfg)
     if not is_moe:
         return x + L.apply_mlp(lp["mlp"], h, cfg)
@@ -70,11 +126,19 @@ def _decode_layer(lp, is_moe, x, cfg, k_pool, v_pool, view):
 def decode_step(params, cfg: ModelConfig, cache, tokens, slots):
     """tokens: (n,) the next token of each active slot in ``slots``.
     Appends each token's K/V at its slot's length and returns logits
-    (n, padded_vocab).  Only the given slots are written or read."""
+    (n, padded_vocab).  Only the given slots are written or read.  An
+    audio model adds ``pos_embed`` at each slot's own position and
+    reads, per layer, the encoder KV that prefill wrote."""
     view = cache.append_view(slots)
     x = params["embed"][tokens].to(torch.bfloat16)
+    audio = cfg.family == "audio"
+    if audio:
+        x = x + params["pos_embed"][view.positions].to(x.dtype)
+        xview = cache.cross.read_view(slots)
     for layer, (lp, is_moe) in enumerate(T.layer_stack(params, cfg)):
+        cross = (cache.cross.k_pages[layer], cache.cross.v_pages[layer],
+                 xview) if audio else None
         x = _decode_layer(lp, is_moe, x, cfg, cache.k_pages[layer],
-                          cache.v_pages[layer], view)
+                          cache.v_pages[layer], view, cross)
     x = L.apply_norm(params["final_norm"], x, cfg)
     return T.lm_head(params, cfg, x)

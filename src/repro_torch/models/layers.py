@@ -1,5 +1,5 @@
-"""Core transformer layers, dense subset: norms, RoPE, GQA attention,
-MLP.
+"""Core transformer layers, dense subset: norms, RoPE, GQA attention
+(self and cross), MLP.
 
 Every projection and MLP GEMM goes through ``ops.streaming_gemm``;
 prefill attention goes through ``ops.flash_attention`` and decode
@@ -192,12 +192,15 @@ def attention_pspecs(cfg: ModelConfig):
     return p
 
 
+def head_proj(w, x):
+    """x: (..., d) -> (..., heads, hd) through a (d, heads, hd) weight
+    read as its 2-D (d, heads·hd) view."""
+    return _gemm(x, w.reshape(x.shape[-1], -1)).unflatten(-1, w.shape[1:])
+
+
 def qkv_proj(p, x, cfg: ModelConfig):
-    """x: (..., d) -> q (..., H, hd), k and v (..., KH, hd); the 3-D
-    weights are read as their 2-D (d, heads·hd) views."""
-    d = x.shape[-1]
-    q, k, v = (_gemm(x, p[n].reshape(d, -1)).unflatten(-1, p[n].shape[1:])
-               for n in ("wq", "wk", "wv"))
+    """x: (..., d) -> q (..., H, hd), k and v (..., KH, hd)."""
+    q, k, v = (head_proj(p[n], x) for n in ("wq", "wk", "wv"))
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     return q, k, v
@@ -210,13 +213,27 @@ def out_proj(p, out):
     return _gemm(out.flatten(-2), wo.reshape(-1, wo.shape[-1]))
 
 
-def attention_train(p, x, cfg: ModelConfig, positions, causal=True):
+def attention_train(p, x, cfg: ModelConfig, positions, causal=True,
+                    kv=None):
     """Full-sequence attention (prefill).  x: (B, T, d); positions:
-    (B, T).  Returns (out (B, T, d), (k, v) each (B, T, KH, hd))."""
-    q, k, v = qkv_proj(p, x, cfg)
-    q = apply_rope(q, positions, cfg)
-    k = apply_rope(k, positions, cfg)
-    out = ops.flash_attention(q, k, v, causal=causal)
+    (B, T).  Returns (out (B, T, d), (k, v) each (B, Tk, KH, hd)).
+
+    ``kv``: external (k, v) for cross-attention (the whisper decoder
+    over its encoder): q comes from ``wq`` (plus ``bq``), no RoPE, and
+    the given K/V are used and returned as they are.  ``bk = Tk``, one
+    key block as long as the keys, keeps the flash wrapper's pad-free
+    non-causal contract at any Tk (the encoder's 1,500 frames): the
+    kernel masks the ragged last tile itself."""
+    if kv is None:
+        q, k, v = qkv_proj(p, x, cfg)
+        q = apply_rope(q, positions, cfg)
+        k = apply_rope(k, positions, cfg)
+    else:
+        q = head_proj(p["wq"], x)
+        if cfg.qkv_bias:
+            q = q + p["bq"]
+        k, v = kv
+    out = ops.flash_attention(q, k, v, causal=causal, bk=k.shape[1])
     return out_proj(p, out), (k, v)
 
 
@@ -236,4 +253,15 @@ def attention_decode(p, x, cfg: ModelConfig, k_pool, v_pool, view):
     flat_k[view.write_index] = k.to(k_pool.dtype)
     flat_v[view.write_index] = v.to(v_pool.dtype)
     out = ops.paged_attention(q, k_pool, v_pool, view.table, view.lens)
+    return out_proj(p, out)
+
+
+def cross_attention_decode(p, x, k_pool, v_pool, view):
+    """One token per sequence against its encoder K/V, which prefill
+    wrote and nothing changes.  x: (n, d); ``view``: the cross cache's
+    ``read_view`` (table, lens = Te).  q = x·``wq`` with no bias, as the
+    reference's decode writes it (its prefill adds ``bq``; whisper has
+    none)."""
+    out = ops.paged_attention(head_proj(p["wq"], x), k_pool, v_pool,
+                              view.table, view.lens)
     return out_proj(p, out)

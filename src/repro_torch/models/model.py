@@ -1,9 +1,12 @@
-"""Unified model API used by the server: dense, vlm and MoE decoders.
+"""Unified model API used by the server: dense, vlm and MoE decoders,
+and the audio encoder-decoder (whisper), which only this API serves.
 
 ``Model(cfg, device=...)`` exposes:
     init(generator) -> params
-    init_cache(slots, max_seq, page_tokens, n_pages) -> PagedKVCache
-    prefill(params, tokens, cache, slots, embeddings=None) -> logits
+    init_cache(slots, max_seq, page_tokens, n_pages, enc_seq=0)
+        -> PagedKVCache
+    prefill(params, tokens, cache, slots, embeddings=None,
+            audio_frames=None) -> logits
     decode_step(params, cache, tokens, slots) -> logits
 
 The device defaults to ``"cuda"``; without a card the constructor
@@ -36,10 +39,24 @@ class Model:
         return init_tree(self._pspecs, generator)
 
     def init_cache(self, slots: int, max_seq: int, page_tokens: int = 8,
-                   n_pages: Optional[int] = None) -> PagedKVCache:
+                   n_pages: Optional[int] = None,
+                   enc_seq: int = 0) -> PagedKVCache:
         """A paged pool where, by default, every slot can grow to
         ``max_seq`` tokens; one pool layer per decoder layer of every
-        stack (an MoE model's dense layers first)."""
+        stack (an MoE model's dense layers first).  An audio model also
+        gets ``cache.cross``, a pool of one layer per decoder layer in
+        which every slot holds ``enc_seq`` encoder tokens (the
+        reference's ``init_cache(batch, seq, enc_seq)``)."""
+        cfg = self.cfg
+        if (cfg.family == "audio") != (enc_seq > 0):
+            raise ValueError(f"{cfg.name}: enc_seq is the encoder length "
+                             "of an audio model, and only of one")
+        cache = self._paged(slots, max_seq, page_tokens, n_pages)
+        if enc_seq:
+            cache.cross = self._paged(slots, enc_seq, page_tokens, None)
+        return cache
+
+    def _paged(self, slots, max_seq, page_tokens, n_pages) -> PagedKVCache:
         cfg = self.cfg
         pages_per_seq = -(-max_seq // page_tokens)
         return PagedKVCache(
@@ -51,11 +68,13 @@ class Model:
             max_seqs=slots, n_layers=cfg.n_layers, device=self.device)
 
     def prefill(self, params, tokens, cache: PagedKVCache, slots, *,
-                embeddings=None):
+                embeddings=None, audio_frames=None):
         """Token ids (B, T), or ``tokens=None`` and (B, T, d)
-        ``embeddings`` for a vlm config; decode takes token ids."""
+        ``embeddings`` for a vlm config; an audio config takes the
+        decoder's token ids with (B, Te, d) ``audio_frames``.  Decode
+        takes token ids."""
         return D.prefill(params, self.cfg, tokens, cache, slots,
-                         embeddings=embeddings)
+                         embeddings=embeddings, audio_frames=audio_frames)
 
     def decode_step(self, params, cache: PagedKVCache, tokens, slots):
         return D.decode_step(params, self.cfg, cache, tokens, slots)

@@ -81,11 +81,12 @@ def from_reference(params_np, cfg) -> dict:
     """The reference's parameter pytree (leaves as numpy arrays, e.g.
     ``jax.tree.map(np.asarray, params)``) -> the port's weights.
 
-    The stacked leading ``L`` axis of each layer stack (``layers``, and
-    an MoE model's ``dense_layers``) is split into a list of per-layer
-    trees; every leaf keeps its dtype and per-layer shape (an expert
-    leaf stays (E, d, f), the router (d, E))."""
-    if cfg.family not in ("dense", "vlm", "moe"):
+    The stacked leading ``L`` axis of each layer stack (``layers``, an
+    MoE model's ``dense_layers``, an audio model's ``enc_layers``) is
+    split into a list of per-layer trees; every leaf keeps its dtype and
+    per-layer shape (an expert leaf stays (E, d, f), the router (d, E));
+    ``pos_embed`` and ``enc_norm`` stay whole."""
+    if cfg.family not in ("dense", "vlm", "moe", "audio"):
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet")
 
@@ -95,7 +96,8 @@ def from_reference(params_np, cfg) -> dict:
         return to_torch(np.asarray(tree))
 
     nd = cfg.moe.first_dense_layers if cfg.family == "moe" else 0
-    stacks = {"dense_layers": nd, "layers": cfg.n_layers - nd}
+    stacks = {"dense_layers": nd, "enc_layers": cfg.n_encoder_layers,
+              "layers": cfg.n_layers - nd}
     out = {k: conv(v) for k, v in params_np.items() if k not in stacks}
     for name, n in stacks.items():
         if n:

@@ -1,7 +1,10 @@
-"""Model assembly, dense, vlm and MoE branches: parameter tree,
-embedding, the dense and MoE decoder layers and the lm_head (tied or
-not).  A vlm model is the dense decoder; only its prefill input differs
-(precomputed embeddings, ``decoding.prefill``).
+"""Model assembly, dense, vlm, MoE and audio branches: parameter tree,
+embedding, the dense and MoE decoder layers, the audio encoder and the
+lm_head (tied or not).  A vlm model is the dense decoder; only its
+prefill input differs (precomputed embeddings, ``decoding.prefill``).
+An audio model (whisper) is an encoder of non-causal dense layers over
+precomputed frames and a decoder whose layers add cross-attention over
+the encoder's output, with a learned ``pos_embed``.
 
 The reference scans a stacked layer tree with ``lax.scan``; the port
 loops over a list of per-layer trees.  An MoE model may start with
@@ -19,9 +22,16 @@ from repro_torch.models import moe as MOE
 from repro_torch.models.params import PSpec, stack
 
 
-def dense_layer_pspecs(cfg: ModelConfig):
-    return {"ln1": L.norm_pspec(cfg), "attn": L.attention_pspecs(cfg),
-            "ln2": L.norm_pspec(cfg), "mlp": L.mlp_pspecs(cfg)}
+def dense_layer_pspecs(cfg: ModelConfig, cross: bool = False):
+    """A dense layer; with ``cross``, a decoder layer of an
+    encoder-decoder, which adds ``ln_x`` and the cross-attention
+    ``xattn``."""
+    p = {"ln1": L.norm_pspec(cfg), "attn": L.attention_pspecs(cfg),
+         "ln2": L.norm_pspec(cfg), "mlp": L.mlp_pspecs(cfg)}
+    if cross:
+        p["ln_x"] = L.norm_pspec(cfg)
+        p["xattn"] = L.attention_pspecs(cfg)
+    return p
 
 
 def moe_layer_pspecs(cfg: ModelConfig):
@@ -30,7 +40,7 @@ def moe_layer_pspecs(cfg: ModelConfig):
 
 
 def lm_pspecs(cfg: ModelConfig):
-    if cfg.family not in ("dense", "vlm", "moe"):
+    if cfg.family not in ("dense", "vlm", "moe", "audio"):
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet")
     d, V = cfg.d_model, cfg.padded_vocab
@@ -41,6 +51,14 @@ def lm_pspecs(cfg: ModelConfig):
     if cfg.family in ("dense", "vlm"):
         p["layers"] = stack(dense_layer_pspecs(cfg), cfg.n_layers)
         return p
+    if cfg.family == "audio":
+        p["enc_layers"] = stack(dense_layer_pspecs(cfg), cfg.n_encoder_layers)
+        p["enc_norm"] = L.norm_pspec(cfg)
+        p["layers"] = stack(dense_layer_pspecs(cfg, cross=True),
+                            cfg.n_layers)
+        p["pos_embed"] = PSpec((cfg.max_train_seq * 8, d), (None, "embed"),
+                               scale=0.02)
+        return p
     nd = cfg.moe.first_dense_layers
     if nd:
         p["dense_layers"] = stack(dense_layer_pspecs(cfg), nd)
@@ -49,8 +67,9 @@ def lm_pspecs(cfg: ModelConfig):
 
 
 def layer_stack(params, cfg: ModelConfig) -> list:
-    """``(layer tree, is_moe)`` for every layer in order; the index in
-    the list is the layer's KV-cache layer."""
+    """``(layer tree, is_moe)`` for every decoder layer in order (an
+    encoder-decoder's encoder layers are not in it); the index in the
+    list is the layer's KV-cache layer."""
     is_moe = cfg.family == "moe"
     return [(lp, False) for lp in params.get("dense_layers", [])] + \
         [(lp, is_moe) for lp in params["layers"]]
@@ -60,13 +79,48 @@ def embed_tokens(params, cfg: ModelConfig, tokens):
     return params["embed"][tokens].to(torch.bfloat16)
 
 
-def dense_layer_fwd(lp, x, cfg: ModelConfig, positions):
+def dense_layer_fwd(lp, x, cfg: ModelConfig, positions, causal=True):
     """Prefill body of one layer.  Returns (x', (k, v))."""
     h = L.apply_norm(lp["ln1"], x, cfg)
-    a, kv = L.attention_train(lp["attn"], h, cfg, positions)
+    a, kv = L.attention_train(lp["attn"], h, cfg, positions, causal)
     x = x + a
     h = L.apply_norm(lp["ln2"], x, cfg)
     return x + L.apply_mlp(lp["mlp"], h, cfg), kv
+
+
+def dense_layer_fwd_nocausal(lp, x, cfg: ModelConfig, positions):
+    """An encoder layer: ``dense_layer_fwd`` with full attention and no
+    KV kept.  Returns x'."""
+    return dense_layer_fwd(lp, x, cfg, positions, causal=False)[0]
+
+
+def cross_layer_fwd(lp, x, enc, cfg: ModelConfig, positions):
+    """Prefill body of an encoder-decoder's decoder layer (the
+    reference's ``dec_body``): causal self-attention, then ``ln_x`` and
+    cross-attention over the encoder output's K/V = enc·``wk``,
+    enc·``wv`` (no bias), then ``ln2`` and the MLP.  Returns (x',
+    (k, v), (k_enc, v_enc))."""
+    h = L.apply_norm(lp["ln1"], x, cfg)
+    a, kv = L.attention_train(lp["attn"], h, cfg, positions)
+    x = x + a
+    h = L.apply_norm(lp["ln_x"], x, cfg)
+    xa = lp["xattn"]
+    xkv = L.head_proj(xa["wk"], enc), L.head_proj(xa["wv"], enc)
+    a, _ = L.attention_train(xa, h, cfg, positions, causal=False, kv=xkv)
+    x = x + a
+    h = L.apply_norm(lp["ln2"], x, cfg)
+    return x + L.apply_mlp(lp["mlp"], h, cfg), kv, xkv
+
+
+def encode(params, cfg: ModelConfig, frames):
+    """The audio encoder: (B, Te, d) precomputed frame embeddings, cast
+    to bf16, through ``enc_layers`` and ``enc_norm``."""
+    x = frames.to(torch.bfloat16)
+    B, Te = x.shape[:2]
+    positions = torch.arange(Te, device=x.device).expand(B, Te)
+    for lp in params["enc_layers"]:
+        x = dense_layer_fwd_nocausal(lp, x, cfg, positions)
+    return L.apply_norm(params["enc_norm"], x, cfg)
 
 
 def moe_layer_fwd(lp, x, cfg: ModelConfig, positions, capacity=None):

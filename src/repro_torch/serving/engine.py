@@ -21,7 +21,8 @@ come from a shadow ``PageTable`` (no device pools) that follows the
 batch composition, as in the reference, not from the live pool.
 
 Not ported yet: ``plan_only``, the open-loop path, prefix caching and
-preemption.
+preemption.  An audio (encoder-decoder) config is refused, as the
+reference engine cannot prefill its frames: it runs through ``Model``.
 """
 from __future__ import annotations
 
@@ -91,6 +92,13 @@ class ServingEngine:
         page ids from a shadow ``PageTable``."""
         if plan_only:
             raise NotImplementedError("plan_only is not ported yet")
+        if cfg.family == "audio":
+            # as in the reference, whose engine prefills token ids only
+            raise NotImplementedError(
+                f"{cfg.name} is an encoder-decoder over audio frames: the "
+                "engine prefills token ids only; run it through "
+                "Model.prefill(..., audio_frames=...) and "
+                "Model.decode_step")
         self.cfg = cfg
         self.model = Model(cfg, device=device)
         self.device = self.model.device

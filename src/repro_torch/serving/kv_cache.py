@@ -22,6 +22,7 @@ it) and may point at a page that another sequence now owns.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -202,9 +203,11 @@ class PageTable:
 
 @dataclasses.dataclass
 class DecodeView:
-    """What one decode step hands every layer, on the device."""
-    positions: torch.Tensor     # (n,) int64: the new token's position
-    write_index: torch.Tensor   # (n,) int64: flat pool row it lands in
+    """What one decode step hands every layer, on the device.  A
+    ``read_view`` of a cache that the step does not write (an
+    encoder-decoder's cross KV) has no positions and no write index."""
+    positions: Optional[torch.Tensor]    # (n,) int64: new token's position
+    write_index: Optional[torch.Tensor]  # (n,) int64: flat row it lands in
     table: torch.Tensor         # (n, max_pages) int32
     lens: torch.Tensor          # (n,) int32: lengths after this token
 
@@ -212,7 +215,12 @@ class DecodeView:
 class PagedKVCache(PageTable):
     """Every layer's paged K/V pool plus one page table for up to
     ``max_seqs`` sequences.  The pools live on the card unless the
-    caller passes ``device="cpu"``."""
+    caller passes ``device="cpu"``.
+
+    An encoder-decoder's self-attention cache holds its cross-attention
+    cache as ``cross`` (another ``PagedKVCache``, one pool layer per
+    decoder layer, written once by prefill and only read by decode):
+    ``free_seq`` frees a slot in both and ``validate`` checks both."""
 
     def __init__(self, cfg: PagedCacheConfig, max_seqs: int,
                  n_layers: int, device="cuda"):
@@ -223,6 +231,17 @@ class PagedKVCache(PageTable):
         dt = getattr(torch, cfg.dtype)
         self.k_pages = torch.zeros(shape, dtype=dt, device=self.device)
         self.v_pages = torch.zeros(shape, dtype=dt, device=self.device)
+        self.cross: Optional[PagedKVCache] = None
+
+    def free_seq(self, slot: int):
+        super().free_seq(slot)
+        if self.cross is not None and self.cross.active[slot]:
+            self.cross.free_seq(slot)
+
+    def validate(self) -> None:
+        super().validate()
+        if self.cross is not None:
+            self.cross.validate()
 
     def _flat_rows(self, slot: int, start: int, stop: int) -> np.ndarray:
         pos = np.arange(start, stop)
@@ -261,6 +280,20 @@ class PagedKVCache(PageTable):
         return DecodeView(
             positions=torch.from_numpy(pos).to(dev),
             write_index=torch.from_numpy(widx).to(dev),
+            table=torch.from_numpy(self.tables[slots]).to(dev),
+            lens=torch.from_numpy(self.lens[slots].copy()).to(dev))
+
+    def read_view(self, slots) -> DecodeView:
+        """The table rows and lengths of ``slots`` (all active) on the
+        device, with nothing claimed or written: a decode step's view of
+        a cache it only reads."""
+        slots = [int(s) for s in slots]
+        for slot in slots:
+            if not self.active[slot]:
+                raise ValueError(f"read of inactive slot {slot}")
+        dev = self.device
+        return DecodeView(
+            positions=None, write_index=None,
             table=torch.from_numpy(self.tables[slots]).to(dev),
             lens=torch.from_numpy(self.lens[slots].copy()).to(dev))
 

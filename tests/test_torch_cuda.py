@@ -22,7 +22,10 @@ Last, page streaming on the card: the page store's pinned host pages
 and device pages, the layer streamer's side-stream fetches (DM and DC
 equal DevMem bit for bit through the GEMM kernel), Algorithm 1 on the
 card against its CPU run, and a decode-step plan against the paged
-kernel.
+kernel.  Then whisper-tiny: non-causal flash at the encoder's 1,500
+frames (self- and cross-attention), paged attention over its 94-page
+cross table, and its decode step as one device kernel per GEMM and
+paged wrapper call.
 Tolerances: int8 exact; fp32 GEMM 2e-4 and fp32 attention 3e-5 (fp32
 sums in another order, no TF32); bf16 2e-2 (one bf16 ulp of the
 outputs).
@@ -579,3 +582,90 @@ def test_cuda_decode_plan_matches_the_paged_kernel():
         outs["decode_out"].view(4, 14, 64).float().numpy(),
         want.float().cpu().numpy(), rtol=2e-2, atol=2e-2)
     assert store.stats.lookups == 2 * int(cache.held[slots].sum())
+
+
+# ------------------------------------------------------- whisper-tiny
+# (Tq, Tk): the encoder's self-attention over 1,500 frames, and the
+# decoder prompt's cross-attention over them
+WHISPER_FLASH = [(1500, 1500), (4, 1500)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tq,tk", WHISPER_FLASH)
+def test_cuda_flash_noncausal_at_the_whisper_encoder_length(tq, tk):
+    """8 clips, 6 / 6 heads of 64, non-causal, Tk = 1,500 (a multiple of
+    no 64-key tile), as the model calls it (``bk = Tk``): within 2e-2
+    of the plain version."""
+    dev = _card()
+    rng = np.random.default_rng(tq)
+    q = _bf16(rng, (8, tq, 6, 64), dev)
+    k, v = _bf16(rng, (8, tk, 6, 64), dev), _bf16(rng, (8, tk, 6, 64), dev)
+    got = ops.flash_attention(q, k, v, causal=False, bk=tk)
+    want = ref.flash_gqa_ref(q, k, v, False)
+    np.testing.assert_allclose(got.cpu().float().numpy(),
+                               want.cpu().float().numpy(), rtol=2e-2,
+                               atol=2e-2)
+
+
+@pytest.mark.cuda
+def test_cuda_paged_over_the_whisper_cross_table():
+    """Decode cross-attention: 8 sequences, each of the encoder's 1,500
+    tokens, 16-token pages over a 94-page table (the last page 12 tokens
+    full), 6 / 6 heads of 64, at the plan the wrapper picks: within 2e-2
+    of the plain version, the same bits on every run."""
+    dev = _card()
+    assert PA.launch_plan(8, 6, 6, 64, 94) == (1, 3)
+    args = _paged_card((6, 6, 64, 16, 94), [1500] * 8, torch.bfloat16, dev)
+    first = ops.paged_attention(*args)
+    np.testing.assert_allclose(first.cpu().float().numpy(),
+                               ref.paged_ref(*args).cpu().float().numpy(),
+                               rtol=2e-2, atol=2e-2)
+    for _ in range(3):
+        assert torch.equal(ops.paged_attention(*args), first)
+
+
+@pytest.mark.cuda
+def test_cuda_whisper_decode_step_is_one_kernel_per_wrapper_call():
+    """Full-width whisper-tiny, 8 clips of 1,500 frames prefilled with a
+    4-token prompt, then one decode step: per layer 4 self-attention, 2
+    cross-attention (q, o) and 2 MLP GEMMs and 2 paged calls (self and
+    cross), plus the lm_head; each wrapper call is one device kernel."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+    dev = _card()
+    cfg = get_config("whisper-tiny")
+    m = Model(cfg, device=dev)
+    g = torch.Generator(device=dev).manual_seed(0)
+    params = m.init(g)
+    B, Te = 8, 1500
+    cache = m.init_cache(B, 64, page_tokens=16, enc_seq=Te)
+    slots = list(range(B))
+    for s in slots:
+        cache.alloc_seq(s, 4)
+    frames = torch.randn((B, Te, cfg.d_model), generator=g, device=dev) * 0.02
+    toks = torch.randint(1, cfg.vocab_size, (B, 4), generator=g, device=dev)
+    tok = m.prefill(params, toks, cache, slots, audio_frames=frames)[
+        :, :cfg.vocab_size].argmax(-1)
+    kernels = {}
+    for steps in range(1, 4):
+        ops.reset_launches()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            tok = m.decode_step(params, cache, tok, slots)[
+                :, :cfg.vocab_size].argmax(-1)
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        kernels = {"streaming_gemm": sum("gemm_bf16" in n or "gemm_simt" in n
+                                         for n in names),
+                   "paged_attention": sum("paged_fwd" in n for n in names)}
+        if all(kernels[k] == ops.LAUNCHES[k] for k in kernels):
+            break
+    assert ops.LAUNCHES["streaming_gemm"] == cfg.n_layers * 8 + 1
+    assert ops.LAUNCHES["paged_attention"] == cfg.n_layers * 2
+    assert ops.LAUNCHES["flash_attention"] == 0
+    assert kernels == {k: ops.LAUNCHES[k] for k in kernels}, names
+    assert list(cache.lens[:B]) == [4 + steps] * B
+    assert list(cache.cross.lens[:B]) == [Te] * B
+    cache.validate()

@@ -323,7 +323,8 @@ def test_grouped_model_matches_reference_kernel(splits):
 # ------------------------------------------------- full config sizes
 @pytest.mark.parametrize("arch,gb", [("internvl2_2b", 3.78),
                                      ("chatglm3_6b", 12.49),
-                                     ("granite_20b", 40.63)])
+                                     ("granite_20b", 40.63),
+                                     ("qwen1_5_32b", 70.39)])
 def test_full_config_sizes(arch, gb):
     """The port's matrices hold the reference's ``n_params()`` (norms and
     biases aside), in bf16 ``gb`` GB; KV is 2 · layers · KH · D · 2 B a
@@ -339,7 +340,7 @@ def test_full_config_sizes(arch, gb):
     assert round(2 * mats / 1e9, 2) == gb
     kv = 2 * cfg.n_layers * cfg.n_kv_heads * cfg.resolved_head_dim * 2
     assert kv == {"internvl2_2b": 98_304, "chatglm3_6b": 28_672,
-                  "granite_20b": 26_624}[arch]
+                  "granite_20b": 26_624, "qwen1_5_32b": 1_310_720}[arch]
 
 
 def _flat(tree):

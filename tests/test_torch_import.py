@@ -30,7 +30,9 @@ def test_port_imports_no_jax():
             "repro_torch.configs.qwen2_moe_a2_7b",
             "repro_torch.configs.internvl2_2b",
             "repro_torch.configs.chatglm3_6b",
-            "repro_torch.configs.granite_20b"} <= set(mods)
+            "repro_torch.configs.granite_20b",
+            "repro_torch.configs.qwen1_5_32b",
+            "repro_torch.configs.whisper_tiny"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

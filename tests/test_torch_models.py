@@ -1,7 +1,8 @@
 """The port's dense and vlm models against the reference on the reduced
 qwen2-0.5b, chatglm3-6b (2-D RoPE), granite-20b (layernorm, non-gated
-GELU MLP, MQA) and internvl2-2b (tokens here; embeddings in
-``test_torch_dense_variants.py``), with the reference's bf16 weights
+GELU MLP, MQA), internvl2-2b (tokens here; embeddings in
+``test_torch_dense_variants.py``) and qwen1.5-32b (as many KV heads as
+query heads, QKV bias, untied head), with the reference's bf16 weights
 bridged into the port.
 
 Both run in bf16 with the same dtype flow (the reference cannot serve
@@ -38,7 +39,8 @@ from repro_torch.models.params import from_reference  # noqa: E402
 ATOL = 1e-2
 RTOL_MAX = 1.5e-2       # of the largest |logit|
 ARCH = "qwen2_0_5b"
-ARCHS = ["qwen2_0_5b", "chatglm3_6b", "granite_20b", "internvl2_2b"]
+ARCHS = ["qwen2_0_5b", "chatglm3_6b", "granite_20b", "internvl2_2b",
+         "qwen1_5_32b"]
 
 
 @pytest.fixture(scope="module", params=ARCHS)

@@ -25,7 +25,8 @@ COMPILED_COLS = ("trace_ids", "trace_nbytes", "trace_is_out", "in_lane",
                  "seg_trace")
 
 ARCH = "qwen2_0_5b"
-ARCHS = ["qwen2_0_5b", "chatglm3_6b", "granite_20b", "internvl2_2b"]
+ARCHS = ["qwen2_0_5b", "chatglm3_6b", "granite_20b", "internvl2_2b",
+         "qwen1_5_32b"]
 
 
 @functools.lru_cache(maxsize=None)
