@@ -106,7 +106,22 @@ Phases, in order; any failure raises and exits non-zero:
    three wrappers must run.  (c) Three decode steps profiled as in phase
    4.  (d) The whole model, 2 clips, a prefill and 4 decode steps on the
    card and on the CPU, logits within E2E_TOL x max(1, max|logit|).
-10. Print the ``kernels`` JSON line (each kernel's launches from its own
+10. rwkv6-7b (attention-free: 32 layers, d 4,096, 64 heads of 64,
+   d_ff 14,336; 16.11 GB of random bf16 weights from ``--seed``), after
+   whisper's weights are freed.  (a) The GEMM at M = 8 and 256 over
+   layer 0's nine weights (time mix r, k, v, g, w, o; channel mix k, v,
+   r) and the untied lm_head at M = 8, kept as the GEMM row's
+   ``rwkv6-7b_path``; and the scan's two PyTorch ops (not kernels),
+   printed as one ``{"scan_ops": [...]}`` line: ``linear_attention_step``
+   at 8 slots of 64 heads of 64 and the chunked scan of a 256-token
+   prompt, each timed, given its bound and held against the same op in
+   fp32 on the CPU.  (b) Serving as in phase 8 over the per-slot
+   recurrent state (no KV pool); the GEMM must run and flash and paged
+   attention must not.  (c) Three full-batch decode steps profiled as in
+   phase 4, after 64-token prompts.  (d) The first two layers, a
+   64-token prefill and 4 decode steps on the card and on the CPU:
+   logits and each layer's scan state within E2E_TOL x max(1, max|.|).
+11. Print the ``kernels`` JSON line (each kernel's launches from its own
    path's serving run, every path's counts beside), the card line, and
    last the result line ``{"ok": true, "device": {...}}``.
 """
@@ -122,6 +137,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
 BF16_FLOP_PER_S = 989e12        # H100 SXM dense bf16 tensor cores
+FP32_FLOP_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
 BF16_TOL = 2e-2                 # one bf16 ulp of O(1) outputs, with margin
 # card vs CPU, full width: bf16 activations through 24 layers rounded
 # after sums in other orders, and flash probabilities rounded to bf16 on
@@ -137,8 +153,8 @@ ROUTING_AGREEMENT_MIN = 0.97
 SPIN_CYCLES = 1_000_000         # ~0.5 ms at the H100's 1.98 GHz SM clock
 
 
-def bound(nbytes, flops):
-    t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S
+def bound(nbytes, flops, flop_rate=BF16_FLOP_PER_S):
+    t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / flop_rate
     return (max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations")
 
 
@@ -445,13 +461,14 @@ def phase_kernels(torch, args, dev, timer):
 
 def phase_serving(torch, args, cfg, params, kernels, new_tokens=32,
                   tag="serving", n_requests=16, prompt_max=512,
-                  pool_pages=None):
+                  pool_pages=None, absent=()):
     """Serve ``n_requests`` requests of 64-``prompt_max`` prompt tokens
     and ``new_tokens`` new tokens each on 8 slots of 16-token pages
     (``max_seq`` 1,024; a pool of ``pool_pages`` pages, by default room
-    for every slot's 1,024), after an untimed warm-up request.  The
-    launch counts are zeroed just before and read just after; each of
-    ``kernels`` must have run."""
+    for every slot's 1,024; an ssm model's state store instead), after
+    an untimed warm-up request.  The launch counts are zeroed just
+    before and read just after; each of ``kernels`` must have run, and
+    none of ``absent``."""
     import numpy as np
     from repro_torch.kernels import ops
     from repro_torch.serving.engine import Request, ServingEngine
@@ -469,7 +486,11 @@ def phase_serving(torch, args, cfg, params, kernels, new_tokens=32,
     del warm
 
     eng = engine()
-    pool_mb = 2 * eng.cache.k_pages.numel() * 2 / 1e6
+    if cfg.family == "ssm":
+        store = {"state_mb": eng.cache.nbytes / 1e6}
+    else:
+        store = {"kv_pool_mb": 2 * eng.cache.k_pages.numel() * 2 / 1e6,
+                 "kv_pool_pages": eng.cache.cfg.n_pages}
     reqs = [Request(uid=i, prompt=rng.integers(
         1, cfg.vocab_size - 1, int(rng.integers(64, prompt_max + 1)))
         .astype(np.int32), max_new_tokens=new_tokens)
@@ -491,12 +512,16 @@ def phase_serving(torch, args, cfg, params, kernels, new_tokens=32,
     wall = time.perf_counter() - t0
     launches = dict(ops.LAUNCHES)
     eng.cache.validate()
-    require(eng.cache.pages_in_use == 0, "pages leaked after the drain")
+    require(not eng.cache.active.any(), "slots held after the drain")
+    if cfg.family != "ssm":
+        require(eng.cache.pages_in_use == 0, "pages leaked after the drain")
     for r in reqs:
         require(len(r.output) == new_tokens and all(
             0 <= t < cfg.vocab_size for t in r.output), (r.uid, r.output))
     missing = [k for k in kernels if launches[k] <= 0]
     require(not missing, f"main path never launched {missing}")
+    stray = [k for k in absent if launches[k]]
+    require(not stray, f"main path launched {stray}, which it must not")
     ttft = sorted(r.first_token_s - r.submitted_s for r in reqs)
     tokens = sum(len(r.output) for r in reqs)
     res = {"model": cfg.name, "requests": len(reqs), "tokens_out": tokens,
@@ -506,8 +531,7 @@ def phase_serving(torch, args, cfg, params, kernels, new_tokens=32,
            "decode_step_median_ms": statistics.median(decode_ms),
            "decode_steps": eng.stats.decode_steps,
            "decode_only_steps": len(decode_ms),
-           "prefills": eng.stats.prefills, "launches": launches,
-           "kv_pool_mb": pool_mb, "kv_pool_pages": eng.cache.cfg.n_pages,
+           "prefills": eng.stats.prefills, "launches": launches, **store,
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
            "validate": "ok"}
     print(f"[{tag}] " + json.dumps(res), flush=True)
@@ -520,7 +544,8 @@ def phase_card_vs_cpu(torch, args, cfg, params, n_layers=None,
     on the CPU (every wrapper's plain version), logits within E2E_TOL x
     max(1, max|logit|); with ``n_layers``, only the first ``n_layers``
     layers (full width).  For a config that takes embeddings, also a
-    prefill from 256 seeded bf16 embeddings, held the same way."""
+    prefill from 256 seeded bf16 embeddings, held the same way; for an
+    ssm model, each layer's final scan state, held the same way."""
     import dataclasses
 
     import numpy as np
@@ -549,11 +574,12 @@ def phase_card_vs_cpu(torch, args, cfg, params, n_layers=None,
             cache.alloc_seq(1, emb.shape[1])
             out.append(m.prefill(p, None, cache, [1],
                                  embeddings=emb.to(m.device)))
-        return torch.cat(out).float().cpu()
+        state = cache.s[:, 0].cpu() if cfg.family == "ssm" else None
+        return torch.cat(out).float().cpu(), state
 
     t0 = time.perf_counter()
-    card = run("cuda", params)
-    cpu = run("cpu", params_to(params, "cpu"))
+    card, card_s = run("cuda", params)
+    cpu, cpu_s = run("cpu", params_to(params, "cpu"))
     rows = 5 + (emb is not None)
     require(card.shape == (rows, cfg.padded_vocab) and
             bool(card.isfinite().all()), "card logits malformed")
@@ -567,13 +593,18 @@ def phase_card_vs_cpu(torch, args, cfg, params, n_layers=None,
         res[what] = {"max_abs_err": err, "max_abs_logit": top,
                      "tol": E2E_TOL * max(1.0, top), "argmax_agree": int(
                          (card[sl].argmax(-1) == cpu[sl].argmax(-1)).sum())}
+    for layer in range(cfg.n_layers if cpu_s is not None else 0):
+        top = cpu_s[layer].abs().max().item()
+        res[f"scan_state_{layer}"] = {
+            "max_abs_err": (card_s[layer] - cpu_s[layer]).abs().max().item(),
+            "max_abs": top, "tol": E2E_TOL * max(1.0, top)}
     res["seconds"] = time.perf_counter() - t0
     print(f"[{tag}] " + json.dumps(res), flush=True)
-    for what in ("tokens", "embeddings"):
-        if what in res:
-            require(res[what]["max_abs_err"] <= res[what]["tol"],
-                    f"{tag} {what}: card vs CPU logits differ by "
-                    f"{res[what]['max_abs_err']}")
+    for what, r in res.items():
+        if isinstance(r, dict):
+            require(r["max_abs_err"] <= r["tol"],
+                    f"{tag} {what}: card and CPU differ by "
+                    f"{r['max_abs_err']}")
     return res
 
 
@@ -591,9 +622,10 @@ def _kernel_group(name):
 
 def phase_profile(torch, args, cfg, params, n_steps=5, tag="decode_profile",
                   one_kernel=("streaming_gemm", "paged_attention"),
-                  tries=3, pool_pages=None):
+                  tries=3, pool_pages=None, prompt_len=256):
     """Where a full-batch decode step's time goes: ``profile_steps`` over
-    the engine's decode steps of 8 slots (prompts of 256 tokens)."""
+    the engine's decode steps of 8 slots (prompts of ``prompt_len``
+    tokens)."""
     import numpy as np
     from repro_torch.serving.engine import Request, ServingEngine
 
@@ -603,11 +635,11 @@ def phase_profile(torch, args, cfg, params, n_steps=5, tag="decode_profile",
                         device="cuda")
     for i in range(8):
         eng.submit(Request(uid=i, prompt=rng.integers(
-            1, cfg.vocab_size - 1, 256).astype(np.int32),
+            1, cfg.vocab_size - 1, prompt_len).astype(np.int32),
             max_new_tokens=(2 + tries) * n_steps + 2))
     eng.step()                          # admits all 8, one decode step
-    return profile_steps(torch, eng.step, cfg.name, 256, n_steps, tag,
-                         one_kernel, tries)
+    return profile_steps(torch, eng.step, cfg.name, prompt_len, n_steps,
+                         tag, one_kernel, tries)
 
 
 def profile_steps(torch, step, model, context, n_steps, tag, one_kernel,
@@ -627,11 +659,13 @@ def profile_steps(torch, step, model, context, n_steps, tag, one_kernel,
     from repro_torch.kernels import ops
 
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     for _ in range(n_steps):
         step()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / n_steps
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
     for window in range(1, tries + 1):
         ops.reset_launches()
         with profile(activities=[ProfilerActivity.CPU,
@@ -666,7 +700,8 @@ def profile_steps(torch, step, model, context, n_steps, tag, one_kernel,
            "device_busy_share": busy / wall_ms,
            "launches_per_step": per_step,
            "device_kernels_per_step": kernels,
-           "device_kernels_total_per_step": sum(kernels.values())}
+           "device_kernels_total_per_step": sum(kernels.values()),
+           "peak_mem_gb": peak_gb}
     print(f"[{tag}] " + json.dumps(res), flush=True)
     # one device kernel per wrapper call: no hidden second pass
     for name in one_kernel:
@@ -1647,6 +1682,155 @@ def phase_whisper(torch, args, rows):
           f"{res['seconds']:.1f}", flush=True)
     return res
 
+# ---------------------------------------------------------- 10. rwkv6-7b
+RWKV_ARCH = "rwkv6-7b"
+# the scan ops on the card against the same op on the CPU, of the
+# largest |want|: the output is rounded to bf16 (one ulp is 2^-8 of it);
+# the fp32 state sums in another order, through the chunk's midpoint
+# factors of up to exp(+-40) (a float64 recurrence leaves 1e-6 on the CPU)
+SCAN_TOL = {"out": 1e-2, "state": 1e-4}
+
+
+def _rwkv_kernels(torch, args, cfg, params, dev, timer, rows):
+    """(a) The GEMM at M = 8 and 256 over layer 0's nine weights and the
+    untied lm_head at M = 8, kept as the GEMM row's ``rwkv6-7b_path``."""
+    g = torch.Generator(device=dev).manual_seed(args.seed + 50)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+
+    lp = params["layers"][0]
+    weights = [(lp["time"][n], f"time {n}")
+               for n in ("wr", "wk", "wv", "wg", "ww", "wo")]
+    weights += [(lp["channel"][n], f"channel {n}") for n in ("wk", "wv", "wr")]
+    per_shape = [gemm_entry(torch, timer, randn(M, w.shape[0]), w, what, True)
+                 for M in (8, 256) for w, what in weights]
+    per_shape.append(gemm_entry(torch, timer, randn(8, cfg.d_model),
+                                params["lm_head"], "lm_head", True))
+    _add_path(rows["streaming_gemm"], per_shape, f"{cfg.name}_path")
+
+
+def _scan_op(torch, timer, name, fn, inputs, nbytes, flops):
+    """One scan op: its output (bf16) and state (fp32) on the card held
+    against the same op on the CPU (``SCAN_TOL`` of the largest |want|),
+    its time and its bound (bytes, or fp32 operations outside the tensor
+    cores)."""
+    got = fn(*inputs)
+    want = fn(*(t.cpu() for t in inputs))
+    res = {"op": name}
+    for part, a, b in zip(("out", "state"), got, want):
+        top = b.abs().max().item()
+        err = check_close(f"{name} {part}", a.float().cpu(), b.float(),
+                          SCAN_TOL[part] * top, 0.0)
+        res[f"{part}_max_abs_err"] = err
+        res[f"{part}_max_abs"] = top
+    bms, by = bound(nbytes, flops, FP32_FLOP_PER_S)
+    res.update({"tol_of_max_abs": SCAN_TOL,
+                "ms": timer(lambda: fn(*inputs)), "bound_ms": bms,
+                "bound_by": by, "bytes": nbytes, "flops": flops})
+    return res
+
+
+def _scan_ops(torch, args, cfg, dev, timer):
+    """(a) The scan's two PyTorch ops at the main path's shapes:
+    ``linear_attention_step`` over 8 slots (decode) and the chunked scan
+    of a 256-token prompt (prefill), on r, k, v in bf16, the decay as
+    the time mix makes it (-exp of a normal draw, fp32, some of it below
+    the clamp), a random fp32 state and bonus."""
+    from repro_torch.models import ssm as SSM
+    from repro_torch.models import tuning as TU
+
+    g = torch.Generator(device=dev).manual_seed(args.seed + 51)
+    H = cfg.n_heads
+    N = cfg.d_model // H
+    chunk = TU.get().ssm_chunk
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    u = randn(H, N) * 0.1
+    out = []
+    for what, lead in (("linear_attention_step", (8,)),
+                       ("chunked_linear_attention", (1, 256))):
+        B = lead[0]
+        r, k, v = (randn(*lead, H, N, dtype=torch.bfloat16)
+                   for _ in range(3))
+        logw = -torch.exp(randn(*lead, H, N))
+        state = randn(B, H, N, N) * 0.1
+        io = 3 * r.numel() * 2 + logw.numel() * 4 + u.numel() * 4 + \
+            2 * state.numel() * 4 + r.numel() * 2
+        if what == "linear_attention_step":
+            fn = SSM.linear_attention_step
+            # kv, decay, bonus, read, update: ~6 flops per state element
+            flops = 6 * state.numel()
+        else:
+            def fn(r, k, v, logw, state, u):
+                return SSM.chunked_linear_attention(r, k, v, logw, state,
+                                                    u=u, chunk=chunk)
+            T = lead[1]
+            # per chunk: the inter-chunk read, scores, intra-chunk PV and
+            # the state update, 2 flops per multiply-add
+            flops = (T // chunk) * B * H * (
+                2 * chunk * N * N * 2 + 2 * chunk * chunk * N * 2)
+        out.append(_scan_op(torch, timer, what, fn,
+                            (r, k, v, logw, state, u), io, flops))
+        out[-1]["shape"] = {"rk": list(r.shape), "state": list(state.shape)}
+    print(json.dumps({"scan_ops": out}), flush=True)
+    return out
+
+
+def phase_rwkv(torch, args, rows):
+    """10. rwkv6-7b at full width and depth (32 layers, d 4,096, 16.11 GB
+    of random bf16 weights from ``--seed``): (a) the GEMM at its shapes
+    and the scan's two ops, (b) serving 8 requests of 64-256 prompt
+    tokens and 8 new tokens over the recurrent state store (the GEMM
+    must run, flash and paged attention must not), (c) a profile of 3
+    full-batch decode steps (each GEMM call one device kernel), (d) two
+    layers on the card against the CPU, logits and scan states."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+
+    dev = torch.device("cuda")
+    cfg = get_config(RWKV_ARCH)
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(args.seed)
+    params = Model(cfg, device=dev).init(g)
+    torch.cuda.synchronize()
+    res = {"init_s": time.perf_counter() - t0,
+           "weights_gb": torch.cuda.memory_allocated() / 1e9}
+    print(f"[{cfg.name}] {res['weights_gb']:.2f} GB of weights on the card "
+          f"in {res['init_s']:.1f} s", flush=True)
+    t = time.perf_counter()
+    timer = Timer(torch, dev)
+    _rwkv_kernels(torch, args, cfg, params, dev, timer, rows)
+    res["scan_ops"] = _scan_ops(torch, args, cfg, dev, timer)
+    del timer
+    res["kernels_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    res["serving"] = phase_serving(
+        torch, args, cfg, params, ("streaming_gemm",), new_tokens=8,
+        tag=f"{cfg.name} serving", n_requests=8, prompt_max=256,
+        absent=("flash_attention", "paged_attention",
+                "streaming_gemm_grouped"))
+    res["serving_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    # a recurrent decode step costs the same at any context: 64-token
+    # prompts keep the 8 prefills before the window short
+    res["decode_profile"] = phase_profile(
+        torch, args, cfg, params, n_steps=3,
+        tag=f"{cfg.name} decode_profile", one_kernel=("streaming_gemm",),
+        prompt_len=64)
+    res["profile_s"] = time.perf_counter() - t
+    res["card_vs_cpu"] = phase_card_vs_cpu(
+        torch, args, cfg, params, n_layers=2, tag=f"{cfg.name} card_vs_cpu")
+    res["seconds"] = time.perf_counter() - t0
+    print(f"[{cfg.name}] seconds: init {res['init_s']:.1f} kernels "
+          f"{res['kernels_s']:.1f} serving {res['serving_s']:.1f} "
+          f"profile {res['profile_s']:.1f} card_vs_cpu "
+          f"{res['card_vs_cpu']['seconds']:.1f} total "
+          f"{res['seconds']:.1f}", flush=True)
+    return res
+
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -1687,13 +1871,16 @@ def main():
     variants = phase_dense_variants(torch, args, rows)
     torch.cuda.empty_cache()
     whisper = phase_whisper(torch, args, rows)
+    torch.cuda.empty_cache()
+    rwkv = phase_rwkv(torch, args, rows)
 
     # launches: each kernel's count from its own main path's serving run
     # (the grouped GEMM's is the MoE path); every path's counts beside
     paths = {cfg.name: serving["launches"],
              MOE_ARCH: moe["serving"]["launches"],
              **{a: v["serving"]["launches"] for a, v in variants.items()},
-             WHISPER_ARCH: whisper["greedy"]["launches"]}
+             WHISPER_ARCH: whisper["greedy"]["launches"],
+             RWKV_ARCH: rwkv["serving"]["launches"]}
     kernels = [{"name": name, **rows[name],
                 "launches": paths[MOE_ARCH if name == "streaming_gemm_grouped"
                                   else cfg.name][name],

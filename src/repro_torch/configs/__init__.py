@@ -12,10 +12,10 @@ import importlib
 from repro_torch.configs.base import ModelConfig, MoEConfig  # noqa: F401
 
 ARCH_IDS = ["qwen2_0_5b", "qwen2_moe_a2_7b", "internvl2_2b", "chatglm3_6b",
-            "granite_20b", "qwen1_5_32b", "whisper_tiny"]
+            "granite_20b", "qwen1_5_32b", "whisper_tiny", "rwkv6_7b"]
 
 # the reference registry's ids that have no port yet
-NOT_PORTED = ["deepseek_v3_671b", "zamba2_7b", "rwkv6_7b"]
+NOT_PORTED = ["deepseek_v3_671b", "zamba2_7b"]
 
 ALIASES = {a.replace("_", "-"): a for a in ARCH_IDS + NOT_PORTED}
 ALIASES.update({

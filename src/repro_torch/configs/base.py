@@ -1,7 +1,7 @@
 """Model configuration dataclasses — the port's own copies of the
-reference ``ModelConfig`` and ``MoEConfig`` (same fields, same
-defaults, same derived properties), so that the port never imports the
-JAX package.
+reference ``ModelConfig``, ``MoEConfig`` and ``SSMConfig`` (same
+fields, same defaults, same derived properties), so that the port never
+imports the JAX package.
 """
 from __future__ import annotations
 
@@ -25,6 +25,17 @@ class MoEConfig:
 
 
 @dataclass(frozen=True)
+class SSMConfig:
+    """Mamba2 (zamba2) / RWKV6 state-space parameters."""
+    d_state: int = 64
+    d_conv: int = 4
+    expand: int = 2
+    head_dim: int = 64          # SSM head dim (mamba2) / rwkv head size
+    # zamba2: one shared attention block applied every `attn_every` mamba layers
+    attn_every: int = 6
+
+
+@dataclass(frozen=True)
 class ModelConfig:
     name: str
     family: str                  # dense | moe | ssm | hybrid | vlm | audio
@@ -43,9 +54,9 @@ class ModelConfig:
     glu: bool = True             # gated FFN (SwiGLU/GeGLU) vs plain MLP
     tie_embeddings: bool = False
     moe: Optional[MoEConfig] = None
-    # MLA / SSM sub-configs: not ported yet, always None here
+    # MLA sub-config: not ported yet, always None here
     mla: Optional[object] = None
-    ssm: Optional[object] = None
+    ssm: Optional[SSMConfig] = None
     mtp: bool = False
     # encoder-decoder (whisper): n_layers == decoder layers
     n_encoder_layers: int = 0

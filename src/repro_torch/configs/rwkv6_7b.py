@@ -1,0 +1,30 @@
+"""rwkv6-7b (Finch) [arXiv:2404.05892; hf]
+
+32L d_model=4096, attention-free (data-dependent decay linear attention,
+head_size=64 -> 64 time-mix heads), d_ff=14336, vocab=65536.
+"""
+from repro_torch.configs.base import ModelConfig, SSMConfig
+
+CONFIG = ModelConfig(
+    name="rwkv6-7b",
+    family="ssm",
+    n_layers=32,
+    d_model=4096,
+    n_heads=64,           # d_model / head_size(64)
+    n_kv_heads=64,
+    d_ff=14336,
+    vocab_size=65536,
+    norm="layernorm",
+    rope="none",
+    ssm=SSMConfig(d_state=64, head_dim=64),
+    source="arXiv:2404.05892; hf",
+)
+
+
+def reduced() -> ModelConfig:
+    return ModelConfig(
+        name="rwkv6-7b-reduced", family="ssm",
+        n_layers=2, d_model=64, n_heads=4, n_kv_heads=4, d_ff=128,
+        vocab_size=256, norm="layernorm", rope="none",
+        ssm=SSMConfig(d_state=16, head_dim=16), vocab_pad_multiple=16,
+    )

@@ -1,5 +1,6 @@
 """Serving launcher: continuous batching over synthetic requests on the
-paged KV cache, with the hand-written kernels on the card.
+paged KV cache (or an ssm model's per-slot recurrent state), with the
+hand-written kernels on the card.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \
         --requests 8 --slots 4 --page-tokens 16
@@ -9,6 +10,8 @@ paged KV cache, with the hand-written kernels on the card.
         --arch granite-20b --slots 8 --page-tokens 16
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch qwen1.5-32b --slots 8 --page-tokens 16
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch rwkv6-7b --slots 8
 
 Every ported architecture serves through the same path (``--arch``):
 qwen2-0.5b, dense; qwen2-moe-a2.7b, MoE, whose expert FFNs run through
@@ -17,7 +20,10 @@ language model (served from token prompts; ``Model.prefill`` also takes
 precomputed patch embeddings); chatglm3-6b, 2-D RoPE; granite-20b,
 layernorm, a non-gated GELU MLP and MQA (48 query heads over one KV
 head, which the paged kernel splits into query-head groups);
-qwen1.5-32b, 64 layers of 40 / 40 heads (70.4 GB of weights).  The
+qwen1.5-32b, 64 layers of 40 / 40 heads (70.4 GB of weights);
+rwkv6-7b, attention-free (ssm): each layer's RWKV6 time and channel mix
+over a fixed recurrent state per slot, no KV pool (``--page-tokens``
+unused), every projection through the streaming GEMM.  The
 encoder-decoder whisper-tiny is refused by the engine, as in the
 reference: it runs through ``Model.prefill(..., audio_frames=...)`` and
 ``Model.decode_step``.

@@ -1,5 +1,6 @@
-"""Prefill + single-token decode over the paged KV cache, dense, vlm,
-MoE and audio branches.
+"""Prefill + single-token decode, dense, vlm, MoE and audio branches
+over the paged KV cache, and the ssm branch over the per-slot recurrent
+state (``serving.state_cache.RecurrentStateCache``).
 
 The reference keeps a contiguous (L, B, S, KH, hd) cache; the port
 keeps the paged pools of ``serving.kv_cache.PagedKVCache`` (one table
@@ -17,6 +18,11 @@ An audio model (whisper) keeps its encoder's K/V in a second paged
 cache, ``cache.cross``: prefill writes it once, and decode attends over
 it with ``ops.paged_attention`` at lens = Te, the reference's
 ``decode_attention(q, xk, xv, Te)`` over a paged layout.
+
+An ssm model (rwkv6) has no KV: prefill runs each layer from a zero
+state over the prompt and writes the layer's final state into the
+slots; decode gathers the slots' state, runs one recurrence step and
+scatters it back.  Neither runs attention.
 """
 from __future__ import annotations
 
@@ -25,6 +31,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
+from repro_torch.models import ssm as SSM
 from repro_torch.models import transformer as T
 
 
@@ -38,7 +45,9 @@ def prefill(params, cfg: ModelConfig, tokens, cache, slots, *,
     and returns the last-token logits (B, padded_vocab).
 
     An audio config (whisper) takes ``audio_frames`` (B, Te, d) beside
-    the decoder's ``tokens``: see ``_prefill_audio``."""
+    the decoder's ``tokens``: see ``_prefill_audio``.  An ssm config
+    (rwkv6) writes each layer's final recurrent state into the slots of
+    its ``RecurrentStateCache`` instead: see ``_prefill_ssm``."""
     if cfg.family == "audio":
         if embeddings is not None or audio_frames is None or tokens is None:
             raise ValueError(f"{cfg.name} prefills decoder token ids with "
@@ -56,6 +65,8 @@ def prefill(params, cfg: ModelConfig, tokens, cache, slots, *,
         x = embeddings.to(torch.bfloat16)
     else:
         x = T.embed_tokens(params, cfg, tokens)
+    if cfg.family == "ssm":
+        return _prefill_ssm(params, cfg, x, cache, slots)
     B, Tq = x.shape[:2]
     positions = torch.arange(Tq, device=x.device).expand(B, Tq)
     rows = cache.prompt_index(slots, Tq)                  # (B, T)
@@ -66,6 +77,20 @@ def prefill(params, cfg: ModelConfig, tokens, cache, slots, *,
         else:
             x, (k, v) = T.dense_layer_fwd(lp, x, cfg, positions)
         _write(cache, layer, rows, k, v)
+    x = L.apply_norm(params["final_norm"], x[:, -1], cfg)
+    return T.lm_head(params, cfg, x)
+
+
+def _prefill_ssm(params, cfg: ModelConfig, x, cache, slots):
+    """The ssm branch of prefill (reference ``decoding.prefill``): every
+    layer from a zero state; its final state overwrites the slots' state
+    in ``cache`` (a ``RecurrentStateCache``)."""
+    B, Tq = x.shape[:2]
+    idx = cache.prompt_slots(slots, Tq)
+    st0 = SSM.init_rwkv_state(cfg, B, x.dtype, x.device)
+    for layer, lp in enumerate(params["layers"]):
+        x, st = T.rwkv_layer_fwd(lp, x, cfg, st0)
+        cache.write(layer, idx, st)
     x = L.apply_norm(params["final_norm"], x[:, -1], cfg)
     return T.lm_head(params, cfg, x)
 
@@ -128,7 +153,10 @@ def decode_step(params, cfg: ModelConfig, cache, tokens, slots):
     Appends each token's K/V at its slot's length and returns logits
     (n, padded_vocab).  Only the given slots are written or read.  An
     audio model adds ``pos_embed`` at each slot's own position and
-    reads, per layer, the encoder KV that prefill wrote."""
+    reads, per layer, the encoder KV that prefill wrote.  An ssm model
+    steps each slot's recurrent state instead (``_decode_ssm``)."""
+    if cfg.family == "ssm":
+        return _decode_ssm(params, cfg, cache, tokens, slots)
     view = cache.append_view(slots)
     x = params["embed"][tokens].to(torch.bfloat16)
     audio = cfg.family == "audio"
@@ -140,5 +168,25 @@ def decode_step(params, cfg: ModelConfig, cache, tokens, slots):
                  xview) if audio else None
         x = _decode_layer(lp, is_moe, x, cfg, cache.k_pages[layer],
                           cache.v_pages[layer], view, cross)
+    x = L.apply_norm(params["final_norm"], x, cfg)
+    return T.lm_head(params, cfg, x)
+
+
+def _decode_ssm(params, cfg: ModelConfig, cache, tokens, slots):
+    """The ssm branch of decode_step: per layer, gather the slots'
+    state, run the time mix's single step and the channel mix on the
+    token, scatter the new state back."""
+    idx = cache.decode_slots(slots)
+    x = params["embed"][tokens].to(torch.bfloat16)
+    for layer, lp in enumerate(params["layers"]):
+        st = cache.read(layer, idx)
+        h = L.apply_norm(lp["ln1"], x, cfg)
+        t, tstate = SSM.rwkv_time_mix_step(lp["time"], h, cfg, st["time"])
+        x = x + t
+        h = L.apply_norm(lp["ln2"], x, cfg)
+        c, cshift = SSM.rwkv_channel_mix(lp["channel"], h,
+                                         st["channel_shift"])
+        x = x + c
+        cache.write(layer, idx, {"time": tstate, "channel_shift": cshift})
     x = L.apply_norm(params["final_norm"], x, cfg)
     return T.lm_head(params, cfg, x)

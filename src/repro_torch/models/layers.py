@@ -160,6 +160,14 @@ def apply_act(x, cfg: ModelConfig):
         else F.gelu(x, approximate="tanh")
 
 
+def sigmoid_op_by_op(x):
+    """The reference's ``jax.nn.sigmoid`` as XLA computes it called
+    eagerly: 1 / (1 + exp(-x)), each op rounded to ``x.dtype``.  On a
+    bf16 operand ``torch.sigmoid`` rounds once instead, and differs in
+    the last bit of about a third of the outputs."""
+    return 1 / (1 + torch.exp(-x))
+
+
 def _gemm(x, w):
     """x (..., K) @ w (K, N) through the streaming GEMM."""
     lead = x.shape[:-1]

@@ -1,10 +1,11 @@
 """Unified model API used by the server: dense, vlm and MoE decoders,
-and the audio encoder-decoder (whisper), which only this API serves.
+the attention-free ssm model (rwkv6), and the audio encoder-decoder
+(whisper), which only this API serves.
 
 ``Model(cfg, device=...)`` exposes:
     init(generator) -> params
     init_cache(slots, max_seq, page_tokens, n_pages, enc_seq=0)
-        -> PagedKVCache
+        -> PagedKVCache, or RecurrentStateCache for an ssm model
     prefill(params, tokens, cache, slots, embeddings=None,
             audio_frames=None) -> logits
     decode_step(params, cache, tokens, slots) -> logits
@@ -25,6 +26,7 @@ from repro_torch.models import decoding as D
 from repro_torch.models import transformer as T
 from repro_torch.models.params import init_tree
 from repro_torch.serving.kv_cache import PagedCacheConfig, PagedKVCache
+from repro_torch.serving.state_cache import RecurrentStateCache
 
 
 class Model:
@@ -40,14 +42,23 @@ class Model:
 
     def init_cache(self, slots: int, max_seq: int, page_tokens: int = 8,
                    n_pages: Optional[int] = None,
-                   enc_seq: int = 0) -> PagedKVCache:
+                   enc_seq: int = 0):
         """A paged pool where, by default, every slot can grow to
         ``max_seq`` tokens; one pool layer per decoder layer of every
         stack (an MoE model's dense layers first).  An audio model also
         gets ``cache.cross``, a pool of one layer per decoder layer in
         which every slot holds ``enc_seq`` encoder tokens (the
-        reference's ``init_cache(batch, seq, enc_seq)``)."""
+        reference's ``init_cache(batch, seq, enc_seq)``).
+
+        An ssm model gets a ``RecurrentStateCache`` of ``slots`` slots
+        and no KV pool: its state does not grow with the sequence, so
+        ``max_seq`` and ``page_tokens`` size nothing, and ``n_pages`` is
+        refused."""
         cfg = self.cfg
+        if cfg.family == "ssm":
+            if n_pages is not None or enc_seq:
+                raise ValueError(f"{cfg.name} has no KV pool")
+            return RecurrentStateCache(cfg, slots, device=self.device)
         if (cfg.family == "audio") != (enc_seq > 0):
             raise ValueError(f"{cfg.name}: enc_seq is the encoder length "
                              "of an audio model, and only of one")
@@ -67,7 +78,7 @@ class Model:
                 max_pages_per_seq=pages_per_seq),
             max_seqs=slots, n_layers=cfg.n_layers, device=self.device)
 
-    def prefill(self, params, tokens, cache: PagedKVCache, slots, *,
+    def prefill(self, params, tokens, cache, slots, *,
                 embeddings=None, audio_frames=None):
         """Token ids (B, T), or ``tokens=None`` and (B, T, d)
         ``embeddings`` for a vlm config; an audio config takes the
@@ -76,5 +87,5 @@ class Model:
         return D.prefill(params, self.cfg, tokens, cache, slots,
                          embeddings=embeddings, audio_frames=audio_frames)
 
-    def decode_step(self, params, cache: PagedKVCache, tokens, slots):
+    def decode_step(self, params, cache, tokens, slots):
         return D.decode_step(params, self.cfg, cache, tokens, slots)

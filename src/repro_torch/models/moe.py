@@ -107,7 +107,7 @@ def _act(x, cfg: ModelConfig):
     (0.985 with this SiLU)."""
     if cfg.act != "silu":
         return L.apply_act(x, cfg)
-    return x * (1 / (1 + torch.exp(-x)))
+    return x * L.sigmoid_op_by_op(x)
 
 
 def _experts(p, buf, kept, cfg: ModelConfig):

@@ -84,11 +84,12 @@ def from_reference(params_np, cfg) -> dict:
     The stacked leading ``L`` axis of each layer stack (``layers``, an
     MoE model's ``dense_layers``, an audio model's ``enc_layers``) is
     split into a list of per-layer trees; every leaf keeps its dtype and
-    per-layer shape (an expert leaf stays (E, d, f), the router (d, E));
-    ``pos_embed`` and ``enc_norm`` stay whole."""
-    if cfg.family not in ("dense", "vlm", "moe", "audio"):
+    per-layer shape (an expert leaf stays (E, d, f), the router (d, E),
+    an RWKV6 layer's ``mix`` (5, d) and ``u`` (H, N)); ``pos_embed`` and
+    ``enc_norm`` stay whole."""
+    if cfg.family not in ("dense", "vlm", "moe", "audio", "ssm"):
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet")
+            f"family {cfg.family!r} is not yet ported")
 
     def conv(tree):
         if isinstance(tree, dict):

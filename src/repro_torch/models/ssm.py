@@ -1,16 +1,34 @@
-"""State-space / linear-attention scan: the chunked kernel shared by
-RWKV6 and Mamba2 in the reference.
+"""State-space / linear-attention blocks: the RWKV6 (Finch) time and
+channel mix over the chunked scan shared with Mamba2 in the reference.
 
-Only the chunked scan (``chunked_linear_attention``) and its 2-D adapter
-for the plan executor's ``ssm_scan`` host op (``scan_chunk_2d``) are
-ported so far; the RWKV6 and Mamba2 blocks come with the SSM family.
-The sequence is processed in chunks with an O(state) carry: the SSM
-counterpart of the paper's paged streaming.  The reference scans the
-chunks with ``lax.scan``; the port loops over them.
+The sequence is processed in chunks with an O(state) carry
+(``chunked_linear_attention``): the SSM counterpart of the paper's paged
+streaming.  The reference scans the chunks with ``lax.scan``; the port
+loops over them.  Decode is the exact single-step recurrence
+(``linear_attention_step``).  ``scan_chunk_2d`` adapts one chunk for
+the plan executor's ``ssm_scan`` host op.
+
+RWKV6 time mix (per head h, head size N):
+    out_t = r_t · (S_{t-1} + (u ⊙ k_t) v_tᵀ)
+    S_t   = diag(w_t) S_{t-1} + k_t v_tᵀ          (w_t data-dependent)
+
+Every projection runs through the streaming GEMM (``layers._gemm``).
+The token-shift lerps, ``sigmoid(mix)``, the gate and ``relu(·)²`` stay
+in the activation dtype (bf16) and round after each op, as the
+reference's ops do when XLA runs them one by one; the decay
+``-exp(ww-projection + w_bias)``, the scan and the recurrence are fp32
+(on the card with TF32 off, PyTorch's default: the chunk's midpoint
+factors reach exp(±40)).  The scan's ops are plain PyTorch, as they
+are plain XLA in the reference.  Mamba2 is not ported yet.
 """
 from __future__ import annotations
 
 import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import layers as L
+from repro_torch.models import tuning as TU
+from repro_torch.models.params import PSpec
 
 # Per-token log-decay clamp: keeps exp(±Σ logw) inside fp32 range for the
 # factored chunk products (chunk 16 × 5.0 = 80 < log(fp32_max) ≈ 88).
@@ -97,3 +115,135 @@ def scan_chunk_2d(r, k, v, logw, state, H, N, inclusive=True, u=None):
     out, s = chunked_linear_attention(r4, k4, v4, w4, s4, u=u, chunk=L,
                                       inclusive=inclusive)
     return out.reshape(L, H * M), s.reshape(H * N, M)
+
+
+def linear_attention_step(r, k, v, logw, state, u=None,
+                          inclusive: bool = False):
+    """Exact single-token recurrence.  r, k, logw: (B, H, N); v:
+    (B, H, M); state: (B, H, N, M) fp32.  Returns (out (B, H, M) in
+    ``v.dtype``, new state fp32)."""
+    rf, kf, vf = r.float(), k.float(), v.float()
+    kv = kf[..., :, None] * vf[..., None, :]
+    decay = torch.exp(logw.float().clamp(LOGW_MIN, 0.0))[..., None]
+    if inclusive:           # mamba2: update the state, then read it
+        state = decay * state + kv
+        out = torch.einsum("bhn,bhnm->bhm", rf, state)
+    else:                   # rwkv: read S + u-bonus, then update
+        read = state + u.float()[..., None] * kv if u is not None \
+            else state
+        out = torch.einsum("bhn,bhnm->bhm", rf, read)
+        state = decay * state + kv
+    return out.to(v.dtype), state
+
+
+# ------------------------------------------------------------------
+# RWKV6 block
+# ------------------------------------------------------------------
+def rwkv_pspecs(cfg: ModelConfig):
+    d = cfg.d_model
+    H = cfg.n_heads
+    N = d // H
+    return {
+        "time": {
+            "wr": PSpec((d, d), ("embed", "qkv")),
+            "wk": PSpec((d, d), ("embed", "qkv")),
+            "wv": PSpec((d, d), ("embed", "qkv")),
+            "wg": PSpec((d, d), ("embed", "qkv")),
+            "ww": PSpec((d, d), ("embed", "qkv"), scale=0.01),
+            "w_bias": PSpec((H, N), ("heads", "head_dim"), "zeros"),
+            "u": PSpec((H, N), ("heads", "head_dim"), "zeros"),
+            "wo": PSpec((d, d), ("qkv", "embed")),
+            "mix": PSpec((5, d), (None, "embed_act"), "zeros"),
+        },
+        "channel": {
+            "wk": PSpec((d, cfg.d_ff), ("embed", "mlp")),
+            "wv": PSpec((cfg.d_ff, d), ("mlp", "embed")),
+            "wr": PSpec((d, d), ("embed", "qkv")),
+            "mix": PSpec((2, d), (None, "embed_act"), "zeros"),
+        },
+    }
+
+
+def _silu(x):
+    """The reference's ``jax.nn.silu``, x * sigmoid(x), rounded after
+    each op as ``layers.sigmoid_op_by_op`` is."""
+    return x * L.sigmoid_op_by_op(x)
+
+
+def _token_shift(x, last):
+    """Shift right by one; ``last`` (B, d) is the previous sequence's
+    tail."""
+    return torch.cat([last[:, None], x[:, :-1]], dim=1)
+
+
+def _lerps(x, xs, mix):
+    """The token-shift interpolations ``x + (xs - x) * sigmoid(mix)[i]``
+    for every row i of ``mix``, in ``x.dtype``."""
+    dx = xs - x
+    return [x + dx * m for m in L.sigmoid_op_by_op(mix)]
+
+
+def rwkv_time_mix(p, x, cfg: ModelConfig, state, chunk: int = 0):
+    """x: (B, T, d); state: {"s": (B, H, N, N) fp32, "shift": (B, d)}.
+    Returns (out (B, T, d), final state)."""
+    chunk = chunk or TU.get().ssm_chunk
+    B, T, d = x.shape
+    H = cfg.n_heads
+    N = d // H
+    lr, lk, lv, lg, lw = _lerps(x, _token_shift(x, state["shift"]),
+                                p["mix"])
+    r = L._gemm(lr, p["wr"]).reshape(B, T, H, N)
+    k = L._gemm(lk, p["wk"]).reshape(B, T, H, N)
+    v = L._gemm(lv, p["wv"]).reshape(B, T, H, N)
+    g = _silu(L._gemm(lg, p["wg"]))
+    logw = -torch.exp(L._gemm(lw, p["ww"]).reshape(B, T, H, N).float()
+                      + p["w_bias"].float())
+    out, s = chunked_linear_attention(r, k, v, logw, state["s"],
+                                      u=p["u"].float(), chunk=chunk)
+    out = L._gemm(out.reshape(B, T, d) * g, p["wo"])
+    return out, {"s": s, "shift": x[:, -1]}
+
+
+def rwkv_time_mix_step(p, x, cfg: ModelConfig, state):
+    """x: (B, d), a single token.  Returns (out (B, d), new state)."""
+    B, d = x.shape
+    H = cfg.n_heads
+    N = d // H
+    lr, lk, lv, lg, lw = _lerps(x, state["shift"], p["mix"])
+    r = L._gemm(lr, p["wr"]).reshape(B, H, N)
+    k = L._gemm(lk, p["wk"]).reshape(B, H, N)
+    v = L._gemm(lv, p["wv"]).reshape(B, H, N)
+    g = _silu(L._gemm(lg, p["wg"]))
+    logw = -torch.exp(L._gemm(lw, p["ww"]).float().reshape(B, H, N)
+                      + p["w_bias"].float())
+    out, s = linear_attention_step(r, k, v, logw, state["s"],
+                                   u=p["u"].float())
+    out = L._gemm(out.reshape(B, d) * g, p["wo"])
+    return out, {"s": s, "shift": x}
+
+
+def rwkv_channel_mix(p, x, state_shift):
+    """x: (B, T, d) with the previous tail ``state_shift`` (B, d), or a
+    single token (B, d).  Returns (out, new shift)."""
+    xs = _token_shift(x, state_shift) if x.ndim == 3 else state_shift
+    lk, lr = _lerps(x, xs, p["mix"])
+    k = torch.relu(L._gemm(lk, p["wk"])) ** 2
+    r = L.sigmoid_op_by_op(L._gemm(lr, p["wr"]))
+    new_shift = x[:, -1] if x.ndim == 3 else x
+    return r * L._gemm(k, p["wv"]), new_shift
+
+
+def init_rwkv_state(cfg: ModelConfig, batch: int, dtype=torch.float32,
+                    device=None):
+    """A zero state: the scan's ``s`` in fp32, the two token shifts in
+    ``dtype``."""
+    H = cfg.n_heads
+    N = cfg.d_model // H
+    return {
+        "time": {"s": torch.zeros((batch, H, N, N), dtype=torch.float32,
+                                  device=device),
+                 "shift": torch.zeros((batch, cfg.d_model), dtype=dtype,
+                                      device=device)},
+        "channel_shift": torch.zeros((batch, cfg.d_model), dtype=dtype,
+                                     device=device),
+    }

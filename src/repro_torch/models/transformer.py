@@ -1,10 +1,12 @@
-"""Model assembly, dense, vlm, MoE and audio branches: parameter tree,
-embedding, the dense and MoE decoder layers, the audio encoder and the
-lm_head (tied or not).  A vlm model is the dense decoder; only its
-prefill input differs (precomputed embeddings, ``decoding.prefill``).
-An audio model (whisper) is an encoder of non-causal dense layers over
-precomputed frames and a decoder whose layers add cross-attention over
-the encoder's output, with a learned ``pos_embed``.
+"""Model assembly, dense, vlm, MoE, audio and ssm branches: parameter
+tree, embedding, the dense and MoE decoder layers, the audio encoder,
+the RWKV6 layer and the lm_head (tied or not).  A vlm model is the
+dense decoder; only its prefill input differs (precomputed embeddings,
+``decoding.prefill``).  An audio model (whisper) is an encoder of
+non-causal dense layers over precomputed frames and a decoder whose
+layers add cross-attention over the encoder's output, with a learned
+``pos_embed``.  An ssm model (rwkv6) is attention-free: each layer is a
+time mix and a channel mix (``models.ssm``) over a recurrent state.
 
 The reference scans a stacked layer tree with ``lax.scan``; the port
 loops over a list of per-layer trees.  An MoE model may start with
@@ -19,6 +21,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
+from repro_torch.models import ssm as SSM
 from repro_torch.models.params import PSpec, stack
 
 
@@ -39,10 +42,16 @@ def moe_layer_pspecs(cfg: ModelConfig):
             "ln2": L.norm_pspec(cfg), "moe": MOE.moe_pspecs(cfg)}
 
 
+def rwkv_layer_pspecs(cfg: ModelConfig):
+    p = SSM.rwkv_pspecs(cfg)
+    return {"ln1": L.norm_pspec(cfg), "time": p["time"],
+            "ln2": L.norm_pspec(cfg), "channel": p["channel"]}
+
+
 def lm_pspecs(cfg: ModelConfig):
-    if cfg.family not in ("dense", "vlm", "moe", "audio"):
+    if cfg.family not in ("dense", "vlm", "moe", "audio", "ssm"):
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet")
+            f"family {cfg.family!r} is not yet ported")
     d, V = cfg.d_model, cfg.padded_vocab
     p: dict = {"embed": PSpec((V, d), ("vocab", "embed"), scale=0.02)}
     if not cfg.tie_embeddings:
@@ -50,6 +59,9 @@ def lm_pspecs(cfg: ModelConfig):
     p["final_norm"] = L.norm_pspec(cfg)
     if cfg.family in ("dense", "vlm"):
         p["layers"] = stack(dense_layer_pspecs(cfg), cfg.n_layers)
+        return p
+    if cfg.family == "ssm":
+        p["layers"] = stack(rwkv_layer_pspecs(cfg), cfg.n_layers)
         return p
     if cfg.family == "audio":
         p["enc_layers"] = stack(dense_layer_pspecs(cfg), cfg.n_encoder_layers)
@@ -132,6 +144,19 @@ def moe_layer_fwd(lp, x, cfg: ModelConfig, positions, capacity=None):
     h = L.apply_norm(lp["ln2"], x, cfg)
     y, aux = MOE.apply_moe(lp["moe"], h, cfg, capacity=capacity)
     return x + y, aux, kv
+
+
+def rwkv_layer_fwd(lp, x, cfg: ModelConfig, state):
+    """Prefill body of one RWKV6 layer from ``state`` (a tree as
+    ``ssm.init_rwkv_state`` makes).  Returns (x', the layer's final
+    state)."""
+    h = L.apply_norm(lp["ln1"], x, cfg)
+    t, tstate = SSM.rwkv_time_mix(lp["time"], h, cfg, state["time"])
+    x = x + t
+    h = L.apply_norm(lp["ln2"], x, cfg)
+    c, cshift = SSM.rwkv_channel_mix(lp["channel"], h,
+                                     state["channel_shift"])
+    return x + c, {"time": tstate, "channel_shift": cshift}
 
 
 def lm_head(params, cfg: ModelConfig, h):

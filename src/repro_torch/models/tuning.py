@@ -21,6 +21,7 @@ _STATE = threading.local()
 class Tuning:
     q_chunk: int = 512             # chunked-attention query page
     kv_chunk: int = 1024           # chunked-attention KV page
+    ssm_chunk: int = 16            # linear-attention chunk
     kv_cache_quant: bool = False   # INT8 paged KV (not ported yet)
     moe_local_dispatch: bool = False   # row-local MoE dispatch
 

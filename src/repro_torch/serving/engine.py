@@ -1,4 +1,5 @@
-"""Continuous-batching serving engine over the paged KV cache.
+"""Continuous-batching serving engine over the paged KV cache, or over
+the per-slot recurrent state of an attention-free (ssm) model.
 
 Slot-based continuous batching as in the reference: finished slots are
 recycled and newly admitted requests are prefilled into their slot
@@ -19,6 +20,12 @@ multi-layer GQA ``decode_step_plan`` record per step, each tagged with
 the step index and the slot -> request-uid mapping.  The plans' page ids
 come from a shadow ``PageTable`` (no device pools) that follows the
 batch composition, as in the reference, not from the live pool.
+
+An ssm model (rwkv6) has no KV pool: its ``RecurrentStateCache`` holds
+a fixed state per slot, so a free slot is enough to admit a request.
+With ``record_plans`` it is admitted against the shadow ``PageTable``
+instead, and its trace prices each step as GQA KV pages of
+``n_kv_heads`` x ``head_dim``, as the reference's does.
 
 Not ported yet: ``plan_only``, the open-loop path, prefix caching and
 preemption.  An audio (encoder-decoder) config is refused, as the
@@ -106,8 +113,11 @@ class ServingEngine:
         self.slots = slots
         self.max_seq = max_seq
         self.eos = eos_token
-        self.cache = self.model.init_cache(slots, max_seq, kv_page_tokens,
-                                           kv_pool_pages)
+        if cfg.family == "ssm":
+            self.cache = self.model.init_cache(slots, max_seq)
+        else:
+            self.cache = self.model.init_cache(slots, max_seq,
+                                               kv_page_tokens, kv_pool_pages)
         self.slot_req: list[Optional[Request]] = [None] * slots
         self.queue: deque[Request] = deque()
         self.stats = EngineStats()
@@ -119,13 +129,18 @@ class ServingEngine:
         self.n_records = 0
         self._table: Optional[PageTable] = None
         if record_plans:
-            c = self.cache.cfg
+            pages_per_seq = -(-max_seq // kv_page_tokens)
             self._table = PageTable(
                 PagedCacheConfig(
-                    n_pages=c.n_pages, page_tokens=c.page_tokens,
-                    n_kv_heads=c.n_kv_heads, head_dim=c.head_dim,
-                    max_pages_per_seq=c.max_pages_per_seq, dtype=c.dtype),
+                    n_pages=kv_pool_pages or slots * pages_per_seq,
+                    page_tokens=kv_page_tokens, n_kv_heads=cfg.n_kv_heads,
+                    head_dim=cfg.resolved_head_dim,
+                    max_pages_per_seq=pages_per_seq),
                 max_seqs=slots, templated=True)
+        # the pages admission is held to: the live pool, or an ssm
+        # model's shadow table (None without record_plans)
+        self._pages: Optional[PageTable] = \
+            self._table if cfg.family == "ssm" else self.cache
 
     @property
     def step_plans(self) -> list:
@@ -148,10 +163,10 @@ class ServingEngine:
     def _max_pages(self, req: Request) -> int:
         """Worst-case pages ``req`` can ever hold."""
         max_len = min(len(req.prompt) + req.max_new_tokens, self.max_seq)
-        return -(-max_len // self.cache.cfg.page_tokens)
+        return -(-max_len // self._pages.cfg.page_tokens)
 
     def _can_admit(self, req: Request) -> bool:
-        t = self.cache
+        t = self._pages
         need = self._max_pages(req)
         if need > min(t.cfg.n_pages, t.cfg.max_pages_per_seq):
             raise ValueError(
@@ -167,7 +182,8 @@ class ServingEngine:
         for slot in range(self.slots):
             if self.slot_req[slot] is not None or not self.queue:
                 continue
-            if not self._can_admit(self.queue[0]):
+            if self._pages is not None and \
+                    not self._can_admit(self.queue[0]):
                 # the request stays queued until retirements free pages
                 self.deferred_admissions += 1
                 return

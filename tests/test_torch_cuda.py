@@ -25,7 +25,12 @@ card against its CPU run, and a decode-step plan against the paged
 kernel.  Then whisper-tiny: non-causal flash at the encoder's 1,500
 frames (self- and cross-attention), paged attention over its 94-page
 cross table, and its decode step as one device kernel per GEMM and
-paged wrapper call.
+paged wrapper call.  Then rwkv6-7b at reduced width: prefill of mixed
+prompt lengths and decode steps on the card against the same weights on
+the CPU (logits and scan states within 5e-2 of their largest magnitude:
+bf16 rounding after fp32 sums in another order, through two layers),
+through the GEMM kernel alone (9 per layer and the lm_head per step, no
+attention kernel).
 Tolerances: int8 exact; fp32 GEMM 2e-4 and fp32 attention 3e-5 (fp32
 sums in another order, no TF32); bf16 2e-2 (one bf16 ulp of the
 outputs).
@@ -669,3 +674,43 @@ def test_cuda_whisper_decode_step_is_one_kernel_per_wrapper_call():
     assert list(cache.lens[:B]) == [4 + steps] * B
     assert list(cache.cross.lens[:B]) == [Te] * B
     cache.validate()
+
+
+@pytest.mark.cuda
+def test_cuda_rwkv6_prefill_and_decode_match_the_cpu():
+    from repro_torch.configs import get_reduced
+    from repro_torch.models.model import Model
+    from repro_torch.models.params import params_to
+    dev = _card()
+    cfg = get_reduced("rwkv6-7b")
+    cpu_model, card_model = Model(cfg, device="cpu"), Model(cfg, device=dev)
+    params = cpu_model.init(torch.Generator().manual_seed(0))
+    card_params = params_to(params, dev)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, cfg.vocab_size, n) for n in (5, 16, 23)]
+    forced = rng.integers(1, cfg.vocab_size, (4, 3))
+
+    def run(m, p):
+        cache = m.init_cache(3, 64)
+        out = []
+        for slot, prompt in enumerate(prompts):
+            cache.alloc_seq(slot, len(prompt))
+            out.append(m.prefill(p, torch.as_tensor(prompt[None],
+                                                    device=m.device),
+                                 cache, [slot]))
+        for step in range(4):
+            ops.reset_launches()
+            out.append(m.decode_step(p, cache, torch.as_tensor(
+                forced[step], device=m.device), [2, 0, 1]))
+        return torch.cat(out).float().cpu(), cache
+
+    want, cpu_cache = run(cpu_model, params)
+    got, card_cache = run(card_model, card_params)
+    assert ops.LAUNCHES["streaming_gemm"] == 9 * cfg.n_layers + 1
+    assert ops.LAUNCHES["flash_attention"] == 0
+    assert ops.LAUNCHES["paged_attention"] == 0
+    assert bool(got.isfinite().all())
+    for g, w in ((got, want), (card_cache.s.cpu(), cpu_cache.s)):
+        tol = 5e-2 * max(1.0, w.abs().max().item())
+        assert (g - w).abs().max().item() <= tol
+    assert list(card_cache.lens) == list(cpu_cache.lens) == [9, 20, 27]

@@ -32,7 +32,9 @@ def test_port_imports_no_jax():
             "repro_torch.configs.chatglm3_6b",
             "repro_torch.configs.granite_20b",
             "repro_torch.configs.qwen1_5_32b",
-            "repro_torch.configs.whisper_tiny"} <= set(mods)
+            "repro_torch.configs.whisper_tiny",
+            "repro_torch.configs.rwkv6_7b",
+            "repro_torch.serving.state_cache"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

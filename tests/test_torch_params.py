@@ -28,13 +28,14 @@ def _leaves(tree, prefix=""):
 
 
 ARCHS = ["qwen2_0_5b", "chatglm3_6b", "granite_20b", "internvl2_2b",
-         "qwen1_5_32b"]
+         "qwen1_5_32b", "rwkv6_7b"]
 # leaves outside the layers (embed, an untied lm_head, the final norm's
 # scale and a layernorm's bias) and in each layer (norms, q/k/v/o and
-# their biases, the gated or plain MLP)
+# their biases, the gated or plain MLP; rwkv6: two layernorms, the time
+# mix's 9 leaves and the channel mix's 4)
 N_LEAVES = {"qwen2_0_5b": (2, 12), "chatglm3_6b": (3, 12),
             "granite_20b": (4, 12), "internvl2_2b": (3, 9),
-            "qwen1_5_32b": (3, 12)}
+            "qwen1_5_32b": (3, 12), "rwkv6_7b": (4, 17)}
 
 
 @pytest.fixture(scope="module", params=ARCHS)

@@ -264,8 +264,9 @@ def test_unported_paths_raise():
     with pytest.raises(NotImplementedError):
         ServingEngine(cfg, None, device="cpu", plan_only=True)
     from repro_torch.configs import get_config
-    with pytest.raises(NotImplementedError):
-        get_config("deepseek-v3-671b")
+    for arch in ("deepseek-v3-671b", "zamba2-7b"):
+        with pytest.raises(NotImplementedError, match="not yet ported"):
+            get_config(arch)
     from repro_torch.models.tuning import Tuning
     with pytest.raises(NotImplementedError):
         Tuning(kv_cache_quant=True)
