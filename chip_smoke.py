@@ -121,7 +121,23 @@ Phases, in order; any failure raises and exits non-zero:
    phase 4, after 64-token prompts.  (d) The first two layers, a
    64-token prefill and 4 decode steps on the card and on the CPU:
    logits and each layer's scan state within E2E_TOL x max(1, max|.|).
-11. Print the ``kernels`` JSON line (each kernel's launches from its own
+11. zamba2-7b (hybrid: 81 Mamba2 layers, d 3,584, d_ff 14,336, one
+   shared attention block of 32 / 32 heads of 112 before every sixth
+   layer, 14 invocations; 38.16 GB of random bf16 weights from
+   ``--seed``), after rwkv's weights are freed.  (a) As phase 8a over
+   layer 0's ``in_proj``, ``out_proj`` and MLP and the shared block's
+   q/k/v/o (each row's ``zamba2-7b_path``): flash and paged attention at
+   head dim 112; and the Mamba2 scan op (one decode step of 8 slots x
+   112 heads of (64, 64), the chunked scan of a 256-token prompt) as a
+   ``{"scan_ops": [...]}`` line.  (b) Serving as in phase 8 over a KV
+   pool of 14 layers (one per invocation) and the per-slot state
+   store; GEMM, flash and paged attention must run, the grouped GEMM
+   must not.  (c) Three full-batch decode steps profiled as in phase 4,
+   14 paged calls a step.  (d) The first 7 layers (the shared block at
+   layers 0 and 6, two pool layers), a 64-token prefill and 4 decode
+   steps on the card and on the CPU: logits and each layer's scan
+   state within E2E_TOL x max(1, max|.|).
+12. Print the ``kernels`` JSON line (each kernel's launches from its own
    path's serving run, every path's counts beside), the card line, and
    last the result line ``{"ok": true, "device": {...}}``.
 """
@@ -465,7 +481,8 @@ def phase_serving(torch, args, cfg, params, kernels, new_tokens=32,
     """Serve ``n_requests`` requests of 64-``prompt_max`` prompt tokens
     and ``new_tokens`` new tokens each on 8 slots of 16-token pages
     (``max_seq`` 1,024; a pool of ``pool_pages`` pages, by default room
-    for every slot's 1,024; an ssm model's state store instead), after
+    for every slot's 1,024; an ssm model's state store instead, a hybrid
+    model's beside it), after
     an untimed warm-up request.  The launch counts are zeroed just
     before and read just after; each of ``kernels`` must have run, and
     none of ``absent``."""
@@ -486,11 +503,13 @@ def phase_serving(torch, args, cfg, params, kernels, new_tokens=32,
     del warm
 
     eng = engine()
-    if cfg.family == "ssm":
-        store = {"state_mb": eng.cache.nbytes / 1e6}
-    else:
+    store = {}
+    if cfg.family != "ssm":
         store = {"kv_pool_mb": 2 * eng.cache.k_pages.numel() * 2 / 1e6,
                  "kv_pool_pages": eng.cache.cfg.n_pages}
+    states = eng.cache if cfg.family == "ssm" else eng.cache.state
+    if states is not None:
+        store["state_mb"] = states.nbytes / 1e6
     reqs = [Request(uid=i, prompt=rng.integers(
         1, cfg.vocab_size - 1, int(rng.integers(64, prompt_max + 1)))
         .astype(np.int32), max_new_tokens=new_tokens)
@@ -545,7 +564,8 @@ def phase_card_vs_cpu(torch, args, cfg, params, n_layers=None,
     max(1, max|logit|); with ``n_layers``, only the first ``n_layers``
     layers (full width).  For a config that takes embeddings, also a
     prefill from 256 seeded bf16 embeddings, held the same way; for an
-    ssm model, each layer's final scan state, held the same way."""
+    ssm or hybrid model, each layer's final scan state, held the same
+    way."""
     import dataclasses
 
     import numpy as np
@@ -574,7 +594,8 @@ def phase_card_vs_cpu(torch, args, cfg, params, n_layers=None,
             cache.alloc_seq(1, emb.shape[1])
             out.append(m.prefill(p, None, cache, [1],
                                  embeddings=emb.to(m.device)))
-        state = cache.s[:, 0].cpu() if cfg.family == "ssm" else None
+        states = cache if cfg.family == "ssm" else cache.state
+        state = states.s[:, 0].cpu() if states is not None else None
         return torch.cat(out).float().cpu(), state
 
     t0 = time.perf_counter()
@@ -1264,7 +1285,8 @@ def kv_pool_pages(torch, cfg, slots=8, max_seq=1024, page_tokens=16):
     torch.cuda.empty_cache()
     free, _ = torch.cuda.mem_get_info()
     free += torch.cuda.memory_reserved() - torch.cuda.memory_allocated()
-    page_bytes = 2 * cfg.n_layers * page_tokens * cfg.n_kv_heads * \
+    from repro_torch.models.transformer import kv_layers
+    page_bytes = 2 * kv_layers(cfg) * page_tokens * cfg.n_kv_heads * \
         cfg.resolved_head_dim * 2
     cap = slots * -(-max_seq // page_tokens)
     pages = min(cap, (free - POOL_MARGIN_BYTES) // page_bytes)
@@ -1278,15 +1300,23 @@ def kv_pool_pages(torch, cfg, slots=8, max_seq=1024, page_tokens=16):
     return int(pages)
 
 
-def _dense_kernels(torch, args, cfg, params, dev, timer, rows):
-    """(a) Every kernel at one dense arch's shapes, kept as each row's
-    ``<arch>_path``.  The GEMM at M = 8 and 256 over layer 0's own q, k,
-    v, o and MLP weights, and the untied lm_head at M = 8; flash at T =
-    256 with the arch's heads; paged attention at 8 x 272 tokens (the
-    decode profile's context, on the path) and at a ragged mix of
-    64-1,024 (beyond the serving phase's 264, off the path), then one
-    edge case checked without timing (lens 0, 1, a page boundary and
-    the full table) at the arch's query-head group count."""
+def _attn_weights(attn, d, tag=""):
+    """An attention block's q, k, v, o as the GEMM reads them, 2-D."""
+    return [(attn[n].reshape(d, -1) if n != "wo" else attn[n].reshape(-1, d),
+             f"{tag}{n}") for n in ("wq", "wk", "wv", "wo")]
+
+
+def _dense_kernels(torch, args, cfg, params, dev, timer, rows,
+                   weights=None):
+    """(a) Every kernel at one arch's shapes, kept as each row's
+    ``<arch>_path``.  The GEMM at M = 8 and 256 over ``weights`` (by
+    default layer 0's own q, k, v, o and MLP weights), and the untied
+    lm_head at M = 8; flash at T = 256 with the arch's heads; paged
+    attention at 8 x 272 tokens (the decode profile's context, on the
+    path) and at a ragged mix of 64-1,024 (beyond the serving phase's
+    264, off the path), then one edge case checked without timing (lens
+    0, 1, a page boundary and the full table) at the arch's query-head
+    group count."""
     from repro_torch.kernels import ops, ref
 
     g = torch.Generator(device=dev).manual_seed(args.seed + 30)
@@ -1298,11 +1328,11 @@ def _dense_kernels(torch, args, cfg, params, dev, timer, rows):
     key = f"{cfg.name}_path"
     d, H, KH, D = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
                    cfg.resolved_head_dim)
-    attn, mlp = params["layers"][0]["attn"], params["layers"][0]["mlp"]
-    weights = [(attn[n].reshape(d, -1), n) for n in ("wq", "wk", "wv")]
-    weights.append((attn["wo"].reshape(-1, d), "wo"))
-    weights += [(mlp[n], f"mlp {n}") for n in
-                (("wi_gate", "wi_up", "wo") if cfg.glu else ("wi", "wo"))]
+    if weights is None:
+        mlp = params["layers"][0]["mlp"]
+        weights = _attn_weights(params["layers"][0]["attn"], d)
+        weights += [(mlp[n], f"mlp {n}") for n in
+                    (("wi_gate", "wi_up", "wo") if cfg.glu else ("wi", "wo"))]
     per_shape = []
     for M in (8, 256):
         a = randn(M, d)
@@ -1832,6 +1862,130 @@ def phase_rwkv(torch, args, rows):
     return res
 
 
+# --------------------------------------------------------- 11. zamba2-7b
+ZAMBA_ARCH = "zamba2-7b"
+
+
+def _zamba_scan_ops(torch, args, cfg, dev, timer):
+    """(a) The Mamba2 scan's PyTorch op at the main path's shapes: the
+    inclusive ``chunked_linear_attention`` of one decode step (8 slots,
+    chunk 1, as ``mamba2_step`` runs it) and of a 256-token prompt
+    (chunk 16), over 112 heads of (N 64, hd 64): C and B (the queries
+    and keys) one bf16 group broadcast to every head, x·dt bf16, the
+    decay dt·a (a softplus draw times -exp of a normal one, fp32, some
+    of it below the clamp) broadcast over N, a random fp32 state.
+    Printed as one ``{"scan_ops": [...]}`` line, each op held against
+    the same op on the CPU."""
+    from repro_torch.models import ssm as SSM
+
+    g = torch.Generator(device=dev).manual_seed(args.seed + 60)
+    s = cfg.ssm
+    nh, N, hd = s.expand * cfg.d_model // s.head_dim, s.d_state, s.head_dim
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    out = []
+    for what, B, T, chunk in (("mamba2_step scan", 8, 1, 1),
+                              ("mamba2_forward scan", 1, 256,
+                               SSM.DEFAULT_CHUNK)):
+        c, b = (randn(B, T, 1, N, dtype=torch.bfloat16).expand(B, T, nh, N)
+                for _ in range(2))
+        xh = randn(B, T, nh, hd, dtype=torch.bfloat16)
+        dt = torch.nn.functional.softplus(randn(B, T, nh))
+        logw = (dt * -torch.exp(randn(nh)))[..., None].expand(B, T, nh, N)
+        state = randn(B, nh, N, hd) * 0.1
+
+        def fn(r, k, v, w, st, chunk=chunk):
+            return SSM.chunked_linear_attention(r, k, v, w, st, chunk=chunk,
+                                                inclusive=True)
+
+        # each input read once (B, C and the decay before their
+        # broadcast), the state read and written, the output written
+        io = 2 * B * T * N * 2 + 2 * xh.numel() * 2 + B * T * nh * 4 + \
+            2 * state.numel() * 4
+        # per chunk and head: the inter-chunk read and the state update
+        # (c·N·hd each), scores and intra-chunk PV (c²·N, c²·hd), 2
+        # flops per multiply-add
+        flops = (T // chunk) * B * nh * (
+            2 * chunk * N * hd * 2 + chunk * chunk * (N + hd) * 2)
+        out.append(_scan_op(torch, timer, what, fn, (c, b, xh, logw, state),
+                            io, flops))
+        out[-1]["shape"] = {"rk": [B, T, nh, N], "v": list(xh.shape),
+                            "state": list(state.shape), "chunk": chunk}
+    print(json.dumps({"scan_ops": out, "model": cfg.name}), flush=True)
+    return out
+
+
+def phase_zamba(torch, args, rows):
+    """11. zamba2-7b at full width and depth (81 Mamba2 layers, d 3,584,
+    one shared attention block of 32 / 32 heads of 112 run before every
+    sixth layer; 38.16 GB of random bf16 weights from ``--seed``): (a)
+    the GEMM over layer 0's Mamba2 and MLP weights, the shared block's
+    q/k/v/o and the lm_head, flash and paged attention at head dim 112,
+    and the scan op; (b) serving 8 requests of 64-256 prompt tokens and
+    8 new tokens over the 14-layer KV pool and the state store (GEMM,
+    flash and paged must run, the grouped GEMM must not); (c) a profile
+    of 3 full-batch decode steps (each GEMM and paged call one device
+    kernel, 14 paged calls a step); (d) the first 7 layers (shared
+    invocations at layers 0 and 6) on the card against the CPU, logits
+    and each layer's scan state."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+    from repro_torch.models.transformer import n_shared_invocations
+
+    dev = torch.device("cuda")
+    cfg = get_config(ZAMBA_ARCH)
+    inv = n_shared_invocations(cfg)
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(args.seed)
+    params = Model(cfg, device=dev).init(g)
+    torch.cuda.synchronize()
+    res = {"init_s": time.perf_counter() - t0,
+           "weights_gb": torch.cuda.memory_allocated() / 1e9,
+           "shared_invocations": inv}
+    print(f"[{cfg.name}] {res['weights_gb']:.2f} GB of weights on the card "
+          f"in {res['init_s']:.1f} s; {inv} shared-attention invocations",
+          flush=True)
+    t = time.perf_counter()
+    timer = Timer(torch, dev)
+    d = cfg.d_model
+    lp = params["layers"][0]
+    weights = [(lp["mamba"][n], f"mamba {n}") for n in ("in_proj",
+                                                         "out_proj")]
+    weights += [(lp["mlp"][n], f"mlp {n}") for n in ("wi_gate", "wi_up",
+                                                     "wo")]
+    weights += _attn_weights(params["shared_attn"]["attn"], d, "shared ")
+    _dense_kernels(torch, args, cfg, params, dev, timer, rows, weights)
+    res["scan_ops"] = _zamba_scan_ops(torch, args, cfg, dev, timer)
+    del timer
+    res["kernels_s"] = time.perf_counter() - t
+    pages = kv_pool_pages(torch, cfg)
+    t = time.perf_counter()
+    res["serving"] = phase_serving(
+        torch, args, cfg, params, DENSE_KERNELS, new_tokens=8,
+        tag=f"{cfg.name} serving", n_requests=8, prompt_max=256,
+        pool_pages=pages, absent=("streaming_gemm_grouped",))
+    res["serving_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    prof = res["decode_profile"] = phase_profile(
+        torch, args, cfg, params, n_steps=3,
+        tag=f"{cfg.name} decode_profile", pool_pages=pages)
+    require(prof["launches_per_step"]["paged_attention"] == inv,
+            f"{cfg.name}: {prof['launches_per_step']['paged_attention']} "
+            f"paged calls a decode step, not one per invocation ({inv})")
+    res["profile_s"] = time.perf_counter() - t
+    res["card_vs_cpu"] = phase_card_vs_cpu(
+        torch, args, cfg, params, n_layers=7, tag=f"{cfg.name} card_vs_cpu")
+    res["seconds"] = time.perf_counter() - t0
+    print(f"[{cfg.name}] seconds: init {res['init_s']:.1f} kernels "
+          f"{res['kernels_s']:.1f} serving {res['serving_s']:.1f} "
+          f"profile {res['profile_s']:.1f} card_vs_cpu "
+          f"{res['card_vs_cpu']['seconds']:.1f} total "
+          f"{res['seconds']:.1f}", flush=True)
+    return res
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1873,6 +2027,8 @@ def main():
     whisper = phase_whisper(torch, args, rows)
     torch.cuda.empty_cache()
     rwkv = phase_rwkv(torch, args, rows)
+    torch.cuda.empty_cache()
+    zamba = phase_zamba(torch, args, rows)
 
     # launches: each kernel's count from its own main path's serving run
     # (the grouped GEMM's is the MoE path); every path's counts beside
@@ -1880,7 +2036,8 @@ def main():
              MOE_ARCH: moe["serving"]["launches"],
              **{a: v["serving"]["launches"] for a, v in variants.items()},
              WHISPER_ARCH: whisper["greedy"]["launches"],
-             RWKV_ARCH: rwkv["serving"]["launches"]}
+             RWKV_ARCH: rwkv["serving"]["launches"],
+             ZAMBA_ARCH: zamba["serving"]["launches"]}
     kernels = [{"name": name, **rows[name],
                 "launches": paths[MOE_ARCH if name == "streaming_gemm_grouped"
                                   else cfg.name][name],

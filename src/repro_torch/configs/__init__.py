@@ -12,10 +12,11 @@ import importlib
 from repro_torch.configs.base import ModelConfig, MoEConfig  # noqa: F401
 
 ARCH_IDS = ["qwen2_0_5b", "qwen2_moe_a2_7b", "internvl2_2b", "chatglm3_6b",
-            "granite_20b", "qwen1_5_32b", "whisper_tiny", "rwkv6_7b"]
+            "granite_20b", "qwen1_5_32b", "whisper_tiny", "rwkv6_7b",
+            "zamba2_7b"]
 
 # the reference registry's ids that have no port yet
-NOT_PORTED = ["deepseek_v3_671b", "zamba2_7b"]
+NOT_PORTED = ["deepseek_v3_671b"]
 
 ALIASES = {a.replace("_", "-"): a for a in ARCH_IDS + NOT_PORTED}
 ALIASES.update({
@@ -44,3 +45,19 @@ def get_config(arch: str) -> ModelConfig:
 
 def get_reduced(arch: str) -> ModelConfig:
     return _module(arch).reduced()
+
+
+FAMILIES = ("dense", "vlm", "moe", "audio", "ssm", "hybrid")
+
+
+def check_ported(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` for a config the port cannot build
+    yet: a family outside ``FAMILIES``, or multi-head latent attention
+    (``mla``)."""
+    if cfg.family not in FAMILIES:
+        raise NotImplementedError(
+            f"family {cfg.family!r} is not yet ported")
+    if cfg.mla is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: multi-head latent attention (mla) is not yet "
+            "ported")

@@ -36,6 +36,14 @@
 //    One CTA of 128 threads owns a 32-row query block of one (batch,
 //    head); four threads share a query row.
 //
+// Head dims 16, 32, 64, 112 and 128 are compiled.  Every loop over D
+// steps by 16 (k16 steps of QK^T, pairs of n8 tiles of PV, ldmatrix.x4
+// of 16 columns) or by 8 and 4 (16-byte loads, the merge's float4), so
+// any multiple of 16 takes the same code: D 112 (zamba2-7b) walks 7 k16
+// steps and 14 n8 tiles, and its 120-element padded row (240 B, an odd
+// count of 16-byte quads) keeps ldmatrix conflict-free; 76,800 B of
+// shared memory at 2 stages.
+//
 // Each launcher returns cudaGetLastError() of its launch.
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -525,6 +533,8 @@ int dispatch_d(int D, const void* q, const void* k, const void* v, void* o,
                          : launch_f32<32>(q, k, v, o, B, Tq, Tk, H, KH, st, causal, s);
     case 64: return BF16 ? launch_bf16<64>(q, k, v, o, B, Tq, Tk, H, KH, st, causal, sp, s)
                          : launch_f32<64>(q, k, v, o, B, Tq, Tk, H, KH, st, causal, s);
+    case 112: return BF16 ? launch_bf16<112>(q, k, v, o, B, Tq, Tk, H, KH, st, causal, sp, s)
+                          : launch_f32<112>(q, k, v, o, B, Tq, Tk, H, KH, st, causal, s);
     case 128: return BF16 ? launch_bf16<128>(q, k, v, o, B, Tq, Tk, H, KH, st, causal, sp, s)
                           : launch_f32<128>(q, k, v, o, B, Tq, Tk, H, KH, st, causal, s);
     default: return static_cast<int>(cudaErrorInvalidValue);

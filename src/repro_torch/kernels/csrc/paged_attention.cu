@@ -57,6 +57,13 @@
 // length and table row and then the first pages, and the merge), and
 // the serial chain of a page inside one warp (QK, shuffles, PV).
 //
+// Head dims 16, 32, 64, 112 and 128 are compiled.  D 112 (zamba2-7b's
+// shared attention) is not a power of two: a lane's slice of D is 112 /
+// (32 / page) elements, 28 at page 8, which bf16 reads 8 bytes at a time
+// (VEC 4) instead of 16; pair_head / pair_col take the general division
+// (their shortcut is for D <= 64); rows are 240 B (bf16) or 464 B (fp32)
+// with the pad, 16-byte multiples.
+//
 // Arithmetic is fp32 FMA throughout, in the log2 domain (q is scaled by
 // log2(e)/sqrt(D) once; ex2.approx); probabilities are not rounded
 // before PV (the Pallas kernel does p.astype(f32)); positions >= len
@@ -549,6 +556,8 @@ int launch_t(const void* q, const void* kp, const void* vp, const int* tb,
                                     mp, splits, walkers, st);
     case 64: return launch_d<T, 64>(q, kp, vp, tb, ln, o, B, H, KH, gr, page,
                                     mp, splits, walkers, st);
+    case 112: return launch_d<T, 112>(q, kp, vp, tb, ln, o, B, H, KH, gr,
+                                      page, mp, splits, walkers, st);
     case 128: return launch_d<T, 128>(q, kp, vp, tb, ln, o, B, H, KH, gr,
                                       page, mp, splits, walkers, st);
   }
@@ -568,7 +577,7 @@ extern "C" int pa_smem_bytes(int G, int D, int page, int max_pages,
 // lens: (B,) int32; o: (B, H, D) — all contiguous, on the device, pools
 // 16-byte aligned.  dtype: 0 = float32, 1 = bfloat16.  Each KV head's
 // H / KH query heads are split into `groups` groups of CTAs.  Needs D in
-// {16, 32, 64, 128}, page in {8, 16, 32}, KH · groups dividing H,
+// {16, 32, 64, 112, 128}, page in {8, 16, 32}, KH · groups dividing H,
 // (H / (KH · groups)) * D <= 2048, 1 <= splits <= 8 and
 // 1 <= walkers <= 4.
 extern "C" int pa_forward(int dtype, const void* q, const void* kp,

@@ -31,7 +31,8 @@ wrapper is materialised; bf16 rows must be 16-byte aligned (strides
 multiples of 8), and an operand that is not is copied contiguous first.
 
 float32 inputs take a scalar-FMA kernel in the same source (no TF32, for
-the 3e-5 contract).  Head dims 16, 32, 64 and 128 are compiled.
+the 3e-5 contract).  Head dims 16, 32, 64, 112 (zamba2-7b's shared
+attention) and 128 are compiled; any other raises.
 """
 from __future__ import annotations
 
@@ -43,7 +44,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.streaming_gemm import MAX_SPLITS, TARGET_CTAS
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 112, 128)
 _VP, _I32 = ctypes.c_void_p, ctypes.c_int
 _ARGS = [_I32, _VP, _VP, _VP, _VP, _I32, _I32, _I32, _I32, _I32, _I32, _VP,
          _I32, _I32, _VP]

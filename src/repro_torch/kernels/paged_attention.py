@@ -57,7 +57,7 @@ import torch
 from repro_torch.kernels import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 112, 128)
 PAGE_SIZES = (8, 16, 32)
 MAX_GROUP_ELEMS = 2048      # a CTA's heads x D: 32 fp32 pairs per lane
 MAX_SMEM_BYTES = 227 * 1024

@@ -18,7 +18,12 @@ its GEMM widths (d 6,144: q/o 6,144 x 6,144, k/v 6,144 x 128, the
 non-gated MLP 6,144 x 24,576 and back, the lm_head 6,144 x 49,152 at
 decode) and its paged decode attention (48 query heads of 128 over one
 KV head, 3 query-head groups) at 8 x 272 tokens and a ragged mix up to
-1,024.  The expert-grouped GEMM runs at
+1,024.  So are zamba2-7b's: its GEMM widths (d 3,584: ``in_proj`` 3,584
+x 14,576, ``out_proj`` 7,168 x 3,584, the gated MLP 3,584 x 14,336 and
+back, the shared block's q/k/v/o 3,584 x 3,584, the lm_head 3,584 x
+32,000 at decode), its causal prefill attention (32 / 32 heads of 112)
+at 64-512 tokens and its paged decode attention (32 / 32 heads of 112).
+The expert-grouped GEMM runs at
 qwen2-moe-a2.7b's gate/up (2,048 -> 1,408) and down (1,408 -> 2,048)
 products over 60 experts, at decode (C = 8, 8 tokens routed top-4) and
 prefill (C = 512, 512 tokens), each at every bn and split, beside
@@ -48,6 +53,9 @@ PA = importlib.import_module("repro_torch.kernels.paged_attention")
 GEMM_KN = ((896, 896), (896, 128), (896, 4864), (4864, 896), (896, 152064))
 GRANITE_KN = ((6144, 6144), (6144, 128), (6144, 24576), (24576, 6144),
               (6144, 49152))
+ZAMBA_KN = ((3584, 14576), (7168, 3584), (3584, 14336), (14336, 3584),
+            (3584, 3584), (3584, 32000))
+LM_HEAD_N = (152064, 49152, 32000)      # run at decode only
 
 
 def _device_ms(fn, flush, reps):
@@ -146,10 +154,10 @@ def main(argv=None):
 
 def _sweep_gemm(result, randn, dms, main_fn):
     embed = randn(152064, 896, scale=0.02)
-    for M, K, N in [(M, K, N) for kn in (GEMM_KN, GRANITE_KN)
+    for M, K, N in [(M, K, N) for kn in (GEMM_KN, GRANITE_KN, ZAMBA_KN)
                     for M in (8, 256) for K, N in kn]:
-        if M == 256 and N in (152064, 49152):
-            continue                    # the lm_head runs at decode only
+        if M == 256 and N in LM_HEAD_N:
+            continue
         a = randn(M, K)
         b = embed.t() if N == 152064 else randn(K, N, scale=K ** -0.5)
         want = ref.gemm_ref(a, b).float()
@@ -217,10 +225,14 @@ def _sweep_grouped(result, randn, dms, g, dev):
 
 
 def _sweep_flash(result, randn, dms, F):
-    for B, T in ((1, 64), (1, 256), (1, 512), (8, 256)):
-        q, k, v = randn(B, T, 14, 64), randn(B, T, 2, 64), randn(B, T, 2, 64)
+    """qwen2-0.5b's heads (14 / 2 of 64) and zamba2-7b's (32 / 32 of
+    112)."""
+    for H, KH, D, B, T in [(14, 2, 64, B, T) for B, T in (
+            (1, 64), (1, 256), (1, 512), (8, 256))] + [
+            (32, 32, 112, 1, T) for T in (64, 256, 512)]:
+        q, k, v = randn(B, T, H, D), randn(B, T, KH, D), randn(B, T, KH, D)
         want = ref.flash_gqa_ref(q, k, v, True).float()
-        chosen = FA.plan(B, T, T, 14, 2, True)
+        chosen = FA.plan(B, T, T, H, KH, True)
         times, plan = {}, FA.plan
         try:
             for s in range(1, FA.MAX_SPLITS + 1):
@@ -235,7 +247,8 @@ def _sweep_flash(result, randn, dms, F):
         finally:
             FA.plan = plan
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        row = {"b": B, "t": T, "plan": chosen, "plan_ms": times.get(chosen),
+        row = {"heads": [H, KH, D], "b": B, "t": T, "plan": chosen,
+               "plan_ms": times.get(chosen),
                "splits_ms": times, "library_ms": dms(
                    lambda: F.scaled_dot_product_attention(
                        qt, kt, vt, is_causal=True, enable_gqa=True))}
@@ -248,9 +261,10 @@ def _sweep_paged(result, randn, dms, F, g, dev):
     qwen2-0.5b's (14 / 2 heads of 64) and granite-20b's (48 / 1 heads of
     128, 3 query-head groups), beside one group's work alone (16 / 1
     heads of 128: what the second and third groups' CTAs and page reads
-    add); each ragged mix is a draw of its own: lengths 1-1,024, the
-    first 1,024."""
-    for H, KH, D in ((14, 2, 64), (48, 1, 128), (16, 1, 128)):
+    add), and zamba2-7b's (32 / 32 heads of 112); each ragged mix is a
+    draw of its own: lengths 1-1,024, the first 1,024."""
+    for H, KH, D in ((14, 2, 64), (48, 1, 128), (16, 1, 128),
+                     (32, 32, 112)):
         _sweep_paged_heads(result, randn, dms, F, g, dev, H, KH, D)
 
 

@@ -12,6 +12,8 @@ hand-written kernels on the card.
         --arch qwen1.5-32b --slots 8 --page-tokens 16
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch rwkv6-7b --slots 8
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch zamba2-7b --slots 8 --page-tokens 16
 
 Every ported architecture serves through the same path (``--arch``):
 qwen2-0.5b, dense; qwen2-moe-a2.7b, MoE, whose expert FFNs run through
@@ -23,7 +25,11 @@ head, which the paged kernel splits into query-head groups);
 qwen1.5-32b, 64 layers of 40 / 40 heads (70.4 GB of weights);
 rwkv6-7b, attention-free (ssm): each layer's RWKV6 time and channel mix
 over a fixed recurrent state per slot, no KV pool (``--page-tokens``
-unused), every projection through the streaming GEMM.  The
+unused), every projection through the streaming GEMM; zamba2-7b,
+hybrid: 81 Mamba2 layers over a per-slot recurrent state and one shared
+attention block (32 / 32 heads of 112) run before every sixth layer,
+whose 14 invocations keep their K/V in a paged pool of 14 layers
+(flash attention at prefill, paged attention at decode).  The
 encoder-decoder whisper-tiny is refused by the engine, as in the
 reference: it runs through ``Model.prefill(..., audio_frames=...)`` and
 ``Model.decode_step``.

@@ -23,6 +23,14 @@ An ssm model (rwkv6) has no KV: prefill runs each layer from a zero
 state over the prompt and writes the layer's final state into the
 slots; decode gathers the slots' state, runs one recurrence step and
 scatters it back.  Neither runs attention.
+
+A hybrid model (zamba2) has both: its Mamba2 layers' state lives in the
+cache's ``state`` store, handled as the ssm model's is, and its shared
+attention block's K/V in a paged pool of one layer per invocation
+(pool layer ``inv`` for the invocation before layer ``inv ·
+attn_every``; one table shared by them all).  Prefill runs the shared
+block through ``ops.flash_attention`` and writes pool layer ``inv``;
+decode attends over it through ``ops.paged_attention``.
 """
 from __future__ import annotations
 
@@ -67,6 +75,8 @@ def prefill(params, cfg: ModelConfig, tokens, cache, slots, *,
         x = T.embed_tokens(params, cfg, tokens)
     if cfg.family == "ssm":
         return _prefill_ssm(params, cfg, x, cache, slots)
+    if cfg.family == "hybrid":
+        return _prefill_hybrid(params, cfg, x, cache, slots)
     B, Tq = x.shape[:2]
     positions = torch.arange(Tq, device=x.device).expand(B, Tq)
     rows = cache.prompt_index(slots, Tq)                  # (B, T)
@@ -91,6 +101,27 @@ def _prefill_ssm(params, cfg: ModelConfig, x, cache, slots):
     for layer, lp in enumerate(params["layers"]):
         x, st = T.rwkv_layer_fwd(lp, x, cfg, st0)
         cache.write(layer, idx, st)
+    x = L.apply_norm(params["final_norm"], x[:, -1], cfg)
+    return T.lm_head(params, cfg, x)
+
+
+def _prefill_hybrid(params, cfg: ModelConfig, x, cache, slots):
+    """The hybrid branch of prefill (reference ``decoding.prefill``):
+    the shared block before every ``attn_every``-th layer, its K/V into
+    pool layer ``inv``; every Mamba2 layer from a zero state, its final
+    state overwriting the slots' state in ``cache.state``."""
+    B, Tq = x.shape[:2]
+    positions = torch.arange(Tq, device=x.device).expand(B, Tq)
+    rows = cache.prompt_index(slots, Tq)
+    idx = cache.state.prompt_slots(slots, Tq)
+    st0 = SSM.init_mamba_state(cfg, B, x.dtype, x.device)
+    for layer, lp in enumerate(params["layers"]):
+        if layer % cfg.ssm.attn_every == 0:
+            x, (k, v) = T.shared_attn_fwd(params["shared_attn"], x, cfg,
+                                          positions)
+            _write(cache, layer // cfg.ssm.attn_every, rows, k, v)
+        x, st = T.mamba_layer_fwd(lp, x, cfg, st0)
+        cache.state.write(layer, idx, st)
     x = L.apply_norm(params["final_norm"], x[:, -1], cfg)
     return T.lm_head(params, cfg, x)
 
@@ -154,9 +185,12 @@ def decode_step(params, cfg: ModelConfig, cache, tokens, slots):
     (n, padded_vocab).  Only the given slots are written or read.  An
     audio model adds ``pos_embed`` at each slot's own position and
     reads, per layer, the encoder KV that prefill wrote.  An ssm model
-    steps each slot's recurrent state instead (``_decode_ssm``)."""
+    steps each slot's recurrent state instead (``_decode_ssm``); a
+    hybrid model does both (``_decode_hybrid``)."""
     if cfg.family == "ssm":
         return _decode_ssm(params, cfg, cache, tokens, slots)
+    if cfg.family == "hybrid":
+        return _decode_hybrid(params, cfg, cache, tokens, slots)
     view = cache.append_view(slots)
     x = params["embed"][tokens].to(torch.bfloat16)
     audio = cfg.family == "audio"
@@ -188,5 +222,26 @@ def _decode_ssm(params, cfg: ModelConfig, cache, tokens, slots):
                                          st["channel_shift"])
         x = x + c
         cache.write(layer, idx, {"time": tstate, "channel_shift": cshift})
+    x = L.apply_norm(params["final_norm"], x, cfg)
+    return T.lm_head(params, cfg, x)
+
+
+def _decode_hybrid(params, cfg: ModelConfig, cache, tokens, slots):
+    """The hybrid branch of decode_step: the shared block's decode
+    attention over pool layer ``inv`` before every ``attn_every``-th
+    layer (the token's K/V appended there first), and per Mamba2 layer
+    the slots' state gathered, stepped and scattered back."""
+    view = cache.append_view(slots)
+    idx = cache.state.decode_slots(slots)
+    sp = params["shared_attn"]
+    x = params["embed"][tokens].to(torch.bfloat16)
+    for layer, lp in enumerate(params["layers"]):
+        if layer % cfg.ssm.attn_every == 0:
+            inv = layer // cfg.ssm.attn_every
+            h = L.apply_norm(sp["ln"], x, cfg)
+            x = x + L.attention_decode(sp["attn"], h, cfg, cache.k_pages[inv],
+                                       cache.v_pages[inv], view)
+        x, st = T.mamba_layer_fwd(lp, x, cfg, cache.state.read(layer, idx))
+        cache.state.write(layer, idx, st)
     x = L.apply_norm(params["final_norm"], x, cfg)
     return T.lm_head(params, cfg, x)

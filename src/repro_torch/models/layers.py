@@ -175,11 +175,14 @@ def _gemm(x, w):
     return y.reshape(*lead, w.shape[-1])
 
 
-def apply_mlp(p, x, cfg: ModelConfig):
+def apply_mlp(p, x, cfg: ModelConfig, act=None):
+    """The MLP; ``act`` replaces ``apply_act`` (a function of one
+    tensor)."""
+    act = act or (lambda y: apply_act(y, cfg))
     if cfg.glu:
-        h = apply_act(_gemm(x, p["wi_gate"]), cfg) * _gemm(x, p["wi_up"])
+        h = act(_gemm(x, p["wi_gate"])) * _gemm(x, p["wi_up"])
         return _gemm(h, p["wo"])
-    h = apply_act(_gemm(x, p["wi"]) + p["bi"], cfg)
+    h = act(_gemm(x, p["wi"]) + p["bi"])
     return _gemm(h, p["wo"]) + p["bo"]
 
 

@@ -1,11 +1,12 @@
 """Unified model API used by the server: dense, vlm and MoE decoders,
-the attention-free ssm model (rwkv6), and the audio encoder-decoder
-(whisper), which only this API serves.
+the attention-free ssm model (rwkv6), the hybrid model (zamba2), and
+the audio encoder-decoder (whisper), which only this API serves.
 
 ``Model(cfg, device=...)`` exposes:
     init(generator) -> params
     init_cache(slots, max_seq, page_tokens, n_pages, enc_seq=0)
-        -> PagedKVCache, or RecurrentStateCache for an ssm model
+        -> PagedKVCache (with ``.state`` for a hybrid model), or
+           RecurrentStateCache for an ssm model
     prefill(params, tokens, cache, slots, embeddings=None,
             audio_frames=None) -> logits
     decode_step(params, cache, tokens, slots) -> logits
@@ -53,7 +54,9 @@ class Model:
         An ssm model gets a ``RecurrentStateCache`` of ``slots`` slots
         and no KV pool: its state does not grow with the sequence, so
         ``max_seq`` and ``page_tokens`` size nothing, and ``n_pages`` is
-        refused."""
+        refused.  A hybrid model gets a pool of one layer per
+        shared-attention invocation, which carries the Mamba2 layers'
+        ``RecurrentStateCache`` of ``slots`` slots as ``cache.state``."""
         cfg = self.cfg
         if cfg.family == "ssm":
             if n_pages is not None or enc_seq:
@@ -65,6 +68,8 @@ class Model:
         cache = self._paged(slots, max_seq, page_tokens, n_pages)
         if enc_seq:
             cache.cross = self._paged(slots, enc_seq, page_tokens, None)
+        if cfg.family == "hybrid":
+            cache.state = RecurrentStateCache(cfg, slots, device=self.device)
         return cache
 
     def _paged(self, slots, max_seq, page_tokens, n_pages) -> PagedKVCache:
@@ -76,7 +81,7 @@ class Model:
                 page_tokens=page_tokens, n_kv_heads=cfg.n_kv_heads,
                 head_dim=cfg.resolved_head_dim,
                 max_pages_per_seq=pages_per_seq),
-            max_seqs=slots, n_layers=cfg.n_layers, device=self.device)
+            max_seqs=slots, n_layers=T.kv_layers(cfg), device=self.device)
 
     def prefill(self, params, tokens, cache, slots, *,
                 embeddings=None, audio_frames=None):

@@ -15,6 +15,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.configs import check_ported
+
 
 @dataclasses.dataclass(frozen=True)
 class PSpec:
@@ -85,11 +87,10 @@ def from_reference(params_np, cfg) -> dict:
     MoE model's ``dense_layers``, an audio model's ``enc_layers``) is
     split into a list of per-layer trees; every leaf keeps its dtype and
     per-layer shape (an expert leaf stays (E, d, f), the router (d, E),
-    an RWKV6 layer's ``mix`` (5, d) and ``u`` (H, N)); ``pos_embed`` and
-    ``enc_norm`` stay whole."""
-    if cfg.family not in ("dense", "vlm", "moe", "audio", "ssm"):
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not yet ported")
+    an RWKV6 layer's ``mix`` (5, d) and ``u`` (H, N), a Mamba2 layer's
+    ``conv_w`` (K, C)); ``pos_embed``, ``enc_norm`` and a hybrid's
+    ``shared_attn`` stay whole."""
+    check_ported(cfg)
 
     def conv(tree):
         if isinstance(tree, dict):

@@ -1,5 +1,5 @@
 """State-space / linear-attention blocks: the RWKV6 (Finch) time and
-channel mix over the chunked scan shared with Mamba2 in the reference.
+channel mix and the Mamba2 block (zamba2), both over one chunked scan.
 
 The sequence is processed in chunks with an O(state) carry
 (``chunked_linear_attention``): the SSM counterpart of the paper's paged
@@ -11,6 +11,8 @@ the plan executor's ``ssm_scan`` host op.
 RWKV6 time mix (per head h, head size N):
     out_t = r_t · (S_{t-1} + (u ⊙ k_t) v_tᵀ)
     S_t   = diag(w_t) S_{t-1} + k_t v_tᵀ          (w_t data-dependent)
+Mamba2 (SSD, scalar-per-head decay):
+    S_t = a_t S_{t-1} + dt_t · B_t x_tᵀ ;  y_t = C_t · S_t + D x_t
 
 Every projection runs through the streaming GEMM (``layers._gemm``).
 The token-shift lerps, ``sigmoid(mix)``, the gate and ``relu(·)²`` stay
@@ -19,7 +21,16 @@ reference's ops do when XLA runs them one by one; the decay
 ``-exp(ww-projection + w_bias)``, the scan and the recurrence are fp32
 (on the card with TF32 off, PyTorch's default: the chunk's midpoint
 factors reach exp(±40)).  The scan's ops are plain PyTorch, as they
-are plain XLA in the reference.  Mamba2 is not ported yet.
+are plain XLA in the reference.
+
+Mamba2 keeps the reference's dtypes: the projections, the causal
+depthwise convolution (each tap's product and sum rounded), its SiLU,
+``x · dt``, the skip ``D x`` and the gate ``out · silu(z)`` are bf16;
+softplus(dt + ``dt_bias``), the decay ``-exp(A_log)``, the scan and
+the gated RMSNorm (with its fp32 ``norm_scale``) are fp32.  B and C are
+one group, broadcast to every head; the scan is the inclusive form of
+``chunked_linear_attention``, and a decode step is the same forward
+over one token (``mamba2_step``), as in the reference.
 """
 from __future__ import annotations
 
@@ -246,4 +257,101 @@ def init_rwkv_state(cfg: ModelConfig, batch: int, dtype=torch.float32,
                                       device=device)},
         "channel_shift": torch.zeros((batch, cfg.d_model), dtype=dtype,
                                      device=device),
+    }
+
+
+# ------------------------------------------------------------------
+# Mamba2 block (zamba2)
+# ------------------------------------------------------------------
+def mamba2_pspecs(cfg: ModelConfig):
+    d = cfg.d_model
+    s = cfg.ssm
+    d_in = s.expand * d
+    nh = d_in // s.head_dim
+    return {
+        "in_proj": PSpec((d, 2 * d_in + 2 * s.d_state + nh),
+                         ("embed", "qkv")),
+        "conv_w": PSpec((s.d_conv, d_in + 2 * s.d_state), ("conv", "qkv")),
+        "A_log": PSpec((nh,), ("heads",), "zeros"),
+        "D": PSpec((nh,), ("heads",), "ones"),
+        "dt_bias": PSpec((nh,), ("heads",), "zeros"),
+        "out_proj": PSpec((d_in, d), ("qkv", "embed")),
+        "norm_scale": PSpec((d_in,), ("embed_act",), "ones", dtype="float32"),
+    }
+
+
+def _mamba_split(cfg: ModelConfig):
+    """(d_in, heads, d_state) of a Mamba2 layer."""
+    s = cfg.ssm
+    d_in = s.expand * cfg.d_model
+    return d_in, d_in // s.head_dim, s.d_state
+
+
+def _causal_conv(x, w, conv_state=None):
+    """Depthwise causal convolution along T.  x: (B, T, C); w: (K, C);
+    ``conv_state`` (B, K - 1, C), the previous inputs (zeros if None).
+    Returns (out (B, T, C), the last K - 1 inputs as the new state)."""
+    K, T = w.shape[0], x.shape[1]
+    if conv_state is None:
+        conv_state = x.new_zeros((x.shape[0], K - 1, x.shape[2]))
+    xp = torch.cat([conv_state.to(x.dtype), x], dim=1)
+    out = xp[:, :T] * w[0]
+    for i in range(1, K):
+        out = out + xp[:, i:i + T] * w[i]
+    return out, xp[:, -(K - 1):]
+
+
+def _softplus(x):
+    """``jax.nn.softplus``: logaddexp(x, 0) = max(x, 0) + log1p(exp(-|x|))."""
+    return x.clamp(min=0) + torch.log1p(torch.exp(-x.abs()))
+
+
+def mamba2_forward(p, x, cfg: ModelConfig, state, chunk: int = DEFAULT_CHUNK):
+    """x: (B, T, d); state: {"s": (B, nh, N, hd) fp32, "conv": (B, K - 1,
+    d_in + 2N)}.  Returns (out (B, T, d), the final state)."""
+    B, T, d = x.shape
+    d_in, nh, N = _mamba_split(cfg)
+    hd = cfg.ssm.head_dim
+    zxbcdt = L._gemm(x, p["in_proj"])
+    z, xin, Bc, Cc, dt = torch.split(zxbcdt, [d_in, d_in, N, N, nh], dim=-1)
+    conv_out, conv_state = _causal_conv(torch.cat([xin, Bc, Cc], dim=-1),
+                                        p["conv_w"], state["conv"])
+    xin, Bc, Cc = torch.split(_silu(conv_out), [d_in, N, N], dim=-1)
+    dt = _softplus(dt.float() + p["dt_bias"].float())          # (B, T, nh)
+    a = -torch.exp(p["A_log"].float())                          # (nh,)
+    logw = (dt * a)[..., None].expand(B, T, nh, N)
+    xheads = xin.reshape(B, T, nh, hd)
+    xh = xheads * dt[..., None].to(xheads.dtype)
+    # r = C (queries), k = B (keys): the state is (B, nh, N, hd)
+    r = Cc[:, :, None, :].expand(B, T, nh, N)
+    k = Bc[:, :, None, :].expand(B, T, nh, N)
+    out, s = chunked_linear_attention(r, k, xh, logw, state["s"],
+                                      chunk=chunk, inclusive=True)
+    out = out + xheads * p["D"].to(xheads.dtype)[:, None]
+    out = out.reshape(B, T, d_in)
+    # gated RMSNorm, then the out-projection
+    of = out.float()
+    var = of.square().mean(-1, keepdim=True)
+    out = (of * torch.rsqrt(var + 1e-5) * p["norm_scale"]).to(x.dtype)
+    out = out * _silu(z)
+    return L._gemm(out, p["out_proj"]), {"s": s, "conv": conv_state}
+
+
+def mamba2_step(p, x, cfg: ModelConfig, state):
+    """x: (B, d), a single token: ``mamba2_forward`` at chunk 1."""
+    out, st = mamba2_forward(p, x[:, None], cfg, state, chunk=1)
+    return out[:, 0], st
+
+
+def init_mamba_state(cfg: ModelConfig, batch: int, dtype=torch.bfloat16,
+                     device=None):
+    """A zero state: the scan's ``s`` in fp32, the convolution's last
+    K - 1 inputs in ``dtype``."""
+    d_in, nh, N = _mamba_split(cfg)
+    K = cfg.ssm.d_conv
+    return {
+        "s": torch.zeros((batch, nh, N, cfg.ssm.head_dim),
+                         dtype=torch.float32, device=device),
+        "conv": torch.zeros((batch, K - 1, d_in + 2 * N), dtype=dtype,
+                            device=device),
     }

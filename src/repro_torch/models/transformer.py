@@ -1,12 +1,18 @@
-"""Model assembly, dense, vlm, MoE, audio and ssm branches: parameter
-tree, embedding, the dense and MoE decoder layers, the audio encoder,
-the RWKV6 layer and the lm_head (tied or not).  A vlm model is the
+"""Model assembly, dense, vlm, MoE, audio, ssm and hybrid branches:
+parameter tree, embedding, the dense and MoE decoder layers, the audio
+encoder, the RWKV6 and Mamba2 layers, the hybrid's shared attention
+block and the lm_head (tied or not).  A vlm model is the
 dense decoder; only its prefill input differs (precomputed embeddings,
 ``decoding.prefill``).  An audio model (whisper) is an encoder of
 non-causal dense layers over precomputed frames and a decoder whose
 layers add cross-attention over the encoder's output, with a learned
 ``pos_embed``.  An ssm model (rwkv6) is attention-free: each layer is a
-time mix and a channel mix (``models.ssm``) over a recurrent state.
+time mix and a channel mix (``models.ssm``) over a recurrent state.  A
+hybrid model (zamba2) is a stack of Mamba2 layers, each a Mamba2 block
+and a gated MLP, with ONE shared attention block (``shared_attn``:
+a norm and attention, no MLP) run on the residual stream before every
+layer whose index is a multiple of ``attn_every``; each of those
+invocations keeps its own K/V.
 
 The reference scans a stacked layer tree with ``lax.scan``; the port
 loops over a list of per-layer trees.  An MoE model may start with
@@ -17,6 +23,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.configs import check_ported
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
@@ -48,10 +55,26 @@ def rwkv_layer_pspecs(cfg: ModelConfig):
             "ln2": L.norm_pspec(cfg), "channel": p["channel"]}
 
 
+def mamba_layer_pspecs(cfg: ModelConfig):
+    return {"ln1": L.norm_pspec(cfg), "mamba": SSM.mamba2_pspecs(cfg),
+            "ln2": L.norm_pspec(cfg), "mlp": L.mlp_pspecs(cfg)}
+
+
+def n_shared_invocations(cfg: ModelConfig) -> int:
+    """How many times a hybrid model runs its shared attention block:
+    before layers 0, attn_every, 2·attn_every, ..."""
+    return -(-cfg.n_layers // cfg.ssm.attn_every)
+
+
+def kv_layers(cfg: ModelConfig) -> int:
+    """Pool layers of the model's paged KV cache: one per decoder layer,
+    or one per shared-attention invocation of a hybrid model."""
+    return n_shared_invocations(cfg) if cfg.family == "hybrid" \
+        else cfg.n_layers
+
+
 def lm_pspecs(cfg: ModelConfig):
-    if cfg.family not in ("dense", "vlm", "moe", "audio", "ssm"):
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not yet ported")
+    check_ported(cfg)
     d, V = cfg.d_model, cfg.padded_vocab
     p: dict = {"embed": PSpec((V, d), ("vocab", "embed"), scale=0.02)}
     if not cfg.tie_embeddings:
@@ -62,6 +85,11 @@ def lm_pspecs(cfg: ModelConfig):
         return p
     if cfg.family == "ssm":
         p["layers"] = stack(rwkv_layer_pspecs(cfg), cfg.n_layers)
+        return p
+    if cfg.family == "hybrid":
+        p["layers"] = stack(mamba_layer_pspecs(cfg), cfg.n_layers)
+        p["shared_attn"] = {"ln": L.norm_pspec(cfg),
+                            "attn": L.attention_pspecs(cfg)}
         return p
     if cfg.family == "audio":
         p["enc_layers"] = stack(dense_layer_pspecs(cfg), cfg.n_encoder_layers)
@@ -157,6 +185,31 @@ def rwkv_layer_fwd(lp, x, cfg: ModelConfig, state):
     c, cshift = SSM.rwkv_channel_mix(lp["channel"], h,
                                      state["channel_shift"])
     return x + c, {"time": tstate, "channel_shift": cshift}
+
+
+def mamba_layer_fwd(lp, x, cfg: ModelConfig, state):
+    """One Mamba2 layer over a sequence (x: (B, T, d)) or one token (x:
+    (n, d)) from ``state`` (a tree as ``ssm.init_mamba_state`` makes).
+    Returns (x', the layer's final state).
+
+    The MLP's SiLU rounds its sigmoid and product separately
+    (``ssm._silu``), as the reference's ops do run one by one: the
+    hybrid family, like the ssm family, is held to the reference run op
+    by op, and with this the port's prefill equals it."""
+    h = L.apply_norm(lp["ln1"], x, cfg)
+    fwd = SSM.mamba2_step if x.ndim == 2 else SSM.mamba2_forward
+    m, st = fwd(lp["mamba"], h, cfg, state)
+    x = x + m
+    h = L.apply_norm(lp["ln2"], x, cfg)
+    return x + L.apply_mlp(lp["mlp"], h, cfg, act=SSM._silu), st
+
+
+def shared_attn_fwd(sp, x, cfg: ModelConfig, positions):
+    """The hybrid's shared block over a sequence: x + attention(norm(x)),
+    causal.  Returns (x', (k, v))."""
+    h = L.apply_norm(sp["ln"], x, cfg)
+    a, kv = L.attention_train(sp["attn"], h, cfg, positions)
+    return x + a, kv
 
 
 def lm_head(params, cfg: ModelConfig, h):

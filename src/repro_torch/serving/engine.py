@@ -1,5 +1,6 @@
-"""Continuous-batching serving engine over the paged KV cache, or over
-the per-slot recurrent state of an attention-free (ssm) model.
+"""Continuous-batching serving engine over the paged KV cache, over
+the per-slot recurrent state of an attention-free (ssm) model, or over
+both (a hybrid model).
 
 Slot-based continuous batching as in the reference: finished slots are
 recycled and newly admitted requests are prefilled into their slot
@@ -26,6 +27,13 @@ a fixed state per slot, so a free slot is enough to admit a request.
 With ``record_plans`` it is admitted against the shadow ``PageTable``
 instead, and its trace prices each step as GQA KV pages of
 ``n_kv_heads`` x ``head_dim``, as the reference's does.
+
+A hybrid model (zamba2) needs both a state slot and KV pages for its
+shared attention block's invocations: its cache is a paged pool that
+carries the state store (``cache.state``), admission is held to that
+pool as for the attention families, and retiring frees both.  Its
+trace, like the reference's, prices all ``n_layers`` layers as GQA KV
+pages.
 
 Not ported yet: ``plan_only``, the open-loop path, prefix caching and
 preemption.  An audio (encoder-decoder) config is refused, as the

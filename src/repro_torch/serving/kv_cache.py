@@ -29,6 +29,7 @@ import torch
 
 from repro_torch.core import plan as plan_ir
 from repro_torch.device import resolve_device
+from repro_torch.serving.state_cache import RecurrentStateCache
 
 
 def _itemsize(dtype: str) -> int:
@@ -220,7 +221,12 @@ class PagedKVCache(PageTable):
     An encoder-decoder's self-attention cache holds its cross-attention
     cache as ``cross`` (another ``PagedKVCache``, one pool layer per
     decoder layer, written once by prefill and only read by decode):
-    ``free_seq`` frees a slot in both and ``validate`` checks both."""
+    ``free_seq`` frees a slot in both and ``validate`` checks both.
+
+    A hybrid model's cache (one pool layer per shared-attention
+    invocation) holds its Mamba2 layers' per-slot state store as
+    ``state`` (a ``RecurrentStateCache``): ``alloc_seq`` claims a slot
+    in both, ``free_seq`` frees both and ``validate`` checks both."""
 
     def __init__(self, cfg: PagedCacheConfig, max_seqs: int,
                  n_layers: int, device="cuda"):
@@ -232,16 +238,34 @@ class PagedKVCache(PageTable):
         self.k_pages = torch.zeros(shape, dtype=dt, device=self.device)
         self.v_pages = torch.zeros(shape, dtype=dt, device=self.device)
         self.cross: Optional[PagedKVCache] = None
+        self.state: Optional[RecurrentStateCache] = None
+
+    def alloc_seq(self, slot: int, prompt_len: int) -> bool:
+        if self.state is not None and self.state.active[slot]:
+            return False
+        if not super().alloc_seq(slot, prompt_len):
+            return False
+        if self.state is not None:
+            self.state.alloc_seq(slot, prompt_len)
+        return True
 
     def free_seq(self, slot: int):
         super().free_seq(slot)
         if self.cross is not None and self.cross.active[slot]:
             self.cross.free_seq(slot)
+        if self.state is not None:
+            self.state.free_seq(slot)
 
     def validate(self) -> None:
         super().validate()
-        if self.cross is not None:
-            self.cross.validate()
+        for sub in (self.cross, self.state):
+            if sub is not None:
+                sub.validate()
+        if self.state is not None and not (
+                np.array_equal(self.state.active, self.active)
+                and np.array_equal(self.state.lens, self.lens)):
+            raise AssertionError("the state store's slots and lengths "
+                                 "differ from the KV table's")
 
     def _flat_rows(self, slot: int, start: int, stop: int) -> np.ndarray:
         pos = np.arange(start, stop)

@@ -1,12 +1,16 @@
-"""Per-slot recurrent state of an attention-free (ssm) model: what a
-paged KV pool is to an attention model.
+"""Per-slot recurrent state of an ssm model, and of a hybrid model's
+Mamba2 layers: what a paged KV pool is to an attention model.
 
 An RWKV6 layer carries, per sequence, its scan state ``s`` (H, N, N)
 fp32 and two token-shift vectors (d,) in the activation dtype (the last
-token the time mix and the channel mix saw).  None of it grows with the
-sequence, so there are no pages: the store holds a fixed row per slot
-and per layer, (L, slots, ...) on the device, as the reference's cache
-dict holds (L, B, ...) leaves.  No KV pool is allocated.
+token the time mix and the channel mix saw).  A Mamba2 layer carries
+its scan state ``s`` (nh, N, hd) fp32 and ``conv``, the last d_conv - 1
+inputs of its causal convolution (d_conv - 1, d_in + 2N), in the
+activation dtype.  None of it grows with the sequence, so there are no
+pages: the store holds a fixed row per slot and per layer, (L, slots,
+...) on the device, as the reference's cache dict holds (L, B, ...)
+leaves.  An ssm model has no KV pool; a hybrid model's paged cache
+carries its store as ``state``.
 
 Bookkeeping reads as the paged cache's does: ``alloc_seq`` /
 ``free_seq`` mark a slot active or free, ``lens`` counts the tokens each
@@ -23,26 +27,38 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 
 
+def state_layout(cfg: ModelConfig, dtype=torch.bfloat16) -> dict:
+    """{leaf name: (per-slot shape, dtype)} of one layer's state."""
+    d = cfg.d_model
+    if cfg.family == "hybrid":                      # Mamba2
+        s = cfg.ssm
+        d_in = s.expand * d
+        nh = d_in // s.head_dim
+        return {"s": ((nh, s.d_state, s.head_dim), torch.float32),
+                "conv": ((s.d_conv - 1, d_in + 2 * s.d_state), dtype)}
+    H = cfg.n_heads
+    N = d // H
+    return {"s": ((H, N, N), torch.float32), "shift": ((d,), dtype),
+            "channel_shift": ((d,), dtype)}
+
+
 class RecurrentStateCache:
     def __init__(self, cfg: ModelConfig, max_seqs: int, device="cuda",
                  dtype=torch.bfloat16):
         self.device = resolve_device(device)
         self.max_seqs = max_seqs
-        L, d, H = cfg.n_layers, cfg.d_model, cfg.n_heads
-        N = d // H
-        self.s = torch.zeros((L, max_seqs, H, N, N), dtype=torch.float32,
-                             device=self.device)
-        self.shift = torch.zeros((L, max_seqs, d), dtype=dtype,
-                                 device=self.device)
-        self.channel_shift = torch.zeros((L, max_seqs, d), dtype=dtype,
-                                         device=self.device)
+        self.names = tuple(state_layout(cfg, dtype))
+        for name, (shape, dt) in state_layout(cfg, dtype).items():
+            setattr(self, name, torch.zeros(
+                (cfg.n_layers, max_seqs) + shape, dtype=dt,
+                device=self.device))
         self.lens = np.zeros((max_seqs,), np.int32)
         self.active = np.zeros((max_seqs,), bool)
 
     @property
     def nbytes(self) -> int:
-        return sum(t.numel() * t.element_size()
-                   for t in (self.s, self.shift, self.channel_shift))
+        return sum(getattr(self, n).numel() * getattr(self, n).element_size()
+                   for n in self.names)
 
     # --------------------------------------------------- slot lifecycle
     def alloc_seq(self, slot: int, prompt_len: int) -> bool:
@@ -91,17 +107,21 @@ class RecurrentStateCache:
         return idx
 
     def read(self, layer: int, idx: torch.Tensor) -> dict:
-        """``layer``'s state of the slots in ``idx``, gathered:
-        {"time": {"s", "shift"}, "channel_shift"}."""
-        return {"time": {"s": self.s[layer].index_select(0, idx),
-                         "shift": self.shift[layer].index_select(0, idx)},
-                "channel_shift":
-                    self.channel_shift[layer].index_select(0, idx)}
+        """``layer``'s state of the slots in ``idx``, gathered, as the
+        layer takes it: {"time": {"s", "shift"}, "channel_shift"} for
+        RWKV6, {"s", "conv"} for Mamba2."""
+        st = {n: getattr(self, n)[layer].index_select(0, idx)
+              for n in self.names}
+        if "shift" in st:
+            return {"time": {"s": st["s"], "shift": st["shift"]},
+                    "channel_shift": st["channel_shift"]}
+        return st
 
     def write(self, layer: int, idx: torch.Tensor, state: dict) -> None:
-        """Scatter a state tree of the slots in ``idx`` into ``layer``."""
-        self.s[layer].index_copy_(0, idx, state["time"]["s"])
-        self.shift[layer].index_copy_(
-            0, idx, state["time"]["shift"].to(self.shift.dtype))
-        self.channel_shift[layer].index_copy_(
-            0, idx, state["channel_shift"].to(self.channel_shift.dtype))
+        """Scatter a state tree of the slots in ``idx`` (as ``read``
+        gives it) into ``layer``."""
+        if "time" in state:
+            state = {**state["time"], "channel_shift": state["channel_shift"]}
+        for n in self.names:
+            dst = getattr(self, n)[layer]
+            dst.index_copy_(0, idx, state[n].to(dst.dtype))

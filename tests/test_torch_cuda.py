@@ -30,7 +30,12 @@ prompt lengths and decode steps on the card against the same weights on
 the CPU (logits and scan states within 5e-2 of their largest magnitude:
 bf16 rounding after fp32 sums in another order, through two layers),
 through the GEMM kernel alone (9 per layer and the lm_head per step, no
-attention kernel).
+attention kernel).  Then head dim 112 (zamba2-7b's shared attention):
+flash at ragged Tq / Tk, causal and full, bf16 and fp32; paged at every
+split S with edge lengths at 8-, 16- and 32-token pages, fp32 and bf16,
+its shared-memory estimate, and its decode shape bitwise repeatable
+and one launch per call; and the reduced zamba2 on the card against
+the CPU.
 Tolerances: int8 exact; fp32 GEMM 2e-4 and fp32 attention 3e-5 (fp32
 sums in another order, no TF32); bf16 2e-2 (one bf16 ulp of the
 outputs).
@@ -48,7 +53,8 @@ GEMM_SHAPES = [(64, 128, 128), (100, 200, 300), (256, 256, 512),
                (33, 257, 129), (8, 896, 896)]
 FLASH_CASES = [(128, 128, 4, 2, 32, True), (128, 128, 4, 2, 32, False),
                (64, 256, 8, 8, 64, True), (96, 96, 6, 1, 16, True),
-               (96, 96, 6, 1, 16, False), (100, 100, 14, 2, 128, True)]
+               (96, 96, 6, 1, 16, False), (100, 100, 14, 2, 128, True),
+               (100, 96, 4, 4, 112, True), (100, 96, 4, 4, 112, False)]
 PAGED_CASES = [(3, 8, 2, 32, 16, 4), (2, 4, 4, 64, 8, 6),
                (1, 16, 1, 16, 32, 2), (3, 14, 2, 64, 16, 5)]   # G = 7
 # (M, N, K): decode widths, N = 128, and K = 4824 (76 k-tiles of 64 minus
@@ -58,7 +64,11 @@ SPLITK_SHAPES = [(1, 896, 896), (5, 128, 896), (8, 896, 4824),
 # (Tq, Tk, H, KH, D, causal)
 FLASH_BF16_CASES = [(100, 96, 14, 2, 64, True), (100, 96, 14, 2, 64, False),
                     (96, 100, 7, 1, 16, True), (100, 96, 14, 2, 128, True),
-                    (257, 257, 14, 2, 64, True), (64, 64, 4, 4, 32, True)]
+                    (257, 257, 14, 2, 64, True), (64, 64, 4, 4, 32, True),
+                    # zamba2-7b's shared attention: 32 / 32 heads of 112
+                    (100, 96, 32, 32, 112, True),
+                    (100, 96, 32, 32, 112, False),
+                    (257, 257, 8, 2, 112, True)]
 SG = importlib.import_module("repro_torch.kernels.streaming_gemm")
 PA = importlib.import_module("repro_torch.kernels.paged_attention")
 
@@ -323,8 +333,62 @@ def test_cuda_paged_shared_memory_estimate_matches_the_kernel():
                  (128, 16, 8, 1000, 4, 2),
                  # a granite head group (16 of 48 heads of 128)
                  (16, 128, 16, 64, 4, 2), (16, 128, 16, 64, 4, 4),
-                 (16, 128, 32, 64, 2, 4), (16, 128, 16, 4096, 4, 2)):
+                 (16, 128, 32, 64, 2, 4), (16, 128, 16, 4096, 4, 2),
+                 # zamba2-7b's head dim 112, G 1, every page size
+                 (1, 112, 8, 64, 4, 2), (1, 112, 16, 64, 4, 2),
+                 (1, 112, 32, 64, 2, 4), (2, 112, 32, 64, 4, 4)):
         assert fn(*case) == PA.smem_bytes(*case)
+
+
+# (H, KH, D, page, max_pages): head dim 112 (zamba2-7b: 32 / 32 heads)
+# at every page size (a lane's slice of D is 28, 56 or 112 elements),
+# and G = 2 at 16-token pages
+PAGED_D112_SHAPES = [(32, 32, 112, 8, 6), (32, 32, 112, 16, 5),
+                     (32, 32, 112, 32, 4), (8, 4, 112, 16, 5)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("splits", range(1, 9))
+def test_cuda_paged_head_dim_112_every_split_at_edge_lengths(splits, dtype,
+                                                            monkeypatch):
+    """D 112 at every cluster size S = 1..8 forced through ``plan``,
+    lengths 0, 1, page - 1, page, page + 1 and the full table; fp32
+    within 3e-5, bf16 within 2e-2 of the plain version."""
+    dev = _card()
+    monkeypatch.setattr(PA, "plan", lambda *_: splits)
+    dt = getattr(torch, dtype)
+    tol = 3e-5 if dtype == "float32" else 2e-2
+    for shape in PAGED_D112_SHAPES:
+        page, mp = shape[3], shape[4]
+        lens = [0, 1, page - 1, page, page + 1, page * mp]
+        args = _paged_card(shape, lens, dt, dev, seed=splits)
+        got = ops.paged_attention(*args)
+        want = ref.paged_ref(*args)
+        np.testing.assert_allclose(got.cpu().float().numpy(),
+                                   want.cpu().float().numpy(), rtol=tol,
+                                   atol=tol, err_msg=str(shape))
+        assert not got[0].float().abs().max().item()
+
+
+@pytest.mark.cuda
+def test_cuda_paged_head_dim_112_decode_shape_deterministic_one_launch():
+    """zamba2-7b's decode shape (8 sequences, 32 / 32 heads of 112,
+    16-token pages, a 64-page table) at the plan the wrapper picks (one
+    group, S = 1 at 256 grid rows): within 2e-2 of the plain version,
+    the same bits on every run, one kernel launch per call."""
+    dev = _card()
+    assert PA.launch_plan(8, 32, 32, 112, 64) == (1, 1)
+    args = _paged_card((32, 32, 112, 16, 64), [1024, 700, 272, 1, 0, 16,
+                                               17, 555], torch.bfloat16, dev)
+    first = ops.paged_attention(*args)
+    np.testing.assert_allclose(first.cpu().float().numpy(),
+                               ref.paged_ref(*args).cpu().float().numpy(),
+                               rtol=2e-2, atol=2e-2)
+    for _ in range(5):
+        assert torch.equal(ops.paged_attention(*args), first)
+    names = _device_kernels(lambda: ops.paged_attention(*args))
+    assert len([n for n in names if "paged_fwd" in n]) == 3, names
 
 
 # (H, KH, D, page, max_pages): granite-20b's MQA (48 query heads of 128
@@ -714,3 +778,53 @@ def test_cuda_rwkv6_prefill_and_decode_match_the_cpu():
         tol = 5e-2 * max(1.0, w.abs().max().item())
         assert (g - w).abs().max().item() <= tol
     assert list(card_cache.lens) == list(cpu_cache.lens) == [9, 20, 27]
+
+
+@pytest.mark.cuda
+def test_cuda_zamba2_prefill_and_decode_match_the_cpu():
+    """The reduced zamba2 (4 Mamba2 layers, the shared block before
+    layers 0 and 2): prefill of mixed prompt lengths and decode steps on
+    the card against the same weights on the CPU (logits and every
+    layer's scan state within 5e-2 of their largest magnitude: bf16
+    rounding after fp32 sums in another order).  A decode step runs 5
+    GEMMs a Mamba2 layer, 4 a shared invocation and the lm_head, and
+    one paged attention a shared invocation; no flash."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import transformer as T
+    from repro_torch.models.model import Model
+    from repro_torch.models.params import params_to
+    dev = _card()
+    cfg = get_reduced("zamba2-7b")
+    cpu_model, card_model = Model(cfg, device="cpu"), Model(cfg, device=dev)
+    params = cpu_model.init(torch.Generator().manual_seed(0))
+    card_params = params_to(params, dev)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, cfg.vocab_size, n) for n in (5, 16, 23)]
+    forced = rng.integers(1, cfg.vocab_size, (4, 3))
+    inv = T.n_shared_invocations(cfg)
+
+    def run(m, p):
+        cache = m.init_cache(3, 64)
+        out = []
+        for slot, prompt in enumerate(prompts):
+            cache.alloc_seq(slot, len(prompt))
+            out.append(m.prefill(p, torch.as_tensor(prompt[None],
+                                                    device=m.device),
+                                 cache, [slot]))
+        for step in range(4):
+            ops.reset_launches()
+            out.append(m.decode_step(p, cache, torch.as_tensor(
+                forced[step], device=m.device), [2, 0, 1]))
+        return torch.cat(out).float().cpu(), cache
+
+    want, cpu_cache = run(cpu_model, params)
+    got, card_cache = run(card_model, card_params)
+    assert ops.LAUNCHES["streaming_gemm"] == 5 * cfg.n_layers + 4 * inv + 1
+    assert ops.LAUNCHES["paged_attention"] == inv == 2
+    assert ops.LAUNCHES["flash_attention"] == 0
+    assert bool(got.isfinite().all())
+    for g, w in ((got, want), (card_cache.state.s.cpu(), cpu_cache.state.s)):
+        tol = 5e-2 * max(1.0, w.abs().max().item())
+        assert (g - w).abs().max().item() <= tol
+    assert list(card_cache.lens) == list(cpu_cache.lens) == [9, 20, 27]
+    card_cache.validate()

@@ -34,6 +34,7 @@ def test_port_imports_no_jax():
             "repro_torch.configs.qwen1_5_32b",
             "repro_torch.configs.whisper_tiny",
             "repro_torch.configs.rwkv6_7b",
+            "repro_torch.configs.zamba2_7b",
             "repro_torch.serving.state_cache"} <= set(mods)
     code = (
         "import importlib, sys\n"

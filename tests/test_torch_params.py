@@ -28,14 +28,17 @@ def _leaves(tree, prefix=""):
 
 
 ARCHS = ["qwen2_0_5b", "chatglm3_6b", "granite_20b", "internvl2_2b",
-         "qwen1_5_32b", "rwkv6_7b"]
+         "qwen1_5_32b", "rwkv6_7b", "zamba2_7b"]
 # leaves outside the layers (embed, an untied lm_head, the final norm's
-# scale and a layernorm's bias) and in each layer (norms, q/k/v/o and
-# their biases, the gated or plain MLP; rwkv6: two layernorms, the time
-# mix's 9 leaves and the channel mix's 4)
+# scale and a layernorm's bias; zamba2: the shared block's norm and
+# q/k/v/o) and in each layer (norms, q/k/v/o and their biases, the gated
+# or plain MLP; rwkv6: two layernorms, the time mix's 9 leaves and the
+# channel mix's 4; zamba2: two norms, the Mamba2 block's 7 leaves and the
+# gated MLP's 3)
 N_LEAVES = {"qwen2_0_5b": (2, 12), "chatglm3_6b": (3, 12),
             "granite_20b": (4, 12), "internvl2_2b": (3, 9),
-            "qwen1_5_32b": (3, 12), "rwkv6_7b": (4, 17)}
+            "qwen1_5_32b": (3, 12), "rwkv6_7b": (4, 17),
+            "zamba2_7b": (8, 12)}
 
 
 @pytest.fixture(scope="module", params=ARCHS)
@@ -62,7 +65,7 @@ def test_from_reference_equals_reference_leaf_by_leaf(bridged):
             _assert_same(got[path], ref_leaf)
             n += 1
     top, per_layer = N_LEAVES[arch]
-    assert n == top + 2 * per_layer
+    assert n == top + get_reduced(arch).n_layers * per_layer
 
 
 def _assert_same(t, a):

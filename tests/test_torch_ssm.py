@@ -500,11 +500,12 @@ def test_full_config_size_and_what_n_params_omits():
     assert cfg.source == rcfg.source == "arXiv:2404.05892; hf"
 
 
-def test_hybrid_family_is_refused():
-    """zamba2's family (Mamba2 with a shared attention block) has no
-    port yet: the tree and the bridge refuse it."""
+def test_mla_config_is_refused():
+    """Multi-head latent attention (deepseek-v3's ``mla``) has no port
+    yet: the tree and the bridge refuse a config that sets it."""
     import dataclasses
-    cfg = dataclasses.replace(get_reduced(ARCH), family="hybrid")
+    from repro.configs.base import MLAConfig
+    cfg = dataclasses.replace(get_reduced("qwen2_0_5b"), mla=MLAConfig())
     with pytest.raises(NotImplementedError, match="not yet ported"):
         PT.lm_pspecs(cfg)
     with pytest.raises(NotImplementedError, match="not yet ported"):
