@@ -137,7 +137,29 @@ Phases, in order; any failure raises and exits non-zero:
    layers 0 and 6, two pool layers), a 64-token prefill and 4 decode
    steps on the card and on the CPU: logits and each layer's scan
    state within E2E_TOL x max(1, max|.|).
-12. Print the ``kernels`` JSON line (each kernel's launches from its own
+12. deepseek-v3-671b (multi-head latent attention and 256 routed
+   experts, top-8) at full width cut in depth to its 3 dense and first 2
+   MoE layers (``deepseek-v3-671b-5l``: d 7,168, 128 heads, q/k 128 +
+   64 and v 128, latent 512 + 64, vocabulary 129,280; 51.8 GB of random
+   bf16 weights from ``--seed``), after zamba2's weights are freed.  (a)
+   As phase 8a over layer 0's MLA weights and MLP, layer 3's router and
+   shared expert and the lm_head; the grouped GEMM at decode and a
+   256-token prefill over 256 experts and at the absorbed decode's
+   per-head products; flash at q/k dim 192, v dim 128; the latent paged
+   kernel (128 heads of 576 over one latent head, V its first 512
+   columns) at 8 x 272 and mixed 64-1,024 beside SDPA over a contiguous
+   copy (each row's ``deepseek-v3-671b-5l_path``; the latent kernel's
+   own row).  (b) Serving as in phase 8 over one latent pool a layer;
+   GEMM, grouped GEMM, flash and the latent kernel must run, the GQA
+   paged kernel must not.  (c) Three full-batch decode steps profiled as
+   in phase 4, one latent call a layer.  (d) The 3 dense layers and the
+   lm_head, a 64-token prefill and 4 decode steps on the card and on the
+   CPU, logits within E2E_TOL x max(1, max|logit|); then layer 3's MoE
+   alone on the card's hidden states of a 256-token prompt (a prefill
+   and an 8-token decode batch): at least 0.97 of the expert sets equal
+   (flips counted by experts changed), outputs of the tokens routed
+   alike within E2E_TOL x max(1, max|y|).
+13. Print the ``kernels`` JSON line (each kernel's launches from its own
    path's serving run, every path's counts beside), the card line, and
    last the result line ``{"ok": true, "device": {...}}``.
 """
@@ -275,27 +297,29 @@ def flash_entry(torch, timer, q, k, v, on_path, causal=True):
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
     B, Tq, H, D = q.shape
-    Tk, KH = k.shape[1], k.shape[2]
+    Tk, KH, Dv = k.shape[1], k.shape[2], v.shape[3]
 
     def kernel():
         return ops.flash_attention(q, k, v, causal=causal, bk=Tk)
 
-    err = check_close(f"flash B={B} Tq={Tq} Tk={Tk} H={H}/{KH} D={D} "
+    dims = f"D={D}" if Dv == D else f"D={D}/{Dv}"
+    err = check_close(f"flash B={B} Tq={Tq} Tk={Tk} H={H}/{KH} {dims} "
                       f"causal {causal}", kernel(),
                       ref.flash_gqa_ref(q, k, v, causal), BF16_TOL)
     pairs = Tq * (Tq + 1) // 2 if causal else Tq * Tk
-    bms, by = bound(2 * (2 * B * Tq * H * D + 2 * B * Tk * KH * D),
-                    4 * B * H * D * pairs)
+    bms, by = bound(2 * (B * Tq * H * (D + Dv) + B * Tk * KH * (D + Dv)),
+                    2 * B * H * (D + Dv) * pairs)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     r = {"shape": {"q": [B, Tq, H, D], "kv": [B, Tk, KH, D],
-                   "causal": causal},
+                   "causal": causal, **({"v": [B, Tk, KH, Dv]}
+                                        if Dv != D else {})},
          "on_path": on_path, "max_abs_err": err,
          "ms": timer(kernel),
          "plain_ms": timer(lambda: ref.flash_gqa_ref(q, k, v, causal)),
          "library_ms": timer(lambda: F.scaled_dot_product_attention(
              qt, kt, vt, is_causal=causal, enable_gqa=True)),
          "bound_ms": bms, "bound_by": by}
-    print(f"[flash_attention] B={B} Tq={Tq} Tk={Tk} H={H}/{KH} D={D} "
+    print(f"[flash_attention] B={B} Tq={Tq} Tk={Tk} H={H}/{KH} {dims} "
           f"causal {causal} (on_path {on_path}): err {err:.3g} (tol "
           f"{BF16_TOL}) kernel {r['ms']:.4f} ms plain {r['plain_ms']:.4f} "
           f"ms sdpa {r['library_ms']:.4f} ms bound {bms:.4f} ms ({by})",
@@ -505,7 +529,9 @@ def phase_serving(torch, args, cfg, params, kernels, new_tokens=32,
     eng = engine()
     store = {}
     if cfg.family != "ssm":
-        store = {"kv_pool_mb": 2 * eng.cache.k_pages.numel() * 2 / 1e6,
+        pools = [p for p in (eng.cache.k_pages, eng.cache.v_pages)
+                 if p is not None]
+        store = {"kv_pool_mb": sum(p.numel() for p in pools) * 2 / 1e6,
                  "kv_pool_pages": eng.cache.cfg.n_pages}
     states = eng.cache if cfg.family == "ssm" else eng.cache.state
     if states is not None:
@@ -573,8 +599,14 @@ def phase_card_vs_cpu(torch, args, cfg, params, n_layers=None,
     from repro_torch.models.params import params_to
 
     if n_layers:
+        # the first n_layers of the dense_layers stack (if any), then
+        # of layers
+        nd = len(params.get("dense_layers", []))
         cfg = dataclasses.replace(cfg, n_layers=n_layers)
-        params = {**params, "layers": params["layers"][:n_layers]}
+        params = {**params, "layers": params["layers"][:max(
+            0, n_layers - nd)]}
+        if nd:
+            params["dense_layers"] = params["dense_layers"][:n_layers]
     rng = np.random.default_rng(args.seed + 1)
     prompt = torch.as_tensor(rng.integers(1, cfg.vocab_size - 1, 64))
     forced = rng.integers(1, cfg.vocab_size - 1, 4)
@@ -635,7 +667,8 @@ def _kernel_group(name):
                        ("gemm_simt", "streaming_gemm"),
                        ("flash_bf16", "flash_attention"),
                        ("flash_f32", "flash_attention"),
-                       ("paged_fwd", "paged_attention")):
+                       ("paged_fwd", "paged_attention"),
+                       ("paged_latent", "paged_latent_attention")):
         if key in name:
             return group
     return "other (torch ops)"
@@ -1015,7 +1048,7 @@ def _grouped_entry(torch, timer, what, a, b, counts, on_path):
     got = ops.grouped_streaming_gemm(a, b, counts)
     rows = torch.arange(C, device=a.device)[None, :] < counts[:, None]
     err = check_close(f"grouped {what}", got[rows],
-                      ref.grouped_gemm_ref(a, b)[rows], BF16_TOL)
+                      ref.grouped_gemm_ref(a, b, counts)[rows], BF16_TOL)
     kept = int(counts.sum())
     touched = int((counts > 0).sum())
     bms, by = bound(2 * (touched * K * N + kept * (K + N)),
@@ -1024,7 +1057,7 @@ def _grouped_entry(torch, timer, what, a, b, counts, on_path):
          "rows": kept, "experts_touched": touched, "on_path": on_path,
          "plan": list(plan_grouped(E, C, N, K)), "max_abs_err": err,
          "ms": timer(lambda: ops.grouped_streaming_gemm(a, b, counts)),
-         "plain_ms": timer(lambda: ref.grouped_gemm_ref(a, b)),
+         "plain_ms": timer(lambda: ref.grouped_gemm_ref(a, b, counts)),
          "library_ms": timer(lambda: torch.bmm(a, b)),
          "bound_ms": bms, "bound_by": by}
     print(f"[grouped_gemm] {what} E={E} C={C} K={K} N={N} rows {kept} "
@@ -1285,9 +1318,10 @@ def kv_pool_pages(torch, cfg, slots=8, max_seq=1024, page_tokens=16):
     torch.cuda.empty_cache()
     free, _ = torch.cuda.mem_get_info()
     free += torch.cuda.memory_reserved() - torch.cuda.memory_allocated()
-    from repro_torch.models.transformer import kv_layers
-    page_bytes = 2 * kv_layers(cfg) * page_tokens * cfg.n_kv_heads * \
-        cfg.resolved_head_dim * 2
+    from repro_torch.models.transformer import kv_geometry, kv_layers
+    heads, hd = kv_geometry(cfg)
+    pools = 1 if cfg.mla else 2         # MLA: one latent pool, no V pool
+    page_bytes = pools * kv_layers(cfg) * page_tokens * heads * hd * 2
     cap = slots * -(-max_seq // page_tokens)
     pages = min(cap, (free - POOL_MARGIN_BYTES) // page_bytes)
     print(f"[{cfg.name}] KV pool: {pages} pages of {page_tokens} tokens "
@@ -1986,6 +2020,310 @@ def phase_zamba(torch, args, rows):
     return res
 
 
+# ------------------------------------------------ 12. deepseek-v3-671b
+DEEPSEEK_PATH_KERNELS = ("streaming_gemm", "streaming_gemm_grouped",
+                         "flash_attention", "paged_latent_attention")
+
+
+def latent_entry(torch, timer, what, q, pool, table, ln, on_path, dv, scale):
+    """The latent form of paged decode attention at one shape, as
+    ``paged_entry``: the kernel against its plain version; the library
+    time is SDPA over a contiguous copy of the latent rows, one KV head
+    broadcast to the H query heads (``enable_gqa``), V its first ``dv``
+    columns, with the same scale and a length mask."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.paged_attention import latent_plan
+    n, H, D = q.shape
+    P, page = pool.shape[:2]
+    max_pages = table.shape[1]
+
+    def kernel():
+        return ops.paged_latent_attention(q, pool, table, ln, dv, scale)
+
+    def plain():
+        return ref.paged_ref(q, pool, pool, table, ln, dv=dv, scale=scale)
+
+    err = check_close(f"paged latent {what}", kernel(), plain(), BF16_TOL)
+    n_tok = int(ln.sum())
+    bms, by = bound(2 * n * H * (D + dv) + 4 * n * (max_pages + 1)
+                    + 2 * n_tok * D, 2 * H * n_tok * (D + dv))
+    kc = pool[table.long()].reshape(n, 1, max_pages * page, D)
+    vc = kc[..., :dv].contiguous()
+    mask = (torch.arange(max_pages * page, device=q.device)[None]
+            < ln[:, None])[:, None, None, :]
+    q4 = q[:, :, None, :]
+
+    def sdpa():
+        return F.scaled_dot_product_attention(q4, kc, vc, attn_mask=mask,
+                                              scale=scale, enable_gqa=True)
+
+    check_close(f"paged latent {what} contiguous SDPA", sdpa()[:, :, 0],
+                plain(), BF16_TOL)
+    r = {"shape": {"q": [n, H, D], "pool": [P, page, 1, D], "dv": dv,
+                   "lens": ln.tolist()}, "what": what, "on_path": on_path,
+         "plan": latent_plan(n, H, max_pages), "max_abs_err": err,
+         "ms": timer(kernel), "plain_ms": timer(plain),
+         "contiguous_sdpa_ms": timer(sdpa), "bound_ms": bms, "bound_by": by}
+    print(f"[paged_latent_attention] {what} H={H} D={D}/{dv} (plan "
+          f"S={r['plan']}, on_path {on_path}): err {err:.3g} (tol "
+          f"{BF16_TOL}) kernel {r['ms']:.4f} ms plain {r['plain_ms']:.4f} "
+          f"ms contiguous SDPA {r['contiguous_sdpa_ms']:.4f} ms bound "
+          f"{bms:.4f} ms ({by})", flush=True)
+    return r
+
+
+def _deepseek_kernels(torch, args, cfg, params, dev, timer, rows):
+    """(a) Every kernel at deepseek-v3-671b's shapes, kept as each row's
+    ``<arch>_path`` (the latent kernel's row is new).  The GEMM at M = 8
+    and 256 over layer 0's MLA weights (``wdq``, ``wuq``, ``wdkv``,
+    ``wkr``, ``wuk`` and ``wuv`` as prefill reads them, ``wo``), its
+    dense MLP, layer 3's router and shared expert, and the lm_head at M
+    = 8.  The expert-grouped GEMM at decode (8 tokens) and at a 256-token
+    prefill, counts from routing random tokens through layer 3's router,
+    for gate/up and down over its 256 experts; and the absorbed decode's
+    per-head products, q_nope·W_uk and o_lat·W_uv, with the 128 heads as
+    groups of 8 rows.  Flash at (1, 256, 128 / 128, 192 / 128), causal;
+    the latent paged kernel at 8 x 272 and at mixed lengths 64-1,024."""
+    from repro_torch.models import moe as MOE
+
+    g = torch.Generator(device=dev).manual_seed(args.seed + 70)
+    bf16 = torch.bfloat16
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(bf16)
+
+    key = f"{cfg.name}_path"
+    m, d, H = cfg.mla, cfg.d_model, cfg.n_heads
+    attn, mlp = params["dense_layers"][0]["attn"], \
+        params["dense_layers"][0]["mlp"]
+    moe = params["layers"][0]["moe"]
+    r = m.kv_lora_rank
+    weights = [(attn["wdq"], "mla wdq"),
+               (attn["wuq"].reshape(m.q_lora_rank, -1), "mla wuq"),
+               (attn["wdkv"], "mla wdkv"), (attn["wkr"], "mla wkr"),
+               (attn["wuk"].reshape(r, -1), "mla wuk (prefill)"),
+               (attn["wuv"].reshape(r, -1), "mla wuv (prefill)"),
+               (attn["wo"].reshape(-1, d), "mla wo")]
+    weights += [(mlp[n], f"mlp {n}") for n in ("wi_gate", "wi_up", "wo")]
+    weights += [(moe["router"], "router")]
+    weights += [(moe[n], f"shared {n}") for n in ("shared_wi_gate",
+                                                  "shared_wi_up",
+                                                  "shared_wo")]
+    per_shape = []
+    for M in (8, 256):
+        a = randn(M, d)
+        for w, what in weights:
+            x = a if w.shape[0] == d else randn(M, w.shape[0])
+            per_shape.append(gemm_entry(torch, timer, x, w, what, True))
+    per_shape.append(gemm_entry(torch, timer, randn(8, d),
+                                params["lm_head"], "lm_head", True))
+    _add_path(rows["streaming_gemm"], per_shape, key)
+
+    E, f = cfg.moe.n_routed_experts, cfg.moe.d_ff_expert
+    per_shape = []
+    for what, n in (("decode", 8), ("prefill", 256)):
+        _, top_e, _ = MOE._route(moe, randn(n, d), cfg)
+        counts = MOE._count(top_e, E, torch.int32)
+        C = MOE.routed_capacity(n * cfg.moe.top_k, E, n)
+        for prod, K, w in (("gate/up", d, moe["wi_gate"]),
+                           ("down", f, moe["wo"])):
+            a = randn(E, C, K)
+            a[torch.arange(C, device=dev)[None, :] >= counts[:, None]] = 0
+            per_shape.append(_grouped_entry(
+                torch, timer, f"{what} {prod}", a, w, counts, True))
+    heads = torch.full((H,), 8, dtype=torch.int32, device=dev)
+    per_shape.append(_grouped_entry(
+        torch, timer, "absorbed q_nope·W_uk", randn(H, 8, m.qk_nope_head_dim),
+        attn["wuk_hkr"], heads, True))
+    per_shape.append(_grouped_entry(
+        torch, timer, "absorbed o_lat·W_uv", randn(H, 8, r),
+        attn["wuv_hrv"], heads, True))
+    _add_path(rows["streaming_gemm_grouped"], per_shape, key)
+
+    qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+    T = 256
+    per_shape = [flash_entry(torch, timer, randn(1, T, H, qk),
+                             randn(1, T, H, qk),
+                             randn(1, T, H, m.v_head_dim), True)]
+    _add_path(rows["flash_attention"], per_shape, key)
+
+    B, page, max_pages, D = 8, 16, 64, r + m.qk_rope_head_dim
+    P = B * max_pages + 16
+    table = torch.randperm(P, generator=g, device=dev)[:B * max_pages] \
+        .reshape(B, max_pages).to(torch.int32)
+    q, pool = randn(B, H, D), randn(P, page, 1, D)
+    mixed = torch.randint(64, 1025, (B,), generator=g, device=dev) \
+        .to(torch.int32)
+    mixed[0] = 1024
+    fixed = torch.full((B,), 272, dtype=torch.int32, device=dev)
+    scale = qk ** -0.5
+    per_shape = [latent_entry(torch, timer, what, q, pool, table, ln, on_path,
+                              r, scale)
+                 for what, ln, on_path in (("8 x 272", fixed, True),
+                                           ("mixed 64-1024", mixed, False))]
+    rows["paged_latent_attention"] = {
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
+        "replaces": "src/repro/kernels/paged_attention.py:34",
+        "note": "the latent (MLA) form of the paged kernel: 128 query "
+                "heads over one 576-wide latent head, V its first 512 "
+                "columns; the reference computes MLA decode as XLA "
+                "einsums (src/repro/models/layers.py:347-394)",
+        "tol": BF16_TOL,
+        "max_abs_err": max(x["max_abs_err"] for x in per_shape),
+        **summary(per_shape, PAGED_KEYS), "library_ms": None,
+        key: {**summary(per_shape, PAGED_KEYS), "per_shape": per_shape}}
+
+
+def _deepseek_moe_card_vs_cpu(torch, args, cfg, params):
+    """(d) Layer 3, the first MoE layer, alone: its MoE block fed the
+    card's hidden states (a 256-token prompt through the 3 dense layers
+    and layer 3's attention and ``ln2`` on the card), once as a prefill
+    (256 tokens, capacity 256) and once as a decode batch (its first 8
+    tokens, capacity 8), on the card and on the CPU.  Each token's expert
+    set is recorded on both sides: the share that agree must reach
+    ``ROUTING_AGREEMENT_MIN``.  With one MoE layer and the same inputs on
+    both sides every flip is a token's first (none is caused by an
+    earlier layer's); flips are counted by how many of the 8 experts
+    differ.  The outputs of the tokens routed alike must be within
+    E2E_TOL x max(1, max|y|)."""
+    import numpy as np
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe as MOE
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import params_to
+
+    dev = params["embed"].device
+    rng = np.random.default_rng(args.seed + 5)
+    prompt = torch.as_tensor(rng.integers(1, cfg.vocab_size - 1, 256),
+                             device=dev)[None]
+    t0 = time.perf_counter()
+    x = T.embed_tokens(params, cfg, prompt)
+    pos = torch.arange(256, device=dev)[None]
+    for lp in params["dense_layers"]:
+        x, _ = T.dense_layer_fwd(lp, x, cfg, pos)
+    lp = params["layers"][0]
+    a, _ = L.mla_prefill(lp["attn"], L.apply_norm(lp["ln1"], x, cfg), cfg,
+                         pos)
+    h = L.apply_norm(lp["ln2"], x + a, cfg)
+    cases = (("prefill", h, 256), ("decode", h[0, :8, None], 8))
+
+    def run(p):
+        log, outs = [], []
+        orig = _record_routes(MOE, log)
+        try:
+            for _, hh, cap in cases:
+                y, _ = MOE.apply_moe(p, hh.to(p["router"].device), cfg,
+                                     capacity=cap)
+                outs.append(y.reshape(-1, cfg.d_model).float().cpu())
+        finally:
+            MOE.apply_moe = orig
+        return outs, log
+
+    card, card_routes = run(lp["moe"])
+    cpu, cpu_routes = run(params_to(lp["moe"], "cpu"))
+    res = {"layer": 3, "tokens": {c[0]: c[2] for c in cases}}
+    flips = {}
+    same_all = []
+    for (what, _, _), c, w, rc, rw in zip(cases, card, cpu, card_routes,
+                                          cpu_routes):
+        require(bool(c.isfinite().all()), f"{what}: card MoE output "
+                "not finite")
+        same = (rc == rw).all(-1)
+        same_all.append(same)
+        for i in torch.nonzero(~same).flatten().tolist():
+            k = len(set(rc[i].tolist()) ^ set(rw[i].tolist())) // 2
+            flips[k] = flips.get(k, 0) + 1
+        top = w.abs().max().item()
+        err = (c[same] - w[same]).abs().max().item() if same.any() else None
+        res[what] = {"routing_agreement": float(same.float().mean()),
+                     "max_abs_err": err, "max_abs": top,
+                     "tol": E2E_TOL * max(1.0, top)}
+    share = float(torch.cat(same_all).float().mean())
+    res.update({"routing_agreement": share,
+                "routing_agreement_min": ROUTING_AGREEMENT_MIN,
+                "assignments": int(sum(s.numel() for s in same_all)),
+                "first_flips_by_experts_changed": flips,
+                "seconds": time.perf_counter() - t0})
+    print(f"[{cfg.name} moe_card_vs_cpu] " + json.dumps(res), flush=True)
+    require(share >= ROUTING_AGREEMENT_MIN,
+            f"card and CPU routing agree on {share:.3f} of the tokens")
+    for what, _, _ in cases:
+        r = res[what]
+        require(r["max_abs_err"] is not None and
+                r["max_abs_err"] <= r["tol"],
+                f"{cfg.name} layer 3 {what}: card and CPU MoE outputs "
+                f"differ by {r['max_abs_err']}")
+    return res
+
+
+def phase_deepseek(torch, args, rows):
+    """12. deepseek-v3-671b cut in depth to its 3 dense and first 2 MoE
+    layers (``deepseek-v3-671b-5l``) at full width: d 7,168, 128 heads of
+    MLA (q/k 128 + 64, v 128, q rank 1,536, latent 512 + 64), 256 routed
+    experts of 2,048, top-8, one shared, vocabulary 129,280; 51.8 GB of
+    random bf16 weights from ``--seed``.  (a) every kernel at its shapes;
+    (b) serving 8 requests of 64-256 prompt tokens and 8 new tokens over
+    one latent pool a layer (GEMM, grouped GEMM, flash and the latent
+    paged kernel must run, the GQA paged kernel must not); (c) a profile
+    of 3 full-batch decode steps (one latent paged call a layer); (d) the
+    3 dense layers and the lm_head on the card against the CPU, logits
+    within E2E_TOL x max(1, max|logit|), then layer 3's MoE alone,
+    routing-aware."""
+    from repro_torch.configs.deepseek_v3_671b import SERVING
+    from repro_torch.models.model import Model
+
+    dev = torch.device("cuda")
+    cfg = SERVING
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(args.seed)
+    torch.cuda.reset_peak_memory_stats()
+    params = Model(cfg, device=dev).init(g)
+    torch.cuda.synchronize()
+    res = {"config": cfg.name, "init_s": time.perf_counter() - t0,
+           "weights_gb": torch.cuda.memory_allocated() / 1e9,
+           "init_peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    print(f"[{cfg.name}] {cfg.n_layers} of 61 layers (cut in depth only); "
+          f"{res['weights_gb']:.2f} GB of weights on the card in "
+          f"{res['init_s']:.1f} s, init peak {res['init_peak_gb']:.2f} GB",
+          flush=True)
+    t = time.perf_counter()
+    timer = Timer(torch, dev)
+    _deepseek_kernels(torch, args, cfg, params, dev, timer, rows)
+    del timer
+    res["kernels_s"] = time.perf_counter() - t
+    pages = kv_pool_pages(torch, cfg)
+    t = time.perf_counter()
+    res["serving"] = phase_serving(
+        torch, args, cfg, params, DEEPSEEK_PATH_KERNELS, new_tokens=8,
+        tag=f"{cfg.name} serving", n_requests=8, prompt_max=256,
+        pool_pages=pages, absent=("paged_attention",))
+    res["serving_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    prof = res["decode_profile"] = phase_profile(
+        torch, args, cfg, params, n_steps=3,
+        tag=f"{cfg.name} decode_profile", pool_pages=pages,
+        one_kernel=("streaming_gemm", "streaming_gemm_grouped",
+                    "paged_latent_attention"))
+    require(prof["launches_per_step"]["paged_latent_attention"]
+            == cfg.n_layers, f"{cfg.name}: not one latent paged call a layer")
+    res["profile_s"] = time.perf_counter() - t
+    res["card_vs_cpu"] = phase_card_vs_cpu(
+        torch, args, cfg, params, n_layers=cfg.moe.first_dense_layers,
+        tag=f"{cfg.name} card_vs_cpu")
+    res["moe_card_vs_cpu"] = _deepseek_moe_card_vs_cpu(torch, args, cfg,
+                                                       params)
+    res["seconds"] = time.perf_counter() - t0
+    print(f"[{cfg.name}] seconds: init {res['init_s']:.1f} kernels "
+          f"{res['kernels_s']:.1f} serving {res['serving_s']:.1f} "
+          f"profile {res['profile_s']:.1f} card_vs_cpu "
+          f"{res['card_vs_cpu']['seconds']:.1f} moe_card_vs_cpu "
+          f"{res['moe_card_vs_cpu']['seconds']:.1f} total "
+          f"{res['seconds']:.1f}", flush=True)
+    return res
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2029,18 +2367,23 @@ def main():
     rwkv = phase_rwkv(torch, args, rows)
     torch.cuda.empty_cache()
     zamba = phase_zamba(torch, args, rows)
+    torch.cuda.empty_cache()
+    deepseek = phase_deepseek(torch, args, rows)
 
     # launches: each kernel's count from its own main path's serving run
-    # (the grouped GEMM's is the MoE path); every path's counts beside
+    # (the grouped GEMM's is the MoE path, the latent paged kernel's
+    # deepseek-v3's); every path's counts beside
     paths = {cfg.name: serving["launches"],
              MOE_ARCH: moe["serving"]["launches"],
              **{a: v["serving"]["launches"] for a, v in variants.items()},
              WHISPER_ARCH: whisper["greedy"]["launches"],
              RWKV_ARCH: rwkv["serving"]["launches"],
-             ZAMBA_ARCH: zamba["serving"]["launches"]}
+             ZAMBA_ARCH: zamba["serving"]["launches"],
+             deepseek["config"]: deepseek["serving"]["launches"]}
+    own = {"streaming_gemm_grouped": MOE_ARCH,
+           "paged_latent_attention": deepseek["config"]}
     kernels = [{"name": name, **rows[name],
-                "launches": paths[MOE_ARCH if name == "streaming_gemm_grouped"
-                                  else cfg.name][name],
+                "launches": paths[own.get(name, cfg.name)][name],
                 "launches_by_path": {p: n[name] for p, n in paths.items()}}
                for name in rows]
     print(json.dumps({"kernels": kernels, "card": card}))

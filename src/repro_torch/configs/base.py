@@ -1,16 +1,27 @@
 """Model configuration dataclasses — the port's own copies of the
-reference ``ModelConfig``, ``MoEConfig`` and ``SSMConfig`` (same
-fields, same defaults, same derived properties), so that the port never
-imports the JAX package.
+reference ``ModelConfig``, ``MoEConfig``, ``MLAConfig`` and
+``SSMConfig`` (same fields, same defaults, same derived properties), so
+that the port never imports the JAX package.
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Optional
 
 
 def _round_up(x: int, m: int) -> int:
     return (x + m - 1) // m * m
+
+
+def depth_cut(cfg: "ModelConfig", n_layers: int) -> "ModelConfig":
+    """``cfg`` with only its first ``n_layers`` layers, named so
+    (``<name>-<n>l``); every width stays as it is."""
+    if not 0 < n_layers <= cfg.n_layers:
+        raise ValueError(f"{cfg.name} has {cfg.n_layers} layers, not a cut "
+                         f"to {n_layers}")
+    return dataclasses.replace(cfg, name=f"{cfg.name}-{n_layers}l",
+                               n_layers=n_layers)
 
 
 @dataclass(frozen=True)
@@ -22,6 +33,16 @@ class MoEConfig:
     # layers [0, first_dense_layers) use a dense FFN instead of MoE
     first_dense_layers: int = 0
     router_aux_coef: float = 0.001
+
+
+@dataclass(frozen=True)
+class MLAConfig:
+    """Multi-head latent attention (deepseek-v3)."""
+    q_lora_rank: int = 1536
+    kv_lora_rank: int = 512
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
 
 
 @dataclass(frozen=True)
@@ -54,10 +75,9 @@ class ModelConfig:
     glu: bool = True             # gated FFN (SwiGLU/GeGLU) vs plain MLP
     tie_embeddings: bool = False
     moe: Optional[MoEConfig] = None
-    # MLA sub-config: not ported yet, always None here
-    mla: Optional[object] = None
+    mla: Optional[MLAConfig] = None
     ssm: Optional[SSMConfig] = None
-    mtp: bool = False
+    mtp: bool = False            # multi-token-prediction head (deepseek-v3)
     # encoder-decoder (whisper): n_layers == decoder layers
     n_encoder_layers: int = 0
     embedding_inputs: bool = False

@@ -36,13 +36,20 @@
 //    One CTA of 128 threads owns a 32-row query block of one (batch,
 //    head); four threads share a query row.
 //
-// Head dims 16, 32, 64, 112 and 128 are compiled.  Every loop over D
-// steps by 16 (k16 steps of QK^T, pairs of n8 tiles of PV, ldmatrix.x4
-// of 16 columns) or by 8 and 4 (16-byte loads, the merge's float4), so
-// any multiple of 16 takes the same code: D 112 (zamba2-7b) walks 7 k16
-// steps and 14 n8 tiles, and its 120-element padded row (240 B, an odd
-// count of 16-byte quads) keeps ldmatrix conflict-free; 76,800 B of
-// shared memory at 2 stages.
+// The kernels are templated on <DK, DV>: QK^T runs over the q/k head
+// dim DK, PV and the output over the v head dim DV, and the scale is
+// 1/sqrt(DK).  Compiled: DK == DV for 16, 32, 64, 112 and 128, and
+// (DK, DV) = (192, 128), the prefill of multi-head latent attention
+// (deepseek-v3: 128 nope + 64 rope q/k columns, 128 v columns).  Every
+// loop over a head dim steps by 16 (k16 steps of QK^T, pairs of n8 tiles
+// of PV, ldmatrix.x4 of 16 columns) or by 8 and 4 (16-byte loads, the
+// merge's float4), so any multiple of 16 takes the same code: D 112
+// (zamba2-7b) walks 7 k16 steps and 14 n8 tiles, and its 120-element
+// padded row (240 B, an odd count of 16-byte quads) keeps ldmatrix
+// conflict-free; 76,800 B of shared memory at 2 stages.  At (192, 128)
+// the padded rows are 400 B and 272 B (25 and 17 quads, both odd), and
+// the bf16 kernel takes Q 25,600 B and a 2-stage K/V ring of 86,016 B:
+// 111,616 B.
 //
 // Each launcher returns cudaGetLastError() of its launch.
 #include <cooperative_groups.h>
@@ -109,15 +116,17 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-template <int D>
+template <int DK, int DV>
 struct FlashGeo {
-  static constexpr int LD = D + 8;  // 16-byte pad: conflict-free ldmatrix
-  static constexpr int STAGES = D <= 64 ? 3 : 2;
-  static constexpr int Q_ELEMS = BR * LD, KV_ELEMS = BKV * LD;
+  // 16-byte pads: conflict-free ldmatrix
+  static constexpr int LDK = DK + 8, LDV = DV + 8;
+  static constexpr int STAGES = DK <= 64 ? 3 : 2;
+  static constexpr int Q_ELEMS = BR * LDK, K_ELEMS = BKV * LDK,
+                       V_ELEMS = BKV * LDV;
   // after the key loop the K/V ring holds this CTA's partial softmax
   // state: acc [BR][ACC_LD] then m [BR] and l [BR], fp32
-  static constexpr int ACC_LD = D + 4;
-  static constexpr int RING_BYTES = 2 * 2 * STAGES * KV_ELEMS;
+  static constexpr int ACC_LD = DV + 4;
+  static constexpr int RING_BYTES = 2 * STAGES * (K_ELEMS + V_ELEMS);
   static constexpr int PART_BYTES = 4 * (BR * ACC_LD + 2 * BR);
   static constexpr int SMEM =
       2 * Q_ELEMS + (RING_BYTES > PART_BYTES ? RING_BYTES : PART_BYTES);
@@ -125,7 +134,7 @@ struct FlashGeo {
   static_assert(4 * (MAX_SPLITS + 1) * BR <= 2 * Q_ELEMS, "merge scratch");
 };
 
-template <int D>
+template <int DK, int DV>
 __global__ void __launch_bounds__(THREADS)
     flash_bf16(const __nv_bfloat16* __restrict__ q,
                const __nv_bfloat16* __restrict__ k,
@@ -134,11 +143,11 @@ __global__ void __launch_bounds__(THREADS)
                int64_t sqb, int64_t sqt, int64_t sqh, int64_t skb,
                int64_t skt, int64_t skh, int64_t svb, int64_t svt,
                int64_t svh, float scale_log2, int causal) {
-  using F = FlashGeo<D>;
+  using F = FlashGeo<DK, DV>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   __nv_bfloat16* Ks = Qs + F::Q_ELEMS;
-  __nv_bfloat16* Vs = Ks + F::STAGES * F::KV_ELEMS;
+  __nv_bfloat16* Vs = Ks + F::STAGES * F::K_ELEMS;
 
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
@@ -152,13 +161,13 @@ __global__ void __launch_bounds__(THREADS)
   const __nv_bfloat16* qb = q + b * sqb;
   const __nv_bfloat16* kb = k + b * skb + kh * skh;
   const __nv_bfloat16* vb = v + b * svb + kh * svh;
-  constexpr int CH = D / 8;  // 16-byte chunks per row
+  constexpr int CHK = DK / 8, CHV = DV / 8;  // 16-byte chunks per row
 
-  for (int c = tid; c < BR * CH; c += THREADS) {
-    const int r = c / CH, d = (c % CH) * 8, R = R0 + r;
+  for (int c = tid; c < BR * CHK; c += THREADS) {
+    const int r = c / CHK, d = (c % CHK) * 8, R = R0 + r;
     const bool ok = R < rows;
     const int t = R / G, h = kh * G + R % G;
-    cp_async16(Qs + r * F::LD + d, ok ? qb + t * sqt + h * sqh + d : q, ok);
+    cp_async16(Qs + r * F::LDK + d, ok ? qb + t * sqt + h * sqh + d : q, ok);
   }
   const int last = min(R0 + BR, rows) - 1;
   const int kv_end = causal ? min(Tk, last / G + 1) : Tk;
@@ -167,13 +176,17 @@ __global__ void __launch_bounds__(THREADS)
   const int t0 = rank * nt_all / splits;
   const int nt = (rank + 1) * nt_all / splits - t0;
   auto load_kv = [&](int stage, int tile) {
-    __nv_bfloat16* ks = Ks + stage * F::KV_ELEMS;
-    __nv_bfloat16* vs = Vs + stage * F::KV_ELEMS;
-    for (int c = tid; c < BKV * CH; c += THREADS) {
-      const int j = c / CH, d = (c % CH) * 8, key = tile * BKV + j;
+    __nv_bfloat16* ks = Ks + stage * F::K_ELEMS;
+    __nv_bfloat16* vs = Vs + stage * F::V_ELEMS;
+    for (int c = tid; c < BKV * CHK; c += THREADS) {
+      const int j = c / CHK, d = (c % CHK) * 8, key = tile * BKV + j;
       const bool ok = key < kv_end;
-      cp_async16(ks + j * F::LD + d, ok ? kb + key * skt + d : k, ok);
-      cp_async16(vs + j * F::LD + d, ok ? vb + key * svt + d : v, ok);
+      cp_async16(ks + j * F::LDK + d, ok ? kb + key * skt + d : k, ok);
+    }
+    for (int c = tid; c < BKV * CHV; c += THREADS) {
+      const int j = c / CHV, d = (c % CHV) * 8, key = tile * BKV + j;
+      const bool ok = key < kv_end;
+      cp_async16(vs + j * F::LDV + d, ok ? vb + key * svt + d : v, ok);
     }
   };
 #pragma unroll
@@ -186,27 +199,27 @@ __global__ void __launch_bounds__(THREADS)
   const int Ra = R0 + warp * 16 + g;
   const int ta = Ra / G, tb = (Ra + 8) / G;
   float m_i[2] = {NEG_INF, NEG_INF}, l_i[2] = {0.f, 0.f};
-  float acc[D / 8][4];
+  float acc[DV / 8][4];
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j)
+  for (int j = 0; j < DV / 8; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-  uint32_t qf[D / 16][4];
+  uint32_t qf[DK / 16][4];
 
   for (int it = 0; it < nt; ++it) {
     cp_async_wait<F::STAGES - 2>();  // tile it (and Q) has landed
     __syncthreads();                 // stage (it - 1) % STAGES is free
     if (it == 0) {
 #pragma unroll
-      for (int ks = 0; ks < D / 16; ++ks)
-        ldsm_x4(qf[ks], Qs + (warp * 16 + (lane & 15)) * F::LD + ks * 16 +
+      for (int ks = 0; ks < DK / 16; ++ks)
+        ldsm_x4(qf[ks], Qs + (warp * 16 + (lane & 15)) * F::LDK + ks * 16 +
                             (lane >> 4) * 8);
     }
     const int nx = it + F::STAGES - 1;
     if (nx < nt) load_kv(nx % F::STAGES, t0 + nx);
     cp_async_commit();
-    const __nv_bfloat16* kt = Ks + (it % F::STAGES) * F::KV_ELEMS;
-    const __nv_bfloat16* vt = Vs + (it % F::STAGES) * F::KV_ELEMS;
+    const __nv_bfloat16* kt = Ks + (it % F::STAGES) * F::K_ELEMS;
+    const __nv_bfloat16* vt = Vs + (it % F::STAGES) * F::V_ELEMS;
 
     // S = Q K^T: 16 rows x 64 keys per warp, as 8 n8 tiles
     float s[BKV / 8][4];
@@ -215,12 +228,12 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
 #pragma unroll
-    for (int ks = 0; ks < D / 16; ++ks) {
+    for (int ks = 0; ks < DK / 16; ++ks) {
       uint32_t kf[BKV / 16][4];  // b-fragments of key tiles 2jj, 2jj + 1
 #pragma unroll
       for (int jj = 0; jj < BKV / 16; ++jj)
         ldsm_x4(kf[jj], kt + (jj * 16 + (lane & 7) + ((lane >> 4) & 1) * 8) *
-                                 F::LD + ks * 16 + ((lane >> 3) & 1) * 8);
+                                 F::LDK + ks * 16 + ((lane >> 3) & 1) * 8);
 #pragma unroll
       for (int jj = 0; jj < BKV / 16; ++jj) {
         mma_bf16(s[2 * jj], qf[ks], kf[jj]);
@@ -260,7 +273,7 @@ __global__ void __launch_bounds__(THREADS)
         s[j][e] = p;
       }
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
+    for (int j = 0; j < DV / 8; ++j) {
       acc[j][0] *= corr[0];
       acc[j][1] *= corr[0];
       acc[j][2] *= corr[1];
@@ -274,13 +287,13 @@ __global__ void __launch_bounds__(THREADS)
                         pack_bf16(s[2 * kk][2], s[2 * kk][3]),
                         pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
                         pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-      uint32_t vf[D / 16][4];  // b-fragments of d tiles 2dd, 2dd + 1
+      uint32_t vf[DV / 16][4];  // b-fragments of d tiles 2dd, 2dd + 1
 #pragma unroll
-      for (int dd = 0; dd < D / 16; ++dd)
+      for (int dd = 0; dd < DV / 16; ++dd)
         ldsm_x4_t(vf[dd], vt + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) *
-                                   F::LD + dd * 16 + (lane >> 4) * 8);
+                                   F::LDV + dd * 16 + (lane >> 4) * 8);
 #pragma unroll
-      for (int dd = 0; dd < D / 16; ++dd) {
+      for (int dd = 0; dd < DV / 16; ++dd) {
         mma_bf16(acc[2 * dd], pa, vf[dd]);
         mma_bf16(acc[2 * dd + 1], pa, vf[dd] + 2);
       }
@@ -305,7 +318,7 @@ __global__ void __launch_bounds__(THREADS)
       pl[row] = l_i[r];
     }
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
+    for (int j = 0; j < DV / 8; ++j)
       *reinterpret_cast<float2*>(pacc + row * F::ACC_LD + j * 8 + 2 * tig) =
           make_float2(acc[j][2 * r], acc[j][2 * r + 1]);
   }
@@ -343,8 +356,8 @@ __global__ void __launch_bounds__(THREADS)
     inv_l[tid] = 1.f / fmaxf(l, 1e-30f);
   }
   __syncthreads();
-  for (int i = tid; i < nr * (D / 4); i += THREADS) {
-    const int rr = i / (D / 4), d = (i % (D / 4)) * 4, R = R0 + r0 + rr;
+  for (int i = tid; i < nr * (DV / 4); i += THREADS) {
+    const int rr = i / (DV / 4), d = (i % (DV / 4)) * 4, R = R0 + r0 + rr;
     if (R >= rows) continue;
     float4 a[MAX_SPLITS];
 #pragma unroll
@@ -364,7 +377,8 @@ __global__ void __launch_bounds__(THREADS)
       }
     const float inv = inv_l[rr];
     const int t = R / G, h = kh * G + R % G;
-    __nv_bfloat16* ob = o + ((static_cast<int64_t>(b) * Tq + t) * H + h) * D + d;
+    __nv_bfloat16* ob =
+        o + ((static_cast<int64_t>(b) * Tq + t) * H + h) * DV + d;
     *reinterpret_cast<__nv_bfloat162*>(ob) =
         __floats2bfloat162_rn(out.x * inv, out.y * inv);
     *reinterpret_cast<__nv_bfloat162*>(ob + 2) =
@@ -373,12 +387,12 @@ __global__ void __launch_bounds__(THREADS)
   cluster.sync();  // no CTA leaves while a peer still reads its state
 }
 
-template <int D>
+template <int DK, int DV>
 int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
                 int Tq, int Tk, int H, int KH, const int64_t* st, int causal,
                 int splits, cudaStream_t stream) {
-  using F = FlashGeo<D>;
-  auto kern = flash_bf16<D>;
+  using F = FlashGeo<DK, DV>;
+  auto kern = flash_bf16<DK, DV>;
   static const cudaError_t attr = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, F::SMEM);
   if (attr != cudaSuccess) return static_cast<int>(attr);
@@ -400,7 +414,7 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
       Tq, Tk, H, KH, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7],
-      st[8], LOG2E / sqrtf(static_cast<float>(D)), causal);
+      st[8], LOG2E / sqrtf(static_cast<float>(DK)), causal);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
@@ -408,12 +422,12 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
 // ---------------------------------------------------------- fp32 path
 constexpr int BQ = 32;
 
-template <int D>
+template <int DK, int DV>
 constexpr int smem_floats() {
-  return BQ * (D + 1) + BKV * (D + 1) + BKV * D + BQ * (BKV + 1);
+  return BQ * (DK + 1) + BKV * (DK + 1) + BKV * DV + BQ * (BKV + 1);
 }
 
-template <int D>
+template <int DK, int DV>
 __global__ void __launch_bounds__(THREADS)
     flash_f32(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, float* __restrict__ o, int Tq,
@@ -421,10 +435,10 @@ __global__ void __launch_bounds__(THREADS)
               int64_t skb, int64_t skt, int64_t skh, int64_t svb,
               int64_t svt, int64_t svh, float scale, int causal) {
   extern __shared__ float smem[];
-  float* Qs = smem;                    // [BQ][D+1]
-  float* Ks = Qs + BQ * (D + 1);       // [BKV][D+1]
-  float* Vs = Ks + BKV * (D + 1);      // [BKV][D]
-  float* Ps = Vs + BKV * D;            // [BQ][BKV+1]
+  float* Qs = smem;                    // [BQ][DK+1]
+  float* Ks = Qs + BQ * (DK + 1);      // [BKV][DK+1]
+  float* Vs = Ks + BKV * (DK + 1);     // [BKV][DV]
+  float* Ps = Vs + BKV * DV;           // [BQ][BKV+1]
 
   const int tid = threadIdx.x, r = tid >> 2, sub = tid & 3;
   const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
@@ -433,35 +447,37 @@ __global__ void __launch_bounds__(THREADS)
   const float* kb = k + b * skb + kh * skh;
   const float* vb = v + b * svb + kh * svh;
 
-  for (int i = tid; i < BQ * D; i += THREADS) {
-    const int rr = i / D, d = i % D, t = q0 + rr;
-    Qs[rr * (D + 1) + d] = t < Tq ? qb[t * sqt + d] : 0.f;
+  for (int i = tid; i < BQ * DK; i += THREADS) {
+    const int rr = i / DK, d = i % DK, t = q0 + rr;
+    Qs[rr * (DK + 1) + d] = t < Tq ? qb[t * sqt + d] : 0.f;
   }
 
   const int t = q0 + r;  // this thread's query position
-  float m_i = NEG_INF, l_i = 0.f, acc[D / 4];
+  float m_i = NEG_INF, l_i = 0.f, acc[DV / 4];
 #pragma unroll
-  for (int e = 0; e < D / 4; ++e) acc[e] = 0.f;
+  for (int e = 0; e < DV / 4; ++e) acc[e] = 0.f;
 
   const int kv_end = causal ? min(Tk, q0 + BQ) : Tk;
   for (int k0 = 0; k0 < kv_end; k0 += BKV) {
     __syncthreads();  // previous tile fully consumed (and Qs written)
-    for (int i = tid; i < BKV * D; i += THREADS) {
-      const int j = i / D, d = i % D, key = k0 + j;
-      const bool ok = key < Tk;
-      Ks[j * (D + 1) + d] = ok ? kb[key * skt + d] : 0.f;
-      Vs[j * D + d] = ok ? vb[key * svt + d] : 0.f;
+    for (int i = tid; i < BKV * DK; i += THREADS) {
+      const int j = i / DK, d = i % DK, key = k0 + j;
+      Ks[j * (DK + 1) + d] = key < Tk ? kb[key * skt + d] : 0.f;
+    }
+    for (int i = tid; i < BKV * DV; i += THREADS) {
+      const int j = i / DV, d = i % DV, key = k0 + j;
+      Vs[j * DV + d] = key < Tk ? vb[key * svt + d] : 0.f;
     }
     __syncthreads();
 
     float s[BKV / 4];
 #pragma unroll
     for (int i = 0; i < BKV / 4; ++i) s[i] = 0.f;
-    for (int d = 0; d < D; ++d) {
-      const float qd = Qs[r * (D + 1) + d];
+    for (int d = 0; d < DK; ++d) {
+      const float qd = Qs[r * (DK + 1) + d];
 #pragma unroll
       for (int i = 0; i < BKV / 4; ++i)
-        s[i] += qd * Ks[(sub + 4 * i) * (D + 1) + d];
+        s[i] += qd * Ks[(sub + 4 * i) * (DK + 1) + d];
     }
     float mx = NEG_INF;
 #pragma unroll
@@ -488,78 +504,85 @@ __global__ void __launch_bounds__(THREADS)
     m_i = m_new;
     __syncwarp();  // the row's four threads share one warp
 #pragma unroll
-    for (int e = 0; e < D / 4; ++e) acc[e] *= corr;
+    for (int e = 0; e < DV / 4; ++e) acc[e] *= corr;
     for (int j = 0; j < BKV; ++j) {
       const float p = Ps[r * (BKV + 1) + j];
 #pragma unroll
-      for (int e = 0; e < D / 4; ++e) acc[e] += p * Vs[j * D + sub + 4 * e];
+      for (int e = 0; e < DV / 4; ++e)
+        acc[e] += p * Vs[j * DV + sub + 4 * e];
     }
   }
 
   if (t < Tq) {
     const float inv = 1.f / fmaxf(l_i, 1e-30f);
-    float* ob = o + ((static_cast<int64_t>(b) * Tq + t) * H + h) * D;
+    float* ob = o + ((static_cast<int64_t>(b) * Tq + t) * H + h) * DV;
 #pragma unroll
-    for (int e = 0; e < D / 4; ++e) ob[sub + 4 * e] = acc[e] * inv;
+    for (int e = 0; e < DV / 4; ++e) ob[sub + 4 * e] = acc[e] * inv;
   }
 }
 
-template <int D>
+template <int DK, int DV>
 int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
                int Tq, int Tk, int H, int KH, const int64_t* st, int causal,
                cudaStream_t stream) {
-  const size_t bytes = smem_floats<D>() * sizeof(float);
+  const size_t bytes = smem_floats<DK, DV>() * sizeof(float);
   static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_f32<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_f32<DK, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(bytes));
   if (attr != cudaSuccess) return static_cast<int>(attr);
   dim3 grid((Tq + BQ - 1) / BQ, H, B);
-  flash_f32<D><<<grid, THREADS, bytes, stream>>>(
+  flash_f32<DK, DV><<<grid, THREADS, bytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), Tq, Tk, H, KH,
       st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
-      1.0f / sqrtf(static_cast<float>(D)), causal);
+      1.0f / sqrtf(static_cast<float>(DK)), causal);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool BF16>
-int dispatch_d(int D, const void* q, const void* k, const void* v, void* o,
-               int B, int Tq, int Tk, int H, int KH, const int64_t* st,
-               int causal, int sp, cudaStream_t s) {
-  switch (D) {
-    case 16: return BF16 ? launch_bf16<16>(q, k, v, o, B, Tq, Tk, H, KH, st, causal, sp, s)
-                         : launch_f32<16>(q, k, v, o, B, Tq, Tk, H, KH, st, causal, s);
-    case 32: return BF16 ? launch_bf16<32>(q, k, v, o, B, Tq, Tk, H, KH, st, causal, sp, s)
-                         : launch_f32<32>(q, k, v, o, B, Tq, Tk, H, KH, st, causal, s);
-    case 64: return BF16 ? launch_bf16<64>(q, k, v, o, B, Tq, Tk, H, KH, st, causal, sp, s)
-                         : launch_f32<64>(q, k, v, o, B, Tq, Tk, H, KH, st, causal, s);
-    case 112: return BF16 ? launch_bf16<112>(q, k, v, o, B, Tq, Tk, H, KH, st, causal, sp, s)
-                          : launch_f32<112>(q, k, v, o, B, Tq, Tk, H, KH, st, causal, s);
-    case 128: return BF16 ? launch_bf16<128>(q, k, v, o, B, Tq, Tk, H, KH, st, causal, sp, s)
-                          : launch_f32<128>(q, k, v, o, B, Tq, Tk, H, KH, st, causal, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+template <int DK, int DV>
+int launch(bool bf16, const void* q, const void* k, const void* v, void* o,
+           int B, int Tq, int Tk, int H, int KH, const int64_t* st,
+           int causal, int sp, cudaStream_t s) {
+  return bf16 ? launch_bf16<DK, DV>(q, k, v, o, B, Tq, Tk, H, KH, st, causal,
+                                    sp, s)
+              : launch_f32<DK, DV>(q, k, v, o, B, Tq, Tk, H, KH, st, causal, s);
+}
+
+int dispatch_d(bool bf16, int DK, int DV, const void* q, const void* k,
+               const void* v, void* o, int B, int Tq, int Tk, int H, int KH,
+               const int64_t* st, int causal, int sp, cudaStream_t s) {
+#define FA_LAUNCH(K, V) \
+  return launch<K, V>(bf16, q, k, v, o, B, Tq, Tk, H, KH, st, causal, sp, s)
+  if (DK == DV) {
+    switch (DK) {
+      case 16: FA_LAUNCH(16, 16);
+      case 32: FA_LAUNCH(32, 32);
+      case 64: FA_LAUNCH(64, 64);
+      case 112: FA_LAUNCH(112, 112);
+      case 128: FA_LAUNCH(128, 128);
+    }
   }
+  if (DK == 192 && DV == 128) FA_LAUNCH(192, 128);
+#undef FA_LAUNCH
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
-// strides (elements, unit stride on D):
-// [q_b, q_t, q_h, k_b, k_t, k_h, v_b, v_t, v_h]; o is contiguous
-// (B, Tq, H, D).  dtype: 0 = float32, 1 = bfloat16 (whose strides must
-// be multiples of 8 and pointers 16-byte aligned).  splits (bf16 only,
-// 1-8): the CTAs of one cluster that share a query block's key tiles.
+// q: (B, Tq, H, DK), k: (B, Tk, KH, DK), v: (B, Tk, KH, DV); strides
+// (elements, unit stride on the head dims): [q_b, q_t, q_h, k_b, k_t,
+// k_h, v_b, v_t, v_h]; o is contiguous (B, Tq, H, DV).  dtype: 0 =
+// float32, 1 = bfloat16 (whose strides must be multiples of 8 and
+// pointers 16-byte aligned).  splits (bf16 only, 1-8): the CTAs of one
+// cluster that share a query block's key tiles.
 extern "C" int fa_forward(int dtype, const void* q, const void* k,
                           const void* v, void* o, int B, int Tq, int Tk,
-                          int H, int KH, int D, const int64_t* strides,
-                          int causal, int splits, void* stream) {
+                          int H, int KH, int DK, int DV,
+                          const int64_t* strides, int causal, int splits,
+                          void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (splits < 1 || splits > MAX_SPLITS)
+  if (splits < 1 || splits > MAX_SPLITS || (dtype != 0 && dtype != 1))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (dtype == 0)
-    return dispatch_d<false>(D, q, k, v, o, B, Tq, Tk, H, KH, strides,
-                             causal, splits, st);
-  if (dtype == 1)
-    return dispatch_d<true>(D, q, k, v, o, B, Tq, Tk, H, KH, strides, causal,
-                            splits, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch_d(dtype == 1, DK, DV, q, k, v, o, B, Tq, Tk, H, KH,
+                    strides, causal, splits, st);
 }

@@ -564,6 +564,308 @@ int launch_t(const void* q, const void* kp, const void* vp, const int* tb,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+
+// ------------------------------------------- the latent form (MLA decode)
+//
+// Multi-head latent attention decodes in the absorbed form: the H query
+// heads (128 for deepseek-v3) of one token attend over ONE latent KV
+// head of DK = 576 columns (the 512-wide compressed ckv, then the 64
+// RoPE columns kr), and V is the first DV = 512 columns of the same
+// rows.  The head-group kernel above would split 128 heads of 576 into
+// 43 groups that each walk and re-read every page; instead a CTA of
+// eight warps holds LH = 16 query heads and stages each latent page once
+// in shared memory (a 16-token bf16 page is 18 KB), where both QK^T and
+// PV read it.  Grid (S, H / LH, B), the pages of a sequence split over a
+// cluster of S CTAs as above and merged in rank order through
+// distributed shared memory (one launch, no workspace, no atomics).
+//
+//  * QK^T: lane l of warp w takes head 4·(w % 4) + l / 8 and the
+//    16-byte chunks l % 8 + 8j of the row (72 bf16 chunks: 9 a lane), its
+//    q slice (scaled by log2(e)·scale) held in 72 registers for the whole
+//    walk; warps w and w + 4 take the even and the odd tokens.  The eight
+//    lanes of a head read consecutive chunks and the warp's four heads
+//    the same ones, so a page row is read once per warp, conflict-free.
+//  * The online softmax of a page: a half-warp per head, fp32 in the
+//    log2 domain; P is kept in fp32 (token-major in shared memory).
+//  * PV: thread t owns output columns 2t, 2t + 1 of all 16 heads (32 fp32
+//    accumulators), reading each token's V pair once and the 16 heads'
+//    probabilities as broadcast float4s.
+//  * The scale is the caller's (deepseek-v3: 1/sqrt(192), the q/k head
+//    dim of the un-absorbed form), not 1/sqrt(DK).
+//
+// What bounds it: at 8 sequences of 272 tokens the latent rows are 2.5
+// MB (0.75 us at 3.35 TB/s) and the scores and PV 2·128·(576 + 512)
+// operations a token (0.6 us at the bf16 tensor-core peak): neither.
+// What holds this simple kernel back is fp32 FMA throughput and the
+// serial walk: 278 K FMAs a 16-token page per CTA, three block barriers
+// a page, and each head block re-reading the pages (8 head blocks at H
+// 128, mostly from L2).
+constexpr int LH = 16;                  // query heads per CTA
+constexpr int LTHREADS = 256;           // eight warps
+constexpr int SC_LD = 33;               // score rows, padded
+
+struct LatentLayout {
+  int sc, pt, corr, cm, cl, fw, inv_l, ids, ring, row, bytes;
+};
+
+__host__ __device__ inline LatentLayout latent_layout(int DK, int DV,
+                                                      int page,
+                                                      int max_pages,
+                                                      int esz) {
+  LatentLayout L;
+  int f = 0;  // in 4-byte words
+  L.sc = f;    f += LH * SC_LD;         // scores             [LH][SC_LD]
+  L.pt = f;    f += 32 * LH;            // probabilities      [page][LH]
+  L.corr = f;  f += LH;                 // the page's corrections
+  L.cm = f;    f += LH;                 // the CTA's m and l
+  L.cl = f;    f += LH;
+  L.fw = f;    f += MAX_SPLITS * LH;    // cluster merge weights [S][LH]
+  L.inv_l = f; f += LH;
+  L.ids = f;   f += max_pages;          // the sequence's table row
+  L.sc *= 4; L.pt *= 4; L.corr *= 4; L.cm *= 4; L.cl *= 4; L.fw *= 4;
+  L.inv_l *= 4; L.ids *= 4;
+  L.ring = cdiv(4 * f, 16) * 16;
+  L.row = DK * esz + 16;                // 16-byte pad: 73 quads (bf16)
+  const int ring = 2 * page * L.row;    // two page slots
+  const int part = LH * DV * 4;         // the CTA's acc after the walk
+  L.bytes = L.ring + (ring > part ? ring : part);
+  return L;
+}
+
+template <typename T, int DK, int DV>
+__global__ void __launch_bounds__(LTHREADS, 1)
+    paged_latent(const T* __restrict__ q, const T* __restrict__ pool,
+                 const int* __restrict__ table, const int* __restrict__ lens,
+                 T* __restrict__ o, int H, int page, int max_pages,
+                 int splits, float qscale) {
+  constexpr int CE = 16 / sizeof(T);    // elements of a 16-byte chunk
+  constexpr int CHR = DK / CE;          // chunks of a pool row
+  constexpr int NCH = CHR / 8;          // chunks of a lane (8 lanes a head)
+  constexpr int DVP = DV / (2 * LTHREADS);  // column pairs of a thread
+  static_assert(CHR % 8 == 0, "lane slices of a row");
+  static_assert(DV % (2 * LTHREADS) == 0, "PV column pairs");
+  extern __shared__ __align__(16) unsigned char smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const LatentLayout L = latent_layout(DK, DV, page, max_pages, sizeof(T));
+  float* sc = reinterpret_cast<float*>(smem + L.sc);
+  float* pt = reinterpret_cast<float*>(smem + L.pt);
+  float* corr = reinterpret_cast<float*>(smem + L.corr);
+  float* cm = reinterpret_cast<float*>(smem + L.cm);
+  float* cl = reinterpret_cast<float*>(smem + L.cl);
+  float* fw = reinterpret_cast<float*>(smem + L.fw);
+  float* inv_l = reinterpret_cast<float*>(smem + L.inv_l);
+  int* ids = reinterpret_cast<int*>(smem + L.ids);
+  unsigned char* ring = smem + L.ring;
+
+  const int rank = blockIdx.x, hb = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int len = lens[b];
+  const int n = len > 0 ? min(cdiv(len, page), max_pages) : 0;
+  const int c = cdiv(n, splits);
+  const int lo = min(n, rank * c), np = min(n, lo + c) - lo;
+  for (int i = tid; i < max_pages; i += LTHREADS)
+    ids[i] = table[static_cast<int64_t>(b) * max_pages + i];
+
+  // QK role: head qh of the block, chunks sub + 8j, tokens of parity par
+  const int qh = 4 * (warp % 4) + lane / 8, sub = lane % 8, par = warp / 4;
+  float qr[NCH][CE];
+  const T* qrow = q + (static_cast<int64_t>(b) * H + hb * LH + qh) * DK;
+#pragma unroll
+  for (int j = 0; j < NCH; ++j) {
+    load_vec<CE>(qrow + (sub + 8 * j) * CE, qr[j]);
+#pragma unroll
+    for (int e = 0; e < CE; ++e) qr[j][e] *= qscale;
+  }
+  // softmax role: head sh, tokens st and st + 16; (m, l) in registers
+  const int sh = 2 * warp + lane / 16, st = lane % 16;
+  float m_run = NEG_INF, l_run = 0.f;
+  float2 acc[DVP][LH];
+#pragma unroll
+  for (int j = 0; j < DVP; ++j)
+#pragma unroll
+    for (int h = 0; h < LH; ++h) acc[j][h] = make_float2(0.f, 0.f);
+
+  // the CTA's i-th page into ring slot i % 2, every thread a share
+  auto load = [&](int i) {
+    if (i < np) {
+      const int64_t pid = ids[lo + i];
+      unsigned char* dst = ring + (i % 2) * page * L.row;
+      const T* src = pool + pid * page * DK;
+      for (int x = tid; x < page * CHR; x += LTHREADS) {
+        const int r = x / CHR, cc = x % CHR;
+        cp_async16(dst + r * L.row + cc * 16, src + r * DK + cc * CE);
+      }
+    }
+    cp_async_commit();
+  };
+  __syncthreads();  // the page ids are in place
+  load(0);
+
+  for (int i = 0; i < np; ++i) {
+    cp_async_wait<0>();  // page i has landed (the only group in flight)
+    __syncthreads();     // for every thread; page i - 1 is fully used
+    load(i + 1);         // into page i - 1's slot, behind this page
+    const unsigned char* pg = ring + (i % 2) * page * L.row;
+    const int pos0 = (lo + i) * page;
+
+    for (int t = par; t < page; t += 2) {
+      const T* krow = reinterpret_cast<const T*>(pg + t * L.row);
+      float s2[2] = {0.f, 0.f};  // two chains over the lane's chunks
+#pragma unroll
+      for (int j = 0; j < NCH; ++j) {
+        float kf[CE];
+        load_vec<CE>(krow + (sub + 8 * j) * CE, kf);
+#pragma unroll
+        for (int e = 0; e < CE; ++e)
+          s2[j & 1] = fmaf(qr[j][e], kf[e], s2[j & 1]);
+      }
+      float s = s2[0] + s2[1];
+      s += __shfl_xor_sync(0xffffffffu, s, 1);
+      s += __shfl_xor_sync(0xffffffffu, s, 2);
+      s += __shfl_xor_sync(0xffffffffu, s, 4);
+      if (sub == 0) sc[qh * SC_LD + t] = pos0 + t < len ? s : NEG_INF;
+    }
+    __syncthreads();  // the page's scores
+
+    {
+      const float x0 = st < page ? sc[sh * SC_LD + st] : NEG_INF;
+      const float x1 = st + 16 < page ? sc[sh * SC_LD + st + 16] : NEG_INF;
+      float mx = fmaxf(x0, x1);
+#pragma unroll
+      for (int off = 1; off < 16; off <<= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float m_new = fmaxf(m_run, mx);
+      const float p0 = exp2_ftz(x0 - m_new), p1 = exp2_ftz(x1 - m_new);
+      float sum = p0 + p1;
+#pragma unroll
+      for (int off = 1; off < 16; off <<= 1)
+        sum += __shfl_xor_sync(0xffffffffu, sum, off);
+      const float cr = exp2_ftz(m_run - m_new);
+      l_run = l_run * cr + sum;
+      m_run = m_new;
+      if (st < page) pt[st * LH + sh] = p0;
+      if (st + 16 < page) pt[(st + 16) * LH + sh] = p1;
+      if (st == 0) corr[sh] = cr;
+    }
+    __syncthreads();  // the page's probabilities and corrections
+
+    {
+      float cr[LH];
+#pragma unroll
+      for (int h = 0; h < LH; h += 4) {
+        const float4 x = *reinterpret_cast<const float4*>(corr + h);
+        cr[h] = x.x; cr[h + 1] = x.y; cr[h + 2] = x.z; cr[h + 3] = x.w;
+      }
+#pragma unroll
+      for (int j = 0; j < DVP; ++j)
+#pragma unroll
+        for (int h = 0; h < LH; ++h) {
+          acc[j][h].x *= cr[h];
+          acc[j][h].y *= cr[h];
+        }
+    }
+#pragma unroll 2
+    for (int t = 0; t < page; ++t) {
+      const T* vrow = reinterpret_cast<const T*>(pg + t * L.row);
+      float p[LH];
+#pragma unroll
+      for (int h = 0; h < LH; h += 4) {
+        const float4 x = *reinterpret_cast<const float4*>(pt + t * LH + h);
+        p[h] = x.x; p[h + 1] = x.y; p[h + 2] = x.z; p[h + 3] = x.w;
+      }
+#pragma unroll
+      for (int j = 0; j < DVP; ++j) {
+        const float2 v = load2(vrow + 2 * (tid + j * LTHREADS));
+#pragma unroll
+        for (int h = 0; h < LH; ++h) {
+          acc[j][h].x = fmaf(p[h], v.x, acc[j][h].x);
+          acc[j][h].y = fmaf(p[h], v.y, acc[j][h].y);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is dead: it takes the CTA's acc
+
+  float* cacc = reinterpret_cast<float*>(ring);  // [LH][DV]
+#pragma unroll
+  for (int j = 0; j < DVP; ++j)
+#pragma unroll
+    for (int h = 0; h < LH; ++h)
+      store2(cacc + h * DV + 2 * (tid + j * LTHREADS), acc[j][h].x,
+             acc[j][h].y);
+  if (st == 0) {
+    cm[sh] = m_run;
+    cl[sh] = l_run;
+  }
+  cluster.sync();  // every CTA's state is written and visible
+
+  auto peer = [&](float* p, int r) {
+    return r == rank ? p : cluster.map_shared_rank(p, r);
+  };
+  for (int g = tid; g < LH; g += LTHREADS) {
+    float mr[MAX_SPLITS], mx = NEG_INF;
+#pragma unroll
+    for (int r = 0; r < MAX_SPLITS; ++r)
+      if (r < splits) {
+        mr[r] = peer(cm, r)[g];
+        mx = fmaxf(mx, mr[r]);
+      }
+    float l = 0.f;
+#pragma unroll
+    for (int r = 0; r < MAX_SPLITS; ++r)
+      if (r < splits) {
+        const float f = exp2f(mr[r] - mx);
+        fw[r * LH + g] = f;
+        l += peer(cl, r)[g] * f;
+      }
+    inv_l[g] = 1.f / fmaxf(l, 1e-30f);
+  }
+  __syncthreads();
+  constexpr int E = LH * DV;
+  const int e0 = rank * E / splits, e1 = (rank + 1) * E / splits;
+  T* ob = o + (static_cast<int64_t>(b) * H + hb * LH) * DV;
+  for (int e = e0 + tid; e < e1; e += LTHREADS) {
+    const int g = e / DV;
+    float a = 0.f;
+#pragma unroll
+    for (int r = 0; r < MAX_SPLITS; ++r)
+      if (r < splits) a = fmaf(peer(cacc, r)[e], fw[r * LH + g], a);
+    store(ob + e, a * inv_l[g]);
+  }
+  cluster.sync();  // no CTA leaves while a peer still reads its state
+}
+
+template <typename T, int DK, int DV>
+int launch_latent(const void* q, const void* pool, const int* table,
+                  const int* lens, void* o, int B, int H, int page,
+                  int max_pages, int splits, float qscale,
+                  cudaStream_t stream) {
+  auto kern = paged_latent<T, DK, DV>;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const LatentLayout L = latent_layout(DK, DV, page, max_pages, sizeof(T));
+  if (L.bytes > MAX_SMEM) return static_cast<int>(cudaErrorInvalidValue);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(splits, H / LH, B);
+  cfg.blockDim = dim3(LTHREADS);
+  cfg.dynamicSmemBytes = L.bytes;
+  cfg.stream = stream;
+  cudaLaunchAttribute at[1];
+  at[0].id = cudaLaunchAttributeClusterDimension;
+  at[0].val.clusterDim.x = splits;
+  at[0].val.clusterDim.y = 1;
+  at[0].val.clusterDim.z = 1;
+  cfg.attrs = at;
+  cfg.numAttrs = 1;
+  cudaError_t err = cudaLaunchKernelEx(
+      &cfg, kern, static_cast<const T*>(q), static_cast<const T*>(pool),
+      table, lens, static_cast<T*>(o), H, page, max_pages, splits, qscale);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Bytes of dynamic shared memory the kernel takes for a CTA of G query
@@ -599,5 +901,39 @@ extern "C" int pa_forward(int dtype, const void* q, const void* kp,
   if (dtype == 1)
     return launch_t<__nv_bfloat16>(q, kp, vp, tb, ln, o, B, H, KH, groups,
                                    D, page, max_pages, splits, walkers, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Bytes of dynamic shared memory the latent kernel takes (the wrapper's
+// check).
+extern "C" int pa_latent_smem_bytes(int DK, int DV, int page, int max_pages,
+                                    int esz) {
+  return latent_layout(DK, DV, page, max_pages, esz).bytes;
+}
+
+// The latent (MLA) form: q: (B, H, DK); pool: (P, page, DK), V its
+// first DV columns; table: (B, max_pages) int32; lens: (B,) int32; o:
+// (B, H, DV) — all contiguous, on the device, the pool 16-byte aligned.
+// dtype: 0 = float32, 1 = bfloat16.  Scores are scaled by `scale`.
+// Needs (DK, DV) = (576, 512), H a multiple of 16, page in {8, 16, 32}
+// and 1 <= splits <= 8.
+extern "C" int pa_latent_forward(int dtype, const void* q, const void* pool,
+                                 const void* table, const void* lens,
+                                 void* o, int B, int H, int DK, int DV,
+                                 int page, int max_pages, int splits,
+                                 float scale, void* stream) {
+  if (DK != 576 || DV != 512 || H < LH || H % LH || splits < 1 ||
+      splits > MAX_SPLITS || (page != 8 && page != 16 && page != 32))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  auto tb = static_cast<const int*>(table);
+  auto ln = static_cast<const int*>(lens);
+  const float qscale = scale * LOG2E;
+  if (dtype == 0)
+    return launch_latent<float, 576, 512>(q, pool, tb, ln, o, B, H, page,
+                                          max_pages, splits, qscale, st);
+  if (dtype == 1)
+    return launch_latent<__nv_bfloat16, 576, 512>(
+        q, pool, tb, ln, o, B, H, page, max_pages, splits, qscale, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

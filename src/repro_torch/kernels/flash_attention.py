@@ -31,8 +31,12 @@ wrapper is materialised; bf16 rows must be 16-byte aligned (strides
 multiples of 8), and an operand that is not is copied contiguous first.
 
 float32 inputs take a scalar-FMA kernel in the same source (no TF32, for
-the 3e-5 contract).  Head dims 16, 32, 64, 112 (zamba2-7b's shared
-attention) and 128 are compiled; any other raises.
+the 3e-5 contract).  The head dims of q/k (DK) and of v (DV) are
+template parameters: DK = DV = 16, 32, 64, 112 (zamba2-7b's shared
+attention) and 128, and (DK, DV) = (192, 128), the prefill of
+multi-head latent attention (deepseek-v3-671b: 128 nope + 64 rope q/k
+columns, 128 v columns, scale 1/√192), are compiled; any other pair
+raises.
 """
 from __future__ import annotations
 
@@ -44,10 +48,12 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.streaming_gemm import MAX_SPLITS, TARGET_CTAS
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (16, 32, 64, 112, 128)
+# (q/k head dim, v head dim) pairs compiled into the kernels
+HEAD_DIMS = ((16, 16), (32, 32), (64, 64), (112, 112), (128, 128),
+             (192, 128))
 _VP, _I32 = ctypes.c_void_p, ctypes.c_int
-_ARGS = [_I32, _VP, _VP, _VP, _VP, _I32, _I32, _I32, _I32, _I32, _I32, _VP,
-         _I32, _I32, _VP]
+_ARGS = [_I32, _VP, _VP, _VP, _VP, _I32, _I32, _I32, _I32, _I32, _I32, _I32,
+         _VP, _I32, _I32, _VP]
 BR = BKV = 64               # flat (position, head) rows and keys per tile
 
 
@@ -76,22 +82,25 @@ def _rows_aligned16(t: torch.Tensor) -> bool:
 
 
 def flash_cuda(q, k, v, causal: bool = True) -> torch.Tensor:
-    """q: (B, Tq, H, D); k, v: (B, Tk, KH, D) CUDA tensors with unit
-    stride on D.  Returns (B, Tq, H, D) contiguous in ``q.dtype``."""
+    """q: (B, Tq, H, DK); k: (B, Tk, KH, DK); v: (B, Tk, KH, DV) CUDA
+    tensors with unit stride on the head dims.  Returns (B, Tq, H, DV)
+    contiguous in ``q.dtype``."""
     B, Tq, H, D = q.shape
     Bk, Tk, KH, Dk = k.shape
-    if v.shape != k.shape or Bk != B or Dk != D or H % KH:
+    Dv = v.shape[3]
+    if v.shape[:3] != k.shape[:3] or Bk != B or Dk != D or H % KH:
         raise ValueError(f"flash shapes q{tuple(q.shape)} "
                          f"k{tuple(k.shape)} v{tuple(v.shape)}")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"flash head dim {D} not in {HEAD_DIMS}")
+    if (D, Dv) not in HEAD_DIMS:
+        raise ValueError(f"flash head dims (q/k {D}, v {Dv}) not in "
+                         f"{HEAD_DIMS}")
     if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPES:
         raise TypeError(f"flash dtypes {q.dtype}, {k.dtype}, {v.dtype}")
     if not (q.is_cuda and q.device == k.device == v.device):
         raise ValueError("flash_cuda needs q, k, v on one CUDA device")
     if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
         raise ValueError("flash_cuda needs unit stride on the head dim")
-    out = torch.empty((B, Tq, H, D), dtype=q.dtype, device=q.device)
+    out = torch.empty((B, Tq, H, Dv), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
     if q.dtype == torch.bfloat16:       # cp.async moves 16-byte rows
@@ -102,7 +111,7 @@ def flash_cuda(q, k, v, causal: bool = True) -> torch.Tensor:
         k.stride(2), v.stride(0), v.stride(1), v.stride(2))
     code = _build.function("flash_attention", "fa_forward", _ARGS)(
         _DTYPES[q.dtype], _build.ptr(q), _build.ptr(k), _build.ptr(v),
-        _build.ptr(out), B, Tq, Tk, H, KH, D,
+        _build.ptr(out), B, Tq, Tk, H, KH, D, Dv,
         ctypes.cast(strides, ctypes.c_void_p), int(causal),
         plan(B, Tq, Tk, H, KH, causal), _build.stream(q.device))
     _build.check(code, "flash_attention")

@@ -16,11 +16,12 @@ import torch
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import flash_cuda
-from repro_torch.kernels.paged_attention import paged_cuda
+from repro_torch.kernels.paged_attention import paged_cuda, paged_latent_cuda
 from repro_torch.kernels.streaming_gemm import gemm_cuda, grouped_gemm_cuda
 
 LAUNCHES = {"streaming_gemm": 0, "streaming_gemm_grouped": 0,
-            "flash_attention": 0, "paged_attention": 0}
+            "flash_attention": 0, "paged_attention": 0,
+            "paged_latent_attention": 0}
 
 
 def reset_launches() -> None:
@@ -44,11 +45,11 @@ def grouped_streaming_gemm(a: torch.Tensor, b: torch.Tensor,
     """C[e] = A[e] @ B[e] for a (E, C, K), b (E, K, N), one launch for
     all experts; ``counts`` (E,) int32 holds each expert's kept rows.
     The kernel writes only rows below the count; the plain version
-    computes every row.  Either way the caller must select rows at or
-    beyond the count away, never scale them (on the card they hold
-    whatever the memory held)."""
+    computes only those and zero-fills the rest.  Either way the caller
+    must select rows at or beyond the count away, never scale them (on
+    the card they hold whatever the memory held)."""
     if not a.is_cuda:
-        return ref.grouped_gemm_ref(a, b)
+        return ref.grouped_gemm_ref(a, b, counts)
     out = grouped_gemm_cuda(a, b, counts)
     LAUNCHES["streaming_gemm_grouped"] += 1
     return out
@@ -56,7 +57,9 @@ def grouped_streaming_gemm(a: torch.Tensor, b: torch.Tensor,
 
 def flash_attention(q, k, v, causal: bool = True,
                     bk: int = 512) -> torch.Tensor:
-    """q: (B, Tq, H, D); k, v: (B, Tk, KH, D) — GQA folded internally.
+    """q: (B, Tq, H, D); k: (B, Tk, KH, D); v: (B, Tk, KH, Dv) — GQA
+    folded internally; Dv may differ from D (multi-head latent
+    attention's prefill: 192 / 128).  Returns (B, Tq, H, Dv).
 
     ``bk`` keeps the reference wrapper's contract only: like the
     reference, non-causal attention whose Tk is not a multiple of
@@ -79,4 +82,17 @@ def paged_attention(q, k_pages, v_pages, table, lens) -> torch.Tensor:
         return ref.paged_ref(q, k_pages, v_pages, table, lens)
     out = paged_cuda(q, k_pages, v_pages, table, lens)
     LAUNCHES["paged_attention"] += 1
+    return out
+
+
+def paged_latent_attention(q, pool, table, lens, dv: int,
+                           scale: float) -> torch.Tensor:
+    """Multi-head latent attention's absorbed decode: q (B, H, D) over
+    one latent pool (P, page, 1, D) whose first ``dv`` columns are V,
+    through table (B, max_pages) int32 and lens (B,) int32; scores
+    scaled by ``scale``.  Returns (B, H, dv) in ``q.dtype``."""
+    if not q.is_cuda:
+        return ref.paged_ref(q, pool, pool, table, lens, dv=dv, scale=scale)
+    out = paged_latent_cuda(q, pool, table, lens, dv, scale)
+    LAUNCHES["paged_latent_attention"] += 1
     return out

@@ -41,6 +41,17 @@ What the design does about it:
   groups read 1 KB more a token, mostly from L2.  Shapes with G·D <=
   2,048 take one group and launch as before.
 
+The latent form (``paged_latent_cuda``, the ``pa_latent_forward`` entry
+of the same source) serves multi-head latent attention's absorbed
+decode (deepseek-v3-671b): 128 query heads of 576 over ONE latent KV
+head of 576 columns whose first 512 are also V, in one pool (P, page,
+1, 576), with the caller's scale (1/√192).  ``head_groups`` would cut
+128 heads of 576 into 43 groups that each walk the same pages; instead
+a CTA of eight warps holds ``LATENT_HEADS`` = 16 query heads and stages
+each page once in shared memory, where QKᵀ and PV both read it; the
+pages of a sequence split over a cluster of ``latent_plan`` CTAs and
+merge as above.  P stays fp32.
+
 What still bounds it: a fixed cost of about 7 µs per launch (the
 cluster launch, its barriers and merge, and two dependent round trips to
 device memory: the length and table row, then the first pages — the
@@ -125,6 +136,84 @@ def walkers(G: int, D: int, page: int, max_pages: int, esz: int) -> int:
     not fit."""
     fits = smem_bytes(G, D, page, max_pages, WARPS, esz) <= MAX_SMEM_BYTES
     return WARPS if fits else 2
+
+
+LATENT_DIMS = ((576, 512),)  # (q/k dim, v dim) of the latent form
+LATENT_HEADS = 16               # query heads per CTA of the latent form
+_LATENT_ARGS = [_I32, _VP, _VP, _VP, _VP, _VP, _I32, _I32, _I32, _I32, _I32,
+                _I32, _I32, ctypes.c_float, _VP]
+
+
+def latent_plan(B: int, H: int, max_pages: int) -> int:
+    """How many CTAs (one cluster) share a sequence's pages in the latent
+    form: as many as keep the B · H / ``LATENT_HEADS`` · S CTAs (one per
+    SM: each holds 256 threads of ~150 registers) within one wave of the
+    card's SMs, at most ``MAX_SPLITS`` and at most half the table's
+    width."""
+    rows = B * (H // LATENT_HEADS)
+    return max(1, min(MAX_SPLITS, _cdiv(max_pages, 2), SMS // max(rows, 1)))
+
+
+def latent_smem_bytes(D: int, dv: int, page: int, max_pages: int,
+                      esz: int) -> int:
+    """The latent kernel's dynamic shared memory, as ``latent_layout``
+    in the source computes it: fp32 scratch (scores, probabilities,
+    corrections, the CTA's m and l, merge weights), the table row, then
+    two page slots of rows padded by 16 bytes, which the CTA's fp32
+    (16, dv) accumulator takes over after the walk."""
+    words = 16 * 33 + 32 * 16 + 3 * 16 + MAX_SPLITS * 16 + 16 + max_pages
+    ring = 2 * page * (D * esz + 16)
+    return _cdiv(4 * words, 16) * 16 + max(ring, 16 * dv * 4)
+
+
+def paged_latent_cuda(q, pool, table, lens, dv: int,
+                      scale: float) -> torch.Tensor:
+    """The latent form: q (B, H, D); one pool (P, page, 1, D) whose first
+    ``dv`` columns are V; table (B, max_pages) int32; lens (B,) int32 —
+    contiguous CUDA tensors on one device, the pool 16-byte aligned.
+    Scores are scaled by ``scale``.  Returns (B, H, dv) in ``q.dtype``."""
+    B, H, D = q.shape
+    if pool.dim() != 4 or pool.shape[2] != 1 or pool.shape[3] != D:
+        raise ValueError(f"paged latent shapes q{tuple(q.shape)} "
+                         f"pool{tuple(pool.shape)}")
+    P, page = pool.shape[:2]
+    if (D, dv) not in LATENT_DIMS or H % LATENT_HEADS or H == 0 \
+            or page not in PAGE_SIZES:
+        raise ValueError(f"paged latent: dims ({D}, {dv}) not in "
+                         f"{LATENT_DIMS}, {H} heads not a multiple of "
+                         f"{LATENT_HEADS} or page {page} not in "
+                         f"{PAGE_SIZES}")
+    if table.dim() != 2 or table.shape[0] != B or tuple(lens.shape) != (B,):
+        raise ValueError(f"paged table{tuple(table.shape)} "
+                         f"lens{tuple(lens.shape)} for batch {B}")
+    if q.dtype != pool.dtype or q.dtype not in _DTYPES:
+        raise TypeError(f"paged latent dtypes {q.dtype}, {pool.dtype}")
+    if table.dtype != torch.int32 or lens.dtype != torch.int32:
+        raise TypeError("paged table and lens must be int32")
+    ts = (q, pool, table, lens)
+    if not all(t.is_cuda and t.device == q.device for t in ts):
+        raise ValueError("paged_latent_cuda needs every operand on q's "
+                         "CUDA device")
+    if not all(t.is_contiguous() for t in ts):
+        raise ValueError("paged_latent_cuda needs contiguous operands")
+    if pool.data_ptr() % 16 or q.data_ptr() % 16:
+        raise ValueError("paged_latent_cuda: 16-byte loads need aligned "
+                         "q and pool")
+    max_pages = table.shape[1]
+    smem = latent_smem_bytes(D, dv, page, max_pages, q.element_size())
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(f"paged latent: {smem} B of shared memory for "
+                         f"page {page}, table width {max_pages}")
+    out = torch.empty((B, H, dv), dtype=q.dtype, device=q.device)
+    if B == 0:
+        return out
+    code = _build.function("paged_attention", "pa_latent_forward",
+                           _LATENT_ARGS)(
+        _DTYPES[q.dtype], _build.ptr(q), _build.ptr(pool), _build.ptr(table),
+        _build.ptr(lens), _build.ptr(out), B, H, D, dv, page, max_pages,
+        latent_plan(B, H, max_pages), float(scale), _build.stream(q.device))
+    _build.check(code, "paged_latent_attention")
+    return out
 
 
 def paged_cuda(q, k_pages, v_pages, table, lens) -> torch.Tensor:

@@ -23,6 +23,12 @@ x 14,576, ``out_proj`` 7,168 x 3,584, the gated MLP 3,584 x 14,336 and
 back, the shared block's q/k/v/o 3,584 x 3,584, the lm_head 3,584 x
 32,000 at decode), its causal prefill attention (32 / 32 heads of 112)
 at 64-512 tokens and its paged decode attention (32 / 32 heads of 112).
+deepseek-v3-671b's MLA: its causal prefill attention (128 / 128 heads,
+q/k dim 192, v dim 128) at 64-512 tokens, and the paged kernel's latent
+form (128 query heads of 576 over one latent head, V its first 512
+columns, scale 1/√192) at 8 x 272, a ragged mix up to 1,024 and 1 x
+1,024, at every cluster size, beside SDPA over a contiguous copy of the
+latent rows.
 The expert-grouped GEMM runs at
 qwen2-moe-a2.7b's gate/up (2,048 -> 1,408) and down (1,408 -> 2,048)
 products over 60 experts, at decode (C = 8, 8 tokens routed top-4) and
@@ -225,12 +231,13 @@ def _sweep_grouped(result, randn, dms, g, dev):
 
 
 def _sweep_flash(result, randn, dms, F):
-    """qwen2-0.5b's heads (14 / 2 of 64) and zamba2-7b's (32 / 32 of
-    112)."""
-    for H, KH, D, B, T in [(14, 2, 64, B, T) for B, T in (
+    """qwen2-0.5b's heads (14 / 2 of 64), zamba2-7b's (32 / 32 of 112)
+    and deepseek-v3's MLA prefill (128 / 128 of q/k 192, v 128)."""
+    for H, KH, D, Dv, B, T in [(14, 2, 64, 64, B, T) for B, T in (
             (1, 64), (1, 256), (1, 512), (8, 256))] + [
-            (32, 32, 112, 1, T) for T in (64, 256, 512)]:
-        q, k, v = randn(B, T, H, D), randn(B, T, KH, D), randn(B, T, KH, D)
+            (32, 32, 112, 112, 1, T) for T in (64, 256, 512)] + [
+            (128, 128, 192, 128, 1, T) for T in (64, 256, 512)]:
+        q, k, v = randn(B, T, H, D), randn(B, T, KH, D), randn(B, T, KH, Dv)
         want = ref.flash_gqa_ref(q, k, v, True).float()
         chosen = FA.plan(B, T, T, H, KH, True)
         times, plan = {}, FA.plan
@@ -247,7 +254,7 @@ def _sweep_flash(result, randn, dms, F):
         finally:
             FA.plan = plan
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        row = {"heads": [H, KH, D], "b": B, "t": T, "plan": chosen,
+        row = {"heads": [H, KH, D, Dv], "b": B, "t": T, "plan": chosen,
                "plan_ms": times.get(chosen),
                "splits_ms": times, "library_ms": dms(
                    lambda: F.scaled_dot_product_attention(
@@ -266,6 +273,55 @@ def _sweep_paged(result, randn, dms, F, g, dev):
     for H, KH, D in ((14, 2, 64), (48, 1, 128), (16, 1, 128),
                      (32, 32, 112)):
         _sweep_paged_heads(result, randn, dms, F, g, dev, H, KH, D)
+    _sweep_latent(result, randn, dms, F, g, dev)
+
+
+def _sweep_latent(result, randn, dms, F, g, dev, H=128, D=576, dv=512):
+    """The latent form at every cluster size, deepseek-v3's decode
+    shapes (its own ragged mix: lengths 64-1,024, the first 1,024)."""
+    B, page, mp, scale = 8, 16, 64, 192 ** -0.5
+    P = B * mp + 16
+    mixed = torch.randint(64, 1025, (B,), generator=g, device=dev)
+    mixed[0] = 1024
+    table = torch.randperm(P, generator=g, device=dev)[:B * mp] \
+        .reshape(B, mp).to(torch.int32)
+    q, pool = randn(B, H, D), randn(P, page, 1, D)
+    for what, lens in (("mixed", mixed.tolist()), ("8 x 272", [272] * B),
+                       ("1 x 1024", [1024])):
+        n = len(lens)
+        ln = torch.tensor(lens, dtype=torch.int32, device=dev)
+        qq, tt = q[:n].contiguous(), table[:n].contiguous()
+        want = ref.paged_ref(qq, pool, pool, tt, ln, dv=dv,
+                             scale=scale).float()
+        chosen = PA.latent_plan(n, H, mp)
+        times, plan = {}, PA.latent_plan
+        try:
+            for s in range(1, PA.MAX_SPLITS + 1):
+                PA.latent_plan = lambda *_, s=s: s
+                out = ops.paged_latent_attention(qq, pool, tt, ln, dv,
+                                                 scale).float()
+                err = (out - want).abs().max().item()
+                if err > 2e-2 + 2e-2 * want.abs().max().item():
+                    raise AssertionError(f"latent {what} S={s}: {err}")
+                t = dms(lambda: ops.paged_latent_attention(
+                    qq, pool, tt, ln, dv, scale))
+                if t > 0:         # a window the profiler dropped reads 0
+                    times[s] = t
+        finally:
+            PA.latent_plan = plan
+        kc = pool[tt.long()].reshape(n, 1, mp * page, D)
+        vc = kc[..., :dv].contiguous()
+        mask = (torch.arange(mp * page, device=dev)[None]
+                < ln[:, None])[:, None, None, :]
+        row = {"what": what, "heads": [H, 1, D, dv], "latent": True,
+               "b": n, "lens": lens, "plan": chosen,
+               "plan_ms": times.get(chosen), "splits_ms": times,
+               "contiguous_sdpa_ms": dms(
+                   lambda: F.scaled_dot_product_attention(
+                       qq[:, :, None], kc, vc, attn_mask=mask, scale=scale,
+                       enable_gqa=True))}
+        result["paged"].append(row)
+        print("[paged_latent] " + json.dumps(row), flush=True)
 
 
 def _sweep_paged_heads(result, randn, dms, F, g, dev, H, KH, D):

@@ -14,6 +14,8 @@ hand-written kernels on the card.
         --arch rwkv6-7b --slots 8
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch zamba2-7b --slots 8 --page-tokens 16
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch deepseek-v3-671b --layers 5 --slots 8 --page-tokens 16
 
 Every ported architecture serves through the same path (``--arch``):
 qwen2-0.5b, dense; qwen2-moe-a2.7b, MoE, whose expert FFNs run through
@@ -29,7 +31,13 @@ unused), every projection through the streaming GEMM; zamba2-7b,
 hybrid: 81 Mamba2 layers over a per-slot recurrent state and one shared
 attention block (32 / 32 heads of 112) run before every sixth layer,
 whose 14 invocations keep their K/V in a paged pool of 14 layers
-(flash attention at prefill, paged attention at decode).  The
+(flash attention at prefill, paged attention at decode);
+deepseek-v3-671b, multi-head latent attention (flash at q/k dim 192, v
+dim 128 at prefill; the absorbed decode over one latent pool per layer
+of 576-wide rows) with 256 routed experts, top-8, which one card holds
+only cut in depth: ``--layers 5`` keeps the 3 dense and 2 MoE layers
+(51.8 GB) at full width.  ``--layers N`` cuts any config to its first N
+layers.  The
 encoder-decoder whisper-tiny is refused by the engine, as in the
 reference: it runs through ``Model.prefill(..., audio_frames=...)`` and
 ``Model.decode_step``.
@@ -44,6 +52,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config, get_reduced
+from repro_torch.configs.base import depth_cut
 from repro_torch.models.model import Model
 from repro_torch.serving.engine import Request, ServingEngine
 
@@ -59,9 +68,13 @@ def main() -> None:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--page-tokens", type=int, default=8)
+    ap.add_argument("--layers", type=int, default=0,
+                    help="serve only the first N layers (0: all)")
     args = ap.parse_args()
 
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
+    if args.layers:
+        cfg = depth_cut(cfg, args.layers)
     model = Model(cfg, device=args.device)
     gen = torch.Generator(device=model.device)
     gen.manual_seed(args.seed)

@@ -24,6 +24,14 @@ state over the prompt and writes the layer's final state into the
 slots; decode gathers the slots' state, runs one recurrence step and
 scatters it back.  Neither runs attention.
 
+A model with multi-head latent attention (deepseek-v3) keeps ONE latent
+pool per layer, (P, page, 1, r + rope) rows [ckv | kr] (``cache.k_pages``;
+``cache.v_pages`` is None): V is the first r columns of the same rows.
+Prefill writes ckv after ``kv_norm`` and kr after RoPE, as the
+reference's prefill returns them; decode appends the token's row at its
+write index, then attends in the absorbed form
+(``layers.mla_decode``).
+
 A hybrid model (zamba2) has both: its Mamba2 layers' state lives in the
 cache's ``state`` store, handled as the ssm model's is, and its shared
 attention block's K/V in a paged pool of one layer per invocation
@@ -80,13 +88,14 @@ def prefill(params, cfg: ModelConfig, tokens, cache, slots, *,
     B, Tq = x.shape[:2]
     positions = torch.arange(Tq, device=x.device).expand(B, Tq)
     rows = cache.prompt_index(slots, Tq)                  # (B, T)
+    write = _write_latent if cfg.mla else _write
     for layer, (lp, is_moe) in enumerate(T.layer_stack(params, cfg)):
         if is_moe:
-            x, _, (k, v) = T.moe_layer_fwd(lp, x, cfg, positions,
-                                           capacity=B * Tq)
+            x, _, kv = T.moe_layer_fwd(lp, x, cfg, positions,
+                                       capacity=B * Tq)
         else:
-            x, (k, v) = T.dense_layer_fwd(lp, x, cfg, positions)
-        _write(cache, layer, rows, k, v)
+            x, kv = T.dense_layer_fwd(lp, x, cfg, positions)
+        write(cache, layer, rows, *kv)
     x = L.apply_norm(params["final_norm"], x[:, -1], cfg)
     return T.lm_head(params, cfg, x)
 
@@ -132,6 +141,13 @@ def _write(cache, layer, rows, k, v):
     vf[rows] = v.to(vf.dtype)
 
 
+def _write_latent(cache, layer, rows, ckv, kr):
+    """An MLA layer's prompt latents: rows [ckv | kr] of its pool."""
+    pool = cache.k_pages[layer]
+    flat = pool.view(-1, pool.shape[-1])
+    flat[rows] = torch.cat([ckv, kr], dim=-1).to(flat.dtype)
+
+
 def _prefill_audio(params, cfg: ModelConfig, tokens, frames, cache, slots):
     """Whisper's prefill (reference ``decoding.prefill``, audio branch):
     encode the frames with full attention; embed the decoder tokens and
@@ -167,7 +183,10 @@ def _decode_layer(lp, is_moe, x, cfg, k_pool, v_pool, view, cross=None):
     this layer's encoder KV, attended between self-attention and the
     MLP."""
     h = L.apply_norm(lp["ln1"], x, cfg)
-    x = x + L.attention_decode(lp["attn"], h, cfg, k_pool, v_pool, view)
+    if cfg.mla:      # k_pool is the layer's latent pool; no V pool
+        x = x + L.mla_decode(lp["attn"], h, cfg, k_pool, view)
+    else:
+        x = x + L.attention_decode(lp["attn"], h, cfg, k_pool, v_pool, view)
     if cross is not None:
         h = L.apply_norm(lp["ln_x"], x, cfg)
         x = x + L.cross_attention_decode(lp["xattn"], h, *cross)
@@ -200,8 +219,9 @@ def decode_step(params, cfg: ModelConfig, cache, tokens, slots):
     for layer, (lp, is_moe) in enumerate(T.layer_stack(params, cfg)):
         cross = (cache.cross.k_pages[layer], cache.cross.v_pages[layer],
                  xview) if audio else None
-        x = _decode_layer(lp, is_moe, x, cfg, cache.k_pages[layer],
-                          cache.v_pages[layer], view, cross)
+        v_pool = None if cache.v_pages is None else cache.v_pages[layer]
+        x = _decode_layer(lp, is_moe, x, cfg, cache.k_pages[layer], v_pool,
+                          view, cross)
     x = L.apply_norm(params["final_norm"], x, cfg)
     return T.lm_head(params, cfg, x)
 

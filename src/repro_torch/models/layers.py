@@ -1,5 +1,5 @@
-"""Core transformer layers, dense subset: norms, RoPE, GQA attention
-(self and cross), MLP.
+"""Core transformer layers: norms, RoPE, GQA attention (self and
+cross), multi-head latent attention (MLA), MLP.
 
 Every projection and MLP GEMM goes through ``ops.streaming_gemm``;
 prefill attention goes through ``ops.flash_attention`` and decode
@@ -58,13 +58,16 @@ def rope_freqs(dim: int, theta: float, device=None) -> torch.Tensor:
                                          device=device) / dim))
 
 
-def apply_rope(x, positions, cfg: ModelConfig):
+def apply_rope(x, positions, cfg: ModelConfig, dim: Optional[int] = None):
     """x: (..., T, H, D) with positions (..., T); rotates pairs
-    (cfg.rope == "full": all of head_dim; "2d": the first half)."""
+    (cfg.rope == "full": all of head_dim; "2d": the first half; ``dim``:
+    the first ``dim`` values, with ``rope_freqs(dim)``)."""
     if cfg.rope == "none":
         return x
     d = x.shape[-1]
     rot = d if cfg.rope == "full" else d // 2
+    if dim is not None:
+        rot = dim
     freqs = rope_freqs(rot, cfg.rope_theta, x.device)
     angles = positions[..., None].float() * freqs
     cos, sin = torch.cos(angles)[..., None, :], torch.sin(angles)[..., None, :]
@@ -276,3 +279,102 @@ def cross_attention_decode(p, x, k_pool, v_pool, view):
     out = ops.paged_attention(head_proj(p["wq"], x), k_pool, v_pool,
                               view.table, view.lens)
     return out_proj(p, out)
+
+
+# --------------------------------------------------------------- MLA
+def mla_pspecs(cfg: ModelConfig):
+    m, d, H = cfg.mla, cfg.d_model, cfg.n_heads
+    qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+    return {
+        "wdq": PSpec((d, m.q_lora_rank), ("embed", "lora")),
+        "q_norm": norm_pspec(cfg, m.q_lora_rank),
+        "wuq": PSpec((m.q_lora_rank, H, qk), ("lora", "heads", "head_dim")),
+        "wdkv": PSpec((d, m.kv_lora_rank), ("embed", "lora")),
+        "kv_norm": norm_pspec(cfg, m.kv_lora_rank),
+        "wkr": PSpec((d, m.qk_rope_head_dim), ("embed", "head_dim")),
+        "wuk": PSpec((m.kv_lora_rank, H, m.qk_nope_head_dim),
+                     ("lora", "heads", "head_dim")),
+        "wuv": PSpec((m.kv_lora_rank, H, m.v_head_dim),
+                     ("lora", "heads", "head_dim")),
+        "wo": PSpec((H, m.v_head_dim, d), ("heads", "head_dim", "embed")),
+    }
+
+
+def mla_absorbed(p) -> dict:
+    """The per-head layouts of ``wuk`` and ``wuv`` that the absorbed
+    decode multiplies by: ``wuk_hkr`` (H, nope, r) and ``wuv_hrv`` (H, r,
+    v), contiguous copies made once when the weights are loaded
+    (``transformer.add_derived``), not every step."""
+    return {"wuk_hkr": p["wuk"].permute(1, 2, 0).contiguous(),
+            "wuv_hrv": p["wuv"].permute(1, 0, 2).contiguous()}
+
+
+def _mla_q(p, x, cfg: ModelConfig, positions):
+    """x (..., d) -> q_nope (..., H, nope), q_rope (..., H, rope) after
+    RoPE at ``positions`` (x's leading dims)."""
+    m = cfg.mla
+    cq = apply_norm(p["q_norm"], _gemm(x, p["wdq"]), cfg)
+    q = head_proj(p["wuq"], cq)
+    q_nope, q_rope = q[..., :m.qk_nope_head_dim], q[..., m.qk_nope_head_dim:]
+    return q_nope, apply_rope(q_rope, positions, cfg,
+                              dim=m.qk_rope_head_dim)
+
+
+def _mla_latent(p, x, cfg: ModelConfig, positions):
+    """x (..., d) -> the cached latents: ckv (..., r) after ``kv_norm``
+    and kr (..., rope) after RoPE at ``positions``."""
+    ckv = apply_norm(p["kv_norm"], _gemm(x, p["wdkv"]), cfg)
+    kr = apply_rope(_gemm(x, p["wkr"])[..., None, :], positions, cfg,
+                    dim=cfg.mla.qk_rope_head_dim)[..., 0, :]
+    return ckv, kr
+
+
+def mla_prefill(p, x, cfg: ModelConfig, positions):
+    """The reference's ``mla_train``: x (B, T, d), positions (B, T).
+    Queries and keys of nope + rope = 192 columns (the rope half of k
+    shared by every head), values of ``v_head_dim`` (128), causal flash
+    attention at scale 1/√192.  Returns (out (B, T, d), (ckv (B, T, r),
+    kr (B, T, rope))), the latents the cache keeps."""
+    H, rope = cfg.n_heads, cfg.mla.qk_rope_head_dim
+    q_nope, q_rope = _mla_q(p, x, cfg, positions)
+    ckv, kr = _mla_latent(p, x, cfg, positions)
+    k_nope = head_proj(p["wuk"], ckv)
+    v = head_proj(p["wuv"], ckv)
+    k = torch.cat([k_nope, kr[..., None, :].expand(*kr.shape[:-1], H, rope)],
+                  dim=-1)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    out = ops.flash_attention(q, k, v, causal=True)
+    return out_proj(p, out), (ckv, kr)
+
+
+def mla_decode(p, x, cfg: ModelConfig, pool, view):
+    """The reference's absorbed ``mla_decode`` over a paged latent pool.
+    x: (n, d); ``pool``: this layer's (P, page, 1, r + rope) latent rows
+    [ckv | kr]; ``view``: the step's ``DecodeView``.
+
+    The token's latent row is written at ``view.write_index`` first;
+    then q_lat = q_nope·W_uk per head (the expert-grouped GEMM with the
+    H heads as groups), rounded to bf16 as the reference's einsum
+    output is, and [q_lat | q_rope] attends over the pool, V being its
+    first r columns, at the reference's scale 1/√(nope + rope)
+    (``ops.paged_latent_attention``); the latent output goes back
+    through W_uv per head and ``wo``."""
+    m, H = cfg.mla, cfg.n_heads
+    r = m.kv_lora_rank
+    n = x.shape[0]
+    pos = view.positions[:, None]                             # (n, 1)
+    q_nope, q_rope = _mla_q(p, x[:, None], cfg, pos)
+    ckv, kr = _mla_latent(p, x[:, None], cfg, pos)
+    flat = pool.view(-1, pool.shape[-1])
+    flat[view.write_index] = torch.cat([ckv[:, 0], kr[:, 0]],
+                                       dim=-1).to(pool.dtype)
+    counts = torch.full((H,), n, dtype=torch.int32, device=x.device)
+    q_lat = ops.grouped_streaming_gemm(q_nope[:, 0].transpose(0, 1),
+                                       p["wuk_hkr"], counts)    # (H, n, r)
+    q = torch.cat([q_lat.transpose(0, 1), q_rope[:, 0]], dim=-1)
+    o_lat = ops.paged_latent_attention(
+        q.contiguous(), pool, view.table, view.lens, r,
+        1 / math.sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim))
+    out = ops.grouped_streaming_gemm(o_lat.transpose(0, 1), p["wuv_hrv"],
+                                     counts)                    # (H, n, v)
+    return out_proj(p, out.transpose(0, 1))

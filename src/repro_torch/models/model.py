@@ -38,8 +38,10 @@ class Model:
 
     def init(self, generator: torch.Generator):
         """Random weights with the reference's init laws, drawn from
-        ``generator`` on its device (make it on the model's device)."""
-        return init_tree(self._pspecs, generator)
+        ``generator`` on its device (make it on the model's device),
+        with the decode path's derived layouts added
+        (``transformer.add_derived``)."""
+        return T.add_derived(init_tree(self._pspecs, generator), self.cfg)
 
     def init_cache(self, slots: int, max_seq: int, page_tokens: int = 8,
                    n_pages: Optional[int] = None,
@@ -56,7 +58,10 @@ class Model:
         ``max_seq`` and ``page_tokens`` size nothing, and ``n_pages`` is
         refused.  A hybrid model gets a pool of one layer per
         shared-attention invocation, which carries the Mamba2 layers'
-        ``RecurrentStateCache`` of ``slots`` slots as ``cache.state``."""
+        ``RecurrentStateCache`` of ``slots`` slots as ``cache.state``.
+        An MLA model gets one latent pool per layer, rows of
+        ``kv_lora_rank + qk_rope_head_dim`` values under one KV head, and
+        no V pool."""
         cfg = self.cfg
         if cfg.family == "ssm":
             if n_pages is not None or enc_seq:
@@ -75,13 +80,14 @@ class Model:
     def _paged(self, slots, max_seq, page_tokens, n_pages) -> PagedKVCache:
         cfg = self.cfg
         pages_per_seq = -(-max_seq // page_tokens)
+        kv_heads, head_dim = T.kv_geometry(cfg)
         return PagedKVCache(
             PagedCacheConfig(
                 n_pages=n_pages or slots * pages_per_seq,
-                page_tokens=page_tokens, n_kv_heads=cfg.n_kv_heads,
-                head_dim=cfg.resolved_head_dim,
-                max_pages_per_seq=pages_per_seq),
-            max_seqs=slots, n_layers=T.kv_layers(cfg), device=self.device)
+                page_tokens=page_tokens, n_kv_heads=kv_heads,
+                head_dim=head_dim, max_pages_per_seq=pages_per_seq),
+            max_seqs=slots, n_layers=T.kv_layers(cfg), device=self.device,
+            v_pool=cfg.mla is None)
 
     def prefill(self, params, tokens, cache, slots, *,
                 embeddings=None, audio_frames=None):

@@ -65,7 +65,9 @@ def init_tree(tree, generator: torch.Generator, dtype=torch.bfloat16):
             scale = max(int(p.shape[p.fan_axis]), 1) ** -0.5
         x = torch.randn(p.shape, generator=generator, device=device,
                         dtype=torch.float32)
-        return (x * scale).to(dt)
+        # in place: one fp32 temporary, not two (a (256, 7168, 2048)
+        # expert leaf of deepseek-v3 is 15 GB in fp32); the same values
+        return x.mul_(scale).to(dt)
 
     return tree_map(one, tree)
 
@@ -88,8 +90,10 @@ def from_reference(params_np, cfg) -> dict:
     split into a list of per-layer trees; every leaf keeps its dtype and
     per-layer shape (an expert leaf stays (E, d, f), the router (d, E),
     an RWKV6 layer's ``mix`` (5, d) and ``u`` (H, N), a Mamba2 layer's
-    ``conv_w`` (K, C)); ``pos_embed``, ``enc_norm`` and a hybrid's
-    ``shared_attn`` stay whole."""
+    ``conv_w`` (K, C)); ``pos_embed``, ``enc_norm``, a hybrid's
+    ``shared_attn`` and deepseek-v3's ``mtp`` head stay whole.  The decode
+    path's derived layouts are added (``transformer.add_derived``)."""
+    from repro_torch.models.transformer import add_derived
     check_ported(cfg)
 
     def conv(tree):
@@ -106,7 +110,7 @@ def from_reference(params_np, cfg) -> dict:
             layers = conv(params_np[name])
             out[name] = [tree_map(lambda a, i=i: a[i].clone(), layers)
                          for i in range(n)]
-    return out
+    return add_derived(out, cfg)
 
 
 def params_to(params, device) -> dict:

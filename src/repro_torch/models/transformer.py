@@ -18,6 +18,12 @@ The reference scans a stacked layer tree with ``lax.scan``; the port
 loops over a list of per-layer trees.  An MoE model may start with
 ``first_dense_layers`` dense layers (a ``dense_layers`` stack before
 ``layers``), as in the reference.
+
+A config with ``mla`` (deepseek-v3) runs multi-head latent attention
+in place of GQA in every layer (``layers.mla_prefill``,
+``layers.mla_decode``), and with ``mtp`` carries the reference's
+multi-token-prediction head (``mtp``: ``proj``, a dense ``block``,
+``norm_h``, ``norm_e``), which serving builds but never runs.
 """
 from __future__ import annotations
 
@@ -36,7 +42,7 @@ def dense_layer_pspecs(cfg: ModelConfig, cross: bool = False):
     """A dense layer; with ``cross``, a decoder layer of an
     encoder-decoder, which adds ``ln_x`` and the cross-attention
     ``xattn``."""
-    p = {"ln1": L.norm_pspec(cfg), "attn": L.attention_pspecs(cfg),
+    p = {"ln1": L.norm_pspec(cfg), "attn": _attn_pspecs(cfg),
          "ln2": L.norm_pspec(cfg), "mlp": L.mlp_pspecs(cfg)}
     if cross:
         p["ln_x"] = L.norm_pspec(cfg)
@@ -44,8 +50,12 @@ def dense_layer_pspecs(cfg: ModelConfig, cross: bool = False):
     return p
 
 
+def _attn_pspecs(cfg: ModelConfig):
+    return L.mla_pspecs(cfg) if cfg.mla else L.attention_pspecs(cfg)
+
+
 def moe_layer_pspecs(cfg: ModelConfig):
-    return {"ln1": L.norm_pspec(cfg), "attn": L.attention_pspecs(cfg),
+    return {"ln1": L.norm_pspec(cfg), "attn": _attn_pspecs(cfg),
             "ln2": L.norm_pspec(cfg), "moe": MOE.moe_pspecs(cfg)}
 
 
@@ -71,6 +81,14 @@ def kv_layers(cfg: ModelConfig) -> int:
     or one per shared-attention invocation of a hybrid model."""
     return n_shared_invocations(cfg) if cfg.family == "hybrid" \
         else cfg.n_layers
+
+
+def kv_geometry(cfg: ModelConfig) -> tuple:
+    """(KV heads, head dim) of a pool row: one latent head of
+    ``kv_lora_rank + qk_rope_head_dim`` for MLA, else the config's."""
+    if cfg.mla:
+        return 1, cfg.mla.kv_lora_rank + cfg.mla.qk_rope_head_dim
+    return cfg.n_kv_heads, cfg.resolved_head_dim
 
 
 def lm_pspecs(cfg: ModelConfig):
@@ -103,7 +121,23 @@ def lm_pspecs(cfg: ModelConfig):
     if nd:
         p["dense_layers"] = stack(dense_layer_pspecs(cfg), nd)
     p["layers"] = stack(moe_layer_pspecs(cfg), cfg.n_layers - nd)
+    if cfg.mtp:
+        p["mtp"] = {"proj": PSpec((2 * d, d), ("embed", "embed_act")),
+                    "block": dense_layer_pspecs(cfg),
+                    "norm_h": L.norm_pspec(cfg), "norm_e": L.norm_pspec(cfg)}
     return p
+
+
+def add_derived(params, cfg: ModelConfig):
+    """Add to ``params`` (in place, and return it) the copies that the
+    decode path reads in another layout than the reference's tree: for
+    every MLA layer, ``attn["wuk_hkr"]`` and ``attn["wuv_hrv"]``
+    (``layers.mla_absorbed``), made once here.  Other configs have
+    none."""
+    if cfg.mla:
+        for lp, _ in layer_stack(params, cfg):
+            lp["attn"].update(L.mla_absorbed(lp["attn"]))
+    return params
 
 
 def layer_stack(params, cfg: ModelConfig) -> list:
@@ -119,10 +153,19 @@ def embed_tokens(params, cfg: ModelConfig, tokens):
     return params["embed"][tokens].to(torch.bfloat16)
 
 
+def _attn_fwd(p, h, cfg: ModelConfig, positions, causal=True):
+    """Prefill attention: GQA, returning (out, (k, v)), or MLA (causal),
+    returning (out, (ckv, kr))."""
+    if cfg.mla:
+        return L.mla_prefill(p, h, cfg, positions)
+    return L.attention_train(p, h, cfg, positions, causal)
+
+
 def dense_layer_fwd(lp, x, cfg: ModelConfig, positions, causal=True):
-    """Prefill body of one layer.  Returns (x', (k, v))."""
+    """Prefill body of one layer.  Returns (x', (k, v)), or for MLA (x',
+    (ckv, kr))."""
     h = L.apply_norm(lp["ln1"], x, cfg)
-    a, kv = L.attention_train(lp["attn"], h, cfg, positions, causal)
+    a, kv = _attn_fwd(lp["attn"], h, cfg, positions, causal)
     x = x + a
     h = L.apply_norm(lp["ln2"], x, cfg)
     return x + L.apply_mlp(lp["mlp"], h, cfg), kv
@@ -164,10 +207,10 @@ def encode(params, cfg: ModelConfig, frames):
 
 
 def moe_layer_fwd(lp, x, cfg: ModelConfig, positions, capacity=None):
-    """Prefill body of one MoE layer.  Returns (x', aux, (k, v));
-    ``capacity`` as in ``moe.apply_moe``."""
+    """Prefill body of one MoE layer.  Returns (x', aux, (k, v)) (MLA:
+    (ckv, kr)); ``capacity`` as in ``moe.apply_moe``."""
     h = L.apply_norm(lp["ln1"], x, cfg)
-    a, kv = L.attention_train(lp["attn"], h, cfg, positions)
+    a, kv = _attn_fwd(lp["attn"], h, cfg, positions)
     x = x + a
     h = L.apply_norm(lp["ln2"], x, cfg)
     y, aux = MOE.apply_moe(lp["moe"], h, cfg, capacity=capacity)

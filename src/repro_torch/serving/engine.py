@@ -35,6 +35,12 @@ pool as for the attention families, and retiring frees both.  Its
 trace, like the reference's, prices all ``n_layers`` layers as GQA KV
 pages.
 
+A model with multi-head latent attention (deepseek-v3) keeps one latent
+pool a layer; its shadow table keeps the reference's GQA geometry
+(``n_kv_heads`` x ``resolved_head_dim``).  Both count tokens in pages of
+``kv_page_tokens``, so admission, held to the live pool, and the trace
+see the same pages.
+
 Not ported yet: ``plan_only``, the open-loop path, prefix caching and
 preemption.  An audio (encoder-decoder) config is refused, as the
 reference engine cannot prefill its frames: it runs through ``Model``.

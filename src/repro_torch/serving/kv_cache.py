@@ -226,17 +226,22 @@ class PagedKVCache(PageTable):
     A hybrid model's cache (one pool layer per shared-attention
     invocation) holds its Mamba2 layers' per-slot state store as
     ``state`` (a ``RecurrentStateCache``): ``alloc_seq`` claims a slot
-    in both, ``free_seq`` frees both and ``validate`` checks both."""
+    in both, ``free_seq`` frees both and ``validate`` checks both.
+
+    With ``v_pool=False`` there is one pool, ``k_pages``, and
+    ``v_pages`` is None: multi-head latent attention keeps one latent
+    row per token (its V is the first columns of the row)."""
 
     def __init__(self, cfg: PagedCacheConfig, max_seqs: int,
-                 n_layers: int, device="cuda"):
+                 n_layers: int, device="cuda", v_pool: bool = True):
         super().__init__(cfg, max_seqs)
         self.device = resolve_device(device)
         shape = (n_layers, cfg.n_pages, cfg.page_tokens, cfg.n_kv_heads,
                  cfg.head_dim)
         dt = getattr(torch, cfg.dtype)
         self.k_pages = torch.zeros(shape, dtype=dt, device=self.device)
-        self.v_pages = torch.zeros(shape, dtype=dt, device=self.device)
+        self.v_pages = torch.zeros(shape, dtype=dt, device=self.device) \
+            if v_pool else None
         self.cross: Optional[PagedKVCache] = None
         self.state: Optional[RecurrentStateCache] = None
 

@@ -828,3 +828,192 @@ def test_cuda_zamba2_prefill_and_decode_match_the_cpu():
         assert (g - w).abs().max().item() <= tol
     assert list(card_cache.lens) == list(cpu_cache.lens) == [9, 20, 27]
     card_cache.validate()
+
+
+# ------------------------------------------- deepseek-v3-671b (MLA)
+# flash at q/k dim 192, v dim 128 (the MLA prefill): (Tq, Tk, H, KH,
+# causal), ragged T, G = 1 as the model runs it and G = 4
+FLASH_MLA_CASES = [(100, 96, 8, 8, True), (100, 96, 8, 8, False),
+                   (257, 257, 16, 16, True), (33, 200, 4, 1, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("tq,tk,h,kh,causal", FLASH_MLA_CASES)
+def test_cuda_flash_qk_192_v_128_matches_plain_version(tq, tk, h, kh, causal,
+                                                       dtype):
+    """q and k of 192 columns, v of 128: the output (B, Tq, H, 128),
+    scale 1/sqrt(192); fp32 within 3e-5, bf16 within 2e-2 of the plain
+    version; one kernel per call (three calls captured into a CUDA
+    graph are three kernel nodes: profiler windows late in a full run
+    of this file read empty, as the grouped test's docstring says)."""
+    dev = _card()
+    rng = np.random.default_rng(tq + tk + h)
+    dt = getattr(torch, dtype)
+    tol = 3e-5 if dtype == "float32" else 2e-2
+    q = _bf16(rng, (2, tq, h, 192), dev).to(dt)
+    k = _bf16(rng, (2, tk, kh, 192), dev).to(dt)
+    v = _bf16(rng, (2, tk, kh, 128), dev).to(dt)
+    before = ops.LAUNCHES["flash_attention"]
+    got = ops.flash_attention(q, k, v, causal=causal, bk=tk)
+    assert ops.LAUNCHES["flash_attention"] == before + 1
+    assert got.shape == (2, tq, h, 128) and got.dtype == dt
+    want = ref.flash_gqa_ref(q, k, v, causal)
+    np.testing.assert_allclose(got.cpu().float().numpy(),
+                               want.cpu().float().numpy(), rtol=tol,
+                               atol=tol)
+    types = _graph_node_types(lambda: ops.flash_attention(q, k, v, causal,
+                                                          bk=tk))
+    assert types == [0, 0, 0], types
+
+
+def _latent_card(lens, h, page, mp, dtype, dev, seed=0):
+    """q (B, h, 576) and one latent pool (P, page, 1, 576) of seeded
+    normals, a permuted table of ``mp`` pages a sequence, ``lens``."""
+    rng = np.random.default_rng(seed)
+    B, P = len(lens), len(lens) * mp + 4
+    q = torch.from_numpy(rng.standard_normal((B, h, 576), np.float32))
+    pool = torch.from_numpy(rng.standard_normal((P, page, 1, 576),
+                                                np.float32))
+    table = torch.from_numpy(
+        rng.permutation(P)[:B * mp].reshape(B, mp).astype(np.int32))
+    ln = torch.tensor(lens, dtype=torch.int32)
+    return q.to(dev, dtype), pool.to(dev, dtype), table.to(dev), ln.to(dev)
+
+
+MLA_SCALE = 192 ** -0.5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("page", [8, 16, 32])
+@pytest.mark.parametrize("splits", range(1, 9))
+def test_cuda_paged_latent_every_split_at_edge_lengths(splits, page, dtype,
+                                                       monkeypatch):
+    """The latent form at every cluster size S = 1..8 (forced through
+    ``latent_plan``) and 8-, 16- and 32-token pages: 32 query heads (two
+    head blocks) of 576 over one latent pool, V its first 512 columns,
+    lengths 1, page - 1, page, page + 1 and 1,024; fp32 within 3e-5,
+    bf16 within 2e-2 of the plain version."""
+    dev = _card()
+    monkeypatch.setattr(PA, "latent_plan", lambda *_: splits)
+    dt = getattr(torch, dtype)
+    tol = 3e-5 if dtype == "float32" else 2e-2
+    lens = [1, page - 1, page, page + 1, 1024]
+    q, pool, table, ln = _latent_card(lens, 32, page, 1024 // page, dt, dev,
+                                      seed=splits + page)
+    got = ops.paged_latent_attention(q, pool, table, ln, 512, MLA_SCALE)
+    want = ref.paged_ref(q, pool, pool, table, ln, dv=512, scale=MLA_SCALE)
+    assert got.shape == (5, 32, 512) and got.dtype == dt
+    np.testing.assert_allclose(got.cpu().float().numpy(),
+                               want.cpu().float().numpy(), rtol=tol,
+                               atol=tol)
+
+
+@pytest.mark.cuda
+def test_cuda_paged_latent_decode_shape_deterministic_one_launch():
+    """deepseek-v3-671b's decode shape: 8 sequences of 128 heads of 576
+    over 16-token pages of a 64-page table, at the plan the wrapper
+    picks, for 8 x 272 tokens and mixed lengths with an empty sequence:
+    within 2e-2 of the plain version, the same bits on every run, one
+    kernel per call (counted from a captured CUDA graph)."""
+    dev = _card()
+    assert PA.latent_plan(8, 128, 64) == 2
+    for lens in ([272] * 8, [1024, 700, 272, 1, 0, 16, 17, 555]):
+        args = _latent_card(lens, 128, 16, 64, torch.bfloat16, dev)
+        before = ops.LAUNCHES["paged_latent_attention"]
+        first = ops.paged_latent_attention(*args, 512, MLA_SCALE)
+        assert ops.LAUNCHES["paged_latent_attention"] == before + 1
+        np.testing.assert_allclose(
+            first.cpu().float().numpy(),
+            ref.paged_ref(args[0], args[1], args[1], *args[2:], dv=512,
+                          scale=MLA_SCALE).cpu().float().numpy(),
+            rtol=2e-2, atol=2e-2)
+        for _ in range(3):
+            assert torch.equal(
+                ops.paged_latent_attention(*args, 512, MLA_SCALE), first)
+    assert not first[4].float().abs().max().item()
+    types = _graph_node_types(
+        lambda: ops.paged_latent_attention(*args, 512, MLA_SCALE))
+    assert types == [0, 0, 0], types
+
+
+@pytest.mark.cuda
+def test_cuda_paged_latent_shared_memory_estimate_matches_the_kernel():
+    """The wrapper's shared-memory check computes what the kernel
+    launches with; shapes it cannot take raise."""
+    import ctypes
+    from repro_torch.kernels import _build
+    dev = _card()
+    fn = _build.function("paged_attention", "pa_latent_smem_bytes",
+                         [ctypes.c_int] * 5)
+    for page in (8, 16, 32):
+        for mp in (1, 64, 128):
+            for esz in (2, 4):
+                assert fn(576, 512, page, mp, esz) == \
+                    PA.latent_smem_bytes(576, 512, page, mp, esz)
+    q, pool, table, ln = _latent_card([5], 16, 16, 2, torch.bfloat16, dev)
+    with pytest.raises(ValueError):
+        ops.paged_latent_attention(q, pool, table, ln, 256, MLA_SCALE)
+    with pytest.raises(ValueError):
+        ops.paged_latent_attention(q[:, :8].contiguous(), pool, table, ln,
+                                   512, MLA_SCALE)
+
+
+@pytest.mark.cuda
+def test_cuda_mla_prefill_and_decode_match_the_cpu():
+    """An MLA model at the latent kernel's widths and a small d (2
+    layers: one dense, one MoE of 8 experts, top-2; d 512, 16 heads of
+    q/k 128 + 64 and v 128, latent 512 + 64): prefill of mixed prompt
+    lengths (flash at 192 / 128) and decode steps (the absorbed products
+    on the grouped GEMM, the latent paged kernel) on the card against
+    the same weights on the CPU, logits within 5e-2 of their largest
+    magnitude (bf16 rounding after fp32 sums in another order, the
+    card's flash P in bf16).  A decode step runs 8 GEMMs in the dense
+    layer, 9 in the MoE layer and the lm_head, 2 absorbed grouped
+    products a layer and the MoE's 3, and one latent call a layer."""
+    from repro_torch.configs.base import MLAConfig, ModelConfig, MoEConfig
+    from repro_torch.models.model import Model
+    from repro_torch.models.params import params_to
+    dev = _card()
+    cfg = ModelConfig(
+        name="mla-card", family="moe", n_layers=2, d_model=512, n_heads=16,
+        n_kv_heads=16, d_ff=256, vocab_size=512,
+        moe=MoEConfig(n_routed_experts=8, top_k=2, d_ff_expert=256,
+                      n_shared_experts=1, first_dense_layers=1),
+        mla=MLAConfig(q_lora_rank=128, kv_lora_rank=512,
+                      qk_nope_head_dim=128, qk_rope_head_dim=64,
+                      v_head_dim=128), mtp=True)
+    cpu_model, card_model = Model(cfg, device="cpu"), Model(cfg, device=dev)
+    params = cpu_model.init(torch.Generator().manual_seed(0))
+    card_params = params_to(params, dev)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, cfg.vocab_size, n) for n in (5, 16, 70)]
+    forced = rng.integers(1, cfg.vocab_size, (4, 3))
+
+    def run(m, p):
+        cache = m.init_cache(3, 128, page_tokens=16)
+        out = []
+        for slot, prompt in enumerate(prompts):
+            cache.alloc_seq(slot, len(prompt))
+            out.append(m.prefill(p, torch.as_tensor(prompt[None],
+                                                    device=m.device),
+                                 cache, [slot]))
+        for step in range(4):
+            ops.reset_launches()
+            out.append(m.decode_step(p, cache, torch.as_tensor(
+                forced[step], device=m.device), [2, 0, 1]))
+        return torch.cat(out).float().cpu(), cache
+
+    want, cpu_cache = run(cpu_model, params)
+    got, card_cache = run(card_model, card_params)
+    assert ops.LAUNCHES["streaming_gemm"] == 8 + 9 + 1
+    assert ops.LAUNCHES["streaming_gemm_grouped"] == 2 * 2 + 3
+    assert ops.LAUNCHES["paged_latent_attention"] == 2
+    assert ops.LAUNCHES["paged_attention"] == ops.LAUNCHES[
+        "flash_attention"] == 0
+    assert bool(got.isfinite().all())
+    tol = 5e-2 * max(1.0, want.abs().max().item())
+    assert (got - want).abs().max().item() <= tol
+    assert list(card_cache.lens) == list(cpu_cache.lens) == [9, 20, 74]
+    card_cache.validate()

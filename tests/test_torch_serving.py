@@ -263,9 +263,15 @@ def test_unported_paths_raise():
     cfg = get_reduced(ARCH)
     with pytest.raises(NotImplementedError):
         ServingEngine(cfg, None, device="cpu", plan_only=True)
-    from repro_torch.configs import get_config
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        get_config("deepseek-v3-671b")
+    # deepseek-v3-671b, the last architecture ported, now loads: MLA set,
+    # the published widths
+    from repro_torch.configs import NOT_PORTED, get_config
+    ds = get_config("deepseek-v3-671b")
+    assert NOT_PORTED == [] and ds.mla is not None
+    assert (ds.n_layers, ds.d_model, ds.n_heads, ds.vocab_size,
+            ds.moe.n_routed_experts, ds.moe.top_k,
+            ds.mla.kv_lora_rank, ds.mla.qk_rope_head_dim) == \
+        (61, 7168, 128, 129280, 256, 8, 512, 64)
     from repro_torch.models.tuning import Tuning
     with pytest.raises(NotImplementedError):
         Tuning(kv_cache_quant=True)

@@ -500,13 +500,17 @@ def test_full_config_size_and_what_n_params_omits():
     assert cfg.source == rcfg.source == "arXiv:2404.05892; hf"
 
 
-def test_mla_config_is_refused():
-    """Multi-head latent attention (deepseek-v3's ``mla``) has no port
-    yet: the tree and the bridge refuse a config that sets it."""
-    import dataclasses
-    from repro.configs.base import MLAConfig
-    cfg = dataclasses.replace(get_reduced("qwen2_0_5b"), mla=MLAConfig())
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        PT.lm_pspecs(cfg)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        from_reference({}, cfg)
+def test_mla_config_is_accepted():
+    """Multi-head latent attention (deepseek-v3's ``mla``) is ported: the
+    tree and the bridge take a config that sets it, and the bridged
+    tree holds every leaf of the tree's MLA attention."""
+    cfg = get_reduced("deepseek_v3_671b")
+    spec = PT.lm_pspecs(cfg)
+    assert set(spec["layers"][0]["attn"]) == {
+        "wdq", "q_norm", "wuq", "wdkv", "kv_norm", "wkr", "wuk", "wuv", "wo"}
+    rp = RefModel(ref_reduced("deepseek_v3_671b"), remat="none").init(
+        jax.random.PRNGKey(0))
+    pp = from_reference(jax.tree.map(np.asarray, rp), cfg)
+    assert set(pp["layers"][0]["attn"]) == set(spec["layers"][0]["attn"]) \
+        | {"wuk_hkr", "wuv_hrv"}
+    assert set(pp["mtp"]) == {"proj", "block", "norm_h", "norm_e"}
