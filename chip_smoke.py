@@ -69,10 +69,12 @@ Phases, in order; any failure raises and exits non-zero:
    (b) Serving as in phase 3 with 16 new tokens; all four wrappers
    must run.  (c) Three full-batch decode steps profiled as in phase 4;
    each grouped wrapper call one device kernel.  (d) Two full-width
-   layers, a 64-token prefill and 4 decode steps on the card and on
-   the CPU: each (layer, token)'s expert set recorded on both sides,
-   at least 0.97 of them equal, and the logits within E2E_TOL x
-   max(1, max|logit|) at the positions routed alike in every layer.
+   layers, a 256-token prefill and 4 decode steps on the card and on
+   the CPU: each MoE call's router input on the card routed again on
+   the CPU, at least 0.97 of the (layer, token) expert sets equal (the
+   chained rate of the whole CPU run printed beside), and the logits
+   within E2E_TOL x max(1, max|logit|) at the positions routed alike in
+   every layer.
 8. The dense variants, after the MoE weights are freed: internvl2-2b
    (vlm; 3.78 GB), chatglm3-6b (2-D RoPE, 32 / 2 heads of 128; 12.49 GB),
    granite-20b (layernorm, non-gated GELU MLP, MQA 48 / 1 heads of
@@ -662,7 +664,7 @@ def phase_card_vs_cpu(torch, args, cfg, params, n_layers=None,
 
 
 def _kernel_group(name):
-    for key, group in (("gemm_bf16_grouped", "streaming_gemm_grouped"),
+    for key, group in (("grouped_wgmma", "streaming_gemm_grouped"),
                        ("gemm_bf16", "streaming_gemm"),
                        ("gemm_simt", "streaming_gemm"),
                        ("flash_bf16", "flash_attention"),
@@ -721,6 +723,8 @@ def profile_steps(torch, step, model, context, n_steps, tag, one_kernel,
     wall_ms = (time.perf_counter() - t0) * 1e3 / n_steps
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     for window in range(1, tries + 1):
+        if window > 1:
+            time.sleep(0.5)       # as the card tests' profiler helper does
         ops.reset_launches()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -730,6 +734,7 @@ def profile_steps(torch, step, model, context, n_steps, tag, one_kernel,
         per_step = {k: n / n_steps for k, n in ops.LAUNCHES.items()}
         groups: dict = {}
         kernels: dict = {}
+        odd = []      # kernels whose count is not a whole number a step
         for ev in prof.key_averages():
             if ev.device_type != DeviceType.CUDA:  # host ops double-count
                 continue
@@ -740,11 +745,14 @@ def profile_steps(torch, step, model, context, n_steps, tag, one_kernel,
                 g = _kernel_group(ev.key)
                 groups[g] = groups.get(g, 0.0) + us / 1e3 / n_steps
                 kernels[g] = kernels.get(g, 0) + ev.count / n_steps
+            if ev.count % n_steps:
+                odd.append(f"{ev.key[:120]!r} x{ev.count} {us:.1f} us")
         short = [n for n in one_kernel if kernels.get(n, 0) < per_step[n]]
         if groups and not short:
             break
         print(f"[{tag}] window {window}: the profiler lost device kernels "
-              f"({short or 'all'})", flush=True)
+              f"({short or 'all'}); kernels of an odd count: {odd}",
+              flush=True)
     require(groups, f"{tag}: {tries} profiler windows held no device kernel")
     busy = sum(groups.values())
     res = {"model": model, "slots": 8,
@@ -1042,7 +1050,7 @@ def _grouped_entry(torch, timer, what, a, b, counts, on_path):
     never calls); the bound counts only the experts and rows this
     routing touches."""
     from repro_torch.kernels import ops, ref
-    from repro_torch.kernels.streaming_gemm import plan_grouped
+    from repro_torch.kernels.grouped_gemm import plan_grouped
     E, C, K = a.shape
     N = b.shape[2]
     got = ops.grouped_streaming_gemm(a, b, counts)
@@ -1124,9 +1132,10 @@ def _moe_kernels(torch, args, cfg, params, dev, timer, rows):
     torch.cuda.synchronize()
     rows["streaming_gemm_grouped"] = {
         "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/streaming_gemm.cu",
+        "source": "src/repro_torch/kernels/csrc/grouped_gemm.cu",
         "replaces": "src/repro/kernels/streaming_gemm.py:30",
-        "note": "the streaming GEMM per expert; the reference computes "
+        "note": "the streaming GEMM per expert (a persistent TMA + wgmma "
+                "walk over the touched experts); the reference computes "
                 "these products as an XLA einsum (src/repro/models/"
                 "moe.py:115-118)",
         "tol": BF16_TOL,
@@ -1182,28 +1191,46 @@ def _add_path(row, per_shape, key, keys=("ms", "plain_ms", "library_ms",
                              *(r["max_abs_err"] for r in per_shape))
 
 
-def _record_routes(moe_module, log):
+def _record_routes(moe_module, log, inputs=None):
     """Wrap ``moe_module.apply_moe`` so that every call appends its
-    tokens' sorted expert sets (n, k) to ``log``; returns the original."""
+    tokens' sorted expert sets (n, k) to ``log`` (and, given ``inputs``,
+    the router's input (n, d) to it); returns the original."""
     orig = moe_module.apply_moe
 
     def wrapped(p, x, cfg, *a, **kw):
-        _, top_e, _ = moe_module._route(p, x.reshape(-1, x.shape[-1]), cfg)
+        xt = x.reshape(-1, x.shape[-1])
+        _, top_e, _ = moe_module._route(p, xt, cfg)
         log.append(top_e.sort(-1).values.cpu())
+        if inputs is not None:
+            inputs.append(xt.detach().cpu())
         return orig(p, x, cfg, *a, **kw)
 
     moe_module.apply_moe = wrapped
     return orig
 
 
+def _first_flips(card, cpu):
+    """{experts changed: tokens} over the tokens whose expert sets
+    differ, for lists of (n, k) sorted sets."""
+    flips = {}
+    for a, b in zip(card, cpu):
+        for i in (a != b).any(-1).nonzero().flatten().tolist():
+            k = len(set(a[i].tolist()) ^ set(b[i].tolist())) // 2
+            flips[k] = flips.get(k, 0) + 1
+    return flips
+
+
 def _moe_card_vs_cpu(torch, args, cfg, params, n_layers=2):
-    """(d) Two full-width layers of the MoE model, one 64-token prefill
-    and 4 decode steps, on the card and on the CPU (every wrapper's
-    plain version).  Each (layer, token)'s expert set is recorded on
-    both sides; the share that agree must reach
-    ``ROUTING_AGREEMENT_MIN``, and the logits at the positions whose
-    routing agrees in every layer must be within E2E_TOL·max(1,
-    max|logit|)."""
+    """(d) Two full-width layers of the MoE model, a 256-token prefill
+    and 4 decode steps, on the card and on the CPU (every wrapper's plain
+    version).  Routing is compared on the same router input: each MoE
+    call's input on the card is routed again on the CPU with the CPU's
+    weights, so every flip counted is a token's first (none is caused by
+    an earlier layer's); the share of (layer, token) expert sets that
+    agree must reach ``ROUTING_AGREEMENT_MIN``.  The chained rate of the
+    whole CPU run (each side routing its own hidden states) is printed
+    beside it, and the logits at the positions whose chained routing
+    agrees in every layer must be within E2E_TOL·max(1, max|logit|)."""
     import dataclasses
 
     import numpy as np
@@ -1213,17 +1240,19 @@ def _moe_card_vs_cpu(torch, args, cfg, params, n_layers=2):
 
     cfg2 = dataclasses.replace(cfg, n_layers=n_layers)
     p2 = {**params, "layers": params["layers"][:n_layers]}
+    n_prompt, n_decode = 256, 4
     rng = np.random.default_rng(args.seed + 3)
-    prompt = torch.as_tensor(rng.integers(1, cfg.vocab_size - 1, 64))
-    forced = rng.integers(1, cfg.vocab_size - 1, 4)
+    prompt = torch.as_tensor(rng.integers(1, cfg.vocab_size - 1, n_prompt))
+    forced = rng.integers(1, cfg.vocab_size - 1, n_decode)
+    n_pos = 1 + n_decode
 
-    def run(device, p):
+    def run(device, p, inputs=None):
         log = []
-        orig = _record_routes(MOE, log)
+        orig = _record_routes(MOE, log, inputs)
         try:
             m = Model(cfg2, device=device)
-            cache = m.init_cache(1, 128, page_tokens=16)
-            cache.alloc_seq(0, 64)
+            cache = m.init_cache(1, n_prompt + 16, page_tokens=16)
+            cache.alloc_seq(0, n_prompt)
             out = [m.prefill(p, prompt[None].to(m.device), cache, [0])]
             for t in forced:
                 out.append(m.decode_step(p, cache, torch.tensor(
@@ -1233,32 +1262,46 @@ def _moe_card_vs_cpu(torch, args, cfg, params, n_layers=2):
         return torch.cat(out).float().cpu(), log
 
     t0 = time.perf_counter()
-    card, card_routes = run("cuda", p2)
-    cpu, cpu_routes = run("cpu", params_to(p2, "cpu"))
-    require(card.shape == (5, cfg.padded_vocab) and
+    card_inputs = []
+    card, card_routes = run("cuda", p2, card_inputs)
+    p_cpu = params_to(p2, "cpu")
+    cpu, cpu_routes = run("cpu", p_cpu)
+    require(card.shape == (n_pos, cfg.padded_vocab) and
             bool(card.isfinite().all()), "card logits malformed")
-    require(len(card_routes) == len(cpu_routes) == 5 * n_layers,
+    require(len(card_routes) == len(cpu_routes) == n_pos * n_layers,
             "routing records")
-    same = [(a == b).all(-1) for a, b in zip(card_routes, cpu_routes)]
+    # the same router input: call i is layer i % n_layers
+    same_input = [MOE._route(p_cpu["layers"][i % n_layers]["moe"], x,
+                             cfg)[1].sort(-1).values
+                  for i, x in enumerate(card_inputs)]
+    same = [(a == b).all(-1) for a, b in zip(card_routes, same_input)]
     share = float(torch.cat(same).float().mean())
+    chained = [(a == b).all(-1) for a, b in zip(card_routes, cpu_routes)]
+    chained_share = float(torch.cat(chained).float().mean())
     # the position each output row reads: the prompt's last token, then
     # each decode token; it agrees if it does in every layer
-    agree = [bool(all(s[-1] for s in same[i * n_layers:(i + 1) * n_layers]))
-             for i in range(5)]
+    agree = [bool(all(s[-1] for s in
+                      chained[i * n_layers:(i + 1) * n_layers]))
+             for i in range(n_pos)]
     idx = [i for i, ok in enumerate(agree) if ok]
     scale = max(1.0, cpu.abs().max().item())
     err = (card[idx] - cpu[idx]).abs().max().item() if idx else None
-    res = {"layers": n_layers, "routing_agreement": share,
+    res = {"layers": n_layers, "prompt": n_prompt, "decode_steps": n_decode,
+           "routing_agreement": share,
            "routing_agreement_min": ROUTING_AGREEMENT_MIN,
            "assignments": int(sum(s.numel() for s in same)),
-           "positions_compared": len(idx), "positions": 5,
+           "first_flips_by_experts_changed": _first_flips(card_routes,
+                                                          same_input),
+           "chained_routing_agreement": chained_share,
+           "positions_compared": len(idx), "positions": n_pos,
            "max_abs_err": err, "max_abs_logit": cpu.abs().max().item(),
            "tol": E2E_TOL * scale,
            "argmax_agree": int((card.argmax(-1) == cpu.argmax(-1)).sum()),
            "seconds": time.perf_counter() - t0}
     print("[moe_card_vs_cpu] " + json.dumps(res), flush=True)
     require(share >= ROUTING_AGREEMENT_MIN,
-            f"card and CPU routing agree on {share:.3f} of the tokens")
+            f"card and CPU routing of the same inputs agree on {share:.3f} "
+            "of the tokens")
     require(idx, "no position routed alike on the card and the CPU")
     require(err <= E2E_TOL * scale,
             f"MoE card vs CPU logits differ by {err}")
@@ -2062,7 +2105,7 @@ def latent_entry(torch, timer, what, q, pool, table, ln, on_path, dv, scale):
                 plain(), BF16_TOL)
     r = {"shape": {"q": [n, H, D], "pool": [P, page, 1, D], "dv": dv,
                    "lens": ln.tolist()}, "what": what, "on_path": on_path,
-         "plan": latent_plan(n, H, max_pages), "max_abs_err": err,
+         "plan": latent_plan(n, H, max_pages, page), "max_abs_err": err,
          "ms": timer(kernel), "plain_ms": timer(plain),
          "contiguous_sdpa_ms": timer(sdpa), "bound_ms": bms, "bound_by": by}
     print(f"[paged_latent_attention] {what} H={H} D={D}/{dv} (plan "
@@ -2224,7 +2267,6 @@ def _deepseek_moe_card_vs_cpu(torch, args, cfg, params):
     card, card_routes = run(lp["moe"])
     cpu, cpu_routes = run(params_to(lp["moe"], "cpu"))
     res = {"layer": 3, "tokens": {c[0]: c[2] for c in cases}}
-    flips = {}
     same_all = []
     for (what, _, _), c, w, rc, rw in zip(cases, card, cpu, card_routes,
                                           cpu_routes):
@@ -2232,9 +2274,6 @@ def _deepseek_moe_card_vs_cpu(torch, args, cfg, params):
                 "not finite")
         same = (rc == rw).all(-1)
         same_all.append(same)
-        for i in torch.nonzero(~same).flatten().tolist():
-            k = len(set(rc[i].tolist()) ^ set(rw[i].tolist())) // 2
-            flips[k] = flips.get(k, 0) + 1
         top = w.abs().max().item()
         err = (c[same] - w[same]).abs().max().item() if same.any() else None
         res[what] = {"routing_agreement": float(same.float().mean()),
@@ -2244,7 +2283,8 @@ def _deepseek_moe_card_vs_cpu(torch, args, cfg, params):
     res.update({"routing_agreement": share,
                 "routing_agreement_min": ROUTING_AGREEMENT_MIN,
                 "assignments": int(sum(s.numel() for s in same_all)),
-                "first_flips_by_experts_changed": flips,
+                "first_flips_by_experts_changed": _first_flips(
+                    card_routes, cpu_routes),
                 "seconds": time.perf_counter() - t0})
     print(f"[{cfg.name} moe_card_vs_cpu] " + json.dumps(res), flush=True)
     require(share >= ROUTING_AGREEMENT_MIN,

@@ -4,8 +4,9 @@ Every ``csrc/*.cu`` is compiled by its own ``nvcc`` process, all
 started together, for ``sm_90a`` into a shared library with a plain C
 interface under ``build/repro_torch/`` at the repository root.  No
 source includes PyTorch's headers, so a build takes seconds.  A
-library's file name carries a hash of its source, so an edited source
-is rebuilt and an unchanged one is reused.
+library's file name carries a hash of its source and of the shared
+headers (``csrc/*.cuh``), so an edited source or header is rebuilt and
+an unchanged one is reused.
 
 Each ``extern "C"`` launcher takes its pointers and the CUDA stream as
 ``void*`` and returns the ``cudaGetLastError()`` code of its launch;
@@ -40,7 +41,10 @@ def _nvcc() -> str:
 
 
 def _target(src: Path) -> Path:
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    digest = h.hexdigest()[:12]
     return BUILD_DIR / f"lib{src.stem}.{digest}.so"
 
 

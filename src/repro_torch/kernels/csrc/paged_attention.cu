@@ -76,6 +76,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -572,16 +574,65 @@ int launch_t(const void* q, const void* kp, const void* vp, const int* tb,
 // head of DK = 576 columns (the 512-wide compressed ckv, then the 64
 // RoPE columns kr), and V is the first DV = 512 columns of the same
 // rows.  The head-group kernel above would split 128 heads of 576 into
-// 43 groups that each walk and re-read every page; instead a CTA of
-// eight warps holds LH = 16 query heads and stages each latent page once
-// in shared memory (a 16-token bf16 page is 18 KB), where both QK^T and
-// PV read it.  Grid (S, H / LH, B), the pages of a sequence split over a
-// cluster of S CTAs as above and merged in rank order through
-// distributed shared memory (one launch, no workspace, no atomics).
+// 43 groups that each walk and re-read every page; instead a CTA holds a
+// block of query heads and stages each latent page once in shared
+// memory, where both QK^T and PV read it.  Grid (S, head blocks, B), the
+// pages of a sequence split over a cluster of S CTAs as above and merged
+// in rank order through distributed shared memory (one launch, no
+// workspace, no atomics).  The scale is the caller's (deepseek-v3:
+// 1/sqrt(192), the q/k head dim of the un-absorbed form), not
+// 1/sqrt(DK).
 //
+// What bounds it: at 8 sequences of 272 tokens the latent rows are 2.5
+// MB (0.75 us at 3.35 TB/s) and the scores and PV 2·128·(576 + 512)
+// operations a token (0.6 us at the bf16 tensor-core peak): neither.
+// What is left is the serial walk of a CTA's pages and the fixed cost of
+// a launch (the length and table row, then the first pages; the merge).
+//
+// bf16 (the served path), paged_latent_tc: 64 query heads a CTA (so at H
+// 128 each page is staged by 2 CTAs per (sequence, split), not 8), both
+// products on tensor cores through wgmma rather than mma.sync: one
+// warpgroup instruction covers all 64 heads, reads q and the page from
+// the swizzled shared memory TMA fills with no ldmatrix, and its QK^T
+// accumulator is already laid out as PV's register A fragment.
+//  * Each slot of 32 tokens (four 8-token pages, two of 16 or one of 32)
+//    comes by TMA onto an mbarrier, in a ring of 3 slots: boxes of 64
+//    columns x the page's rows, 128-byte swizzled, so the 16-byte chunks
+//    of 8 consecutive rows fall in 8 distinct bank quads without the FMA
+//    kernel's padded rows.  Thread 0 issues them (no producer warp: with
+//    one, registers are allotted for 384 threads, too few for the
+//    accumulators and ptxas serialises the wgmmas).  q is staged once by
+//    cp.async in the same swizzled layout, issued before the length and
+//    table row are read.  A slot's pages past the CTA's share repeat its
+//    last page and are masked.
+//  * S = Q K^T on wgmma m64n16k16 over 36 k16 steps (exact bf16 products,
+//    fp32 sums): warpgroup g takes tokens [16 g, 16 g + 16) of the slot,
+//    and the two trade halves through shared memory (two buffers, one
+//    block barrier a slot: the walk's only one, after which slot i - 1's
+//    ring slot is free and thread 0 loads slot i + 2 into it).  Each then
+//    runs the online softmax of all 32 tokens on its registers (a row's
+//    stats across the 4 lanes of a quad), fp32 in the log2 domain.
+//  * PV on tensor cores without rounding P to bf16: P = hi + lo, hi =
+//    bf16(P), lo = bf16(P - hi) (16 significant bits, relative error
+//    below 2^-16), two wgmma m64n256k16 a 16 tokens with A from registers
+//    (the QK^T accumulator's layout is the A fragment's) and V, MN-major,
+//    from the same swizzled slot.  Warpgroup g owns output columns [256
+//    g, 256 g + 256): 128 fp32 accumulators a thread, so 64 x 512 stays in
+//    registers.
+//  * Heads of the block past H (H = 16 or 32) are zero queries, never
+//    stored.
+//  * The merge: each CTA parks its fp32 partial (unnormalised, 64 x 512,
+//    rows padded by 8 floats) and its m and l in its shared memory; after
+//    a cluster barrier rank o sums 1/S of the block's outputs over the S
+//    ranks in rank order, read through distributed shared memory, all S
+//    loads of an element issued before the sums (S is a template
+//    argument).  Pushing the partials to the owners by remote stores
+//    instead measured slower (and took 254 registers).
+// fp32 (on no served path), paged_latent: an FMA kernel, 16 heads a CTA,
+// eight warps:
 //  * QK^T: lane l of warp w takes head 4·(w % 4) + l / 8 and the
-//    16-byte chunks l % 8 + 8j of the row (72 bf16 chunks: 9 a lane), its
-//    q slice (scaled by log2(e)·scale) held in 72 registers for the whole
+//    16-byte chunks l % 8 + 8j of the row (144 fp32 chunks: 18 a lane),
+//    its q slice (scaled by log2(e)·scale) held in registers for the whole
 //    walk; warps w and w + 4 take the even and the odd tokens.  The eight
 //    lanes of a head read consecutive chunks and the warp's four heads
 //    the same ones, so a page row is read once per warp, conflict-free.
@@ -590,16 +641,7 @@ int launch_t(const void* q, const void* kp, const void* vp, const int* tb,
 //  * PV: thread t owns output columns 2t, 2t + 1 of all 16 heads (32 fp32
 //    accumulators), reading each token's V pair once and the 16 heads'
 //    probabilities as broadcast float4s.
-//  * The scale is the caller's (deepseek-v3: 1/sqrt(192), the q/k head
-//    dim of the un-absorbed form), not 1/sqrt(DK).
-//
-// What bounds it: at 8 sequences of 272 tokens the latent rows are 2.5
-// MB (0.75 us at 3.35 TB/s) and the scores and PV 2·128·(576 + 512)
-// operations a token (0.6 us at the bf16 tensor-core peak): neither.
-// What holds this simple kernel back is fp32 FMA throughput and the
-// serial walk: 278 K FMAs a 16-token page per CTA, three block barriers
-// a page, and each head block re-reading the pages (8 head blocks at H
-// 128, mostly from L2).
+//  * fp32 FMA throughput and three block barriers a page bound it.
 constexpr int LH = 16;                  // query heads per CTA
 constexpr int LTHREADS = 256;           // eight warps
 constexpr int SC_LD = 33;               // score rows, padded
@@ -866,6 +908,428 @@ int launch_latent(const void* q, const void* pool, const int* table,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ------------------------------- the latent form on tensor cores (bf16)
+constexpr int TH = 64;                   // query heads a CTA
+constexpr int TC_THREADS = 256;          // two warpgroups
+constexpr int LDK = 576, LDV = 512;      // the latent row; its V columns
+constexpr int KB = LDK / 64;             // 128-byte column blocks of a row
+constexpr int TOK = 32;                  // tokens a slot
+constexpr int TC_STAGES = 3;             // slots in the ring
+constexpr int SLOT = KB * TOK * 128;     // 36 KB
+constexpr int Q_BYTES = KB * TH * 128;   // q, swizzled: 72 KB
+constexpr int X_BYTES = 2 * TC_THREADS * 8 * 4;  // S halves, two buffers
+constexpr int ACC_LD = LDV + 8;          // fp32 merge rows, padded
+constexpr int ACC_BYTES = TH * ACC_LD * 4;
+
+// Shared memory, in bytes from a 1,024-byte aligned base: q, the ring of
+// slots (each nine column blocks of 32 rows of 128 B), the exchange of
+// S halves between the warpgroups; the CTA's fp32 [TH][ACC_LD]
+// accumulator takes these over after the walk.  Then the slots'
+// barriers, the CTA's m and l, merge weights, 1 / l and the table row.
+struct TcLayout {
+  int ring, xs, full, cm, cl, fw, inv_l, ids, bytes;
+};
+
+__host__ __device__ inline TcLayout tc_layout(int max_pages) {
+  TcLayout L;
+  L.ring = Q_BYTES;
+  L.xs = L.ring + TC_STAGES * SLOT;
+  const int main = L.xs + X_BYTES;
+  L.full = main > ACC_BYTES ? main : ACC_BYTES;
+  L.cm = L.full + 8 * TC_STAGES;
+  L.cl = L.cm + 4 * TH;
+  L.fw = L.cl + 4 * TH;
+  L.inv_l = L.fw + 4 * MAX_SPLITS * TH;
+  L.ids = L.inv_l + 4 * TH;
+  L.bytes = 1024 + L.ids + 4 * max_pages;
+  return L;
+}
+
+// The cluster's merge of the latent kernel, S ranks: rank r's weights
+// 2^(m_r - max m) and 1 / l for each head, then CTA `rank` finishes
+// 1/S of the block's 64 x 512 outputs, summing the ranks' fp32 partials
+// in rank order.  S is a template argument so that every rank's load
+// (distributed shared memory) of an element is issued before the sums:
+// with a runtime S each conditional load waited for the one before it.
+struct LatentState {
+  float *cm, *cl, *cacc, *fw, *inv_l;  // as the kernel's layout names them
+};
+
+template <int S>
+__device__ __forceinline__ void latent_merge(cg::cluster_group& cluster,
+                                             const LatentState& st,
+                                             __nv_bfloat16* __restrict__ o,
+                                             int H, int b, int hb) {
+  const int tid = threadIdx.x;
+  const int rank = static_cast<int>(cluster.block_rank());
+  float* fw = st.fw;
+  float* inv_l = st.inv_l;
+  const float* pm[S];
+  const float* pl[S];
+  const float* pa[S];
+#pragma unroll
+  for (int r = 0; r < S; ++r) {
+    pm[r] = cluster.map_shared_rank(st.cm, r);
+    pl[r] = cluster.map_shared_rank(st.cl, r);
+    pa[r] = cluster.map_shared_rank(st.cacc, r);
+  }
+  for (int g = tid; g < TH; g += TC_THREADS) {
+    float mr[S], lr[S], mx = NEG_INF;
+#pragma unroll
+    for (int r = 0; r < S; ++r) {
+      mr[r] = pm[r][g];
+      lr[r] = pl[r][g];
+    }
+#pragma unroll
+    for (int r = 0; r < S; ++r) mx = fmaxf(mx, mr[r]);
+    float l = 0.f;
+#pragma unroll
+    for (int r = 0; r < S; ++r) {
+      const float f = exp2f(mr[r] - mx);
+      fw[r * TH + g] = f;
+      l += lr[r] * f;
+    }
+    inv_l[g] = 1.f / fmaxf(l, 1e-30f);
+  }
+  __syncthreads();
+  constexpr int Q4 = TH * LDV / 4, U = 4;  // float4s of the block's output
+  const int e0 = rank * Q4 / S, e1 = (rank + 1) * Q4 / S;
+  for (int e = e0 + tid; e < e1; e += U * TC_THREADS) {
+    float4 v[U][S];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int x = min(e + u * TC_THREADS, e1 - 1);
+      const int off = (x / (LDV / 4)) * ACC_LD + 4 * (x % (LDV / 4));
+#pragma unroll
+      for (int r = 0; r < S; ++r)
+        v[u][r] = *reinterpret_cast<const float4*>(pa[r] + off);
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int x = e + u * TC_THREADS, g = x / (LDV / 4);
+      const int c4 = x % (LDV / 4), head = hb * TH + g;
+      if (x >= e1 || head >= H) continue;
+      float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+      for (int r = 0; r < S; ++r) {
+        const float f = fw[r * TH + g];
+        a.x = fmaf(v[u][r].x, f, a.x);
+        a.y = fmaf(v[u][r].y, f, a.y);
+        a.z = fmaf(v[u][r].z, f, a.z);
+        a.w = fmaf(v[u][r].w, f, a.w);
+      }
+      const float il = inv_l[g];
+      const __nv_bfloat162 lo2 = __floats2bfloat162_rn(a.x * il, a.y * il),
+                           hi2 = __floats2bfloat162_rn(a.z * il, a.w * il);
+      *reinterpret_cast<uint2*>(
+          o + (static_cast<int64_t>(b) * H + head) * LDV + 4 * c4) =
+          make_uint2(*reinterpret_cast<const uint32_t*>(&lo2),
+                     *reinterpret_cast<const uint32_t*>(&hi2));
+    }
+  }
+}
+
+__global__ void __launch_bounds__(TC_THREADS, 1)
+    paged_latent_tc(const __grid_constant__ CUtensorMap pool_map,
+                    const __nv_bfloat16* __restrict__ q,
+                    const int* __restrict__ table,
+                    const int* __restrict__ lens,
+                    __nv_bfloat16* __restrict__ o, int H, int page,
+                    int max_pages, int splits, float qscale) {
+  using hopper::desc_sw128;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const TcLayout L = tc_layout(max_pages);
+  unsigned char* qs = base;
+  unsigned char* ring = base + L.ring;
+  float* xs = reinterpret_cast<float*>(base + L.xs);
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + L.full);
+  float* cm = reinterpret_cast<float*>(base + L.cm);
+  float* cl = reinterpret_cast<float*>(base + L.cl);
+  float* fw = reinterpret_cast<float*>(base + L.fw);
+  float* inv_l = reinterpret_cast<float*>(base + L.inv_l);
+  int* ids = reinterpret_cast<int*>(base + L.ids);
+  float* cacc = reinterpret_cast<float*>(base);  // after the walk
+  cg::cluster_group cluster = cg::this_cluster();
+
+  const int rank = blockIdx.x, hb = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  // q of the block's heads first (it does not wait for the length),
+  // swizzled like the slots; heads past H zero
+  for (int x = tid; x < TH * (LDK / 8); x += TC_THREADS) {
+    const int h = x / (LDK / 8), ch = x % (LDK / 8), head = hb * TH + h;
+    unsigned char* dst =
+        qs + (ch / 8) * TH * 128 + h * 128 + ((ch % 8) ^ (h % 8)) * 16;
+    if (head < H)
+      cp_async16(dst, q + (static_cast<int64_t>(b) * H + head) * LDK + ch * 8);
+    else
+      *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
+  }
+  cp_async_commit();
+  const int len = lens[b];
+  const int n = len > 0 ? min(cdiv(len, page), max_pages) : 0;
+  const int c = cdiv(n, splits);
+  const int lo = min(n, rank * c), np = min(n, lo + c) - lo;
+  const int pps = TOK / page;                  // pages a slot
+  const int nslots = cdiv(np, pps);
+  const int end = min(len, (lo + np) * page);  // this CTA's tokens end
+  for (int i = tid; i < np; i += TC_THREADS)
+    ids[i] = table[static_cast<int64_t>(b) * max_pages + lo + i];
+  if (tid == 0) {
+    for (int s = 0; s < TC_STAGES; ++s) hopper::mbar_init(&full[s], 1);
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  // slot i into ring slot i % 3 (thread 0): pages past the CTA's share
+  // repeat its last page
+  auto load_slot = [&](int i) {
+    const int s = i % TC_STAGES;
+    hopper::mbar_expect_tx(&full[s], TOK * LDK * 2);
+    unsigned char* dst = ring + s * SLOT;
+    for (int u = 0; u < pps; ++u) {
+      const int pid = ids[min(i * pps + u, np - 1)];
+      for (int j = 0; j < KB; ++j)
+        hopper::tma_load_2d(dst + j * TOK * 128 + u * page * 128, &pool_map,
+                            64 * j, pid * page, &full[s]);
+    }
+  };
+  if (tid == 0 && nslots) {
+    hopper::prefetch_tmap(&pool_map);
+    for (int i = 0; i < TC_STAGES && i < nslots; ++i) load_slot(i);
+  }
+
+  // consumer roles: warpgroup wg, rows (heads) r0 and r0 + 8 of the
+  // block; the quad lane qd holds tokens / columns 2 qd, 2 qd + 1 of
+  // each 8
+  const int wg = warp / 4, r0 = 16 * (warp % 4) + lane / 4, qd = lane % 4;
+  float oacc[128];
+#pragma unroll
+  for (int i = 0; i < 128; ++i) oacc[i] = 0.f;
+  float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f;
+
+  cp_async_wait<0>();
+  hopper::fence_proxy_async();
+  __syncthreads();  // q is in place
+
+  for (int i = 0; i < nslots; ++i) {
+    const int s = i % TC_STAGES;
+    hopper::mbar_wait(&full[s], (i / TC_STAGES) & 1);
+    const unsigned char* slot = ring + s * SLOT;
+    // S for this warpgroup's 16 tokens: rows r0, r0 + 8; tokens 16 wg +
+    // 8j + 2qd + {0, 1}
+    float own[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) own[k] = 0.f;
+    hopper::fence_regs<8>(own);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < LDK / 16; ++ks) {
+      const int blk = ks / 4, off = (ks % 4) * 32;
+      hopper::wgmma_ss<16, 0, 0>(
+          own, desc_sw128(qs + blk * TH * 128 + off, 16, 1024),
+          desc_sw128(slot + blk * TOK * 128 + wg * 16 * 128 + off, 16,
+                     1024), 1);
+    }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs<8>(own);
+    // trade halves with the other warpgroup's same thread (two buffers:
+    // a warpgroup writes buffer i % 2 only after both passed slot i - 1)
+    float* mine = xs + ((i % 2) * TC_THREADS + tid) * 8;
+    float* theirs = xs + ((i % 2) * TC_THREADS + (tid ^ 128)) * 8;
+    *reinterpret_cast<float4*>(mine) =
+        make_float4(own[0], own[1], own[2], own[3]);
+    *reinterpret_cast<float4*>(mine + 4) =
+        make_float4(own[4], own[5], own[6], own[7]);
+    // both warpgroups are past slot i - 1: its ring slot takes slot
+    // i + 2
+    __syncthreads();
+    if (tid == 0 && i >= 1 && i - 1 + TC_STAGES < nslots)
+      load_slot(i - 1 + TC_STAGES);
+    float oth[8];
+    {
+      const float4 x = *reinterpret_cast<const float4*>(theirs);
+      const float4 y = *reinterpret_cast<const float4*>(theirs + 4);
+      oth[0] = x.x; oth[1] = x.y; oth[2] = x.z; oth[3] = x.w;
+      oth[4] = y.x; oth[5] = y.y; oth[6] = y.z; oth[7] = y.w;
+    }
+    // sc[4j + {0,1}]: row r0, tokens 8j + 2qd + {0,1}; sc[4j + {2,3}]:
+    // row r0 + 8; j = 0..3 over the slot's 32 tokens
+    float sc[16];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        sc[4 * j + k] = (j >> 1) == wg ? own[4 * (j & 1) + k]
+                                       : oth[4 * (j & 1) + k];
+
+    // the slot's online softmax, in the log2 domain
+    const int tok0 = (lo + i * pps) * page;
+    float mx0 = NEG_INF, mx1 = NEG_INF;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int dt = 0; dt < 2; ++dt) {
+        const bool ok = tok0 + 8 * j + 2 * qd + dt < end;
+        sc[4 * j + dt] = ok ? sc[4 * j + dt] * qscale : NEG_INF;
+        sc[4 * j + 2 + dt] = ok ? sc[4 * j + 2 + dt] * qscale : NEG_INF;
+        mx0 = fmaxf(mx0, sc[4 * j + dt]);
+        mx1 = fmaxf(mx1, sc[4 * j + 2 + dt]);
+      }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+    }
+    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+    const float c0 = exp2_ftz(m0 - mn0), c1 = exp2_ftz(m1 - mn1);
+    float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int dt = 0; dt < 2; ++dt) {
+        sc[4 * j + dt] = exp2_ftz(sc[4 * j + dt] - mn0);
+        sc[4 * j + 2 + dt] = exp2_ftz(sc[4 * j + 2 + dt] - mn1);
+        s0 += sc[4 * j + dt];
+        s1 += sc[4 * j + 2 + dt];
+      }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      s0 += __shfl_xor_sync(0xffffffffu, s0, off);
+      s1 += __shfl_xor_sync(0xffffffffu, s1, off);
+    }
+    l0 = l0 * c0 + s0;
+    l1 = l1 * c1 + s1;
+    m0 = mn0;
+    m1 = mn1;
+#pragma unroll
+    for (int j = 0; j < 64; ++j) {
+      oacc[4 * j] *= c0;
+      oacc[4 * j + 1] *= c0;
+      oacc[4 * j + 2] *= c1;
+      oacc[4 * j + 3] *= c1;
+    }
+    // P as A fragments of each 16 tokens, hi and lo bf16 halves: a0
+    // (r0, 2qd), a1 (r0 + 8, 2qd), a2 (r0, 8 + 2qd), a3 (r0 + 8, 8 + 2qd)
+    uint32_t ph[TOK / 16][4], pl[TOK / 16][4];
+#pragma unroll
+    for (int t = 0; t < TOK / 16; ++t)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int at = 4 * (2 * t + (k >> 1)) + 2 * (k & 1);
+        const float x = sc[at], y = sc[at + 1];
+        const __nv_bfloat162 h2 = __floats2bfloat162_rn(x, y);
+        const __nv_bfloat162 l2 = __floats2bfloat162_rn(
+            x - __low2float(h2), y - __high2float(h2));
+        ph[t][k] = *reinterpret_cast<const uint32_t*>(&h2);
+        pl[t][k] = *reinterpret_cast<const uint32_t*>(&l2);
+      }
+    hopper::fence_regs<128>(oacc);
+#pragma unroll
+    for (int t = 0; t < TOK / 16; ++t) {
+      hopper::fence_regs<4>(ph[t]);
+      hopper::fence_regs<4>(pl[t]);
+    }
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int t = 0; t < TOK / 16; ++t) {
+      // V: columns [256 wg, 256 wg + 256) are column blocks 4wg..4wg+3
+      // (MN atoms TOK * 128 B apart), tokens 16t.. (groups of 8 rows)
+      const uint64_t dv = desc_sw128(slot + 4 * wg * TOK * 128 + t * 2048,
+                                     TOK * 128, 1024);
+      hopper::wgmma_rs<256, 1>(oacc, ph[t], dv, 1);
+      hopper::wgmma_rs<256, 1>(oacc, pl[t], dv, 1);
+    }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs<128>(oacc);
+  }
+  hopper::fence_proxy_async();
+  __syncthreads();  // q and the ring are dead: they take the accumulator
+
+#pragma unroll
+  for (int j = 0; j < 32; ++j) {
+    const int col = 256 * wg + 8 * j + 2 * qd;
+    *reinterpret_cast<float2*>(cacc + r0 * ACC_LD + col) =
+        make_float2(oacc[4 * j], oacc[4 * j + 1]);
+    *reinterpret_cast<float2*>(cacc + (r0 + 8) * ACC_LD + col) =
+        make_float2(oacc[4 * j + 2], oacc[4 * j + 3]);
+  }
+  if (wg == 0 && qd == 0) {
+    cm[r0] = m0;
+    cl[r0] = l0;
+    cm[r0 + 8] = m1;
+    cl[r0 + 8] = l1;
+  }
+  cluster.sync();  // every CTA's state is written and visible
+  const LatentState st{cm, cl, cacc, fw, inv_l};
+  switch (splits) {
+    case 1: latent_merge<1>(cluster, st, o, H, b, hb); break;
+    case 2: latent_merge<2>(cluster, st, o, H, b, hb); break;
+    case 3: latent_merge<3>(cluster, st, o, H, b, hb); break;
+    case 4: latent_merge<4>(cluster, st, o, H, b, hb); break;
+    case 5: latent_merge<5>(cluster, st, o, H, b, hb); break;
+    case 6: latent_merge<6>(cluster, st, o, H, b, hb); break;
+    case 7: latent_merge<7>(cluster, st, o, H, b, hb); break;
+    default: latent_merge<8>(cluster, st, o, H, b, hb);
+  }
+  cluster.sync();  // no CTA leaves while a peer still reads its state
+}
+
+// The latent kernel's launch: grid (splits, head blocks, B), a cluster
+// of `splits` along x; the pool as (P * page) rows of 576, boxes of 64
+// columns x page rows.
+cudaLaunchConfig_t latent_tc_config(int B, int H, int max_pages,
+                                    int splits, cudaStream_t stream,
+                                    cudaLaunchAttribute* at) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(splits, cdiv(H, TH), B);
+  cfg.blockDim = dim3(TC_THREADS);
+  cfg.dynamicSmemBytes = tc_layout(max_pages).bytes;
+  cfg.stream = stream;
+  at[0].id = cudaLaunchAttributeClusterDimension;
+  at[0].val.clusterDim.x = splits;
+  at[0].val.clusterDim.y = 1;
+  at[0].val.clusterDim.z = 1;
+  cfg.attrs = at;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+int latent_tc_attr() {
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      paged_latent_tc, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      MAX_SMEM);
+  return static_cast<int>(attr);
+}
+
+int launch_latent_tc(const void* q, const void* pool, int pool_pages,
+                     const int* table, const int* lens, void* o, int B,
+                     int H, int page, int max_pages, int splits,
+                     float qscale, cudaStream_t stream) {
+  if (const int attr = latent_tc_attr()) return attr;
+  if (tc_layout(max_pages).bytes > MAX_SMEM)
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap pool_map;
+  const uint64_t dims[2] = {LDK, static_cast<uint64_t>(pool_pages) * page};
+  const uint64_t strides[1] = {LDK * 2};
+  const uint32_t box[2] = {64, static_cast<uint32_t>(page)};
+  const int err = hopper::encode_cached(
+      &pool_map, hopper::map_shape(pool, 2, dims, strides, box));
+  if (err) return err;
+  cudaLaunchAttribute at[1];
+  const cudaLaunchConfig_t cfg =
+      latent_tc_config(B, H, max_pages, splits, stream, at);
+  cudaError_t e = cudaLaunchKernelEx(
+      &cfg, paged_latent_tc, pool_map, static_cast<const __nv_bfloat16*>(q),
+      table, lens, static_cast<__nv_bfloat16*>(o), H, page, max_pages,
+      splits, qscale);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Bytes of dynamic shared memory the kernel takes for a CTA of G query
@@ -908,21 +1372,37 @@ extern "C" int pa_forward(int dtype, const void* q, const void* kp,
 // check).
 extern "C" int pa_latent_smem_bytes(int DK, int DV, int page, int max_pages,
                                     int esz) {
-  return latent_layout(DK, DV, page, max_pages, esz).bytes;
+  return esz == 2 ? tc_layout(max_pages).bytes
+                  : latent_layout(DK, DV, page, max_pages, esz).bytes;
+}
+
+// How many clusters of `splits` bf16 latent CTAs the card runs at once
+// (cudaOccupancyMaxActiveClusters), or minus a CUDA error code: what one
+// wave of the latent kernel holds.
+extern "C" int pa_latent_max_clusters(int max_pages, int splits) {
+  if (const int attr = latent_tc_attr()) return -attr;
+  cudaLaunchAttribute at[1];
+  const cudaLaunchConfig_t cfg =
+      latent_tc_config(1, TH, max_pages, splits, nullptr, at);
+  int n = 0;
+  const cudaError_t e =
+      cudaOccupancyMaxActiveClusters(&n, paged_latent_tc, &cfg);
+  return e == cudaSuccess ? n : -static_cast<int>(e);
 }
 
 // The latent (MLA) form: q: (B, H, DK); pool: (P, page, DK), V its
 // first DV columns; table: (B, max_pages) int32; lens: (B,) int32; o:
-// (B, H, DV) — all contiguous, on the device, the pool 16-byte aligned.
-// dtype: 0 = float32, 1 = bfloat16.  Scores are scaled by `scale`.
-// Needs (DK, DV) = (576, 512), H a multiple of 16, page in {8, 16, 32}
-// and 1 <= splits <= 8.
+// (B, H, DV) — all contiguous, on the device, q and the pool 16-byte
+// aligned.  dtype: 0 = float32 (the FMA kernel), 1 = bfloat16 (the
+// tensor-core kernel).  Scores are scaled by `scale`.  Needs (DK, DV) =
+// (576, 512), H a multiple of 16, page in {8, 16, 32} and 1 <= splits <=
+// 8.
 extern "C" int pa_latent_forward(int dtype, const void* q, const void* pool,
                                  const void* table, const void* lens,
                                  void* o, int B, int H, int DK, int DV,
-                                 int page, int max_pages, int splits,
-                                 float scale, void* stream) {
-  if (DK != 576 || DV != 512 || H < LH || H % LH || splits < 1 ||
+                                 int pool_pages, int page, int max_pages,
+                                 int splits, float scale, void* stream) {
+  if (DK != LDK || DV != LDV || H < LH || H % LH || splits < 1 ||
       splits > MAX_SPLITS || (page != 8 && page != 16 && page != 32))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -933,7 +1413,7 @@ extern "C" int pa_latent_forward(int dtype, const void* q, const void* pool,
     return launch_latent<float, 576, 512>(q, pool, tb, ln, o, B, H, page,
                                           max_pages, splits, qscale, st);
   if (dtype == 1)
-    return launch_latent<__nv_bfloat16, 576, 512>(
-        q, pool, tb, ln, o, B, H, page, max_pages, splits, qscale, st);
+    return launch_latent_tc(q, pool, pool_pages, tb, ln, o, B, H, page,
+                            max_pages, splits, qscale, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

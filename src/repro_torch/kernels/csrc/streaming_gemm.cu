@@ -27,19 +27,12 @@
 //    contiguous dimension; ragged M / N / K edges are zero-filled by
 //    cp.async's src-size operand.  The tile (BM, BN) and the split S
 //    come from the caller (``plan`` in streaming_gemm.py).
-//  * gemm_bf16_grouped — the same tile walk over the experts of an MoE
-//    layer, C[e] = A[e] * B[e] for e < E, in one launch: the expert index
-//    folds into grid y (m-tiles x E), A, B and C step by per-expert
-//    strides (the (E, K, N) expert weights are read in place, row-major),
-//    and a device array counts (E,) holds each expert's kept rows.  A CTA
-//    whose m-tile starts at or beyond counts[e] returns before it loads
-//    anything, so an expert that no token chose costs no weight bytes;
-//    rows at or beyond counts[e] are neither read nor written.  The
-//    cluster spans grid z only, so all CTAs of a cluster share the count
-//    and leave together, before the first cluster barrier.
 //  * gemm_simt — any strides, fp32 / bf16 / int8 inputs, scalar FMA
 //    with an fp32 (int32 for int8) accumulator: full fp32 for fp32
 //    inputs (no TF32) and exact int8 sums that wrap on the int8 store.
+//
+// The expert-grouped products of the MoE layers run on a kernel of their
+// own (grouped_gemm.cu).
 //
 // Each launcher returns cudaGetLastError() of its launch.
 #include <cooperative_groups.h>
@@ -129,39 +122,20 @@ struct Geo {
   static_assert(WM * WN * WK == 4 && TN % 16 == 0 && TM % 8 == 0, "tile");
 };
 
-// The experts of a grouped launch: grid y is m_tiles x E; expert e reads
-// A + e * sa and B + e * sb, writes C + e * sc, and has counts[e] rows.
-struct Groups {
-  const int* counts;
-  int m_tiles;
-  int64_t sa, sb, sc;
-};
-
-// One output tile of C = A * B; with GROUPED, of expert blockIdx.y /
-// m_tiles, and nothing when that expert's rows end before the tile.
-template <int BM, int BN, bool B_KCONTIG, bool GROUPED>
+// One output tile of C = A * B.
+template <int BM, int BN, bool B_KCONTIG>
 __device__ __forceinline__ void gemm_tile(const __nv_bfloat16* __restrict__ A,
                                           const __nv_bfloat16* __restrict__ B,
                                           __nv_bfloat16* __restrict__ C,
                                           int M, int N, int K, int64_t lda,
-                                          int64_t ldb, int64_t ldc,
-                                          Groups grp) {
+                                          int64_t ldb, int64_t ldc) {
   using G = Geo<BM, BN, B_KCONTIG>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   __nv_bfloat16* Bs = As + G::STAGES * G::A_ELEMS;
   float* red = reinterpret_cast<float*>(smem_raw);  // after the main loop
 
-  int mt = blockIdx.y;
-  if constexpr (GROUPED) {
-    const int e = blockIdx.y / grp.m_tiles;
-    mt = blockIdx.y % grp.m_tiles;
-    M = min(M, max(grp.counts[e], 0));
-    if (mt * BM >= M) return;  // the whole cluster leaves: same count
-    A += e * grp.sa;
-    B += e * grp.sb;
-    C += e * grp.sc;
-  }
+  const int mt = blockIdx.y;
 
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
@@ -313,17 +287,7 @@ __global__ void __launch_bounds__(MMA_THREADS)
               const __nv_bfloat16* __restrict__ B,
               __nv_bfloat16* __restrict__ C, int M, int N, int K,
               int64_t lda, int64_t ldb, int64_t ldc) {
-  gemm_tile<BM, BN, B_KCONTIG, false>(A, B, C, M, N, K, lda, ldb, ldc,
-                                      Groups{});
-}
-
-template <int BM, int BN>
-__global__ void __launch_bounds__(MMA_THREADS)
-    gemm_bf16_grouped(const __nv_bfloat16* __restrict__ A,
-                      const __nv_bfloat16* __restrict__ B,
-                      __nv_bfloat16* __restrict__ C, int M, int N, int K,
-                      int64_t lda, int64_t ldb, int64_t ldc, Groups grp) {
-  gemm_tile<BM, BN, false, true>(A, B, C, M, N, K, lda, ldb, ldc, grp);
+  gemm_tile<BM, BN, B_KCONTIG>(A, B, C, M, N, K, lda, ldb, ldc);
 }
 
 // Launch a cluster kernel of `splits` CTAs along z with `smem` bytes of
@@ -363,26 +327,6 @@ int launch_bf16(const void* A, const void* B, void* C, int M, int N, int K,
       splits, st, static_cast<const __nv_bfloat16*>(A),
       static_cast<const __nv_bfloat16*>(B), static_cast<__nv_bfloat16*>(C),
       M, N, K, lda, ldb, ldc);
-}
-
-template <int BM, int BN>
-int launch_grouped(const void* A, const void* B, void* C, Groups grp, int E,
-                   int M, int N, int K, int64_t lda, int64_t ldb, int64_t ldc,
-                   int splits, cudaStream_t st) {
-  using G = Geo<BM, BN, false>;
-  auto kern = gemm_bf16_grouped<BM, BN>;
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, G::SMEM);
-  if (attr != cudaSuccess) return static_cast<int>(attr);
-  grp.m_tiles = (M + BM - 1) / BM;
-  const int64_t rows = static_cast<int64_t>(grp.m_tiles) * E;
-  if (rows > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  return launch_cluster(
-      kern, G::SMEM,
-      dim3((N + BN - 1) / BN, static_cast<unsigned>(rows), splits), splits,
-      st, static_cast<const __nv_bfloat16*>(A),
-      static_cast<const __nv_bfloat16*>(B), static_cast<__nv_bfloat16*>(C),
-      M, N, K, lda, ldb, ldc, grp);
 }
 
 template <int BM, bool KC>
@@ -492,32 +436,6 @@ extern "C" int sg_gemm_bf16(const void* A, const void* B, void* C, int M,
                              st);
   return dispatch_bm<false>(bm, bn, A, B, C, M, N, K, lda, ldb, ldc, splits,
                             st);
-}
-
-// C[e] = A[e] * B[e] for e < E: A (E, M, K) with row stride lda and
-// expert stride sa; B[e] row-major (K x N) with ldb and sb; C (E, M, N)
-// with ldc and sc; counts (E,) int32 on the device, the rows of each
-// expert (clamped to [0, M]).  One launch; bn is 64 or 128.
-extern "C" int sg_gemm_bf16_grouped(const void* A, const void* B, void* C,
-                                    const void* counts, int E, int M, int N,
-                                    int K, int64_t lda, int64_t sa,
-                                    int64_t ldb, int64_t sb, int64_t ldc,
-                                    int64_t sc, int bm, int bn, int bk,
-                                    int splits, void* stream) {
-  if (bk != BK || splits < 1 || splits > MAX_SPLITS || E < 1 ||
-      counts == nullptr)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const Groups grp{static_cast<const int*>(counts), 1, sa, sb, sc};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define SG_GROUPED(BM_, BN_)                                               \
-  if (bm == BM_ && bn == BN_)                                              \
-    return launch_grouped<BM_, BN_>(A, B, C, grp, E, M, N, K, lda, ldb, ldc, \
-                                    splits, st);
-  SG_GROUPED(8, 64) SG_GROUPED(8, 128) SG_GROUPED(16, 64) SG_GROUPED(16, 128)
-  SG_GROUPED(32, 64) SG_GROUPED(32, 128) SG_GROUPED(64, 64)
-  SG_GROUPED(64, 128) SG_GROUPED(128, 64) SG_GROUPED(128, 128)
-#undef SG_GROUPED
-  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // dtype: 0 = float32, 1 = bfloat16, 2 = int8

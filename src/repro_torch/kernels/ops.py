@@ -16,8 +16,9 @@ import torch
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import flash_cuda
+from repro_torch.kernels.grouped_gemm import grouped_gemm_cuda
 from repro_torch.kernels.paged_attention import paged_cuda, paged_latent_cuda
-from repro_torch.kernels.streaming_gemm import gemm_cuda, grouped_gemm_cuda
+from repro_torch.kernels.streaming_gemm import gemm_cuda
 
 LAUNCHES = {"streaming_gemm": 0, "streaming_gemm_grouped": 0,
             "flash_attention": 0, "paged_attention": 0,

@@ -47,17 +47,18 @@ decode (deepseek-v3-671b): 128 query heads of 576 over ONE latent KV
 head of 576 columns whose first 512 are also V, in one pool (P, page,
 1, 576), with the caller's scale (1/√192).  ``head_groups`` would cut
 128 heads of 576 into 43 groups that each walk the same pages; instead
-a CTA of eight warps holds ``LATENT_HEADS`` = 16 query heads and stages
-each page once in shared memory, where QKᵀ and PV both read it; the
-pages of a sequence split over a cluster of ``latent_plan`` CTAs and
-merge as above.  P stays fp32.
+a CTA holds a block of query heads and stages each page once in shared
+memory, where QKᵀ and PV both read it; the pages of a sequence split
+over a cluster of ``latent_plan`` CTAs and merge as above.  P stays
+fp32.  In bf16 (the served path) a CTA holds ``LATENT_HEADS`` = 64
+heads and runs both products on tensor cores (``wgmma``; PV as bf16 hi
+and lo halves of P), its pages brought by TMA into a ring of 3 slots of
+32 tokens; in fp32 (on no served path) an FMA kernel holds 16.
 
-What still bounds it: a fixed cost of about 7 µs per launch (the
-cluster launch, its barriers and merge, and two dependent round trips to
-device memory: the length and table row, then the first pages — the
-step the TPU kernel's scalar prefetch hid), and the serial chain of a
-page inside one warp (QKᵀ, shuffles, PV), at most two pages per warp at
-the main path's shapes.
+What still bounds it: the serial walk of a CTA's pages (a slot's QKᵀ,
+softmax and PV) and a fixed cost per launch (the cluster launch, the
+length and table row, then the first pages; the merge through
+distributed shared memory).
 """
 from __future__ import annotations
 
@@ -139,28 +140,64 @@ def walkers(G: int, D: int, page: int, max_pages: int, esz: int) -> int:
 
 
 LATENT_DIMS = ((576, 512),)  # (q/k dim, v dim) of the latent form
-LATENT_HEADS = 16               # query heads per CTA of the latent form
+LATENT_HEADS = 64               # query heads per CTA, bf16 (tensor cores)
+LATENT_HEADS_F32 = 16           # query heads per CTA, fp32 (FMA)
+LATENT_TOKENS = 32              # tokens a slot of the bf16 kernel's walk
+LATENT_FIXED_SLOTS = 4          # a CTA's fixed cost, in slots walked
+# clusters of S bf16 latent CTAs (one an SM, ~205 KB of shared memory) the
+# H100 runs at once, S = 1..8: cudaOccupancyMaxActiveClusters through
+# ``pa_latent_max_clusters`` (an 8-CTA cluster needs 8 free SMs of one
+# GPC, so 15 fit, not 132 / 8)
+LATENT_CLUSTERS = (132, 66, 39, 30, 22, 17, 15, 15)
 _LATENT_ARGS = [_I32, _VP, _VP, _VP, _VP, _VP, _I32, _I32, _I32, _I32, _I32,
-                _I32, _I32, ctypes.c_float, _VP]
+                _I32, _I32, _I32, ctypes.c_float, _VP]
 
 
-def latent_plan(B: int, H: int, max_pages: int) -> int:
+def latent_plan(B: int, H: int, max_pages: int, page: int = 16,
+                esz: int = 2) -> int:
     """How many CTAs (one cluster) share a sequence's pages in the latent
-    form: as many as keep the B · H / ``LATENT_HEADS`` · S CTAs (one per
-    SM: each holds 256 threads of ~150 registers) within one wave of the
-    card's SMs, at most ``MAX_SPLITS`` and at most half the table's
-    width."""
-    rows = B * (H // LATENT_HEADS)
-    return max(1, min(MAX_SPLITS, _cdiv(max_pages, 2), SMS // max(rows, 1)))
+    form.  A CTA walks its share of a full table, ⌈max_pages / S⌉ pages
+    (in bf16, slots of 32 tokens), after a fixed cost of about
+    ``LATENT_FIXED_SLOTS`` slots; the B · ⌈H / heads⌉ clusters run in
+    waves of as many as the card holds at once (``LATENT_CLUSTERS``;
+    fp32: 132 / S).  The plan is the S of 1..``MAX_SPLITS`` (at most the
+    table's width) with the least waves · (walk + fixed cost), the
+    fewest CTAs on a tie: a wide table buys splits until a cluster size
+    no longer fits one wave.  ``esz``: the element size (2: bf16, 64
+    heads a CTA; 4: fp32, 16 heads, page by page)."""
+    bf16 = esz == 2
+    rows = B * _cdiv(H, LATENT_HEADS if bf16 else LATENT_HEADS_F32)
+
+    def cost(s):
+        walk = _cdiv(max_pages, s)
+        if bf16:
+            walk = _cdiv(walk * page, LATENT_TOKENS)
+            waves = _cdiv(rows, LATENT_CLUSTERS[s - 1])
+        else:
+            waves = _cdiv(rows * s, SMS)
+        return waves * (walk + LATENT_FIXED_SLOTS)
+
+    return min(range(1, max(1, min(MAX_SPLITS, max_pages)) + 1),
+               key=lambda s: (cost(s), s))
 
 
 def latent_smem_bytes(D: int, dv: int, page: int, max_pages: int,
                       esz: int) -> int:
-    """The latent kernel's dynamic shared memory, as ``latent_layout``
-    in the source computes it: fp32 scratch (scores, probabilities,
-    corrections, the CTA's m and l, merge weights), the table row, then
-    two page slots of rows padded by 16 bytes, which the CTA's fp32
-    (16, dv) accumulator takes over after the walk."""
+    """The latent kernel's dynamic shared memory, as ``tc_layout`` (bf16)
+    or ``latent_layout`` (fp32) in the source computes it.  bf16: 1 KB of
+    alignment slack, q (64 heads x 576, 72 KB), a ring of 3 slots of 32
+    tokens of 1,152 B rows and two buffers of S halves (16 KB), which the
+    CTA's fp32 (64, dv + 8) accumulator takes over after the walk; a
+    barrier a slot, the CTA's m and l, the merge weights, 1 / l and the
+    table row.  fp32: fp32 scratch (scores, probabilities, corrections, m
+    and l, merge weights), the table row, then two page slots of rows
+    padded by 16 bytes, which the CTA's fp32 (16, dv) accumulator takes
+    over after the walk."""
+    if esz == 2:
+        main = max(9 * LATENT_HEADS * 128 + 3 * 9 * 32 * 128 + 16384,
+                   LATENT_HEADS * (dv + 8) * 4)
+        return 1024 + main + 8 * 3 + 4 * LATENT_HEADS * 3 \
+            + 4 * MAX_SPLITS * LATENT_HEADS + 4 * max_pages
     words = 16 * 33 + 32 * 16 + 3 * 16 + MAX_SPLITS * 16 + 16 + max_pages
     ring = 2 * page * (D * esz + 16)
     return _cdiv(4 * words, 16) * 16 + max(ring, 16 * dv * 4)
@@ -177,11 +214,11 @@ def paged_latent_cuda(q, pool, table, lens, dv: int,
         raise ValueError(f"paged latent shapes q{tuple(q.shape)} "
                          f"pool{tuple(pool.shape)}")
     P, page = pool.shape[:2]
-    if (D, dv) not in LATENT_DIMS or H % LATENT_HEADS or H == 0 \
+    if (D, dv) not in LATENT_DIMS or H % LATENT_HEADS_F32 or H == 0 \
             or page not in PAGE_SIZES:
         raise ValueError(f"paged latent: dims ({D}, {dv}) not in "
                          f"{LATENT_DIMS}, {H} heads not a multiple of "
-                         f"{LATENT_HEADS} or page {page} not in "
+                         f"{LATENT_HEADS_F32} or page {page} not in "
                          f"{PAGE_SIZES}")
     if table.dim() != 2 or table.shape[0] != B or tuple(lens.shape) != (B,):
         raise ValueError(f"paged table{tuple(table.shape)} "
@@ -210,8 +247,9 @@ def paged_latent_cuda(q, pool, table, lens, dv: int,
     code = _build.function("paged_attention", "pa_latent_forward",
                            _LATENT_ARGS)(
         _DTYPES[q.dtype], _build.ptr(q), _build.ptr(pool), _build.ptr(table),
-        _build.ptr(lens), _build.ptr(out), B, H, D, dv, page, max_pages,
-        latent_plan(B, H, max_pages), float(scale), _build.stream(q.device))
+        _build.ptr(lens), _build.ptr(out), B, H, D, dv, P, page, max_pages,
+        latent_plan(B, H, max_pages, page, q.element_size()), float(scale),
+        _build.stream(q.device))
     _build.check(code, "paged_latent_attention")
     return out
 

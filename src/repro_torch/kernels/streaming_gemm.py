@@ -39,17 +39,8 @@ fp32 and int8 inputs, and bf16 operands whose rows are not 16-byte
 aligned, take a scalar-FMA tiled kernel in the same source: full fp32
 (no TF32) and exact int32 sums that wrap on the int8 store.
 
-``grouped_gemm_cuda(a, b, counts)`` runs the bf16 kernel's tile walk
-(``gemm_bf16_grouped``) over the experts of an MoE layer in one launch:
-C[e] = A[e]·B[e] for A (E, C,
-K), B (E, K, N) read in place and ``counts`` (E,) int32 on the card,
-the kept rows of each expert.  The expert index folds into the grid's
-y axis; a CTA whose m-tile lies wholly at or beyond its expert's count
-leaves before it reads any byte, so an expert no token chose costs no
-weight traffic.  Rows at or beyond the count are not written.  It
-replaces no Pallas kernel (the reference computes these products as an
-XLA einsum, ``models/moe.py:115-118``); it is the streaming GEMM
-applied per expert.
+The expert-grouped products of the MoE layers run on a kernel of their
+own, ``grouped_gemm.py`` (``csrc/grouped_gemm.cu``).
 """
 from __future__ import annotations
 
@@ -65,8 +56,6 @@ _MMA_ARGS = [_VP, _VP, _VP, _I32, _I32, _I32, _I64, _I64, _I32, _I64,
              _I32, _I32, _I32, _I32, _VP]
 _SIMT_ARGS = [_I32, _VP, _VP, _VP, _I32, _I32, _I32, _I64, _I64, _I64,
               _I64, _I64, _VP]
-_GROUPED_ARGS = [_VP, _VP, _VP, _VP, _I32, _I32, _I32, _I32, _I64, _I64,
-                 _I64, _I64, _I64, _I64, _I32, _I32, _I32, _I32, _VP]
 
 
 # The Hopper block chooser.  H100 SXM constants; nothing here is a TPU
@@ -85,10 +74,9 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def plan(M: int, N: int, K: int, groups: int = 1) -> tuple:
+def plan(M: int, N: int, K: int) -> tuple:
     """``(bm, bn, bk, splits)`` for the bf16 kernel at C (M, N) = A (M, K)
-    · B (K, N), or at ``groups`` such products in one launch (each m-tile
-    of each group is a row of output tiles).
+    · B (K, N).
 
     - ``bm`` is the smallest token tile that holds M (at most 128): a
       decode batch of 8 stages 8 rows.
@@ -106,7 +94,7 @@ def plan(M: int, N: int, K: int, groups: int = 1) -> tuple:
     slower at each of them.  Every ``bn`` x ``bk`` tile of bf16 B is a
     whole number of 4 KB pages."""
     bm = next((b for b in BMS if M <= b), BMS[-1])
-    m_tiles = groups * _cdiv(M, bm)
+    m_tiles = _cdiv(M, bm)
     bn = next((b for b in BNS
                if m_tiles * _cdiv(N, b) * MAX_SPLITS >= TARGET_CTAS),
               BNS[-1])
@@ -114,13 +102,6 @@ def plan(M: int, N: int, K: int, groups: int = 1) -> tuple:
     splits = max(1, min(MAX_SPLITS, _cdiv(K, BK) // MIN_K_TILES,
                         TARGET_CTAS // tiles))
     return bm, bn, BK, splits
-
-
-def plan_grouped(E: int, C: int, N: int, K: int) -> tuple:
-    """``plan``'s rules for E experts of C rows each: E x m-tiles rows of
-    output tiles.  The plan counts every expert; the counts, which lie
-    on the card, are not read here."""
-    return plan(C, N, K, groups=E)
 
 
 def _aligned16(t: torch.Tensor) -> bool:
@@ -173,48 +154,4 @@ def gemm_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
                   _build.ptr(out), M, N, K, a.stride(0), a.stride(1),
                   b.stride(0), b.stride(1), N, st)
     _build.check(code, "streaming_gemm")
-    return out
-
-
-def grouped_gemm_cuda(a: torch.Tensor, b: torch.Tensor,
-                      counts: torch.Tensor) -> torch.Tensor:
-    """Launch the expert-grouped kernel: a (E, C, K) and b (E, K, N) bf16
-    CUDA tensors, each expert's slice row-major with 16-byte aligned
-    rows and experts (the stacked expert weights as they lie), counts
-    (E,) int32 on the same card.  Returns (E, C, N) bf16 in which rows
-    ``[counts[e], C)`` of expert e are left unwritten."""
-    if a.dim() != 3 or b.dim() != 3 or a.shape[0] != b.shape[0] \
-            or a.shape[2] != b.shape[1]:
-        raise ValueError(f"grouped gemm shapes {tuple(a.shape)} x "
-                         f"{tuple(b.shape)}")
-    E, C, K = a.shape
-    N = b.shape[2]
-    if a.dtype != torch.bfloat16 or b.dtype != torch.bfloat16:
-        raise TypeError(f"grouped gemm needs bf16 operands, got {a.dtype}, "
-                        f"{b.dtype}")
-    if counts.dtype != torch.int32 or tuple(counts.shape) != (E,) \
-            or not counts.is_contiguous():
-        raise ValueError("counts must be a contiguous (E,) int32 tensor")
-    if not (a.is_cuda and b.is_cuda and counts.is_cuda
-            and a.device == b.device == counts.device):
-        raise ValueError("grouped_gemm_cuda needs every operand on one "
-                         "CUDA device")
-    if a.stride(2) != 1 or b.stride(2) != 1 or K % 8 or N % 8 \
-            or any(s % 8 for s in a.stride()[:2] + b.stride()[:2]) \
-            or not _aligned16(a) or not _aligned16(b):
-        raise ValueError(
-            f"grouped gemm layout not taken: a strides {a.stride()}, b "
-            f"strides {b.stride()}, K {K}, N {N} (row-major experts with "
-            "16-byte aligned rows)")
-    out = torch.empty((E, C, N), dtype=a.dtype, device=a.device)
-    if E == 0 or C == 0 or N == 0:
-        return out
-    bm, bn, bk, splits = plan_grouped(E, C, N, K)
-    fn = _build.function("streaming_gemm", "sg_gemm_bf16_grouped",
-                         _GROUPED_ARGS)
-    code = fn(_build.ptr(a), _build.ptr(b), _build.ptr(out),
-              _build.ptr(counts), E, C, N, K, a.stride(1), a.stride(0),
-              b.stride(1), b.stride(0), N, C * N, bm, bn, bk, splits,
-              _build.stream(a.device))
-    _build.check(code, "streaming_gemm_grouped")
     return out

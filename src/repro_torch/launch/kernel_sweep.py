@@ -30,14 +30,16 @@ columns, scale 1/√192) at 8 x 272, a ragged mix up to 1,024 and 1 x
 1,024, at every cluster size, beside SDPA over a contiguous copy of the
 latent rows.
 The expert-grouped GEMM runs at
-qwen2-moe-a2.7b's gate/up (2,048 -> 1,408) and down (1,408 -> 2,048)
-products over 60 experts, at decode (C = 8, 8 tokens routed top-4) and
-prefill (C = 512, 512 tokens), each at every bn and split, beside
-``torch.bmm`` over the whole (E, C, K) buffer.
+qwen2-moe-a2.7b's (60 experts, 2,048 <-> 1,408) and deepseek-v3's (256
+experts, 7,168 <-> 2,048) gate/up and down products, at decode (8
+tokens) and prefill (512 / 256 tokens), and at deepseek-v3's absorbed
+per-head products, each at every ring depth and at half or all of the
+SMs, beside ``torch.bmm`` over the whole (E, C, K) buffer.
 
 This is the tool that chose the rules of ``streaming_gemm.plan``,
-``flash_attention.plan`` and ``paged_attention.plan``; it needs a card
-and exits without one.
+``grouped_gemm.plan_grouped``, ``flash_attention.plan``,
+``paged_attention.plan`` and ``paged_attention.latent_plan``; it needs a
+card and exits without one.
 """
 from __future__ import annotations
 
@@ -54,6 +56,7 @@ import torch
 from repro_torch.kernels import _build, ops, ref
 
 SG = importlib.import_module("repro_torch.kernels.streaming_gemm")
+GG = importlib.import_module("repro_torch.kernels.grouped_gemm")
 FA = importlib.import_module("repro_torch.kernels.flash_attention")
 PA = importlib.import_module("repro_torch.kernels.paged_attention")
 GEMM_KN = ((896, 896), (896, 128), (896, 4864), (4864, 896), (896, 152064))
@@ -187,47 +190,64 @@ def _sweep_gemm(result, randn, dms, main_fn):
 
 
 def _sweep_grouped(result, randn, dms, g, dev):
-    E, k, d, f = 60, 4, 2048, 1408
-    for what, n in (("decode", 8), ("prefill", 512)):
-        top_e = torch.rand((n, E), generator=g, device=dev).topk(k).indices
-        counts = torch.bincount(top_e.reshape(-1), minlength=E) \
-            .to(torch.int32)
-        C = n
+    """The grouped kernel's knobs, the ring's stages (3-6) and the grid
+    (half or all of the SMs), at qwen2-moe-a2.7b's products (60 experts,
+    2,048 <-> 1,408, top-4) and deepseek-v3's (256 experts, 7,168 <->
+    2,048, top-8), each at decode (8 tokens) and prefill (512 / 256
+    tokens), and at the absorbed decode's per-head products (128 heads,
+    128 -> 512 and 512 -> 128, 8 rows, the heads of a token-major
+    tensor)."""
+    cases = []
+    for E, k, d, f, n_pre in ((60, 4, 2048, 1408, 512),
+                              (256, 8, 7168, 2048, 256)):
+        for what, n in (("decode", 8), ("prefill", n_pre)):
+            top_e = torch.rand((n, E), generator=g, device=dev).topk(k) \
+                .indices
+            counts = torch.bincount(top_e.reshape(-1), minlength=E) \
+                .to(torch.int32)
+            for prod, K, N in (("gate/up", d, f), ("down", f, d)):
+                cases.append((f"E={E} {what} {prod}", E, n, K, N, counts,
+                              False))
+    heads = torch.full((128,), 8, dtype=torch.int32, device=dev)
+    cases += [("absorbed q_nope W_uk", 128, 8, 128, 512, heads, True),
+              ("absorbed o_lat W_uv", 128, 8, 512, 128, heads, True)]
+    for what, E, C, K, N, counts, strided in cases:
         rows = torch.arange(C, device=dev)[None, :] < counts[:, None]
-        for prod, K, N in (("gate/up", d, f), ("down", f, d)):
+        if strided:
+            a = randn(C, E, K).transpose(0, 1)
+        else:
             a = randn(E, C, K)
             a[~rows] = 0
-            b = randn(E, K, N, scale=K ** -0.5)
-            want = ref.grouped_gemm_ref(a, b)[rows].float()
-            chosen = SG.plan_grouped(E, C, N, K)
-            times, plan_grouped = {}, SG.plan_grouped
-            try:
-                for bn in (64, 128):
-                    for s in range(1, SG.MAX_SPLITS + 1):
-                        if s > 1 and -(-K // SG.BK) // s < SG.MIN_K_TILES:
-                            continue
-                        plan = (chosen[0], bn, SG.BK, s)
-                        SG.plan_grouped = lambda *_, p=plan: p
-                        got = ops.grouped_streaming_gemm(a, b, counts)
-                        err = (got[rows].float() - want).abs().max().item()
-                        if err > 2e-2 + 2e-2 * want.abs().max().item():
-                            raise AssertionError(f"grouped {what} {prod} "
-                                                 f"{plan}: {err}")
-                        t = dms(lambda: ops.grouped_streaming_gemm(
-                            a, b, counts))
-                        if t > 0:  # a window the profiler dropped reads 0
-                            times[plan] = t
-            finally:
-                SG.plan_grouped = plan_grouped
-            ranked = sorted(times, key=times.get)
-            row = {"what": f"{what} {prod}", "shape": [E, C, K, N],
-                   "rows": int(counts.sum()),
-                   "experts_touched": int((counts > 0).sum()),
-                   "plan": list(chosen), "plan_ms": times.get(chosen),
-                   "best": [[list(p), times[p]] for p in ranked[:6]],
-                   "library_ms": dms(lambda: torch.bmm(a, b))}
-            result["grouped"].append(row)
-            print("[grouped] " + json.dumps(row), flush=True)
+        b = randn(E, K, N, scale=K ** -0.5)
+        want = ref.grouped_gemm_ref(a, b, counts)[rows].float()
+        chosen = GG.plan_grouped(E, C, N, K)
+        times, plan_grouped = {}, GG.plan_grouped
+        try:
+            for grid in (GG.SMS // 2, GG.SMS):
+                for stages in range(GG.MIN_STAGES, GG.MAX_STAGES + 1):
+                    plan = (min(grid, chosen[0]), stages, chosen[2])
+                    if plan in times:
+                        continue
+                    GG.plan_grouped = lambda *_, p=plan: p
+                    got = ops.grouped_streaming_gemm(a, b, counts)
+                    err = (got[rows].float() - want).abs().max().item()
+                    if err > 2e-2 + 2e-2 * want.abs().max().item():
+                        raise AssertionError(f"grouped {what} {plan}: {err}")
+                    t = dms(lambda: ops.grouped_streaming_gemm(a, b, counts))
+                    if t > 0:  # a window the profiler dropped reads 0
+                        times[plan] = t
+        finally:
+            GG.plan_grouped = plan_grouped
+        ranked = sorted(times, key=times.get)
+        row = {"what": what, "shape": [E, C, K, N],
+               "rows": int(counts.sum()),
+               "experts_touched": int((counts > 0).sum()),
+               "plan": list(chosen), "plan_ms": times.get(chosen),
+               "best": [[list(p), times[p]] for p in ranked[:6]],
+               "library_ms": dms(lambda: torch.bmm(a, b))}
+        result["grouped"].append(row)
+        print("[grouped] " + json.dumps(row), flush=True)
+        del a, b
 
 
 def _sweep_flash(result, randn, dms, F):
@@ -293,7 +313,7 @@ def _sweep_latent(result, randn, dms, F, g, dev, H=128, D=576, dv=512):
         qq, tt = q[:n].contiguous(), table[:n].contiguous()
         want = ref.paged_ref(qq, pool, pool, tt, ln, dv=dv,
                              scale=scale).float()
-        chosen = PA.latent_plan(n, H, mp)
+        chosen = PA.latent_plan(n, H, mp, page)
         times, plan = {}, PA.latent_plan
         try:
             for s in range(1, PA.MAX_SPLITS + 1):

@@ -326,10 +326,18 @@ class PagedKVCache(PageTable):
             table=torch.from_numpy(self.tables[slots]).to(dev),
             lens=torch.from_numpy(self.lens[slots].copy()).to(dev))
 
+    def _need_v_pool(self, what: str) -> None:
+        if self.v_pages is None:
+            raise ValueError(
+                f"{what} needs separate K and V pools; this cache holds "
+                "one latent pool (v_pool=False: k_pages holds each "
+                "token's latent row, whose first columns are V)")
+
     def page_dicts(self, slots, layer: int = 0):
         """``({page_id: page}, {page_id: page})`` views of ``layer``'s K
         and V pools for the pages the given slots hold: the ``paged``
         input of ``core.streaming.execute_plan``."""
+        self._need_v_pool("page_dicts")
         pids = sorted({int(p) for s in slots if self.active[s]
                        for p in self.tables[s, :int(self.held[s])]})
         k, v = self.k_pages[layer], self.v_pages[layer]
@@ -337,5 +345,6 @@ class PagedKVCache(PageTable):
 
     def layer_flat(self, layer: int):
         """This layer's (k, v) pools viewed as (P·page, KH, hd) rows."""
+        self._need_v_pool("layer_flat")
         k, v = self.k_pages[layer], self.v_pages[layer]
         return (k.view(-1, *k.shape[2:]), v.view(-1, *v.shape[2:]))

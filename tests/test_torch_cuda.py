@@ -15,9 +15,10 @@ cluster-split paged kernel at every split S = 1..8 with edge lengths,
 at the main path's shape, bitwise repeatable and one launch per call;
 the same for its query-head groups at granite-20b's G·D = 6,144 (48
 heads of 128 over one KV head, 3 groups) and at 2 KV heads of 2 groups.
-The expert-grouped GEMM of the MoE layers at qwen2-moe-a2.7b's decode
-and prefill shapes and at ragged ones (N and K off the tiles), with
-counts of 0, C and mid-tile, bitwise repeatable and one launch per call.
+The expert-grouped GEMM of the MoE layers at qwen2-moe-a2.7b's and
+deepseek-v3's decode and prefill shapes, the absorbed decode's products
+(strided heads) and ragged ones (N and K off the tiles), with counts of
+0, C and mid-chunk, bitwise repeatable and one launch per call.
 Last, page streaming on the card: the page store's pinned host pages
 and device pages, the layer streamer's side-stream fetches (DM and DC
 equal DevMem bit for bit through the GEMM kernel), Algorithm 1 on the
@@ -446,44 +447,57 @@ def test_cuda_paged_head_groups_deterministic_and_one_launch():
 # ----------------------------------------------- expert-grouped GEMM
 # (E, C, N, K): qwen2-moe-a2.7b's gate/up and down products at decode
 # (C = 8) and at a 64-token prefill, then N and K off the 64/128 tiles
+# (300 rows: five chunks of 64), then deepseek-v3's decode gate/up, a
+# prefill-like buffer of 256 rows whose mixed counts are ~8 an expert (a
+# 256-token prompt routed top-8 over 256 experts), and the absorbed
+# decode's q_nope x W_uk (128 heads as groups)
 GROUPED_SHAPES = [(60, 8, 1408, 2048), (60, 8, 2048, 1408),
-                  (60, 64, 1408, 2048), (7, 40, 200, 136), (5, 300, 136, 264)]
+                  (60, 64, 1408, 2048), (7, 40, 200, 136), (5, 300, 136, 264),
+                  (256, 8, 2048, 7168), (256, 256, 2048, 7168),
+                  (128, 8, 512, 128)]
+ROUTED_MEAN = {(256, 256, 2048, 7168): 8}
 
 
 def _grouped_inputs(shape, counts, dev, seed=0):
     """A (E, C, K) with rows at or beyond each count zeroed (as the MoE
-    dispatch leaves them), expert weights (E, K, N), counts on the card."""
+    dispatch leaves them), expert weights (E, K, N), counts on the card;
+    seeded normals drawn on the card (deepseek-v3's expert stack is 3.8 G
+    values)."""
     E, C, N, K = shape
-    rng = np.random.default_rng(seed)
-    a = _bf16(rng, (E, C, K), dev)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    a = torch.randn((E, C, K), generator=g, device=dev).to(torch.bfloat16)
     counts = torch.as_tensor(counts, dtype=torch.int32, device=dev)
     a[torch.arange(C, device=dev)[None, :] >= counts[:, None]] = 0
-    b = _bf16(rng, (E, K, N), dev, scale=K ** -0.5)
+    b = (torch.randn((E, K, N), generator=g, device=dev) * K ** -0.5).to(
+        torch.bfloat16)
     return a, b, counts
 
 
-def _grouped_counts(E, C, rng):
-    """Per expert: 0, C, 1, a count that ends inside an m-tile, random."""
+def _grouped_counts(E, C, rng, mean=None):
+    """Per expert: 0, C, 1, a count that ends inside a chunk, then random
+    (uniform over 0..C, or Poisson of ``mean`` clipped to C)."""
     fixed = [0, C, 1, max(1, C - 3)]
-    return [fixed[e] if e < len(fixed) else int(rng.integers(0, C + 1))
-            for e in range(E)]
+    return [fixed[e] if e < len(fixed) else
+            int(rng.integers(0, C + 1)) if mean is None else
+            int(min(C, rng.poisson(mean))) for e in range(E)]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", GROUPED_SHAPES, ids=str)
 def test_cuda_grouped_gemm_matches_plain_version(shape):
     """Rows below each expert's count within 2e-2 of the plain version,
-    for mixed counts, all counts 0 (every CTA leaves at once) and all
-    counts C."""
+    for mixed counts, all counts 0 (no work item: every CTA leaves at
+    once) and all counts C."""
     dev = _card()
     E, C, N, K = shape
     rng = np.random.default_rng(sum(shape))
-    for counts in (_grouped_counts(E, C, rng), [0] * E, [C] * E):
+    mixed = _grouped_counts(E, C, rng, ROUTED_MEAN.get(shape))
+    for counts in (mixed, [0] * E, [C] * E):
         a, b, cnt = _grouped_inputs(shape, counts, dev, seed=C)
         before = ops.LAUNCHES["streaming_gemm_grouped"]
         got = ops.grouped_streaming_gemm(a, b, cnt)
         assert ops.LAUNCHES["streaming_gemm_grouped"] == before + 1
-        want = ref.grouped_gemm_ref(a, b)
+        want = ref.grouped_gemm_ref(a, b, cnt)
         torch.cuda.synchronize()
         rows = torch.arange(C, device=dev)[None, :] < cnt[:, None]
         assert got.shape == (E, C, N) and got.dtype == torch.bfloat16
@@ -512,6 +526,39 @@ def test_cuda_grouped_gemm_is_deterministic_and_one_launch():
     types = _graph_node_types(lambda: ops.grouped_streaming_gemm(a, b, cnt))
     assert types == [0, 0, 0], types
     assert ops.LAUNCHES["streaming_gemm_grouped"] == before + 3
+
+
+@pytest.mark.cuda
+def test_cuda_grouped_gemm_reads_strided_heads():
+    """The absorbed decode's operand as the model passes it: the heads of
+    a token-major (n, H, K) tensor, (H, n, K) with expert stride K (the
+    token map's dims reorder to keep strides increasing), at n = 3 rows
+    (fewer than a token box's 8): within 2e-2 of the plain version."""
+    dev = _card()
+    rng = np.random.default_rng(3)
+    for n, K, N in ((3, 128, 512), (8, 512, 128)):
+        a = _bf16(rng, (n, 128, K), dev).transpose(0, 1)
+        b = _bf16(rng, (128, K, N), dev, scale=K ** -0.5)
+        cnt = torch.full((128,), n, dtype=torch.int32, device=dev)
+        got = ops.grouped_streaming_gemm(a, b, cnt)
+        want = ref.grouped_gemm_ref(a, b)
+        np.testing.assert_allclose(got.cpu().float().numpy(),
+                                   want.cpu().float().numpy(),
+                                   rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.cuda
+def test_cuda_grouped_gemm_shared_memory_estimate_matches_the_kernel():
+    """The plan's shared-memory count is what the kernel launches with."""
+    import ctypes
+    from repro_torch.kernels import _build
+    _card()
+    GG = importlib.import_module("repro_torch.kernels.grouped_gemm")
+    fn = _build.function("grouped_gemm", "gg_smem_bytes", [ctypes.c_int] * 3)
+    for E in (1, 60, 256, 1024):
+        for stages in (3, 6):
+            for nt in (8, 64):
+                assert fn(E, stages, nt) == GG.smem_bytes(E, stages, nt)
 
 
 @pytest.mark.cuda
@@ -892,9 +939,10 @@ def test_cuda_paged_latent_every_split_at_edge_lengths(splits, page, dtype,
                                                        monkeypatch):
     """The latent form at every cluster size S = 1..8 (forced through
     ``latent_plan``) and 8-, 16- and 32-token pages: 32 query heads (two
-    head blocks) of 576 over one latent pool, V its first 512 columns,
-    lengths 1, page - 1, page, page + 1 and 1,024; fp32 within 3e-5,
-    bf16 within 2e-2 of the plain version."""
+    fp32 head blocks of 16; one bf16 block of 64 with 32 heads masked)
+    of 576 over one latent pool, V its first 512 columns, lengths 1,
+    page - 1, page, page + 1 and 1,024; fp32 within 3e-5, bf16 (tensor
+    cores, P as bf16 hi + lo) within 2e-2 of the plain version."""
     dev = _card()
     monkeypatch.setattr(PA, "latent_plan", lambda *_: splits)
     dt = getattr(torch, dtype)
@@ -918,7 +966,7 @@ def test_cuda_paged_latent_decode_shape_deterministic_one_launch():
     within 2e-2 of the plain version, the same bits on every run, one
     kernel per call (counted from a captured CUDA graph)."""
     dev = _card()
-    assert PA.latent_plan(8, 128, 64) == 2
+    assert PA.latent_plan(8, 128, 64) == 6
     for lens in ([272] * 8, [1024, 700, 272, 1, 0, 16, 17, 555]):
         args = _latent_card(lens, 128, 16, 64, torch.bfloat16, dev)
         before = ops.LAUNCHES["paged_latent_attention"]
@@ -958,6 +1006,22 @@ def test_cuda_paged_latent_shared_memory_estimate_matches_the_kernel():
     with pytest.raises(ValueError):
         ops.paged_latent_attention(q[:, :8].contiguous(), pool, table, ln,
                                    512, MLA_SCALE)
+
+
+@pytest.mark.cuda
+def test_cuda_latent_cluster_table_matches_the_card():
+    """``latent_plan`` counts waves with ``LATENT_CLUSTERS``, the clusters
+    of S bf16 latent CTAs the H100 runs at once: the card's own count
+    (cudaOccupancyMaxActiveClusters at the kernel's shared memory) must
+    match, or the table is stale."""
+    import ctypes
+    from repro_torch.kernels import _build
+    _card()
+    if "H100" not in torch.cuda.get_device_name(0):
+        pytest.skip("the table is the H100's")
+    fn = _build.function("paged_attention", "pa_latent_max_clusters",
+                         [ctypes.c_int] * 2)
+    assert tuple(fn(64, s) for s in range(1, 9)) == PA.LATENT_CLUSTERS
 
 
 @pytest.mark.cuda

@@ -249,17 +249,20 @@ def test_init_scales_in_place_with_the_same_values():
 
 def test_moe_path_shapes_at_256_experts():
     """The existing MoE path at deepseek-v3's widths: the router's 7,168
-    x 256 and the absorbed products take the tensor-core layout (N and
-    K multiples of 8), and ``plan_grouped`` plans 256 experts at decode
-    and at a 256-token prefill."""
-    from repro_torch.kernels.streaming_gemm import mma_layout, plan_grouped
+    x 256 takes the tensor-core layout (N and K multiples of 8), and
+    ``plan_grouped`` plans 256 experts at decode and at a 256-token
+    prefill: one CTA per SM, a token ring of 8 rows at decode and of 64
+    (the largest chunk) at prefill, within the shared memory."""
+    from repro_torch.kernels import grouped_gemm as GG
+    from repro_torch.kernels.streaming_gemm import mma_layout
     x = torch.zeros(8, 7168, dtype=torch.bfloat16)
     router = torch.zeros(7168, 256, dtype=torch.bfloat16)
     assert mma_layout(x, router) == (False, 256)
     for C in (8, 256):
         for N, K in ((2048, 7168), (7168, 2048)):
-            bm, bn, bk, splits = plan_grouped(256, C, N, K)
-            assert bm > 0 and bn > 0 and bk > 0 and 1 <= splits <= 8
+            grid, stages, nt_max = GG.plan_grouped(256, C, N, K)
+            assert grid == GG.SMS and nt_max == min(C, GG.CHUNK)
+            assert GG.smem_bytes(256, stages, nt_max) <= GG.SMEM_LIMIT
 
 
 # ------------------------------------------------------------ blocks
@@ -545,6 +548,28 @@ def test_latent_pool_and_shadow_table_count_the_same_pages(pair):
         assert eng._table.pages_in_use == eng.cache.pages_in_use
     assert steps and eng.deferred_admissions > 0 and eng.n_finished == 5
     assert eng.cache.pages_in_use == eng._table.pages_in_use == 0
+
+
+@pytest.mark.parametrize("what", ["page_dicts", "layer_flat"])
+def test_latent_cache_refuses_the_k_and_v_views(what):
+    """A cache of one latent pool (``v_pool=False``) has no V pool to
+    view: ``page_dicts`` and ``layer_flat`` raise a ``ValueError`` that
+    names the latent pool, not a ``TypeError`` from indexing None; a
+    cache with both pools still gives both views."""
+    from repro_torch.serving.kv_cache import PagedCacheConfig
+    cfg = PagedCacheConfig(n_pages=4, page_tokens=4, n_kv_heads=1,
+                           head_dim=24, max_pages_per_seq=2)
+    latent = PagedKVCache(cfg, max_seqs=2, n_layers=1, device="cpu",
+                          v_pool=False)
+    assert latent.alloc_seq(0, 3)
+    call = {"page_dicts": lambda c: c.page_dicts([0], 0),
+            "layer_flat": lambda c: c.layer_flat(0)}[what]
+    with pytest.raises(ValueError, match="latent pool"):
+        call(latent)
+    both = PagedKVCache(cfg, max_seqs=2, n_layers=1, device="cpu")
+    assert both.alloc_seq(0, 3)
+    k, v = call(both)
+    assert len(k) == len(v) > 0
 
 
 def test_serve_launcher_takes_the_arch_with_a_depth_cut(capsys,

@@ -28,7 +28,7 @@ from repro_torch.models import moe as PM  # noqa: E402
 from repro_torch.models import tuning as PTU  # noqa: E402
 from repro_torch.models.params import to_torch  # noqa: E402
 
-SG = importlib.import_module("repro_torch.kernels.streaming_gemm")
+GG = importlib.import_module("repro_torch.kernels.grouped_gemm")
 
 ARCH = "qwen2_moe_a2_7b"
 TOL = {"float32": 2e-3, "bfloat16": 1e-2}
@@ -181,18 +181,34 @@ def test_grouped_gemm_ref_matches_per_expert_gemm(dtype):
                                      (60, 512, 2048, 1408),
                                      (8, 24, 96, 64)])
 def test_plan_grouped_counts_every_experts_tiles(E, C, N, K):
-    """``plan_grouped`` is ``plan``'s rule with E x m-tiles rows of
-    output tiles: the token tile holds C (up to 128 rows), each B tile
-    is whole 4 KB pages, the split keeps two k-tiles, and the grid's y
-    axis (m-tiles x E) stays within CUDA's 65,535."""
-    bm, bn, bk, splits = SG.plan_grouped(E, C, N, K)
-    assert (bm, bn, bk, splits) == SG.plan(C, N, K, groups=E)
-    assert bm == next((b for b in SG.BMS if C <= b), SG.BMS[-1])
-    assert (bn * bk * 2) % SG.PAGE_BYTES == 0
-    assert 1 <= splits <= SG.MAX_SPLITS
-    assert splits == 1 or -(-K // bk) // splits >= SG.MIN_K_TILES
-    tiles = E * -(-C // bm) * -(-N // bn)
-    assert tiles * splits <= max(SG.TARGET_CTAS, tiles)
-    assert E * -(-C // bm) <= 65535
-    assert SG.plan_grouped(1, C, N, K) == SG.plan(C, N, K)
+    """``plan_grouped`` sizes the persistent grid from every expert's
+    work items, E x ceil(C / 64) row chunks x ceil(N / 128) column tiles
+    (which experts are touched is known only on the card), capped at one
+    CTA per SM; the token ring holds the largest chunk, min(64, C)
+    rounded up to 8 rows; the ring takes as many of 3-6 stages as the
+    shared memory holds."""
+    grid, stages, nt_max = GG.plan_grouped(E, C, N, K)
+    items = E * -(-C // GG.CHUNK) * -(-N // GG.TILE_N)
+    assert grid == min(GG.SMS, items)
+    assert nt_max == min(GG.CHUNK, -(-C // 8) * 8)
+    assert GG.MIN_STAGES <= stages <= GG.MAX_STAGES
+    assert GG.smem_bytes(E, stages, nt_max) <= GG.SMEM_LIMIT
+    assert stages == GG.MAX_STAGES or \
+        GG.smem_bytes(E, stages + 1, nt_max) > GG.SMEM_LIMIT
 
+
+@pytest.mark.parametrize("E", [1, 60, 256, 1024])
+@pytest.mark.parametrize("C", [3, 8, 65, 300])
+@pytest.mark.parametrize("N,K", [(8, 8), (2048, 7168)])
+def test_plan_grouped_bounds(E, C, N, K):
+    """At every shape the kernel takes: 1 <= grid <= the SMs, a token
+    ring of 8-64 rows (a multiple of 8) that holds any chunk, 3-6
+    stages, within the shared memory; and the plan reads only shapes
+    (``sms`` defaults to the H100's 132)."""
+    grid, stages, nt_max = GG.plan_grouped(E, C, N, K)
+    assert 1 <= grid <= GG.SMS
+    assert 8 <= nt_max <= GG.CHUNK and nt_max % 8 == 0
+    assert nt_max >= min(C, GG.CHUNK)
+    assert GG.MIN_STAGES <= stages <= GG.MAX_STAGES
+    assert GG.smem_bytes(E, stages, nt_max) <= GG.SMEM_LIMIT
+    assert GG.plan_grouped(E, C, N, K, sms=8)[0] <= 8

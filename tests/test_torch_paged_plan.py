@@ -102,6 +102,72 @@ def test_main_path_walkers():
     assert PA.walkers(16, 128, 32, 6, 4) == 2
 
 
+@pytest.mark.parametrize("b,h,max_pages,page,esz,want", [
+    (8, 128, 64, 16, 2, 6),    # deepseek-v3's decode: 16 clusters; 15 of 7
+    (1, 128, 64, 16, 2, 8),    # a lone sequence: 2 clusters of 8
+    (16, 128, 64, 16, 2, 3),   # 32 clusters: 39 of 3 fit a wave, 30 of 4
+    (8, 128, 2, 16, 2, 1),     # two 16-token pages fill one slot
+    (3, 16, 8, 16, 2, 4),      # 16 heads: one block of 64, masked
+    (8, 128, 128, 8, 2, 6),    # 8-token pages: four a slot
+    (8, 128, 64, 16, 4, 2),    # fp32: 16 heads a CTA, 64 rows, page walk
+    (5, 32, 0, 16, 2, 1),      # an empty table
+])
+def test_latent_plan_rule(b, h, max_pages, page, esz, want):
+    assert PA.latent_plan(b, h, max_pages, page, esz) == want
+
+
+def _latent_cost(b, h, max_pages, page, esz, s):
+    walk = _cdiv(max_pages, s)
+    if esz == 2:
+        rows = b * _cdiv(h, PA.LATENT_HEADS)
+        walk = _cdiv(walk * page, PA.LATENT_TOKENS)
+        waves = _cdiv(rows, PA.LATENT_CLUSTERS[s - 1])
+    else:
+        waves = _cdiv(b * _cdiv(h, PA.LATENT_HEADS_F32) * s, PA.SMS)
+    return waves * (walk + PA.LATENT_FIXED_SLOTS)
+
+
+@pytest.mark.parametrize("b", [1, 8, 33])
+@pytest.mark.parametrize("h", [16, 128])
+@pytest.mark.parametrize("max_pages", [0, 3, 64])
+@pytest.mark.parametrize("esz", [2, 4])
+def test_latent_plan_bounds(b, h, max_pages, esz):
+    """1 <= S <= 8 and never more ranks than the table has pages; no
+    other S costs fewer waves x (walk + fixed cost), and a tie keeps the
+    fewest CTAs; the H100's cluster table never holds more CTAs than
+    SMs."""
+    s = PA.latent_plan(b, h, max_pages, 16, esz)
+    assert 1 <= s <= min(PA.MAX_SPLITS, max(1, max_pages))
+    cost = _latent_cost(b, h, max_pages, 16, esz, s)
+    for other in range(1, min(PA.MAX_SPLITS, max(1, max_pages)) + 1):
+        c = _latent_cost(b, h, max_pages, 16, esz, other)
+        assert c > cost or (c == cost and other >= s)
+    assert all(n * (k + 1) <= PA.SMS
+               for k, n in enumerate(PA.LATENT_CLUSTERS))
+
+
+def test_latent_plan_weighs_the_table_width():
+    """At deepseek-v3's 8 x 128 heads (16 clusters) the split grows with
+    the table's width, a slot of 32 tokens at a time, until the cluster
+    size no longer fits one wave (15 clusters of 7 or 8 do not hold 16):
+    a wide table buys splits, a narrow one leaves no rank without a
+    slot's work; with more sequences a wider table never takes fewer
+    splits."""
+    got = [PA.latent_plan(8, 128, mp) for mp in (1, 2, 3, 4, 8, 64, 128)]
+    assert got == [1, 1, 2, 2, 4, 6, 6]
+    for b in (16, 33, 66):
+        splits = [PA.latent_plan(b, 128, mp) for mp in (2, 8, 64, 1024)]
+        assert splits == sorted(splits)
+
+
+def test_latent_plan_reads_only_shapes():
+    """``latent_plan`` takes shapes, not tensors: the lengths stay on the
+    device and each CTA reads its own."""
+    import inspect
+    assert list(inspect.signature(PA.latent_plan).parameters) == \
+        ["B", "H", "max_pages", "page", "esz"]
+
+
 def _page_state(q, k, v, pos0, length, state):
     """One page of the online softmax, fp32, as a warp of the kernel does
     it (natural log domain; the kernel's log2 domain is the same up to
