@@ -23,16 +23,25 @@ Phases, in order; any failure raises and exits non-zero:
    a ragged mix of lengths up to 1,024, at 8 x 272 tokens (on the path),
    8 x 1,024 and 1 x 1,024, each beside SDPA over the same K/V gathered
    into a contiguous cache (what the page indirection costs; a
-   yardstick the port never calls).
+   yardstick the port never calls).  The INT8 KV cache's two kernels:
+   the int8-pool paged kernel at qwen2-0.5b's and qwen1.5-32b's 8 x 272
+   and mixed 64-1,024 shapes (timed, beside SDPA over a contiguous
+   dequantized copy), granite-20b's query-head groups, whisper-tiny's D
+   64 and lens 0 (untimed); the quantize-and-append kernel bit for bit
+   against its plain version at qwen1.5-32b's decode and 256-token
+   prefill rows and qwen2-0.5b's decode rows, timed.
 3. Serve qwen2-0.5b at full width (random weights from ``--seed``) with
    ``ServingEngine``: 8 slots, 16-token (4 KB) pages, 16 requests of
    64-512 prompt tokens and 32 new tokens each.  Launch counts are
    zeroed just before and read just after; every kernel of the dense
    path must have run.
 4. Profile five full-batch decode steps: device time by kernel beside
-   the unprofiled wall time per step (the device's busy share); each
-   GEMM and paged wrapper call must be exactly one device kernel.  A
-   window the profiler recorded empty is profiled again (3 at most).
+   the unprofiled wall time per step (the device's busy share).  One
+   more step runs with every wrapper call captured into a CUDA graph:
+   each GEMM and paged wrapper call must be exactly one kernel node (the
+   counts come from the graphs, not the profiler, which now and then
+   loses launches).  A window the profiler recorded empty is profiled
+   again (3 at most).
 5. Run one request (64-token prefill + 4 decode steps) on the card and
    again on the CPU, where every wrapper takes its plain version, and
    compare the logits.
@@ -94,7 +103,17 @@ Phases, in order; any failure raises and exits non-zero:
    The first two layers, a 64-token prefill and 4 decode steps on the
    card and on the CPU, logits within E2E_TOL x max(1, max|logit|);
    internvl2-2b also prefills from 256 seeded bf16 embeddings of width
-   2,048 on both.  Each sub-phase's seconds are printed.
+   2,048 on both.  Each sub-phase's seconds are printed.  (e) After
+   qwen1.5-32b's bf16 run, with its weights still loaded, the INT8 KV
+   cache (``Tuning(kv_cache_quant=True)``): the bf16 pool freed, an int8
+   pool sized from the free memory (int8 values plus fp16 scales, slots
+   of 2,048 tokens; its pages and GB printed); 8 requests served, six of
+   64-256 prompt tokens and two of 1,536, 8 new tokens each (the int8
+   paged and the quantize kernel must run, the bf16 paged kernel must
+   not); three full-batch decode steps profiled (64 int8 paged and 64
+   quantize launches a step, each one kernel node, no ``index_put``
+   left); the first 2 layers on the card against the CPU under the same
+   tuning.
 9. whisper-tiny (encoder-decoder: 4 + 4 layers, d 384, 6 / 6 heads of
    64; random bf16 weights from ``--seed``) through ``Model`` at full
    width and depth.  (a) Each kernel at its shapes, kept as each row's
@@ -162,7 +181,8 @@ Phases, in order; any failure raises and exits non-zero:
    (flips counted by experts changed), outputs of the tokens routed
    alike within E2E_TOL x max(1, max|y|).
 13. Print the ``kernels`` JSON line (each kernel's launches from its own
-   path's serving run, every path's counts beside), the card line, and
+   path's serving run, the int8 kernels' from phase 8e's, every path's
+   counts beside), the card line, and
    last the result line ``{"ok": true, "device": {...}}``.
 """
 import argparse
@@ -378,6 +398,118 @@ def paged_entry(torch, timer, what, q, kp, vp, table, ln, on_path):
 
 
 PAGED_KEYS = ("ms", "plain_ms", "contiguous_sdpa_ms", "bound_ms")
+QUANT_KEYS = ("ms", "plain_ms", "bound_ms")
+
+
+def int8_pools(torch, randn, P, page, KH, D):
+    """int8 K and V pools (P, page, KH, D) with their (P, KH, page) fp16
+    scale pools, quantized from seeded bf16 values by the plain
+    version."""
+    from repro_torch.kernels import ref
+    out = []
+    for _ in range(2):
+        codes, scales = ref.kv_quantize_ref(randn(P, page, KH, D))
+        out.append((codes, scales.permute(0, 2, 1).contiguous()))
+    return out[0][0], out[1][0], out[0][1], out[1][1]
+
+
+def paged_int8_entry(torch, timer, what, q, kp, vp, ks, vs, table, ln,
+                     on_path, timed=True):
+    """The int8-pool paged kernel at one shape against its plain version
+    (BF16_TOL), and, when ``timed``, the kernel, the plain version, SDPA
+    over a contiguous dequantized copy of the same K/V (the yardstick: no
+    PyTorch call reads int8 pools with scales; the port never calls it)
+    and the bound: q and the output once, the table and lengths, and
+    each cached token's K and V codes and fp16 scales once."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.paged_attention import launch_plan
+    n, H, D = q.shape
+    P, page, KH, _ = kp.shape
+    max_pages = table.shape[1]
+    groups, splits = launch_plan(n, H, KH, D, max_pages)
+
+    def kernel():
+        return ops.paged_attention(q, kp, vp, table, ln, ks, vs)
+
+    def plain():
+        return ref.paged_ref(q, kp, vp, table, ln, k_scale=ks, v_scale=vs)
+
+    err = check_close(f"paged int8 {what}", kernel(), plain(), BF16_TOL)
+    r = {"shape": {"q": [n, H, D], "pool": [P, page, KH, D],
+                   "lens": ln.tolist()}, "what": what, "on_path": on_path,
+         "plan": splits, "head_groups": groups, "max_abs_err": err}
+    msg = ""
+    if timed:
+        n_tok = int(ln.sum())
+        bms, by = bound(2 * 2 * n * H * D + 4 * n * (max_pages + 1)
+                        + 2 * n_tok * KH * (D + 2), 4 * H * D * n_tok)
+        t = table.long()
+
+        def deq(pool, sc):
+            return (pool[t].float() * sc[t].permute(0, 1, 3, 2)[..., None]
+                    .float()).to(torch.bfloat16) \
+                .reshape(n, max_pages * page, KH, D).transpose(1, 2) \
+                .contiguous()
+
+        kc, vc = deq(kp, ks), deq(vp, vs)
+        mask = (torch.arange(max_pages * page, device=q.device)[None]
+                < ln[:, None])[:, None, None, :]
+
+        def sdpa():
+            return F.scaled_dot_product_attention(
+                q[:, :, None, :], kc, vc, attn_mask=mask, enable_gqa=True)
+
+        r.update({"ms": timer(kernel), "plain_ms": timer(plain),
+                  "contiguous_sdpa_ms": timer(sdpa), "bound_ms": bms,
+                  "bound_by": by})
+        msg = (f" kernel {r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms "
+               f"dequantized contiguous SDPA {r['contiguous_sdpa_ms']:.4f} "
+               f"ms bound {bms:.4f} ms ({by})")
+    print(f"[paged_attention_int8] {what} H={H}/{KH} D={D} (groups "
+          f"{groups}, plan S={splits}, on_path {on_path}): err {err:.3g} "
+          f"(tol {BF16_TOL}){msg}", flush=True)
+    return r
+
+
+def kv_quant_entry(torch, timer, what, n, KH, D, on_path, randn, g):
+    """The quantize-and-append kernel for ``n`` tokens of KH heads of D
+    into 16-token pages at seeded rows: codes and scales equal to its
+    plain version's bit for bit, then timed beside the plain version and
+    its bound (each bf16 value read once, each code and fp16 scale
+    written once, the rows read once)."""
+    from repro_torch.kernels import ops, ref
+    page = 16
+    P = -(-n // page) * 2 + 8
+    dev = g.device
+    rows = torch.randperm(P * page, generator=g, device=dev)[:n]
+    k, v = randn(n, KH, D, scale=3.0), randn(n, KH, D)
+    pools = [torch.zeros((P, page, KH, D), dtype=torch.int8, device=dev)
+             for _ in range(2)]
+    pools += [torch.zeros((P, KH, page), dtype=torch.float16, device=dev)
+              for _ in range(2)]
+    want = [t.clone() for t in pools]
+    ops.kv_quantize_append(k, v, rows, *pools)
+    ref.kv_quantize_append_ref(k, v, rows, *want)
+    torch.cuda.synchronize()
+    bad = [name for name, a, b in zip(("k", "v", "k_scale", "v_scale"),
+                                      pools, want) if not torch.equal(a, b)]
+    require(not bad, f"kv_quantize {what}: {bad} differ from the plain "
+            "version")
+    # about 4 fp32 operations a value (|x| and the max, the quotient,
+    # the rounding), on the CUDA cores
+    bms, by = bound(2 * n * KH * D * 2 + 8 * n + 2 * n * KH * (D + 2),
+                    4 * 2 * n * KH * D, FP32_FLOP_PER_S)
+    r = {"shape": [n, KH, D], "what": what, "on_path": on_path,
+         "bitwise": True, "max_abs_err": 0.0,
+         "ms": timer(lambda: ops.kv_quantize_append(k, v, rows, *pools)),
+         "plain_ms": timer(lambda: ref.kv_quantize_append_ref(
+             k, v, rows, *want)),
+         "bound_ms": bms, "bound_by": by}
+    print(f"[kv_quantize] {what} n={n} KH={KH} D={D} (on_path {on_path}): "
+          f"codes and scales bitwise; kernel {r['ms']:.4f} ms plain "
+          f"{r['plain_ms']:.4f} ms bound {bms:.4f} ms ({by})", flush=True)
+    return r
 
 
 def phase_kernels(torch, args, dev, timer):
@@ -498,28 +630,98 @@ def phase_kernels(torch, args, dev, timer):
         "max_abs_err": max(r["max_abs_err"] for r in per_shape),
         **summary(per_shape, PAGED_KEYS),
         "library_ms": None, "per_shape": per_shape}
+    rows.update(phase_int8_kernels(torch, timer, randn, g))
+    return rows
+
+
+def phase_int8_kernels(torch, timer, randn, g):
+    """Phase 2, the INT8 KV cache's two kernels.  The int8-pool paged
+    kernel at qwen2-0.5b's (14 / 2 heads of 64) and qwen1.5-32b's (40 /
+    40 heads of 128) 8 x 272 and mixed 64-1,024 shapes, timed (on the
+    int8 path: qwen1.5-32b's 8 x 272, the decode profile's context);
+    granite-20b's query-head groups (48 / 1 heads of 128), whisper's D 64
+    (6 / 6 heads) and lens 0 untimed.  The quantize-and-append kernel
+    bitwise at qwen1.5-32b's decode (8 tokens) and 256-token prefill
+    rows (on the path) and qwen2-0.5b's decode rows, timed."""
+    dev = g.device
+    B, page, max_pages = 8, 16, 64
+    P = B * max_pages + 16
+    table = torch.randperm(P, generator=g, device=dev)[:B * max_pages] \
+        .reshape(B, max_pages).to(torch.int32)
+    mixed = torch.randint(64, 1025, (B,), generator=g, device=dev) \
+        .to(torch.int32)
+    mixed[0] = 1024
+    fixed = torch.full((B,), 272, dtype=torch.int32, device=dev)
+    edge = torch.tensor([0, 1, page, page * max_pages, 0, 17, 272, 1000],
+                        dtype=torch.int32, device=dev)
+    per_shape, untimed = [], []
+    for arch, H, KH, D, timed in (("qwen2-0.5b", 14, 2, 64, True),
+                                  ("qwen1.5-32b", 40, 40, 128, True),
+                                  ("granite-20b", 48, 1, 128, False),
+                                  ("whisper-tiny", 6, 6, 64, False)):
+        q = randn(B, H, D)
+        kp, vp, ks, vs = int8_pools(torch, randn, P, page, KH, D)
+        cases = ((("8 x 272", fixed), ("mixed 64-1024", mixed)) if timed
+                 else (("8 x 272", fixed), ("edge", edge)))
+        for what, ln in cases:
+            r = paged_int8_entry(
+                torch, timer, f"{arch} {what}", q, kp, vp, ks, vs, table, ln,
+                arch == "qwen1.5-32b" and what == "8 x 272", timed)
+            (per_shape if timed else untimed).append(r)
+        if timed:
+            r = paged_int8_entry(torch, timer, f"{arch} lens 0", q, kp, vp,
+                                 ks, vs, table, torch.zeros_like(fixed),
+                                 False, False)
+            untimed.append(r)
+    rows = {"paged_attention_int8": {
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
+        "replaces": "src/repro/kernels/paged_attention.py:34",
+        "reference_int8_decode": "src/repro/models/layers.py:148",
+        "tol": BF16_TOL,
+        "max_abs_err": max(r["max_abs_err"] for r in per_shape + untimed),
+        **summary(per_shape, PAGED_KEYS),
+        "library_ms": None, "per_shape": per_shape, "untimed": untimed}}
+    per_shape = [kv_quant_entry(torch, timer, what, n, KH, D, on_path,
+                                randn, g)
+                 for what, n, KH, D, on_path in (
+                     ("qwen1.5-32b decode", 8, 40, 128, True),
+                     ("qwen1.5-32b prefill 256", 256, 40, 128, True),
+                     ("qwen2-0.5b decode", 8, 2, 64, False))]
+    rows["kv_quantize"] = {
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/kv_quant.cu",
+        "replaces": "src/repro/models/layers.py:264",
+        "note": "no Pallas original: the reference quantizes in XLA",
+        "tol": 0.0, "max_abs_err": 0.0,
+        **summary(per_shape, QUANT_KEYS), "library_ms": None,
+        "per_shape": per_shape}
     return rows
 
 
 def phase_serving(torch, args, cfg, params, kernels, new_tokens=32,
                   tag="serving", n_requests=16, prompt_max=512,
-                  pool_pages=None, absent=()):
+                  pool_pages=None, absent=(), max_seq=1024,
+                  prompt_lens=None, tuning=None):
     """Serve ``n_requests`` requests of 64-``prompt_max`` prompt tokens
-    and ``new_tokens`` new tokens each on 8 slots of 16-token pages
-    (``max_seq`` 1,024; a pool of ``pool_pages`` pages, by default room
-    for every slot's 1,024; an ssm model's state store instead, a hybrid
-    model's beside it), after
-    an untimed warm-up request.  The launch counts are zeroed just
-    before and read just after; each of ``kernels`` must have run, and
-    none of ``absent``."""
+    (or of ``prompt_lens``) and ``new_tokens`` new tokens each on 8 slots
+    of 16-token pages (``max_seq`` tokens a slot; a pool of
+    ``pool_pages`` pages, by default room for every slot's ``max_seq``;
+    an ssm model's state store instead, a hybrid model's beside it),
+    after an untimed warm-up request; the engines are built under
+    ``tuning`` (the INT8 KV cache's pool is made then).  The launch
+    counts are zeroed just before and read just after; each of
+    ``kernels`` must have run, and none of ``absent``."""
     import numpy as np
     from repro_torch.kernels import ops
+    from repro_torch.models import tuning as TU
     from repro_torch.serving.engine import Request, ServingEngine
 
     def engine():
-        return ServingEngine(cfg, params, slots=8, max_seq=1024,
-                             kv_page_tokens=16, kv_pool_pages=pool_pages,
-                             device="cuda")
+        with TU.tuning_context(tuning or TU.get()):
+            return ServingEngine(cfg, params, slots=8, max_seq=max_seq,
+                                 kv_page_tokens=16, kv_pool_pages=pool_pages,
+                                 device="cuda")
 
     rng = np.random.default_rng(args.seed)
     warm = engine()                       # first-call set-up, not timed
@@ -531,17 +733,23 @@ def phase_serving(torch, args, cfg, params, kernels, new_tokens=32,
     eng = engine()
     store = {}
     if cfg.family != "ssm":
-        pools = [p for p in (eng.cache.k_pages, eng.cache.v_pages)
+        c = eng.cache
+        pools = [p for p in (c.k_pages, c.v_pages, c.k_scale, c.v_scale)
                  if p is not None]
-        store = {"kv_pool_mb": sum(p.numel() for p in pools) * 2 / 1e6,
-                 "kv_pool_pages": eng.cache.cfg.n_pages}
+        store = {"kv_pool_mb": sum(p.numel() * p.element_size()
+                                   for p in pools) / 1e6,
+                 "kv_pool_pages": c.cfg.n_pages,
+                 "kv_pool_dtype": str(c.k_pages.dtype)}
     states = eng.cache if cfg.family == "ssm" else eng.cache.state
     if states is not None:
         store["state_mb"] = states.nbytes / 1e6
-    reqs = [Request(uid=i, prompt=rng.integers(
-        1, cfg.vocab_size - 1, int(rng.integers(64, prompt_max + 1)))
-        .astype(np.int32), max_new_tokens=new_tokens)
-        for i in range(n_requests)]
+    reqs = []
+    for i in range(n_requests if prompt_lens is None else len(prompt_lens)):
+        n = int(rng.integers(64, prompt_max + 1)) if prompt_lens is None \
+            else prompt_lens[i]
+        reqs.append(Request(uid=i, prompt=rng.integers(
+            1, cfg.vocab_size - 1, n).astype(np.int32),
+            max_new_tokens=new_tokens))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
@@ -571,7 +779,9 @@ def phase_serving(torch, args, cfg, params, kernels, new_tokens=32,
     require(not stray, f"main path launched {stray}, which it must not")
     ttft = sorted(r.first_token_s - r.submitted_s for r in reqs)
     tokens = sum(len(r.output) for r in reqs)
-    res = {"model": cfg.name, "requests": len(reqs), "tokens_out": tokens,
+    res = {"model": cfg.name, "requests": len(reqs),
+           "prompt_tokens": [len(r.prompt) for r in reqs],
+           "max_seq": max_seq, "tokens_out": tokens,
            "wall_s": wall, "tokens_per_s": tokens / wall,
            "ttft_p50_ms": float(np.percentile(ttft, 50)) * 1e3,
            "ttft_p95_ms": float(np.percentile(ttft, 95)) * 1e3,
@@ -586,17 +796,18 @@ def phase_serving(torch, args, cfg, params, kernels, new_tokens=32,
 
 
 def phase_card_vs_cpu(torch, args, cfg, params, n_layers=None,
-                      tag="card_vs_cpu"):
+                      tag="card_vs_cpu", tuning=None):
     """One request, a 64-token prefill and 4 decode steps, on the card and
     on the CPU (every wrapper's plain version), logits within E2E_TOL x
     max(1, max|logit|); with ``n_layers``, only the first ``n_layers``
-    layers (full width).  For a config that takes embeddings, also a
-    prefill from 256 seeded bf16 embeddings, held the same way; for an
-    ssm or hybrid model, each layer's final scan state, held the same
-    way."""
+    layers (full width); both caches are made under ``tuning``.  For a
+    config that takes embeddings, also a prefill from 256 seeded bf16
+    embeddings, held the same way; for an ssm or hybrid model, each
+    layer's final scan state, held the same way."""
     import dataclasses
 
     import numpy as np
+    from repro_torch.models import tuning as TU
     from repro_torch.models.model import Model
     from repro_torch.models.params import params_to
 
@@ -618,7 +829,8 @@ def phase_card_vs_cpu(torch, args, cfg, params, n_layers=None,
 
     def run(device, p):
         m = Model(cfg, device=device)
-        cache = m.init_cache(2, 256, page_tokens=16)
+        with TU.tuning_context(tuning or TU.get()):
+            cache = m.init_cache(2, 256, page_tokens=16)
         cache.alloc_seq(0, 64)
         out = [m.prefill(p, prompt[None].to(m.device), cache, [0])]
         for t in forced:
@@ -639,6 +851,8 @@ def phase_card_vs_cpu(torch, args, cfg, params, n_layers=None,
     require(card.shape == (rows, cfg.padded_vocab) and
             bool(card.isfinite().all()), "card logits malformed")
     res = {"layers": cfg.n_layers}
+    if tuning is not None:
+        res["tuning"] = repr(tuning)
     # the token request's 5 rows, then the embedding prefill's row
     for what, sl in (("tokens", slice(0, 5)), ("embeddings", slice(5, 6))):
         if sl.start >= rows:
@@ -663,32 +877,22 @@ def phase_card_vs_cpu(torch, args, cfg, params, n_layers=None,
     return res
 
 
-def _kernel_group(name):
-    for key, group in (("grouped_wgmma", "streaming_gemm_grouped"),
-                       ("gemm_bf16", "streaming_gemm"),
-                       ("gemm_simt", "streaming_gemm"),
-                       ("flash_bf16", "flash_attention"),
-                       ("flash_f32", "flash_attention"),
-                       ("paged_fwd", "paged_attention"),
-                       ("paged_latent", "paged_latent_attention")):
-        if key in name:
-            return group
-    return "other (torch ops)"
-
-
 def phase_profile(torch, args, cfg, params, n_steps=5, tag="decode_profile",
                   one_kernel=("streaming_gemm", "paged_attention"),
-                  tries=3, pool_pages=None, prompt_len=256):
+                  tries=3, pool_pages=None, prompt_len=256, max_seq=1024,
+                  tuning=None):
     """Where a full-batch decode step's time goes: ``profile_steps`` over
     the engine's decode steps of 8 slots (prompts of ``prompt_len``
-    tokens)."""
+    tokens; the engine built under ``tuning``)."""
     import numpy as np
+    from repro_torch.models import tuning as TU
     from repro_torch.serving.engine import Request, ServingEngine
 
     rng = np.random.default_rng(args.seed + 2)
-    eng = ServingEngine(cfg, params, slots=8, max_seq=1024,
-                        kv_page_tokens=16, kv_pool_pages=pool_pages,
-                        device="cuda")
+    with TU.tuning_context(tuning or TU.get()):
+        eng = ServingEngine(cfg, params, slots=8, max_seq=max_seq,
+                            kv_page_tokens=16, kv_pool_pages=pool_pages,
+                            device="cuda")
     for i in range(8):
         eng.submit(Request(uid=i, prompt=rng.integers(
             1, cfg.vocab_size - 1, prompt_len).astype(np.int32),
@@ -704,14 +908,19 @@ def profile_steps(torch, step, model, context, n_steps, tag, one_kernel,
     ``step`` (one decode step of 8 slots whose context starts at
     ``context`` tokens), beside the same number of unprofiled steps'
     wall time before it.  The profiler only reads the device's kernel
-    times here; the wall time comes from the unprofiled steps.  Each
-    wrapper of ``one_kernel`` must make exactly one device kernel per
-    call.  The profiler now and then drops a window or part of one: a
-    window with no device kernel, or with fewer kernels of such a
-    wrapper than its calls, is profiled again, up to ``tries`` windows;
-    then the check fails on what the last window read."""
+    times here; the wall time comes from the unprofiled steps, and the
+    kernel counts from one more step whose wrapper calls are captured
+    into CUDA graphs (``kernel_nodes.step_calls``): each wrapper of
+    ``one_kernel`` must make exactly one device kernel per call, and
+    every node a wrapper call captures must be a kernel of that wrapper,
+    by its name (no memset, copy or library kernel).  A window that
+    recorded no device kernel is
+    profiled again, up to ``tries`` windows.  The host's
+    ``aten::index_put_`` calls a step (the KV scatter into a float pool)
+    are counted from the same window."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import kernel_nodes as KN
     from repro_torch.kernels import ops
 
     torch.cuda.synchronize()
@@ -734,43 +943,52 @@ def profile_steps(torch, step, model, context, n_steps, tag, one_kernel,
         per_step = {k: n / n_steps for k, n in ops.LAUNCHES.items()}
         groups: dict = {}
         kernels: dict = {}
-        odd = []      # kernels whose count is not a whole number a step
+        index_put = 0
         for ev in prof.key_averages():
             if ev.device_type != DeviceType.CUDA:  # host ops double-count
+                if ev.key == "aten::index_put_":
+                    index_put += ev.count
                 continue
             us = getattr(ev, "self_device_time_total", None)
             if us is None:
                 us = getattr(ev, "self_cuda_time_total", 0)
             if us > 0:
-                g = _kernel_group(ev.key)
+                g = KN.kernel_group(ev.key)
                 groups[g] = groups.get(g, 0.0) + us / 1e3 / n_steps
                 kernels[g] = kernels.get(g, 0) + ev.count / n_steps
-            if ev.count % n_steps:
-                odd.append(f"{ev.key[:120]!r} x{ev.count} {us:.1f} us")
-        short = [n for n in one_kernel if kernels.get(n, 0) < per_step[n]]
-        if groups and not short:
+        if groups:
             break
-        print(f"[{tag}] window {window}: the profiler lost device kernels "
-              f"({short or 'all'}); kernels of an odd count: {odd}",
-              flush=True)
+        print(f"[{tag}] window {window}: the profiler recorded no device "
+              "kernel", flush=True)
     require(groups, f"{tag}: {tries} profiler windows held no device kernel")
+    calls = KN.step_calls(step)
+    stray = KN.strays(calls)
+    nodes = {k: sum(len(c) for c in calls.get(k, ())) for k in ops.LAUNCHES}
+    counted = {k: len(calls.get(k, ())) for k in ops.LAUNCHES}
     busy = sum(groups.values())
     res = {"model": model, "slots": 8,
-           "context": f"{context}-{context + (1 + window) * n_steps}",
+           "context": f"{context}-{context + (1 + window) * n_steps + 1}",
            "steps": n_steps, "windows": window,
            "wall_ms_per_step": wall_ms, "device_ms_per_step": groups,
            "device_busy_share": busy / wall_ms,
            "launches_per_step": per_step,
-           "device_kernels_per_step": kernels,
-           "device_kernels_total_per_step": sum(kernels.values()),
+           "graph_kernel_nodes_per_step": nodes,
+           "graph_stray_nodes": len(stray),
+           "profiler_kernels_per_step": kernels,
+           "profiler_kernels_total_per_step": sum(kernels.values()),
+           "aten_index_put_per_step": index_put / n_steps,
            "peak_mem_gb": peak_gb}
     print(f"[{tag}] " + json.dumps(res), flush=True)
-    # one device kernel per wrapper call: no hidden second pass
+    # one device kernel per wrapper call, counted from the graphs: no
+    # hidden second pass, and no launch lost by a profiler window
     for name in one_kernel:
-        if kernels.get(name) != per_step[name]:
-            raise AssertionError(f"{name}: {kernels.get(name)} device "
-                                 f"kernels per step for {per_step[name]} "
-                                 f"wrapper calls")
+        if not nodes[name] == counted[name] == per_step[name]:
+            raise AssertionError(
+                f"{name}: {nodes[name]} device kernels in a step for "
+                f"{counted[name]} wrapper launches ({per_step[name]} a "
+                "profiled step)")
+    require(not stray, f"{tag}: wrapper calls captured nodes that are not "
+            f"their own kernel: {stray[:4]}")
     return res
 
 
@@ -1352,22 +1570,29 @@ DENSE_ARCHS = ("internvl2-2b", "chatglm3-6b", "granite-20b", "qwen1.5-32b")
 POOL_MARGIN_BYTES = 2 * 2**30
 
 
-def kv_pool_pages(torch, cfg, slots=8, max_seq=1024, page_tokens=16):
+def kv_pool_pages(torch, cfg, slots=8, max_seq=1024, page_tokens=16,
+                  int8=False):
     """The serving phases' KV pool in pages: what the card's free memory
     holds after the weights (``mem_get_info`` and the allocator's cached
     free bytes) less ``POOL_MARGIN_BYTES``, at most every slot's
     ``max_seq`` tokens.  Every dense variant but qwen1.5-32b (70.4 GB of
-    weights) gets that cap."""
+    weights) gets that cap.  A page's bytes are the cache's own
+    (``PagedCacheConfig.page_bytes``: an ``int8`` page, the INT8 KV
+    cache's, counts its fp16 scales)."""
     torch.cuda.empty_cache()
     free, _ = torch.cuda.mem_get_info()
     free += torch.cuda.memory_reserved() - torch.cuda.memory_allocated()
     from repro_torch.models.transformer import kv_geometry, kv_layers
+    from repro_torch.serving.kv_cache import PagedCacheConfig
     heads, hd = kv_geometry(cfg)
     pools = 1 if cfg.mla else 2         # MLA: one latent pool, no V pool
-    page_bytes = pools * kv_layers(cfg) * page_tokens * heads * hd * 2
+    page_bytes = pools * kv_layers(cfg) * PagedCacheConfig(
+        1, page_tokens, heads, hd, 1,
+        dtype="int8" if int8 else "bfloat16").page_bytes
     cap = slots * -(-max_seq // page_tokens)
     pages = min(cap, (free - POOL_MARGIN_BYTES) // page_bytes)
-    print(f"[{cfg.name}] KV pool: {pages} pages of {page_tokens} tokens "
+    print(f"[{cfg.name}] KV pool{' (int8)' if int8 else ''}: {pages} "
+          f"pages of {page_tokens} tokens "
           f"({pages * page_tokens} tokens, {pages * page_bytes / 1e9:.2f} "
           f"GB) from {free / 1e9:.2f} GB free less "
           f"{POOL_MARGIN_BYTES / 1e9:.2f} GB, cap {cap} pages", flush=True)
@@ -1500,6 +1725,8 @@ def phase_dense_variants(torch, args, rows):
         res["card_vs_cpu"] = phase_card_vs_cpu(
             torch, args, cfg, params, n_layers=2,
             tag=f"{arch} card_vs_cpu")
+        if arch == INT8_ARCH:
+            res["int8"] = phase_int8_serving(torch, args, cfg, params)
         res["seconds"] = time.perf_counter() - t0
         print(f"[{arch}] seconds: init {res['init_s']:.1f} kernels "
               f"{res['kernels_s']:.1f} serving {res['serving_s']:.1f} "
@@ -1510,6 +1737,65 @@ def phase_dense_variants(torch, args, rows):
         del params
         torch.cuda.empty_cache()
     return out
+
+
+# the INT8 KV cache's run: qwen1.5-32b after its bf16 run, weights kept
+INT8_ARCH = "qwen1.5-32b"
+INT8_KERNELS = ("streaming_gemm", "flash_attention", "paged_attention_int8",
+                "kv_quantize")
+INT8_MAX_SEQ = 2048
+# six prompts of 64-256 tokens and two of 1,536, which the bf16 pool's
+# 1,024-token slots could not hold
+INT8_PROMPTS = (64, 100, 150, 200, 256, 180, 1536, 1536)
+
+
+def phase_int8_serving(torch, args, cfg, params):
+    """8e. The INT8 KV cache (``Tuning(kv_cache_quant=True)``) on
+    ``INT8_ARCH``, whose weights stay loaded after its bf16 run: the
+    bf16 pool freed, an int8 pool sized from the free memory (int8 bytes
+    plus the fp16 scales, slots of ``INT8_MAX_SEQ`` tokens); serving the
+    ``INT8_PROMPTS`` with 8 new tokens each (the int8 paged kernel and
+    the quantize kernel must run, the bf16 paged kernel must not); three
+    full-batch decode steps profiled (one int8 paged and one quantize
+    launch a layer, no ``index_put`` left a step); the first 2 layers on
+    the card against the CPU under the same tuning."""
+    from repro_torch.models import tuning as TU
+
+    quant = TU.Tuning(kv_cache_quant=True)
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    pages = kv_pool_pages(torch, cfg, max_seq=INT8_MAX_SEQ, int8=True)
+    res = {"pool_pages": pages}
+    res["serving"] = phase_serving(
+        torch, args, cfg, params, INT8_KERNELS, new_tokens=8,
+        tag=f"{cfg.name} int8 serving", pool_pages=pages,
+        absent=("paged_attention",), max_seq=INT8_MAX_SEQ,
+        prompt_lens=INT8_PROMPTS, tuning=quant)
+    require(res["serving"]["kv_pool_dtype"] == "torch.int8",
+            "the int8 run's pool is not int8")
+    prof = res["decode_profile"] = phase_profile(
+        torch, args, cfg, params, n_steps=3,
+        tag=f"{cfg.name} int8 decode_profile", pool_pages=pages,
+        max_seq=INT8_MAX_SEQ, tuning=quant,
+        one_kernel=("streaming_gemm", "paged_attention_int8",
+                    "kv_quantize"))
+    per_step = prof["launches_per_step"]
+    require(per_step["paged_attention_int8"] == per_step["kv_quantize"]
+            == cfg.n_layers and per_step["paged_attention"] == 0,
+            f"{cfg.name} int8: {per_step} a decode step, not one int8 "
+            "paged and one quantize launch a layer")
+    require(prof["aten_index_put_per_step"] == 0,
+            f"{cfg.name} int8: {prof['aten_index_put_per_step']} KV "
+            "index_put calls a step")
+    res["card_vs_cpu"] = phase_card_vs_cpu(
+        torch, args, cfg, params, n_layers=2,
+        tag=f"{cfg.name} int8 card_vs_cpu", tuning=quant)
+    res["seconds"] = time.perf_counter() - t0
+    print(f"[{cfg.name} int8] pool {pages} pages "
+          f"({res['serving']['kv_pool_mb'] / 1e3:.2f} GB), peak "
+          f"{res['serving']['peak_mem_gb']:.2f} GB, {res['seconds']:.1f} s",
+          flush=True)
+    return res
 
 
 # ------------------------------------------------------ 9. whisper-tiny
@@ -2420,8 +2706,11 @@ def main():
              RWKV_ARCH: rwkv["serving"]["launches"],
              ZAMBA_ARCH: zamba["serving"]["launches"],
              deepseek["config"]: deepseek["serving"]["launches"]}
+    int8_path = f"{INT8_ARCH} int8"
+    paths[int8_path] = variants[INT8_ARCH]["int8"]["serving"]["launches"]
     own = {"streaming_gemm_grouped": MOE_ARCH,
-           "paged_latent_attention": deepseek["config"]}
+           "paged_latent_attention": deepseek["config"],
+           "paged_attention_int8": int8_path, "kv_quantize": int8_path}
     kernels = [{"name": name, **rows[name],
                 "launches": paths[own.get(name, cfg.name)][name],
                 "launches_by_path": {p: n[name] for p, n in paths.items()}}

@@ -17,12 +17,14 @@ import torch
 from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import flash_cuda
 from repro_torch.kernels.grouped_gemm import grouped_gemm_cuda
+from repro_torch.kernels.kv_quant import kv_quant_cuda
 from repro_torch.kernels.paged_attention import paged_cuda, paged_latent_cuda
 from repro_torch.kernels.streaming_gemm import gemm_cuda
 
 LAUNCHES = {"streaming_gemm": 0, "streaming_gemm_grouped": 0,
             "flash_attention": 0, "paged_attention": 0,
-            "paged_latent_attention": 0}
+            "paged_latent_attention": 0, "paged_attention_int8": 0,
+            "kv_quantize": 0}
 
 
 def reset_launches() -> None:
@@ -76,14 +78,53 @@ def flash_attention(q, k, v, causal: bool = True,
     return ref.flash_gqa_ref(q, k, v, causal)
 
 
-def paged_attention(q, k_pages, v_pages, table, lens) -> torch.Tensor:
+def paged_attention(q, k_pages, v_pages, table, lens, k_scale=None,
+                    v_scale=None) -> torch.Tensor:
     """q: (B, H, D); pools: (P, page, KH, D); table: (B, max_pages)
-    int32; lens: (B,) int32.  Returns (B, H, D) in ``q.dtype``."""
+    int32; lens: (B,) int32.  Returns (B, H, D) in ``q.dtype``.
+
+    The pools' dtype picks the kernel: int8 pools (the INT8 KV cache)
+    come with fp16 scale pools ``k_scale`` / ``v_scale`` of (P, KH,
+    page) and launch the int8 form, counted as
+    ``paged_attention_int8``."""
     if not q.is_cuda:
-        return ref.paged_ref(q, k_pages, v_pages, table, lens)
-    out = paged_cuda(q, k_pages, v_pages, table, lens)
-    LAUNCHES["paged_attention"] += 1
+        return ref.paged_ref(q, k_pages, v_pages, table, lens,
+                             k_scale=k_scale, v_scale=v_scale)
+    out = paged_cuda(q, k_pages, v_pages, table, lens, k_scale, v_scale)
+    LAUNCHES["paged_attention_int8" if k_pages.dtype == torch.int8
+             else "paged_attention"] += 1
     return out
+
+
+def kv_quantize_append(k, v, rows, k_pages, v_pages, k_scale,
+                       v_scale) -> None:
+    """The INT8 KV cache's write: quantize (n, KH, D) bf16 ``k`` and
+    ``v`` per (token, KV head) as the reference does and store the codes
+    at the flat pool ``rows`` (n,) int64 of the (P, page, KH, D) int8
+    pools and the fp16 scales in the (P, KH, page) scale pools, in
+    place, K and V in one launch."""
+    if not k.is_cuda:
+        ref.kv_quantize_append_ref(k, v, rows, k_pages, v_pages, k_scale,
+                                   v_scale)
+        return
+    if k.shape[0]:
+        kv_quant_cuda(k, v, rows, k_pages, v_pages, k_scale, v_scale)
+        LAUNCHES["kv_quantize"] += 1
+
+
+def kv_write(pools, rows, k, v) -> None:
+    """Write one layer's new K/V rows: ``k`` / ``v`` (n, KH, D) at the
+    flat pool ``rows`` (n,) int64 of ``pools``, a layer's ``(k_pages,
+    v_pages, k_scale, v_scale)`` (``PagedKVCache.layer_pools``).  The
+    pools' dtype decides: int8 pools take ``kv_quantize_append``, float
+    pools a cast and scatter."""
+    k_pages, v_pages, k_scale, v_scale = pools
+    if k_pages.dtype == torch.int8:
+        kv_quantize_append(k.contiguous(), v.contiguous(), rows, k_pages,
+                           v_pages, k_scale, v_scale)
+        return
+    k_pages.view(-1, *k_pages.shape[2:])[rows] = k.to(k_pages.dtype)
+    v_pages.view(-1, *v_pages.shape[2:])[rows] = v.to(v_pages.dtype)
 
 
 def paged_latent_attention(q, pool, table, lens, dv: int,

@@ -41,6 +41,20 @@ What the design does about it:
   groups read 1 KB more a token, mostly from L2.  Shapes with G·D <=
   2,048 take one group and launch as before.
 
+INT8 pools (``Tuning.kv_cache_quant``; ROADMAP Queue B 4e): with fp16
+scale pools ``k_scale`` / ``v_scale``, ``paged_cuda`` launches the
+``pa_forward_int8`` entry, the same warp-per-page walk over int8 rows
+(D + 16 bytes in shared memory) with bf16 q and output.  The scale pools
+are (P, KH, page), not the reference's (…, seq, KH): one KV head's 16
+scales of a page are then 32 contiguous bytes that the rows' 16-byte
+``cp.async`` fetches into two slots after the page's V rows, where the
+reference's layout would stride them by KH x 2 bytes.  Scores take the
+token's K scale after the slices are summed; each probability stored
+for PV takes its V scale (the sum l does not), so P stays fp32 as in the
+bf16 kernel, where the reference rounds ``p · v_scale`` to bf16.  The
+pools and scales are about half the bf16 pools' bytes (22.6 MB against
+42 MB at qwen1.5-32b's 8 x 272).
+
 The latent form (``paged_latent_cuda``, the ``pa_latent_forward`` entry
 of the same source) serves multi-head latent attention's absorbed
 decode (deepseek-v3-671b): 128 query heads of 576 over ONE latent KV
@@ -70,6 +84,7 @@ from repro_torch.kernels import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 112, 128)
+INT8_HEAD_DIMS = (16, 32, 64, 128)   # int8 pools (no int8 arch has D 112)
 PAGE_SIZES = (8, 16, 32)
 MAX_GROUP_ELEMS = 2048      # a CTA's heads x D: 32 fp32 pairs per lane
 MAX_SMEM_BYTES = 227 * 1024
@@ -79,6 +94,7 @@ WARPS = 4                   # warps per CTA, each walking its own pages
 _VP, _I32 = ctypes.c_void_p, ctypes.c_int
 _ARGS = [_I32, _VP, _VP, _VP, _VP, _VP, _VP, _I32, _I32, _I32, _I32, _I32,
          _I32, _I32, _I32, _I32, _VP]
+_INT8_ARGS = [_VP] * 8 + [_I32] * 9 + [_VP]
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -123,11 +139,13 @@ def smem_bytes(G: int, D: int, page: int, max_pages: int, walkers: int,
     head group's), as ``layout`` in the source computes it: fp32 scratch
     (q, each warp's p and (m, l), the CTA's state, the merge weights),
     the sequence's table row, then the walking warps' two-slot K/V rings
-    of rows padded by 16 bytes, which the warps' fp32 partial states take
-    over after the page loop."""
+    of rows padded by 16 bytes (``esz`` 1, int8 pools: each slot also
+    holds the page's fp16 K and V scales of the KV head), which the
+    warps' fp32 partial states take over after the page loop."""
     words = (2 * G * D + WARPS * G * page + 3 * WARPS * G + 3 * G
              + MAX_SPLITS * G + max_pages)
-    ring = walkers * 2 * 2 * page * (D * esz + 16)
+    slot = 2 * page * (D * esz + 16) + (2 * page * 2 if esz == 1 else 0)
+    ring = walkers * 2 * slot
     return _cdiv(4 * words, 16) * 16 + max(ring, WARPS * G * D * 4)
 
 
@@ -254,10 +272,15 @@ def paged_latent_cuda(q, pool, table, lens, dv: int,
     return out
 
 
-def paged_cuda(q, k_pages, v_pages, table, lens) -> torch.Tensor:
+def paged_cuda(q, k_pages, v_pages, table, lens, k_scale=None,
+               v_scale=None) -> torch.Tensor:
     """q: (B, H, D); pools: (P, page, KH, D); table: (B, max_pages)
     int32; lens: (B,) int32 — contiguous CUDA tensors on one device, the
-    pools 16-byte aligned.  Returns (B, H, D) in ``q.dtype``."""
+    pools 16-byte aligned.  Returns (B, H, D) in ``q.dtype``.
+
+    int8 pools take fp16 scale pools ``k_scale`` / ``v_scale`` of (P,
+    KH, page), also 16-byte aligned, with bf16 q (the
+    ``pa_forward_int8`` entry); pools of q's dtype take none."""
     B, H, D = q.shape
     P, page, KH, Dk = k_pages.shape
     if v_pages.shape != k_pages.shape or Dk != D or H % KH:
@@ -266,26 +289,40 @@ def paged_cuda(q, k_pages, v_pages, table, lens) -> torch.Tensor:
     if table.dim() != 2 or table.shape[0] != B or tuple(lens.shape) != (B,):
         raise ValueError(f"paged table{tuple(table.shape)} "
                          f"lens{tuple(lens.shape)} for batch {B}")
-    if D not in HEAD_DIMS or page not in PAGE_SIZES:
-        raise ValueError(f"paged: head dim {D} not in {HEAD_DIMS} or page "
+    quant = k_pages.dtype == torch.int8
+    dims = INT8_HEAD_DIMS if quant else HEAD_DIMS
+    if D not in dims or page not in PAGE_SIZES:
+        raise ValueError(f"paged: head dim {D} not in {dims} or page "
                          f"{page} not in {PAGE_SIZES}")
-    if not (q.dtype == k_pages.dtype == v_pages.dtype) \
-            or q.dtype not in _DTYPES:
+    if quant:
+        if q.dtype != torch.bfloat16 or v_pages.dtype != torch.int8 \
+                or k_scale is None or v_scale is None \
+                or k_scale.dtype != torch.float16 \
+                or v_scale.dtype != torch.float16:
+            raise TypeError("paged int8: bf16 q, int8 pools and fp16 scale "
+                            "pools")
+        if k_scale.shape != (P, KH, page) or v_scale.shape != (P, KH, page):
+            raise ValueError(f"paged int8 scale pools "
+                             f"{tuple(k_scale.shape)}, want {(P, KH, page)}")
+    elif not (q.dtype == k_pages.dtype == v_pages.dtype) \
+            or q.dtype not in _DTYPES or k_scale is not None \
+            or v_scale is not None:
         raise TypeError(f"paged dtypes {q.dtype}, {k_pages.dtype}, "
                         f"{v_pages.dtype}")
     if table.dtype != torch.int32 or lens.dtype != torch.int32:
         raise TypeError("paged table and lens must be int32")
-    ts = (q, k_pages, v_pages, table, lens)
+    ts = (q, k_pages, v_pages, table, lens) + \
+        ((k_scale, v_scale) if quant else ())
     if not all(t.is_cuda and t.device == q.device for t in ts):
         raise ValueError("paged_cuda needs every operand on q's CUDA device")
     if not all(t.is_contiguous() for t in ts):
         raise ValueError("paged_cuda needs contiguous operands")
-    if k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
+    if any(t.data_ptr() % 16 for t in ts[1:3] + ts[5:]):
         raise ValueError("paged_cuda: cp.async needs 16-byte aligned pools")
     max_pages = table.shape[1]
     groups, splits = launch_plan(B, H, KH, D, max_pages)
     G = H // (KH * groups)                  # query heads per CTA
-    esz = q.element_size()
+    esz = k_pages.element_size()
     n_walk = walkers(G, D, page, max_pages, esz)
     smem = smem_bytes(G, D, page, max_pages, n_walk, esz)
     if smem > MAX_SMEM_BYTES:
@@ -293,6 +330,15 @@ def paged_cuda(q, k_pages, v_pages, table, lens) -> torch.Tensor:
                          f"{D}, page {page}, table width {max_pages}")
     out = torch.empty_like(q)
     if B == 0:
+        return out
+    if quant:
+        code = _build.function("paged_attention", "pa_forward_int8",
+                               _INT8_ARGS)(
+            _build.ptr(q), _build.ptr(k_pages), _build.ptr(v_pages),
+            _build.ptr(k_scale), _build.ptr(v_scale), _build.ptr(table),
+            _build.ptr(lens), _build.ptr(out), B, H, KH, groups, D, page,
+            max_pages, splits, n_walk, _build.stream(q.device))
+        _build.check(code, "paged_attention_int8")
         return out
     code = _build.function("paged_attention", "pa_forward", _ARGS)(
         _DTYPES[q.dtype], _build.ptr(q), _build.ptr(k_pages),

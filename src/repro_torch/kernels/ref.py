@@ -81,7 +81,8 @@ def flash_gqa_ref(q, k, v, causal=True):
         .reshape(B, Tq, H, Dv)
 
 
-def paged_ref(q, k_pages, v_pages, table, lens, dv=None, scale=None):
+def paged_ref(q, k_pages, v_pages, table, lens, dv=None, scale=None,
+              k_scale=None, v_scale=None):
     """Gather pages into contiguous caches, then masked attention.
 
     q: (B, H, D); pools: (P, page, KH, D); table: (B, max_pages) int32;
@@ -89,7 +90,14 @@ def paged_ref(q, k_pages, v_pages, table, lens, dv=None, scale=None):
     ``dv`` columns of ``v_pages`` (default all D), and the scores are
     scaled by ``scale`` (default 1/√D).  The latent form of multi-head
     latent attention passes one pool as both, its first ``dv`` columns
-    being V."""
+    being V.
+
+    INT8 pools come with fp16 scale pools ``k_scale`` / ``v_scale`` of
+    (P, KH, page), one scale per (token, KV head), each KV head's page
+    of scales contiguous: the reference's ``decode_attention`` with
+    ``k_scale`` / ``v_scale``, scores times the token's K scale and each
+    probability times its V scale before PV, P kept in fp32 (the
+    reference rounds ``p · v_scale`` to bf16)."""
     B, H, D = q.shape
     P, page, KH, _ = k_pages.shape
     max_pages = table.shape[1]
@@ -101,12 +109,62 @@ def paged_ref(q, k_pages, v_pages, table, lens, dv=None, scale=None):
     qg = q.reshape(B, KH, G, D).float()
     s = torch.einsum("bhgd,bshd->bhgs", qg, k.float())
     s = s / math.sqrt(D) if scale is None else s * scale
+    if k_scale is not None:
+        s = s * _token_scales(k_scale, t)[:, :, None, :]
     valid = (torch.arange(max_pages * page, device=q.device)[None]
              < lens.to(q.device).long()[:, None])
     s = torch.where(valid[:, None, None, :], s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
+    if v_scale is not None:
+        p = p * _token_scales(v_scale, t)[:, :, None, :]
     out = torch.einsum("bhgs,bshd->bhgd", p, v.float())
     # an empty sequence attends to nothing: zeros, as the paged kernels
     # give (the jnp oracle would average the whole masked table instead)
     out = torch.where(lens.to(q.device)[:, None, None, None] > 0, out, 0.0)
     return out.reshape(B, H, dv).to(q.dtype)
+
+
+def _token_scales(scale_pages, t):
+    """(P, KH, page) scale pools through the table ``t`` (B, max_pages)
+    -> (B, KH, max_pages · page) in fp32, token order."""
+    B, max_pages = t.shape
+    _, KH, page = scale_pages.shape
+    return scale_pages[t].float().permute(0, 2, 1, 3) \
+        .reshape(B, KH, max_pages * page)
+
+
+# bf16(1e-8) and 1/127 in fp32: the constants the reference's jitted
+# quantization adds and multiplies by (XLA turns ``/ 127.0`` into a
+# product with the fp32 reciprocal, and the weakly typed 1e-8 is rounded
+# to bf16 first)
+KV_INV127 = 0.007874015718698502
+KV_EPS = 1.0011717677116394e-08
+
+
+def kv_quantize_ref(x):
+    """The reference's INT8 KV quantization of bf16 ``x`` (..., D) per
+    row: s = max|x| / 127 + 1e-8 and codes round(x / s), with the
+    roundings the jitted reference keeps: s rounded to bf16 after the
+    product and after the sum, the quotient rounded to bf16, then
+    rounded half to even and saturated to int8 (XLA's conversion
+    saturates: a quotient of 127.5 rounds to 128 and is stored as 127).
+    Returns (codes int8 (..., D), scales fp16 (...))."""
+    xf = x.float()
+    s = (xf.abs().amax(-1) * KV_INV127).to(torch.bfloat16).float()
+    s = (s + KV_EPS).to(torch.bfloat16)
+    q = torch.round((xf / s.float()[..., None]).to(torch.bfloat16).float())
+    return q.clamp(-128, 127).to(torch.int8), s.to(torch.float16)
+
+
+def kv_quantize_append_ref(k, v, rows, k_pages, v_pages, k_scale, v_scale):
+    """Quantize one step's (n, KH, D) bf16 ``k`` and ``v`` and write
+    them at the flat pool ``rows`` (n,) (page id · page + token): codes
+    into the (P, page, KH, D) int8 pools, scales into the (P, KH, page)
+    fp16 scale pools.  In place; returns nothing."""
+    page = k_pages.shape[1]
+    rows = rows.long()
+    pid, t = rows // page, rows % page
+    for x, pool, scales in ((k, k_pages, k_scale), (v, v_pages, v_scale)):
+        codes, s = kv_quantize_ref(x)
+        pool.view(-1, *pool.shape[2:])[rows] = codes
+        scales[pid, :, t] = s

@@ -1,4 +1,4 @@
-"""Sweep the launch plans of the bf16 kernels on the card.
+"""Sweep the launch plans of the kernels on the card.
 
     python -m repro_torch.launch.kernel_sweep
         [--only gemm|grouped|flash|paged] [--out PATH] [--reps N]
@@ -28,7 +28,10 @@ q/k dim 192, v dim 128) at 64-512 tokens, and the paged kernel's latent
 form (128 query heads of 576 over one latent head, V its first 512
 columns, scale 1/√192) at 8 x 272, a ragged mix up to 1,024 and 1 x
 1,024, at every cluster size, beside SDPA over a contiguous copy of the
-latent rows.
+latent rows.  Each paged shape whose head dim the int8 form takes is
+swept again over int8 pools (the same values quantized, with their fp16
+scales; the INT8 KV cache), its yardstick SDPA over a contiguous
+dequantized copy.
 The expert-grouped GEMM runs at
 qwen2-moe-a2.7b's (60 experts, 2,048 <-> 1,408) and deepseek-v3's (256
 experts, 7,168 <-> 2,048) gate/up and down products, at decode (8
@@ -288,10 +291,11 @@ def _sweep_paged(result, randn, dms, F, g, dev):
     qwen2-0.5b's (14 / 2 heads of 64) and granite-20b's (48 / 1 heads of
     128, 3 query-head groups), beside one group's work alone (16 / 1
     heads of 128: what the second and third groups' CTAs and page reads
-    add), and zamba2-7b's (32 / 32 heads of 112); each ragged mix is a
-    draw of its own: lengths 1-1,024, the first 1,024."""
+    add), zamba2-7b's (32 / 32 heads of 112) and qwen1.5-32b's (40 / 40
+    heads of 128); each ragged mix is a draw of its own: lengths 1-1,024,
+    the first 1,024.  bf16 and int8 pools."""
     for H, KH, D in ((14, 2, 64), (48, 1, 128), (16, 1, 128),
-                     (32, 32, 112)):
+                     (32, 32, 112), (40, 40, 128)):
         _sweep_paged_heads(result, randn, dms, F, g, dev, H, KH, D)
     _sweep_latent(result, randn, dms, F, g, dev)
 
@@ -345,6 +349,10 @@ def _sweep_latent(result, randn, dms, F, g, dev, H=128, D=576, dv=512):
 
 
 def _sweep_paged_heads(result, randn, dms, F, g, dev, H, KH, D):
+    """One head shape's paged entries over bf16 pools, then (where the
+    int8 form takes the head dim) over the same values quantized into
+    int8 pools with their fp16 scales, at the same lengths; the int8
+    rows' yardstick is SDPA over a contiguous dequantized copy."""
     B, page, mp = 8, 16, 64
     P = B * mp + 16
     mixed = torch.randint(1, 1025, (B,), generator=g, device=dev)
@@ -353,41 +361,67 @@ def _sweep_paged_heads(result, randn, dms, F, g, dev, H, KH, D):
         .reshape(B, mp).to(torch.int32)
     q = randn(B, H, D)
     kp, vp = randn(P, page, KH, D), randn(P, page, KH, D)
-    for what, lens in (("mixed", mixed.tolist()), ("8 x 272", [272] * B),
-                       ("8 x 1024", [1024] * B), ("1 x 1024", [1024])):
-        n = len(lens)
-        ln = torch.tensor(lens, dtype=torch.int32, device=dev)
-        qq, tt = q[:n].contiguous(), table[:n].contiguous()
-        want = ref.paged_ref(qq, kp, vp, tt, ln).float()
-        groups, chosen = PA.launch_plan(n, H, KH, D, mp)
-        times, plan = {}, PA.plan
-        try:
-            for s in range(1, PA.MAX_SPLITS + 1):
-                PA.plan = lambda *_, s=s: s
-                out = ops.paged_attention(qq, kp, vp, tt, ln).float()
-                err = (out - want).abs().max().item()
-                if err > 2e-2 + 2e-2 * want.abs().max().item():
-                    raise AssertionError(f"paged {what} S={s}: {err}")
-                t = dms(lambda: ops.paged_attention(qq, kp, vp, tt, ln))
-                if t > 0:         # a window the profiler dropped reads 0
-                    times[s] = t
-        finally:
-            PA.plan = plan
-        kc = kp[tt.long()].reshape(n, mp * page, KH, D).transpose(1, 2) \
-            .contiguous()
-        vc = vp[tt.long()].reshape(n, mp * page, KH, D).transpose(1, 2) \
-            .contiguous()
-        mask = (torch.arange(mp * page, device=dev)[None]
-                < ln[:, None])[:, None, None, :]
-        row = {"what": what, "heads": [H, KH, D], "groups": groups,
-               "b": n, "lens": lens, "plan": chosen,
-               "plan_ms": times.get(chosen), "splits_ms": times,
-               "contiguous_sdpa_ms": dms(
-                   lambda: F.scaled_dot_product_attention(
-                       qq[:, :, None], kc, vc, attn_mask=mask,
-                       enable_gqa=True))}
-        result["paged"].append(row)
-        print("[paged] " + json.dumps(row), flush=True)
+    pools = {"bfloat16": (kp, vp)}
+    if D in PA.INT8_HEAD_DIMS:
+        (kc, ks), (vc, vs) = (ref.kv_quantize_ref(p) for p in (kp, vp))
+        pools["int8"] = (kc, vc, ks.permute(0, 2, 1).contiguous(),
+                         vs.permute(0, 2, 1).contiguous())
+    for dtype, pl in pools.items():
+        for what, lens in (("mixed", mixed.tolist()), ("8 x 272", [272] * B),
+                           ("8 x 1024", [1024] * B), ("1 x 1024", [1024])):
+            row = _paged_row(dms, F, dev, q, pl, table, what, lens)
+            row["pool_dtype"] = dtype
+            result["paged"].append(row)
+            print("[paged] " + json.dumps(row), flush=True)
+
+
+def _paged_row(dms, F, dev, q, pools, table, what, lens):
+    """Every cluster size at one paged shape; ``pools`` is (k, v) or,
+    int8, (k, v, k_scale, v_scale)."""
+    kp, vp = pools[:2]
+    H, D = q.shape[1:]
+    page, KH = kp.shape[1:3]
+    mp = table.shape[1]
+    n = len(lens)
+    ln = torch.tensor(lens, dtype=torch.int32, device=dev)
+    qq, tt = q[:n].contiguous(), table[:n].contiguous()
+    scales = dict(zip(("k_scale", "v_scale"), pools[2:]))
+    want = ref.paged_ref(qq, kp, vp, tt, ln, **scales).float()
+    groups, chosen = PA.launch_plan(n, H, KH, D, mp)
+    times, plan = {}, PA.plan
+    try:
+        for s in range(1, PA.MAX_SPLITS + 1):
+            PA.plan = lambda *_, s=s: s
+            out = ops.paged_attention(qq, *pools[:2], tt, ln,
+                                      *pools[2:]).float()
+            err = (out - want).abs().max().item()
+            if err > 2e-2 + 2e-2 * want.abs().max().item():
+                raise AssertionError(f"paged {what} S={s}: {err}")
+            t = dms(lambda: ops.paged_attention(qq, *pools[:2], tt, ln,
+                                                *pools[2:]))
+            if t > 0:         # a window the profiler dropped reads 0
+                times[s] = t
+    finally:
+        PA.plan = plan
+
+    def contiguous(pool, sc):
+        x = pool[tt.long()]
+        if sc is not None:        # dequantized: codes x their scales
+            x = (x.float() * sc[tt.long()].permute(0, 1, 3, 2)[..., None]
+                 .float()).to(torch.bfloat16)
+        return x.reshape(n, mp * page, KH, D).transpose(1, 2).contiguous()
+
+    kc = contiguous(kp, scales.get("k_scale"))
+    vc = contiguous(vp, scales.get("v_scale"))
+    mask = (torch.arange(mp * page, device=dev)[None]
+            < ln[:, None])[:, None, None, :]
+    return {"what": what, "heads": [H, KH, D], "groups": groups,
+            "b": n, "lens": lens, "plan": chosen,
+            "plan_ms": times.get(chosen), "splits_ms": times,
+            "contiguous_sdpa_ms": dms(
+                lambda: F.scaled_dot_product_attention(
+                    qq[:, :, None], kc, vc, attn_mask=mask,
+                    enable_gqa=True))}
 
 
 if __name__ == "__main__":

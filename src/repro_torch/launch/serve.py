@@ -11,6 +11,8 @@ hand-written kernels on the card.
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch qwen1.5-32b --slots 8 --page-tokens 16
     PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch qwen1.5-32b --slots 8 --page-tokens 16 --kv-cache-quant
+    PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch rwkv6-7b --slots 8
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch zamba2-7b --slots 8 --page-tokens 16
@@ -42,6 +44,13 @@ encoder-decoder whisper-tiny is refused by the engine, as in the
 reference: it runs through ``Model.prefill(..., audio_frames=...)`` and
 ``Model.decode_step``.
 
+``--kv-cache-quant`` serves from the INT8 KV cache
+(``Tuning(kv_cache_quant=True)``, named as the reference's
+``launch/dryrun.py`` names it): int8 K/V pools with fp16 per-(token, KV
+head) scales for the dense, vlm and MoE (not MLA) families, written by
+the fused quantize kernel and read by the int8 paged kernel; the other
+families' caches stay bf16, as in the reference.
+
 Weights are random, drawn from ``--seed``.  ``--device cpu`` runs the
 plain PyTorch versions of the kernels on the host (use ``--reduced``
 there).
@@ -53,6 +62,7 @@ import torch
 
 from repro_torch.configs import get_config, get_reduced
 from repro_torch.configs.base import depth_cut
+from repro_torch.models import tuning as TU
 from repro_torch.models.model import Model
 from repro_torch.serving.engine import Request, ServingEngine
 
@@ -70,6 +80,8 @@ def main() -> None:
     ap.add_argument("--page-tokens", type=int, default=8)
     ap.add_argument("--layers", type=int, default=0,
                     help="serve only the first N layers (0: all)")
+    ap.add_argument("--kv-cache-quant", action="store_true",
+                    help="INT8 paged KV cache with per-token scales")
     args = ap.parse_args()
 
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
@@ -79,9 +91,10 @@ def main() -> None:
     gen = torch.Generator(device=model.device)
     gen.manual_seed(args.seed)
     params = model.init(gen)
-    eng = ServingEngine(cfg, params, slots=args.slots,
-                        max_seq=args.max_seq, device=args.device,
-                        kv_page_tokens=args.page_tokens)
+    with TU.tuning_context(TU.Tuning(kv_cache_quant=args.kv_cache_quant)):
+        eng = ServingEngine(cfg, params, slots=args.slots,
+                            max_seq=args.max_seq, device=args.device,
+                            kv_page_tokens=args.page_tokens)
     rng = np.random.default_rng(args.seed)
     reqs = []
     for i in range(args.requests):
@@ -99,7 +112,9 @@ def main() -> None:
     print(f"[{cfg.name} on {where}] {st.tokens_out} tokens "
           f"@ {st.tokens_per_s:.1f} tok/s; "
           f"TTFT p50={np.percentile(ttft, 50)*1e3:.0f}ms; "
-          f"prefills={st.prefills} decode_steps={st.decode_steps}")
+          f"prefills={st.prefills} decode_steps={st.decode_steps}"
+          + (f"; KV pool {eng.cache.k_pages.dtype}"
+             if cfg.family != "ssm" else ""))
 
 
 if __name__ == "__main__":

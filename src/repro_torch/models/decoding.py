@@ -7,7 +7,15 @@ keeps the paged pools of ``serving.kv_cache.PagedKVCache`` (one table
 shared by all layers; an MoE model's ``dense_layers`` take the first
 pool layers), so decode attention runs through
 ``ops.paged_attention``.  The cache dtype is bf16, as in the reference,
-and prompt K/V is cast into it.
+and prompt K/V is cast into it; or, for the INT8 KV cache
+(``Tuning.kv_cache_quant`` when the cache was made), int8 pools with
+fp16 per-(token, KV head) scales, into which prefill quantizes the
+prompt's rows and decode each new token's (``ops.kv_quantize_append``,
+one launch a layer for K and V).  Prefill attention runs on the
+unquantized bf16 K/V, as the reference's does.  The hybrid's shared
+pool, the latent pool and whisper's cross pool stay bf16 (the
+reference quantizes only a GQA cache it builds with ``_attn_cache_zeros``
+or pads through ``_pad_cache_seq``).
 
 MoE layers route losslessly while serving, as the reference does:
 capacity ``B * Tq`` at prefill and ``n`` (the active slots) at decode,
@@ -45,6 +53,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
@@ -136,9 +145,11 @@ def _prefill_hybrid(params, cfg: ModelConfig, x, cache, slots):
 
 
 def _write(cache, layer, rows, k, v):
-    kf, vf = cache.layer_flat(layer)
-    kf[rows] = k.to(kf.dtype)
-    vf[rows] = v.to(vf.dtype)
+    """Prompt K/V (B, T, KH, hd) into ``layer`` at the flat pool ``rows``
+    (B, T): cast into a float pool, quantized into an int8 one."""
+    KH, hd = k.shape[-2:]
+    ops.kv_write(cache.layer_pools(layer), rows.reshape(-1),
+                 k.reshape(-1, KH, hd), v.reshape(-1, KH, hd))
 
 
 def _write_latent(cache, layer, rows, ckv, kr):
@@ -178,15 +189,15 @@ def _prefill_audio(params, cfg: ModelConfig, tokens, frames, cache, slots):
     return T.lm_head(params, cfg, x)
 
 
-def _decode_layer(lp, is_moe, x, cfg, k_pool, v_pool, view, cross=None):
-    """``cross``: an encoder-decoder's (k_pool, v_pool, read view) of
-    this layer's encoder KV, attended between self-attention and the
-    MLP."""
+def _decode_layer(lp, is_moe, x, cfg, pools, view, cross=None):
+    """``pools``: the layer's ``PagedKVCache.layer_pools``.  ``cross``:
+    an encoder-decoder's (k_pool, v_pool, read view) of this layer's
+    encoder KV, attended between self-attention and the MLP."""
     h = L.apply_norm(lp["ln1"], x, cfg)
-    if cfg.mla:      # k_pool is the layer's latent pool; no V pool
-        x = x + L.mla_decode(lp["attn"], h, cfg, k_pool, view)
+    if cfg.mla:      # pools[0] is the layer's latent pool; no V pool
+        x = x + L.mla_decode(lp["attn"], h, cfg, pools[0], view)
     else:
-        x = x + L.attention_decode(lp["attn"], h, cfg, k_pool, v_pool, view)
+        x = x + L.attention_decode(lp["attn"], h, cfg, pools, view)
     if cross is not None:
         h = L.apply_norm(lp["ln_x"], x, cfg)
         x = x + L.cross_attention_decode(lp["xattn"], h, *cross)
@@ -219,8 +230,7 @@ def decode_step(params, cfg: ModelConfig, cache, tokens, slots):
     for layer, (lp, is_moe) in enumerate(T.layer_stack(params, cfg)):
         cross = (cache.cross.k_pages[layer], cache.cross.v_pages[layer],
                  xview) if audio else None
-        v_pool = None if cache.v_pages is None else cache.v_pages[layer]
-        x = _decode_layer(lp, is_moe, x, cfg, cache.k_pages[layer], v_pool,
+        x = _decode_layer(lp, is_moe, x, cfg, cache.layer_pools(layer),
                           view, cross)
     x = L.apply_norm(params["final_norm"], x, cfg)
     return T.lm_head(params, cfg, x)
@@ -259,8 +269,8 @@ def _decode_hybrid(params, cfg: ModelConfig, cache, tokens, slots):
         if layer % cfg.ssm.attn_every == 0:
             inv = layer // cfg.ssm.attn_every
             h = L.apply_norm(sp["ln"], x, cfg)
-            x = x + L.attention_decode(sp["attn"], h, cfg, cache.k_pages[inv],
-                                       cache.v_pages[inv], view)
+            x = x + L.attention_decode(sp["attn"], h, cfg,
+                                       cache.layer_pools(inv), view)
         x, st = T.mamba_layer_fwd(lp, x, cfg, cache.state.read(layer, idx))
         cache.state.write(layer, idx, st)
     x = L.apply_norm(params["final_norm"], x, cfg)

@@ -5,7 +5,9 @@ Every projection and MLP GEMM goes through ``ops.streaming_gemm``;
 prefill attention goes through ``ops.flash_attention`` and decode
 attention through ``ops.paged_attention`` over the paged KV pool.  The
 biases, residual adds, norms, RoPE, the activation and the KV scatter
-stay plain torch ops, as they were plain XLA in the reference.
+stay plain torch ops, as they were plain XLA in the reference; over an
+int8 pool (the INT8 KV cache) the quantization and the scatter are one
+kernel, ``ops.kv_quantize_append``.
 
 The dtype flow follows the reference: activations are bf16, norms and
 RoPE compute in fp32 and cast back, GEMMs accumulate in fp32 and return
@@ -122,20 +124,30 @@ def chunked_attention(q, k, v, *, causal: bool, q_chunk: int = 0,
     return torch.cat(outs, dim=1).to(v.dtype)
 
 
-def decode_attention(q, k_cache, v_cache, cache_len):
+def decode_attention(q, k_cache, v_cache, cache_len, k_scale=None,
+                     v_scale=None):
     """The reference's single-token attention against a padded
     contiguous cache, in plain torch.  q: (B, H, D); caches:
-    (B, S, KH, D); cache_len: (B,)."""
+    (B, S, KH, D); cache_len: (B,).  ``k_scale`` / ``v_scale``: (B, S,
+    KH) dequantization scales of int8 caches: scores times the K scale,
+    then ``p · v_scale`` rounded to bf16 before PV, output in bf16."""
     B, H, D = q.shape
     _, S, KH, Dv = v_cache.shape
     G = H // KH
     qg = q.reshape(B, KH, G, D)
     s = torch.einsum("bhgd,bkhd->bhgk", qg.float(),
                      k_cache.float()) / math.sqrt(D)
+    if k_scale is not None:
+        s = s * k_scale.float().permute(0, 2, 1)[:, :, None]
     valid = torch.arange(S, device=q.device)[None, :] \
         < cache_len.to(q.device).long()[:, None]
     s = torch.where(valid[:, None, None, :], s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
+    if v_scale is not None:
+        pv = p * v_scale.float().permute(0, 2, 1)[:, :, None]
+        out = torch.einsum("bhgk,bkhd->bhgd",
+                           pv.to(torch.bfloat16).float(), v_cache.float())
+        return out.reshape(B, H, Dv).to(torch.bfloat16)
     out = torch.einsum("bhgk,bkhd->bhgd", p.to(v_cache.dtype).float(),
                        v_cache.float())
     return out.reshape(B, H, Dv).to(v_cache.dtype)
@@ -251,22 +263,25 @@ def attention_train(p, x, cfg: ModelConfig, positions, causal=True,
     return out_proj(p, out), (k, v)
 
 
-def attention_decode(p, x, cfg: ModelConfig, k_pool, v_pool, view):
-    """One token per sequence.  x: (n, d); ``k_pool``/``v_pool``: this
-    layer's (P, page, KH, hd) pools; ``view``: the step's
-    ``DecodeView`` (positions, write slots, table, new lens).
+def attention_decode(p, x, cfg: ModelConfig, pools, view):
+    """One token per sequence.  x: (n, d); ``pools``: this layer's
+    ``(k_pool, v_pool, k_scale, v_scale)`` (``PagedKVCache.layer_pools``:
+    (P, page, KH, hd) pools, and for the INT8 KV cache int8 pools with
+    their (P, KH, page) fp16 scales, else scales None); ``view``: the
+    step's ``DecodeView`` (positions, write slots, table, new lens).
 
-    The token's K/V is written into its page first, then decode
-    attention reads the pool through the page table."""
+    The token's K/V is written into its page first (over int8 pools,
+    quantized per (token, KV head) and written by one kernel, as the
+    reference quantizes after RoPE), then decode attention reads the
+    pool through the page table."""
+    k_pool, v_pool, k_scale, v_scale = pools
     q, k, v = qkv_proj(p, x, cfg)
     pos = view.positions                                   # (n,)
     q = apply_rope(q[:, None], pos[:, None], cfg)[:, 0]
     k = apply_rope(k[:, None], pos[:, None], cfg)[:, 0]
-    flat_k = k_pool.view(-1, *k_pool.shape[2:])
-    flat_v = v_pool.view(-1, *v_pool.shape[2:])
-    flat_k[view.write_index] = k.to(k_pool.dtype)
-    flat_v[view.write_index] = v.to(v_pool.dtype)
-    out = ops.paged_attention(q, k_pool, v_pool, view.table, view.lens)
+    ops.kv_write(pools, view.write_index, k, v)
+    out = ops.paged_attention(q, k_pool, v_pool, view.table, view.lens,
+                              k_scale, v_scale)
     return out_proj(p, out)
 
 

@@ -25,6 +25,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import decoding as D
 from repro_torch.models import transformer as T
+from repro_torch.models import tuning as TU
 from repro_torch.models.params import init_tree
 from repro_torch.serving.kv_cache import PagedCacheConfig, PagedKVCache
 from repro_torch.serving.state_cache import RecurrentStateCache
@@ -61,7 +62,13 @@ class Model:
         ``RecurrentStateCache`` of ``slots`` slots as ``cache.state``.
         An MLA model gets one latent pool per layer, rows of
         ``kv_lora_rank + qk_rope_head_dim`` values under one KV head, and
-        no V pool."""
+        no V pool.
+
+        Under ``Tuning(kv_cache_quant=True)`` the GQA cache of the dense,
+        vlm, MoE (not MLA) and audio (its self-attention) families is
+        int8 with fp16 per-(token, KV head) scales, as the reference's
+        ``init_cache`` makes it; the hybrid's shared pool, the latent
+        pool and whisper's cross pool stay bf16."""
         cfg = self.cfg
         if cfg.family == "ssm":
             if n_pages is not None or enc_seq:
@@ -70,14 +77,18 @@ class Model:
         if (cfg.family == "audio") != (enc_seq > 0):
             raise ValueError(f"{cfg.name}: enc_seq is the encoder length "
                              "of an audio model, and only of one")
-        cache = self._paged(slots, max_seq, page_tokens, n_pages)
+        quant = TU.get().kv_cache_quant and cfg.mla is None and \
+            cfg.family in ("dense", "vlm", "moe", "audio")
+        cache = self._paged(slots, max_seq, page_tokens, n_pages,
+                            "int8" if quant else "bfloat16")
         if enc_seq:
             cache.cross = self._paged(slots, enc_seq, page_tokens, None)
         if cfg.family == "hybrid":
             cache.state = RecurrentStateCache(cfg, slots, device=self.device)
         return cache
 
-    def _paged(self, slots, max_seq, page_tokens, n_pages) -> PagedKVCache:
+    def _paged(self, slots, max_seq, page_tokens, n_pages,
+               dtype: str = "bfloat16") -> PagedKVCache:
         cfg = self.cfg
         pages_per_seq = -(-max_seq // page_tokens)
         kv_heads, head_dim = T.kv_geometry(cfg)
@@ -85,7 +96,8 @@ class Model:
             PagedCacheConfig(
                 n_pages=n_pages or slots * pages_per_seq,
                 page_tokens=page_tokens, n_kv_heads=kv_heads,
-                head_dim=head_dim, max_pages_per_seq=pages_per_seq),
+                head_dim=head_dim, max_pages_per_seq=pages_per_seq,
+                dtype=dtype),
             max_seqs=slots, n_layers=T.kv_layers(cfg), device=self.device,
             v_pool=cfg.mla is None)
 

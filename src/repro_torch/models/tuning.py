@@ -5,8 +5,11 @@ sweep them without touching architecture configs.
 ``moe_local_dispatch`` picks the row-local MoE dispatch
 (``models.moe._apply_moe_local``).
 
-The paged INT8 KV cache (``kv_cache_quant``) is not ported yet: setting
-it raises ``NotImplementedError``.
+``kv_cache_quant`` makes ``Model.init_cache`` build int8 K/V pools with
+fp16 per-(token, KV head) scales for the families the reference
+quantizes (dense, vlm, MoE without MLA, and whisper's self-attention);
+from then on the pool's dtype carries the decision, as ``"k_scale" in
+cache`` does in the reference.
 """
 from __future__ import annotations
 
@@ -22,13 +25,8 @@ class Tuning:
     q_chunk: int = 512             # chunked-attention query page
     kv_chunk: int = 1024           # chunked-attention KV page
     ssm_chunk: int = 16            # linear-attention chunk
-    kv_cache_quant: bool = False   # INT8 paged KV (not ported yet)
+    kv_cache_quant: bool = False   # INT8 paged KV (per-token scales)
     moe_local_dispatch: bool = False   # row-local MoE dispatch
-
-    def __post_init__(self):
-        if self.kv_cache_quant:
-            raise NotImplementedError(
-                "INT8 KV cache (kv_cache_quant) is not ported yet")
 
 
 DEFAULT = Tuning()

@@ -41,6 +41,12 @@ pool a layer; its shadow table keeps the reference's GQA geometry
 ``kv_page_tokens``, so admission, held to the live pool, and the trace
 see the same pages.
 
+The INT8 KV cache needs no logic here: the engine builds its cache
+through ``Model.init_cache``, so an engine constructed under
+``tuning_context(Tuning(kv_cache_quant=True))`` gets int8 pools, and
+admission counts pages of that live pool; the ``record_plans`` shadow
+table stays bf16, as the reference engine's does.
+
 Not ported yet: ``plan_only``, the open-loop path, prefix caching and
 preemption.  An audio (encoder-decoder) config is refused, as the
 reference engine cannot prefill its frames: it runs through ``Model``.

@@ -14,6 +14,12 @@ The swap and prefix-cache bookkeeping of the reference is not ported
 yet.  ``PagedKVCache`` adds torch pools of shape (L, P, page, KH, hd)
 on the device, one table shared by every layer.
 
+A cache config of dtype ``"int8"`` is the INT8 KV cache
+(``Tuning.kv_cache_quant``): int8 K/V pools plus fp16 scale pools
+``k_scale`` / ``v_scale`` of (L, P, KH, page), one scale per (token, KV
+head), each KV head's scales of a page contiguous so the paged kernel
+fetches them with 16-byte copies (the reference keeps (…, seq, KH)).
+
 Unlike the reference's ``PagedKVCache.append_token``, which writes for
 every slot passed — active or not — the port writes only for active
 slots: a retired slot's table row is stale (``free_seq`` does not clear
@@ -47,8 +53,12 @@ class PagedCacheConfig:
 
     @property
     def page_bytes(self) -> int:
-        return self.page_tokens * self.n_kv_heads * self.head_dim * \
-            _itemsize(self.dtype)
+        """A K (or V) page's bytes; an int8 page counts its fp16
+        scales."""
+        per_head = self.head_dim * _itemsize(self.dtype)
+        if self.dtype == "int8":
+            per_head += _itemsize("float16")
+        return self.page_tokens * self.n_kv_heads * per_head
 
 
 class PageTable:
@@ -230,7 +240,11 @@ class PagedKVCache(PageTable):
 
     With ``v_pool=False`` there is one pool, ``k_pages``, and
     ``v_pages`` is None: multi-head latent attention keeps one latent
-    row per token (its V is the first columns of the row)."""
+    row per token (its V is the first columns of the row).
+
+    A config of dtype ``"int8"`` gives int8 ``k_pages`` / ``v_pages``
+    and fp16 ``k_scale`` / ``v_scale`` of (L, P, KH, page); otherwise
+    both scale pools are None."""
 
     def __init__(self, cfg: PagedCacheConfig, max_seqs: int,
                  n_layers: int, device="cuda", v_pool: bool = True):
@@ -242,6 +256,15 @@ class PagedKVCache(PageTable):
         self.k_pages = torch.zeros(shape, dtype=dt, device=self.device)
         self.v_pages = torch.zeros(shape, dtype=dt, device=self.device) \
             if v_pool else None
+        self.k_scale = self.v_scale = None
+        if dt == torch.int8:
+            if not v_pool:
+                raise ValueError("an int8 KV cache has K and V pools")
+            sshape = (n_layers, cfg.n_pages, cfg.n_kv_heads, cfg.page_tokens)
+            self.k_scale = torch.zeros(sshape, dtype=torch.float16,
+                                       device=self.device)
+            self.v_scale = torch.zeros(sshape, dtype=torch.float16,
+                                       device=self.device)
         self.cross: Optional[PagedKVCache] = None
         self.state: Optional[RecurrentStateCache] = None
 
@@ -333,18 +356,39 @@ class PagedKVCache(PageTable):
                 "one latent pool (v_pool=False: k_pages holds each "
                 "token's latent row, whose first columns are V)")
 
+    @property
+    def quantized(self) -> bool:
+        """Whether the pools are the INT8 KV cache's (int8 pools)."""
+        return self.k_pages.dtype == torch.int8
+
     def page_dicts(self, slots, layer: int = 0):
         """``({page_id: page}, {page_id: page})`` views of ``layer``'s K
         and V pools for the pages the given slots hold: the ``paged``
-        input of ``core.streaming.execute_plan``."""
+        input of ``core.streaming.execute_plan``.  Refuses an int8 pool:
+        the executor, like the reference's, streams float pages only."""
         self._need_v_pool("page_dicts")
+        if self.quantized:
+            raise ValueError("page_dicts streams float KV pages; this "
+                             "cache holds int8 pools with scales")
         pids = sorted({int(p) for s in slots if self.active[s]
                        for p in self.tables[s, :int(self.held[s])]})
         k, v = self.k_pages[layer], self.v_pages[layer]
         return {p: k[p] for p in pids}, {p: v[p] for p in pids}
 
     def layer_flat(self, layer: int):
-        """This layer's (k, v) pools viewed as (P·page, KH, hd) rows."""
+        """This layer's (k, v) pools viewed as (P·page, KH, hd) rows (an
+        int8 cache's scales are in ``layer_pools``)."""
         self._need_v_pool("layer_flat")
         k, v = self.k_pages[layer], self.v_pages[layer]
         return (k.view(-1, *k.shape[2:]), v.view(-1, *v.shape[2:]))
+
+    def layer_pools(self, layer: int) -> tuple:
+        """``(k_pages, v_pages, k_scale, v_scale)`` of ``layer``: what
+        ``ops.kv_write`` and ``ops.paged_attention`` take.  ``v_pages``
+        is None for a latent pool, the scales None but for an int8
+        cache."""
+        v = None if self.v_pages is None else self.v_pages[layer]
+        if self.k_scale is None:
+            return self.k_pages[layer], v, None, None
+        return (self.k_pages[layer], v, self.k_scale[layer],
+                self.v_scale[layer])

@@ -36,7 +36,15 @@ flash at ragged Tq / Tk, causal and full, bf16 and fp32; paged at every
 split S with edge lengths at 8-, 16- and 32-token pages, fp32 and bf16,
 its shared-memory estimate, and its decode shape bitwise repeatable
 and one launch per call; and the reduced zamba2 on the card against
-the CPU.
+the CPU.  Then the INT8 KV cache: the int8-pool paged kernel at every
+split S with edge lengths (lens 0 included) at D 16, 32, 64 and 128, in
+query-head groups and at qwen1.5-32b's 40 / 40 heads, its decode shapes
+bitwise repeatable and one launch per call, its shared-memory estimate;
+the quantize-and-append kernel bit for bit against its plain version;
+and the reduced qwen1.5-32b under the flag on the card against the CPU,
+one int8 paged and one quantize launch a layer.
+Every "one launch per call" count reads the kernel nodes of a captured
+CUDA graph, not a profiler window (which now and then loses launches).
 Tolerances: int8 exact; fp32 GEMM 2e-4 and fp32 attention 3e-5 (fp32
 sums in another order, no TF32); bf16 2e-2 (one bf16 ulp of the
 outputs).
@@ -48,6 +56,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.kernels import kernel_nodes as KN  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 
 GEMM_SHAPES = [(64, 128, 128), (100, 200, 300), (256, 256, 512),
@@ -83,58 +92,6 @@ def _card():
 def _bf16(rng, shape, dev, scale=1.0):
     x = rng.standard_normal(shape, np.float32) * scale
     return torch.from_numpy(x).to(dev, torch.bfloat16)
-
-
-def _device_kernels(fn, reps=3, tries=3):
-    """Names of the device kernels that ``reps`` calls of ``fn`` launch,
-    from ``torch.profiler``.  Every call launches at least one kernel,
-    so a window that recorded fewer kernels than calls lost events (the
-    profiler now and then drops a window, or part of one): it is
-    profiled again after a pause, up to ``tries`` times."""
-    import time
-    from torch.profiler import ProfilerActivity, profile
-    for attempt in range(tries):
-        if attempt:
-            time.sleep(0.5)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        names = [e.name for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA]
-        if len(names) >= reps:
-            return names
-    return names
-
-
-def _graph_node_types(fn, reps=3):
-    """The node types of the CUDA graph that ``reps`` calls of ``fn``
-    capture (0 is a kernel; a memset or copy would show as another
-    type): one node a launch, read from the graph and not from a
-    profiler trace."""
-    import ctypes
-    cu = ctypes.CDLL("libcuda.so.1")
-    cu.cuGraphGetNodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
-                                   ctypes.POINTER(ctypes.c_size_t)]
-    cu.cuGraphNodeGetType.argtypes = [ctypes.c_void_p,
-                                      ctypes.POINTER(ctypes.c_int)]
-    g = torch.cuda.CUDAGraph(keep_graph=True)
-    with torch.cuda.graph(g):
-        for _ in range(reps):
-            fn()
-    graph = ctypes.c_void_p(g.raw_cuda_graph())
-    n = ctypes.c_size_t(0)
-    assert cu.cuGraphGetNodes(graph, None, ctypes.byref(n)) == 0
-    nodes = (ctypes.c_void_p * n.value)()
-    assert cu.cuGraphGetNodes(graph, nodes, ctypes.byref(n)) == 0
-    types = []
-    for node in nodes:
-        t = ctypes.c_int(-1)
-        assert cu.cuGraphNodeGetType(node, ctypes.byref(t)) == 0
-        types.append(t.value)
-    g.reset()
-    return types
 
 
 def _paged_inputs(b, h, kh, d, page, mp, seed=0, lens=None):
@@ -228,9 +185,8 @@ def test_cuda_splitk_gemm_is_deterministic_and_one_launch():
     first = ops.streaming_gemm(a, b)
     for _ in range(5):
         assert torch.equal(ops.streaming_gemm(a, b), first)
-    names = _device_kernels(lambda: ops.streaming_gemm(a, b))
-    gemm = [n for n in names if "gemm_bf16" in n]
-    assert len(gemm) == 3, names
+    groups = KN.captured_groups(lambda: ops.streaming_gemm(a, b), reps=3)
+    assert groups == ["streaming_gemm"] * 3, groups
 
 
 @pytest.mark.cuda
@@ -317,8 +273,8 @@ def test_cuda_paged_is_deterministic_and_one_launch():
     first = ops.paged_attention(*args)
     for _ in range(5):
         assert torch.equal(ops.paged_attention(*args), first)
-    names = _device_kernels(lambda: ops.paged_attention(*args))
-    assert len([n for n in names if "paged_fwd" in n]) == 3, names
+    groups = KN.captured_groups(lambda: ops.paged_attention(*args), reps=3)
+    assert groups == ["paged_attention"] * 3, groups
 
 
 @pytest.mark.cuda
@@ -388,8 +344,8 @@ def test_cuda_paged_head_dim_112_decode_shape_deterministic_one_launch():
                                rtol=2e-2, atol=2e-2)
     for _ in range(5):
         assert torch.equal(ops.paged_attention(*args), first)
-    names = _device_kernels(lambda: ops.paged_attention(*args))
-    assert len([n for n in names if "paged_fwd" in n]) == 3, names
+    groups = KN.captured_groups(lambda: ops.paged_attention(*args), reps=3)
+    assert groups == ["paged_attention"] * 3, groups
 
 
 # (H, KH, D, page, max_pages): granite-20b's MQA (48 query heads of 128
@@ -440,8 +396,8 @@ def test_cuda_paged_head_groups_deterministic_and_one_launch():
                                rtol=2e-2, atol=2e-2)
     for _ in range(5):
         assert torch.equal(ops.paged_attention(*args), first)
-    names = _device_kernels(lambda: ops.paged_attention(*args))
-    assert len([n for n in names if "paged_fwd" in n]) == 3, names
+    groups = KN.captured_groups(lambda: ops.paged_attention(*args), reps=3)
+    assert groups == ["paged_attention"] * 3, groups
 
 
 # ----------------------------------------------- expert-grouped GEMM
@@ -523,8 +479,9 @@ def test_cuda_grouped_gemm_is_deterministic_and_one_launch():
     for _ in range(5):
         assert torch.equal(ops.grouped_streaming_gemm(a, b, cnt)[rows], first)
     before = ops.LAUNCHES["streaming_gemm_grouped"]
-    types = _graph_node_types(lambda: ops.grouped_streaming_gemm(a, b, cnt))
-    assert types == [0, 0, 0], types
+    groups = KN.captured_groups(
+        lambda: ops.grouped_streaming_gemm(a, b, cnt), reps=3)
+    assert groups == ["streaming_gemm_grouped"] * 3, groups
     assert ops.LAUNCHES["streaming_gemm_grouped"] == before + 3
 
 
@@ -745,8 +702,9 @@ def test_cuda_whisper_decode_step_is_one_kernel_per_wrapper_call():
     """Full-width whisper-tiny, 8 clips of 1,500 frames prefilled with a
     4-token prompt, then one decode step: per layer 4 self-attention, 2
     cross-attention (q, o) and 2 MLP GEMMs and 2 paged calls (self and
-    cross), plus the lm_head; each wrapper call is one device kernel."""
-    from torch.profiler import ProfilerActivity, profile
+    cross), plus the lm_head; each wrapper call is one device kernel
+    (the call captured into a CUDA graph is one kernel node), the
+    wrapper's own by its name."""
     from repro_torch.configs import get_config
     from repro_torch.models.model import Model
     dev = _card()
@@ -763,25 +721,21 @@ def test_cuda_whisper_decode_step_is_one_kernel_per_wrapper_call():
     toks = torch.randint(1, cfg.vocab_size, (B, 4), generator=g, device=dev)
     tok = m.prefill(params, toks, cache, slots, audio_frames=frames)[
         :, :cfg.vocab_size].argmax(-1)
-    kernels = {}
-    for steps in range(1, 4):
-        ops.reset_launches()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            tok = m.decode_step(params, cache, tok, slots)[
-                :, :cfg.vocab_size].argmax(-1)
-            torch.cuda.synchronize()
-        names = [e.name for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA]
-        kernels = {"streaming_gemm": sum("gemm_bf16" in n or "gemm_simt" in n
-                                         for n in names),
-                   "paged_attention": sum("paged_fwd" in n for n in names)}
-        if all(kernels[k] == ops.LAUNCHES[k] for k in kernels):
-            break
+    ops.reset_launches()
+
+    def step():
+        return m.decode_step(params, cache, tok, slots)
+
+    calls = KN.step_calls(step)
+    steps = 1                   # captured calls do not run
     assert ops.LAUNCHES["streaming_gemm"] == cfg.n_layers * 8 + 1
     assert ops.LAUNCHES["paged_attention"] == cfg.n_layers * 2
     assert ops.LAUNCHES["flash_attention"] == 0
-    assert kernels == {k: ops.LAUNCHES[k] for k in kernels}, names
+    assert {k: len(v) for k, v in calls.items()} == {
+        "streaming_gemm": cfg.n_layers * 8 + 1,
+        "paged_attention": cfg.n_layers * 2}
+    assert all(len(nodes) == 1 for v in calls.values() for nodes in v), calls
+    assert KN.strays(calls) == []
     assert list(cache.lens[:B]) == [4 + steps] * B
     assert list(cache.cross.lens[:B]) == [Te] * B
     cache.validate()
@@ -909,9 +863,9 @@ def test_cuda_flash_qk_192_v_128_matches_plain_version(tq, tk, h, kh, causal,
     np.testing.assert_allclose(got.cpu().float().numpy(),
                                want.cpu().float().numpy(), rtol=tol,
                                atol=tol)
-    types = _graph_node_types(lambda: ops.flash_attention(q, k, v, causal,
-                                                          bk=tk))
-    assert types == [0, 0, 0], types
+    groups = KN.captured_groups(
+        lambda: ops.flash_attention(q, k, v, causal, bk=tk), reps=3)
+    assert groups == ["flash_attention"] * 3, groups
 
 
 def _latent_card(lens, h, page, mp, dtype, dev, seed=0):
@@ -981,9 +935,9 @@ def test_cuda_paged_latent_decode_shape_deterministic_one_launch():
             assert torch.equal(
                 ops.paged_latent_attention(*args, 512, MLA_SCALE), first)
     assert not first[4].float().abs().max().item()
-    types = _graph_node_types(
-        lambda: ops.paged_latent_attention(*args, 512, MLA_SCALE))
-    assert types == [0, 0, 0], types
+    groups = KN.captured_groups(
+        lambda: ops.paged_latent_attention(*args, 512, MLA_SCALE), reps=3)
+    assert groups == ["paged_latent_attention"] * 3, groups
 
 
 @pytest.mark.cuda
@@ -1081,3 +1035,179 @@ def test_cuda_mla_prefill_and_decode_match_the_cpu():
     assert (got - want).abs().max().item() <= tol
     assert list(card_cache.lens) == list(cpu_cache.lens) == [9, 20, 74]
     card_cache.validate()
+
+
+# --------------------------------------------------- INT8 KV cache
+# (H, KH, D, page, max_pages): D 16, 32, 64 and 128 (8-, 16- and 32-token
+# pages: a lane's int8 slice is read 4, 8 or 16 bytes at a time),
+# granite-20b's MQA in 3 query-head groups, qwen1.5-32b's 40 / 40 heads
+# and whisper-tiny's 6 / 6 heads of 64
+PAGED_INT8_SHAPES = [(14, 2, 64, 16, 8), (8, 2, 32, 8, 12),
+                     (16, 1, 128, 32, 6), (4, 4, 16, 8, 7),
+                     (48, 1, 128, 16, 6), (40, 40, 128, 16, 5),
+                     (6, 6, 64, 16, 5), (64, 2, 128, 8, 5)]
+
+
+def _paged_int8_card(shape, lens, dev, seed=0):
+    """q (bf16), int8 K/V pools quantized from seeded bf16 values by the
+    plain version, table, lens and the (P, KH, page) fp16 scale pools, in
+    ``ops.paged_attention``'s argument order."""
+    h, kh, d, page, mp = shape
+    q, kp, vp, table, lens = _paged_inputs(len(lens), h, kh, d, page, mp,
+                                           seed=seed, lens=lens)
+    out = [torch.from_numpy(q).to(dev, torch.bfloat16)]
+    scales = []
+    for pool in (kp, vp):
+        codes, sc = ref.kv_quantize_ref(
+            torch.from_numpy(pool).to(dev, torch.bfloat16))
+        out.append(codes)
+        scales.append(sc.permute(0, 2, 1).contiguous())
+    out += [torch.from_numpy(table).to(dev), torch.from_numpy(lens).to(dev)]
+    return out + scales
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("splits", range(1, 9))
+def test_cuda_paged_int8_every_split_at_edge_lengths(splits, monkeypatch):
+    """The int8-pool kernel at every cluster size S = 1..8 forced through
+    ``plan``, lengths 0, 1, page - 1, page, page + 1 and the full table,
+    within 2e-2 of its plain version (bf16 output; P in fp32 on both)."""
+    dev = _card()
+    monkeypatch.setattr(PA, "plan", lambda *_: splits)
+    for shape in PAGED_INT8_SHAPES:
+        page, mp = shape[3], shape[4]
+        lens = [0, 1, page - 1, page, page + 1, page * mp]
+        args = _paged_int8_card(shape, lens, dev, seed=splits)
+        got = ops.paged_attention(*args)
+        want = ref.paged_ref(*args[:5], k_scale=args[5], v_scale=args[6])
+        np.testing.assert_allclose(got.cpu().float().numpy(),
+                                   want.cpu().float().numpy(), rtol=2e-2,
+                                   atol=2e-2, err_msg=str(shape))
+        assert not got[0].float().abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,kh,d", [(40, 40, 128), (14, 2, 64),
+                                    (48, 1, 128)])
+def test_cuda_paged_int8_decode_shape_deterministic_one_launch(h, kh, d):
+    """qwen1.5-32b's (S = 1 at 320 grid rows), qwen2-0.5b's and granite's
+    decode shapes (8 sequences, 16-token pages, a 64-page table) at the
+    plan the wrapper picks: within 2e-2 of the plain version, the same
+    bits on every run, one kernel launch per call (graph nodes)."""
+    dev = _card()
+    args = _paged_int8_card((h, kh, d, 16, 64), [1024, 700, 272, 1, 0, 16,
+                                                 17, 555], dev)
+    first = ops.paged_attention(*args)
+    np.testing.assert_allclose(
+        first.cpu().float().numpy(),
+        ref.paged_ref(*args[:5], k_scale=args[5], v_scale=args[6])
+        .cpu().float().numpy(), rtol=2e-2, atol=2e-2)
+    for _ in range(5):
+        assert torch.equal(ops.paged_attention(*args), first)
+    groups = KN.captured_groups(lambda: ops.paged_attention(*args), reps=3)
+    assert groups == ["paged_attention_int8"] * 3, groups
+
+
+@pytest.mark.cuda
+def test_cuda_paged_int8_shared_memory_estimate_matches_the_kernel():
+    """``smem_bytes`` at element size 1 (int8 rows plus each slot's K and
+    V scales) computes what the int8 kernel launches with."""
+    import ctypes
+    from repro_torch.kernels import _build
+    _card()
+    fn = _build.function("paged_attention", "pa_smem_bytes",
+                         [ctypes.c_int] * 6)
+    for case in ((7, 64, 16, 64, 4, 1), (1, 128, 16, 64, 4, 1),
+                 (16, 128, 16, 64, 4, 1), (16, 128, 32, 6, 4, 1),
+                 (4, 16, 8, 7, 4, 1), (16, 128, 16, 4096, 2, 1)):
+        assert fn(*case) == PA.smem_bytes(*case)
+    assert PA.walkers(16, 128, 32, 64, 1) == 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,kh,d,page", [(8, 40, 128, 16), (300, 2, 64, 16),
+                                         (5, 3, 16, 8), (7, 4, 32, 32),
+                                         (8, 1, 128, 16)])
+def test_cuda_kv_quantize_is_bitwise_and_one_launch(n, kh, d, page):
+    """The fused quantize-and-append kernel writes the same int8 codes
+    and fp16 scales as its plain version, bit for bit, at the seeded
+    rows (values of every magnitude, an all-zero row, rows at the
+    saturation edge), leaves every other row alone, and is one kernel
+    launch per call (graph nodes)."""
+    dev = _card()
+    rng = np.random.default_rng(n + d)
+    P = -(-n // page) * 2 + 4
+    rows = torch.from_numpy(rng.permutation(P * page)[:n].astype(np.int64)
+                            ).to(dev)
+    k = _bf16(rng, (n, kh, d), dev, scale=3.0) * torch.from_numpy(
+        rng.uniform(0, 2, (n, kh, 1)).astype(np.float32)).to(
+        dev, torch.bfloat16)
+    v = _bf16(rng, (n, kh, d), dev)
+    k[0, 0] = 0
+    v[-1, 0] = 0
+    v[-1, 0, 0] = 2.75          # 2.75 / bf16(2.75 / 127) rounds to 128
+    pools = [torch.full((P, page, kh, d), 7, dtype=torch.int8, device=dev)
+             for _ in range(2)]
+    pools += [torch.full((P, kh, page), 3.0, dtype=torch.float16,
+                         device=dev) for _ in range(2)]
+    want = [t.clone() for t in pools]
+    ops.kv_quantize_append(k, v, rows, *pools)
+    ref.kv_quantize_append_ref(k, v, rows, *want)
+    for a, b in zip(pools, want):
+        assert torch.equal(a, b)
+    assert pools[1].view(-1, kh, d)[rows[-1], 0, 0].item() == 127
+    groups = KN.captured_groups(
+        lambda: ops.kv_quantize_append(k, v, rows, *pools), reps=3)
+    assert groups == ["kv_quantize"] * 3, groups
+
+
+@pytest.mark.cuda
+def test_cuda_int8_kv_decode_matches_the_cpu_one_launch_a_layer():
+    """The reduced qwen1.5-32b under ``Tuning(kv_cache_quant=True)``: a
+    prefill of 2 x 40 tokens and 3 decode steps on the card against the
+    same weights on the CPU, logits within 5e-2 of their largest
+    magnitude (bf16 rounding after fp32 sums in another order); one more
+    step with its wrapper calls captured into CUDA graphs makes one int8
+    paged and one quantize launch a layer, each one kernel node, and no
+    bf16 paged launch."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import tuning as TU
+    from repro_torch.models.model import Model
+    from repro_torch.models.params import params_to
+    dev = _card()
+    cfg = get_reduced("qwen1_5_32b")
+    rng = np.random.default_rng(9)
+    prompt = rng.integers(1, 250, (2, 40))
+    steps = rng.integers(1, 250, (4, 2))
+    params = Model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+
+    def run(device, p, count=False):
+        m = Model(cfg, device=device)
+        with TU.tuning_context(TU.Tuning(kv_cache_quant=True)):
+            cache = m.init_cache(2, 64, page_tokens=16)
+        assert cache.k_pages.dtype == torch.int8
+        for s in range(2):
+            cache.alloc_seq(s, 40)
+        out = [m.prefill(p, torch.as_tensor(prompt, device=m.device), cache,
+                         [0, 1])]
+        for t in steps[:3]:
+            out.append(m.decode_step(p, cache, torch.as_tensor(
+                t, device=m.device), [0, 1]))
+        calls = None
+        if count:
+            ops.reset_launches()
+            calls = KN.step_calls(lambda: m.decode_step(
+                p, cache, torch.as_tensor(steps[3], device=m.device),
+                [0, 1]))
+        return torch.cat(out).float().cpu(), calls
+
+    card, calls = run(dev, params_to(params, dev), count=True)
+    cpu, _ = run("cpu", params)
+    err = (card - cpu).abs().max().item()
+    assert err <= 5e-2 * max(1.0, cpu.abs().max().item()), err
+    assert len(calls["paged_attention_int8"]) == cfg.n_layers
+    assert len(calls["kv_quantize"]) == cfg.n_layers
+    assert "paged_attention" not in calls
+    assert ops.LAUNCHES["paged_attention"] == 0
+    assert all(len(nodes) == 1 for v in calls.values() for nodes in v), calls
+    assert KN.strays(calls) == []

@@ -104,10 +104,12 @@ def _close_state(got, want, rtol=STATE_RTOL):
                                atol=rtol * np.abs(want).max())
 
 
-def _paged_as_reference(q, k_pages, v_pages, table, lens):
+def _paged_as_reference(q, k_pages, v_pages, table, lens, k_scale=None,
+                        v_scale=None):
     """``ops.paged_attention`` with the reference's decode arithmetic:
     the pages gathered into a contiguous cache, then
-    ``layers.decode_attention``."""
+    ``layers.decode_attention``.  The shared pool is bf16: no scales."""
+    assert k_scale is None and v_scale is None
     B, t = q.shape[0], table.long()
     k = k_pages[t].reshape(B, -1, *k_pages.shape[2:])
     v = v_pages[t].reshape(B, -1, *v_pages.shape[2:])

@@ -47,3 +47,33 @@ def test_port_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, check=True)
     assert out.stdout.strip() == "", f"port imported: {out.stdout}"
+
+
+# the port's serving examples, each with ``--device cpu`` at reduced width
+EXAMPLES = {
+    "paged_serving_torch.py": ["--device", "cpu", "--int8"],
+    "serve_batched_torch.py": ["--device", "cpu", "--requests", "4",
+                               "--new-tokens", "3", "--kv-cache-quant"],
+    "offload_streaming_torch.py": ["--device", "cpu", "--layers", "4",
+                                   "--width", "64"],
+}
+
+
+@pytest.mark.parametrize("name", sorted(EXAMPLES))
+def test_example_runs_on_the_cpu_and_loads_no_jax(name):
+    """Each of the port's serving examples runs to its end with
+    ``--device cpu`` at reduced width, and loads neither JAX nor any
+    module of the JAX package."""
+    path = SRC.parent / "examples" / name
+    code = (
+        "import runpy, sys\n"
+        f"sys.argv = [{str(path)!r}] + {EXAMPLES[name]!r}\n"
+        f"runpy.run_path({str(path)!r}, run_name='__main__')\n"
+        "bad = sorted(m for m in sys.modules if m in ('jax', 'ml_dtypes',"
+        " 'repro') or m.startswith(('jax.', 'ml_dtypes.', 'repro.')))\n"
+        "print('loaded:' + ','.join(bad))\n")
+    env = {**os.environ, "PYTHONPATH": str(SRC)}
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip().splitlines()[-1] == "loaded:", out.stdout

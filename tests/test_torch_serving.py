@@ -272,6 +272,7 @@ def test_unported_paths_raise():
             ds.moe.n_routed_experts, ds.moe.top_k,
             ds.mla.kv_lora_rank, ds.mla.qk_rope_head_dim) == \
         (61, 7168, 128, 129280, 256, 8, 512, 64)
+    # the INT8 KV cache is ported: the flag builds (its paths are held in
+    # test_torch_int8_kv.py)
     from repro_torch.models.tuning import Tuning
-    with pytest.raises(NotImplementedError):
-        Tuning(kv_cache_quant=True)
+    assert Tuning(kv_cache_quant=True).kv_cache_quant
