@@ -180,7 +180,30 @@ Phases, in order; any failure raises and exits non-zero:
    and an 8-token decode batch): at least 0.97 of the expert sets equal
    (flips counted by experts changed), outputs of the tokens routed
    alike within E2E_TOL x max(1, max|y|).
-13. Print the ``kernels`` JSON line (each kernel's launches from its own
+13. The timing simulator (``repro_torch.accesys``, the Scenario API,
+   ``serving/sim_report``), a numpy model of the paper's MatrixFlow
+   accelerator behind PCIe that runs on the host; seconds per sub-phase.
+   (a) Each row of ``BENCH_replay.json`` lowered again and replayed in
+   DM, DC and DevMem by the compiled and the event engine: engine parity
+   (``assert_parity``), the artifact's event count, each mode's
+   ``total_us`` within 1e-9 of the artifact's (printed beside it), and
+   the replay rate in events/s, labelled with the host's CPU and the
+   card line.  (b) The paper-claim scorecard (``validate(fast=True)``),
+   every row printed and every claim passing.  (c) qwen2-0.5b at full
+   width cut in depth to one layer (each prefill plan repeats every
+   layer's weight GEMMs tile by tile: a full-depth trace takes minutes
+   of host time to build) serves 8 requests of 64-256 prompt tokens
+   (multiples of 64, one plan template each) and 8 new tokens through
+   ``ServingEngine(record_plans=True)``: launch counts zeroed just
+   before and read just after (all three dense kernels must run), one
+   trace record per admission and per decode step; the same requests again without recording, for the card's TTFT
+   and decode step; the trace priced by ``simulate_serving_trace`` in
+   each mode, the simulated TTFT and TPOT p50 printed beside the card's
+   (no agreement asked); then the reduced ``Scenario(model="serve")``
+   on the card and on the CPU, with equal ``SimResult``s.  (d) With
+   CUDA live, ``tune`` over the default design space at two workers
+   (spawned, not forked) equal to one worker.
+14. Print the ``kernels`` JSON line (each kernel's launches from its own
    path's serving run, the int8 kernels' from phase 8e's, every path's
    counts beside), the card line, and
    last the result line ``{"ok": true, "device": {...}}``.
@@ -2650,6 +2673,263 @@ def phase_deepseek(torch, args, rows):
     return res
 
 
+# ------------------------------------------------------------ phase 13
+SIM_MODES = ("DM", "DC", "DevMem")
+SIM_ARCH = "qwen2-0.5b"
+SIM_LAYERS = 1          # the trace's depth (docstring, 13c)
+SIM_REQUESTS = 8
+SIM_NEW_TOKENS = 8
+
+
+def host_line():
+    """The host CPU the simulator's replay rates were read on."""
+    import os
+    import platform
+    name = platform.machine()
+    try:
+        for line in Path("/proc/cpuinfo").read_text().splitlines():
+            if line.startswith("model name"):
+                name = line.split(":", 1)[1].strip()
+                break
+    except OSError:
+        pass
+    return f"{name}, {os.cpu_count()} cores"
+
+
+def _artifact_scenario(SC, sc_json):
+    """A ``Scenario`` from the scenario block of a ``BENCH_replay.json``
+    row (lists there are tuples in ``Scenario.params``)."""
+    def tup(v):
+        return tuple(tup(x) for x in v) if isinstance(v, list) else v
+    return SC.Scenario(
+        model=sc_json["model"], dtype=sc_json["dtype"],
+        n_layers=sc_json["n_layers"], sampling=sc_json["sampling"],
+        params=SC.as_params(**{k: tup(v)
+                               for k, v in sc_json["params"].items()}))
+
+
+def _sim_replay(card, host):
+    """13a: every row of ``BENCH_replay.json`` lowered again and replayed
+    in DM, DC and DevMem by both engines: engine parity, the artifact's
+    event count, and each mode's ``total_us`` within 1e-9 of it."""
+    import dataclasses
+    from repro_torch.accesys.pipeline import replay
+    from repro_torch.core import scenario as SC
+
+    art = json.loads((Path(__file__).resolve().parent
+                      / "BENCH_replay.json").read_text())
+    out = {}
+    for row, want in art.items():
+        if row == "_meta":
+            continue
+        sc = _artifact_scenario(SC, want["modes"]["DM"]["sim"]["scenario"])
+        t = time.perf_counter()
+        plan, label, events, total = SC.scenario_plan(sc)
+        build_s = time.perf_counter() - t
+        require(events == want["events"],
+                f"{row}: {events} events, the artifact has {want['events']}")
+        res = {"events": events, "build_s": build_s, "modes": {}}
+        for mode in SIM_MODES:
+            cfg = SC.system_for(dataclasses.replace(sc, mode=mode))
+            sims = {}
+            for engine in ("compiled", "event"):
+                t = time.perf_counter()
+                r = replay(cfg, plan, engine=engine)
+                wall = time.perf_counter() - t
+                sims[engine] = SC.SimResult(
+                    scenario=dataclasses.replace(sc, mode=mode,
+                                                 engine=engine),
+                    label=label, mode=mode, engine=engine, result=r,
+                    events_replayed=events, events_total=total,
+                    wall_s=wall)
+            SC.assert_parity(sims["compiled"], sims["event"])
+            got_us = sims["compiled"].total_s * 1e6
+            art_us = want["modes"][mode]["sim"]["total_us"]
+            require(abs(got_us - art_us) <= 1e-9 * art_us,
+                    f"{row} {mode}: total {got_us} us, artifact {art_us}")
+            res["modes"][mode] = {
+                "total_us": got_us, "artifact_total_us": art_us,
+                "compiled_ev_per_s": sims["compiled"].events_per_s,
+                "event_ev_per_s": sims["event"].events_per_s}
+        out[row] = res
+    SC.clear_caches()
+    print("[simulator replay] " + json.dumps(
+        {"rows": out, "rates_on_host": host, "card": card}), flush=True)
+    return out
+
+
+def _sim_scorecard():
+    """13b: the paper-claim scorecard (fast subset); every claim the
+    reference's claim tests assert must pass."""
+    from repro_torch.accesys import calibration
+
+    claims = calibration.validate(fast=True)
+    for c in claims:
+        print(f"[simulator scorecard] {c.row()}", flush=True)
+    failing = [c.row() for c in claims if not c.ok]
+    require(not failing, "scorecard claims missed:\n" + "\n".join(failing))
+    require(sum(c.name.startswith("table9") for c in claims) == 6,
+            "scorecard lacks a Table 9 row")
+    return {"claims": len(claims), "passed": len(claims) - len(failing)}
+
+
+def _sim_serving(torch, args, card):
+    """13c: the card serves and the simulator prices what it served.
+    qwen2-0.5b at full width, cut in depth to ``SIM_LAYERS`` layer(s),
+    serves ``SIM_REQUESTS`` requests of 64-256 prompt tokens (multiples
+    of 64) and ``SIM_NEW_TOKENS`` new tokens through
+    ``ServingEngine(record_plans=True)``: launch counts zeroed just
+    before and read just after, every dense kernel must run, and the
+    trace must hold one record per admission and per decode step.  The
+    same requests are then served again without recording, for the
+    card's TTFT and decode step (recording builds each plan inside the
+    engine loop).  The trace is priced by ``simulate_serving_trace`` in
+    DM, DC and DevMem: a model of the paper's MatrixFlow accelerator
+    behind PCIe, printed beside the card's figures with no agreement
+    asked.  Last, the reduced ``Scenario(model="serve")`` with
+    ``device="cuda"`` and again with ``device="cpu"``: equal
+    ``SimResult``s."""
+    import dataclasses
+
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import depth_cut
+    from repro_torch.core import scenario as SC
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import Model
+    from repro_torch.serving.engine import Request, ServingEngine
+    from repro_torch.serving.sim_report import (simulate_serving_trace,
+                                                trace_schedule)
+
+    dev = torch.device("cuda")
+    cfg = depth_cut(get_config(SIM_ARCH), SIM_LAYERS)
+    params = Model(cfg, device=dev).init(
+        torch.Generator(device=dev).manual_seed(args.seed))
+    rng = np.random.default_rng(args.seed)
+    lens = [64 * int(k) for k in rng.integers(1, 5, SIM_REQUESTS)]
+    eng = ServingEngine(cfg, params, slots=8, max_seq=1024,
+                        kv_page_tokens=16, device=dev, record_plans=True)
+    for i, n in enumerate(lens):
+        eng.submit(Request(uid=i, prompt=rng.integers(
+            1, cfg.vocab_size - 1, n).astype(np.int32),
+            max_new_tokens=SIM_NEW_TOKENS))
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t = time.perf_counter()
+    eng.run_until_drained()
+    torch.cuda.synchronize()
+    record_s = time.perf_counter() - t
+    launches = dict(ops.LAUNCHES)
+    missing = [k for k in DENSE_KERNELS if launches[k] <= 0]
+    require(not missing, f"simulator serving never launched {missing}")
+    require(eng.stats.drained, "record run did not drain")
+    trace = eng.trace
+    kinds = [r.kind for r in trace]
+    require(kinds.count("prefill") == eng.stats.prefills == SIM_REQUESTS,
+            f"{kinds.count('prefill')} prefill records for "
+            f"{eng.stats.prefills} admissions")
+    require(kinds.count("decode") == eng.stats.decode_steps,
+            f"{kinds.count('decode')} decode records for "
+            f"{eng.stats.decode_steps} decode steps")
+    require(len(trace) == len(kinds) == eng.n_records, "trace length")
+    del eng
+
+    card_run = phase_serving(
+        torch, args, cfg, params, DENSE_KERNELS,
+        new_tokens=SIM_NEW_TOKENS, tag="simulator serving card",
+        prompt_lens=lens)
+    del params
+    torch.cuda.empty_cache()
+
+    sched = trace_schedule(trace)
+    sim = {}
+    for mode in SIM_MODES:
+        sys_cfg = SC.system_for(SC.Scenario(model="serve", mode=mode))
+        t = time.perf_counter()
+        rep = simulate_serving_trace(sys_cfg, trace, sched=sched)
+        wall = time.perf_counter() - t
+        pct = rep.percentiles()
+        require(pct["requests"] == SIM_REQUESTS
+                and pct["n_in_flight"] == 0, f"{mode}: {pct}")
+        require(np.isfinite(rep.per_event_s).all()
+                and abs(rep.per_event_s.sum() - rep.total_s)
+                <= 1e-9 * rep.total_s, f"{mode}: per-record attribution")
+        sim[mode] = {"total_s": rep.total_s,
+                     "ttft_p50_us": pct["ttft_p50_us"],
+                     "tpot_p50_us": pct["tpot_p50_us"],
+                     "replay_s": wall,
+                     "events_per_s": sched.sampled_events / wall}
+    res = {"config": cfg.name, "prompt_tokens": lens,
+           "new_tokens": SIM_NEW_TOKENS, "records": len(trace),
+           "prefill_records": kinds.count("prefill"),
+           "decode_records": kinds.count("decode"),
+           "events": sched.sampled_events, "record_run_s": record_s,
+           "launches": launches,
+           "card_ttft_p50_ms": card_run["ttft_p50_ms"],
+           "card_decode_step_median_ms": card_run["decode_step_median_ms"],
+           "simulated": sim,
+           "simulated_is": "a model of the paper's MatrixFlow "
+                           "accelerator behind PCIe, not of this card",
+           "card": card}
+    print("[simulator serving] " + json.dumps(res), flush=True)
+
+    t = time.perf_counter()
+    for mode in SIM_MODES:
+        sc = SC.Scenario(model="serve", mode=mode)
+        on_card, on_cpu = (dataclasses.asdict(SC.simulate(sc, device=d))
+                           for d in ("cuda", "cpu"))
+        for r in (on_card, on_cpu):
+            r.pop("wall_s")
+        require(on_card == on_cpu,
+                f"serve scenario {mode}: card and CPU SimResults differ")
+    res["serve_scenario_s"] = time.perf_counter() - t
+    print(f"[simulator serve scenario] reduced {SC.SERVE_SHAPE['arch']}: "
+          f"SimResult equal on the card and the CPU in "
+          f"{', '.join(SIM_MODES)}", flush=True)
+    return res
+
+
+def _sim_workers(torch):
+    """13d: with CUDA live in this process, ``tune`` over the default
+    design space at two workers (spawned, not forked) equals one
+    worker."""
+    from repro_torch.core import scenario as SC
+
+    require(torch.cuda.is_initialized(), "CUDA is not initialized here")
+    ex = SC._pool_executor(2)
+    method = ex._mp_context.get_start_method()
+    ex.shutdown()
+    require(method == "spawn", f"workers start by {method} after CUDA")
+    sc = SC.Scenario(model="bert-base", n_layers=2)
+    one, two = (SC.tune(sc, workers=w).to_json() for w in (1, 2))
+    for r in (one, two):
+        r.pop("wall_s")
+        r.pop("configs_per_s")
+    require(one == two, "tune at 2 workers differs from 1 worker")
+    return {"points": one["n_points"], "start_method": method}
+
+
+def phase_simulator(torch, args, card):
+    """13. The timing simulator (``repro_torch.accesys`` and the
+    Scenario API): (a) ``BENCH_replay.json``'s rows, (b) the paper-claim
+    scorecard, (c) a trace the card records, priced in DM, DC and
+    DevMem, (d) the worker pool after CUDA.  Seconds per sub-phase."""
+    host = host_line()
+    res, secs = {}, {}
+    for name, fn in (("replay", lambda: _sim_replay(card, host)),
+                     ("scorecard", _sim_scorecard),
+                     ("serving", lambda: _sim_serving(torch, args, card)),
+                     ("workers", lambda: _sim_workers(torch))):
+        t = time.perf_counter()
+        res[name] = fn()
+        secs[name] = time.perf_counter() - t
+    res["seconds"] = secs
+    print("[simulator] seconds: " + " ".join(
+        f"{k} {v:.1f}" for k, v in secs.items())
+        + f" total {sum(secs.values()):.1f}", flush=True)
+    return res
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2695,6 +2975,8 @@ def main():
     zamba = phase_zamba(torch, args, rows)
     torch.cuda.empty_cache()
     deepseek = phase_deepseek(torch, args, rows)
+    torch.cuda.empty_cache()
+    simulator = phase_simulator(torch, args, card)
 
     # launches: each kernel's count from its own main path's serving run
     # (the grouped GEMM's is the MoE path, the latent paged kernel's
@@ -2705,7 +2987,9 @@ def main():
              WHISPER_ARCH: whisper["greedy"]["launches"],
              RWKV_ARCH: rwkv["serving"]["launches"],
              ZAMBA_ARCH: zamba["serving"]["launches"],
-             deepseek["config"]: deepseek["serving"]["launches"]}
+             deepseek["config"]: deepseek["serving"]["launches"],
+             simulator["serving"]["config"] + " record_plans":
+             simulator["serving"]["launches"]}
     int8_path = f"{INT8_ARCH} int8"
     paths[int8_path] = variants[INT8_ARCH]["int8"]["serving"]["launches"]
     own = {"streaming_gemm_grouped": MOE_ARCH,

@@ -12,9 +12,11 @@ import importlib
 
 from repro_torch.configs.base import ModelConfig, MoEConfig  # noqa: F401
 
-ARCH_IDS = ["qwen2_0_5b", "qwen2_moe_a2_7b", "internvl2_2b", "chatglm3_6b",
-            "granite_20b", "qwen1_5_32b", "whisper_tiny", "rwkv6_7b",
-            "zamba2_7b", "deepseek_v3_671b"]
+# in the reference registry's order: the simulator's registry and its
+# smoke matrix (one scenario per family, the first arch of each) follow it
+ARCH_IDS = ["qwen2_moe_a2_7b", "deepseek_v3_671b", "qwen1_5_32b",
+            "qwen2_0_5b", "chatglm3_6b", "granite_20b", "internvl2_2b",
+            "whisper_tiny", "zamba2_7b", "rwkv6_7b"]
 
 # the reference registry's ids that have no port yet
 NOT_PORTED: list = []

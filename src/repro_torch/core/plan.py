@@ -776,8 +776,8 @@ class PlanTemplate:
 
 # Process-global template store: geometry keys are fully qualified
 # (page/head/layer shapes, element size, span, output name), so one
-# cache safely serves every engine in the process; forked sweep
-# workers inherit a read-only snapshot and grow their own entries.
+# cache safely serves every engine in the process; spawned sweep
+# workers start with an empty store and grow their own entries.
 PLAN_TEMPLATES = PlanTemplate()
 
 

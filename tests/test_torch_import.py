@@ -35,7 +35,20 @@ def test_port_imports_no_jax():
             "repro_torch.configs.whisper_tiny",
             "repro_torch.configs.rwkv6_7b",
             "repro_torch.configs.zamba2_7b",
-            "repro_torch.serving.state_cache"} <= set(mods)
+            "repro_torch.serving.state_cache",
+            "repro_torch.configs.paper_models",
+            "repro_torch.accesys",
+            "repro_torch.accesys.components",
+            "repro_torch.accesys.pipeline",
+            "repro_torch.accesys.system",
+            "repro_torch.accesys.workloads",
+            "repro_torch.accesys.calibration",
+            "repro_torch.sharding.logical",
+            "repro_torch.core.multidev",
+            "repro_torch.core.design_space",
+            "repro_torch.core.scenario",
+            "repro_torch.serving.sim_report",
+            "repro_torch.launch.simulate"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
