@@ -203,7 +203,28 @@ Phases, in order; any failure raises and exits non-zero:
    on the card and on the CPU, with equal ``SimResult``s.  (d) With
    CUDA live, ``tune`` over the default design space at two workers
    (spawned, not forked) equal to one worker.
-14. Print the ``kernels`` JSON line (each kernel's launches from its own
+14. Plan-only open-loop serving (``ServingEngine(plan_only=True)``,
+   ``scenario.sweep_load``), on the host; seconds per sub-phase, one
+   ``{"open_loop": ...}`` line.  (a) ``BENCH_serving_scale.json``'s
+   serve_1k, its 32-token prefix with caching off and on, and
+   serve_preempt_1k rebuilt with the benchmark's constants and priced in
+   DM / DC / DevMem in one streamed pass: records, events, footprint
+   pages, preemptions and swapped pages exactly, each ``total_s`` within
+   1e-9 of the artifact's, every request's work conserved; events/s on
+   the host.  (b) ``load_sweep_200`` (100 / 300 / 900 qps, 200
+   requests) with CUDA live at one worker and two spawned: equal JSON
+   but for ``wall_s``; the knee per mode.  (c) qwen2-0.5b at full width,
+   1 layer as in 13c, on the card's clock: 13c's card decode-step median
+   and this model's card prefill time per token (CUDA events at 64-256
+   tokens) drive the plan-only engine (8 slots, 16-token pages,
+   ``max_seq`` 1,024, 128-token prefill chunks) over 16 poisson requests
+   of 64-256 prompt tokens and 8 new at 0.5, 1 and 2 times
+   ``sweep_load``'s capacity, and at 2 times again with
+   ``preempt="lifo"`` on the capped pool (at least one preemption);
+   invariants every step, drained, work conserved, each trace priced per
+   mode, simulated TTFT / TPOT p50 / p99 beside the card's 13c figures
+   (no agreement asked).
+15. Print the ``kernels`` JSON line (each kernel's launches from its own
    path's serving run, the int8 kernels' from phase 8e's, every path's
    counts beside), the card line, and
    last the result line ``{"ok": true, "device": {...}}``.
@@ -2682,17 +2703,31 @@ SIM_NEW_TOKENS = 8
 
 
 def host_line():
-    """The host CPU the simulator's replay rates were read on."""
+    """The host CPU the simulator's replay rates were read on: the first
+    processor of /proc/cpuinfo, by model name where the machine gives
+    one (a VM may say "unknown"), vendor, family, model, stepping and
+    clock."""
     import os
     import platform
-    name = platform.machine()
+    info = {}
     try:
         for line in Path("/proc/cpuinfo").read_text().splitlines():
-            if line.startswith("model name"):
-                name = line.split(":", 1)[1].strip()
-                break
+            key, sep, val = line.partition(":")
+            if not sep:
+                if info:
+                    break
+                continue
+            info.setdefault(key.strip(), val.strip())
     except OSError:
         pass
+    known = {k: v for k, v in info.items() if v and v.lower() != "unknown"}
+    fields = [known.get("model name"), known.get("vendor_id")] + [
+        f"{k} {known[k]}" for k in ("cpu family", "model", "stepping")
+        if k in known]
+    if "cpu MHz" in known:
+        fields.append(f"{known['cpu MHz']} MHz")
+    name = " ".join(f for f in fields if f) \
+        or f"{platform.machine()}, model not identified"
     return f"{name}, {os.cpu_count()} cores"
 
 
@@ -2930,6 +2965,271 @@ def phase_simulator(torch, args, card):
     return res
 
 
+# ------------------------------------------------------------ phase 14
+OPEN_LOOP_CHUNK_EVENTS = 262_144
+SWEEP_QPS = (100.0, 300.0, 900.0)
+SWEEP_REQUESTS = 200
+# 14c: the card-clocked open loop (qwen2-0.5b at full width, SIM_LAYERS)
+OPEN_REQUESTS = 16
+OPEN_SLOTS = 8
+OPEN_PAGE = 16
+OPEN_MAX_SEQ = 1024
+OPEN_CHUNK = 128
+OPEN_PROMPTS = (64, 128, 192, 256)
+
+
+def _open_loop_bench():
+    """14a: ``BENCH_serving_scale.json``'s serve_1k (prefix caching off
+    and on) and serve_preempt_1k rebuilt by the plan-only engine and
+    priced in DM, DC and DevMem in one streamed pass (the two-pass
+    factory form, ``serving.scale``): counts exactly, each mode's
+    ``total_s`` within 1e-9 of the artifact's, and every request's work
+    conserved."""
+    from repro_torch.serving import scale as SCALE
+
+    art = json.loads((Path(__file__).resolve().parent
+                      / "BENCH_serving_scale.json").read_text())
+    out = {}
+    for name in SCALE.WORKLOADS:
+        want = SCALE.artifact_row(name, art)
+        got = SCALE.reproduce_serving_scale(name, modes=SIM_MODES)
+        require(got["drained"], f"{name}: not drained")
+        for key, val in want.items():
+            if key != "total_s":
+                require(got[key] == val,
+                        f"{name}: {key} {got[key]}, the artifact has {val}")
+        for mode, art_s in want["total_s"].items():
+            require(abs(got["total_s"][mode] - art_s) <= 1e-9 * art_s,
+                    f"{name} {mode}: total {got['total_s'][mode]} s, "
+                    f"artifact {art_s}")
+        out[name] = {**got, "artifact_total_s": want["total_s"],
+                     "events_per_s_all_modes":
+                     len(SIM_MODES) * got["events"] / got["price_s"]}
+        print(f"[open_loop bench] {name}: " + json.dumps(out[name]),
+              flush=True)
+    return out
+
+
+def _sweep_json(res):
+    out = res.to_json()
+    out.pop("wall_s")
+    return out
+
+
+def _open_loop_sweep(torch):
+    """14b: ``load_sweep_200`` with CUDA live: one worker, then two
+    spawned workers; equal ``loadsweep/v1`` JSON but for ``wall_s``."""
+    from repro_torch.core import scenario as SC
+
+    require(torch.cuda.is_initialized(), "CUDA is not initialized here")
+    runs = {}
+    for workers in (1, 2):
+        res = SC.sweep_load(qps=SWEEP_QPS, n_requests=SWEEP_REQUESTS,
+                            workers=workers)
+        runs[workers] = (res, _sweep_json(res))
+    require(runs[1][1] == runs[2][1],
+            "load sweep at 2 workers differs from 1 worker")
+    res = runs[1][0]
+    out = {"qps": list(res.qps), "n_requests": res.n_requests,
+           "knee_qps": res.knee_qps, "calibration": res.calibration,
+           "json_identical": True,
+           "wall_s": {f"workers_{w}": r.wall_s for w, (r, _) in runs.items()},
+           "ttft_p99_us": {m: [pt.percentiles["ttft_p99_us"]
+                               for pt in res.curve(m)] for m in res.modes}}
+    print("[open_loop sweep] " + json.dumps(out), flush=True)
+    return out
+
+
+def _open_loop_clock(torch, args, cfg, serving_13c):
+    """14c, the card's clock: the engine's decode step is 13c's card
+    decode-step median for the same 1-layer model ``cfg``; its prefill
+    rate is that model's prefill on the card at 64 / 128 / 192 / 256
+    tokens (CUDA events around each prefill, host enqueue included: the
+    median of 5 after 2 warm-ups), summed time over summed tokens."""
+    import math
+
+    import numpy as np
+    from repro_torch.models.model import Model
+
+    step_ms = serving_13c.get("card_decode_step_median_ms")
+    require(step_ms is not None and math.isfinite(step_ms) and step_ms > 0,
+            f"13c gave no card decode step: {step_ms}")
+    dev = torch.device("cuda")
+    model = Model(cfg, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(args.seed))
+    cache = model.init_cache(1, OPEN_MAX_SEQ, OPEN_PAGE)
+    rng = np.random.default_rng(args.seed)
+    prefill_ms = {}
+    for n in OPEN_PROMPTS:
+        tokens = torch.as_tensor(rng.integers(1, cfg.vocab_size - 1, n),
+                                 dtype=torch.int64, device=dev)[None]
+        times = []
+        for rep in range(7):
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            s.record()
+            require(cache.alloc_seq(0, n), "prefill cache out of pages")
+            model.prefill(params, tokens, cache, [0])
+            cache.free_seq(0)
+            e.record()
+            e.synchronize()
+            if rep >= 2:
+                times.append(s.elapsed_time(e))
+        prefill_ms[n] = statistics.median(times)
+    del params, cache, model
+    torch.cuda.empty_cache()
+    per_token = sum(prefill_ms.values()) / sum(OPEN_PROMPTS) / 1e3
+    require(math.isfinite(per_token) and per_token > 0,
+            f"no card prefill rate: {prefill_ms}")
+    return {"est_step_s": step_ms / 1e3,
+            "est_prefill_s_per_token": per_token,
+            "card_prefill_ms": {str(k): v for k, v in prefill_ms.items()}}
+
+
+def _open_loop_runs(cfg, seed, est_step_s, est_prefill_s_per_token):
+    """14c, the runs: ``OPEN_REQUESTS`` requests of 64-256 prompt tokens
+    (multiples of 64) and ``SIM_NEW_TOKENS`` new tokens, poisson from
+    ``seed``, through the plan-only engine on the card's clock at 0.5,
+    1 and 2 times the capacity ``sweep_load``'s formula gives, and at 2
+    times again with ``preempt="lifo"``, no stall budget and the pool
+    capped as ``sweep_load`` caps it.  Invariants every step, drained,
+    work conserved; each trace priced in DM / DC / DevMem in one pass."""
+    import numpy as np
+    from repro_torch.accesys.pipeline import (release_scratch,
+                                              replay_trace_streamed)
+    from repro_torch.core import scenario as SC
+    from repro_torch.core.plan import _plan_n_events, trace_footprint
+    from repro_torch.serving import invariants
+    from repro_torch.serving.engine import (Request, ServingEngine,
+                                            arrival_times)
+    from repro_torch.serving.sim_report import ServingAccumulator
+
+    # sweep_load's capacity and pressured pool, for these prompts
+    cap_qps = SC.load_capacity_qps(
+        est_step_s, est_prefill_s_per_token,
+        mean_prompt=sum(OPEN_PROMPTS) / len(OPEN_PROMPTS),
+        max_new_tokens=SIM_NEW_TOKENS, slots=OPEN_SLOTS)
+    pool = SC.pressured_pool_pages(
+        longest_prompt=max(OPEN_PROMPTS), max_new_tokens=SIM_NEW_TOKENS,
+        max_seq=OPEN_MAX_SEQ, kv_page_tokens=OPEN_PAGE, slots=OPEN_SLOTS)
+    cfgs = [SC.system_for(SC.Scenario(model="serve", mode=m))
+            for m in SIM_MODES]
+
+    def requests():
+        rng = np.random.default_rng(seed)
+        lens = [64 * int(k) for k in rng.integers(1, 5, OPEN_REQUESTS)]
+        return [Request(uid=i, prompt=rng.integers(
+            1, cfg.vocab_size - 1, n).astype(np.int32),
+            max_new_tokens=SIM_NEW_TOKENS) for i, n in enumerate(lens)]
+
+    runs = []
+    for factor, preempt in ((0.5, "none"), (1.0, "none"), (2.0, "none"),
+                            (2.0, "lifo")):
+        qps = factor * cap_qps
+        eng = ServingEngine(cfg, plan_only=True, slots=OPEN_SLOTS,
+                            max_seq=OPEN_MAX_SEQ, kv_page_tokens=OPEN_PAGE,
+                            kv_pool_pages=pool if preempt != "none"
+                            else None)
+        reqs = requests()
+        t = time.perf_counter()
+        eng.run_open_loop(
+            reqs, arrival_times("poisson", OPEN_REQUESTS, qps, seed=seed),
+            est_step_s=est_step_s,
+            est_prefill_s_per_token=est_prefill_s_per_token,
+            prefill_chunk_tokens=OPEN_CHUNK, preempt=preempt,
+            stall_budget_s=0.0, debug_invariants=True)
+        build_s = time.perf_counter() - t
+        require(eng.stats.drained and eng.n_finished == OPEN_REQUESTS,
+                f"{factor}x {preempt}: not drained")
+        invariants.check_trace_conservation(eng.trace, reqs,
+                                            max_seq=eng.max_seq)
+        if preempt != "none":
+            require(eng.stats.preemptions >= 1,
+                    f"{factor}x {preempt}: no preemption on a {pool}-page "
+                    "pool")
+        plans = [r.plan for r in eng.trace]
+        events = sum(_plan_n_events(p) for p in plans)
+        acc = ServingAccumulator()
+        t = time.perf_counter()
+        results, pers = replay_trace_streamed(
+            cfgs, lambda: (r.plan for r in acc.wrap(iter(eng.trace))),
+            footprint_pages=trace_footprint(plans),
+            chunk_events=OPEN_LOOP_CHUNK_EVENTS)
+        price_s = time.perf_counter() - t
+        release_scratch()
+        require(len(acc.meta) == len(eng.trace), "accumulator passes")
+        sim = {}
+        for mode, res, per in zip(SIM_MODES, results, pers):
+            pct = acc.report(mode, res, per, eng.unfinished_uids()
+                             ).percentiles()
+            require(pct["requests"] == OPEN_REQUESTS
+                    and pct["n_in_flight"] == 0, f"{mode}: {pct}")
+            sim[mode] = {k: pct[k] for k in (
+                "ttft_p50_us", "ttft_p99_us", "tpot_p50_us", "tpot_p99_us")}
+            sim[mode]["total_s"] = res.total_s
+        runs.append({"offered_qps": qps, "capacity_factor": factor,
+                     "preempt": preempt,
+                     "kv_pool_pages": eng._table.cfg.n_pages,
+                     "records": len(eng.trace), "events": events,
+                     "preemptions": eng.stats.preemptions,
+                     "swapped_pages": eng.stats.swapped_pages,
+                     "deferred_admissions": eng.deferred_admissions,
+                     "build_s": build_s, "price_s": price_s,
+                     "simulated": sim})
+    return {"capacity_qps": cap_qps, "runs": runs}
+
+
+def _open_loop_card(torch, args, card, serving_13c):
+    """14c: full width on the card's clock (see the two halves)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import depth_cut
+
+    cfg = depth_cut(get_config(SIM_ARCH), SIM_LAYERS)
+    clock = _open_loop_clock(torch, args, cfg, serving_13c)
+    res = _open_loop_runs(cfg, args.seed, clock["est_step_s"],
+                          clock["est_prefill_s_per_token"])
+    out = {"config": cfg.name, **clock, **res,
+           "card_ttft_p50_ms": serving_13c["card_ttft_p50_ms"],
+           "card_decode_step_median_ms":
+           serving_13c["card_decode_step_median_ms"],
+           "simulated_is": "a model of the paper's MatrixFlow accelerator "
+                           "behind PCIe, not of this card", "card": card}
+    print("[open_loop card] " + json.dumps(out), flush=True)
+    return out
+
+
+def phase_open_loop(torch, args, card, serving_13c):
+    """14. Plan-only open-loop serving, on the host: (a)
+    ``BENCH_serving_scale.json`` reproduced, (b) ``load_sweep_200`` at
+    one and two spawned workers with CUDA live, (c) full width on the
+    card's clock.  Prints one ``{"open_loop": ...}`` line."""
+    host = host_line()
+    res, secs = {}, {}
+    for name, fn in (("bench", _open_loop_bench),
+                     ("sweep", lambda: _open_loop_sweep(torch)),
+                     ("card_clock", lambda: _open_loop_card(
+                         torch, args, card, serving_13c))):
+        t = time.perf_counter()
+        res[name] = fn()
+        secs[name] = time.perf_counter() - t
+    res["seconds"] = secs
+    print(json.dumps({"open_loop": {
+        "bench": {k: {f: v[f] for f in ("records", "events", "total_s",
+                                        "events_per_s_all_modes")}
+                  for k, v in res["bench"].items()},
+        "sweep_knee_qps": res["sweep"]["knee_qps"],
+        "sweep_wall_s": res["sweep"]["wall_s"],
+        "card_clock": {k: res["card_clock"][k] for k in (
+            "est_step_s", "est_prefill_s_per_token", "capacity_qps")},
+        "card_clock_runs": [{k: r[k] for k in (
+            "capacity_factor", "preempt", "records", "events",
+            "preemptions")} for r in res["card_clock"]["runs"]],
+        "seconds": secs, "rates_on_host": host, "card": card}}),
+        flush=True)
+    return res
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2977,6 +3277,7 @@ def main():
     deepseek = phase_deepseek(torch, args, rows)
     torch.cuda.empty_cache()
     simulator = phase_simulator(torch, args, card)
+    phase_open_loop(torch, args, card, simulator["serving"])
 
     # launches: each kernel's count from its own main path's serving run
     # (the grouped GEMM's is the MoE path, the latent paged kernel's

@@ -36,8 +36,8 @@ and equal the reference's.  The one path through the card is the
 ``serve`` kind, whose engine runs on ``device`` (``simulate``,
 ``sweep``, ``sampling_error`` and ``scenario_plan`` take it; the card
 unless the caller asks for ``"cpu"``).  The open-loop load sweep
-(``sweep_load``, ``LoadPoint``, ``LoadSweepResult``) is not ported yet
-and raises ``NotImplementedError``.
+(``sweep_load``, ``LoadPoint``, ``LoadSweepResult``) drives the
+plan-only engine, which has no device, and prices on the host.
 """
 from __future__ import annotations
 
@@ -1404,23 +1404,354 @@ def sampling_error(sc: Scenario, *,
 
 
 # ============================================================ load sweep
-_LOAD_SWEEP_MSG = (
-    "the open-loop load sweep (sweep_load, LoadPoint, LoadSweepResult) is "
-    "not ported yet: it needs ServingEngine(plan_only=True) and "
-    "arrival_times, ROADMAP Queue A item 12")
+LOAD_SHAPE = dict(arch="qwen2_0_5b", slots=4, max_seq=96,
+                  prompt_lo=8, prompt_hi=24, max_new_tokens=8,
+                  prefill_chunk_tokens=16, kv_page_tokens=8,
+                  prefix_tokens=0, seed=0, kv_pool_pages=None)
 
 
-def sweep_load(*args, **kwargs):
-    """Not ported yet (ROADMAP Queue A item 12): always raises."""
-    raise NotImplementedError(_LOAD_SWEEP_MSG)
-
-
+@dataclasses.dataclass
 class LoadPoint:
-    """Not ported yet (ROADMAP Queue A item 12): constructing raises."""
+    """One (offered QPS, memory mode) cell of a load sweep."""
+    qps: float                     # offered arrival rate
+    mode: str
+    percentiles: dict              # ServingSimReport.percentiles()
+    total_s: float                 # simulated time to drain the trace
+    n_finished: int
+    n_records: int
+    n_events: int
+    drained: bool = True           # False: hit max_steps with work left
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(_LOAD_SWEEP_MSG)
+    @property
+    def goodput_qps(self) -> float:
+        return self.n_finished / max(self.total_s, 1e-30)
+
+    def to_json(self) -> dict:
+        return {"qps": self.qps, "mode": self.mode,
+                "total_s": self.total_s,
+                "goodput_qps": self.goodput_qps,
+                "n_finished": self.n_finished,
+                "n_records": self.n_records,
+                "n_events": self.n_events,
+                "drained": self.drained, **self.percentiles}
 
 
-class LoadSweepResult(LoadPoint):
-    """Not ported yet (ROADMAP Queue A item 12): constructing raises."""
+@dataclasses.dataclass
+class LoadSweepResult:
+    """Offered-QPS vs tail-latency curves per memory mode, the
+    saturation knee per mode, and (when a shared prefix is configured)
+    the prefix-caching on/off delta at the reference load."""
+    arch: str
+    arrivals: str
+    qps: tuple                     # ascending offered-rate grid
+    modes: tuple
+    n_requests: int
+    points: list                   # [LoadPoint], qps-major, mode order
+    knee_qps: dict                 # mode -> first saturated qps | None
+    calibration: dict              # est_step_s / est_prefill_s_per_token
+    prefix_delta: Optional[dict] = None   # mode -> on/off tails
+    wall_s: float = 0.0
+    preempt: str = "none"          # preemption policy the sweep ran with
+    kv_pool_pages: Optional[int] = None   # actual pool cap (None: full)
+
+    SCHEMA = "loadsweep/v1"
+
+    def curve(self, mode: str) -> list:
+        return [pt for pt in self.points if pt.mode == mode]
+
+    def to_json(self) -> dict:
+        return {"schema": self.SCHEMA, "arch": self.arch,
+                "arrivals": self.arrivals, "qps": list(self.qps),
+                "modes": list(self.modes),
+                "n_requests": self.n_requests,
+                "knee_qps": self.knee_qps,
+                "calibration": self.calibration,
+                "prefix_delta": self.prefix_delta,
+                "wall_s": round(self.wall_s, 3),
+                "preempt": self.preempt,
+                "kv_pool_pages": self.kv_pool_pages,
+                "points": [pt.to_json() for pt in self.points]}
+
+
+def load_capacity_qps(est_step_s: float, est_prefill_s_per_token: float,
+                      *, mean_prompt: float, max_new_tokens: int,
+                      slots: int) -> float:
+    """The service capacity ``sweep_load`` brackets its grid around:
+    one request's prefill of ``mean_prompt`` tokens plus its share of
+    the decode steps, ``max_new_tokens`` steps shared by ``slots``."""
+    return 1.0 / (est_prefill_s_per_token * mean_prompt
+                  + est_step_s * max_new_tokens / slots)
+
+
+def pressured_pool_pages(*, longest_prompt: int, max_new_tokens: int,
+                         max_seq: int, kv_page_tokens: int, slots: int,
+                         prefix_tokens: int = 0) -> int:
+    """``sweep_load``'s KV pool under preemption: without a cap the full
+    pool never defers and no preemption can ever fire, so cap it at
+    ~60% of the all-slots worst case while guaranteeing any single
+    request (and the shared prefix) still fits."""
+    pt = kv_page_tokens
+    worst = min(prefix_tokens + longest_prompt + max_new_tokens, max_seq)
+    worst_pages = -(-worst // pt)
+    return prefix_tokens // pt + max(worst_pages + 1,
+                                     int(slots * worst_pages * 0.6))
+
+
+def _run_load_point(payload: tuple) -> list:
+    """Price ONE offered rate across every memory mode: rebuild the
+    engine and system configs from the plain-data payload (picklable,
+    so ``sweep_load(workers=N)`` can fan rates over a process pool),
+    run the two-pass streamed replay, and return the per-mode
+    ``LoadPoint`` list.  Pure in the payload — a workers=N sweep is
+    byte-identical to workers=1, which runs this same function
+    inline."""
+    import numpy as np
+    from repro_torch.accesys.pipeline import (release_scratch,
+                                        replay_trace_streamed)
+    from repro_torch.configs import get_reduced
+    from repro_torch.core.plan import _plan_n_events, trace_footprint
+    from repro_torch.serving.engine import (Request, ServingEngine,
+                                            arrival_times)
+    from repro_torch.serving.sim_report import ServingAccumulator
+
+    (sh, pool, modes, arrivals, n_requests, open_kw, hpe,
+     chunk_events, lam, caching, templated, in_worker) = payload
+    cfg_model = get_reduced(sh["arch"])
+    sys_cfgs = [system_for(Scenario(model="serve", mode=m))
+                for m in modes]
+
+    def mk_engine() -> ServingEngine:
+        return ServingEngine(
+            cfg_model, slots=sh["slots"], max_seq=sh["max_seq"],
+            plan_only=True, kv_page_tokens=sh["kv_page_tokens"],
+            kv_pool_pages=pool, templated=templated,
+            prefix_tokens=sh["prefix_tokens"], prefix_caching=caching)
+
+    def mk_requests() -> list:
+        rng = np.random.default_rng(sh["seed"] + 1)
+        lo, hi = sh["prompt_lo"], sh["prompt_hi"]
+        return [Request(
+            uid=i,
+            prompt=rng.integers(
+                1, 250,
+                size=lo if lo >= hi else int(rng.integers(lo, hi))
+            ).astype(np.int32),
+            max_new_tokens=sh["max_new_tokens"])
+            for i in range(n_requests)]
+
+    arr = arrival_times(arrivals, n_requests, lam, seed=sh["seed"])
+    eng1 = mk_engine()
+    counts = {"records": 0, "events": 0}
+
+    def plans_pass1():
+        for rec in eng1.open_loop_records(mk_requests(), arr,
+                                          **open_kw):
+            counts["records"] += 1
+            counts["events"] += _plan_n_events(rec.plan)
+            yield rec.plan
+    foot = trace_footprint(plans_pass1())
+    acc = ServingAccumulator()
+    eng2 = mk_engine()
+
+    def plans_pass2():
+        return (rec.plan for rec in acc.wrap(
+            eng2.open_loop_records(mk_requests(), arr, **open_kw)))
+    results, pers = replay_trace_streamed(
+        sys_cfgs, plans_pass2, host_s_per_elem=hpe,
+        footprint_pages=foot, chunk_events=chunk_events)
+    live = eng2.unfinished_uids()
+    pts = [LoadPoint(
+        qps=lam, mode=m, percentiles=rep.percentiles(),
+        total_s=rep.total_s, n_finished=eng2.n_finished,
+        n_records=counts["records"], n_events=counts["events"],
+        drained=eng2.stats.drained)
+        for m, rep in zip(modes, (
+            acc.report(m, r, p, live)
+            for m, r, p in zip(modes, results, pers)))]
+    if in_worker:
+        release_scratch()      # workers drop their scratch before exit
+    return pts
+
+
+def sweep_load(qps=None, *, n_requests: int = 1000,
+               arrivals: str = "poisson", modes=MODES,
+               prefix_caching: bool = True,
+               chunk_events: int = 262_144, knee_factor: float = 3.0,
+               max_steps: int = 1_000_000,
+               preempt: str = "none", stall_budget_s: float = 0.0,
+               host_s_per_elem: Optional[float] = None,
+               workers: int = 1, templated: bool = True,
+               **shape) -> LoadSweepResult:
+    """Capacity-plan an open-loop serving workload: drive the
+    plan-only engine at each offered rate in ``qps`` (auto: a grid
+    bracketing the calibrated service capacity), stream every trace
+    through ONE chunked multi-mode replay
+    (``replay_trace_streamed`` — O(chunk) memory, all memory modes in
+    a single pass), and fold the priced durations back onto requests.
+
+    Returns offered-QPS vs TTFT/TPOT p50/p95/p99 curves per memory
+    mode plus the saturation knee — the first grid rate whose TTFT
+    p99 exceeds ``knee_factor`` x the unloaded (lowest-rate) baseline.
+    With ``prefix_tokens`` set in ``shape``, the main curves run with
+    ``prefix_caching`` as given and the opposite setting is measured
+    once at the reference (lowest) rate — the on/off delta.
+
+    ``preempt`` ("lifo" | "longest") sweeps the swap-thrash regime:
+    unless ``kv_pool_pages`` is given in ``shape``, the KV pool is
+    capped well below the all-slots worst case so admission stalls
+    past ``stall_budget_s`` trigger preemption + KV swap-to-host, and
+    the grid is extended (bounded doubling) until every mode has at
+    least one priced point STRICTLY past its knee — the curve the
+    report's swap/queue percentiles and preemption counts describe.
+
+    The engine's admission clock is calibrated from a small probe
+    trace priced on the DC system; reported latencies always come
+    from the replay itself, never from the estimates.
+
+    ``workers > 1`` fans the offered-rate grid over a process pool
+    (each worker re-derives its traces and prices with its own scratch
+    pool, released on the way out); the grid extensions and the prefix
+    delta stay sequential because they depend on earlier points.  The
+    result is byte-identical to ``workers=1``, and — since templated
+    plans replay bitwise identically — to ``templated=False``, which
+    rebuilds every plan as a fresh event graph (the pre-templating
+    path, kept for benchmarking the template speedup)."""
+    import numpy as np
+    from repro_torch.accesys.pipeline import (HOST_S_PER_ELEM, release_scratch,
+                                        replay_trace)
+    from repro_torch.configs import get_reduced
+    from repro_torch.serving.engine import Request, ServingEngine
+
+    t0 = time.perf_counter()
+    sh = _merge_params("load", LOAD_SHAPE, shape)
+    hpe = host_s_per_elem or HOST_S_PER_ELEM
+    modes = tuple(modes)
+    cfg_model = get_reduced(sh["arch"])
+
+    pool = sh["kv_pool_pages"]
+    if pool is None and preempt != "none":
+        pool = pressured_pool_pages(
+            longest_prompt=sh["prompt_lo"]
+            if sh["prompt_lo"] >= sh["prompt_hi"] else sh["prompt_hi"] - 1,
+            max_new_tokens=sh["max_new_tokens"], max_seq=sh["max_seq"],
+            kv_page_tokens=sh["kv_page_tokens"], slots=sh["slots"],
+            prefix_tokens=sh["prefix_tokens"])
+
+    def mk_engine(caching: bool) -> ServingEngine:
+        return ServingEngine(
+            cfg_model, slots=sh["slots"], max_seq=sh["max_seq"],
+            plan_only=True, kv_page_tokens=sh["kv_page_tokens"],
+            kv_pool_pages=pool, templated=templated,
+            prefix_tokens=sh["prefix_tokens"], prefix_caching=caching)
+
+    def mk_requests(n: int) -> list:
+        rng = np.random.default_rng(sh["seed"] + 1)
+        lo, hi = sh["prompt_lo"], sh["prompt_hi"]
+        return [Request(
+            uid=i,
+            prompt=rng.integers(
+                1, 250,
+                size=lo if lo >= hi else int(rng.integers(lo, hi))
+            ).astype(np.int32),
+            max_new_tokens=sh["max_new_tokens"])
+            for i in range(n)]
+
+    # ---- calibrate the admission clock on a small priced probe (DC)
+    probe = mk_engine(prefix_caching and sh["prefix_tokens"] > 0)
+    probe.run_open_loop(
+        mk_requests(min(8, n_requests)), np.zeros(min(8, n_requests)),
+        prefill_chunk_tokens=sh["prefill_chunk_tokens"])
+    dc = system_for(Scenario(model="serve", mode="DC"))
+    _, probe_per = replay_trace(dc, [r.plan for r in probe.trace],
+                                host_s_per_elem=hpe)
+    dec = [s for s, r in zip(probe_per, probe.trace)
+           if r.kind == "decode"]
+    pft = [(s, r.n_tokens) for s, r in zip(probe_per, probe.trace)
+           if r.kind == "prefill" and r.n_tokens]
+    est_step = float(np.mean(dec)) if dec else 1e-4
+    est_pf = float(sum(s for s, _ in pft)
+                   / max(sum(n for _, n in pft), 1))
+    mean_prompt = sh["prefix_tokens"] + \
+        (sh["prompt_lo"] + max(sh["prompt_lo"], sh["prompt_hi"] - 1)) / 2
+    cap_qps = load_capacity_qps(est_step, est_pf, mean_prompt=mean_prompt,
+                                max_new_tokens=sh["max_new_tokens"],
+                                slots=sh["slots"])
+    if qps is None:
+        qps = tuple(round(cap_qps * f, 3)
+                    for f in (0.25, 0.5, 1.0, 2.0, 4.0))
+    qps = tuple(sorted(float(q) for q in qps))
+    open_kw = dict(est_step_s=est_step, est_prefill_s_per_token=est_pf,
+                   prefill_chunk_tokens=sh["prefill_chunk_tokens"],
+                   max_steps=max_steps, preempt=preempt,
+                   stall_budget_s=stall_budget_s)
+
+    ex = _pool_executor(workers)
+
+    def price(lams, caching: bool) -> list:
+        """Per-mode LoadPoints for each rate in ``lams``, in order —
+        inline when serial, fanned over the pool otherwise."""
+        payloads = [(sh, pool, modes, arrivals, n_requests, open_kw,
+                     hpe, chunk_events, lam, caching, templated,
+                     ex is not None)
+                    for lam in lams]
+        if ex is None:
+            return [_run_load_point(p) for p in payloads]
+        return list(ex.map(_run_load_point, payloads))
+
+    caching_main = prefix_caching and sh["prefix_tokens"] > 0
+    points: list = []
+    try:
+        for mode_pts in price(qps, caching_main):
+            points += mode_pts
+
+        def compute_knee() -> dict:
+            knee = {}
+            for m in modes:
+                curve = [pt for pt in points if pt.mode == m]
+                base = curve[0].percentiles["ttft_p99_us"]
+                knee[m] = next(
+                    (pt.qps for pt in curve
+                     if pt.percentiles["ttft_p99_us"]
+                     > knee_factor * base), None)
+            return knee
+
+        knee = compute_knee()
+        # preemption sweeps must price the thrash regime: keep doubling
+        # the top rate (bounded) until every mode has a grid point
+        # STRICTLY past its knee
+        extensions = 0
+        while preempt != "none" and extensions < 3 and any(
+                knee[m] is None or knee[m] >= qps[-1] for m in modes):
+            lam = round(qps[-1] * 2.0, 3)
+            qps = qps + (lam,)
+            points += price((lam,), caching_main)[0]
+            knee = compute_knee()
+            extensions += 1
+        prefix_delta = None
+        if sh["prefix_tokens"] > 0:
+            other = price((qps[0],), not caching_main)[0]
+            prefix_delta = {}
+            for pt_main, pt_other in zip(
+                    [pt for pt in points if pt.qps == qps[0]], other):
+                on, off = (pt_main, pt_other) if caching_main else \
+                    (pt_other, pt_main)
+                prefix_delta[pt_main.mode] = {
+                    "ttft_p99_us_on": on.percentiles["ttft_p99_us"],
+                    "ttft_p99_us_off": off.percentiles["ttft_p99_us"],
+                    "total_s_on": on.total_s,
+                    "total_s_off": off.total_s,
+                    "records_on": on.n_records,
+                    "records_off": off.n_records}
+    finally:
+        if ex is not None:
+            ex.shutdown()
+    release_scratch()
+    return LoadSweepResult(
+        arch=sh["arch"], arrivals=arrivals, qps=qps, modes=modes,
+        n_requests=n_requests, points=points, knee_qps=knee,
+        calibration={"est_step_s": est_step,
+                     "est_prefill_s_per_token": est_pf,
+                     "capacity_qps_est": cap_qps},
+        prefix_delta=prefix_delta,
+        wall_s=time.perf_counter() - t0,
+        preempt=preempt, kv_pool_pages=pool)

@@ -39,11 +39,22 @@ recording on ``--device`` (``cuda`` by default; ``cpu`` runs the plain
 PyTorch versions of the kernels) and prices the recorded trace in each
 memory mode.  The replay itself is numpy on the host.
 
-The open-loop load sweep of the reference CLI (``--arrivals``,
-``--qps``, ``--requests``, ``--prefix-tokens``, ``--preempt``,
-``--stall-budget-us``, ``--swap``, ``--workers``) is not ported yet
-(ROADMAP Queue A item 12): each of those flags exits with a usage
-error.
+``--workload serve --arrivals poisson`` switches the serve scenario
+from draining a closed queue to an open-loop load sweep
+(``core.scenario.sweep_load``): seeded poisson/bursty/diurnal
+arrivals at each ``--qps`` grid rate (auto-bracketed around the
+calibrated capacity when omitted), ``--requests`` requests per
+point, every trace priced across the memory modes in one chunked
+streaming replay — printing offered QPS vs TTFT/TPOT p99 per mode
+plus the saturation knee.  ``--preempt lifo|longest`` pressure-caps
+the KV pool so admission stalls trigger preemption + KV swap-to-host
+and extends the grid past the knee (the swap-thrash curve);
+``--swap`` adds per-point preemption counts and swap-DMA / queue
+tail columns.  The sweep's engine is plan-only: it runs on the host
+whatever ``--device`` says.
+
+    PYTHONPATH=src python -m repro_torch.launch.simulate --workload serve \
+        --arrivals poisson --qps 100 300 900 --requests 200
 """
 from __future__ import annotations
 
@@ -54,19 +65,6 @@ from repro_torch.core.scenario import (Scenario, SimResult,
                                        UnsupportedScenario, as_params,
                                        resolve, scenario_names, simulate,
                                        smoke_matrix)
-
-# the reference CLI's open-loop load-sweep flags (ROADMAP Queue A item
-# 12): parsed, so that each is refused by name
-_LOAD_SWEEP_FLAGS = (
-    ("--arrivals", dict(choices=["poisson", "bursty", "diurnal"])),
-    ("--qps", dict(type=float, nargs="+", metavar="RATE")),
-    ("--requests", dict(type=int)),
-    ("--prefix-tokens", dict(type=int)),
-    ("--preempt", dict(choices=["none", "lifo", "longest"])),
-    ("--stall-budget-us", dict(type=float)),
-    ("--swap", dict(action="store_true")),
-    ("--workers", dict(type=int)),
-)
 
 
 def _fmt(res: SimResult) -> str:
@@ -152,6 +150,55 @@ def _run_tune(sc: Scenario, n_points) -> int:
     return 0
 
 
+def _run_load_sweep(args) -> int:
+    """Open-loop load sweep over the memory modes: one line per
+    (offered QPS, mode) plus the saturation knee per mode.  With
+    ``--preempt`` the pool is pressure-capped and the grid extended
+    past the knee; ``--swap`` adds the swap-thrash columns."""
+    from repro_torch.core.scenario import sweep_load
+    res = sweep_load(qps=args.qps, n_requests=args.requests,
+                     arrivals=args.arrivals, modes=tuple(args.modes),
+                     prefix_tokens=args.prefix_tokens,
+                     preempt=args.preempt,
+                     stall_budget_s=args.stall_budget_us * 1e-6,
+                     workers=args.workers)
+    cal = res.calibration
+    pool = f", pool={res.kv_pool_pages} pages" \
+        if res.kv_pool_pages is not None else ""
+    pre = f", preempt={res.preempt}{pool}" \
+        if res.preempt != "none" else ""
+    print(f"load sweep {res.arch} ({res.arrivals}, "
+          f"{res.n_requests} requests/point{pre}): est capacity "
+          f"{cal['capacity_qps_est']:,.0f} qps "
+          f"(decode step {cal['est_step_s']*1e6:.1f}us); "
+          f"wall {res.wall_s:.1f}s")
+    for mode in res.modes:
+        for pt in res.curve(mode):
+            p = pt.percentiles
+            cens = f" in_flight={p['n_in_flight']}" \
+                if p["n_in_flight"] else ""
+            swap = f" preempt={p['preemptions']:4d} " \
+                   f"swap_p99={p['swap_p99_us']:7.1f}us " \
+                   f"queue_p99={p['queue_p99_us']:9.1f}us" \
+                if args.swap else ""
+            print(f"  {mode:7s} qps={pt.qps:10,.1f} "
+                  f"ttft_p99={p['ttft_p99_us']:9.1f}us "
+                  f"tpot_p99={p['tpot_p99_us']:8.1f}us "
+                  f"goodput={pt.goodput_qps:10,.1f}/s "
+                  f"events={pt.n_events:,}{swap}{cens}")
+        k = res.knee_qps[mode]
+        print(f"  {mode:7s} saturation knee: " +
+              (f"{k:,.1f} qps" if k else "not reached on this grid"))
+    if res.prefix_delta:
+        for mode, d in res.prefix_delta.items():
+            print(f"  {mode:7s} prefix caching: ttft_p99 "
+                  f"{d['ttft_p99_us_on']:.1f}us vs "
+                  f"{d['ttft_p99_us_off']:.1f}us uncached "
+                  f"({d['records_off'] - d['records_on']} prefill "
+                  f"records saved)")
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--workload", metavar="SCENARIO",
@@ -211,16 +258,35 @@ def main(argv=None) -> int:
                     help="where the serve scenario's engine runs "
                          "(default cuda; cpu runs the kernels' plain "
                          "PyTorch versions)")
-    for flag, kw in _LOAD_SWEEP_FLAGS:
-        ap.add_argument(flag, default=argparse.SUPPRESS,
-                        help="load sweep: not ported yet (ROADMAP "
-                             "Queue A item 12)", **kw)
+    ap.add_argument("--arrivals", default=None,
+                    choices=["poisson", "bursty", "diurnal"],
+                    help="serve only: open-loop load sweep with this "
+                         "arrival process (core.scenario.sweep_load)")
+    ap.add_argument("--qps", type=float, nargs="+", default=None,
+                    metavar="RATE",
+                    help="offered-rate grid for --arrivals (default: "
+                         "auto-bracketed around calibrated capacity)")
+    ap.add_argument("--requests", type=int, default=200,
+                    help="requests per load point for --arrivals "
+                         "(default 200)")
+    ap.add_argument("--prefix-tokens", type=int, default=0,
+                    help="shared system-prompt tokens for --arrivals "
+                         "(reports the prefix-caching on/off delta)")
+    ap.add_argument("--preempt", default="none",
+                    choices=["none", "lifo", "longest"],
+                    help="serve only: preemption policy under memory "
+                         "pressure — caps the KV pool and extends the "
+                         "sweep past the knee (swap-thrash curve)")
+    ap.add_argument("--stall-budget-us", type=float, default=0.0,
+                    help="admission stall tolerated before preempting "
+                         "a victim (default 0: preempt immediately)")
+    ap.add_argument("--swap", action="store_true",
+                    help="serve only: print per-point preemption / "
+                         "swap-DMA / queue-delay tail columns")
+    ap.add_argument("--workers", type=int, default=1,
+                    help="process-pool width for --arrivals sweep "
+                         "points (results identical to --workers 1)")
     args = ap.parse_args(argv)
-    given = [flag for flag, _ in _LOAD_SWEEP_FLAGS
-             if hasattr(args, flag[2:].replace("-", "_"))]
-    if given:
-        ap.error(f"{' '.join(given)}: the open-loop load sweep is not "
-                 "ported yet (ROADMAP Queue A item 12)")
     if args.list:
         print("\n".join(scenario_names()))
         return 0
@@ -256,6 +322,16 @@ def main(argv=None) -> int:
         ap.error(str(e))
     if target.kind == "serve":
         args.dtype = "fp16"        # the engine's KV cache dtype decides
+    if args.arrivals is None and (args.preempt != "none" or args.swap):
+        ap.error("--preempt/--swap require --arrivals (load sweep)")
+    if args.arrivals is not None:
+        if target.kind != "serve":
+            ap.error("--arrivals only applies to --workload serve")
+        if args.requests < 1:
+            ap.error("--requests must be >= 1")
+        if args.stall_budget_us < 0:
+            ap.error("--stall-budget-us must be >= 0")
+        return _run_load_sweep(args)
     try:
         sc = Scenario(model=name, dtype=args.dtype, seq=args.seq,
                       n_layers=args.layers,

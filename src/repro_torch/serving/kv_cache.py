@@ -7,12 +7,15 @@ consumes.  With KH = 2, hd = 64 and bf16, ``page_tokens = 16`` gives the
 paper's 4,096-byte page.
 
 ``PageTable`` is the reference's bookkeeping (``alloc_seq``,
-``free_seq``, ``ensure_capacity``, ``note_tokens``, ``validate``) and
+``free_seq``, ``ensure_capacity``, ``note_tokens``, ``validate``), its
+prefix-cache and swap bookkeeping (``reserve_prefix``, the ``shared``
+count, ``written_own_pages``, ``swap_out``, ``swap_in_plan``), the
+fault-injection pool shrink (``seize_pages`` / ``restore_pages``) and
 its StreamPlan builders (``decode_step_plan``, ``prefill_plan``,
 ``shared_prefill_plan``), whose page ids come verbatim from the tables.
-The swap and prefix-cache bookkeeping of the reference is not ported
-yet.  ``PagedKVCache`` adds torch pools of shape (L, P, page, KH, hd)
-on the device, one table shared by every layer.
+``PagedKVCache`` adds torch pools of shape (L, P, page, KH, hd) on the
+device, one table shared by every layer; like the reference's live
+cache it maps no shared prefix.
 
 A cache config of dtype ``"int8"`` is the INT8 KV cache
 (``Tuning.kv_cache_quant``): int8 K/V pools plus fp16 scale pools
@@ -78,27 +81,49 @@ class PageTable:
         self.tables = np.zeros((max_seqs, cfg.max_pages_per_seq), np.int32)
         self.lens = np.zeros((max_seqs,), np.int32)
         self.held = np.zeros((max_seqs,), np.int32)   # pages per slot
+        self.shared = np.zeros((max_seqs,), np.int32)  # leading shared
         self.active = np.zeros((max_seqs,), bool)
+        self._prefix: list = []     # ids reserved by reserve_prefix
+        self._seized: list = []     # ids removed by seize_pages (faults)
 
     # --------------------------------------------------- slot lifecycle
-    def alloc_seq(self, slot: int, prompt_len: int) -> bool:
+    def reserve_prefix(self, n_pages: int) -> np.ndarray:
+        """Permanently pop ``n_pages`` from the free list and return
+        their ids: the shared system-prompt pages of prefix caching.
+        Sequences allocated with ``prefix=`` map these as their leading
+        pages; ``free_seq`` never returns them."""
+        if n_pages > len(self._free):
+            raise ValueError(
+                f"cannot reserve {n_pages} prefix pages: only "
+                f"{len(self._free)} free")
+        ids = [self._free.pop() for _ in range(n_pages)]
+        self._prefix += ids
+        return np.array(ids, np.int32)
+
+    def alloc_seq(self, slot: int, prompt_len: int,
+                  prefix: Optional[np.ndarray] = None) -> bool:
         n_pages = -(-max(prompt_len, 1) // self.cfg.page_tokens)
-        if n_pages > len(self._free) or \
+        k = 0 if prefix is None else min(len(prefix), n_pages)
+        if n_pages - k > len(self._free) or \
                 n_pages > self.cfg.max_pages_per_seq:
             return False
         self.tables[slot, :] = 0
-        for i in range(n_pages):
+        for i in range(k):
+            self.tables[slot, i] = prefix[i]
+        for i in range(k, n_pages):
             self.tables[slot, i] = self._free.pop()
         self.lens[slot] = 0
         self.held[slot] = n_pages
+        self.shared[slot] = k
         self.active[slot] = True
         return True
 
     def free_seq(self, slot: int):
-        for i in range(int(self.held[slot])):
+        for i in range(int(self.shared[slot]), int(self.held[slot])):
             self._free.append(int(self.tables[slot, i]))
         self.lens[slot] = 0
         self.held[slot] = 0
+        self.shared[slot] = 0
         self.active[slot] = False
 
     def ensure_capacity(self, slot: int, new_len: int) -> bool:
@@ -126,32 +151,99 @@ class PageTable:
         self.lens[slot] = new_len
         return True
 
+    # ------------------------------------------------------------ swap
+    def written_own_pages(self, slot: int, tokens: int) -> int:
+        """Pages of ``slot``'s own (non-shared) table that hold written
+        KV for the first ``tokens`` cached tokens: the page-aligned swap
+        set.  Shared prefix pages are never swapped."""
+        npg = -(-int(tokens) // self.cfg.page_tokens)
+        return max(0, min(npg, int(self.held[slot]))
+                   - int(self.shared[slot]))
+
+    def _swap_build(self, n_pages: int, direction: str, tag,
+                    n_layers: int):
+        build = plan_ir.PLAN_TEMPLATES.swap if self.templated \
+            else plan_ir.swap_plan
+        return build(
+            n_pages, self.cfg.page_tokens, self.cfg.n_kv_heads,
+            self.cfg.head_dim, _itemsize(self.cfg.dtype),
+            direction=direction, tag=tag, n_layers=n_layers)
+
+    def swap_out(self, slot: int, tokens: int, tag, *,
+                 n_layers: int = 1):
+        """Preempt ``slot``: build the page-aligned swap plan (DMA_OUT
+        of every written own K/V page per layer to the host swap region
+        keyed by ``tag``), then release all the slot's device pages
+        (``free_seq``).  Returns ``(plan, n_swapped_pages)``; ``plan``
+        is None when the slot has no written own pages."""
+        n_swap = self.written_own_pages(slot, tokens)
+        plan = self._swap_build(n_swap, "out", tag, n_layers) \
+            if n_swap else None
+        self.free_seq(slot)
+        return plan, n_swap
+
+    def swap_in_plan(self, n_pages: int, tag, *, n_layers: int = 1):
+        """The resume half of ``swap_out``: DMA_IN of the ``n_pages``
+        K/V pages written to ``tag``'s host swap region.  The caller
+        allocates device pages (``alloc_seq``) separately."""
+        return self._swap_build(n_pages, "in", tag, n_layers)
+
+    # ------------------------------------------------- fault injection
+    def seize_pages(self, n: int) -> int:
+        """Remove up to ``n`` pages from the free list (a co-tenant
+        taking device memory mid-run) and return how many were taken.
+        Seized pages are their own partition in ``validate`` until
+        ``restore_pages`` returns them."""
+        n = min(int(n), len(self._free))
+        for _ in range(n):
+            self._seized.append(self._free.pop())
+        return n
+
+    def restore_pages(self, n: Optional[int] = None) -> int:
+        """Return ``n`` seized pages (default: all) to the free list."""
+        n = len(self._seized) if n is None else min(int(n),
+                                                    len(self._seized))
+        for _ in range(n):
+            self._free.append(self._seized.pop())
+        return n
+
     # ------------------------------------------------------ invariants
     def validate(self) -> None:
-        """Pool-accounting check: the free list and every active slot's
-        pages must partition ``range(n_pages)`` — no double frees, no
-        leaks, no aliased tables.  Raises ``AssertionError`` (explicitly,
-        so the check survives ``python -O``)."""
+        """Pool-accounting check: the free list, every active slot's own
+        pages, the reserved prefix pages and the seized pages must
+        partition ``range(n_pages)`` — no double frees, no leaks, no
+        aliased tables.  Raises ``AssertionError`` (explicitly, so the
+        check survives ``python -O``)."""
         def require(cond, msg):
             if not cond:
                 raise AssertionError(msg)
 
         free = list(self._free)
         owned: list = []
+        prefix = set(self._prefix)
         for s in range(self.max_seqs):
-            held = int(self.held[s])
+            held, sh = int(self.held[s]), int(self.shared[s])
             if not self.active[s]:
-                require(held == 0, f"inactive slot {s} still holds {held} "
-                        "pages")
+                require(held == 0 and sh == 0,
+                        f"inactive slot {s} still holds {held} pages")
                 continue
-            owned += [int(p) for p in self.tables[s, :held]]
-        for label, part in (("free", free), ("owned", owned)):
+            require(0 <= sh <= held, (s, sh, held))
+            for p in self.tables[s, :sh]:
+                require(int(p) in prefix,
+                        f"slot {s} shared page {int(p)} not a prefix page")
+            owned += [int(p) for p in self.tables[s, sh:held]]
+        parts = {"free": free, "owned": owned, "prefix": self._prefix,
+                 "seized": self._seized}
+        for label, part in parts.items():
             require(len(part) == len(set(part)),
                     f"duplicate page ids in {label}: {sorted(part)}")
-        overlap = set(free) & set(owned)
-        require(not overlap, f"pages both free and owned: {sorted(overlap)}")
+        total = sum(len(p) for p in parts.values())
+        union = set().union(*(set(p) for p in parts.values()))
+        require(total == len(union), "page partitions overlap: " + ", ".join(
+            f"{a}∩{b}={sorted(set(parts[a]) & set(parts[b]))}"
+            for a in parts for b in parts
+            if a < b and set(parts[a]) & set(parts[b])))
         pool = set(range(self.cfg.n_pages))
-        union = set(free) | set(owned)
         require(union == pool, f"pool leak: {sorted(pool - union)} "
                 f"unaccounted, {sorted(union - pool)} phantom")
 
@@ -268,7 +360,12 @@ class PagedKVCache(PageTable):
         self.cross: Optional[PagedKVCache] = None
         self.state: Optional[RecurrentStateCache] = None
 
-    def alloc_seq(self, slot: int, prompt_len: int) -> bool:
+    def alloc_seq(self, slot: int, prompt_len: int,
+                  prefix: Optional[np.ndarray] = None) -> bool:
+        if prefix is not None:
+            raise ValueError(
+                "the live KV cache maps no shared prefix: prefix caching "
+                "runs on the plan-only engine's PageTable")
         if self.state is not None and self.state.active[slot]:
             return False
         if not super().alloc_seq(slot, prompt_len):

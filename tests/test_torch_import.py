@@ -48,6 +48,8 @@ def test_port_imports_no_jax():
             "repro_torch.core.design_space",
             "repro_torch.core.scenario",
             "repro_torch.serving.sim_report",
+            "repro_torch.serving.invariants",
+            "repro_torch.serving.faults",
             "repro_torch.launch.simulate"} <= set(mods)
     code = (
         "import importlib, sys\n"

@@ -411,10 +411,10 @@ def test_int8_greedy_engine_tokens_match_reference_engine(arch):
 
 
 def test_int8_engine_records_the_bf16_plan_trace():
-    """``record_plans`` under the flag: the shadow table stays bf16, as
-    the reference engine's does, so the trace equals the reference
-    engine's under the flag and the port's own without it, record for
-    record and compiled array for compiled array."""
+    """``record_plans`` under the flag: the shadow table stays a 2-byte
+    float (float16, the reference engine's default), so the trace equals
+    the reference engine's under the flag and the port's own without it,
+    record for record and compiled array for compiled array."""
     rp, pp = SERVING._weights("qwen2_0_5b")
     traces = []
     for port, tuned in ((True, True), (True, False), (False, True)):
@@ -424,7 +424,7 @@ def test_int8_engine_records_the_bf16_plan_trace():
                                     max_seq=64, device="cpu",
                                     record_plans=True)
             assert eng.cache.quantized == tuned
-            assert eng._table.cfg.dtype == "bfloat16"
+            assert eng._table.cfg.dtype == "float16"
             cls = Request
         else:
             with RTU.tuning_context(REF_QUANT):

@@ -282,32 +282,61 @@ def test_cli_prints_the_reference_lines(argv):
     assert got == want and len(got) >= 3
 
 
+# one case per load-sweep flag, each a small sweep (--arrivals always)
 LOAD_SWEEP_ARGV = {
-    "--arrivals": ["--arrivals", "poisson"],
-    "--qps": ["--qps", "10", "20"],
-    "--requests": ["--requests", "8"],
-    "--prefix-tokens": ["--prefix-tokens", "16"],
-    "--preempt": ["--preempt", "lifo"],
-    "--stall-budget-us": ["--stall-budget-us", "5"],
-    "--swap": ["--swap"],
-    "--workers": ["--workers", "2"],
+    "--arrivals": ["--arrivals", "bursty", "--qps", "10", "30"],
+    "--qps": ["--qps", "10", "20", "40"],
+    "--requests": ["--requests", "12", "--qps", "50"],
+    "--prefix-tokens": ["--prefix-tokens", "16", "--qps", "10", "30"],
+    "--preempt": ["--preempt", "lifo", "--qps", "1000", "4000"],
+    "--stall-budget-us": ["--preempt", "longest", "--stall-budget-us",
+                          "100", "--qps", "1000", "4000"],
+    "--swap": ["--swap", "--preempt", "lifo", "--qps", "2000"],
+    "--workers": ["--workers", "2", "--qps", "10", "30"],
 }
 
 
+def _sweep_lines(main, argv) -> list:
+    """The CLI's load-sweep lines, the header's host-timed ``wall N.Ns``
+    cut off."""
+    return [line.split("; wall ")[0] if line.startswith("load sweep")
+            else line for line in _cli_lines(main, argv)]
+
+
 @pytest.mark.parametrize("flag", sorted(LOAD_SWEEP_ARGV))
-def test_load_sweep_flags_refuse_naming_item_12(flag, capsys):
-    with pytest.raises(SystemExit) as e:
-        TCLI.main(["--workload", "serve"] + LOAD_SWEEP_ARGV[flag])
-    assert e.value.code == 2
-    err = capsys.readouterr().err
-    assert flag in err and "item 12" in err
+def test_load_sweep_flags_refuse_naming_item_12(flag):
+    """Each load-sweep flag (once refused, ROADMAP Queue A item 12)
+    drives a small open-loop sweep whose printed lines are the reference
+    CLI's."""
+    argv = ["--workload", "serve", "--requests", "8",
+            "--arrivals", "poisson"] + LOAD_SWEEP_ARGV[flag]
+    got = _sweep_lines(TCLI.main, argv)
+    assert got == _sweep_lines(RCLI.main, argv)
+    assert got[0].startswith("load sweep") and len(got) >= 4
+    assert flag != "--swap" or "swap_p99=" in got[1]
 
 
 def test_load_sweep_api_refuses_naming_item_12():
-    for call in (lambda: TS.sweep_load(qps=(1.0,)), TS.LoadPoint,
-                 TS.LoadSweepResult):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            call()
+    """``LoadPoint`` and ``LoadSweepResult`` (once refused, ROADMAP
+    Queue A item 12) build and serialise as the reference's do."""
+    pct = {"ttft_p99_us": 12.5, "tpot_p99_us": 3.25, "requests": 4}
+    kw = dict(qps=100.0, mode="DC", percentiles=pct, total_s=0.02,
+              n_finished=4, n_records=9, n_events=1234, drained=False)
+    got, want = TS.LoadPoint(**kw), RS.LoadPoint(**kw)
+    assert got.to_json() == want.to_json()
+    assert got.goodput_qps == want.goodput_qps == 200.0
+    res = dict(arch="qwen2_0_5b", arrivals="poisson", qps=(100.0,),
+               modes=("DC",), n_requests=4, knee_qps={"DC": None},
+               calibration={"est_step_s": 1e-4}, wall_s=1.23456,
+               preempt="lifo", kv_pool_pages=7)
+    t = TS.LoadSweepResult(points=[got], **res)
+    r = RS.LoadSweepResult(points=[want], **res)
+    assert t.to_json() == r.to_json()
+    assert json.loads(json.dumps(t.to_json())) == t.to_json()
+    assert t.to_json()["schema"] == TS.LoadSweepResult.SCHEMA == \
+        "loadsweep/v1"
+    assert t.curve("DC") == [got] and t.curve("DM") == []
+    assert TS.LOAD_SHAPE == RS.LOAD_SHAPE
 
 
 # -------------------------------------------------------------- artifact

@@ -234,7 +234,8 @@ def test_paged_cache_alloc_free_invariants():
     assert not cache.alloc_seq(2, prompt_len=32 * 8)
     cache.validate()
     cache._free.append(int(cache.tables[1, 0]))     # a double free
-    with pytest.raises(AssertionError, match="both free and owned"):
+    with pytest.raises(AssertionError,
+                       match="page partitions overlap: free∩owned"):
         cache.validate()
 
 
@@ -261,8 +262,14 @@ def test_paged_cache_defaults_to_cuda():
 
 def test_unported_paths_raise():
     cfg = get_reduced(ARCH)
-    with pytest.raises(NotImplementedError):
-        ServingEngine(cfg, None, device="cpu", plan_only=True)
+    # plan_only builds with no card and no Model; a model-backed engine
+    # refuses a shared prefix, which only the plan-only engine maps
+    eng = ServingEngine(cfg, None, plan_only=True)
+    assert eng.model is None and eng.cache is None and eng.device is None
+    assert eng._table is not None and eng._table.pages_in_use == 0
+    with pytest.raises(ValueError, match="prefix_tokens"):
+        ServingEngine(cfg, None, device="cpu", prefix_tokens=8,
+                      record_plans=True)
     # deepseek-v3-671b, the last architecture ported, now loads: MLA set,
     # the published widths
     from repro_torch.configs import NOT_PORTED, get_config
