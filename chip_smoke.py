@@ -224,13 +224,47 @@ Phases, in order; any failure raises and exits non-zero:
    invariants every step, drained, work conserved, each trace priced per
    mode, simulated TTFT / TPOT p50 / p99 beside the card's 13c figures
    (no agreement asked).
-15. Print the ``kernels`` JSON line (each kernel's launches from its own
+15. Training of the dense family (``Trainer``, ``build_train_step``),
+   the streaming GEMM forward and backward; seconds per sub-phase.  (a)
+   Both backward products of every qwen2-0.5b GEMM at M = 4,096 tokens
+   on the kernel (the call the autograd Function makes), each against
+   its plain version within BF16_TOL and timed beside the plain version,
+   ``torch.matmul`` on the same operands and the bound: dA = dC·Bᵀ (a
+   K-contiguous B, or for the tied lm_head ``embed`` row-major) and dB
+   = Aᵀ·dC (the new M-contiguous A; for the lm_head dBᵀ = dCᵀ·A over
+   152,064 x 4,096), for q/o, k/v, gate/up, down and the lm_head; kept
+   as the GEMM row's ``train_bwd_path``.  (b) qwen2-0.5b at full width
+   cut to 2 layers, 1 x 128 tokens, the same seeded weights on the card
+   and on the CPU: the loss within 1e-3 relative and every gradient leaf
+   within 5e-2 relative L2 (the limits the CPU tests set at reduced
+   width against the reference).  (c) The Trainer at full width and
+   depth (24 layers, random bf16 weights from ``--seed``, AdamW,
+   ``remat="none"``, 8 x 512 tokens a step, 20 steps, lr 3e-3 with 10
+   warm-up steps, a checkpoint every 10): the loss per step (it must
+   fall), the median step, tokens/s, model FLOPs a step and their bound
+   at 989 TFLOP/s, the peak memory (the autograd Function raises
+   rather than give a bf16 product to the scalar kernel); then one step
+   from the step-19
+   checkpoint under the profiler: device busy share, device ms of the
+   forward GEMMs, the backward GEMMs and the rest, and the launches, 169
+   forward (7 a layer and the lm_head) and 338 backward, asserted; and
+   one layer's chunked attention forward and backward at that shape,
+   CUDA events, beside SDPA's on the same inputs (a yardstick).  (d)
+   A run that fails after step 12, and a fresh Trainer on its directory
+   resuming from the step-9 checkpoint: its losses for steps 10-19
+   against (c)'s, the largest difference and whether they are bit for
+   bit equal.  (e) One step with ``remat="full"`` (peak memory beside
+   (c)'s, loss within 1e-3 of (c)'s first), three Adafactor steps and
+   three AdamW steps with gradient compression, every loss finite.
+16. Print the ``kernels`` JSON line (each kernel's launches from its own
    path's serving run, the int8 kernels' from phase 8e's, every path's
-   counts beside), the card line, and
-   last the result line ``{"ok": true, "device": {...}}``.
+   counts beside, the GEMM's forward and backward launches of a
+   training step as ``train_launches``), the card line, and last the
+   result line ``{"ok": true, "device": {...}}``.
 """
 import argparse
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -3230,6 +3264,478 @@ def phase_open_loop(torch, args, card, serving_13c):
     return res
 
 
+# ---------------------------------------------------------------- phase 15
+TRAIN_ARCH = "qwen2-0.5b"
+TRAIN_TOKENS = 4096              # the GEMM's M in 15a: 8 x 512 tokens
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS = 512, 8, 20
+TRAIN_CKPT_EVERY = 10
+TRAIN_FAIL_AT = 12
+TRAIN_LR = dict(lr_base=3e-3, lr_warmup=10, lr_total=100)
+# card vs CPU (15b): the limits the CPU tests set at reduced width,
+# where the port's bf16 loss and gradients meet the reference's
+# (tests/test_torch_train.py): bf16 rounding after fp32 sums in other
+# orders, as between the card and the CPU
+TRAIN_LOSS_RTOL = 1e-3
+TRAIN_GRAD_REL_L2 = 5e-2
+TRAIN_REMAT_RTOL = 1e-3          # remat="full" against "none" (15e)
+
+
+def _bwd_entry(torch, timer, a, b, out_of):
+    """One backward product on the kernel (``ops._gemm_bwd``, the call the
+    autograd Function makes), checked against its plain version and
+    timed beside the plain version, ``torch.matmul`` on the same
+    operands and the bound.  ``out_of``: which product of which
+    weight."""
+    import importlib
+    from repro_torch.kernels import ops, ref
+    SG = importlib.import_module("repro_torch.kernels.streaming_gemm")
+    M, K = a.shape
+    N = b.shape[1]
+    layout = SG.mma_layout(a, b)
+    require(layout is not None or SG.mcontig_layout(a, b) is not None,
+            f"{out_of}: the tensor-core kernel cannot read these operands")
+    mode = "m_contiguous_a" if layout is None else (
+        "k_contiguous_b" if layout[0] else "row_major")
+    want = ref.gemm_ref(a, b)
+    rms = want.float().square().mean().sqrt().item()
+    require(0.5 <= rms <= 2, f"{out_of}: output rms {rms}, not O(1)")
+    err = check_close(f"{out_of} {M}x{K}x{N}", ops._gemm_bwd(a, b),
+                      want, BF16_TOL)
+    del want
+    bms, by = bound(2 * (M * K + K * N + M * N), 2 * M * N * K)
+    r = {"shape": [M, K, N], "b": out_of, "mode": mode, "on_path": True,
+         "plan": list(SG.plan(M, N, K)), "max_abs_err": err,
+         "want_rms": rms,
+         "ms": timer(lambda: ops._gemm_bwd(a, b)),
+         "plain_ms": timer(lambda: ref.gemm_ref(a, b)),
+         "library_ms": timer(lambda: torch.matmul(a, b)),
+         "bound_ms": bms, "bound_by": by}
+    print(f"[train_bwd] {out_of} M={M} K={K} N={N} ({mode}, plan "
+          f"{r['plan']}): err {err:.3g} (tol {BF16_TOL}, output rms "
+          f"{rms:.3g}) kernel "
+          f"{r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms matmul "
+          f"{r['library_ms']:.4f} ms bound {bms:.4f} ms ({by})", flush=True)
+    return r
+
+
+def _train_bwd_kernels(torch, args, dev, timer, rows):
+    """15a. Both backward products of every qwen2-0.5b GEMM at M = 4,096
+    tokens: dA = dC·Bᵀ and dB = Aᵀ·dC (the tied lm_head: dBᵀ = dCᵀ·A, an
+    M-contiguous A of 152,064 x 4,096), kept as the GEMM row's
+    ``train_bwd_path``.  dC is drawn at unit scale, B at N^-1/2 and A at
+    M^-1/2, so that every output is O(1) (its rms is checked) and
+    ``BF16_TOL`` is a few hundredths of a typical value: a kernel that
+    drops part of a sum fails."""
+    g = torch.Generator(device=dev).manual_seed(args.seed + 15)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device=dev)
+                * scale).to(torch.bfloat16)
+
+    M = TRAIN_TOKENS
+    per_shape = []
+    for name, K, N in (("q / o", 896, 896), ("k / v", 896, 128),
+                       ("gate / up", 896, 4864), ("down", 4864, 896),
+                       ("lm_head embed.T", 896, 152064)):
+        x = randn(M, K, scale=M ** -0.5)
+        dc = randn(M, N)
+        if N == 152064:
+            b = randn(N, K, scale=N ** -0.5).t()       # embed.T in place
+            per_shape.append(_bwd_entry(torch, timer, dc, b.t(),
+                                        f"{name} dA"))
+            per_shape.append(_bwd_entry(torch, timer, dc.t(), x,
+                                        f"{name} dB^T"))
+        else:
+            b = randn(K, N, scale=N ** -0.5)
+            per_shape.append(_bwd_entry(torch, timer, dc, b.t(),
+                                        f"{name} dA"))
+            per_shape.append(_bwd_entry(torch, timer, x.t(), dc,
+                                        f"{name} dB"))
+        del x, dc, b
+    _add_path(rows["streaming_gemm"], per_shape, "train_bwd_path")
+    return per_shape
+
+
+def _leaf_errors(torch, got, want):
+    """{path: relative L2 error} of two gradient trees."""
+    from repro_torch.checkpoint.checkpoint import _flatten
+    w = dict(_flatten(want))
+    out = {}
+    for path, g in _flatten(got):
+        ref_ = w[path].float()
+        out["/".join(path)] = ((g.float().cpu() - ref_).norm()
+                               / ref_.norm()).item()
+    return out
+
+
+def _train_card_vs_cpu(torch, args, dev):
+    """15b. Full width, 2 layers, batch 1 x 128 tokens, the same seeded
+    weights on the card and on the CPU: the loss (relative difference)
+    and each gradient leaf (relative L2) within the limits the CPU
+    tests set at reduced width."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import depth_cut
+    from repro_torch.launch.steps import loss_and_grads
+    from repro_torch.models.model import Model
+    from repro_torch.models.params import params_to
+
+    cfg = depth_cut(get_config(TRAIN_ARCH), 2)
+    params = Model(cfg, device="cpu").init(
+        torch.Generator().manual_seed(args.seed))
+    rng = np.random.default_rng(args.seed + 15)
+    toks = rng.integers(1, cfg.vocab_size - 1, (1, 129))
+    batch = {"tokens": torch.from_numpy(toks[:, :-1]).to(torch.int32),
+             "labels": torch.from_numpy(toks[:, 1:]).to(torch.int32)}
+    t = time.perf_counter()
+    (loss, _), grads = loss_and_grads(
+        Model(cfg, device=dev, remat="none"), params_to(params, dev),
+        {k: v.to(dev) for k, v in batch.items()})
+    card_s = time.perf_counter() - t
+    t = time.perf_counter()
+    (want, _), want_g = loss_and_grads(Model(cfg, device="cpu",
+                                             remat="none"), params, batch)
+    cpu_s = time.perf_counter() - t
+    loss_rel = abs(loss.item() - want.item()) / abs(want.item())
+    errs = _leaf_errors(torch, grads, want_g)
+    worst = max(errs, key=errs.get)
+    res = {"config": cfg.name, "tokens": 128, "card_loss": loss.item(),
+           "cpu_loss": want.item(), "loss_rel_diff": loss_rel,
+           "loss_rtol": TRAIN_LOSS_RTOL, "leaves": len(errs),
+           "grad_rel_l2_max": errs[worst], "grad_rel_l2_max_leaf": worst,
+           "grad_rel_l2_limit": TRAIN_GRAD_REL_L2,
+           "card_s": card_s, "cpu_s": cpu_s}
+    print("[train_card_vs_cpu] " + json.dumps(res), flush=True)
+    require(loss_rel <= TRAIN_LOSS_RTOL,
+            f"train card vs CPU: loss {loss.item()} vs {want.item()}")
+    require(errs[worst] <= TRAIN_GRAD_REL_L2,
+            f"train card vs CPU: gradient {worst} off by {errs[worst]}")
+    return res
+
+
+def _train_flops(cfg, tokens, seq):
+    """Model FLOPs of one training step (forward and backward, 6 per
+    weight per token for every GEMM, the attention's QKᵀ and PV at 3
+    times their forward, every (query, key) block the chunked attention
+    computes)."""
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    H, KH = cfg.n_heads, cfg.n_kv_heads
+    per_layer = d * (H + 2 * KH) * hd + H * hd * d + 3 * d * cfg.d_ff
+    weights = cfg.n_layers * per_layer + d * cfg.padded_vocab
+    attn = cfg.n_layers * 3 * 2 * 2 * tokens * seq * H * hd
+    return 6 * weights * tokens + attn, weights
+
+
+def _profile_train_step(torch, step, state, batch, tries=3):
+    """One training step under ``torch.profiler``; its device kernels
+    split by ``_train_kernel_split``.  Returns (state, the split, the
+    step's launch counts)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import ops
+
+    for window in range(1, tries + 1):
+        ops.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            state, _ = step(state, batch)
+            torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        launches, gemm_bwd = dict(ops.LAUNCHES), dict(ops.GEMM_BWD)
+        kern = sorted((ev.time_range.start, ev.time_range.elapsed_us(),
+                       ev.name) for ev in prof.events()
+                      if ev.device_type == DeviceType.CUDA
+                      and ev.time_range.elapsed_us() > 0)
+        if kern:
+            break
+        print(f"[train_profile] window {window}: the profiler recorded no "
+              "device kernel", flush=True)
+    require(kern, f"train profile: {tries} windows held no device kernel")
+    res = _train_kernel_split(kern, launches, gemm_bwd, wall_ms)
+    res["profiler_windows"] = window
+    return state, res, launches
+
+
+def _train_kernel_split(kern, launches, gemm_bwd, wall_ms):
+    """Device time of a training step's kernels ``kern`` ((start us,
+    us, name), in the order the card ran them).  With ``remat="none"``
+    the forward ends before the backward starts, on one stream, and the
+    backward begins with the lm_head's dA and then its dBᵀ, the first
+    kernel of the M-contiguous A mode (``gemm_bf16<BM, BN, false,
+    true>``): the GEMM kernels before that dA are the forward's, the
+    rest the backward products (a split that holds where the profiler
+    loses a kernel, which it now and then does)."""
+    from repro_torch.kernels import kernel_nodes as KN
+    gemm = [(t, us, n) for t, us, n in kern
+            if KN.kernel_group(n) == "streaming_gemm"]
+    simt = [n for _, _, n in gemm if "gemm_simt" in n]
+    mcontig = re.compile(r"gemm_bf16<\d+, \d+, \w+, true>")
+    first_db = next((i for i, (_, _, n) in enumerate(gemm)
+                     if mcontig.search(n)), None)
+    require(first_db, "train profile: no M-contiguous GEMM kernel recorded")
+    fwd, bwd = gemm[:first_db - 1], gemm[first_db - 1:]
+    gemm_names = {n for _, _, n in gemm}
+    other = sum(us for _, us, n in kern if n not in gemm_names) / 1e3
+    span_ms = (kern[-1][0] + kern[-1][1] - kern[0][0]) / 1e3
+    busy_ms = sum(us for _, us, _ in kern) / 1e3
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "device_busy_share": busy_ms / wall_ms,
+            "device_span_ms": span_ms,
+            "device_ms": {"forward_gemm": sum(us for _, us, _ in fwd) / 1e3,
+                          "backward_gemm": sum(us for _, us, _ in bwd) / 1e3,
+                          "other": other},
+            "profiler_gemm_kernels": {"forward": len(fwd),
+                                      "backward": len(bwd),
+                                      "gemm_simt": len(simt)},
+            "launches": {"forward": launches["streaming_gemm"]
+                         - gemm_bwd["launches"],
+                         "backward": gemm_bwd["launches"]},
+            "bwd_dc_copies": gemm_bwd["dc_copies"]}
+
+
+def _train_attention(torch, cfg, dev):
+    """One layer's training attention at 15c's shape, forward and
+    backward: ``layers.chunked_attention`` as torch ops under autograd
+    (what the port runs), beside SDPA's forward and backward on the same
+    inputs (a yardstick the port never calls), CUDA events."""
+    import torch.nn.functional as F
+    from repro_torch.models import layers as L
+    B, T, H, KH, hd = (TRAIN_BATCH, TRAIN_SEQ, cfg.n_heads, cfg.n_kv_heads,
+                       cfg.resolved_head_dim)
+    g = torch.Generator(device=dev).manual_seed(15)
+
+    def randn(*shape, grad=True):
+        x = torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+        return x.requires_grad_(grad)
+
+    q, k, v = randn(B, T, H, hd), randn(B, T, KH, hd), randn(B, T, KH, hd)
+    do = randn(B, T, H, hd, grad=False)
+
+    def chunked():
+        out = L.chunked_attention(q, k, v, causal=True)
+        torch.autograd.grad(out, (q, k, v), do)
+
+    def sdpa():
+        out = F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=True, enable_gqa=True)
+        torch.autograd.grad(out, (q, k, v), do.transpose(1, 2))
+
+    timer = Timer(torch, dev)
+    res = {"shape": [B, T, H, KH, hd], "chunked_fwd_bwd_ms": timer(chunked),
+           "sdpa_fwd_bwd_ms": timer(sdpa)}
+    res["chunked_ms_per_step"] = res["chunked_fwd_bwd_ms"] * cfg.n_layers
+    return res
+
+
+def _trainer(run, ckpt_dir, seed, dev, inject=None):
+    from repro_torch.runtime.train_loop import Trainer, TrainerConfig
+    return Trainer(run, TrainerConfig(
+        ckpt_dir=str(ckpt_dir), ckpt_every=TRAIN_CKPT_EVERY, keep=2,
+        seed=seed, **TRAIN_LR), inject_failure_at=inject, device=dev)
+
+
+def _train_full(torch, args, card, ckpt_root, dev):
+    """15c. The Trainer at full width and depth: qwen2-0.5b, random bf16
+    weights from ``--seed``, AdamW, ``remat="none"``, 8 x 512 tokens a
+    step, 20 steps, a checkpoint every 10; then one profiled step."""
+    import shutil
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RunConfig, ShapeConfig
+    from repro_torch.data.pipeline import make_loader
+    from repro_torch.models.params import n_elements
+
+    cfg = get_config(TRAIN_ARCH)
+    run = RunConfig(model=cfg, shape=ShapeConfig(
+        "train", "train", TRAIN_SEQ, TRAIN_BATCH), remat="none")
+    shutil.rmtree(ckpt_root / "full", ignore_errors=True)
+    tr = _trainer(run, ckpt_root / "full", args.seed, dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    out = tr.train(TRAIN_STEPS)
+    train_s = time.perf_counter() - t
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = out["losses"]
+    step_ms = [m["s"] * 1e3 for m in tr.metrics_log]
+    med = statistics.median(step_ms[1:])
+    tokens = TRAIN_SEQ * TRAIN_BATCH
+    flops, weights = _train_flops(cfg, tokens, TRAIN_SEQ)
+    bound_ms = flops / BF16_FLOP_PER_S * 1e3
+    require(len(losses) == TRAIN_STEPS, f"train: {len(losses)} steps")
+    require(all(x == x and abs(x) < float("inf") for x in losses),
+            f"train: non-finite loss {losses}")
+    require(losses[-1] < losses[0],
+            f"train: loss did not fall ({losses[0]} -> {losses[-1]})")
+    require(tr.ckpt.all_steps() == [9, 19],
+            f"train: checkpoints {tr.ckpt.all_steps()}")
+
+    # one more step, profiled, from the step-19 checkpoint
+    state, start = tr.restore_or_init()
+    loader = make_loader(cfg, run.shape, dev, start_step=start,
+                         seed=args.seed)
+    _, batch = next(loader)
+    loader.close()
+    n_fwd = 7 * cfg.n_layers + 1
+    state, prof, launches = _profile_train_step(torch, tr.step_fn, state,
+                                                batch)
+    del state
+    checkpoints = tr.ckpt.all_steps()
+    shutil.rmtree(ckpt_root / "full", ignore_errors=True)
+    attention = _train_attention(torch, cfg, dev)
+    prof["device_busy_share_of_median_step"] = prof["device_busy_ms"] / med
+    res = {"config": cfg.name, "params": n_elements(
+               tr.model.abstract_params()),
+           "gemm_weights": weights, "steps": TRAIN_STEPS,
+           "tokens_per_step": tokens, "losses": losses,
+           "step_ms": step_ms, "median_step_ms": med,
+           "tokens_per_s": tokens / med * 1e3,
+           "model_tflop_per_step": flops / 1e12,
+           "flop_bound_ms": bound_ms,
+           "bf16_peak_share": bound_ms / med,
+           "peak_mem_gb": peak_gb, "train_s": train_s,
+           "checkpoints": checkpoints,
+           "profiled_step": prof, "attention": attention, "card": card}
+    print("[train_full] " + json.dumps(res), flush=True)
+    require(prof["launches"] == {"forward": n_fwd, "backward": 2 * n_fwd},
+            f"train: launches {prof['launches']}, expected {n_fwd} "
+            f"forward and {2 * n_fwd} backward")
+    require(prof["profiler_gemm_kernels"]["gemm_simt"] == 0,
+            "train: the profiled step ran the scalar GEMM kernel")
+    return res, launches
+
+
+def _train_restart(torch, args, full, ckpt_root, dev):
+    """15d. A run that fails after step 12, then a fresh Trainer on the
+    same directory: it resumes from the step-9 checkpoint, and its
+    losses for steps 10-19 against 15c's."""
+    import shutil
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RunConfig, ShapeConfig
+
+    run = RunConfig(model=get_config(TRAIN_ARCH), shape=ShapeConfig(
+        "train", "train", TRAIN_SEQ, TRAIN_BATCH), remat="none")
+    d = ckpt_root / "restart"
+    shutil.rmtree(d, ignore_errors=True)
+    tr = _trainer(run, d, args.seed, dev, inject=TRAIN_FAIL_AT)
+    try:
+        tr.train(TRAIN_STEPS)
+    except RuntimeError as e:
+        require("injected node failure" in str(e), f"restart: {e}")
+    else:
+        raise AssertionError("restart: the injected failure did not fire")
+    require(tr.ckpt.all_steps() == [9], f"restart: {tr.ckpt.all_steps()}")
+    del tr
+    tr = _trainer(run, d, args.seed, dev)
+    _, start = tr.restore_or_init()
+    require(start == 10, f"restart: resumed at {start}")
+    out = tr.train(TRAIN_STEPS)
+    want = full["losses"][10:]
+    diffs = [abs(a - b) for a, b in zip(out["losses"], want)]
+    require(len(out["losses"]) == len(want) == 10,
+            f"restart: {len(out['losses'])} steps after the restart")
+    shutil.rmtree(d, ignore_errors=True)
+    res = {"resumed_at": start, "losses": out["losses"],
+           "uninterrupted": want, "max_abs_diff": max(diffs),
+           "max_rel_diff": max(d / abs(w) for d, w in zip(diffs, want)),
+           "bitwise": max(diffs) == 0.0,
+           "deterministic_algorithms":
+           torch.are_deterministic_algorithms_enabled()}
+    print("[train_restart] " + json.dumps(res), flush=True)
+    return res
+
+
+def _train_modes(torch, args, full, dev):
+    """15e. One step with ``remat="full"`` (its peak memory beside 15c's;
+    its loss equal to the ``"none"`` step's within 1e-3), three Adafactor
+    steps, and three AdamW steps with gradient compression; every loss
+    finite."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RunConfig, ShapeConfig
+    from repro_torch.data.pipeline import make_loader
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.models.model import Model
+    from repro_torch.optim import get_optimizer
+    from repro_torch.runtime import compression as GC
+
+    cfg = get_config(TRAIN_ARCH)
+    base = RunConfig(model=cfg, shape=ShapeConfig(
+        "train", "train", TRAIN_SEQ, TRAIN_BATCH), remat="none")
+    loader = make_loader(cfg, base.shape, dev, seed=args.seed)
+    batches = [next(loader)[1] for _ in range(3)]
+    loader.close()
+    res = {}
+    for name, run, steps in (
+            ("remat_full", dataclasses.replace(base, remat="full"), 1),
+            ("adafactor", dataclasses.replace(base, optimizer="adafactor"),
+             3),
+            ("adamw_compressed", dataclasses.replace(
+                base, gradient_compression=True), 3)):
+        params = Model(cfg, device=dev).init(
+            torch.Generator(device=dev).manual_seed(args.seed))
+        state = {"params": params,
+                 "opt": get_optimizer(run.optimizer).init(params)}
+        if run.gradient_compression:
+            state["ef"] = GC.init_ef(params)
+        step = build_train_step(run, dev, **TRAIN_LR)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, ms = [], []
+        for b in batches[:steps]:
+            t = time.perf_counter()
+            state, m = step(state, b)
+            losses.append(m["loss"].item())
+            ms.append((time.perf_counter() - t) * 1e3)
+        res[name] = {"losses": losses, "step_ms": ms,
+                     "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+        del state, params
+        torch.cuda.empty_cache()
+        require(all(x == x and abs(x) < float("inf") for x in losses),
+                f"{name}: non-finite loss {losses}")
+    rel = abs(res["remat_full"]["losses"][0] - full["losses"][0]) / \
+        abs(full["losses"][0])
+    res["remat_full"].update(loss_rel_diff_to_none=rel,
+                             none_peak_mem_gb=full["peak_mem_gb"])
+    print("[train_modes] " + json.dumps(res), flush=True)
+    require(rel <= TRAIN_REMAT_RTOL,
+            f"remat full vs none: loss differs by {rel}")
+    return res
+
+
+def phase_training(torch, args, rows, card, dev):
+    """15. Training of the dense family on the card (see the module
+    docstring); prints each sub-phase's line and its seconds."""
+    ckpt_root = Path(__file__).resolve().parent / "build" / "train_smoke"
+    secs, res = {}, {}
+    t = time.perf_counter()
+    timer = Timer(torch, dev)
+    res["bwd"] = _train_bwd_kernels(torch, args, dev, timer, rows)
+    del timer
+    torch.cuda.empty_cache()
+    secs["bwd"] = time.perf_counter() - t
+    for name, fn in (
+            ("card_vs_cpu", lambda: _train_card_vs_cpu(torch, args, dev)),
+            ("full", lambda: _train_full(torch, args, card, ckpt_root,
+                                         dev)),
+            ("restart", lambda: _train_restart(torch, args, res["full"][0],
+                                               ckpt_root, dev)),
+            ("modes", lambda: _train_modes(torch, args, res["full"][0],
+                                           dev))):
+        t = time.perf_counter()
+        res[name] = fn()
+        torch.cuda.empty_cache()
+        secs[name] = time.perf_counter() - t
+    print(f"[train] seconds {json.dumps(secs)}", flush=True)
+    res["seconds"] = secs
+    full, launches = res["full"]
+    rows["streaming_gemm"]["train_launches"] = full["profiled_step"][
+        "launches"]
+    return {**res, "full": full, "launches": launches}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3278,6 +3784,8 @@ def main():
     torch.cuda.empty_cache()
     simulator = phase_simulator(torch, args, card)
     phase_open_loop(torch, args, card, simulator["serving"])
+    torch.cuda.empty_cache()
+    train = phase_training(torch, args, rows, card, dev)
 
     # launches: each kernel's count from its own main path's serving run
     # (the grouped GEMM's is the MoE path, the latent paged kernel's
@@ -3290,7 +3798,8 @@ def main():
              ZAMBA_ARCH: zamba["serving"]["launches"],
              deepseek["config"]: deepseek["serving"]["launches"],
              simulator["serving"]["config"] + " record_plans":
-             simulator["serving"]["launches"]}
+             simulator["serving"]["launches"],
+             f"{TRAIN_ARCH} train step": train["launches"]}
     int8_path = f"{INT8_ARCH} int8"
     paths[int8_path] = variants[INT8_ARCH]["int8"]["serving"]["launches"]
     own = {"streaming_gemm_grouped": MOE_ARCH,

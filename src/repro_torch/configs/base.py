@@ -1,7 +1,8 @@
-"""Model configuration dataclasses — the port's own copies of the
-reference ``ModelConfig``, ``MoEConfig``, ``MLAConfig`` and
-``SSMConfig`` (same fields, same defaults, same derived properties), so
-that the port never imports the JAX package.
+"""Configuration dataclasses — the port's own copies of the reference
+``ModelConfig``, ``MoEConfig``, ``MLAConfig``, ``SSMConfig``,
+``ShapeConfig`` and ``RunConfig`` (same fields, same defaults, same
+derived properties), the shape cells ``SHAPES`` and ``shapes_for`` /
+``skip_reason``, so that the port never imports the JAX package.
 """
 from __future__ import annotations
 
@@ -95,5 +96,90 @@ class ModelConfig:
         return _round_up(self.vocab_size, self.vocab_pad_multiple)
 
     @property
+    def attention_free(self) -> bool:
+        return self.family == "ssm"
+
+    @property
+    def sub_quadratic(self) -> bool:
+        """Eligible for the long_500k shape."""
+        return self.family in ("ssm", "hybrid")
+
+    @property
     def is_encoder_decoder(self) -> bool:
         return self.n_encoder_layers > 0
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str                    # train_4k | prefill_32k | decode_32k | long_500k
+    kind: str                    # train | prefill | decode
+    seq_len: int
+    global_batch: int
+
+    @property
+    def is_decode(self) -> bool:
+        return self.kind == "decode"
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", "train", 4096, 256),
+    "prefill_32k": ShapeConfig("prefill_32k", "prefill", 32768, 32),
+    "decode_32k": ShapeConfig("decode_32k", "decode", 32768, 128),
+    "long_500k": ShapeConfig("long_500k", "decode", 524288, 1),
+}
+
+
+@dataclass(frozen=True)
+class RunConfig:
+    """Everything the launcher needs beyond the model itself, field for
+    field the reference's.
+
+    The trainer reads ``remat``, ``optimizer``, ``gradient_compression``
+    and the chunk knobs (``q_chunk``, ``kv_chunk``, ``ce_chunk``,
+    ``ssm_chunk``), which ``launch.steps`` puts into the model's
+    ``Tuning`` together with ``kv_cache_quant`` and
+    ``moe_local_dispatch``.  ``multi_pod``, ``fsdp``, ``moe_cap_axis``
+    and ``shard_cache_seq`` are read only by mesh code, which the port
+    does not have yet (ROADMAP Queue A item 14): they are kept and
+    inert.  ``scan_layers``, ``param_dtype``, ``memory_mode``,
+    ``page_bytes``, ``double_buffer`` and ``use_flash`` are carried as
+    the reference carries them."""
+    model: ModelConfig
+    shape: ShapeConfig
+    # distribution
+    multi_pod: bool = False
+    remat: str = "full"          # none | dots | full
+    scan_layers: bool = True
+    optimizer: str = "adamw"     # adamw | adafactor
+    param_dtype: str = "bfloat16"
+    # paper technique knobs (core/)
+    memory_mode: str = "DC"      # DM | DC | DevMem
+    page_bytes: int = 4096
+    double_buffer: bool = True
+    # beyond-paper perf knobs (hillclimbing)
+    use_flash: bool = True
+    shard_cache_seq: bool = False   # context parallelism for decode caches
+    gradient_compression: bool = False
+    q_chunk: int = 512
+    kv_chunk: int = 1024
+    ce_chunk: int = 512
+    ssm_chunk: int = 16
+    kv_cache_quant: bool = False
+    moe_cap_axis: str = ""          # "data" shards MoE capacity dim
+    moe_local_dispatch: bool = False
+    fsdp: bool = True               # False: TP-only weights
+
+
+def shapes_for(model: ModelConfig) -> list:
+    """The shape cells that are runnable for this architecture (the
+    others are recorded as skipped, with ``skip_reason``)."""
+    out = ["train_4k", "prefill_32k", "decode_32k"]
+    if model.sub_quadratic:
+        out.append("long_500k")
+    return out
+
+
+def skip_reason(model: ModelConfig, shape_name: str) -> Optional[str]:
+    if shape_name == "long_500k" and not model.sub_quadratic:
+        return "pure full-attention arch: 500k dense KV walk per decoded token is not sub-quadratic (DESIGN.md §Arch-applicability)"
+    return None

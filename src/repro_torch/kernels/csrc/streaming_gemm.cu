@@ -23,10 +23,17 @@
 //    One launch, no workspace, no atomics: the result is the same bits
 //    on every run.  B is read either row-major (K x N, N contiguous) or
 //    K-contiguous (element (k, n) at B[n*ldb + k]), so the tied lm_head
-//    reads embed^T in place.  Needs 16-byte aligned rows along the
-//    contiguous dimension; ragged M / N / K edges are zero-filled by
-//    cp.async's src-size operand.  The tile (BM, BN) and the split S
-//    come from the caller (``plan`` in streaming_gemm.py).
+//    reads embed^T in place.  A is read either row-major (M x K, K
+//    contiguous) or M-contiguous (element (m, k) at A[k*lda + m]), the
+//    mirror of the K-contiguous B: staged as [k][m] and fragmented by
+//    ldmatrix.trans, so the weight gradient dW = X^T dY reads the layer
+//    input X in place (the backward products of the autograd Function in
+//    ops.py).  The M-contiguous A goes with a row-major B only.  Needs
+//    16-byte aligned rows along the contiguous dimension; ragged M / N /
+//    K edges are zero-filled by cp.async's src-size operand (an
+//    M-contiguous A's last chunk of 8 rows copies only the rows below
+//    M).  The tile (BM, BN) and the split S come from the caller
+//    (``plan`` in streaming_gemm.py).
 //  * gemm_simt — any strides, fp32 / bf16 / int8 inputs, scalar FMA
 //    with an fp32 (int32 for int8) accumulator: full fp32 for fp32
 //    inputs (no TF32) and exact int8 sums that wrap on the int8 store.
@@ -47,12 +54,17 @@ namespace {
 constexpr int BK = 64, PAD = 8, MMA_THREADS = 128, MAX_SPLITS = 8;
 constexpr int RING_BUDGET = 64 * 1024;  // bytes of cp.async ring per CTA
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool pred) {
+// the first n of 16 bytes from gmem, the rest zero-filled (0 <= n <= 16)
+__device__ __forceinline__ void cp_async16n(void* smem, const void* gmem,
+                                            int n) {
   unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  int n = pred ? 16 : 0;  // 0 source bytes: the 16 bytes are zero-filled
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
                "l"(gmem), "r"(n));
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           bool pred) {
+  cp_async16n(smem, gmem, pred ? 16 : 0);  // 0 bytes: all zero-filled
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -87,6 +99,14 @@ __device__ __forceinline__ void ldsm_x2(uint32_t* r, const void* p) {
                : "r"(s));
 }
 
+__device__ __forceinline__ void ldsm_x2_t(uint32_t* r, const void* p) {
+  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
+      : "r"(s));
+}
+
 __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
                                          const uint32_t* b) {
   asm volatile(
@@ -96,22 +116,24 @@ __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// Tile geometry of gemm_bf16<BM, BN, B_KCONTIG>.  Four warps: WM along
-// the tokens, WN along the weight's N, and WK over the four k16 steps of
+// Tile geometry of gemm_bf16<BM, BN, B_KCONTIG, A_MCONTIG>.  Four warps:
+// WM along the tokens, WN along the weight's N, and WK over the four k16 steps of
 // a k-tile (small tiles give each warp every other k16 step instead of
 // idling warps); the WK partials are summed with the cluster's.
-template <int BM, int BN, bool B_KCONTIG>
+template <int BM, int BN, bool B_KCONTIG, bool A_MCONTIG = false>
 struct Geo {
   static constexpr int WM = BM >= 32 ? 2 : 1;
   static constexpr int WN = BN / 16 < 4 / WM ? BN / 16 : 4 / WM;
   static constexpr int WK = 4 / (WM * WN);
   static constexpr int TM = BM / WM, TN = BN / WN;  // tokens, n per warp
   static constexpr int FM = TM / 8, FN = TN / 16;   // mma tiles per warp
-  static constexpr int A_LD = BK + PAD;
+  // row-major A is staged as [m][k]; M-contiguous A as [k][m]
+  static constexpr int A_ROWS = A_MCONTIG ? BK : BM;
+  static constexpr int A_LD = A_MCONTIG ? BM + PAD : BK + PAD;
   // K-contiguous B is staged as [n][k]; row-major B as [k][n]
   static constexpr int B_ROWS = B_KCONTIG ? BN : BK;
   static constexpr int B_LD = B_KCONTIG ? BK + PAD : BN + PAD;
-  static constexpr int A_ELEMS = BM * A_LD, B_ELEMS = B_ROWS * B_LD;
+  static constexpr int A_ELEMS = A_ROWS * A_LD, B_ELEMS = B_ROWS * B_LD;
   static constexpr int STAGE_BYTES = 2 * (A_ELEMS + B_ELEMS);
   static constexpr int S_RAW = RING_BUDGET / STAGE_BYTES;
   static constexpr int STAGES = S_RAW < 3 ? 3 : (S_RAW > 8 ? 8 : S_RAW);
@@ -123,13 +145,13 @@ struct Geo {
 };
 
 // One output tile of C = A * B.
-template <int BM, int BN, bool B_KCONTIG>
+template <int BM, int BN, bool B_KCONTIG, bool A_MCONTIG>
 __device__ __forceinline__ void gemm_tile(const __nv_bfloat16* __restrict__ A,
                                           const __nv_bfloat16* __restrict__ B,
                                           __nv_bfloat16* __restrict__ C,
                                           int M, int N, int K, int64_t lda,
                                           int64_t ldb, int64_t ldc) {
-  using G = Geo<BM, BN, B_KCONTIG>;
+  using G = Geo<BM, BN, B_KCONTIG, A_MCONTIG>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   __nv_bfloat16* Bs = As + G::STAGES * G::A_ELEMS;
@@ -153,11 +175,21 @@ __device__ __forceinline__ void gemm_tile(const __nv_bfloat16* __restrict__ A,
     const int k0 = kt * BK;
     __nv_bfloat16* as = As + stage * G::A_ELEMS;
     __nv_bfloat16* bs = Bs + stage * G::B_ELEMS;
-    for (int c = tid; c < BM * (BK / 8); c += MMA_THREADS) {
-      const int row = c / (BK / 8), col = (c % (BK / 8)) * 8;
-      const int gm = m0 + row, gk = k0 + col;
-      const bool ok = gm < M && gk < K;
-      cp_async16(as + row * G::A_LD + col, ok ? A + gm * lda + gk : A, ok);
+    if constexpr (A_MCONTIG) {  // BK k-rows x BM/8 chunks of 8 along m
+      for (int c = tid; c < BK * (BM / 8); c += MMA_THREADS) {
+        const int row = c / (BM / 8), col = (c % (BM / 8)) * 8;
+        const int gk = k0 + row, gm = m0 + col;
+        const int rows = gk < K ? min(max(M - gm, 0), 8) : 0;
+        cp_async16n(as + row * G::A_LD + col,
+                    rows ? A + gk * lda + gm : A, 2 * rows);
+      }
+    } else {                    // BM m-rows x 8 chunks of 8 along k
+      for (int c = tid; c < BM * (BK / 8); c += MMA_THREADS) {
+        const int row = c / (BK / 8), col = (c % (BK / 8)) * 8;
+        const int gm = m0 + row, gk = k0 + col;
+        const bool ok = gm < M && gk < K;
+        cp_async16(as + row * G::A_LD + col, ok ? A + gm * lda + gk : A, ok);
+      }
     }
     if constexpr (B_KCONTIG) {  // BN n-rows x 8 chunks of 8 along k
       for (int c = tid; c < BN * (BK / 8); c += MMA_THREADS) {
@@ -215,9 +247,14 @@ __device__ __forceinline__ void gemm_tile(const __nv_bfloat16* __restrict__ A,
         }
       }
 #pragma unroll
-      for (int j = 0; j < G::FM; ++j)  // A^T cols = tokens: mma B
-        ldsm_x2(tf[j], as + (wm * G::TM + j * 8 + (lane & 7)) * G::A_LD +
-                           kk + ((lane >> 3) & 1) * 8);
+      for (int j = 0; j < G::FM; ++j) {  // A^T cols = tokens: mma B
+        if constexpr (A_MCONTIG)
+          ldsm_x2_t(tf[j], as + (kk + (lane & 7) + ((lane >> 3) & 1) * 8) *
+                                    G::A_LD + wm * G::TM + j * 8);
+        else
+          ldsm_x2(tf[j], as + (wm * G::TM + j * 8 + (lane & 7)) * G::A_LD +
+                             kk + ((lane >> 3) & 1) * 8);
+      }
 #pragma unroll
       for (int i = 0; i < G::FN; ++i)
 #pragma unroll
@@ -281,13 +318,13 @@ __device__ __forceinline__ void gemm_tile(const __nv_bfloat16* __restrict__ A,
   cluster.sync();  // no CTA leaves while a peer still reads its partial
 }
 
-template <int BM, int BN, bool B_KCONTIG>
+template <int BM, int BN, bool B_KCONTIG, bool A_MCONTIG>
 __global__ void __launch_bounds__(MMA_THREADS)
     gemm_bf16(const __nv_bfloat16* __restrict__ A,
               const __nv_bfloat16* __restrict__ B,
               __nv_bfloat16* __restrict__ C, int M, int N, int K,
               int64_t lda, int64_t ldb, int64_t ldc) {
-  gemm_tile<BM, BN, B_KCONTIG>(A, B, C, M, N, K, lda, ldb, ldc);
+  gemm_tile<BM, BN, B_KCONTIG, A_MCONTIG>(A, B, C, M, N, K, lda, ldb, ldc);
 }
 
 // Launch a cluster kernel of `splits` CTAs along z with `smem` bytes of
@@ -312,12 +349,12 @@ int launch_cluster(Kern kern, int smem, dim3 grid, int splits,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int BM, int BN, bool B_KCONTIG>
+template <int BM, int BN, bool B_KCONTIG, bool A_MCONTIG>
 int launch_bf16(const void* A, const void* B, void* C, int M, int N, int K,
                 int64_t lda, int64_t ldb, int64_t ldc, int splits,
                 cudaStream_t st) {
-  using G = Geo<BM, BN, B_KCONTIG>;
-  auto kern = gemm_bf16<BM, BN, B_KCONTIG>;
+  using G = Geo<BM, BN, B_KCONTIG, A_MCONTIG>;
+  auto kern = gemm_bf16<BM, BN, B_KCONTIG, A_MCONTIG>;
   // once per instantiation and process (the port drives one card)
   static const cudaError_t attr = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, G::SMEM);
@@ -329,28 +366,32 @@ int launch_bf16(const void* A, const void* B, void* C, int M, int N, int K,
       M, N, K, lda, ldb, ldc);
 }
 
-template <int BM, bool KC>
+// The M-contiguous A mode (MC) goes with a row-major B only, at the
+// plan's 64- and 128-wide tiles: the backward products need no more.
+template <int BM, bool KC, bool MC>
 int dispatch_bn(int bn, const void* A, const void* B, void* C, int M, int N,
                 int K, int64_t lda, int64_t ldb, int64_t ldc, int splits,
                 cudaStream_t st) {
   switch (bn) {
-    case 32: return launch_bf16<BM, 32, KC>(A, B, C, M, N, K, lda, ldb, ldc, splits, st);
-    case 64: return launch_bf16<BM, 64, KC>(A, B, C, M, N, K, lda, ldb, ldc, splits, st);
-    case 128: return launch_bf16<BM, 128, KC>(A, B, C, M, N, K, lda, ldb, ldc, splits, st);
+    case 32:
+      if constexpr (MC) return static_cast<int>(cudaErrorInvalidValue);
+      else return launch_bf16<BM, 32, KC, MC>(A, B, C, M, N, K, lda, ldb, ldc, splits, st);
+    case 64: return launch_bf16<BM, 64, KC, MC>(A, B, C, M, N, K, lda, ldb, ldc, splits, st);
+    case 128: return launch_bf16<BM, 128, KC, MC>(A, B, C, M, N, K, lda, ldb, ldc, splits, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-template <bool KC>
+template <bool KC, bool MC>
 int dispatch_bm(int bm, int bn, const void* A, const void* B, void* C, int M,
                 int N, int K, int64_t lda, int64_t ldb, int64_t ldc,
                 int splits, cudaStream_t st) {
   switch (bm) {
-    case 8: return dispatch_bn<8, KC>(bn, A, B, C, M, N, K, lda, ldb, ldc, splits, st);
-    case 16: return dispatch_bn<16, KC>(bn, A, B, C, M, N, K, lda, ldb, ldc, splits, st);
-    case 32: return dispatch_bn<32, KC>(bn, A, B, C, M, N, K, lda, ldb, ldc, splits, st);
-    case 64: return dispatch_bn<64, KC>(bn, A, B, C, M, N, K, lda, ldb, ldc, splits, st);
-    case 128: return dispatch_bn<128, KC>(bn, A, B, C, M, N, K, lda, ldb, ldc, splits, st);
+    case 8: return dispatch_bn<8, KC, MC>(bn, A, B, C, M, N, K, lda, ldb, ldc, splits, st);
+    case 16: return dispatch_bn<16, KC, MC>(bn, A, B, C, M, N, K, lda, ldb, ldc, splits, st);
+    case 32: return dispatch_bn<32, KC, MC>(bn, A, B, C, M, N, K, lda, ldb, ldc, splits, st);
+    case 64: return dispatch_bn<64, KC, MC>(bn, A, B, C, M, N, K, lda, ldb, ldc, splits, st);
+    case 128: return dispatch_bn<128, KC, MC>(bn, A, B, C, M, N, K, lda, ldb, ldc, splits, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -422,20 +463,26 @@ __global__ void __launch_bounds__(SIMT_THREADS)
 
 }  // namespace
 
-// The tile (bm x bn, bk), the split and the layout come from the caller;
-// bk must be 64 and 1 <= splits <= 8.
+// The tile (bm x bn, bk), the split and the layouts come from the caller;
+// bk must be 64 and 1 <= splits <= 8; an M-contiguous A (a_mcontig)
+// needs a row-major B.
 extern "C" int sg_gemm_bf16(const void* A, const void* B, void* C, int M,
                             int N, int K, int64_t lda, int64_t ldb,
-                            int b_kcontig, int64_t ldc, int bm, int bn,
-                            int bk, int splits, void* stream) {
-  if (bk != BK || splits < 1 || splits > MAX_SPLITS)
+                            int a_mcontig, int b_kcontig, int64_t ldc,
+                            int bm, int bn, int bk, int splits,
+                            void* stream) {
+  if (bk != BK || splits < 1 || splits > MAX_SPLITS ||
+      (a_mcontig && b_kcontig))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (a_mcontig)
+    return dispatch_bm<false, true>(bm, bn, A, B, C, M, N, K, lda, ldb, ldc,
+                                    splits, st);
   if (b_kcontig)
-    return dispatch_bm<true>(bm, bn, A, B, C, M, N, K, lda, ldb, ldc, splits,
-                             st);
-  return dispatch_bm<false>(bm, bn, A, B, C, M, N, K, lda, ldb, ldc, splits,
-                            st);
+    return dispatch_bm<true, false>(bm, bn, A, B, C, M, N, K, lda, ldb, ldc,
+                                    splits, st);
+  return dispatch_bm<false, false>(bm, bn, A, B, C, M, N, K, lda, ldb, ldc,
+                                   splits, st);
 }
 
 // dtype: 0 = float32, 1 = bfloat16, 2 = int8

@@ -6,7 +6,12 @@ cannot take.  There is no fallback from the kernel to the plain version.
 
 ``LAUNCHES`` counts, per wrapper, the kernel launches made (CPU calls do
 not count), so a run can show that its main path went through the
-kernels.  The TPU-only knobs of the reference wrappers (block sizes,
+kernels.  The streaming GEMM's launches for the backward products of
+training count under ``streaming_gemm`` like the forward ones (the same
+kernel) and again in ``GEMM_BWD["launches"]``, so a run can tell them
+apart; ``GEMM_BWD["dc_copies"]`` counts the contiguous copies the
+backward made of an output gradient the kernel could not read in
+place.  The TPU-only knobs of the reference wrappers (block sizes,
 ``interpret``) have no counterpart: the kernels pick their own tiles
 and mask ragged edges themselves, so nothing is padded here.
 """
@@ -25,17 +30,77 @@ LAUNCHES = {"streaming_gemm": 0, "streaming_gemm_grouped": 0,
             "flash_attention": 0, "paged_attention": 0,
             "paged_latent_attention": 0, "paged_attention_int8": 0,
             "kv_quantize": 0}
+GEMM_BWD = {"launches": 0, "dc_copies": 0}
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, GEMM_BWD):
+        for name in counts:
+            counts[name] = 0
+
+
+def _gemm_bwd(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """One backward product on the tensor-core kernel (raising where it
+    cannot read an operand), or its plain version on the CPU."""
+    if not a.is_cuda:
+        return ref.gemm_ref(a, b)
+    out = gemm_cuda(a, b, mma_only=a.dtype == torch.bfloat16)
+    LAUNCHES["streaming_gemm"] += 1
+    GEMM_BWD["launches"] += 1
+    return out
+
+
+class _StreamingGemm(torch.autograd.Function):
+    """C = A·B with both backward products on the same kernel:
+
+    - dA = dC·Bᵀ: Bᵀ of a row-major weight is a K-contiguous B, and of a
+      K-contiguous B (the tied lm_head's ``embed.T``) a row-major one;
+    - dB = Aᵀ·dC, Aᵀ read as an M-contiguous A, for a row-major B; for
+      a K-contiguous B the kernel computes dBᵀ = dCᵀ·A in B's own
+      layout (dCᵀ an M-contiguous A), so the tied embedding's gradient
+      (152,064 x 896) comes out contiguous.
+
+    In bf16 all three products run on the tensor-core kernel or raise:
+    none falls to the scalar one.  The saved tensors are the inputs
+    themselves.  ``dC`` is read in
+    place where its rows are contiguous and 16-byte aligned, else copied
+    once (counted in ``GEMM_BWD["dc_copies"]``)."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        if not a.is_cuda:
+            return ref.gemm_ref(a, b)
+        out = gemm_cuda(a, b, mma_only=a.dtype == torch.bfloat16)
+        LAUNCHES["streaming_gemm"] += 1
+        return out
+
+    @staticmethod
+    def backward(ctx, dc):
+        a, b = ctx.saved_tensors
+        if dc.is_cuda and (dc.stride(1) != 1 or dc.stride(0) % 8
+                           or dc.data_ptr() % 16):
+            dc = dc.contiguous()
+            GEMM_BWD["dc_copies"] += 1
+        da = db = None
+        if ctx.needs_input_grad[0]:
+            da = _gemm_bwd(dc, b.t())
+        if ctx.needs_input_grad[1]:
+            if b.stride(0) == 1 and b.stride(1) != 1:    # K-contiguous B
+                db = _gemm_bwd(dc.t(), a).t()
+            else:
+                db = _gemm_bwd(a.t(), dc)
+        return da, db
 
 
 def streaming_gemm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """C = A @ B for a (M, K), b (K, N) of one dtype; fp32 accumulation
     (int32 for int8), output in ``a.dtype``.  ``b`` may be a strided
-    view such as ``embed.T``: the kernel reads it in place."""
+    view such as ``embed.T``: the kernel reads it in place.
+    Differentiable: where an operand requires a gradient, the backward
+    products run on the same kernel (``_StreamingGemm``)."""
+    if a.requires_grad or b.requires_grad:
+        return _StreamingGemm.apply(a, b)
     if not a.is_cuda:
         return ref.gemm_ref(a, b)
     out = gemm_cuda(a, b)

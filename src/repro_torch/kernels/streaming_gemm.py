@@ -34,6 +34,11 @@ What the design does about it:
   each B tile is a whole number of 4 KB pages (the paper's page rule);
   ragged edges are zero-filled in the kernel, so no padded copies are
   made.
+- A may be M-contiguous (with a row-major B), the mirror of the
+  K-contiguous B, so the backward products of training read their
+  transposed operands in place: the weight gradient dW = Xᵀ·dY reads
+  the layer input X, and the tied embedding's gradient dLogitsᵀ·h reads
+  the (tokens, 152,064) logit gradient, without a transposed copy.
 
 fp32 and int8 inputs, and bf16 operands whose rows are not 16-byte
 aligned, take a scalar-FMA tiled kernel in the same source: full fp32
@@ -52,8 +57,8 @@ from repro_torch.kernels import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _VP, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-_MMA_ARGS = [_VP, _VP, _VP, _I32, _I32, _I32, _I64, _I64, _I32, _I64,
-             _I32, _I32, _I32, _I32, _VP]
+_MMA_ARGS = [_VP, _VP, _VP, _I32, _I32, _I32, _I64, _I64, _I32, _I32,
+             _I64, _I32, _I32, _I32, _I32, _VP]
 _SIMT_ARGS = [_I32, _VP, _VP, _VP, _I32, _I32, _I32, _I64, _I64, _I64,
               _I64, _I64, _VP]
 
@@ -108,26 +113,47 @@ def _aligned16(t: torch.Tensor) -> bool:
     return t.data_ptr() % 16 == 0
 
 
+def _row_major_b(b: torch.Tensor):
+    """``ldb`` of a row-major bf16 B the kernel can read, else None."""
+    if b.stride(1) == 1 and b.stride(0) % 8 == 0 and b.shape[1] % 8 == 0:
+        return b.stride(0)
+    return None
+
+
 def mma_layout(a: torch.Tensor, b: torch.Tensor):
     """``(b_kcontig, ldb)`` when the tensor-core path can take these
-    operands (bf16, 16-byte aligned rows along each contiguous dim), else
-    ``None``."""
-    M, K = a.shape
-    N = b.shape[1]
+    operands with a row-major A (bf16, 16-byte aligned rows along each
+    contiguous dim), else ``None``."""
+    K = a.shape[1]
     if a.dtype != torch.bfloat16 or a.stride(1) != 1 or K % 8 \
             or a.stride(0) % 8 or not _aligned16(a) or not _aligned16(b):
         return None
     if b.stride(0) == 1 and b.stride(1) % 8 == 0:      # K-contiguous B
         return True, b.stride(1)
-    if b.stride(1) == 1 and b.stride(0) % 8 == 0 and N % 8 == 0:
-        return False, b.stride(0)
-    return None
+    ldb = _row_major_b(b)
+    return None if ldb is None else (False, ldb)
 
 
-def gemm_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def mcontig_layout(a: torch.Tensor, b: torch.Tensor):
+    """``(lda, ldb)`` when the tensor-core path can take an M-contiguous
+    A (element (m, k) at ``a[k * lda + m]``: ``a.stride(0) == 1``, ``lda
+    = a.stride(1)`` a multiple of 8, 16-byte aligned; any M and K) with a
+    row-major B, else ``None``.  ``Xᵀ`` of a row-major X is such an A."""
+    if a.dtype != torch.bfloat16 or a.stride(0) != 1 or a.stride(1) % 8 \
+            or not _aligned16(a) or not _aligned16(b):
+        return None
+    ldb = _row_major_b(b)
+    return None if ldb is None else (a.stride(1), ldb)
+
+
+def gemm_cuda(a: torch.Tensor, b: torch.Tensor,
+              mma_only: bool = False) -> torch.Tensor:
     """Launch the kernel: a (M, K), b (K, N) CUDA tensors of one dtype
     (float32, bfloat16 or int8), any strides.  Returns (M, N) in
-    ``a.dtype``."""
+    ``a.dtype``.  The tensor-core kernel takes a row-major A with a
+    row-major or K-contiguous B, and an M-contiguous A with a row-major
+    B; other operands go to the scalar kernel, or with ``mma_only``
+    raise ``ValueError``."""
     if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
         raise ValueError(f"gemm shapes {tuple(a.shape)} x {tuple(b.shape)}")
     if a.dtype != b.dtype or a.dtype not in _DTYPES:
@@ -142,12 +168,23 @@ def gemm_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         return out
     st = _build.stream(a.device)
     layout = mma_layout(a, b)
-    if layout is not None:
-        kcontig, ldb = layout
+    mcontig = None if layout is not None else mcontig_layout(a, b)
+    if layout is not None or mcontig is not None:
+        if layout is not None:
+            (kcontig, ldb), lda = layout, a.stride(0)
+        else:
+            kcontig, (lda, ldb) = False, mcontig
         bm, bn, bk, splits = plan(M, N, K)
         fn = _build.function("streaming_gemm", "sg_gemm_bf16", _MMA_ARGS)
         code = fn(_build.ptr(a), _build.ptr(b), _build.ptr(out), M, N, K,
-                  a.stride(0), ldb, int(kcontig), N, bm, bn, bk, splits, st)
+                  lda, ldb, int(mcontig is not None), int(kcontig), N, bm,
+                  bn, bk, splits, st)
+    elif mma_only:
+        raise ValueError(
+            f"gemm_cuda: the tensor-core kernel cannot read a {a.dtype} "
+            f"{tuple(a.shape)} A of strides {a.stride()} with a "
+            f"{tuple(b.shape)} B of strides {b.stride()} (needs bf16, a "
+            "row-major or M-contiguous A, 16-byte aligned rows)")
     else:
         fn = _build.function("streaming_gemm", "sg_gemm_simt", _SIMT_ARGS)
         code = fn(_DTYPES[a.dtype], _build.ptr(a), _build.ptr(b),

@@ -102,7 +102,7 @@ def _launch(fn, a, b, plan):
     N = b.shape[1]
     out = torch.empty((M, N), dtype=a.dtype, device=a.device)
     _build.check(fn(_build.ptr(a), _build.ptr(b), _build.ptr(out), M, N, K,
-                    a.stride(0), ldb, int(kcontig), N, *plan,
+                    a.stride(0), ldb, 0, int(kcontig), N, *plan,
                     _build.stream(a.device)), "streaming_gemm")
     return out
 

@@ -15,7 +15,11 @@ the activation dtype.  PyTorch refuses mixed-dtype arithmetic where JAX
 promotes, so casts are explicit.
 
 ``chunked_attention`` and ``decode_attention`` are the reference's
-plain XLA attention paths, kept for the tests.
+plain XLA attention paths.  Training runs ``chunked_attention`` as
+torch ops differentiated by autograd (``attention_train_chunked``), as
+the reference trains through XLA; the flash kernel, like the reference's
+Pallas kernel, has no backward.  ``decode_attention`` is kept for the
+tests.
 """
 from __future__ import annotations
 
@@ -261,6 +265,18 @@ def attention_train(p, x, cfg: ModelConfig, positions, causal=True,
         k, v = kv
     out = ops.flash_attention(q, k, v, causal=causal, bk=k.shape[1])
     return out_proj(p, out), (k, v)
+
+
+def attention_train_chunked(p, x, cfg: ModelConfig, positions):
+    """Causal self-attention of training, the reference's
+    ``attention_train``: the projections through the streaming GEMM
+    (whose backward products run on the same kernel), RoPE, and
+    ``chunked_attention`` as torch ops, which autograd differentiates.
+    x: (B, T, d); positions: (B, T).  Returns (B, T, d)."""
+    q, k, v = qkv_proj(p, x, cfg)
+    q = apply_rope(q, positions, cfg)
+    k = apply_rope(k, positions, cfg)
+    return out_proj(p, chunked_attention(q, k, v, causal=True))
 
 
 def attention_decode(p, x, cfg: ModelConfig, pools, view):

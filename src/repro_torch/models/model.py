@@ -10,6 +10,12 @@ the audio encoder-decoder (whisper), which only this API serves.
     prefill(params, tokens, cache, slots, embeddings=None,
             audio_frames=None) -> logits
     decode_step(params, cache, tokens, slots) -> logits
+    loss(params, batch) -> (loss, {"ce", "aux"})   (dense and vlm)
+    abstract_params() -> the parameter tree on the ``meta`` device
+
+``input_specs(cfg, shape)`` gives ``meta``-device stand-ins of every
+model input of a shape cell, and ``make_concrete_batch`` a small random
+batch of those shapes.
 
 The device defaults to ``"cuda"``; without a card the constructor
 raises unless the caller passes ``device="cpu"``, where every kernel
@@ -21,20 +27,23 @@ from typing import Optional
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import decoding as D
 from repro_torch.models import transformer as T
 from repro_torch.models import tuning as TU
-from repro_torch.models.params import init_tree
+from repro_torch.models.params import init_tree, tree_map
 from repro_torch.serving.kv_cache import PagedCacheConfig, PagedKVCache
 from repro_torch.serving.state_cache import RecurrentStateCache
 
 
 class Model:
-    def __init__(self, cfg: ModelConfig, device="cuda"):
+    def __init__(self, cfg: ModelConfig, device="cuda", remat: str = "full"):
+        """``remat`` is training's recomputation policy (``"none"`` or
+        ``"full"``, ``transformer._remat``)."""
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.remat = remat
         self._pspecs = T.lm_pspecs(cfg)
 
     def init(self, generator: torch.Generator):
@@ -43,6 +52,25 @@ class Model:
         with the decode path's derived layouts added
         (``transformer.add_derived``)."""
         return T.add_derived(init_tree(self._pspecs, generator), self.cfg)
+
+    def abstract_params(self):
+        """The reference's parameter tree as ``meta``-device tensors of
+        the leaves' shapes and dtypes: no memory, no draws (the
+        reference's ``eval_shape`` of ``init``; without the decode
+        path's derived layouts, ``transformer.add_derived``)."""
+        return tree_map(
+            lambda p: torch.empty(p.shape, device="meta", dtype=getattr(
+                torch, p.dtype) if p.dtype else torch.bfloat16),
+            self._pspecs)
+
+    def loss(self, params, batch):
+        """Mean next-token cross-entropy of ``batch`` (``tokens`` or
+        ``embeddings``, and ``labels``; ``-1`` ignored) plus the aux
+        loss.  Returns (loss, {"ce", "aux"}), float32 scalars."""
+        cfg = self.cfg
+        h, aux, _ = T.forward_train(params, cfg, batch, self.remat)
+        ce = T.chunked_ce_loss(params, cfg, h, batch["labels"])
+        return ce + aux, {"ce": ce, "aux": aux}
 
     def init_cache(self, slots: int, max_seq: int, page_tokens: int = 8,
                    n_pages: Optional[int] = None,
@@ -112,3 +140,55 @@ class Model:
 
     def decode_step(self, params, cache, tokens, slots):
         return D.decode_step(params, self.cfg, cache, tokens, slots)
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict:
+    """``meta``-device stand-ins for every model input of the (arch x
+    shape) cell, the reference's ``input_specs``: no memory."""
+    B, S = shape.global_batch, shape.seq_len
+    i32, bf16 = torch.int32, torch.bfloat16
+
+    def sds(shp, dtype):
+        return torch.empty(shp, dtype=dtype, device="meta")
+
+    if shape.kind == "train":
+        if cfg.family == "audio":
+            return {"audio_frames": sds((B, S, cfg.d_model), bf16),
+                    "tokens": sds((B, S), i32), "labels": sds((B, S), i32)}
+        if cfg.embedding_inputs:
+            return {"embeddings": sds((B, S, cfg.d_model), bf16),
+                    "labels": sds((B, S), i32)}
+        return {"tokens": sds((B, S), i32), "labels": sds((B, S), i32)}
+    if shape.kind == "prefill":
+        if cfg.family == "audio":
+            return {"audio_frames": sds((B, S, cfg.d_model), bf16),
+                    "tokens": sds((B, max(S // 8, 16)), i32)}
+        if cfg.embedding_inputs:
+            return {"embeddings": sds((B, S, cfg.d_model), bf16)}
+        return {"tokens": sds((B, S), i32)}
+    return {"tokens": sds((B,), i32)}
+
+
+def make_concrete_batch(cfg: ModelConfig, shape: ShapeConfig,
+                        generator: Optional[torch.Generator] = None,
+                        batch: Optional[int] = None,
+                        seq: Optional[int] = None, device="cuda") -> dict:
+    """A random batch of ``input_specs``' shapes on ``device``: token ids
+    uniform in [0, vocab_size), embeddings N(0, 1) x 0.02 in bf16, drawn
+    from ``generator`` (on ``device``; default seed 0).  torch's draws,
+    not the reference's."""
+    dev = resolve_device(device)
+    g = generator if generator is not None else \
+        torch.Generator(device=dev).manual_seed(0)
+    specs = input_specs(cfg, ShapeConfig(shape.name, shape.kind,
+                                         seq or shape.seq_len,
+                                         batch or shape.global_batch))
+    out = {}
+    for k, v in specs.items():
+        if v.dtype.is_floating_point:
+            out[k] = (torch.randn(v.shape, generator=g, device=dev)
+                      * 0.02).to(v.dtype)
+        else:
+            out[k] = torch.randint(0, cfg.vocab_size, v.shape, generator=g,
+                                   device=dev, dtype=v.dtype)
+    return out

@@ -37,13 +37,28 @@ def stack(tree, n: int) -> list:
     return [tree for _ in range(n)]
 
 
-def tree_map(fn, tree):
-    """Map ``fn`` over the leaves of a tree of dicts and lists."""
+def tree_map(fn, tree, *rest):
+    """Map ``fn`` over the leaves of a tree of dicts and lists (and of
+    the trees in ``rest``, of the same structure, leaf by leaf)."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
     if isinstance(tree, list):
-        return [tree_map(fn, v) for v in tree]
-    return fn(tree)
+        return [tree_map(fn, v, *(r[i] for r in rest))
+                for i, v in enumerate(tree)]
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of a tree of dicts and lists, in order."""
+    out = []
+    tree_map(out.append, tree)
+    return out
+
+
+def n_elements(tree) -> int:
+    """Element count of a tree of tensors."""
+    return sum(t.numel() for t in tree_leaves(tree))
 
 
 def init_tree(tree, generator: torch.Generator, dtype=torch.bfloat16):
@@ -81,6 +96,28 @@ def to_torch(a: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(np.array(a, copy=True))
 
 
+def _conv(tree):
+    if isinstance(tree, dict):
+        return {k: _conv(v) for k, v in tree.items()}
+    return to_torch(np.asarray(tree))
+
+
+def _split_stacks(tree_np, cfg) -> dict:
+    """A tree in the reference's parameter layout (numpy leaves) -> the
+    port's: each layer stack's leading ``L`` axis split into a list of
+    per-layer trees, every other key kept whole."""
+    nd = cfg.moe.first_dense_layers if cfg.family == "moe" else 0
+    stacks = {"dense_layers": nd, "enc_layers": cfg.n_encoder_layers,
+              "layers": cfg.n_layers - nd}
+    out = {k: _conv(v) for k, v in tree_np.items() if k not in stacks}
+    for name, n in stacks.items():
+        if n:
+            layers = _conv(tree_np[name])
+            out[name] = [tree_map(lambda a, i=i: a[i].clone(), layers)
+                         for i in range(n)]
+    return out
+
+
 def from_reference(params_np, cfg) -> dict:
     """The reference's parameter pytree (leaves as numpy arrays, e.g.
     ``jax.tree.map(np.asarray, params)``) -> the port's weights.
@@ -95,22 +132,23 @@ def from_reference(params_np, cfg) -> dict:
     path's derived layouts are added (``transformer.add_derived``)."""
     from repro_torch.models.transformer import add_derived
     check_ported(cfg)
+    return add_derived(_split_stacks(params_np, cfg), cfg)
 
-    def conv(tree):
-        if isinstance(tree, dict):
-            return {k: conv(v) for k, v in tree.items()}
-        return to_torch(np.asarray(tree))
 
-    nd = cfg.moe.first_dense_layers if cfg.family == "moe" else 0
-    stacks = {"dense_layers": nd, "enc_layers": cfg.n_encoder_layers,
-              "layers": cfg.n_layers - nd}
-    out = {k: conv(v) for k, v in params_np.items() if k not in stacks}
-    for name, n in stacks.items():
-        if n:
-            layers = conv(params_np[name])
-            out[name] = [tree_map(lambda a, i=i: a[i].clone(), layers)
-                         for i in range(n)]
-    return add_derived(out, cfg)
+def opt_state_from_reference(state_np, cfg) -> dict:
+    """The reference optimizer's state (numpy leaves) -> the port's, with
+    the key map of ``from_reference``: AdamW's ``m`` and ``v`` split per
+    layer like the parameters; Adafactor's ``slots`` (``vr`` / ``vc`` /
+    ``v``) kept stacked, as the port's Adafactor holds them
+    (``optim.optimizers``); ``step`` as a scalar int32 tensor."""
+    check_ported(cfg)
+    out = {"step": to_torch(np.asarray(state_np["step"]))}
+    if "slots" in state_np:
+        out["slots"] = _conv(state_np["slots"])
+    else:
+        out["m"] = _split_stacks(state_np["m"], cfg)
+        out["v"] = _split_stacks(state_np["v"], cfg)
+    return out
 
 
 def params_to(params, device) -> dict:

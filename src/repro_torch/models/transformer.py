@@ -19,6 +19,14 @@ loops over a list of per-layer trees.  An MoE model may start with
 ``first_dense_layers`` dense layers (a ``dense_layers`` stack before
 ``layers``), as in the reference.
 
+Training (``forward_train``, ``chunked_ce_loss``) covers the dense and
+vlm families: each layer's attention is ``layers.attention_train_chunked``
+(chunked attention as torch ops) and every projection, the MLP and the
+lm_head run through the streaming GEMM, whose backward products run on
+the same kernel.  ``remat="full"`` recomputes each layer in the
+backward pass (``torch.utils.checkpoint``).  The other families' and
+MLA's training, and ``mtp_loss``, are ROADMAP Queue A item 13b.
+
 A config with ``mla`` (deepseek-v3) runs multi-head latent attention
 in place of GQA in every layer (``layers.mla_prefill``,
 ``layers.mla_decode``), and with ``mtp`` carries the reference's
@@ -28,6 +36,7 @@ multi-token-prediction head (``mtp``: ``proj``, a dense ``block``,
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs import check_ported
 from repro_torch.configs.base import ModelConfig
@@ -35,6 +44,7 @@ from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
+from repro_torch.models import tuning as TU
 from repro_torch.models.params import PSpec, stack
 
 
@@ -261,3 +271,92 @@ def lm_head(params, cfg: ModelConfig, h):
     copy."""
     w = params["embed"].t() if cfg.tie_embeddings else params["lm_head"]
     return ops.streaming_gemm(h, w.to(h.dtype))
+
+
+# =====================================================================
+# training: dense and vlm
+# =====================================================================
+NOT_TRAINED = ("training of the {what} is not ported yet "
+               "(ROADMAP Queue A item 13b)")
+
+
+def _remat(fn, mode: str):
+    """``fn`` as the layer body of training: ``"none"`` keeps every
+    activation for the backward pass, ``"full"`` keeps only the layer's
+    inputs and recomputes the rest in the backward pass."""
+    if mode == "none":
+        return fn
+    if mode == "full":
+        return lambda *args: checkpoint(fn, *args, use_reentrant=False)
+    if mode == "dots":
+        raise NotImplementedError(
+            "remat='dots' (save the GEMM outputs, recompute the rest) is "
+            "not ported yet (ROADMAP Queue A item 13b)")
+    raise ValueError(f"remat {mode!r}: none | dots | full")
+
+
+def dense_layer_train(lp, x, cfg: ModelConfig, positions):
+    """Training body of one dense layer (the reference's
+    ``dense_layer_fwd``): x + attention(norm(x)), then x + mlp(norm(x))."""
+    h = L.apply_norm(lp["ln1"], x, cfg)
+    x = x + L.attention_train_chunked(lp["attn"], h, cfg, positions)
+    h = L.apply_norm(lp["ln2"], x, cfg)
+    return x + L.apply_mlp(lp["mlp"], h, cfg)
+
+
+def forward_train(params, cfg: ModelConfig, batch, remat: str = "full"):
+    """Token ids ``batch["tokens"]`` (B, T), or (B, T, d)
+    ``batch["embeddings"]`` for a config with ``embedding_inputs``, to the
+    final normed hidden states.  Returns (hidden (B, T, d), aux loss (a
+    float32 zero: the dense and vlm families have none), extras {})."""
+    if cfg.family not in ("dense", "vlm") or cfg.mla is not None:
+        raise NotImplementedError(NOT_TRAINED.format(
+            what=f"{cfg.family} family ({cfg.name})"))
+    if cfg.embedding_inputs and "embeddings" in batch:
+        x = batch["embeddings"].to(torch.bfloat16)
+    else:
+        x = embed_tokens(params, cfg, batch["tokens"])
+    B, T = x.shape[:2]
+    positions = torch.arange(T, device=x.device).expand(B, T)
+    body = _remat(lambda lp, x: dense_layer_train(lp, x, cfg, positions),
+                  remat)
+    for lp in params["layers"]:
+        x = body(lp, x)
+    x = L.apply_norm(params["final_norm"], x, cfg)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device), {}
+
+
+def chunked_ce_loss(params, cfg: ModelConfig, h, labels, t_chunk: int = 0):
+    """Mean cross-entropy over the valid labels (``-1`` is ignored).
+    h: (B, T, d); labels: (B, T).  The logits are made ``t_chunk`` (default
+    ``Tuning.ce_chunk``) positions at a time, (B·t_chunk, padded vocab)
+    in fp32, never (B, T, V); a T that ``t_chunk`` does not divide ends
+    with a shorter chunk (the reference pads it with ignored labels,
+    which add nothing).  Logits of the vocabulary's padding columns are
+    masked out."""
+    B, T, d = h.shape
+    V = cfg.padded_vocab
+    t_chunk = min(t_chunk or TU.get().ce_chunk, T)
+    pad = None
+    if V != cfg.vocab_size:
+        pad = torch.arange(V, device=h.device) >= cfg.vocab_size
+    losses, counts = [], []
+    for t0 in range(0, T, t_chunk):
+        hb = h[:, t0:t0 + t_chunk].reshape(-1, d)
+        lb = labels[:, t0:t0 + t_chunk].reshape(-1).long()
+        logits = lm_head(params, cfg, hb).float()
+        if pad is not None:
+            logits = logits.masked_fill(pad, L.NEG_INF)
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = logits.gather(-1, lb.clamp(min=0)[:, None])[:, 0]
+        valid = (lb >= 0).float()
+        losses.append(((lse - gold) * valid).sum())
+        counts.append(valid.sum())
+    return torch.stack(losses).sum() / \
+        torch.clamp(torch.stack(counts).sum(), min=1.0)
+
+
+def mtp_loss(params, cfg: ModelConfig, h, batch):
+    """DeepSeek-V3's multi-token-prediction loss: not ported yet."""
+    raise NotImplementedError(NOT_TRAINED.format(
+        what=f"multi-token-prediction head ({cfg.name})"))

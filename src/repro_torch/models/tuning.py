@@ -1,6 +1,8 @@
 """Performance-tuning context (the hillclimbing knobs), as in the
 reference: model code reads chunk sizes from here so a launcher can
-sweep them without touching architecture configs.
+sweep them without touching architecture configs.  ``ce_chunk`` is the
+T page of the chunked cross-entropy of training
+(``transformer.chunked_ce_loss``).
 
 ``moe_local_dispatch`` picks the row-local MoE dispatch
 (``models.moe._apply_moe_local``).
@@ -24,6 +26,7 @@ _STATE = threading.local()
 class Tuning:
     q_chunk: int = 512             # chunked-attention query page
     kv_chunk: int = 1024           # chunked-attention KV page
+    ce_chunk: int = 512            # chunked cross-entropy T page
     ssm_chunk: int = 16            # linear-attention chunk
     kv_cache_quant: bool = False   # INT8 paged KV (per-token scales)
     moe_local_dispatch: bool = False   # row-local MoE dispatch

@@ -1211,3 +1211,157 @@ def test_cuda_int8_kv_decode_matches_the_cpu_one_launch_a_layer():
     assert ops.LAUNCHES["paged_attention"] == 0
     assert all(len(nodes) == 1 for v in calls.values() for nodes in v), calls
     assert KN.strays(calls) == []
+
+
+# ------------------------------------------- the GEMM's backward products
+# (M, N, K) of an M-contiguous A: qwen2-0.5b's weight gradients at 4,096
+# tokens (dW = Xᵀ·dY: M = d_in, K = tokens), and ragged M / N / K (M off
+# the 8-row chunks, K off the k-tiles)
+MCONTIG_SHAPES = [(896, 128, 4096), (4864, 896, 512), (896, 4864, 512),
+                  (100, 200, 300), (33, 264, 129), (7, 64, 5), (136, 8, 77)]
+
+
+def _mcontig(rng, m, k, dev):
+    """(M, K) bf16 A with element (m, k) at a[k * lda + m], lda = M
+    rounded up to 8: Xᵀ of a (K, M) row-major X whose rows are padded to
+    16 bytes, as a layer input's are."""
+    lda = -(-m // 8) * 8
+    return _bf16(rng, (k, lda), dev)[:, :m].t()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,k", MCONTIG_SHAPES)
+def test_cuda_gemm_mcontig_a_matches_plain_version(m, n, k):
+    """The M-contiguous A mode on the tensor-core kernel, one launch of
+    ``gemm_bf16`` (no scalar kernel), within one bf16 ulp of the plain
+    version."""
+    dev = _card()
+    rng = np.random.default_rng(m + 3 * n + 7 * k)
+    a = _mcontig(rng, m, k, dev)
+    b = _bf16(rng, (k, n), dev, scale=k ** -0.5)
+    assert SG.mma_layout(a, b) is None
+    assert SG.mcontig_layout(a, b) == (-(-m // 8) * 8, n)
+    got, want = SG.gemm_cuda(a, b, mma_only=True), ref.gemm_ref(a, b)
+    np.testing.assert_allclose(got.cpu().float().numpy(),
+                               want.cpu().float().numpy(),
+                               rtol=2e-2, atol=2e-2)
+    nodes = KN.captured_nodes(lambda: SG.gemm_cuda(a, b, mma_only=True))
+    assert len(nodes) == 1 and "gemm_bf16<" in nodes[0], nodes
+    assert torch.equal(SG.gemm_cuda(a, b), got)      # deterministic
+
+
+@pytest.mark.cuda
+def test_cuda_gemm_mcontig_a_refuses_what_it_cannot_take():
+    """An M-contiguous A whose stride along K is not a multiple of 8, or
+    that is misaligned, or a K-contiguous B beside it, is refused by the
+    tensor-core path: ``mma_only`` raises, the plain call takes the
+    scalar kernel, and under autograd ``ops.streaming_gemm`` raises in
+    its forward as in its backward rather than take the scalar kernel."""
+    dev = _card()
+    rng = np.random.default_rng(5)
+    b = _bf16(rng, (64, 64), dev)
+    odd_m = _bf16(rng, (64, 104), dev)[:, :99].t()  # M 99, lda 104: taken
+    assert SG.mcontig_layout(odd_m, b) == (104, 64)
+    bad_ld = _bf16(rng, (64, 99), dev).t()          # lda 99: refused
+    misaligned = _bf16(rng, (64 * 96 + 1,), dev)[1:].view(64, 96).t()
+    for a in (bad_ld, misaligned):
+        assert SG.mcontig_layout(a, b) is None
+        with pytest.raises(ValueError, match="tensor-core kernel"):
+            SG.gemm_cuda(a, b, mma_only=True)
+        np.testing.assert_allclose(SG.gemm_cuda(a, b).cpu().float().numpy(),
+                                   ref.gemm_ref(a, b).cpu().float().numpy(),
+                                   rtol=2e-2, atol=2e-2)
+    a = _mcontig(rng, 64, 64, dev)
+    with pytest.raises(ValueError, match="tensor-core kernel"):
+        SG.gemm_cuda(a, b.t(), mma_only=True)       # K-contiguous B
+    w = b.clone().requires_grad_(True)
+    with pytest.raises(ValueError, match="tensor-core kernel"):
+        ops.streaming_gemm(bad_ld, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n,tied", [(512, 896, 896, False),
+                                        (512, 896, 128, False),
+                                        (256, 4864, 896, False),
+                                        (100, 64, 1032, True),
+                                        (256, 896, 8192, True)])
+def test_cuda_gemm_backward_products_match_plain_version(m, k, n, tied):
+    """``ops.streaming_gemm`` under autograd: dA = dC·Bᵀ and dB = Aᵀ·dC
+    (for a tied K-contiguous B, dBᵀ = dCᵀ·A) each one ``gemm_bf16``
+    launch, counted under ``streaming_gemm`` and in ``GEMM_BWD``, within
+    one bf16 ulp of the plain products; a non-contiguous dC is copied
+    once and counted."""
+    dev = _card()
+    rng = np.random.default_rng(m + n)
+    a = _bf16(rng, (m, k), dev).requires_grad_(True)
+    w = (_bf16(rng, (n, k), dev, scale=k ** -0.5) if tied
+         else _bf16(rng, (k, n), dev, scale=k ** -0.5)).requires_grad_(True)
+    b = w.t() if tied else w
+    dc = _bf16(rng, (m, n), dev)
+    ops.reset_launches()
+    c = ops.streaming_gemm(a, b)
+    da, dw = torch.autograd.grad(c, (a, w), dc)
+    assert ops.LAUNCHES["streaming_gemm"] == 3
+    assert ops.GEMM_BWD == {"launches": 2, "dc_copies": 0}
+    want_da = ref.gemm_ref(dc, b.detach().t())
+    want_dw = ref.gemm_ref(dc.t(), a.detach()) if tied \
+        else ref.gemm_ref(a.detach().t(), dc)
+    for got, want in ((da, want_da), (dw, want_dw)):
+        assert got.shape == want.shape and got.dtype == torch.bfloat16
+        np.testing.assert_allclose(got.float().cpu().numpy(),
+                                   want.float().cpu().numpy(),
+                                   rtol=2e-2, atol=2e-2)
+    # the products the Function launches, captured as its backward calls
+    # them: one tensor-core kernel each
+    ad, bd = a.detach(), b.detach()
+    for x, y in ((dc, bd.t()), (dc.t(), ad) if tied else (ad.t(), dc)):
+        nodes = KN.captured_nodes(lambda: ops._gemm_bwd(x, y))
+        assert len(nodes) == 1 and "gemm_bf16<" in nodes[0], nodes
+    # a dC the kernel cannot read in place (column-major)
+    cols = _bf16(rng, (n, m), dev).t()
+    got = torch.autograd.grad(ops.streaming_gemm(a, b), a, cols)[0]
+    assert ops.GEMM_BWD["dc_copies"] == 1
+    np.testing.assert_allclose(
+        got.float().cpu().numpy(),
+        ref.gemm_ref(cols.contiguous(), b.detach().t()).float().cpu().numpy(),
+        rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.cuda
+def test_cuda_train_step_launches_only_the_tensor_core_gemm():
+    """One training step of the reduced qwen2 on the card: every GEMM,
+    forward and backward, is ``gemm_bf16`` (7 a layer and the lm_head
+    forward, twice that backward; no ``gemm_simt``), and the loss and
+    gradients agree with the same step on the CPU."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.launch.steps import loss_and_grads
+    from repro_torch.models.model import Model
+    from repro_torch.models.params import params_to, tree_map
+    from repro_torch.models.params import tree_leaves
+    dev = _card()
+    cfg = get_reduced("qwen2_0_5b")
+    params = Model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(2)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 64)))
+    batch = {"tokens": toks, "labels": toks.roll(-1, 1)}
+
+    def run(device, p, b=None):
+        return loss_and_grads(Model(cfg, device=device, remat="none"), p,
+                              b or tree_map(lambda t: t.to(device), batch))
+
+    on_card = params_to(params, dev)
+    batch_card = tree_map(lambda t: t.to(dev), batch)
+    ops.reset_launches()
+    (loss, _), grads = run(dev, on_card, batch_card)
+    fwd = 7 * cfg.n_layers + 1
+    assert ops.LAUNCHES["streaming_gemm"] == 3 * fwd
+    assert ops.GEMM_BWD["launches"] == 2 * fwd
+    (want, _), want_g = run("cpu", params)
+    assert abs(loss.item() - want.item()) <= 1e-2 * abs(want.item())
+    for g, w in zip(tree_leaves(grads), tree_leaves(want_g)):
+        err = ((g.float().cpu() - w.float()).norm() / w.float().norm())
+        assert err <= 5e-2, err
+    nodes = KN.captured_nodes(lambda: run(dev, on_card, batch_card))
+    names = [n for n in nodes if n and ("gemm_bf16<" in n or
+                                        "gemm_simt<" in n)]
+    assert len(names) == 3 * fwd and all("gemm_bf16<" in n for n in names)

@@ -50,7 +50,14 @@ def test_port_imports_no_jax():
             "repro_torch.serving.sim_report",
             "repro_torch.serving.invariants",
             "repro_torch.serving.faults",
-            "repro_torch.launch.simulate"} <= set(mods)
+            "repro_torch.launch.simulate",
+            "repro_torch.optim", "repro_torch.optim.optimizers",
+            "repro_torch.runtime.compression",
+            "repro_torch.runtime.train_loop",
+            "repro_torch.data.pipeline",
+            "repro_torch.checkpoint.checkpoint",
+            "repro_torch.launch.steps",
+            "repro_torch.launch.train"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -64,8 +71,12 @@ def test_port_imports_no_jax():
     assert out.stdout.strip() == "", f"port imported: {out.stdout}"
 
 
-# the port's serving examples, each with ``--device cpu`` at reduced width
+# the port's examples, each with ``--device cpu`` at reduced width (the
+# training ones also with a fresh checkpoint directory)
 EXAMPLES = {
+    "train_lm_torch.py": ["--device", "cpu", "--steps", "6", "--seq", "32",
+                          "--batch", "2"],
+    "quickstart_torch.py": ["--device", "cpu"],
     "paged_serving_torch.py": ["--device", "cpu", "--int8"],
     "serve_batched_torch.py": ["--device", "cpu", "--requests", "4",
                                "--new-tokens", "3", "--kv-cache-quant"],
@@ -74,15 +85,20 @@ EXAMPLES = {
 }
 
 
+TRAINING_EXAMPLES = ("train_lm_torch.py", "quickstart_torch.py")
+
+
 @pytest.mark.parametrize("name", sorted(EXAMPLES))
-def test_example_runs_on_the_cpu_and_loads_no_jax(name):
-    """Each of the port's serving examples runs to its end with
-    ``--device cpu`` at reduced width, and loads neither JAX nor any
-    module of the JAX package."""
+def test_example_runs_on_the_cpu_and_loads_no_jax(name, tmp_path):
+    """Each of the port's examples (serving, training, the quickstart)
+    runs to its end with ``--device cpu`` at reduced width, and loads
+    neither JAX nor any module of the JAX package."""
     path = SRC.parent / "examples" / name
+    argv = EXAMPLES[name] + (["--ckpt-dir", str(tmp_path)]
+                             if name in TRAINING_EXAMPLES else [])
     code = (
         "import runpy, sys\n"
-        f"sys.argv = [{str(path)!r}] + {EXAMPLES[name]!r}\n"
+        f"sys.argv = [{str(path)!r}] + {argv!r}\n"
         f"runpy.run_path({str(path)!r}, run_name='__main__')\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'ml_dtypes',"
         " 'repro') or m.startswith(('jax.', 'ml_dtypes.', 'repro.')))\n"
