@@ -77,7 +77,9 @@ Phases, in order; any failure raises and exits non-zero:
    attention at the MoE path's shapes, kept as each row's ``moe_path``.
    (b) Serving as in phase 3 with 16 new tokens; all four wrappers
    must run.  (c) Three full-batch decode steps profiled as in phase 4;
-   each grouped wrapper call one device kernel.  (d) Two full-width
+   each grouped wrapper call one device kernel; the step's 2-D GEMM
+   device ms printed beside the 6.613 it took with the router on the
+   scalar kernel (PR 15).  (d) Two full-width
    layers, a 256-token prefill and 4 decode steps on the card and on
    the CPU: each MoE call's router input on the card routed again on
    the CPU, at least 0.97 of the (layer, token) expert sets equal (the
@@ -256,11 +258,41 @@ Phases, in order; any failure raises and exits non-zero:
    bit equal.  (e) One step with ``remat="full"`` (peak memory beside
    (c)'s, loss within 1e-3 of (c)'s first), three Adafactor steps and
    three AdamW steps with gradient compression, every loss finite.
-16. Print the ``kernels`` JSON line (each kernel's launches from its own
-   path's serving run, the int8 kernels' from phase 8e's, every path's
-   counts beside, the GEMM's forward and backward launches of a
-   training step as ``train_launches``), the card line, and last the
-   result line ``{"ok": true, "device": {...}}``.
+16. Training of the MoE family (qwen2-moe-a2.7b); seconds per
+   sub-phase.  (a) The router's three products at 4,096 tokens, rows of
+   120 bytes on the tensor-core kernel: x·W, dA = dC·Wᵀ (A with lda 60,
+   a K-contiguous B with ldb 60) and dB = xᵀ·dC (B with ldb 60), and its
+   serving call at 8 tokens, each against its plain version and timed
+   beside it, ``torch.matmul`` and the bound (the GEMM row's
+   ``moe_train_path``); the grouped forward at training's C = 344; both
+   grouped backward kernels (rows ``grouped_gemm_bwd_da`` and
+   ``grouped_gemm_bwd_db``) at qwen2-moe's training counts (60 experts,
+   C 344, ~273 rows an expert, three at 0) for gate/up and down, at
+   decode counts, and at deepseek-v3's 256 experts of 7,168 -> 2,048,
+   every row past a count NaN, each against its plain version and timed
+   beside it, ``torch.bmm`` over the whole buffers with those rows
+   zeroed, and the bound.  (b) qwen2-moe-a2.7b at full width cut to 1
+   layer, 1 x 512 tokens, the same seeded weights on the card and on the
+   CPU: both sides' expert sets recorded (the CPU's on its own inputs
+   and on the card's router inputs), at least 0.97 alike; then, with the
+   CPU run following the card's expert choices, the loss within 1e-3
+   relative and every gradient leaf within 5e-2 relative L2.  (c) The
+   Trainer
+   at full width cut to 4 layers (~2.9 G values, ~35 GB of weights,
+   gradients and AdamW moments), AdamW, ``remat="none"``, 8 x 512
+   tokens, 20 steps (no checkpoint: the CPU tests hold the MoE tree's
+   round trip), then one profiled step from a fresh state: the losses
+   (they must fall), the median step, tokens/s, the model-FLOP share of
+   989 TFLOP/s, peak memory, the busy share, launches and device ms
+   split into 2-D forward, 2-D backward, grouped forward and grouped
+   backward; no ``gemm_simt`` kernel, and no ``aten::bmm`` / ``mm`` /
+   ``matmul`` inside an expert product.
+17. Print the ``kernels`` JSON line (each kernel's launches from its own
+   path's serving run, the int8 kernels' from phase 8e's, the grouped
+   backward kernels' from 16c's profiled step, every path's counts
+   beside, the GEMM's forward and backward launches of a training step
+   as ``train_launches``), the card line, and last the result line
+   ``{"ok": true, "device": {...}}``.
 """
 import argparse
 import json
@@ -288,6 +320,9 @@ MOE_PATH_KERNELS = ("streaming_gemm", "streaming_gemm_grouped",
 # card vs CPU expert choices: a 1-ulp difference in a bf16 router logit
 # may flip one top-4 choice at a near-tie; wrong routing agrees far less
 ROUTING_AGREEMENT_MIN = 0.97
+# the MoE decode step's 2-D GEMM device ms on an H100 while the router
+# ran on the scalar kernel (PERF.md, PR 15): 7c prints its own beside it
+MOE_DECODE_GEMM_MS_SCALAR = 6.613
 SPIN_CYCLES = 1_000_000         # ~0.5 ms at the H100's 1.98 GHz SM clock
 
 
@@ -1438,9 +1473,10 @@ def _moe_kernels(torch, args, cfg, params, dev, timer, rows):
         "max_abs_err": max(r["max_abs_err"] for r in per_shape + ragged),
         **summary(per_shape), "per_shape": per_shape, "ragged": ragged}
 
-    # ---- the 2-D GEMM: q/k/v/o (2,048 x 2,048), the router (2,048 x 60,
-    # the scalar kernel: N % 8 != 0), the shared experts (2,048 x 5,632,
-    # 5,632 x 2,048) at decode and prefill, the untied lm_head at decode
+    # ---- the 2-D GEMM: q/k/v/o (2,048 x 2,048), the router (2,048 x 60:
+    # rows of 120 bytes, staged in 8-byte copies on the tensor cores), the
+    # shared experts (2,048 x 5,632, 5,632 x 2,048) at decode and prefill,
+    # the untied lm_head at decode
     attn, moe = lp["attn"], lp["moe"]
     per_shape = []
     for M in (8, 256):
@@ -1634,6 +1670,11 @@ def phase_moe(torch, args, rows):
     res["decode_profile"] = phase_profile(
         torch, args, cfg, params, n_steps=3, tag="moe_decode_profile",
         one_kernel=MOE_PATH_KERNELS[:2] + ("paged_attention",))
+    gemm_ms = res["decode_profile"]["device_ms_per_step"].get(
+        "streaming_gemm", 0.0)
+    print(f"[moe_router] decode step 2-D GEMM device ms {gemm_ms:.4f} with "
+          f"the router on the tensor cores; {MOE_DECODE_GEMM_MS_SCALAR} "
+          "with it on the scalar kernel (PERF.md, PR 15)", flush=True)
     res["card_vs_cpu"] = _moe_card_vs_cpu(torch, args, cfg, params)
     res["seconds"] = time.perf_counter() - t0
     return res
@@ -3463,15 +3504,15 @@ def _train_kernel_split(kern, launches, gemm_bwd, wall_ms):
     us, name), in the order the card ran them).  With ``remat="none"``
     the forward ends before the backward starts, on one stream, and the
     backward begins with the lm_head's dA and then its dBᵀ, the first
-    kernel of the M-contiguous A mode (``gemm_bf16<BM, BN, false,
-    true>``): the GEMM kernels before that dA are the forward's, the
+    kernel of the M-contiguous A mode (``gemm_bf16<BM, BN, false, true,
+    NARROW>``): the GEMM kernels before that dA are the forward's, the
     rest the backward products (a split that holds where the profiler
     loses a kernel, which it now and then does)."""
     from repro_torch.kernels import kernel_nodes as KN
     gemm = [(t, us, n) for t, us, n in kern
             if KN.kernel_group(n) == "streaming_gemm"]
     simt = [n for _, _, n in gemm if "gemm_simt" in n]
-    mcontig = re.compile(r"gemm_bf16<\d+, \d+, \w+, true>")
+    mcontig = re.compile(r"gemm_bf16<\d+, \d+, \w+, true, \w+>")
     first_db = next((i for i, (_, _, n) in enumerate(gemm)
                      if mcontig.search(n)), None)
     require(first_db, "train profile: no M-contiguous GEMM kernel recorded")
@@ -3736,6 +3777,509 @@ def phase_training(torch, args, rows, card, dev):
     return {**res, "full": full, "launches": launches}
 
 
+# ---------------------------------------------------------------- phase 16
+MOE_TRAIN_LAYERS = 4             # 16c's depth (the module docstring)
+MOE_TRAIN_C = 344                # routed_capacity(4,096 x 4, 60 experts)
+MOE_TRAIN_ROWS = 273             # 4,096 x 4 / 60 assignments an expert
+MOE_TRAIN_CHECK_TOKENS = 512     # 16b's 1 x 512 tokens (its docstring)
+# 16a's widths: qwen2-moe's d, experts and d_ff; deepseek-v3's experts, C,
+# rows an expert (a 512-token step routed top-8) and its d -> d_ff
+MOE_TRAIN_WIDTHS = (2048, 60, 1408)
+DEEPSEEK_TRAIN = (256, 24, 16, 7168, 2048)
+GROUPED_BWD_NAMES = {"da": "grouped_gemm_bwd_da", "db": "grouped_gemm_bwd_db"}
+# device GEMMs of a library (cuBLAS / CUTLASS kernels), by name
+LIBRARY_GEMM = re.compile(r"gemm|xmma|cutlass|cublas", re.I)
+LIBRARY_OPS = ("aten::bmm", "aten::mm", "aten::matmul", "aten::addmm",
+               "aten::baddbmm", "aten::einsum")
+
+
+def _train_counts(torch, dev, g, E, C, mean, zero=3):
+    """(E,) int32 counts on the card: Poisson of ``mean`` clipped to C,
+    the first ``zero`` experts at 0 (no token reached them), one at C."""
+    counts = torch.poisson(torch.full((E,), float(mean), device=dev),
+                           generator=g).clamp(max=C).to(torch.int32)
+    counts[:zero] = 0
+    counts[zero] = C
+    return counts
+
+
+def _grouped_bwd_entry(torch, timer, what, which, x, y, counts, on_path):
+    """One backward product of the grouped GEMM on its kernel
+    (``grouped_bwd_a_cuda``: dA = dC·Bᵀ, x = dC, y = B;
+    ``grouped_bwd_b_cuda``: dB = Aᵀ·dC, x = A, y = dC), its inputs NaN in
+    every row at or beyond a count: held against the plain version
+    (dA's kept rows, all of dB), timed beside the plain version,
+    ``torch.bmm`` over the whole buffers with those rows zeroed first (a
+    yardstick the port never calls) and the bound, which counts the kept
+    rows and the touched experts' weights (dB writes every expert)."""
+    from repro_torch.kernels import grouped_gemm as GG
+    from repro_torch.kernels import ref
+    E, C = x.shape[:2]
+    rows = torch.arange(C, device=x.device)[None, :] < counts[:, None]
+    kept = int(counts.sum())
+    touched = int((counts > 0).sum())
+    xz = torch.where(rows[..., None], x, 0)
+    if which == "da":
+        K, N = y.shape[1], x.shape[2]
+        kern = lambda: GG.grouped_bwd_a_cuda(x, y, counts)  # noqa: E731
+        plain = lambda: ref.grouped_bwd_a_ref(x, y, counts)  # noqa: E731
+        lib = lambda: torch.bmm(xz, y.transpose(1, 2))  # noqa: E731
+        nbytes = 2 * (kept * N + touched * K * N + kept * K)
+    else:
+        K, N = x.shape[2], y.shape[2]
+        yz = torch.where(rows[..., None], y, 0)
+        kern = lambda: GG.grouped_bwd_b_cuda(x, y, counts)  # noqa: E731
+        plain = lambda: ref.grouped_bwd_b_ref(x, y, counts)  # noqa: E731
+        lib = lambda: torch.bmm(xz.transpose(1, 2), yz)  # noqa: E731
+        nbytes = 2 * (kept * (K + N) + E * K * N)
+    got, want = kern(), plain()
+    if which == "da":
+        got, want = got[rows], want[rows]
+    require(bool(got.isfinite().all()),
+            f"grouped {which} {what}: a row past a count reached a result")
+    # expert by expert: deepseek-v3's dB is 3.8 G values, which
+    # ``check_close``'s float64 copies would not fit on the card at once
+    got, want = (t.reshape(-1, t.shape[-1]) for t in (got, want))
+    err = max(check_close(f"grouped {which} {what}", g, w, BF16_TOL)
+              for g, w in zip(got.split(4096), want.split(4096)))
+    rms = (sum(w.float().square().sum().item() for w in want.split(4096))
+           / want.numel()) ** 0.5
+    del got, want
+    bms, by = bound(nbytes, 2 * kept * K * N)
+    r = {"what": what, "product": which, "shape": {
+             "E": E, "C": C, "K": K, "N": N}, "rows": kept,
+         "experts_touched": touched, "on_path": on_path,
+         "plan": list(GG.bwd_plan(C, K) if which == "da"
+                      else GG.bwd_plan(K, N)),
+         "max_abs_err": err, "want_rms": rms, "ms": timer(kern),
+         "plain_ms": timer(plain), "library_ms": timer(lib),
+         "bound_ms": bms, "bound_by": by}
+    print(f"[moe_train_kernels] grouped {which} {what} E={E} C={C} K={K} "
+          f"N={N} rows {kept} experts {touched} (plan {r['plan']}): err "
+          f"{err:.3g} (tol {BF16_TOL}, output rms {rms:.3g}) kernel "
+          f"{r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms bmm "
+          f"{r['library_ms']:.4f} ms bound {bms:.4f} ms ({by})", flush=True)
+    return r
+
+
+def _moe_train_kernels(torch, args, dev, timer, rows):
+    """16a. The router's three products at 4,096 tokens (and its serving
+    call at 8), each against its plain version, timed beside the plain
+    version, ``torch.matmul`` and the bound (the GEMM row's
+    ``moe_train_path``); the grouped forward at training's C = 344
+    (more than one 64-row chunk an expert) and both grouped backward
+    kernels (rows ``grouped_gemm_bwd_da`` / ``_db``) at qwen2-moe's
+    training counts (60 experts, C 344, ~273 rows an expert, three at 0,
+    one at C) for gate/up (2,048 -> 1,408) and down (1,408 -> 2,048),
+    at decode counts (C 8) and at deepseek-v3's 256 experts of 7,168 ->
+    2,048 (C 24, ~16 rows an expert, a 512-token step's routing), off
+    the path."""
+    g = torch.Generator(device=dev).manual_seed(args.seed + 16)
+    bf16 = torch.bfloat16
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device=dev, dtype=bf16) \
+            * scale
+
+    M, (d, E, f) = TRAIN_TOKENS, MOE_TRAIN_WIDTHS
+    E_ds, C_ds, rows_ds, d_ds, f_ds = DEEPSEEK_TRAIN
+    per_shape = [_bwd_entry(torch, timer, randn(8, d),
+                            randn(d, E, scale=d ** -0.5),
+                            "router x·W (decode)"),
+                 _bwd_entry(torch, timer, randn(M, d),
+                            randn(d, E, scale=d ** -0.5), "router x·W"),
+                 _bwd_entry(torch, timer, randn(M, E),
+                            randn(d, E, scale=E ** -0.5).t(),
+                            "router dA = dC·Wᵀ"),
+                 _bwd_entry(torch, timer, randn(M, d, scale=M ** -0.5).t(),
+                            randn(M, E), "router dB = xᵀ·dC")]
+    _add_path(rows["streaming_gemm"], per_shape, "moe_train_path")
+
+    fwd, bwd = [], {"da": [], "db": []}
+    cases = (("qwen2-moe train", E, MOE_TRAIN_C, MOE_TRAIN_ROWS,
+              ((d, f), (f, d)), True),
+             ("qwen2-moe decode", E, 8, None, ((d, f), (f, d)), False),
+             ("deepseek-v3 train", E_ds, C_ds, rows_ds, ((d_ds, f_ds),),
+              False))
+    for what, E_, C, mean, prods, on_path in cases:
+        counts = (_train_counts(torch, dev, g, E_, C, mean) if mean else
+                  torch.randint(0, C + 1, (E_,), generator=g, device=dev)
+                  .to(torch.int32))
+        past = torch.arange(C, device=dev)[None, :] >= counts[:, None]
+        for K, N in prods:
+            name = f"{what} {K}->{N}"
+            w = randn(E_, K, N, scale=N ** -0.5)
+            a = randn(E_, C, K)
+            a[past] = 0
+            if on_path:
+                fwd.append(_grouped_entry(torch, timer, name, a, w * (
+                    N ** 0.5 * K ** -0.5), counts, True))
+            dc = randn(E_, C, N)
+            dc[past] = float("nan")
+            bwd["da"].append(_grouped_bwd_entry(
+                torch, timer, name, "da", dc, w, counts, on_path))
+            a = randn(E_, C, K, scale=MOE_TRAIN_ROWS ** -0.5)
+            a[past] = float("nan")
+            bwd["db"].append(_grouped_bwd_entry(
+                torch, timer, name, "db", a, dc, counts, on_path))
+            del w, a, dc
+            torch.cuda.empty_cache()
+    _add_path(rows["streaming_gemm_grouped"], fwd, "moe_train_path")
+    for which, name in GROUPED_BWD_NAMES.items():
+        rows[name] = {
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/grouped_gemm.cu",
+            "replaces": "src/repro/kernels/streaming_gemm.py:30",
+            "note": ("the grouped GEMM's backward product "
+                     + ("dA[e] = dC[e]·B[e]ᵀ over the kept rows"
+                        if which == "da" else
+                        "dB[e] = A[e]ᵀ·dC[e] summed over the kept rows")
+                     + ": the streaming GEMM's mma.sync tile per (expert, "
+                     "output tile), the count read on the card; the "
+                     "reference differentiates an XLA einsum "
+                     "(src/repro/models/moe.py:115-118)"),
+            "tol": BF16_TOL,
+            "max_abs_err": max(r["max_abs_err"] for r in bwd[which]),
+            **summary(bwd[which]), "per_shape": bwd[which]}
+    return {"router": per_shape, "grouped_forward": fwd, **bwd}
+
+
+def _expert_sets(routes, E):
+    """[set of token indices] per expert over one MoE call's (n, k)
+    expert sets."""
+    sets = [set() for _ in range(E)]
+    for t, row in enumerate(routes.tolist()):
+        for e in row:
+            sets[e].add(t)
+    return sets
+
+
+def _moe_train_card_vs_cpu(torch, args, dev):
+    """16b. qwen2-moe-a2.7b at full width cut to 1 layer, 1 x 512 tokens,
+    the same seeded weights on the card and on the CPU.
+
+    Routing is recorded on both sides (``_record_routes`` on the card):
+    the card's router inputs routed again on the CPU (the same input, as
+    in 7d) and the CPU run's own choices on its own inputs; both shares
+    must reach ``ROUTING_AGREEMENT_MIN``.  (512 tokens, not 128: at the
+    ~1.5% of tokens that a bf16 ulp moves across a router near-tie, 128
+    tokens would fall under 0.97 about one run in eight.)
+
+    The CPU run then follows the card's expert choices (its own
+    probabilities, the card's top-k), so that both sides differentiate
+    the same function.  A token routed elsewhere changes its own output
+    and loss gradient, and through them every leaf, not only its
+    experts' slices: at random weights each leaf sums uncorrelated
+    per-token terms, so 1% of tokens moved one leaf by 30% in a trial
+    run.  The loss within 1e-3 relative and every gradient leaf within
+    5e-2 relative L2, the experts whose token set the CPU's own routing
+    would have changed reported."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import depth_cut
+    from repro_torch.launch.steps import loss_and_grads
+    from repro_torch.models import moe as MOE
+    from repro_torch.models.model import Model
+    from repro_torch.models.params import params_to
+
+    cfg = depth_cut(get_config(MOE_ARCH), 1)
+    E = cfg.moe.n_routed_experts
+    params = Model(cfg, device="cpu").init(
+        torch.Generator().manual_seed(args.seed))
+    rng = np.random.default_rng(args.seed + 16)
+    toks = rng.integers(1, cfg.vocab_size - 1,
+                        (1, MOE_TRAIN_CHECK_TOKENS + 1))
+    batch = {"tokens": torch.from_numpy(toks[:, :-1]).to(torch.int32),
+             "labels": torch.from_numpy(toks[:, 1:]).to(torch.int32)}
+
+    def run(device, p, b):
+        t = time.perf_counter()
+        out = loss_and_grads(Model(cfg, device=device, remat="none"), p, b)
+        if device != "cpu":
+            torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+
+    card_routes, card_inputs = [], []
+    orig_apply = _record_routes(MOE, card_routes, card_inputs)
+    try:
+        ((loss, card_m), grads), card_s = run(
+            dev, params_to(params, dev),
+            {k: v.to(dev) for k, v in batch.items()})
+    finally:
+        MOE.apply_moe = orig_apply
+    require(len(card_routes) == 1, "routing records")
+
+    forced, own = list(card_routes), []
+    orig_route = MOE._route
+
+    def follow_card(p, x, cfg_):
+        """The CPU's own top-k (logged), then the card's experts with the
+        CPU's probabilities, renormalised, and the aux loss on them."""
+        own.append(orig_route(p, x, cfg_)[1].sort(-1).values)
+        top_e = forced.pop(0)
+        probs = torch.softmax(MOE.L._gemm(x, p["router"]).float(), dim=-1)
+        top_p = probs.gather(-1, top_e)
+        top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
+        ce = MOE._count(top_e, E, torch.float32) / top_e.numel()
+        aux = E * torch.sum(probs.reshape(-1, E).mean(0) * ce) \
+            * cfg_.moe.router_aux_coef
+        return top_p, top_e, aux
+
+    MOE._route = follow_card
+    try:
+        ((want, cpu_m), want_g), cpu_s = run("cpu", params, batch)
+    finally:
+        MOE._route = orig_route
+    require(len(own) == 1 and not forced, "routing records")
+    chained = float((card_routes[0] == own[0]).all(-1).float().mean())
+    again = MOE._route(params["layers"][0]["moe"], card_inputs[0],
+                       cfg)[1].sort(-1).values
+    same = float((card_routes[0] == again).all(-1).float().mean())
+    card_sets, cpu_sets = (_expert_sets(r, E) for r in (card_routes[0],
+                                                        own[0]))
+    moved = [e for e in range(E) if card_sets[e] != cpu_sets[e]]
+    errs = _leaf_errors(torch, grads, want_g)
+    worst = max(errs, key=errs.get)
+    loss_rel = abs(loss.item() - want.item()) / abs(want.item())
+    res = {"config": cfg.name, "tokens": MOE_TRAIN_CHECK_TOKENS,
+           "card_loss": loss.item(), "cpu_loss": want.item(),
+           "card_aux": card_m["aux"].item(), "cpu_aux": cpu_m["aux"].item(),
+           "loss_rel_diff": loss_rel, "loss_rtol": TRAIN_LOSS_RTOL,
+           "routing_agreement_same_input": same,
+           "routing_agreement_own_inputs": chained,
+           "routing_agreement_min": ROUTING_AGREEMENT_MIN,
+           "experts_the_cpu_would_route_otherwise": moved,
+           "first_flips_by_experts_changed": _first_flips(card_routes, own),
+           "leaves": len(errs), "grad_rel_l2": errs,
+           "grad_rel_l2_max": errs[worst], "grad_rel_l2_max_leaf": worst,
+           "grad_rel_l2_limit": TRAIN_GRAD_REL_L2, "card_s": card_s,
+           "cpu_s": cpu_s}
+    print("[moe_train_card_vs_cpu] " + json.dumps(res), flush=True)
+    require(min(chained, same) >= ROUTING_AGREEMENT_MIN,
+            f"MoE train routing agrees on {chained:.3f} (same input "
+            f"{same:.3f})")
+    require(loss_rel <= TRAIN_LOSS_RTOL,
+            f"MoE train card vs CPU: loss {loss.item()} vs {want.item()}")
+    require(errs[worst] <= TRAIN_GRAD_REL_L2,
+            f"MoE train card vs CPU: gradient {worst} off by {errs[worst]}")
+    return res
+
+
+def _moe_train_flops(cfg, tokens, seq):
+    """Model FLOPs of one MoE training step: 6 per weight per token for
+    every GEMM a token runs through (attention, the router, the shared
+    experts, its top-k routed experts, the lm_head), and the attention's
+    QKᵀ and PV at 3 times their forward."""
+    m, d, hd = cfg.moe, cfg.d_model, cfg.resolved_head_dim
+    H, KH = cfg.n_heads, cfg.n_kv_heads
+    per_layer = (d * (H + 2 * KH) * hd + H * hd * d
+                 + d * m.n_routed_experts
+                 + 3 * d * m.d_ff_expert * (m.n_shared_experts + m.top_k))
+    weights = cfg.n_layers * per_layer + d * cfg.padded_vocab
+    attn = cfg.n_layers * 3 * 2 * 2 * tokens * seq * H * hd
+    return 6 * weights * tokens + attn, weights
+
+
+def _profile_moe_train_step(torch, step, state, batch, tries=3):
+    """One MoE training step under ``torch.profiler``, with each
+    grouped expert product (forward and backward) inside a
+    ``record_function`` range: the device kernels split into 2-D forward
+    and backward (as ``_train_kernel_split``), grouped forward and
+    grouped backward; the launches from the counters; the library GEMM
+    ops (``aten::bmm`` and the like) that ran inside an expert product's
+    range (none may)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.kernels import kernel_nodes as KN
+    from repro_torch.kernels import ops
+
+    fwd_fn, bwd_fn = ops._grouped, ops._grouped_bwd
+
+    def fwd(*a):
+        with record_function("grouped_expert_product"):
+            return fwd_fn(*a)
+
+    def bwd(*a):
+        with record_function("grouped_expert_product"):
+            return bwd_fn(*a)
+
+    ops._grouped, ops._grouped_bwd = fwd, bwd
+    try:
+        for window in range(1, tries + 1):
+            ops.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                state, _ = step(state, batch)
+                torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            launches = dict(ops.LAUNCHES)
+            gemm_bwd, grouped_bwd = dict(ops.GEMM_BWD), dict(ops.GROUPED_BWD)
+            events = prof.events()
+            # the ranges show on the device's timeline too: not kernels
+            kern = sorted((ev.time_range.start, ev.time_range.elapsed_us(),
+                           ev.name) for ev in events
+                          if ev.device_type == DeviceType.CUDA
+                          and ev.time_range.elapsed_us() > 0
+                          and ev.name != "grouped_expert_product")
+            if kern:
+                break
+            print(f"[moe_train_profile] window {window}: the profiler "
+                  "recorded no device kernel", flush=True)
+    finally:
+        ops._grouped, ops._grouped_bwd = fwd_fn, bwd_fn
+    require(kern, f"MoE train profile: {tries} windows held no kernel")
+    ranges = [(ev.time_range.start, ev.time_range.end) for ev in events
+              if ev.name == "grouped_expert_product"
+              and ev.device_type == DeviceType.CPU]
+    inside = [ev.name for ev in events if ev.name in LIBRARY_OPS and any(
+        s <= ev.time_range.start <= e for s, e in ranges)]
+    split = _train_kernel_split(kern, launches, gemm_bwd, wall_ms)
+    grouped = {"forward": [], "backward": []}
+    for _, us, n in kern:
+        func = KN.kernel_group(n)
+        if func == "streaming_gemm_grouped":
+            grouped["backward" if "grouped_bwd" in n
+                    else "forward"].append(us)
+    lib = [n for _, _, n in kern if LIBRARY_GEMM.search(n)
+           and KN.kernel_group(n) == KN.OTHER]
+    n_bwd = grouped_bwd["da"] + grouped_bwd["db"]
+    split["device_ms"] = {
+        "forward_gemm_2d": split["device_ms"]["forward_gemm"],
+        "backward_gemm_2d": split["device_ms"]["backward_gemm"],
+        "forward_grouped": sum(grouped["forward"]) / 1e3,
+        "backward_grouped": sum(grouped["backward"]) / 1e3,
+        "other": split["device_ms"]["other"] - sum(
+            grouped["forward"] + grouped["backward"]) / 1e3}
+    split["launches"] = {
+        "forward_2d": split["launches"]["forward"],
+        "backward_2d": split["launches"]["backward"],
+        "forward_grouped": launches["streaming_gemm_grouped"] - n_bwd,
+        "backward_grouped_da": grouped_bwd["da"],
+        "backward_grouped_db": grouped_bwd["db"]}
+    split["profiler_grouped_kernels"] = {k: len(v)
+                                         for k, v in grouped.items()}
+    other: dict = {}
+    for _, us, n in kern:
+        if KN.kernel_group(n) == KN.OTHER:
+            other[n[:120]] = other.get(n[:120], 0.0) + us / 1e3
+    split["other_top_kernels_ms"] = dict(sorted(
+        other.items(), key=lambda kv: -kv[1])[:10])
+    split["library_gemm_kernels"] = len(lib)
+    split["library_gemm_kernel_names"] = sorted(set(lib))[:8]
+    split["expert_product_ranges"] = len(ranges)
+    split["library_ops_in_expert_products"] = inside
+    split["profiler_windows"] = window
+    return state, split, {**launches, GROUPED_BWD_NAMES["da"]:
+                          grouped_bwd["da"], GROUPED_BWD_NAMES["db"]:
+                          grouped_bwd["db"]}
+
+
+def _moe_train_full(torch, args, card, ckpt_root, dev):
+    """16c. The Trainer with qwen2-moe-a2.7b at full width cut to 4
+    layers, random bf16 weights from ``--seed``, AdamW, ``remat="none"``,
+    8 x 512 tokens a step, 20 steps (no checkpoint: the state is ~35 GB);
+    then one profiled step from a fresh state."""
+    import shutil
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RunConfig, ShapeConfig, depth_cut
+    from repro_torch.data.pipeline import make_loader
+    from repro_torch.models.params import n_elements
+    from repro_torch.runtime.train_loop import Trainer, TrainerConfig
+
+    cfg = depth_cut(get_config(MOE_ARCH), MOE_TRAIN_LAYERS)
+    run = RunConfig(model=cfg, shape=ShapeConfig(
+        "train", "train", TRAIN_SEQ, TRAIN_BATCH), remat="none")
+    d = ckpt_root / "moe"
+    shutil.rmtree(d, ignore_errors=True)
+    tr = Trainer(run, TrainerConfig(ckpt_dir=str(d),
+                                    ckpt_every=TRAIN_STEPS + 1,
+                                    seed=args.seed, **TRAIN_LR), device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    out = tr.train(TRAIN_STEPS)
+    train_s = time.perf_counter() - t
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = out["losses"]
+    step_ms = [m["s"] * 1e3 for m in tr.metrics_log]
+    med = statistics.median(step_ms[1:])
+    tokens = TRAIN_SEQ * TRAIN_BATCH
+    flops, weights = _moe_train_flops(cfg, tokens, TRAIN_SEQ)
+    bound_ms = flops / BF16_FLOP_PER_S * 1e3
+    require(len(losses) == TRAIN_STEPS, f"MoE train: {len(losses)} steps")
+    require(all(x == x and abs(x) < float("inf") for x in losses),
+            f"MoE train: non-finite loss {losses}")
+    require(losses[-1] < losses[0],
+            f"MoE train: loss did not fall ({losses[0]} -> {losses[-1]})")
+    require(tr.ckpt.all_steps() == [], "MoE train wrote a checkpoint")
+
+    state = tr.init_state()
+    loader = make_loader(cfg, run.shape, dev, start_step=TRAIN_STEPS,
+                         seed=args.seed)
+    _, batch = next(loader)
+    loader.close()
+    state, prof, launches = _profile_moe_train_step(torch, tr.step_fn,
+                                                    state, batch)
+    del state
+    shutil.rmtree(d, ignore_errors=True)
+    prof["device_busy_share_of_median_step"] = prof["device_busy_ms"] / med
+    n_moe = cfg.n_layers - cfg.moe.first_dense_layers
+    res = {"config": cfg.name, "params": n_elements(
+               tr.model.abstract_params()),
+           "active_gemm_weights": weights, "steps": TRAIN_STEPS,
+           "tokens_per_step": tokens, "losses": losses,
+           "aux": [m.get("aux") for m in tr.metrics_log],
+           "step_ms": step_ms, "median_step_ms": med,
+           "tokens_per_s": tokens / med * 1e3,
+           "model_tflop_per_step": flops / 1e12,
+           "flop_bound_ms": bound_ms, "bf16_peak_share": bound_ms / med,
+           "peak_mem_gb": peak_gb, "train_s": train_s,
+           "profiled_step": prof, "card": card}
+    print("[moe_train_full] " + json.dumps(res), flush=True)
+    L = prof["launches"]
+    require(prof["profiler_gemm_kernels"]["gemm_simt"] == 0,
+            "MoE train: the profiled step ran the scalar GEMM kernel")
+    require(L["forward_grouped"] == 3 * n_moe and
+            L["backward_grouped_da"] == L["backward_grouped_db"] == 3 * n_moe,
+            f"MoE train: grouped launches {L}")
+    require(L["backward_2d"] == 2 * L["forward_2d"],
+            f"MoE train: 2-D launches {L}")
+    require(prof["expert_product_ranges"] == 9 * n_moe
+            and not prof["library_ops_in_expert_products"],
+            "MoE train: an expert product called a library GEMM: "
+            f"{prof['library_ops_in_expert_products'][:4]}")
+    return res, launches
+
+
+def phase_moe_training(torch, args, rows, card, dev):
+    """16. Training of the MoE family on the card (see the module
+    docstring); prints each sub-phase's line and its seconds."""
+    ckpt_root = Path(__file__).resolve().parent / "build" / "train_smoke"
+    secs, res = {}, {}
+    t = time.perf_counter()
+    timer = Timer(torch, dev)
+    res["kernels"] = _moe_train_kernels(torch, args, dev, timer, rows)
+    del timer
+    torch.cuda.empty_cache()
+    secs["kernels"] = time.perf_counter() - t
+    t = time.perf_counter()
+    res["card_vs_cpu"] = _moe_train_card_vs_cpu(torch, args, dev)
+    torch.cuda.empty_cache()
+    secs["card_vs_cpu"] = time.perf_counter() - t
+    t = time.perf_counter()
+    res["full"], launches = _moe_train_full(torch, args, card, ckpt_root,
+                                            dev)
+    torch.cuda.empty_cache()
+    secs["full"] = time.perf_counter() - t
+    print(f"[moe_train] seconds {json.dumps(secs)}", flush=True)
+    res["seconds"] = secs
+    for name in GROUPED_BWD_NAMES.values():
+        rows[name]["train_launches"] = launches[name]
+    return {**res, "launches": launches}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3786,6 +4330,8 @@ def main():
     phase_open_loop(torch, args, card, simulator["serving"])
     torch.cuda.empty_cache()
     train = phase_training(torch, args, rows, card, dev)
+    torch.cuda.empty_cache()
+    moe_train = phase_moe_training(torch, args, rows, card, dev)
 
     # launches: each kernel's count from its own main path's serving run
     # (the grouped GEMM's is the MoE path, the latent paged kernel's
@@ -3802,12 +4348,16 @@ def main():
              f"{TRAIN_ARCH} train step": train["launches"]}
     int8_path = f"{INT8_ARCH} int8"
     paths[int8_path] = variants[INT8_ARCH]["int8"]["serving"]["launches"]
+    moe_train_path = f"{MOE_ARCH} train step"
+    paths[moe_train_path] = moe_train["launches"]
     own = {"streaming_gemm_grouped": MOE_ARCH,
            "paged_latent_attention": deepseek["config"],
-           "paged_attention_int8": int8_path, "kv_quantize": int8_path}
+           "paged_attention_int8": int8_path, "kv_quantize": int8_path,
+           **{n: moe_train_path for n in GROUPED_BWD_NAMES.values()}}
     kernels = [{"name": name, **rows[name],
                 "launches": paths[own.get(name, cfg.name)][name],
-                "launches_by_path": {p: n[name] for p, n in paths.items()}}
+                "launches_by_path": {p: n.get(name, 0)
+                                     for p, n in paths.items()}}
                for name in rows]
     print(json.dumps({"kernels": kernels, "card": card}))
     print(card)

@@ -44,9 +44,28 @@
 //  * Deterministic: no atomics and no split of K; each output element is
 //    summed in one fixed order by one thread.
 //
-// The launcher returns cudaGetLastError() of its launch, or an encoding
+// The backward products of training, one launch for all experts each,
+// run on the mma.sync tile of the streaming GEMM (mma_tile.cuh), one CTA
+// per (expert, output tile), each expert's kept row count read on the
+// card:
+//  * grouped_bwd_da: dA[e] = dC[e] * B[e]^T over rows [0, counts[e]),
+//    dC[e] a row-major A of counts[e] rows and B[e] read as a
+//    K-contiguous operand in place (its N is the reduction).  A CTA whose
+//    rows all lie at or beyond the count leaves at once; rows at or
+//    beyond it are never read (zero-filled by cp.async's src-size) and
+//    never written.
+//  * grouped_bwd_db: dB[e] = A[e]^T * dC[e] summed over rows [0,
+//    counts[e]), A[e] read as an M-contiguous operand in place: the
+//    count is the reduction's depth, so the staged rows at or beyond it
+//    are zero-filled in shared memory and never read from memory, and
+//    an expert no token reached gets zeros.  (E, K, N) bf16 out of fp32
+//    sums, no split of the rows and no atomics: the same bits every run.
+// Both are simple tiles, not yet tuned (PERF.md has their times).
+//
+// The launchers return cudaGetLastError() of their launch, or an encoding
 // error of hopper.cuh.
 #include "hopper.cuh"
+#include "mma_tile.cuh"
 
 namespace {
 
@@ -263,6 +282,74 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
 }
 
+// ------------------------------------------------- backward products
+// Operands of one backward launch: C[e] = A[e] * B[e] (the tile's view)
+// for every expert e, with the kept rows of e read from counts.
+struct Bwd {
+  const __nv_bfloat16* a;
+  const __nv_bfloat16* b;
+  __nv_bfloat16* c;
+  const int* counts;
+  int rows, M, N, K;   // rows: the buffer's C; M or K is the count's side
+  int64_t lda, sa, ldb, sb, ldc, sc;
+};
+
+// dA: tile rows are buffer rows, at most the expert's count.
+template <int BM, int BN>
+__global__ void __launch_bounds__(tile::MMA_THREADS)
+    grouped_bwd_da(const __nv_bfloat16* __restrict__ a,
+                   const __nv_bfloat16* __restrict__ b,
+                   __nv_bfloat16* __restrict__ c,
+                   const int* __restrict__ counts, int rows, int N, int K,
+                   int64_t lda, int64_t sa, int64_t ldb, int64_t sb,
+                   int64_t ldc, int64_t sc) {
+  const int e = blockIdx.z;
+  const int kept = min(max(counts[e], 0), rows);
+  if (static_cast<int>(blockIdx.y) * BM >= kept) return;  // no cluster
+  tile::gemm_tile<BM, BN, true, false, false>(
+      a + e * sa, b + e * sb, c + e * sc, kept, N, K, lda, ldb, ldc, 16, 16);
+}
+
+// dB: the reduction runs over the expert's kept rows.
+template <int BM, int BN>
+__global__ void __launch_bounds__(tile::MMA_THREADS)
+    grouped_bwd_db(const __nv_bfloat16* __restrict__ a,
+                   const __nv_bfloat16* __restrict__ b,
+                   __nv_bfloat16* __restrict__ c,
+                   const int* __restrict__ counts, int rows, int M, int N,
+                   int64_t lda, int64_t sa, int64_t ldb, int64_t sb,
+                   int64_t ldc, int64_t sc) {
+  const int e = blockIdx.z;
+  const int kept = min(max(counts[e], 0), rows);
+  tile::gemm_tile<BM, BN, false, true, false>(
+      a + e * sa, b + e * sb, c + e * sc, M, N, kept, lda, ldb, ldc, 16, 16);
+}
+
+template <bool DB, int BM, int BN>
+int bwd_tile(const Bwd& p, int E, cudaStream_t st) {
+  using G = tile::Geo<BM, BN, !DB, DB>;
+  auto kern = DB ? grouped_bwd_db<BM, BN> : grouped_bwd_da<BM, BN>;
+  // once per kernel and process (the port drives one card)
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, G::SMEM);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const dim3 grid(cdiv(p.N, BN), cdiv(DB ? p.M : p.rows, BM), E);
+  // dA takes (rows, N, K), dB (rows, M, N): each reads its count itself
+  return tile::launch_cluster(kern, G::SMEM, grid, 1, st, p.a, p.b, p.c,
+                              p.counts, p.rows, DB ? p.M : p.N,
+                              DB ? p.N : p.K, p.lda, p.sa, p.ldb, p.sb,
+                              p.ldc, p.sc);
+}
+
+template <bool DB>
+int bwd_dispatch(int bm, int bn, const Bwd& p, int E, cudaStream_t st) {
+  if (bm == 64 && bn == 64) return bwd_tile<DB, 64, 64>(p, E, st);
+  if (bm == 64 && bn == 128) return bwd_tile<DB, 64, 128>(p, E, st);
+  if (bm == 128 && bn == 64) return bwd_tile<DB, 128, 64>(p, E, st);
+  if (bm == 128 && bn == 128) return bwd_tile<DB, 128, 128>(p, E, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 }  // namespace
 
 // Bytes of dynamic shared memory the kernel takes (the wrapper's check).
@@ -321,4 +408,32 @@ extern "C" int gg_grouped_gemm(const void* A, const void* B, void* C,
   grouped_wgmma<<<grid, THREADS, L.bytes, static_cast<cudaStream_t>(stream)>>>(
       wmap, amap, p);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The backward products of C[e] = A[e] * B[e] (A (E, C, K), B (E, K, N),
+// C (E, C, N)), for e < E, with counts (E,) int32 on the device.
+//  * which 0, dA: C_out[e] = dC[e] * B[e]^T, rows below the count:
+//    A_in = dC (lda, sa: its row and expert strides), B_in = B (ldb, sb),
+//    out (E, C, K) with ldc, sc; M = rows = C, N = K, K = N.
+//  * which 1, dB: out[e] = A[e]^T * dC[e] over rows below the count:
+//    A_in = A (lda, sa), B_in = dC (ldb, sb), out (E, K, N) with ldc, sc;
+//    M = K, N = N, K = rows = C.
+// bm, bn in {64, 128}.  All bf16; every operand 16-byte aligned, with row
+// and expert strides of multiples of 8 values and a contiguous extent (K
+// and N here) that is a multiple of 8: the tile's 16-byte copies.
+extern "C" int gg_grouped_bwd(int which, const void* A, const void* B,
+                              void* C, const void* counts, int E, int rows,
+                              int M, int N, int K, int64_t lda, int64_t sa,
+                              int64_t ldb, int64_t sb, int64_t ldc,
+                              int64_t sc, int bm, int bn, void* stream) {
+  if ((which != 0 && which != 1) || E < 1 || E > 65535 || rows < 1 ||
+      M < 1 || N < 1 || K < 1 || counts == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Bwd p{static_cast<const __nv_bfloat16*>(A),
+              static_cast<const __nv_bfloat16*>(B),
+              static_cast<__nv_bfloat16*>(C), static_cast<const int*>(counts),
+              rows, M, N, K, lda, sa, ldb, sb, ldc, sc};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return which ? bwd_dispatch<true>(bm, bn, p, E, st)
+               : bwd_dispatch<false>(bm, bn, p, E, st);
 }

@@ -21,7 +21,8 @@ once.  The design (the source's header has the details):
   product, two consumer warpgroups of 64 columns each) and the chunk's
   rows, rounded up to 8, its N side: at most 7 padding rows of tensor
   work an item.  A chunk past 64 rows streams the weight again (from
-  L2); no main-path count gets there;
+  L2): training's counts get there (qwen2-moe at 4,096 tokens keeps
+  about 273 rows an expert, 5 chunks);
 - a ring of 3-6 stages filled by TMA on mbarriers: the weight's map is
   encoded once per tensor, the activations' per call; ragged N and K
   edges are zero-filled by TMA;
@@ -30,6 +31,22 @@ once.  The design (the source's header has the details):
 ``plan_grouped`` chooses the grid, the ring's stages and the token
 ring's rows from what the host knows (E, C, N, K and the SM count); it
 reads nothing from the card.
+
+The backward products of training, one launch for all experts each
+(``grouped_bwd_a_cuda``, ``grouped_bwd_b_cuda``), run the streaming
+GEMM's ``mma.sync`` tile (``csrc/mma_tile.cuh``) on a grid of (output
+tile, expert), each CTA reading its expert's count on the card:
+
+- dA[e] = dC[e]·B[e]ᵀ: the weight read in place as a K-contiguous
+  operand; rows at or beyond the count are neither read nor written;
+- dB[e] = A[e]ᵀ·dC[e], summed over the kept rows only: the count is the
+  reduction's depth, so rows at or beyond it are zero-filled as they are
+  staged (whatever the buffer holds there, NaN included, never reaches
+  a sum), and an expert no token reached gets zeros.  fp32 sums in one
+  fixed order, no atomics.
+
+They are simple tiles, correct first; ``bwd_plan`` picks a 64- or
+128-wide tile on each side.
 """
 from __future__ import annotations
 
@@ -49,6 +66,8 @@ SMEM_LIMIT = 227 * 1024
 _VP, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 _ARGS = [_VP, _VP, _VP, _VP, _I32, _I32, _I32, _I32, _I64, _I64, _I64,
          _I64, _I64, _I64, _I32, _I32, _I32, _VP]
+_BWD_ARGS = [_I32, _VP, _VP, _VP, _VP, _I32, _I32, _I32, _I32, _I32, _I64,
+             _I64, _I64, _I64, _I64, _I64, _I32, _I32, _VP]
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -131,4 +150,94 @@ def grouped_gemm_cuda(a: torch.Tensor, b: torch.Tensor,
               b.stride(1), b.stride(0), N, C * N, grid, stages, nt_max,
               _build.stream(a.device))
     _build.check(code, "streaming_gemm_grouped")
+    return out
+
+
+def bwd_plan(M: int, N: int) -> tuple:
+    """``(bm, bn)`` of a backward tile for an output side of M rows (dA:
+    the buffer's C; dB: the weight's K) and N columns: 64 where the side
+    is at most 64, else 128."""
+    return (64 if M <= 64 else 128), (64 if N <= 64 else 128)
+
+
+def launches(x: torch.Tensor, y: torch.Tensor) -> bool:
+    """Whether a backward product of operands ``x`` and ``y`` (3-D, one
+    expert dimension) launches its kernel: not where any extent is 0."""
+    return min(x.shape) > 0 and min(y.shape) > 0
+
+
+def _aligned(t: torch.Tensor) -> bool:
+    """3-D ``t`` as the tile's 16-byte copies read it: the last dimension
+    contiguous, the address and both outer strides 16-byte aligned."""
+    return t.stride(2) == 1 and t.data_ptr() % 16 == 0 \
+        and t.stride(0) % 8 == 0 and t.stride(1) % 8 == 0
+
+
+def _check_bwd(what, x, y, counts, E, extent):
+    if x.dtype != torch.bfloat16 or y.dtype != torch.bfloat16:
+        raise TypeError(f"{what} needs bf16 operands, got {x.dtype}, "
+                        f"{y.dtype}")
+    if counts.dtype != torch.int32 or tuple(counts.shape) != (E,) \
+            or not counts.is_contiguous():
+        raise ValueError("counts must be a contiguous (E,) int32 tensor")
+    if not (x.is_cuda and y.is_cuda and counts.is_cuda
+            and x.device == y.device == counts.device):
+        raise ValueError(f"{what} needs every operand on one CUDA device")
+    if not (_aligned(x) and _aligned(y)) or extent % 8:
+        raise ValueError(
+            f"{what}: layout not taken, strides {x.stride()} and "
+            f"{y.stride()}, N {extent} (the last dimension contiguous, "
+            "addresses and other strides 16-byte aligned, N a multiple of "
+            "8)")
+
+
+def _launch_bwd(which, x, y, out, counts, rows, M, N, K, bm, bn):
+    E = x.shape[0]
+    fn = _build.function("grouped_gemm", "gg_grouped_bwd", _BWD_ARGS)
+    code = fn(which, _build.ptr(x), _build.ptr(y), _build.ptr(out),
+              _build.ptr(counts), E, rows, M, N, K, x.stride(1), x.stride(0),
+              y.stride(1), y.stride(0), out.stride(1), out.stride(0), bm, bn,
+              _build.stream(x.device))
+    _build.check(code, "streaming_gemm_grouped backward")
+
+
+def grouped_bwd_a_cuda(dc: torch.Tensor, b: torch.Tensor,
+                       counts: torch.Tensor) -> torch.Tensor:
+    """dA[e] = dC[e]·B[e]ᵀ for the rows below ``counts[e]``: dc (E, C, N)
+    and b (E, K, N) bf16 CUDA tensors, N contiguous in both and a
+    multiple of 8, the other strides multiples of 8 values, both 16-byte
+    aligned; counts (E,) int32 on the same card.  Returns
+    (E, C, K) bf16 in which rows ``[counts[e], C)`` of expert e are left
+    unwritten, as the forward leaves its own."""
+    if dc.dim() != 3 or b.dim() != 3 or dc.shape[0] != b.shape[0] \
+            or dc.shape[2] != b.shape[2]:
+        raise ValueError(f"grouped dA shapes {tuple(dc.shape)} x "
+                         f"{tuple(b.shape)}")
+    E, C, N = dc.shape
+    K = b.shape[1]
+    _check_bwd("grouped dA", dc, b, counts, E, N)
+    out = torch.empty((E, C, K), dtype=dc.dtype, device=dc.device)
+    if launches(dc, b):
+        _launch_bwd(0, dc, b, out, counts, C, C, K, N, *bwd_plan(C, K))
+    return out
+
+
+def grouped_bwd_b_cuda(a: torch.Tensor, dc: torch.Tensor,
+                       counts: torch.Tensor) -> torch.Tensor:
+    """dB[e] = A[e]ᵀ·dC[e] summed over the rows below ``counts[e]``: a
+    (E, C, K) and dc (E, C, N) bf16 CUDA tensors, the last dimension
+    contiguous (N a multiple of 8), the other strides multiples of 8
+    values, both 16-byte aligned; counts (E,) int32 on the same card.
+    Returns (E, K, N) bf16, zeros for an expert at count 0; no row at or
+    beyond a count is read."""
+    if a.dim() != 3 or dc.dim() != 3 or a.shape[:2] != dc.shape[:2]:
+        raise ValueError(f"grouped dB shapes {tuple(a.shape)} x "
+                         f"{tuple(dc.shape)}")
+    E, C, K = a.shape
+    N = dc.shape[2]
+    _check_bwd("grouped dB", a, dc, counts, E, N)
+    if not launches(a, dc):
+        return torch.zeros((E, K, N), dtype=a.dtype, device=a.device)
+    out = torch.empty((E, K, N), dtype=a.dtype, device=a.device)
+    _launch_bwd(1, a, dc, out, counts, C, K, N, C, *bwd_plan(K, N))
     return out

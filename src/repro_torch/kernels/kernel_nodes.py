@@ -23,6 +23,8 @@ OPS_WRAPPERS = ("streaming_gemm", "grouped_streaming_gemm", "flash_attention",
 # counter it belongs to; the int8-pool paged kernel is ``paged_fwd`` over
 # ``signed char`` pools
 KERNEL_GROUPS = (("grouped_wgmma", "streaming_gemm_grouped"),
+                 ("grouped_bwd_da", "streaming_gemm_grouped"),
+                 ("grouped_bwd_db", "streaming_gemm_grouped"),
                  ("gemm_bf16", "streaming_gemm"),
                  ("gemm_simt", "streaming_gemm"),
                  ("flash_bf16", "flash_attention"),

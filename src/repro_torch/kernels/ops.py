@@ -9,9 +9,10 @@ not count), so a run can show that its main path went through the
 kernels.  The streaming GEMM's launches for the backward products of
 training count under ``streaming_gemm`` like the forward ones (the same
 kernel) and again in ``GEMM_BWD["launches"]``, so a run can tell them
-apart; ``GEMM_BWD["dc_copies"]`` counts the contiguous copies the
-backward made of an output gradient the kernel could not read in
-place.  The TPU-only knobs of the reference wrappers (block sizes,
+apart; ``GEMM_BWD["dc_copies"]`` counts the copies the backward made
+of an output gradient the kernel could not read in place.  The grouped
+GEMM's backward launches count under ``streaming_gemm_grouped`` and
+again in ``GROUPED_BWD`` (``da``, ``db``).  The TPU-only knobs of the reference wrappers (block sizes,
 ``interpret``) have no counterpart: the kernels pick their own tiles
 and mask ragged edges themselves, so nothing is padded here.
 """
@@ -21,20 +22,23 @@ import torch
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import flash_cuda
-from repro_torch.kernels.grouped_gemm import grouped_gemm_cuda
+from repro_torch.kernels.grouped_gemm import (grouped_bwd_a_cuda,
+                                              grouped_bwd_b_cuda,
+                                              grouped_gemm_cuda, launches)
 from repro_torch.kernels.kv_quant import kv_quant_cuda
 from repro_torch.kernels.paged_attention import paged_cuda, paged_latent_cuda
-from repro_torch.kernels.streaming_gemm import gemm_cuda
+from repro_torch.kernels.streaming_gemm import copy_width, gemm_cuda
 
 LAUNCHES = {"streaming_gemm": 0, "streaming_gemm_grouped": 0,
             "flash_attention": 0, "paged_attention": 0,
             "paged_latent_attention": 0, "paged_attention_int8": 0,
             "kv_quantize": 0}
 GEMM_BWD = {"launches": 0, "dc_copies": 0}
+GROUPED_BWD = {"da": 0, "db": 0}
 
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, GEMM_BWD):
+    for counts in (LAUNCHES, GEMM_BWD, GROUPED_BWD):
         for name in counts:
             counts[name] = 0
 
@@ -62,9 +66,10 @@ class _StreamingGemm(torch.autograd.Function):
 
     In bf16 all three products run on the tensor-core kernel or raise:
     none falls to the scalar one.  The saved tensors are the inputs
-    themselves.  ``dC`` is read in
-    place where its rows are contiguous and 16-byte aligned, else copied
-    once (counted in ``GEMM_BWD["dc_copies"]``)."""
+    themselves.  ``dC`` is read in place where its rows are contiguous
+    and at least 4-byte aligned (the router's 60-wide rows are), else
+    copied once into rows padded to 16 bytes (counted in
+    ``GEMM_BWD["dc_copies"]``)."""
 
     @staticmethod
     def forward(ctx, a, b):
@@ -78,9 +83,13 @@ class _StreamingGemm(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dc):
         a, b = ctx.saved_tensors
-        if dc.is_cuda and (dc.stride(1) != 1 or dc.stride(0) % 8
-                           or dc.data_ptr() % 16):
-            dc = dc.contiguous()
+        if dc.is_cuda and (dc.stride(1) != 1
+                           or not copy_width(dc, dc.stride(0))):
+            M, N = dc.shape
+            padded = torch.empty((M, -(-N // 8) * 8), dtype=dc.dtype,
+                                 device=dc.device)
+            padded[:, :N] = dc
+            dc = padded[:, :N]
             GEMM_BWD["dc_copies"] += 1
         da = db = None
         if ctx.needs_input_grad[0]:
@@ -108,6 +117,62 @@ def streaming_gemm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def _grouped(a, b, counts):
+    if not a.is_cuda:
+        return ref.grouped_gemm_ref(a, b, counts)
+    out = grouped_gemm_cuda(a, b, counts)
+    LAUNCHES["streaming_gemm_grouped"] += 1
+    return out
+
+
+def _grouped_bwd(which: str, x, y, counts):
+    """One backward product of the grouped GEMM (``"da"``: dC·Bᵀ, x = dC,
+    y = B; ``"db"``: Aᵀ·dC, x = A, y = dC) on its kernel, or its plain
+    version on the CPU; kept rows only."""
+    if not x.is_cuda:
+        fn = ref.grouped_bwd_a_ref if which == "da" else ref.grouped_bwd_b_ref
+        return fn(x, y, counts)
+    fn = grouped_bwd_a_cuda if which == "da" else grouped_bwd_b_cuda
+    out = fn(x, y, counts)
+    if launches(x, y):
+        LAUNCHES["streaming_gemm_grouped"] += 1
+        GROUPED_BWD[which] += 1
+    return out
+
+
+class _GroupedGemm(torch.autograd.Function):
+    """C[e] = A[e]·B[e] over each expert's kept rows, with both backward
+    products on kernels of their own (``grouped_gemm.py``), one launch
+    for all experts each:
+
+    - dA[e] = dC[e]·B[e]ᵀ, rows below the count (the others left
+      unwritten on the card, zeros on the CPU, as the forward leaves C);
+    - dB[e] = A[e]ᵀ·dC[e], summed over the kept rows only, so what rows
+      at or beyond the count hold in A or dC (unwritten memory, NaN)
+      never reaches a weight gradient.
+
+    ``counts`` is saved with the inputs.  The backward launches count
+    under ``streaming_gemm_grouped`` like the forward and again in
+    ``GROUPED_BWD``."""
+
+    @staticmethod
+    def forward(ctx, a, b, counts):
+        ctx.save_for_backward(a, b, counts)
+        return _grouped(a, b, counts)
+
+    @staticmethod
+    def backward(ctx, dc):
+        a, b, counts = ctx.saved_tensors
+        if dc.is_cuda:
+            dc = dc.contiguous()
+        da = db = None
+        if ctx.needs_input_grad[0]:
+            da = _grouped_bwd("da", dc, b, counts)
+        if ctx.needs_input_grad[1]:
+            db = _grouped_bwd("db", a, dc, counts)
+        return da, db, None
+
+
 def grouped_streaming_gemm(a: torch.Tensor, b: torch.Tensor,
                            counts: torch.Tensor) -> torch.Tensor:
     """C[e] = A[e] @ B[e] for a (E, C, K), b (E, K, N), one launch for
@@ -115,12 +180,11 @@ def grouped_streaming_gemm(a: torch.Tensor, b: torch.Tensor,
     The kernel writes only rows below the count; the plain version
     computes only those and zero-fills the rest.  Either way the caller
     must select rows at or beyond the count away, never scale them (on
-    the card they hold whatever the memory held)."""
-    if not a.is_cuda:
-        return ref.grouped_gemm_ref(a, b, counts)
-    out = grouped_gemm_cuda(a, b, counts)
-    LAUNCHES["streaming_gemm_grouped"] += 1
-    return out
+    the card they hold whatever the memory held).  Differentiable where
+    an operand requires a gradient (``_GroupedGemm``)."""
+    if a.requires_grad or b.requires_grad:
+        return _GroupedGemm.apply(a, b, counts)
+    return _grouped(a, b, counts)
 
 
 def flash_attention(q, k, v, causal: bool = True,

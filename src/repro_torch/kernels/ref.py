@@ -48,6 +48,36 @@ def grouped_gemm_ref(a, b, counts=None):
     return out
 
 
+def _kept(counts, C: int) -> list:
+    return [min(max(c, 0), C) for c in counts.tolist()]
+
+
+def grouped_bwd_a_ref(dc, b, counts):
+    """dA[e] = dC[e] @ B[e]ᵀ for dc (E, C, N), b (E, K, N), over the rows
+    below each expert's count (clamped to [0, C]), accumulated in float32
+    and cast once to ``dc.dtype``; the other rows are zeros and no row at
+    or beyond a count is read."""
+    E, C, _ = dc.shape
+    out = torch.zeros((E, C, b.shape[1]), dtype=dc.dtype, device=dc.device)
+    for e, c in enumerate(_kept(counts, C)):
+        if c:
+            out[e, :c] = (dc[e, :c].float() @ b[e].float().t()).to(dc.dtype)
+    return out
+
+
+def grouped_bwd_b_ref(a, dc, counts):
+    """dB[e] = A[e]ᵀ @ dC[e] for a (E, C, K), dc (E, C, N), summed over
+    the rows below each expert's count only (clamped to [0, C]) in float32
+    and cast once to ``a.dtype``: (E, K, N), zeros for an expert at count
+    0; no row at or beyond a count is read."""
+    E, C, K = a.shape
+    out = torch.zeros((E, K, dc.shape[2]), dtype=a.dtype, device=a.device)
+    for e, c in enumerate(_kept(counts, C)):
+        if c:
+            out[e] = (a[e, :c].float().t() @ dc[e, :c].float()).to(a.dtype)
+    return out
+
+
 def flash_ref(q, k, v, causal=True):
     """q, k: (BH, T, D); v: (BH, Tk, Dv), Dv may differ from D.  Scale
     1/√D."""

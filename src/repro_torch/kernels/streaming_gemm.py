@@ -40,9 +40,15 @@ What the design does about it:
   the layer input X, and the tied embedding's gradient dLogitsᵀ·h reads
   the (tokens, 152,064) logit gradient, without a transposed copy.
 
-fp32 and int8 inputs, and bf16 operands whose rows are not 16-byte
-aligned, take a scalar-FMA tiled kernel in the same source: full fp32
-(no TF32) and exact int32 sums that wrap on the int8 store.
+- Rows that are not 16-byte aligned are staged in 8- or 4-byte copies
+  (``copy_width``): qwen2-moe's router, 2,048 x 60 with rows of 120
+  bytes, runs all three of its products (x·W, dC·Wᵀ, Xᵀ·dC) and its
+  serving calls on the tensor cores.
+
+fp32 and int8 inputs, and bf16 operands whose rows are not even 4-byte
+aligned (an odd leading stride), take a scalar-FMA tiled kernel in the
+same source: full fp32 (no TF32) and exact int32 sums that wrap on the
+int8 store.  The autograd Function never gives it a bf16 product.
 
 The expert-grouped products of the MoE layers run on a kernel of their
 own, ``grouped_gemm.py`` (``csrc/grouped_gemm.cu``).
@@ -58,7 +64,7 @@ from repro_torch.kernels import _build
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _VP, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 _MMA_ARGS = [_VP, _VP, _VP, _I32, _I32, _I32, _I64, _I64, _I32, _I32,
-             _I64, _I32, _I32, _I32, _I32, _VP]
+             _I64, _I32, _I32, _I32, _I32, _I32, _I32, _VP]
 _SIMT_ARGS = [_I32, _VP, _VP, _VP, _I32, _I32, _I32, _I64, _I64, _I64,
               _I64, _I64, _VP]
 
@@ -109,26 +115,33 @@ def plan(M: int, N: int, K: int) -> tuple:
     return bm, bn, BK, splits
 
 
-def _aligned16(t: torch.Tensor) -> bool:
-    return t.data_ptr() % 16 == 0
+def copy_width(t: torch.Tensor, ld: int, extent: int = 8) -> int:
+    """Bytes of the widest cp.async copy (16, 8 or 4) that divides both
+    the address of bf16 ``t`` and its leading stride ``ld`` in bytes: how
+    the kernel stages the operand's rows; 0 where none does.  16 only
+    where ``extent``, the length of the contiguous dimension, is a
+    multiple of 8 too: a 16-byte copy takes whole chunks of 8 values."""
+    return next((vb for vb in (16, 8, 4)
+                 if t.data_ptr() % vb == 0 and 2 * ld % vb == 0
+                 and (vb < 16 or extent % 8 == 0)), 0)
 
 
 def _row_major_b(b: torch.Tensor):
     """``ldb`` of a row-major bf16 B the kernel can read, else None."""
-    if b.stride(1) == 1 and b.stride(0) % 8 == 0 and b.shape[1] % 8 == 0:
+    if b.stride(1) == 1 and copy_width(b, b.stride(0)):
         return b.stride(0)
     return None
 
 
 def mma_layout(a: torch.Tensor, b: torch.Tensor):
     """``(b_kcontig, ldb)`` when the tensor-core path can take these
-    operands with a row-major A (bf16, 16-byte aligned rows along each
-    contiguous dim), else ``None``."""
-    K = a.shape[1]
-    if a.dtype != torch.bfloat16 or a.stride(1) != 1 or K % 8 \
-            or a.stride(0) % 8 or not _aligned16(a) or not _aligned16(b):
+    operands with a row-major A (bf16, each operand's address and
+    leading stride at least 4-byte aligned), else ``None``."""
+    if a.dtype != torch.bfloat16 or a.stride(1) != 1 \
+            or not copy_width(a, a.stride(0)):
         return None
-    if b.stride(0) == 1 and b.stride(1) % 8 == 0:      # K-contiguous B
+    if b.stride(0) == 1 and b.stride(1) != 1 \
+            and copy_width(b, b.stride(1)):               # K-contiguous B
         return True, b.stride(1)
     ldb = _row_major_b(b)
     return None if ldb is None else (False, ldb)
@@ -137,10 +150,11 @@ def mma_layout(a: torch.Tensor, b: torch.Tensor):
 def mcontig_layout(a: torch.Tensor, b: torch.Tensor):
     """``(lda, ldb)`` when the tensor-core path can take an M-contiguous
     A (element (m, k) at ``a[k * lda + m]``: ``a.stride(0) == 1``, ``lda
-    = a.stride(1)`` a multiple of 8, 16-byte aligned; any M and K) with a
-    row-major B, else ``None``.  ``Xᵀ`` of a row-major X is such an A."""
-    if a.dtype != torch.bfloat16 or a.stride(0) != 1 or a.stride(1) % 8 \
-            or not _aligned16(a) or not _aligned16(b):
+    = a.stride(1)``; any M and K) with a row-major B, each operand's
+    address and leading stride at least 4-byte aligned, else ``None``.
+    ``Xᵀ`` of a row-major X is such an A."""
+    if a.dtype != torch.bfloat16 or a.stride(0) != 1 \
+            or not copy_width(a, a.stride(1)):
         return None
     ldb = _row_major_b(b)
     return None if ldb is None else (a.stride(1), ldb)
@@ -176,15 +190,17 @@ def gemm_cuda(a: torch.Tensor, b: torch.Tensor,
             kcontig, (lda, ldb) = False, mcontig
         bm, bn, bk, splits = plan(M, N, K)
         fn = _build.function("streaming_gemm", "sg_gemm_bf16", _MMA_ARGS)
+        a_vb = copy_width(a, lda, 8 if mcontig is not None else K)
+        b_vb = copy_width(b, ldb, K if kcontig else N)
         code = fn(_build.ptr(a), _build.ptr(b), _build.ptr(out), M, N, K,
                   lda, ldb, int(mcontig is not None), int(kcontig), N, bm,
-                  bn, bk, splits, st)
+                  bn, bk, splits, a_vb, b_vb, st)
     elif mma_only:
         raise ValueError(
             f"gemm_cuda: the tensor-core kernel cannot read a {a.dtype} "
             f"{tuple(a.shape)} A of strides {a.stride()} with a "
             f"{tuple(b.shape)} B of strides {b.stride()} (needs bf16, a "
-            "row-major or M-contiguous A, 16-byte aligned rows)")
+            "row-major or M-contiguous A, rows 4-byte aligned)")
     else:
         fn = _build.function("streaming_gemm", "sg_gemm_simt", _SIMT_ARGS)
         code = fn(_DTYPES[a.dtype], _build.ptr(a), _build.ptr(b),

@@ -103,6 +103,8 @@ def _launch(fn, a, b, plan):
     out = torch.empty((M, N), dtype=a.dtype, device=a.device)
     _build.check(fn(_build.ptr(a), _build.ptr(b), _build.ptr(out), M, N, K,
                     a.stride(0), ldb, 0, int(kcontig), N, *plan,
+                    SG.copy_width(a, a.stride(0), K),
+                    SG.copy_width(b, ldb, K if kcontig else N),
                     _build.stream(a.device)), "streaming_gemm")
     return out
 

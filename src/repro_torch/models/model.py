@@ -10,7 +10,7 @@ the audio encoder-decoder (whisper), which only this API serves.
     prefill(params, tokens, cache, slots, embeddings=None,
             audio_frames=None) -> logits
     decode_step(params, cache, tokens, slots) -> logits
-    loss(params, batch) -> (loss, {"ce", "aux"})   (dense and vlm)
+    loss(params, batch) -> (loss, {"ce", "aux"})   (dense, vlm, MoE)
     abstract_params() -> the parameter tree on the ``meta`` device
 
 ``input_specs(cfg, shape)`` gives ``meta``-device stand-ins of every
@@ -66,7 +66,9 @@ class Model:
     def loss(self, params, batch):
         """Mean next-token cross-entropy of ``batch`` (``tokens`` or
         ``embeddings``, and ``labels``; ``-1`` ignored) plus the aux
-        loss.  Returns (loss, {"ce", "aux"}), float32 scalars."""
+        loss (the MoE layers' load-balancing loss summed; zero for the
+        dense and vlm families).  Returns (loss, {"ce", "aux"}), float32
+        scalars."""
         cfg = self.cfg
         h, aux, _ = T.forward_train(params, cfg, batch, self.remat)
         ce = T.chunked_ce_loss(params, cfg, h, batch["labels"])

@@ -28,6 +28,17 @@ JAX semantics the port keeps by hand:
 - The combine adds each token's k contributions in bf16 one by one, in
   the order of their expert ids, as the reference's scatter-add does,
   without atomics.
+
+Training differentiates the same code: the router's softmax, the top-k
+(a sort's values), the renormalisation, the aux loss's ``me`` term, the
+dispatch (an ``index_put`` whose backward reads the kept rows only),
+the three grouped products (``ops._GroupedGemm``, whose backward
+kernels read and sum only the kept rows), the SiLU and the combine.
+The rows at or beyond a count, which hold whatever the memory held on
+the card, pass through elementwise ops (``_act``, ``gate·up``) in both
+directions but never into a kept value or a weight gradient.  The
+zeroed (E-1, C-1) cell passes no gradient to the row it replaced, as
+the reference's ``mode="drop"`` scatter (whose last write wins) does.
 """
 from __future__ import annotations
 

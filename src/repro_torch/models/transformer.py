@@ -19,12 +19,16 @@ loops over a list of per-layer trees.  An MoE model may start with
 ``first_dense_layers`` dense layers (a ``dense_layers`` stack before
 ``layers``), as in the reference.
 
-Training (``forward_train``, ``chunked_ce_loss``) covers the dense and
-vlm families: each layer's attention is ``layers.attention_train_chunked``
-(chunked attention as torch ops) and every projection, the MLP and the
+Training (``forward_train``, ``chunked_ce_loss``) covers the dense, vlm
+and MoE (GQA, not MLA) families: each layer's attention is
+``layers.attention_train_chunked`` (chunked attention as torch ops);
+every projection, the MLP, the router, the shared experts and the
 lm_head run through the streaming GEMM, whose backward products run on
-the same kernel.  ``remat="full"`` recomputes each layer in the
-backward pass (``torch.utils.checkpoint``).  The other families' and
+the same kernel, and the expert products through the grouped GEMM,
+whose backward products run on kernels of their own.  An MoE model runs
+its ``dense_layers`` first and sums its layers' aux losses.
+``remat="full"`` recomputes each layer in the backward pass
+(``torch.utils.checkpoint``).  The ssm, hybrid and audio families' and
 MLA's training, and ``mtp_loss``, are ROADMAP Queue A item 13b.
 
 A config with ``mla`` (deepseek-v3) runs multi-head latent attention
@@ -274,7 +278,7 @@ def lm_head(params, cfg: ModelConfig, h):
 
 
 # =====================================================================
-# training: dense and vlm
+# training: dense, vlm and MoE
 # =====================================================================
 NOT_TRAINED = ("training of the {what} is not ported yet "
                "(ROADMAP Queue A item 13b)")
@@ -304,26 +308,49 @@ def dense_layer_train(lp, x, cfg: ModelConfig, positions):
     return x + L.apply_mlp(lp["mlp"], h, cfg)
 
 
+def moe_layer_train(lp, x, cfg: ModelConfig, positions):
+    """Training body of one MoE layer (the reference's
+    ``moe_layer_fwd``): x + attention(norm(x)), then x + moe(norm(x)).
+    Returns (x', the layer's aux loss)."""
+    h = L.apply_norm(lp["ln1"], x, cfg)
+    x = x + L.attention_train_chunked(lp["attn"], h, cfg, positions)
+    h = L.apply_norm(lp["ln2"], x, cfg)
+    y, aux = MOE.apply_moe(lp["moe"], h, cfg)
+    return x + y, aux
+
+
 def forward_train(params, cfg: ModelConfig, batch, remat: str = "full"):
     """Token ids ``batch["tokens"]`` (B, T), or (B, T, d)
     ``batch["embeddings"]`` for a config with ``embedding_inputs``, to the
-    final normed hidden states.  Returns (hidden (B, T, d), aux loss (a
-    float32 zero: the dense and vlm families have none), extras {})."""
-    if cfg.family not in ("dense", "vlm") or cfg.mla is not None:
+    final normed hidden states.  Returns (hidden (B, T, d), aux loss (the
+    sum over the MoE layers; a float32 zero for the dense and vlm
+    families), extras {})."""
+    if cfg.family not in ("dense", "vlm", "moe") or cfg.mla is not None:
         raise NotImplementedError(NOT_TRAINED.format(
-            what=f"{cfg.family} family ({cfg.name})"))
+            what=f"{cfg.family} family ({cfg.name})"
+            + (" with MLA" if cfg.mla is not None else "")))
     if cfg.embedding_inputs and "embeddings" in batch:
         x = batch["embeddings"].to(torch.bfloat16)
     else:
         x = embed_tokens(params, cfg, batch["tokens"])
     B, T = x.shape[:2]
     positions = torch.arange(T, device=x.device).expand(B, T)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     body = _remat(lambda lp, x: dense_layer_train(lp, x, cfg, positions),
                   remat)
-    for lp in params["layers"]:
-        x = body(lp, x)
+    if cfg.family == "moe":
+        for lp in params.get("dense_layers", []):
+            x = body(lp, x)
+        moe_body = _remat(
+            lambda lp, x: moe_layer_train(lp, x, cfg, positions), remat)
+        for lp in params["layers"]:
+            x, a = moe_body(lp, x)
+            aux = aux + a
+    else:
+        for lp in params["layers"]:
+            x = body(lp, x)
     x = L.apply_norm(params["final_norm"], x, cfg)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device), {}
+    return x, aux, {}
 
 
 def chunked_ce_loss(params, cfg: ModelConfig, h, labels, t_chunk: int = 0):

@@ -106,8 +106,10 @@ class Trainer:
                 loss = float(metrics["loss"])      # waits for the step
                 dt = time.perf_counter() - t0
                 losses.append(loss)
-                self.metrics_log.append({"step": step, "loss": loss,
-                                         "s": dt})
+                self.metrics_log.append({
+                    "step": step, "loss": loss, "s": dt,
+                    **{k: float(metrics[k]) for k in ("ce", "aux")
+                       if k in metrics}})
                 # --------------- straggler watchdog
                 if len(durations) >= 5:
                     med = statistics.median(durations[-20:])

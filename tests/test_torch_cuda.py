@@ -1365,3 +1365,243 @@ def test_cuda_train_step_launches_only_the_tensor_core_gemm():
     names = [n for n in nodes if n and ("gemm_bf16<" in n or
                                         "gemm_simt<" in n)]
     assert len(names) == 3 * fwd and all("gemm_bf16<" in n for n in names)
+
+
+# ------------------------------------------------- MoE training (slice 16)
+# the router's 2,048 x 60 weight: rows of 120 bytes, staged in 8-byte
+# copies; 62 columns (124-byte rows) take 4-byte copies
+ROUTER_CASES = [(8, 2048, 60), (4096, 2048, 60), (300, 2048, 62),
+                (4096, 7168, 256)]
+
+
+def _router_products(x, w, dc):
+    """(name, A, B) of the router's three products as the autograd
+    Function launches them: the forward x·W (row-major B, ldb = N), dA =
+    dC·Wᵀ (a row-major A with lda = N, a K-contiguous B with ldb = N) and
+    dW = xᵀ·dC (an M-contiguous A, a row-major B with ldb = N); and dWᵀ =
+    dCᵀ·x, the form a K-contiguous weight's gradient takes (an
+    M-contiguous A with lda = N)."""
+    return (("forward", x, w), ("dA", dc, w.t()), ("dB", x.t(), dc),
+            ("dB^T", dc.t(), x))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,d,n", ROUTER_CASES, ids=str)
+def test_cuda_router_products_run_on_the_tensor_core_kernel(m, d, n):
+    """Each of the router's three products, at rows narrower than 16
+    bytes, is one ``gemm_bf16`` launch (never ``gemm_simt``) within one
+    bf16 ulp of the plain version, bitwise repeatable; the serving call
+    (no ``mma_only``) takes the same kernel."""
+    SG = importlib.import_module("repro_torch.kernels.streaming_gemm")
+    dev = _card()
+    rng = np.random.default_rng(m + n)
+    x = _bf16(rng, (m, d), dev, scale=m ** -0.5)
+    w = _bf16(rng, (d, n), dev, scale=n ** -0.5)
+    dc = _bf16(rng, (m, n), dev)
+    for name, a, b in _router_products(x, w, dc):
+        assert SG.mma_layout(a, b) is not None or \
+            SG.mcontig_layout(a, b) is not None, name
+        got = SG.gemm_cuda(a, b, mma_only=True)
+        want = ref.gemm_ref(a, b)
+        np.testing.assert_allclose(got.float().cpu().numpy(),
+                                   want.float().cpu().numpy(),
+                                   rtol=2e-2, atol=2e-2, err_msg=name)
+        assert torch.equal(SG.gemm_cuda(a, b), got), name
+        nodes = KN.captured_nodes(lambda: SG.gemm_cuda(a, b))
+        assert len(nodes) == 1 and "gemm_bf16<" in nodes[0], (name, nodes)
+
+
+@pytest.mark.cuda
+def test_cuda_router_under_autograd_reads_dc_in_place():
+    """The router's product under autograd: forward and both backward
+    products on ``gemm_bf16``, the (M, 60) output gradient read in place
+    (no copy), gradients within one bf16 ulp of the plain products."""
+    dev = _card()
+    rng = np.random.default_rng(60)
+    x = _bf16(rng, (512, 2048), dev, scale=512 ** -0.5).requires_grad_(True)
+    w = _bf16(rng, (2048, 60), dev, scale=60 ** -0.5).requires_grad_(True)
+    dc = _bf16(rng, (512, 60), dev)
+    ops.reset_launches()
+    dx, dw = torch.autograd.grad(ops.streaming_gemm(x, w), (x, w), dc)
+    assert ops.LAUNCHES["streaming_gemm"] == 3
+    assert ops.GEMM_BWD == {"launches": 2, "dc_copies": 0}
+    for got, want in ((dx, ref.gemm_ref(dc, w.detach().t())),
+                      (dw, ref.gemm_ref(x.detach().t(), dc))):
+        np.testing.assert_allclose(got.float().cpu().numpy(),
+                                   want.float().cpu().numpy(),
+                                   rtol=2e-2, atol=2e-2)
+    # an output gradient with an odd row stride is copied once into
+    # rows padded to 16 bytes, which the kernel reads
+    odd = _bf16(rng, (512, 61), dev)[:, :60]
+    got = torch.autograd.grad(ops.streaming_gemm(x, w), x, odd)[0]
+    assert ops.GEMM_BWD["dc_copies"] == 1
+    np.testing.assert_allclose(
+        got.float().cpu().numpy(),
+        ref.gemm_ref(odd.contiguous(), w.detach().t()).float().cpu().numpy(),
+        rtol=2e-2, atol=2e-2)
+
+
+# (E, C, K, N, counts mean): qwen2-moe at training's capacity (4,096
+# tokens, top-4 over 60 experts: C 344, ~273 rows an expert) for gate/up
+# and down, at decode (C 8), and deepseek-v3's 256 experts of 7,168 <->
+# 2,048 at ~16 rows an expert; then ragged widths
+GROUPED_BWD_CASES = [(60, 344, 2048, 1408, 273), (60, 344, 1408, 2048, 273),
+                     (60, 8, 2048, 1408, None), (256, 32, 7168, 2048, 16),
+                     (7, 40, 136, 200, None), (5, 300, 264, 136, None)]
+
+
+def _poisoned(shape, dev, seed):
+    """A (E, C, K), the weight (E, K, N), dC (E, C, N) and counts (E,)
+    with 0, C and a mid-tile count among them; every row of A and dC at
+    or beyond its count is NaN."""
+    E, C, K, N, mean = shape
+    rng = np.random.default_rng(seed)
+    counts = _grouped_counts(E, C, rng, mean)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    a = torch.randn((E, C, K), generator=g, device=dev).to(torch.bfloat16)
+    b = (torch.randn((E, K, N), generator=g, device=dev) * N ** -0.5).to(
+        torch.bfloat16)
+    dc = torch.randn((E, C, N), generator=g, device=dev).to(torch.bfloat16)
+    cnt = torch.as_tensor(counts, dtype=torch.int32, device=dev)
+    past = torch.arange(C, device=dev)[None, :] >= cnt[:, None]
+    a[past] = float("nan")
+    dc[past] = float("nan")
+    return a, b, dc, cnt, past
+
+
+def _close_on_card(got, want, tol=2e-2):
+    """|got - want| <= tol (1 + |want|) elementwise, expert by expert on
+    the card (deepseek-v3's dB is 3.8 G values: a host copy in fp32
+    would not fit the host's memory)."""
+    assert got.shape == want.shape
+    for g, w in zip(got, want):
+        err = (g.float() - w.float()).abs()
+        assert bool((err <= tol * (1 + w.float().abs())).all()), \
+            float(err.max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", GROUPED_BWD_CASES, ids=str)
+def test_cuda_grouped_backward_kernels_match_plain_versions(shape):
+    """dA = dC·Bᵀ (kept rows) and dB = Aᵀ·dC (summed over the kept rows)
+    with NaN in every row past a count: finite, within one bf16 ulp of
+    the plain versions (zeros for an expert at count 0), bitwise
+    repeatable, one kernel node each."""
+    GG = importlib.import_module("repro_torch.kernels.grouped_gemm")
+    dev = _card()
+    a, b, dc, cnt, past = _poisoned(shape, dev, sum(shape[:4]))
+    da = GG.grouped_bwd_a_cuda(dc, b, cnt)
+    db = GG.grouped_bwd_b_cuda(a, dc, cnt)
+    want_da = ref.grouped_bwd_a_ref(dc, b, cnt)
+    want_db = ref.grouped_bwd_b_ref(a, dc, cnt)
+    kept = ~past
+    assert bool(da[kept].isfinite().all()) and bool(db.isfinite().all())
+    _close_on_card(da[kept], want_da[kept])
+    _close_on_card(db, want_db)
+    del want_da, want_db
+    assert not db[cnt == 0].any()
+    assert torch.equal(GG.grouped_bwd_a_cuda(dc, b, cnt)[kept], da[kept])
+    assert torch.equal(GG.grouped_bwd_b_cuda(a, dc, cnt), db)
+    for fn, name in ((lambda: GG.grouped_bwd_a_cuda(dc, b, cnt),
+                      "grouped_bwd_da"),
+                     (lambda: GG.grouped_bwd_b_cuda(a, dc, cnt),
+                      "grouped_bwd_db")):
+        nodes = [n for n in KN.captured_nodes(fn) if n]
+        assert len(nodes) == 1 and name in nodes[0], nodes
+        assert KN.kernel_group(nodes[0]) == "streaming_gemm_grouped"
+
+
+@pytest.mark.cuda
+def test_cuda_grouped_gemm_function_backward_counts_and_no_nan():
+    """``ops.grouped_streaming_gemm`` under autograd on the card: the
+    forward and both backward kernels, counted under
+    ``streaming_gemm_grouped`` and in ``GROUPED_BWD``; with NaN in the
+    rows past the counts of A and of the output gradient, no NaN reaches
+    a kept row of dA or any of dB."""
+    dev = _card()
+    a, b, dc, cnt, past = _poisoned((60, 344, 256, 192, 273), dev, 5)
+    a_ = a.clone().requires_grad_(True)
+    b_ = b.clone().requires_grad_(True)
+    ops.reset_launches()
+    c = ops.grouped_streaming_gemm(a_, b_, cnt)
+    da, db = torch.autograd.grad(c, (a_, b_), dc)
+    assert ops.LAUNCHES["streaming_gemm_grouped"] == 3
+    assert ops.GROUPED_BWD == {"da": 1, "db": 1}
+    assert bool(da[~past].isfinite().all()) and bool(db.isfinite().all())
+    np.testing.assert_allclose(
+        db.float().cpu().numpy(),
+        ref.grouped_bwd_b_ref(a, dc, cnt).float().cpu().numpy(),
+        rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.cuda
+def test_cuda_moe_train_step_runs_only_hand_written_gemms():
+    """One training step of the reduced qwen2-moe on the card: the grouped
+    kernels (forward, dA, dB) counted, no ``gemm_simt`` kernel, no
+    library GEMM op inside an expert product; the loss within 1e-2 of
+    the same step on the CPU (routing may differ at a near-tie) and
+    every gradient finite."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.launch.steps import loss_and_grads
+    from repro_torch.models.model import Model
+    from repro_torch.models.params import params_to, tree_map
+    from repro_torch.models.params import tree_leaves
+    dev = _card()
+    cfg = get_reduced("qwen2_moe_a2_7b")
+    params = Model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(2)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 64)))
+    batch = {"tokens": toks, "labels": toks.roll(-1, 1)}
+    on_card = params_to(params, dev)
+    batch_card = tree_map(lambda t: t.to(dev), batch)
+
+    def step():
+        return loss_and_grads(Model(cfg, device=dev, remat="none"), on_card,
+                              batch_card)
+
+    ops.reset_launches()
+    (loss, metrics), grads = step()
+    assert ops.GROUPED_BWD == {"da": 3 * cfg.n_layers,
+                               "db": 3 * cfg.n_layers}
+    assert ops.LAUNCHES["streaming_gemm_grouped"] == 9 * cfg.n_layers
+    (want, want_m), want_g = loss_and_grads(
+        Model(cfg, device="cpu", remat="none"), params, batch)
+    assert abs(loss.item() - want.item()) <= 1e-2 * abs(want.item())
+    assert float(metrics["aux"]) > 0
+    for g, w in zip(tree_leaves(grads), tree_leaves(want_g)):
+        assert g.shape == w.shape and bool(g.float().isfinite().all())
+    # the step under the profiler (the dispatch's masked indexing syncs
+    # with the host, so the step cannot be captured into a graph), each
+    # expert product inside a range of its own: no scalar GEMM kernel,
+    # and no library GEMM op inside an expert product (the chunked
+    # attention's torch ops are the only library GEMMs of the step)
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    fwd_fn, bwd_fn = ops._grouped, ops._grouped_bwd
+
+    def ranged(fn):
+        def call(*a):
+            with record_function("grouped_expert_product"):
+                return fn(*a)
+        return call
+
+    ops._grouped, ops._grouped_bwd = ranged(fwd_fn), ranged(bwd_fn)
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            step()
+            torch.cuda.synchronize()
+    finally:
+        ops._grouped, ops._grouped_bwd = fwd_fn, bwd_fn
+    events = prof.events()
+    names = {ev.name for ev in events if ev.device_type == DeviceType.CUDA}
+    assert not any("gemm_simt" in n for n in names), names
+    ranges = [(ev.time_range.start, ev.time_range.end) for ev in events
+              if ev.name == "grouped_expert_product"
+              and ev.device_type == DeviceType.CPU]
+    assert len(ranges) == 9 * cfg.n_layers
+    inside = [ev.name for ev in events
+              if ev.name in ("aten::bmm", "aten::mm", "aten::matmul",
+                             "aten::addmm", "aten::baddbmm")
+              and any(a <= ev.time_range.start <= b for a, b in ranges)]
+    assert not inside, inside

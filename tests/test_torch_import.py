@@ -57,7 +57,11 @@ def test_port_imports_no_jax():
             "repro_torch.data.pipeline",
             "repro_torch.checkpoint.checkpoint",
             "repro_torch.launch.steps",
-            "repro_torch.launch.train"} <= set(mods)
+            "repro_torch.launch.train",
+            "repro_torch.kernels.grouped_gemm",
+            "repro_torch.kernels.streaming_gemm",
+            "repro_torch.kernels.kernel_nodes",
+            "repro_torch.models.transformer"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

@@ -20,7 +20,8 @@ chatglm3-6b, granite-20b and qwen1.5-32b, reduced.
   against the whole-logit cross-entropy.
 - ``remat="full"`` against ``"none"``: the same loss and gradients, bit
   for bit (the recomputation repeats the same CPU ops).
-- The families whose training is not ported raise, naming the ROADMAP.
+- The families whose training is not ported raise, naming the ROADMAP
+  (the MoE family trains: ``tests/test_torch_train_moe.py``).
 """
 import dataclasses
 
@@ -187,11 +188,16 @@ def test_chunked_ce_ragged_chunks_ignored_labels_padded_vocab():
                                   "zamba2_7b", "whisper_tiny",
                                   "deepseek_v3_671b"])
 def test_untrained_families_raise_naming_the_roadmap(arch):
+    """``forward_train`` raises for the families it does not train yet;
+    qwen2-moe trains (``tests/test_torch_train_moe.py``), and every
+    config's ``mtp_loss`` raises."""
     cfg = get_reduced(arch)
     params = Model(cfg, device="cpu").abstract_params()
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 13b"):
-        T.forward_train(params, cfg, {"tokens": torch.zeros(
-            (1, 4), dtype=torch.int32)})
+    if arch != "qwen2_moe_a2_7b":
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP Queue A item 13b"):
+            T.forward_train(params, cfg, {"tokens": torch.zeros(
+                (1, 4), dtype=torch.int32)})
     with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 13b"):
         T.mtp_loss(params, cfg, None, {})
 
