@@ -3849,8 +3849,8 @@ def _grouped_bwd_entry(torch, timer, what, which, x, y, counts, on_path):
     r = {"what": what, "product": which, "shape": {
              "E": E, "C": C, "K": K, "N": N}, "rows": kept,
          "experts_touched": touched, "on_path": on_path,
-         "plan": list(GG.bwd_plan(C, K) if which == "da"
-                      else GG.bwd_plan(K, N)),
+         "plan": (GG.plan_bwd_da(E, C, N, K) if which == "da"
+                  else GG.plan_bwd_db(E, C, K, N))._asdict(),
          "max_abs_err": err, "want_rms": rms, "ms": timer(kern),
          "plain_ms": timer(plain), "library_ms": timer(lib),
          "bound_ms": bms, "bound_by": by}
@@ -3934,9 +3934,15 @@ def _moe_train_kernels(torch, args, dev, timer, rows):
                      + ("dA[e] = dC[e]·B[e]ᵀ over the kept rows"
                         if which == "da" else
                         "dB[e] = A[e]ᵀ·dC[e] summed over the kept rows")
-                     + ": the streaming GEMM's mma.sync tile per (expert, "
-                     "output tile), the count read on the card; the "
-                     "reference differentiates an XLA einsum "
+                     + (": a persistent TMA + wgmma walk over (touched "
+                        "expert, chunk of up to 256 kept rows, 128 columns "
+                        "of K), the weight K-major"
+                        if which == "da" else
+                        ": a persistent TMA + wgmma walk over (expert, 128 "
+                        "x 128 output tile), rows past the count zeroed in "
+                        "shared memory, a TMA-stored epilogue")
+                     + "; work items built on the card from the counts; "
+                     "the reference differentiates an XLA einsum "
                      "(src/repro/models/moe.py:115-118)"),
             "tol": BF16_TOL,
             "max_abs_err": max(r["max_abs_err"] for r in bwd[which]),

@@ -1,8 +1,7 @@
 // One output tile of C = A * B on the tensor cores through mma.sync
-// m16n8k16 (bf16 in, fp32 accumulation), shared by the streaming GEMM
-// (streaming_gemm.cu: gemm_bf16, split-K inside a thread-block cluster)
-// and the backward products of the expert-grouped GEMM (grouped_gemm.cu:
-// one tile of one expert, the expert's kept row count read on the card).
+// m16n8k16 (bf16 in, fp32 accumulation): the streaming GEMM's
+// (streaming_gemm.cu: gemm_bf16, split-K inside a thread-block cluster,
+// forward and both backward products of training).
 //
 // The product is computed transposed, C^T = B^T A^T: the weight's N fills
 // the mma's 16-row dimension and the tokens its n8 dimension.  A cluster

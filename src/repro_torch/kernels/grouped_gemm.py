@@ -32,42 +32,66 @@ once.  The design (the source's header has the details):
 ring's rows from what the host knows (E, C, N, K and the SM count); it
 reads nothing from the card.
 
-The backward products of training, one launch for all experts each
-(``grouped_bwd_a_cuda``, ``grouped_bwd_b_cuda``), run the streaming
-GEMM's ``mma.sync`` tile (``csrc/mma_tile.cuh``) on a grid of (output
-tile, expert), each CTA reading its expert's count on the card:
+The backward products of training (``grouped_bwd_a_cuda``,
+``grouped_bwd_b_cuda``) are persistent walks of the same shape, one
+launch for all experts each, every count read on the card, no atomics
+and no split of a reduction (the same bits on every run).  A producer
+warpgroup feeds a TMA ring; two consumer warpgroups of 232 registers
+(``setmaxnreg``) hold 128 output rows each, so an item's tile is 256
+rows: the walks are fed at about the same bytes a cycle an SM, and the
+bigger tile needs a third fewer bytes a multiply-add.
 
-- dA[e] = dC[e]·B[e]ᵀ: the weight read in place as a K-contiguous
-  operand; rows at or beyond the count are neither read nor written;
-- dB[e] = A[e]ᵀ·dC[e], summed over the kept rows only: the count is the
-  reduction's depth, so rows at or beyond it are zero-filled as they are
-  staged (whatever the buffer holds there, NaN included, never reaches
-  a sum), and an expert no token reached gets zeros.  fp32 sums in one
-  fixed order, no atomics.
+- dA[e] = dC[e]·B[e]ᵀ (kernel ``grouped_bwd_da``): the forward's walk
+  with the weight K-major.  Items are (touched expert, chunk of kept
+  rows, 256 output columns of K, or 128 where no chunk passes 64 rows,
+  ``da_cols``); an expert's count is split evenly into ⌈count / 160⌉
+  chunks (``da_chunks``), a chunk's rows rounded up to 8 up to 64 and to
+  32 beyond: at most 31 padding rows of tensor work an item.  Rows at or
+  beyond the count are never written, and what TMA brings in past it
+  reaches only those rows; kept rows are written in 16-byte pieces
+  through a shared-memory slab.
+- dB[e] = Aᵀ[e]·dC[e] (kernel ``grouped_bwd_db``), summed over the kept
+  rows only: items are (expert, 256 rows of K, 128 columns of N),
+  expert-major, both operands MN-major, the reduction in stages of 64
+  rows.  In the stage that holds the count the rows at or beyond it are
+  zeroed in both operands' tiles, so NaN there reaches nothing; an
+  expert at count 0 loads nothing and stores zeros.  The epilogue stores
+  through a swizzled staging tile by TMA, overlapped with the next
+  item.
 
-They are simple tiles, correct first; ``bwd_plan`` picks a 64- or
-128-wide tile on each side.
+``plan_bwd_da`` and ``plan_bwd_db`` choose each launch's grid, ring
+stages and tile from what the host knows; ``bwd_smem_bytes`` mirrors
+the source's ``gg_bwd_smem_bytes``.  A layout the kernels do not take
+raises; nothing falls back to another kernel.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.kernels import _build
 
 SMS = 132                  # H100 SXM streaming multiprocessors
-CHUNK = 64                 # token rows of a work item, at most
+CHUNK = 64                 # token rows of a forward item, at most
 TILE_N = 128               # weight columns of a work item
 BK = 64                    # k a stage
 MIN_STAGES, MAX_STAGES = 3, 6
+DA_CHUNK = 160             # token rows of a dA item, at most
+DB_BM, DB_BN = 256, 128    # K rows x N columns of a dB item
+DB_BOX = 64 * 64 * 2       # one 64 x 64 bf16 box
+DB_MIN_STAGES, DB_MAX_STAGES = 2, 3
+DA_SLAB = 32               # token rows of a dA epilogue slab
 MAX_EXPERTS = 1024
 SMEM_LIMIT = 227 * 1024
 _VP, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 _ARGS = [_VP, _VP, _VP, _VP, _I32, _I32, _I32, _I32, _I64, _I64, _I64,
          _I64, _I64, _I64, _I32, _I32, _I32, _VP]
-_BWD_ARGS = [_I32, _VP, _VP, _VP, _VP, _I32, _I32, _I32, _I32, _I32, _I64,
-             _I64, _I64, _I64, _I64, _I64, _I32, _I32, _VP]
+_DA_ARGS = [_VP, _VP, _VP, _VP, _I32, _I32, _I32, _I32, _I64, _I64, _I64,
+            _I64, _I64, _I64, _I32, _I32, _I32, _VP]
+_DB_ARGS = [_VP, _VP, _VP, _VP, _I32, _I32, _I32, _I32, _I64, _I64, _I64,
+            _I64, _I32, _I32, _VP]
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -153,11 +177,88 @@ def grouped_gemm_cuda(a: torch.Tensor, b: torch.Tensor,
     return out
 
 
-def bwd_plan(M: int, N: int) -> tuple:
-    """``(bm, bn)`` of a backward tile for an output side of M rows (dA:
-    the buffer's C; dB: the weight's K) and N columns: 64 where the side
-    is at most 64, else 128."""
-    return (64 if M <= 64 else 128), (64 if N <= 64 else 128)
+class BwdPlan(NamedTuple):
+    """A backward launch: ``grid`` persistent CTAs, a ring of ``stages``,
+    an item of ``rows`` x ``cols`` (dA: the token rows a stage holds,
+    ``nt_max``, by 128 or 256 output columns of K; dB: 256 rows of K by
+    128 columns of N) and ``smem`` bytes of dynamic shared memory."""
+    grid: int
+    stages: int
+    rows: int
+    cols: int
+    smem: int
+
+
+def da_cols(nt_max: int) -> int:
+    """dA's output columns an item: 256 (two 64-row weight boxes for each
+    consumer warpgroup) where a chunk can pass 64 rows, else 128."""
+    return 256 if nt_max > 64 else 128
+
+
+def bwd_smem_bytes(which: int, E: int, stages: int, nt_max: int = 0) -> int:
+    """A backward kernel's dynamic shared memory, as ``gg_bwd_smem_bytes``
+    in the source computes it: 1 KB of alignment slack, then for dA
+    (``which`` 0) stages of ``da_cols / 64`` 8 KB weight boxes and
+    ``nt_max`` token rows of 128 B, two 4 KB epilogue slabs, two barriers
+    a stage, the E clamped counts and E + 1 item starts; for dB (1)
+    stages of six 8 KB boxes (four of A, two of dC), two 32 KB staging
+    tiles, two barriers a stage and the E clamped counts."""
+    if which == 0:
+        return 1024 + stages * (da_cols(nt_max) // 64 * DB_BOX
+                                + nt_max * 128) + 2 * DA_SLAB * 128 \
+            + 16 * stages + 4 * E + 4 * (E + 1)
+    return 1024 + stages * 6 * DB_BOX + 2 * 4 * DB_BOX + 16 * stages + 4 * E
+
+
+def _round_rows(n: int) -> int:
+    """A dA chunk's rows as wgmma's N side: up to 7 padding rows to 64,
+    up to 31 beyond."""
+    return -(-n // 8) * 8 if n <= 64 else -(-n // 32) * 32
+
+
+def da_chunks(count: int) -> list:
+    """``[(row0, rows)]`` of dA's chunks of an expert's kept rows, as the
+    kernel splits them: ⌈count / 160⌉ chunks, the first ``count mod n``
+    of them one row longer than the rest."""
+    if count <= 0:
+        return []
+    n = _cdiv(count, DA_CHUNK)
+    base, rem = divmod(count, n)
+    return [(j * base + min(j, rem), base + (j < rem)) for j in range(n)]
+
+
+def _stages(fits, lo: int, hi: int) -> int:
+    return next((s for s in range(hi, lo - 1, -1) if fits(s)), lo)
+
+
+def plan_bwd_da(E: int, C: int, N: int, K: int, sms: int = SMS) -> BwdPlan:
+    """dA = dC·Bᵀ for E experts of C buffer rows, the reduction N and the
+    output's K columns:
+
+    - ``rows`` (``nt_max``): the largest chunk any count can give,
+      min(160, C) rounded as a chunk is; ``cols``: ``da_cols``;
+    - ``grid``: one CTA per SM, fewer where the most items any routing
+      can give, E · ⌈C / 160⌉ · ⌈K / cols⌉, are fewer;
+    - ``stages``: as many as fit the shared memory, 3-6."""
+    nt_max = _round_rows(min(DA_CHUNK, C))
+    cols = da_cols(nt_max)
+    items = E * _cdiv(C, DA_CHUNK) * _cdiv(K, cols)
+    stages = _stages(lambda s: bwd_smem_bytes(0, E, s, nt_max) <= SMEM_LIMIT,
+                     MIN_STAGES, MAX_STAGES)
+    return BwdPlan(max(1, min(sms, items)), stages, nt_max, cols,
+                   bwd_smem_bytes(0, E, stages, nt_max))
+
+
+def plan_bwd_db(E: int, C: int, K: int, N: int, sms: int = SMS) -> BwdPlan:
+    """dB = Aᵀ·dC for E experts of C buffer rows and a (K, N) output a
+    expert: every expert has ⌈K / 256⌉ · ⌈N / 128⌉ items (an expert at
+    count 0 stores zeros), so ``grid`` is one CTA per SM or the items;
+    ``stages``: as many as fit, 2-3."""
+    items = E * _cdiv(K, DB_BM) * _cdiv(N, DB_BN)
+    stages = _stages(lambda s: bwd_smem_bytes(1, E, s) <= SMEM_LIMIT,
+                     DB_MIN_STAGES, DB_MAX_STAGES)
+    return BwdPlan(max(1, min(sms, items)), stages, DB_BM, DB_BN,
+                   bwd_smem_bytes(1, E, stages))
 
 
 def launches(x: torch.Tensor, y: torch.Tensor) -> bool:
@@ -167,8 +268,8 @@ def launches(x: torch.Tensor, y: torch.Tensor) -> bool:
 
 
 def _aligned(t: torch.Tensor) -> bool:
-    """3-D ``t`` as the tile's 16-byte copies read it: the last dimension
-    contiguous, the address and both outer strides 16-byte aligned."""
+    """3-D ``t`` as a tensor map reads it: the last dimension contiguous,
+    the address and both outer strides 16-byte aligned."""
     return t.stride(2) == 1 and t.data_ptr() % 16 == 0 \
         and t.stride(0) % 8 == 0 and t.stride(1) % 8 == 0
 
@@ -183,22 +284,25 @@ def _check_bwd(what, x, y, counts, E, extent):
     if not (x.is_cuda and y.is_cuda and counts.is_cuda
             and x.device == y.device == counts.device):
         raise ValueError(f"{what} needs every operand on one CUDA device")
-    if not (_aligned(x) and _aligned(y)) or extent % 8:
+    if not (_aligned(x) and _aligned(y)) or extent % 8 or E > MAX_EXPERTS:
         raise ValueError(
             f"{what}: layout not taken, strides {x.stride()} and "
-            f"{y.stride()}, N {extent} (the last dimension contiguous, "
-            "addresses and other strides 16-byte aligned, N a multiple of "
-            "8)")
+            f"{y.stride()}, N {extent}, E {E} (the last dimension "
+            "contiguous, addresses and other strides 16-byte aligned, N a "
+            f"multiple of 8, at most {MAX_EXPERTS} experts)")
 
 
-def _launch_bwd(which, x, y, out, counts, rows, M, N, K, bm, bn):
-    E = x.shape[0]
-    fn = _build.function("grouped_gemm", "gg_grouped_bwd", _BWD_ARGS)
-    code = fn(which, _build.ptr(x), _build.ptr(y), _build.ptr(out),
-              _build.ptr(counts), E, rows, M, N, K, x.stride(1), x.stride(0),
-              y.stride(1), y.stride(0), out.stride(1), out.stride(0), bm, bn,
-              _build.stream(x.device))
-    _build.check(code, "streaming_gemm_grouped backward")
+def _strides(t: torch.Tensor) -> tuple:
+    """``(row stride, expert stride)`` of a 3-D operand for its tensor
+    map, which takes no zero stride: a dimension of one gets the stride
+    it would have if ``t`` were contiguous, and an operand broadcast
+    over a longer dimension is copied once."""
+    E, R, X = t.shape
+    if (E > 1 and t.stride(0) == 0) or (R > 1 and t.stride(1) == 0):
+        t = t.contiguous()
+    ld = t.stride(1) if R > 1 else _cdiv(X, 8) * 8
+    se = t.stride(0) if E > 1 else ld * R
+    return t, ld, se
 
 
 def grouped_bwd_a_cuda(dc: torch.Tensor, b: torch.Tensor,
@@ -206,9 +310,9 @@ def grouped_bwd_a_cuda(dc: torch.Tensor, b: torch.Tensor,
     """dA[e] = dC[e]·B[e]ᵀ for the rows below ``counts[e]``: dc (E, C, N)
     and b (E, K, N) bf16 CUDA tensors, N contiguous in both and a
     multiple of 8, the other strides multiples of 8 values, both 16-byte
-    aligned; counts (E,) int32 on the same card.  Returns
-    (E, C, K) bf16 in which rows ``[counts[e], C)`` of expert e are left
-    unwritten, as the forward leaves its own."""
+    aligned, E at most 1,024; counts (E,) int32 on the same card.
+    Returns (E, C, K) bf16 in which rows ``[counts[e], C)`` of expert e
+    are left unwritten, as the forward leaves its own."""
     if dc.dim() != 3 or b.dim() != 3 or dc.shape[0] != b.shape[0] \
             or dc.shape[2] != b.shape[2]:
         raise ValueError(f"grouped dA shapes {tuple(dc.shape)} x "
@@ -217,8 +321,15 @@ def grouped_bwd_a_cuda(dc: torch.Tensor, b: torch.Tensor,
     K = b.shape[1]
     _check_bwd("grouped dA", dc, b, counts, E, N)
     out = torch.empty((E, C, K), dtype=dc.dtype, device=dc.device)
-    if launches(dc, b):
-        _launch_bwd(0, dc, b, out, counts, C, C, K, N, *bwd_plan(C, K))
+    if not launches(dc, b):
+        return out
+    (dc, ldx, sx), (b, ldw, sw) = _strides(dc), _strides(b)
+    plan = plan_bwd_da(E, C, N, K)
+    fn = _build.function("grouped_gemm", "gg_grouped_bwd_da", _DA_ARGS)
+    code = fn(_build.ptr(dc), _build.ptr(b), _build.ptr(out),
+              _build.ptr(counts), E, C, N, K, ldx, sx, ldw, sw, K, C * K,
+              plan.grid, plan.stages, plan.rows, _build.stream(dc.device))
+    _build.check(code, "streaming_gemm_grouped dA")
     return out
 
 
@@ -227,9 +338,9 @@ def grouped_bwd_b_cuda(a: torch.Tensor, dc: torch.Tensor,
     """dB[e] = A[e]ᵀ·dC[e] summed over the rows below ``counts[e]``: a
     (E, C, K) and dc (E, C, N) bf16 CUDA tensors, the last dimension
     contiguous (N a multiple of 8), the other strides multiples of 8
-    values, both 16-byte aligned; counts (E,) int32 on the same card.
-    Returns (E, K, N) bf16, zeros for an expert at count 0; no row at or
-    beyond a count is read."""
+    values, both 16-byte aligned, E at most 1,024; counts (E,) int32 on
+    the same card.  Returns (E, K, N) bf16, zeros for an expert at count
+    0; no row at or beyond a count reaches a sum."""
     if a.dim() != 3 or dc.dim() != 3 or a.shape[:2] != dc.shape[:2]:
         raise ValueError(f"grouped dB shapes {tuple(a.shape)} x "
                          f"{tuple(dc.shape)}")
@@ -239,5 +350,11 @@ def grouped_bwd_b_cuda(a: torch.Tensor, dc: torch.Tensor,
     if not launches(a, dc):
         return torch.zeros((E, K, N), dtype=a.dtype, device=a.device)
     out = torch.empty((E, K, N), dtype=a.dtype, device=a.device)
-    _launch_bwd(1, a, dc, out, counts, C, K, N, C, *bwd_plan(K, N))
+    (a, lda, sa), (dc, ldx, sx) = _strides(a), _strides(dc)
+    plan = plan_bwd_db(E, C, K, N)
+    fn = _build.function("grouped_gemm", "gg_grouped_bwd_db", _DB_ARGS)
+    code = fn(_build.ptr(a), _build.ptr(dc), _build.ptr(out),
+              _build.ptr(counts), E, C, K, N, lda, sa, ldx, sx, plan.grid,
+              plan.stages, _build.stream(a.device))
+    _build.check(code, "streaming_gemm_grouped dB")
     return out

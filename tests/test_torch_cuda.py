@@ -1444,10 +1444,17 @@ def test_cuda_router_under_autograd_reads_dc_in_place():
 # (E, C, K, N, counts mean): qwen2-moe at training's capacity (4,096
 # tokens, top-4 over 60 experts: C 344, ~273 rows an expert) for gate/up
 # and down, at decode (C 8), and deepseek-v3's 256 experts of 7,168 <->
-# 2,048 at ~16 rows an expert; then ragged widths
+# 2,048 at ~16 rows an expert; then ragged widths; then "edges": counts
+# at every edge of the kernels' walks (dA's chunks of up to 256 rows and
+# their 8- and 32-row rounding, dB's stages of 64 rows) and C, with K and
+# N not multiples of 64 or 128
 GROUPED_BWD_CASES = [(60, 344, 2048, 1408, 273), (60, 344, 1408, 2048, 273),
                      (60, 8, 2048, 1408, None), (256, 32, 7168, 2048, 16),
-                     (7, 40, 136, 200, None), (5, 300, 264, 136, None)]
+                     (7, 40, 136, 200, None), (5, 300, 264, 136, None),
+                     (12, 300, 1408, 2048, "edges"),
+                     (10, 520, 264, 200, "edges"),
+                     (9, 260, 136, 72, "edges"), (3, 70, 40, 24, "edges")]
+EDGE_COUNTS = (0, 1, 63, 64, 65, 255, 256, 257)
 
 
 def _poisoned(shape, dev, seed):
@@ -1456,7 +1463,12 @@ def _poisoned(shape, dev, seed):
     or beyond its count is NaN."""
     E, C, K, N, mean = shape
     rng = np.random.default_rng(seed)
-    counts = _grouped_counts(E, C, rng, mean)
+    if mean == "edges":
+        fixed = [min(c, C) for c in EDGE_COUNTS] + [C]
+        counts = [fixed[e] if e < len(fixed) else int(rng.integers(0, C + 1))
+                  for e in range(E)]
+    else:
+        counts = _grouped_counts(E, C, rng, mean)
     g = torch.Generator(device=dev).manual_seed(seed)
     a = torch.randn((E, C, K), generator=g, device=dev).to(torch.bfloat16)
     b = (torch.randn((E, K, N), generator=g, device=dev) * N ** -0.5).to(
@@ -1509,6 +1521,51 @@ def test_cuda_grouped_backward_kernels_match_plain_versions(shape):
         nodes = [n for n in KN.captured_nodes(fn) if n]
         assert len(nodes) == 1 and name in nodes[0], nodes
         assert KN.kernel_group(nodes[0]) == "streaming_gemm_grouped"
+
+
+@pytest.mark.cuda
+def test_cuda_grouped_backward_kernels_take_strided_operands():
+    """Every layout the wrappers take: the heads of token-major tensors
+    (the expert stride the smaller, so the tensor maps' outer dims swap),
+    a weight broadcast over the experts (stride 0, copied once) and a
+    single expert; within 2e-2 of the plain versions."""
+    GG = importlib.import_module("repro_torch.kernels.grouped_gemm")
+    dev = _card()
+    rng = np.random.default_rng(11)
+    E, C, K, N = 6, 90, 136, 200
+    dc = _bf16(rng, (C, E, N), dev).transpose(0, 1)
+    a = _bf16(rng, (C, E, K), dev).transpose(0, 1)
+    b = _bf16(rng, (1, K, N), dev, scale=N ** -0.5).expand(E, K, N)
+    cnt = torch.as_tensor([0, 1, 64, 65, 89, 90], dtype=torch.int32,
+                          device=dev)
+    kept = torch.arange(C, device=dev)[None, :] < cnt[:, None]
+    for e in (slice(None), slice(E - 1, E)):
+        got = GG.grouped_bwd_a_cuda(dc[e], b[e], cnt[e])
+        want = ref.grouped_bwd_a_ref(dc[e], b[e], cnt[e])
+        _close_on_card(got[kept[e]], want[kept[e]])
+        _close_on_card(GG.grouped_bwd_b_cuda(a[e], dc[e], cnt[e]),
+                       ref.grouped_bwd_b_ref(a[e], dc[e], cnt[e]))
+
+
+@pytest.mark.cuda
+def test_cuda_grouped_backward_shared_memory_estimate_matches_the_kernel():
+    """The backward plans' shared-memory count is what the kernels launch
+    with (``gg_bwd_smem_bytes``), for dA's and dB's rings."""
+    import ctypes
+    from repro_torch.kernels import _build
+    _card()
+    GG = importlib.import_module("repro_torch.kernels.grouped_gemm")
+    fn = _build.function("grouped_gemm", "gg_bwd_smem_bytes",
+                         [ctypes.c_int] * 4)
+    for E in (1, 60, 256, 1024):
+        for stages in (2, 3, 4, 6):
+            for nt in (8, 64, 96, 160):
+                assert fn(0, E, stages, nt) == GG.bwd_smem_bytes(0, E, stages,
+                                                                  nt)
+            assert fn(1, E, stages, 0) == GG.bwd_smem_bytes(1, E, stages)
+        for which, plan in ((0, GG.plan_bwd_da(E, 344, 1408, 2048)),
+                            (1, GG.plan_bwd_db(E, 344, 2048, 1408))):
+            assert plan.smem == fn(which, E, plan.stages, plan.rows)
 
 
 @pytest.mark.cuda

@@ -58,6 +58,7 @@ def test_port_imports_no_jax():
             "repro_torch.checkpoint.checkpoint",
             "repro_torch.launch.steps",
             "repro_torch.launch.train",
+            "repro_torch.launch.phase_ab",
             "repro_torch.kernels.grouped_gemm",
             "repro_torch.kernels.streaming_gemm",
             "repro_torch.kernels.kernel_nodes",
