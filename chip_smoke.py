@@ -24,10 +24,14 @@ Phases, in order; any failure raises and exits non-zero:
    8 x 1,024 and 1 x 1,024, each beside SDPA over the same K/V gathered
    into a contiguous cache (what the page indirection costs; a
    yardstick the port never calls).  The INT8 KV cache's two kernels:
-   the int8-pool paged kernel at qwen2-0.5b's and qwen1.5-32b's 8 x 272
-   and mixed 64-1,024 shapes (timed, beside SDPA over a contiguous
-   dequantized copy), granite-20b's query-head groups, whisper-tiny's D
-   64 and lens 0 (untimed); the quantize-and-append kernel bit for bit
+   the int8 kernel (``paged_int8_fwd``) at qwen2-0.5b's and
+   qwen1.5-32b's 8 x 272 and mixed 64-1,024 shapes (timed, beside SDPA
+   over a contiguous dequantized copy and the bf16 kernel at the same
+   shapes), granite-20b's query-head groups, whisper-tiny's D 64 and
+   lens 0 (untimed), and its fused append (the decode step's launch) at
+   qwen1.5-32b's and qwen2-0.5b's 8 x 272, the pools it writes bit for
+   bit against its plain version, timed beside the quantize and paged
+   launches it replaces; the quantize-and-append kernel bit for bit
    against its plain version at qwen1.5-32b's decode and 256-token
    prefill rows and qwen2-0.5b's decode rows, timed.
 3. Serve qwen2-0.5b at full width (random weights from ``--seed``) with
@@ -110,12 +114,12 @@ Phases, in order; any failure raises and exits non-zero:
    cache (``Tuning(kv_cache_quant=True)``): the bf16 pool freed, an int8
    pool sized from the free memory (int8 values plus fp16 scales, slots
    of 2,048 tokens; its pages and GB printed); 8 requests served, six of
-   64-256 prompt tokens and two of 1,536, 8 new tokens each (the int8
-   paged and the quantize kernel must run, the bf16 paged kernel must
-   not); three full-batch decode steps profiled (64 int8 paged and 64
-   quantize launches a step, each one kernel node, no ``index_put``
-   left); the first 2 layers on the card against the CPU under the same
-   tuning.
+   64-256 prompt tokens and two of 1,536, 8 new tokens each (the fused
+   int8 launch and the prefill's quantize kernel must run, the bf16
+   paged kernel must not); three full-batch decode steps profiled (64
+   fused int8 launches and no quantize launch a step, each one kernel
+   node, no ``index_put`` left; the int8 kernel's device ms a step); the
+   first 2 layers on the card against the CPU under the same tuning.
 9. whisper-tiny (encoder-decoder: 4 + 4 layers, d 384, 6 / 6 heads of
    64; random bf16 weights from ``--seed``) through ``Model`` at full
    width and depth.  (a) Each kernel at its shapes, kept as each row's
@@ -288,7 +292,8 @@ Phases, in order; any failure raises and exits non-zero:
    backward; no ``gemm_simt`` kernel, and no ``aten::bmm`` / ``mm`` /
    ``matmul`` inside an expert product.
 17. Print the ``kernels`` JSON line (each kernel's launches from its own
-   path's serving run, the int8 kernels' from phase 8e's, the grouped
+   path's serving run, the int8 kernels' from phase 8e's (the int8
+   kernel's under both its counters), the grouped
    backward kernels' from 16c's profiled step, every path's counts
    beside, the GEMM's forward and backward launches of a training step
    as ``train_launches``), the card line, and last the result line
@@ -526,21 +531,60 @@ def int8_pools(torch, randn, P, page, KH, D):
     return out[0][0], out[1][0], out[0][1], out[1][1]
 
 
-def paged_int8_entry(torch, timer, what, q, kp, vp, ks, vs, table, ln,
-                     on_path, timed=True):
-    """The int8-pool paged kernel at one shape against its plain version
-    (BF16_TOL), and, when ``timed``, the kernel, the plain version, SDPA
-    over a contiguous dequantized copy of the same K/V (the yardstick: no
-    PyTorch call reads int8 pools with scales; the port never calls it)
-    and the bound: q and the output once, the table and lengths, and
-    each cached token's K and V codes and fp16 scales once."""
+def _int8_plan(q, kp, table):
+    """``int8_plan`` of an int8 call's shapes, as a dict."""
+    import importlib
+    PA = importlib.import_module("repro_torch.kernels.paged_attention")
+    n, H, D = q.shape
+    return PA.int8_plan(n, H, kp.shape[2], D, table.shape[1],
+                        kp.shape[1])._asdict()
+
+
+def _int8_bound(q, kp, table, ln, append=False):
+    """The int8 kernel's bound: q and the output once, the table and
+    lengths, each cached token's K and V codes and fp16 scales once; with
+    the append also the step's bf16 K and V rows and their int64 rows."""
+    n, H, D = q.shape
+    KH = kp.shape[2]
+    n_tok = int(ln.sum())
+    nbytes = 2 * 2 * n * H * D + 4 * n * (table.shape[1] + 1) \
+        + 2 * n_tok * KH * (D + 2)
+    if append:
+        nbytes += 2 * 2 * n * KH * D + 8 * n
+    return bound(nbytes, 4 * H * D * n_tok)
+
+
+def _int8_sdpa(torch, q, kp, vp, ks, vs, table, ln):
+    """SDPA over a contiguous dequantized copy of the int8 pools' K/V
+    with a length mask: the yardstick (no PyTorch call reads int8 pools
+    with scales; the port never calls it)."""
     import torch.nn.functional as F
-    from repro_torch.kernels import ops, ref
-    from repro_torch.kernels.paged_attention import launch_plan
     n, H, D = q.shape
     P, page, KH, _ = kp.shape
     max_pages = table.shape[1]
-    groups, splits = launch_plan(n, H, KH, D, max_pages)
+    t = table.long()
+
+    def deq(pool, sc):
+        return (pool[t].float() * sc[t].permute(0, 1, 3, 2)[..., None]
+                .float()).to(torch.bfloat16) \
+            .reshape(n, max_pages * page, KH, D).transpose(1, 2).contiguous()
+
+    kc, vc = deq(kp, ks), deq(vp, vs)
+    mask = (torch.arange(max_pages * page, device=q.device)[None]
+            < ln[:, None])[:, None, None, :]
+    return lambda: F.scaled_dot_product_attention(
+        q[:, :, None, :], kc, vc, attn_mask=mask, enable_gqa=True)
+
+
+def paged_int8_entry(torch, timer, what, q, kp, vp, ks, vs, table, ln,
+                     on_path, timed=True):
+    """The int8 kernel (``paged_int8_fwd`` through ``pa_forward_int8``)
+    at one shape against its plain version (BF16_TOL), and, when
+    ``timed``, the kernel, the plain version, SDPA over a contiguous
+    dequantized copy of the same K/V and the bound (``_int8_bound``)."""
+    from repro_torch.kernels import ops, ref
+    n, H, D = q.shape
+    P, page, KH, _ = kp.shape
 
     def kernel():
         return ops.paged_attention(q, kp, vp, table, ln, ks, vs)
@@ -549,39 +593,83 @@ def paged_int8_entry(torch, timer, what, q, kp, vp, ks, vs, table, ln,
         return ref.paged_ref(q, kp, vp, table, ln, k_scale=ks, v_scale=vs)
 
     err = check_close(f"paged int8 {what}", kernel(), plain(), BF16_TOL)
+    plan = _int8_plan(q, kp, table)
     r = {"shape": {"q": [n, H, D], "pool": [P, page, KH, D],
                    "lens": ln.tolist()}, "what": what, "on_path": on_path,
-         "plan": splits, "head_groups": groups, "max_abs_err": err}
+         "entry": "pa_forward_int8", "plan": plan["splits"],
+         "head_groups": plan["groups"], "int8_plan": plan,
+         "max_abs_err": err}
     msg = ""
     if timed:
-        n_tok = int(ln.sum())
-        bms, by = bound(2 * 2 * n * H * D + 4 * n * (max_pages + 1)
-                        + 2 * n_tok * KH * (D + 2), 4 * H * D * n_tok)
-        t = table.long()
-
-        def deq(pool, sc):
-            return (pool[t].float() * sc[t].permute(0, 1, 3, 2)[..., None]
-                    .float()).to(torch.bfloat16) \
-                .reshape(n, max_pages * page, KH, D).transpose(1, 2) \
-                .contiguous()
-
-        kc, vc = deq(kp, ks), deq(vp, vs)
-        mask = (torch.arange(max_pages * page, device=q.device)[None]
-                < ln[:, None])[:, None, None, :]
-
-        def sdpa():
-            return F.scaled_dot_product_attention(
-                q[:, :, None, :], kc, vc, attn_mask=mask, enable_gqa=True)
-
+        bms, by = _int8_bound(q, kp, table, ln)
         r.update({"ms": timer(kernel), "plain_ms": timer(plain),
-                  "contiguous_sdpa_ms": timer(sdpa), "bound_ms": bms,
-                  "bound_by": by})
+                  "contiguous_sdpa_ms": timer(_int8_sdpa(
+                      torch, q, kp, vp, ks, vs, table, ln)),
+                  "bound_ms": bms, "bound_by": by})
         msg = (f" kernel {r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms "
                f"dequantized contiguous SDPA {r['contiguous_sdpa_ms']:.4f} "
                f"ms bound {bms:.4f} ms ({by})")
-    print(f"[paged_attention_int8] {what} H={H}/{KH} D={D} (groups "
-          f"{groups}, plan S={splits}, on_path {on_path}): err {err:.3g} "
-          f"(tol {BF16_TOL}){msg}", flush=True)
+    print(f"[paged_attention_int8] {what} H={H}/{KH} D={D} (plan {plan}, "
+          f"on_path {on_path}): err {err:.3g} (tol {BF16_TOL}){msg}",
+          flush=True)
+    return r
+
+
+def paged_append_entry(torch, timer, what, q, pools, table, ln, k, v, rows,
+                       on_path):
+    """The decode step's fused launch (``ops.paged_attention_append``:
+    the int8 kernel through ``pa_append_forward_int8``) at one shape: the
+    codes and scales it writes equal its plain version's bit for bit
+    (``kv_quantize_append_ref``, then ``paged_ref``), its output within
+    BF16_TOL; then timed beside the plain version, the two launches it
+    replaces (``kv_quantize_append`` and the int8 kernel), SDPA over a
+    dequantized copy and the bound (``_int8_bound`` with the append)."""
+    from repro_torch.kernels import ops, ref
+    n, H, D = q.shape
+    P, page, KH, _ = pools[0].shape
+    got_pools = [t.clone() for t in pools]
+    want = [t.clone() for t in pools]
+    got = ops.paged_attention_append(q, k, v, rows, got_pools, table, ln)
+    ref.kv_quantize_append_ref(k, v, rows, *want)
+    torch.cuda.synchronize()
+    bad = [name for name, a, b in zip(("k", "v", "k_scale", "v_scale"),
+                                      got_pools, want)
+           if not torch.equal(a, b)]
+    require(not bad, f"paged append {what}: {bad} differ from the plain "
+            "version")
+
+    def plain():
+        ref.kv_quantize_append_ref(k, v, rows, *want)
+        return ref.paged_ref(q, want[0], want[1], table, ln,
+                             k_scale=want[2], v_scale=want[3])
+
+    err = check_close(f"paged append {what}", got, plain(), BF16_TOL)
+    plan = _int8_plan(q, pools[0], table)
+    bms, by = _int8_bound(q, pools[0], table, ln, append=True)
+
+    def unfused():
+        ops.kv_quantize_append(k, v, rows, *got_pools)
+        return ops.paged_attention(q, got_pools[0], got_pools[1], table, ln,
+                                   got_pools[2], got_pools[3])
+
+    r = {"shape": {"q": [n, H, D], "pool": [P, page, KH, D],
+                   "lens": ln.tolist()}, "what": what, "on_path": on_path,
+         "entry": "pa_append_forward_int8", "plan": plan["splits"],
+         "head_groups": plan["groups"], "int8_plan": plan,
+         "bitwise_pools": True, "max_abs_err": err,
+         "ms": timer(lambda: ops.paged_attention_append(
+             q, k, v, rows, got_pools, table, ln)),
+         "plain_ms": timer(plain),
+         "quantize_then_paged_ms": timer(unfused),
+         "contiguous_sdpa_ms": timer(_int8_sdpa(torch, q, *got_pools[:2],
+                                                *got_pools[2:], table, ln)),
+         "bound_ms": bms, "bound_by": by}
+    print(f"[paged_attention_int8_append] {what} H={H}/{KH} D={D} (plan "
+          f"{plan}, on_path {on_path}): pools bitwise, err {err:.3g} (tol "
+          f"{BF16_TOL}) fused {r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms "
+          f"quantize + paged {r['quantize_then_paged_ms']:.4f} ms "
+          f"dequantized contiguous SDPA {r['contiguous_sdpa_ms']:.4f} ms "
+          f"bound {bms:.4f} ms ({by})", flush=True)
     return r
 
 
@@ -748,14 +836,18 @@ def phase_kernels(torch, args, dev, timer):
 
 
 def phase_int8_kernels(torch, timer, randn, g):
-    """Phase 2, the INT8 KV cache's two kernels.  The int8-pool paged
-    kernel at qwen2-0.5b's (14 / 2 heads of 64) and qwen1.5-32b's (40 /
-    40 heads of 128) 8 x 272 and mixed 64-1,024 shapes, timed (on the
-    int8 path: qwen1.5-32b's 8 x 272, the decode profile's context);
+    """Phase 2, the INT8 KV cache's two kernels.  The int8 kernel
+    (``paged_int8_fwd``) at qwen2-0.5b's (14 / 2 heads of 64) and
+    qwen1.5-32b's (40 / 40 heads of 128) 8 x 272 and mixed 64-1,024
+    shapes, timed beside the bf16 kernel at the same shapes (``bf16_ms``);
     granite-20b's query-head groups (48 / 1 heads of 128), whisper's D 64
-    (6 / 6 heads) and lens 0 untimed.  The quantize-and-append kernel
-    bitwise at qwen1.5-32b's decode (8 tokens) and 256-token prefill
-    rows (on the path) and qwen2-0.5b's decode rows, timed."""
+    (6 / 6 heads) and lens 0 untimed; then the decode step's fused
+    launch (``paged_append_entry``) at qwen1.5-32b's 8 x 272 (on the
+    int8 path: the decode profile's context) and qwen2-0.5b's.  The
+    quantize-and-append kernel bitwise at qwen1.5-32b's 256-token prefill
+    rows (on the path) and its decode rows and qwen2-0.5b's (off it since
+    the fused launch), timed."""
+    from repro_torch.kernels import ops
     dev = g.device
     B, page, max_pages = 8, 16, 64
     P = B * max_pages + 16
@@ -767,7 +859,7 @@ def phase_int8_kernels(torch, timer, randn, g):
     fixed = torch.full((B,), 272, dtype=torch.int32, device=dev)
     edge = torch.tensor([0, 1, page, page * max_pages, 0, 17, 272, 1000],
                         dtype=torch.int32, device=dev)
-    per_shape, untimed = [], []
+    per_shape, untimed, kept = [], [], {}
     for arch, H, KH, D, timed in (("qwen2-0.5b", 14, 2, 64, True),
                                   ("qwen1.5-32b", 40, 40, 128, True),
                                   ("granite-20b", 48, 1, 128, False),
@@ -779,18 +871,39 @@ def phase_int8_kernels(torch, timer, randn, g):
         for what, ln in cases:
             r = paged_int8_entry(
                 torch, timer, f"{arch} {what}", q, kp, vp, ks, vs, table, ln,
-                arch == "qwen1.5-32b" and what == "8 x 272", timed)
+                False, timed)
             (per_shape if timed else untimed).append(r)
         if timed:
             r = paged_int8_entry(torch, timer, f"{arch} lens 0", q, kp, vp,
                                  ks, vs, table, torch.zeros_like(fixed),
                                  False, False)
             untimed.append(r)
+            kept[arch] = (H, KH, D, q, (kp, vp, ks, vs))
+    # the bf16 kernel at the timed shapes (new bf16 pools of the same
+    # shape), then the fused append: each sequence's next position
+    for arch, (H, KH, D, q, pools) in kept.items():
+        kb, vb = randn(P, page, KH, D), randn(P, page, KH, D)
+        for r, ln in zip((r for r in per_shape
+                          if r["what"].startswith(arch + " ")),
+                         (fixed, mixed)):
+            r["bf16_ms"] = timer(lambda: ops.paged_attention(
+                q, kb, vb, table, ln))
+            print(f"[paged_attention_int8] {r['what']}: bf16 kernel "
+                  f"{r['bf16_ms']:.4f} ms at the same shape, int8 "
+                  f"{r['ms']:.4f} ms", flush=True)
+        k, v = randn(B, KH, D, scale=3.0), randn(B, KH, D)
+        pos = fixed.long() - 1
+        rows_ = table.long()[torch.arange(B, device=dev), pos // page] \
+            * page + pos % page
+        per_shape.append(paged_append_entry(
+            torch, timer, f"{arch} 8 x 272", q, pools, table, fixed, k, v,
+            rows_, arch == "qwen1.5-32b"))
     rows = {"paged_attention_int8": {
-        "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
+        "route": "cuda", "kernel": "paged_int8_fwd",
+        "source": "src/repro_torch/kernels/csrc/paged_int8.cu",
         "replaces": "src/repro/kernels/paged_attention.py:34",
         "reference_int8_decode": "src/repro/models/layers.py:148",
+        "entries": ["pa_forward_int8", "pa_append_forward_int8"],
         "tol": BF16_TOL,
         "max_abs_err": max(r["max_abs_err"] for r in per_shape + untimed),
         **summary(per_shape, PAGED_KEYS),
@@ -798,7 +911,7 @@ def phase_int8_kernels(torch, timer, randn, g):
     per_shape = [kv_quant_entry(torch, timer, what, n, KH, D, on_path,
                                 randn, g)
                  for what, n, KH, D, on_path in (
-                     ("qwen1.5-32b decode", 8, 40, 128, True),
+                     ("qwen1.5-32b decode", 8, 40, 128, False),
                      ("qwen1.5-32b prefill 256", 256, 40, 128, True),
                      ("qwen2-0.5b decode", 8, 2, 64, False))]
     rows["kv_quantize"] = {
@@ -1860,8 +1973,8 @@ def phase_dense_variants(torch, args, rows):
 
 # the INT8 KV cache's run: qwen1.5-32b after its bf16 run, weights kept
 INT8_ARCH = "qwen1.5-32b"
-INT8_KERNELS = ("streaming_gemm", "flash_attention", "paged_attention_int8",
-                "kv_quantize")
+INT8_KERNELS = ("streaming_gemm", "flash_attention",
+                "paged_attention_int8_append", "kv_quantize")
 INT8_MAX_SEQ = 2048
 # six prompts of 64-256 tokens and two of 1,536, which the bf16 pool's
 # 1,024-token slots could not hold
@@ -1873,11 +1986,13 @@ def phase_int8_serving(torch, args, cfg, params):
     ``INT8_ARCH``, whose weights stay loaded after its bf16 run: the
     bf16 pool freed, an int8 pool sized from the free memory (int8 bytes
     plus the fp16 scales, slots of ``INT8_MAX_SEQ`` tokens); serving the
-    ``INT8_PROMPTS`` with 8 new tokens each (the int8 paged kernel and
-    the quantize kernel must run, the bf16 paged kernel must not); three
-    full-batch decode steps profiled (one int8 paged and one quantize
-    launch a layer, no ``index_put`` left a step); the first 2 layers on
-    the card against the CPU under the same tuning."""
+    ``INT8_PROMPTS`` with 8 new tokens each (the decode step's fused
+    launch and the prefill's quantize kernel must run, the bf16 paged
+    kernel and the int8 kernel's read-only entry must not); three
+    full-batch decode steps profiled (one fused launch a layer, no
+    quantize launch and no ``index_put`` left a step; the int8 kernel's
+    device ms a step and a call printed); the first 2 layers on the card
+    against the CPU under the same tuning."""
     from repro_torch.models import tuning as TU
 
     quant = TU.Tuning(kv_cache_quant=True)
@@ -1888,7 +2003,8 @@ def phase_int8_serving(torch, args, cfg, params):
     res["serving"] = phase_serving(
         torch, args, cfg, params, INT8_KERNELS, new_tokens=8,
         tag=f"{cfg.name} int8 serving", pool_pages=pages,
-        absent=("paged_attention",), max_seq=INT8_MAX_SEQ,
+        absent=("paged_attention", "paged_attention_int8"),
+        max_seq=INT8_MAX_SEQ,
         prompt_lens=INT8_PROMPTS, tuning=quant)
     require(res["serving"]["kv_pool_dtype"] == "torch.int8",
             "the int8 run's pool is not int8")
@@ -1896,13 +2012,21 @@ def phase_int8_serving(torch, args, cfg, params):
         torch, args, cfg, params, n_steps=3,
         tag=f"{cfg.name} int8 decode_profile", pool_pages=pages,
         max_seq=INT8_MAX_SEQ, tuning=quant,
-        one_kernel=("streaming_gemm", "paged_attention_int8",
-                    "kv_quantize"))
+        one_kernel=("streaming_gemm", "paged_attention_int8_append"))
     per_step = prof["launches_per_step"]
-    require(per_step["paged_attention_int8"] == per_step["kv_quantize"]
-            == cfg.n_layers and per_step["paged_attention"] == 0,
-            f"{cfg.name} int8: {per_step} a decode step, not one int8 "
-            "paged and one quantize launch a layer")
+    require(per_step["paged_attention_int8_append"] == cfg.n_layers
+            and per_step["kv_quantize"] == per_step["paged_attention"]
+            == per_step["paged_attention_int8"] == 0,
+            f"{cfg.name} int8: {per_step} a decode step, not one fused "
+            "int8 launch a layer and nothing else of attention")
+    dms = prof["device_ms_per_step"].get("paged_attention_int8", 0.0)
+    res["fused_decode"] = {
+        "launches_per_step": per_step["paged_attention_int8_append"],
+        "kv_quantize_per_step": per_step["kv_quantize"],
+        "device_ms_per_step": dms,
+        "device_ms_per_call": dms / cfg.n_layers}
+    print(f"[{cfg.name} int8] fused decode: " + json.dumps(
+        res["fused_decode"]), flush=True)
     require(prof["aten_index_put_per_step"] == 0,
             f"{cfg.name} int8: {prof['aten_index_put_per_step']} KV "
             "index_put calls a step")
@@ -4360,10 +4484,20 @@ def main():
            "paged_latent_attention": deepseek["config"],
            "paged_attention_int8": int8_path, "kv_quantize": int8_path,
            **{n: moe_train_path for n in GROUPED_BWD_NAMES.values()}}
+    # the counters of a kernel's wrappers: the int8 kernel's two entries
+    counters = {"paged_attention_int8": ("paged_attention_int8",
+                                         "paged_attention_int8_append")}
+
+    def launched(n, name):
+        return sum(n.get(c, 0) for c in counters.get(name, (name,)))
+
     kernels = [{"name": name, **rows[name],
-                "launches": paths[own.get(name, cfg.name)][name],
-                "launches_by_path": {p: n.get(name, 0)
-                                     for p, n in paths.items()}}
+                "launches": launched(paths[own.get(name, cfg.name)], name),
+                "launches_by_path": {p: launched(n, name)
+                                     for p, n in paths.items()},
+                **({"launches_by_counter": {
+                    c: paths[own[name]].get(c, 0) for c in counters[name]}}
+                   if name in counters else {})}
                for name in rows]
     print(json.dumps({"kernels": kernels, "card": card}))
     print(card)

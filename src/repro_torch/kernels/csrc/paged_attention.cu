@@ -70,21 +70,8 @@
 // score -1e30; len = 0 gives zeros; l is floored at 1e-30; output in
 // q's dtype.
 //
-// INT8 pools (the reference's Tuning.kv_cache_quant, whose int8 decode
-// is XLA's decode_attention with k_scale / v_scale, models/layers.py:
-// 148-177): paged_fwd<bf16, int8_t, D, MP> reads int8 K/V pools and
-// their fp16 scale pools, one scale per (token, KV head), with bf16 q
-// and output.  The scale pools are laid out (P, KH, page), so one KV
-// head's scales of a page are contiguous (16, 32 or 64 bytes) and come
-// by the same 16-byte cp.async as the rows, into two slots after the
-// page's V rows in the warp's ring.  Rows are D + 16 bytes.  The K
-// scale is folded into each token's score after the slices are summed;
-// the V scale into each probability stored for PV (l sums the
-// unscaled probabilities), so PV multiplies int8 codes by fp32 weights
-// and P stays fp32, as in the bf16 kernel (the reference rounds
-// p · v_scale to bf16 before PV).  At 8 x 272 tokens of qwen1.5-32b
-// (40 KV heads of 128) the pools and scales are 22.6 MB, half the bf16
-// pools' bytes.
+// INT8 pools (the reference's Tuning.kv_cache_quant) have a kernel of
+// their own, paged_int8_fwd in paged_int8.cu.
 //
 // Each launcher returns cudaGetLastError() of its launch.
 #include <cooperative_groups.h>
@@ -137,9 +124,7 @@ __host__ __device__ inline Layout layout(int G, int D, int page,
   L.cl *= 4; L.cacc *= 4; L.fw *= 4; L.inv_l *= 4; L.ids *= 4;
   L.ring = cdiv(4 * f, 16) * 16;
   L.row = D * esz + 16;
-  // a ring slot: the page's K rows, its V rows, and for int8 pools
-  // (esz 1) the page's fp16 K and V scales of this KV head
-  L.slot = 2 * page * L.row + (esz == 1 ? 2 * page * 2 : 0);
+  L.slot = 2 * page * L.row;  // a ring slot: the page's K rows, its V rows
   const int ring = walkers * STAGES * L.slot;
   const int part = WARPS * G * D * 4;
   L.bytes = L.ring + (ring > part ? ring : part);
@@ -174,10 +159,6 @@ __device__ __forceinline__ float2 load2(const float* p) {
 }
 __device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-}
-__device__ __forceinline__ float2 load2(const int8_t* p) {
-  const char2 c = *reinterpret_cast<const char2*>(p);
-  return make_float2(static_cast<float>(c.x), static_cast<float>(c.y));
 }
 __device__ __forceinline__ void store2(float* p, float x, float y) {
   *reinterpret_cast<float2*>(p) = make_float2(x, y);
@@ -220,29 +201,6 @@ __device__ __forceinline__ void load_vec(const __nv_bfloat16* p, float* f) {
     f[2 * i] = __uint_as_float(w[i] << 16);
     f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
   }
-}
-
-template <int VEC>
-__device__ __forceinline__ void load_vec(const int8_t* p, float* f) {
-  static_assert(VEC == 4 || VEC == 8 || VEC == 16,
-                "int8 rows are read 4, 8 or 16 B");
-  uint32_t w[VEC / 4];
-  if constexpr (VEC == 16) {
-    const uint4 x = *reinterpret_cast<const uint4*>(p);
-    w[0] = x.x; w[1] = x.y; w[2] = x.z; w[3] = x.w;
-  } else if constexpr (VEC == 8) {
-    const uint2 x = *reinterpret_cast<const uint2*>(p);
-    w[0] = x.x; w[1] = x.y;
-  } else {
-    w[0] = *reinterpret_cast<const uint32_t*>(p);
-  }
-  // byte b of a word, sign-extended: exact in fp32
-#pragma unroll
-  for (int i = 0; i < VEC / 4; ++i)
-#pragma unroll
-    for (int b = 0; b < 4; ++b)
-      f[4 * i + b] = static_cast<float>(
-          static_cast<int>(w[i] << (24 - 8 * b)) >> 24);
 }
 
 // s[h] += q[g0 + h] · k over this lane's slice of D (pe elements) for
@@ -288,24 +246,20 @@ __device__ __forceinline__ int pair_col(int lane, int j) {
   return D <= 64 ? 2 * lane % D : pair_e(lane, j) % D;  // D <= 64: no j
 }
 
-// T: q and output dtype; KV: pool dtype (T, or int8_t with fp16 scale
-// pools ksc / vsc of (P, KH, page); nullptr otherwise); D: head dim;
-// MP: output element pairs a lane holds (ceil(G·D / 64) <= MP, G the
-// CTA's query heads).
-template <typename T, typename KV, int D, int MP>
+// T: q, pool and output dtype; D: head dim; MP: output element pairs a
+// lane holds (ceil(G·D / 64) <= MP, G the CTA's query heads).
+template <typename T, int D, int MP>
 __global__ void __launch_bounds__(THREADS, 1)
-    paged_fwd(const T* __restrict__ q, const KV* __restrict__ kp,
-              const KV* __restrict__ vp, const __half* __restrict__ ksc,
-              const __half* __restrict__ vsc, const int* __restrict__ table,
+    paged_fwd(const T* __restrict__ q, const T* __restrict__ kp,
+              const T* __restrict__ vp, const int* __restrict__ table,
               const int* __restrict__ lens, T* __restrict__ o, int H, int KH,
               int groups, int page, int max_pages, int splits, int walkers,
               float qscale) {
-  constexpr bool QUANT = sizeof(KV) == 1;
   extern __shared__ __align__(16) unsigned char smem[];
   cg::cluster_group cluster = cg::this_cluster();
   // this CTA's query heads: G of them, from head blockIdx.y · G
   const int G = H / (KH * groups), GD = G * D;
-  const Layout L = layout(G, D, page, max_pages, walkers, sizeof(KV));
+  const Layout L = layout(G, D, page, max_pages, walkers, sizeof(T));
   float* qs = reinterpret_cast<float*>(smem + L.qs);
   float* cm = reinterpret_cast<float*>(smem + L.cm);
   float* cl = reinterpret_cast<float*>(smem + L.cl);
@@ -352,8 +306,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   // rings would not fit); the others keep an empty state
   const int nw =
       warp < walkers && np > warp ? cdiv(np - warp, walkers) : 0;
-  const int chunks = D * static_cast<int>(sizeof(KV)) / 16;  // per row
-  const int schunks = QUANT ? page * 2 / 16 : 0;  // per scale slot
+  const int chunks = D * static_cast<int>(sizeof(T)) / 16;  // per row
   const size_t kh_off = static_cast<size_t>(kh) * D;
 
   // the warp's i-th page (local page warp + i·walkers) into its ring slot
@@ -365,18 +318,9 @@ __global__ void __launch_bounds__(THREADS, 1)
       for (int x = lane; x < page * chunks; x += 32) {
         const int r = x / chunks, cc = x % chunks;
         const size_t src = (static_cast<size_t>(pid) * page + r) * KH * D +
-                           kh_off + cc * (16 / sizeof(KV));
+                           kh_off + cc * (16 / sizeof(T));
         cp_async16(ks + r * L.row + cc * 16, kp + src);
         cp_async16(vs + r * L.row + cc * 16, vp + src);
-      }
-      if constexpr (QUANT) {
-        // this KV head's page of K scales, then of V scales
-        const size_t so = (static_cast<size_t>(pid) * KH + kh) * page;
-        for (int x = lane; x < 2 * schunks; x += 32) {
-          const int which = x / schunks, cc = x % schunks;
-          cp_async16(ks + 2 * page * L.row + which * page * 2 + cc * 16,
-                     (which ? vsc : ksc) + so + cc * 8);
-        }
       }
     }
     cp_async_commit();  // an empty group keeps the wait counts uniform
@@ -390,15 +334,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     const unsigned char* ks = ring + (i % STAGES) * L.slot;
     const unsigned char* vs = ks + page * L.row;
     const int pos = (lo + warp + i * walkers) * page + t;
-    const KV* krow = reinterpret_cast<const KV*>(ks + t * L.row) + part * pe;
-    // this lane's token's dequantization scales (int8 pools only)
-    float kscale = 1.f, vscale = 1.f;
-    if constexpr (QUANT) {
-      const __half* ss =
-          reinterpret_cast<const __half*>(ks + 2 * page * L.row);
-      kscale = __half2float(ss[t]);
-      vscale = __half2float(ss[page + t]);
-    }
+    const T* krow = reinterpret_cast<const T*>(ks + t * L.row) + part * pe;
 
     for (int g0 = 0; g0 < G; g0 += HB) {
       const int nh = min(HB, G - g0);
@@ -413,15 +349,8 @@ __global__ void __launch_bounds__(THREADS, 1)
       }
       __syncwarp();
       const float* qrow = qs + part * pe;
-      if constexpr (QUANT) {
-        if (pe % 16 == 0)
-          qk_slice<16>(krow, qrow, g0, G, D, pe, s);
-        else if (pe % 8 == 0)
-          qk_slice<8>(krow, qrow, g0, G, D, pe, s);
-        else
-          qk_slice<4>(krow, qrow, g0, G, D, pe, s);
-      } else if (sizeof(KV) == 4 || pe % 8 == 0) {
-        qk_slice<sizeof(KV) == 4 ? 4 : 8>(krow, qrow, g0, G, D, pe, s);
+      if (sizeof(T) == 4 || pe % 8 == 0) {
+        qk_slice<sizeof(T) == 4 ? 4 : 8>(krow, qrow, g0, G, D, pe, s);
       } else {
         qk_slice<4>(krow, qrow, g0, G, D, pe, s);
       }
@@ -437,7 +366,6 @@ __global__ void __launch_bounds__(THREADS, 1)
       float mx[HB], sum[HB];
 #pragma unroll
       for (int h = 0; h < HB; ++h) {
-        if constexpr (QUANT) s[h] *= kscale;
         s[h] = pos < len ? s[h] : NEG_INF;
         mx[h] = s[h];
       }
@@ -465,9 +393,7 @@ __global__ void __launch_bounds__(THREADS, 1)
 #pragma unroll
       for (int h = 0; h < HB; ++h) {
         const float corr = exp2_ftz(m_old[h] - mx[h]);
-        // PV's weight: p, times the token's V scale for int8 pools
-        if (part == 0 && h < nh)
-          ps[t * G + g0 + h] = QUANT ? s[h] * vscale : s[h];
+        if (part == 0 && h < nh) ps[t * G + g0 + h] = s[h];
         if (lane == h) {
           m_out = mx[h];
           l_out = l_old[h] * corr + sum[h];
@@ -492,7 +418,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     }
 #pragma unroll 4
     for (int tt = 0; tt < page; ++tt) {
-      const KV* vrow = reinterpret_cast<const KV*>(vs + tt * L.row);
+      const T* vrow = reinterpret_cast<const T*>(vs + tt * L.row);
       const float* prow = ps + tt * G;
 #pragma unroll
       for (int j = 0; j < MP; ++j) {
@@ -577,17 +503,17 @@ __global__ void __launch_bounds__(THREADS, 1)
   cluster.sync();  // no CTA leaves while a peer still reads its state
 }
 
-template <typename T, typename KV, int D, int MP>
-int launch(const void* q, const void* kp, const void* vp, const void* ksc,
-           const void* vsc, const int* table, const int* lens, void* o,
-           int B, int H, int KH, int groups, int page, int max_pages,
-           int splits, int walkers, cudaStream_t stream) {
-  auto kern = paged_fwd<T, KV, D, MP>;
+template <typename T, int D, int MP>
+int launch(const void* q, const void* kp, const void* vp, const int* table,
+           const int* lens, void* o, int B, int H, int KH, int groups,
+           int page, int max_pages, int splits, int walkers,
+           cudaStream_t stream) {
+  auto kern = paged_fwd<T, D, MP>;
   static const cudaError_t attr = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const Layout L = layout(H / (KH * groups), D, page, max_pages, walkers,
-                          sizeof(KV));
+                          sizeof(T));
   if (L.bytes > MAX_SMEM) return static_cast<int>(cudaErrorInvalidValue);
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(splits, KH * groups, B);
@@ -602,10 +528,9 @@ int launch(const void* q, const void* kp, const void* vp, const void* ksc,
   cfg.attrs = at;
   cfg.numAttrs = 1;
   cudaError_t err = cudaLaunchKernelEx(
-      &cfg, kern, static_cast<const T*>(q), static_cast<const KV*>(kp),
-      static_cast<const KV*>(vp), static_cast<const __half*>(ksc),
-      static_cast<const __half*>(vsc), table, lens, static_cast<T*>(o), H,
-      KH, groups, page, max_pages, splits, walkers,
+      &cfg, kern, static_cast<const T*>(q), static_cast<const T*>(kp),
+      static_cast<const T*>(vp), table, lens, static_cast<T*>(o), H, KH,
+      groups, page, max_pages, splits, walkers,
       LOG2E / sqrtf(static_cast<float>(D)));
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
@@ -614,20 +539,19 @@ int launch(const void* q, const void* kp, const void* vp, const void* ksc,
 // MP, the pairs a lane holds, is the least of 8, 16, 32 that covers the
 // CTA's G·D: every pair is computed, so a tier sized to G·D keeps the
 // waste small.
-template <typename T, typename KV, int D>
-int launch_d(const void* q, const void* kp, const void* vp, const void* ksc,
-             const void* vsc, const int* tb, const int* ln, void* o, int B,
-             int H, int KH, int gr, int page, int mp, int splits,
-             int walkers, cudaStream_t st) {
+template <typename T, int D>
+int launch_d(const void* q, const void* kp, const void* vp, const int* tb,
+             const int* ln, void* o, int B, int H, int KH, int gr, int page,
+             int mp, int splits, int walkers, cudaStream_t st) {
   const int gd = (H / (KH * gr)) * D;
   if (gd <= 8 * 64)
-    return launch<T, KV, D, 8>(q, kp, vp, ksc, vsc, tb, ln, o, B, H, KH, gr,
-                               page, mp, splits, walkers, st);
+    return launch<T, D, 8>(q, kp, vp, tb, ln, o, B, H, KH, gr, page, mp,
+                           splits, walkers, st);
   if (gd <= 16 * 64)
-    return launch<T, KV, D, 16>(q, kp, vp, ksc, vsc, tb, ln, o, B, H, KH, gr,
-                                page, mp, splits, walkers, st);
-  return launch<T, KV, D, 32>(q, kp, vp, ksc, vsc, tb, ln, o, B, H, KH, gr,
-                              page, mp, splits, walkers, st);
+    return launch<T, D, 16>(q, kp, vp, tb, ln, o, B, H, KH, gr, page, mp,
+                            splits, walkers, st);
+  return launch<T, D, 32>(q, kp, vp, tb, ln, o, B, H, KH, gr, page, mp,
+                          splits, walkers, st);
 }
 
 template <typename T>
@@ -635,48 +559,19 @@ int launch_t(const void* q, const void* kp, const void* vp, const int* tb,
              const int* ln, void* o, int B, int H, int KH, int gr, int D,
              int page, int mp, int splits, int walkers, cudaStream_t st) {
   switch (D) {
-    case 16: return launch_d<T, T, 16>(q, kp, vp, nullptr, nullptr, tb, ln,
-                                       o, B, H, KH, gr, page, mp, splits,
-                                       walkers, st);
-    case 32: return launch_d<T, T, 32>(q, kp, vp, nullptr, nullptr, tb, ln,
-                                       o, B, H, KH, gr, page, mp, splits,
-                                       walkers, st);
-    case 64: return launch_d<T, T, 64>(q, kp, vp, nullptr, nullptr, tb, ln,
-                                       o, B, H, KH, gr, page, mp, splits,
-                                       walkers, st);
-    case 112: return launch_d<T, T, 112>(q, kp, vp, nullptr, nullptr, tb,
-                                         ln, o, B, H, KH, gr, page, mp,
-                                         splits, walkers, st);
-    case 128: return launch_d<T, T, 128>(q, kp, vp, nullptr, nullptr, tb,
-                                         ln, o, B, H, KH, gr, page, mp,
-                                         splits, walkers, st);
+    case 16: return launch_d<T, 16>(q, kp, vp, tb, ln, o, B, H, KH, gr, page,
+                                    mp, splits, walkers, st);
+    case 32: return launch_d<T, 32>(q, kp, vp, tb, ln, o, B, H, KH, gr, page,
+                                    mp, splits, walkers, st);
+    case 64: return launch_d<T, 64>(q, kp, vp, tb, ln, o, B, H, KH, gr, page,
+                                    mp, splits, walkers, st);
+    case 112: return launch_d<T, 112>(q, kp, vp, tb, ln, o, B, H, KH, gr,
+                                      page, mp, splits, walkers, st);
+    case 128: return launch_d<T, 128>(q, kp, vp, tb, ln, o, B, H, KH, gr,
+                                      page, mp, splits, walkers, st);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
-
-// bf16 q and output over int8 pools with fp16 scale pools
-int launch_int8(const void* q, const void* kp, const void* vp,
-                const void* ksc, const void* vsc, const int* tb,
-                const int* ln, void* o, int B, int H, int KH, int gr, int D,
-                int page, int mp, int splits, int walkers, cudaStream_t st) {
-  using BF = __nv_bfloat16;
-  switch (D) {
-    case 16: return launch_d<BF, int8_t, 16>(q, kp, vp, ksc, vsc, tb, ln, o,
-                                             B, H, KH, gr, page, mp, splits,
-                                             walkers, st);
-    case 32: return launch_d<BF, int8_t, 32>(q, kp, vp, ksc, vsc, tb, ln, o,
-                                             B, H, KH, gr, page, mp, splits,
-                                             walkers, st);
-    case 64: return launch_d<BF, int8_t, 64>(q, kp, vp, ksc, vsc, tb, ln, o,
-                                             B, H, KH, gr, page, mp, splits,
-                                             walkers, st);
-    case 128: return launch_d<BF, int8_t, 128>(q, kp, vp, ksc, vsc, tb, ln,
-                                               o, B, H, KH, gr, page, mp,
-                                               splits, walkers, st);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
 
 // ------------------------------------------- the latent form (MLA decode)
 //
@@ -1444,8 +1339,7 @@ int launch_latent_tc(const void* q, const void* pool, int pool_pages,
 }  // namespace
 
 // Bytes of dynamic shared memory the kernel takes for a CTA of G query
-// heads (the wrapper's check); esz is the pools' element size, 1 for
-// int8 pools with their scales.
+// heads (the wrapper's check); esz is the pools' element size.
 extern "C" int pa_smem_bytes(int G, int D, int page, int max_pages,
                              int walkers, int esz) {
   return layout(G, D, page, max_pages, walkers, esz).bytes;
@@ -1478,27 +1372,6 @@ extern "C" int pa_forward(int dtype, const void* q, const void* kp,
     return launch_t<__nv_bfloat16>(q, kp, vp, tb, ln, o, B, H, KH, groups,
                                    D, page, max_pages, splits, walkers, st);
   return static_cast<int>(cudaErrorInvalidValue);
-}
-
-// The int8-pool form: q, o: (B, H, D) bf16; kp, vp: (P, page, KH, D)
-// int8; ksc, vsc: (P, KH, page) fp16 scales; table, lens as above — all
-// contiguous, on the device, the pools and the scale pools 16-byte
-// aligned.  Needs D in {16, 32, 64, 128} and what pa_forward needs.
-extern "C" int pa_forward_int8(const void* q, const void* kp, const void* vp,
-                               const void* ksc, const void* vsc,
-                               const void* table, const void* lens, void* o,
-                               int B, int H, int KH, int groups, int D,
-                               int page, int max_pages, int splits,
-                               int walkers, void* stream) {
-  if (KH < 1 || groups < 1 || H % (KH * groups) ||
-      (H / (KH * groups)) * D > 2048 || splits < 1 ||
-      splits > MAX_SPLITS || walkers < 1 || walkers > WARPS ||
-      (page != 8 && page != 16 && page != 32))
-    return static_cast<int>(cudaErrorInvalidValue);
-  return launch_int8(q, kp, vp, ksc, vsc, static_cast<const int*>(table),
-                     static_cast<const int*>(lens), o, B, H, KH, groups, D,
-                     page, max_pages, splits, walkers,
-                     static_cast<cudaStream_t>(stream));
 }
 
 // Bytes of dynamic shared memory the latent kernel takes (the wrapper's

@@ -17,11 +17,10 @@ import torch
 # the wrappers of ``ops`` whose calls ``step_calls`` captures
 OPS_WRAPPERS = ("streaming_gemm", "grouped_streaming_gemm", "flash_attention",
                 "paged_attention", "paged_latent_attention",
-                "kv_quantize_append")
+                "paged_attention_append", "kv_quantize_append")
 
 # each hand-written kernel's function name, and the ``ops.LAUNCHES``
-# counter it belongs to; the int8-pool paged kernel is ``paged_fwd`` over
-# ``signed char`` pools
+# counter it belongs to
 KERNEL_GROUPS = (("grouped_wgmma", "streaming_gemm_grouped"),
                  ("grouped_bwd_da", "streaming_gemm_grouped"),
                  ("grouped_bwd_db", "streaming_gemm_grouped"),
@@ -30,9 +29,13 @@ KERNEL_GROUPS = (("grouped_wgmma", "streaming_gemm_grouped"),
                  ("flash_bf16", "flash_attention"),
                  ("flash_f32", "flash_attention"),
                  ("kv_quant_append", "kv_quantize"),
+                 ("paged_int8_fwd", "paged_attention_int8"),
                  ("paged_latent", "paged_latent_attention"),
                  ("paged_latent_tc", "paged_latent_attention"),
                  ("paged_fwd", "paged_attention"))
+# counters whose calls launch another counter's kernel: the int8 paged
+# kernel's append entry is the same ``paged_int8_fwd`` with a flag
+SHARED_KERNELS = {"paged_attention_int8_append": "paged_attention_int8"}
 NOT_A_KERNEL = "not a kernel"
 OTHER = "other (torch ops)"
 # a demangled function's own name: the first identifier that opens its
@@ -50,8 +53,6 @@ def kernel_group(name) -> str:
         return NOT_A_KERNEL
     m = _FUNC.search(name)
     func = m.group(1) if m else name
-    if func == "paged_fwd" and "signed char" in name:
-        return "paged_attention_int8"
     return dict(KERNEL_GROUPS).get(func, OTHER)
 
 
@@ -197,6 +198,7 @@ def step_calls(step, wrappers=OPS_WRAPPERS) -> dict:
 
 def strays(calls) -> list:
     """(counter, node name) of every node in ``step_calls``' result that
-    is not a kernel of the counter its call moved."""
+    is not a kernel of the counter its call moved (for a counter of
+    ``SHARED_KERNELS``, of the counter whose kernel it launches)."""
     return [(c, n) for c, per_call in calls.items() for nodes in per_call
-            for n in nodes if kernel_group(n) != c]
+            for n in nodes if kernel_group(n) != SHARED_KERNELS.get(c, c)]

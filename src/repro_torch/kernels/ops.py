@@ -6,7 +6,10 @@ cannot take.  There is no fallback from the kernel to the plain version.
 
 ``LAUNCHES`` counts, per wrapper, the kernel launches made (CPU calls do
 not count), so a run can show that its main path went through the
-kernels.  The streaming GEMM's launches for the backward products of
+kernels.  The int8 paged kernel counts under ``paged_attention_int8``
+where it only reads the pools and under ``paged_attention_int8_append``
+where the same launch also appends the decode step's rows.  The
+streaming GEMM's launches for the backward products of
 training count under ``streaming_gemm`` like the forward ones (the same
 kernel) and again in ``GEMM_BWD["launches"]``, so a run can tell them
 apart; ``GEMM_BWD["dc_copies"]`` counts the copies the backward made
@@ -26,13 +29,15 @@ from repro_torch.kernels.grouped_gemm import (grouped_bwd_a_cuda,
                                               grouped_bwd_b_cuda,
                                               grouped_gemm_cuda, launches)
 from repro_torch.kernels.kv_quant import kv_quant_cuda
-from repro_torch.kernels.paged_attention import paged_cuda, paged_latent_cuda
+from repro_torch.kernels.paged_attention import (paged_cuda,
+                                                 paged_int8_cuda,
+                                                 paged_latent_cuda)
 from repro_torch.kernels.streaming_gemm import copy_width, gemm_cuda
 
 LAUNCHES = {"streaming_gemm": 0, "streaming_gemm_grouped": 0,
             "flash_attention": 0, "paged_attention": 0,
             "paged_latent_attention": 0, "paged_attention_int8": 0,
-            "kv_quantize": 0}
+            "paged_attention_int8_append": 0, "kv_quantize": 0}
 GEMM_BWD = {"launches": 0, "dc_copies": 0}
 GROUPED_BWD = {"da": 0, "db": 0}
 
@@ -254,6 +259,32 @@ def kv_write(pools, rows, k, v) -> None:
         return
     k_pages.view(-1, *k_pages.shape[2:])[rows] = k.to(k_pages.dtype)
     v_pages.view(-1, *v_pages.shape[2:])[rows] = v.to(v_pages.dtype)
+
+
+def paged_attention_append(q, k, v, rows, pools, table,
+                           lens) -> torch.Tensor:
+    """One decode step over int8 pools: write the step's new K/V rows
+    ``k`` / ``v`` (n, KH, D) bf16, quantized per (token, KV head), at the
+    flat pool ``rows`` (n,) int64, then attend q (n, H, D) over ``pools``
+    (a layer's ``(k_pages, v_pages, k_scale, v_scale)``, int8 with fp16
+    scales) through table (n, max_pages) int32 and lens (n,) int32, the
+    lengths after this token (row b is position ``lens[b] - 1`` of
+    sequence b).  Returns (n, H, D) bf16.
+
+    On the card one launch does both (``paged_int8_cuda`` with
+    ``append``), counted as ``paged_attention_int8_append``; its plain
+    version is ``kv_quantize_append_ref`` followed by ``paged_ref``."""
+    k_pages, v_pages, k_scale, v_scale = pools
+    k, v = k.contiguous(), v.contiguous()
+    if not q.is_cuda:
+        ref.kv_quantize_append_ref(k, v, rows, k_pages, v_pages, k_scale,
+                                   v_scale)
+        return ref.paged_ref(q, k_pages, v_pages, table, lens,
+                             k_scale=k_scale, v_scale=v_scale)
+    out = paged_int8_cuda(q, k_pages, v_pages, table, lens, k_scale,
+                          v_scale, append=(k, v, rows))
+    LAUNCHES["paged_attention_int8_append"] += 1
+    return out
 
 
 def paged_latent_attention(q, pool, table, lens, dv: int,

@@ -41,19 +41,19 @@ What the design does about it:
   groups read 1 KB more a token, mostly from L2.  Shapes with G·D <=
   2,048 take one group and launch as before.
 
-INT8 pools (``Tuning.kv_cache_quant``; ROADMAP Queue B 4e): with fp16
-scale pools ``k_scale`` / ``v_scale``, ``paged_cuda`` launches the
-``pa_forward_int8`` entry, the same warp-per-page walk over int8 rows
-(D + 16 bytes in shared memory) with bf16 q and output.  The scale pools
-are (P, KH, page), not the reference's (…, seq, KH): one KV head's 16
-scales of a page are then 32 contiguous bytes that the rows' 16-byte
-``cp.async`` fetches into two slots after the page's V rows, where the
-reference's layout would stride them by KH x 2 bytes.  Scores take the
-token's K scale after the slices are summed; each probability stored
-for PV takes its V scale (the sum l does not), so P stays fp32 as in the
-bf16 kernel, where the reference rounds ``p · v_scale`` to bf16.  The
-pools and scales are about half the bf16 pools' bytes (22.6 MB against
-42 MB at qwen1.5-32b's 8 x 272).
+INT8 pools (``Tuning.kv_cache_quant``): with fp16 scale pools
+``k_scale`` / ``v_scale``, ``paged_cuda`` hands over to
+``paged_int8_cuda``, the kernel ``paged_int8_fwd`` of
+``csrc/paged_int8.cu`` (entries ``pa_forward_int8`` and, with the decode
+step's quantize-and-append folded in, ``pa_append_forward_int8``), bf16
+q and output.  The scale pools are (P, KH, page), not the reference's
+(…, seq, KH): one KV head's 16 scales of a page are then 32 contiguous
+bytes, one bulk copy.  Scores take the token's K scale after the slices
+are summed; each probability stored for PV takes its V scale (the sum l
+does not), so P stays fp32 as in the bf16 kernel, where the reference
+rounds ``p · v_scale`` to bf16.  The pools and scales are about half the
+bf16 pools' bytes (22.6 MB against 42 MB at qwen1.5-32b's 8 x 272).
+``int8_plan`` picks its heads tier, head groups, split and ring depth.
 
 The latent form (``paged_latent_cuda``, the ``pa_latent_forward`` entry
 of the same source) serves multi-head latent attention's absorbed
@@ -77,6 +77,7 @@ distributed shared memory).
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -89,12 +90,14 @@ PAGE_SIZES = (8, 16, 32)
 MAX_GROUP_ELEMS = 2048      # a CTA's heads x D: 32 fp32 pairs per lane
 MAX_SMEM_BYTES = 227 * 1024
 SMS = 132                   # H100 SXM streaming multiprocessors
+SM_SMEM_BYTES = 228 * 1024  # an SM's shared memory, 1 KB of it kept a CTA
 MAX_SPLITS = 8              # portable thread-block cluster size
 WARPS = 4                   # warps per CTA, each walking its own pages
 _VP, _I32 = ctypes.c_void_p, ctypes.c_int
 _ARGS = [_I32, _VP, _VP, _VP, _VP, _VP, _VP, _I32, _I32, _I32, _I32, _I32,
          _I32, _I32, _I32, _I32, _VP]
-_INT8_ARGS = [_VP] * 8 + [_I32] * 9 + [_VP]
+_INT8_ARGS = [_VP] * 8 + [_I32] * 11 + [_VP]
+_INT8_APPEND_ARGS = [_VP] * 11 + [_I32] * 11 + [_VP]
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -139,12 +142,11 @@ def smem_bytes(G: int, D: int, page: int, max_pages: int, walkers: int,
     head group's), as ``layout`` in the source computes it: fp32 scratch
     (q, each warp's p and (m, l), the CTA's state, the merge weights),
     the sequence's table row, then the walking warps' two-slot K/V rings
-    of rows padded by 16 bytes (``esz`` 1, int8 pools: each slot also
-    holds the page's fp16 K and V scales of the KV head), which the
-    warps' fp32 partial states take over after the page loop."""
+    of rows padded by 16 bytes, which the warps' fp32 partial states take
+    over after the page loop."""
     words = (2 * G * D + WARPS * G * page + 3 * WARPS * G + 3 * G
              + MAX_SPLITS * G + max_pages)
-    slot = 2 * page * (D * esz + 16) + (2 * page * 2 if esz == 1 else 0)
+    slot = 2 * page * (D * esz + 16)
     ring = walkers * 2 * slot
     return _cdiv(4 * words, 16) * 16 + max(ring, WARPS * G * D * 4)
 
@@ -155,6 +157,202 @@ def walkers(G: int, D: int, page: int, max_pages: int, esz: int) -> int:
     not fit."""
     fits = smem_bytes(G, D, page, max_pages, WARPS, esz) <= MAX_SMEM_BYTES
     return WARPS if fits else 2
+
+
+# ---------------------------------------------- the int8 kernel's plan
+INT8_TIERS = (1, 2, 4, 8)   # query heads a CTA is compiled for
+INT8_RING = (2, 4)          # page slots a warp: the least, the most
+# bytes the card must have in flight to keep 3.35 TB/s busy across ~1 us
+# of memory latency (Little's law): ~25 KB an SM
+INFLIGHT_BYTES = 3.35e12 * 1e-6
+# a grid whose full tables' distinct bytes take 12 us at 3.35 TB/s is
+# bound by them: more splits would add CTAs and merges, not bandwidth
+BANDWIDTH_BOUND_BYTES = 3.35e12 * 12e-6
+
+
+class Int8Plan(NamedTuple):
+    tier: int      # GB: query heads a CTA is compiled for (1, 2, 4, 8)
+    groups: int    # head groups (CTAs) a KV head: G / groups <= tier
+    splits: int    # S: CTAs of one cluster that share a sequence's pages
+    ring: int      # page slots each of the CTA's warps keeps in flight
+
+
+def int8_head_groups(G: int, kv_rows: int) -> int:
+    """How many head groups share a KV head's G query heads, for a grid
+    of ``kv_rows`` = B · KH (sequence, KV head) rows: the fewest groups
+    of at most ``INT8_TIERS[-1]`` heads that divide G equally and give
+    the grid at least one row an SM; where none does, one head a group.
+    A group's CTAs walk its KV head's pages again (from L2 after the
+    first), but a small grid gains CTAs that walk in parallel and fewer
+    heads a page: at qwen2-0.5b's 8 x 2 rows its 7 heads take 7 groups
+    (on the H100, ``launch/kernel_sweep.py --only int8``: 0.0077 device
+    ms at 8 x 272 against 0.0097 in one group of the 8-head tier), at
+    qwen1.5-32b's 320 rows one, at granite-20b's 8 rows of 48 heads 24
+    groups of 2."""
+    divisors = [n for n in range(_cdiv(G, INT8_TIERS[-1]), G + 1)
+                if G % n == 0]
+    return next((n for n in divisors if kv_rows * n >= SMS), G)
+
+
+def int8_ctas_per_sm(tier: int, D: int, page: int, max_pages: int,
+                     ring: int) -> int:
+    """CTAs of the int8 kernel an SM holds at once: as many as its launch
+    bounds ask registers for (``min_ctas`` in the source: four for the
+    one- and two-head tiers at D <= 64, three else), fewer where their
+    shared memory (``int8_smem_bytes`` and 1 KB each) does not fit the
+    SM's 228 KB."""
+    smem = int8_smem_bytes(tier, D, page, max_pages, ring) + 1024
+    return max(1, min(4 if tier <= 2 and D <= 64 else 3,
+                      SM_SMEM_BYTES // smem))
+
+
+def int8_smem_bytes(tier: int, D: int, page: int, max_pages: int,
+                    ring: int) -> int:
+    """The int8 kernel's dynamic shared memory, as ``layout`` in
+    ``csrc/paged_int8.cu`` computes it: 1 KB of alignment slack, then the
+    warps' rings of (page, D) K and V boxes (which the warps' fp32
+    partial outputs take over after the walk), the slots' scale pages, a
+    barrier a slot, q, each warp's probabilities, the warps' and the
+    CTA's states, the merge weights, the appended row and the table row;
+    each region rounded up to 16 bytes."""
+    slots = WARPS * ring
+    regions = (max(slots * 2 * page * D, WARPS * tier * D * 4),
+               slots * 4 * page, slots * 8, tier * D * 4,
+               WARPS * page * tier * 4, WARPS * tier * 4, WARPS * tier * 4,
+               WARPS * tier * 4, tier * 4, tier * 4,
+               tier * D * 4, MAX_SPLITS * tier * 4, tier * 4, 2 * D + 4,
+               max_pages * 4)
+    return 1024 + sum(_cdiv(r, 16) * 16 for r in regions)
+
+
+def int8_plan(B: int, H: int, KH: int, D: int, max_pages: int,
+              page: int = 16) -> Int8Plan:
+    """The int8 kernel's launch for B sequences of H query heads of D
+    over KH KV heads and a table ``max_pages`` wide, from the shapes alone
+    (never ``lens``, which lives on the device):
+
+    - the head groups of a KV head's G = H / KH query heads
+      (``int8_head_groups``) and the least tier that holds a group;
+    - the split S, within 1..8 and half the table's width: at least one
+      CTA an SM, and beyond that as many splits as the card holds in one
+      wave (``int8_ctas_per_sm`` CTAs an SM) while the grid is bound by
+      latency rather than by its bytes, i.e. while S times the distinct
+      bytes of full tables (B · KH · max_pages · page · (2D + 4)) stays
+      within ``BANDWIDTH_BOUND_BYTES``.  Each CTA keeps its warps' rings
+      in flight (8 slots, 33 KB at D 128; qwen1.5-32b's 320 rows hold
+      10.6 MB at S = 1, ``INFLIGHT_BYTES`` is 3.35 MB) and shortens every
+      warp's walk, but a bandwidth-bound grid gains nothing from it: on
+      the H100 (``kernel_sweep.py --only int8``) qwen1.5-32b takes
+      0.0182 device ms at S = 1 against 0.0252 at S = 2, qwen2-0.5b's
+      112 rows 0.0077 at S = 4 against 0.0084 at S = 1;
+    - the ring: two slots a warp where the grid has more CTAs than the
+      card has SMs (deeper rings would only cost CTAs an SM); on a smaller
+      grid the slots a warp needs to have all its pages of a full table
+      in flight, within 2..4, fewer while the CTA would not fit 227 KB."""
+    G = H // KH
+    groups = int8_head_groups(G, B * KH)
+    tier = next(t for t in INT8_TIERS if t >= G // groups)
+    rows = B * KH * groups
+    cap = max(1, min(MAX_SPLITS, _cdiv(max_pages, 2)))
+    wave = SMS * int8_ctas_per_sm(tier, D, page, max_pages, INT8_RING[0])
+    nbytes = B * KH * max_pages * page * (2 * D + 4)
+    by_bytes = int(BANDWIDTH_BOUND_BYTES // max(nbytes, 1))
+    splits = max(1, min(cap, max(_cdiv(SMS, max(rows, 1)),
+                                 min(wave // max(rows, 1), by_bytes))))
+    ring = INT8_RING[0]
+    if rows * splits <= SMS:
+        ring = min(INT8_RING[1], max(ring, _cdiv(_cdiv(max_pages, splits),
+                                                  WARPS)))
+    while ring > INT8_RING[0] and int8_smem_bytes(
+            tier, D, page, max_pages, ring) > MAX_SMEM_BYTES:
+        ring -= 1
+    return Int8Plan(tier, groups, splits, ring)
+
+
+def paged_int8_cuda(q, k_pages, v_pages, table, lens, k_scale, v_scale,
+                    append=None) -> torch.Tensor:
+    """The int8 kernel: q (B, H, D) bf16; int8 pools (P, page, KH, D);
+    fp16 scale pools (P, KH, page); table (B, max_pages) int32; lens (B,)
+    int32 — contiguous CUDA tensors on one device, the pools and scale
+    pools 16-byte aligned.  Returns (B, H, D) bf16.
+
+    ``append = (k, v, rows)``: the decode step's new bf16 rows (B, KH, D)
+    (16-byte aligned) and their flat pool rows (B,) int64, row b being
+    where position ``lens[b] - 1`` of sequence b lands.  The same launch
+    quantizes them as ``kv_quant_cuda`` does, attends over them and
+    stores their codes and scales (the ``pa_append_forward_int8``
+    entry)."""
+    B, H, D = q.shape
+    P, page, KH, Dk = k_pages.shape
+    if v_pages.shape != k_pages.shape or Dk != D or H % KH:
+        raise ValueError(f"paged int8 shapes q{tuple(q.shape)} "
+                         f"pool{tuple(k_pages.shape)}")
+    if table.dim() != 2 or table.shape[0] != B or tuple(lens.shape) != (B,):
+        raise ValueError(f"paged table{tuple(table.shape)} "
+                         f"lens{tuple(lens.shape)} for batch {B}")
+    if D not in INT8_HEAD_DIMS or page not in PAGE_SIZES:
+        raise ValueError(f"paged int8: head dim {D} not in "
+                         f"{INT8_HEAD_DIMS} or page {page} not in "
+                         f"{PAGE_SIZES}")
+    if q.dtype != torch.bfloat16 or k_pages.dtype != torch.int8 \
+            or v_pages.dtype != torch.int8 or k_scale is None \
+            or v_scale is None or k_scale.dtype != torch.float16 \
+            or v_scale.dtype != torch.float16:
+        raise TypeError("paged int8: bf16 q, int8 pools and fp16 scale "
+                        "pools")
+    if k_scale.shape != (P, KH, page) or v_scale.shape != (P, KH, page):
+        raise ValueError(f"paged int8 scale pools {tuple(k_scale.shape)}, "
+                         f"want {(P, KH, page)}")
+    if table.dtype != torch.int32 or lens.dtype != torch.int32:
+        raise TypeError("paged table and lens must be int32")
+    ts = [q, k_pages, v_pages, k_scale, v_scale, table, lens]
+    if append is not None:
+        k, v, rows = append
+        if k.shape != (B, KH, D) or v.shape != k.shape \
+                or tuple(rows.shape) != (B,):
+            raise ValueError(f"paged int8 append: k{tuple(k.shape)} "
+                             f"rows{tuple(rows.shape)}, want "
+                             f"{(B, KH, D)} and {(B,)}")
+        if k.dtype != torch.bfloat16 or v.dtype != torch.bfloat16 \
+                or rows.dtype != torch.int64:
+            raise TypeError("paged int8 append: bf16 k, v and int64 rows")
+        if k.data_ptr() % 16 or v.data_ptr() % 16:
+            raise ValueError("paged int8 append: 16-byte loads need "
+                             "aligned k, v")
+        ts += [k, v, rows]
+    if not all(t.is_cuda and t.device == q.device for t in ts):
+        raise ValueError("paged_int8_cuda needs every operand on q's CUDA "
+                         "device")
+    if not all(t.is_contiguous() for t in ts):
+        raise ValueError("paged_int8_cuda needs contiguous operands")
+    if any(t.data_ptr() % 16 for t in ts[1:5]):
+        raise ValueError("paged_int8_cuda: TMA and bulk copies need "
+                         "16-byte aligned pools")
+    max_pages = table.shape[1]
+    plan = int8_plan(B, H, KH, D, max_pages, page)
+    smem = int8_smem_bytes(plan.tier, D, page, max_pages, plan.ring)
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(f"paged int8: {smem} B of shared memory for D "
+                         f"{D}, page {page}, table width {max_pages}")
+    out = torch.empty_like(q)
+    if B == 0:
+        return out
+    dims = (B, H, KH, plan.groups, plan.tier, D, P, page, max_pages,
+            plan.splits, plan.ring, _build.stream(q.device))
+    pools = (_build.ptr(k_pages), _build.ptr(v_pages), _build.ptr(k_scale),
+             _build.ptr(v_scale), _build.ptr(table), _build.ptr(lens),
+             _build.ptr(out))
+    if append is None:
+        code = _build.function("paged_int8", "pa_forward_int8", _INT8_ARGS)(
+            _build.ptr(q), *pools, *dims)
+        _build.check(code, "paged_attention_int8")
+    else:
+        code = _build.function("paged_int8", "pa_append_forward_int8",
+                               _INT8_APPEND_ARGS)(
+            _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(rows),
+            *pools, *dims)
+        _build.check(code, "paged_attention_int8_append")
+    return out
 
 
 LATENT_DIMS = ((576, 512),)  # (q/k dim, v dim) of the latent form
@@ -279,8 +477,11 @@ def paged_cuda(q, k_pages, v_pages, table, lens, k_scale=None,
     pools 16-byte aligned.  Returns (B, H, D) in ``q.dtype``.
 
     int8 pools take fp16 scale pools ``k_scale`` / ``v_scale`` of (P,
-    KH, page), also 16-byte aligned, with bf16 q (the
-    ``pa_forward_int8`` entry); pools of q's dtype take none."""
+    KH, page), also 16-byte aligned, with bf16 q: ``paged_int8_cuda``;
+    pools of q's dtype take none."""
+    if k_pages.dtype == torch.int8:
+        return paged_int8_cuda(q, k_pages, v_pages, table, lens, k_scale,
+                               v_scale)
     B, H, D = q.shape
     P, page, KH, Dk = k_pages.shape
     if v_pages.shape != k_pages.shape or Dk != D or H % KH:
@@ -289,35 +490,22 @@ def paged_cuda(q, k_pages, v_pages, table, lens, k_scale=None,
     if table.dim() != 2 or table.shape[0] != B or tuple(lens.shape) != (B,):
         raise ValueError(f"paged table{tuple(table.shape)} "
                          f"lens{tuple(lens.shape)} for batch {B}")
-    quant = k_pages.dtype == torch.int8
-    dims = INT8_HEAD_DIMS if quant else HEAD_DIMS
-    if D not in dims or page not in PAGE_SIZES:
-        raise ValueError(f"paged: head dim {D} not in {dims} or page "
+    if D not in HEAD_DIMS or page not in PAGE_SIZES:
+        raise ValueError(f"paged: head dim {D} not in {HEAD_DIMS} or page "
                          f"{page} not in {PAGE_SIZES}")
-    if quant:
-        if q.dtype != torch.bfloat16 or v_pages.dtype != torch.int8 \
-                or k_scale is None or v_scale is None \
-                or k_scale.dtype != torch.float16 \
-                or v_scale.dtype != torch.float16:
-            raise TypeError("paged int8: bf16 q, int8 pools and fp16 scale "
-                            "pools")
-        if k_scale.shape != (P, KH, page) or v_scale.shape != (P, KH, page):
-            raise ValueError(f"paged int8 scale pools "
-                             f"{tuple(k_scale.shape)}, want {(P, KH, page)}")
-    elif not (q.dtype == k_pages.dtype == v_pages.dtype) \
+    if not (q.dtype == k_pages.dtype == v_pages.dtype) \
             or q.dtype not in _DTYPES or k_scale is not None \
             or v_scale is not None:
         raise TypeError(f"paged dtypes {q.dtype}, {k_pages.dtype}, "
                         f"{v_pages.dtype}")
     if table.dtype != torch.int32 or lens.dtype != torch.int32:
         raise TypeError("paged table and lens must be int32")
-    ts = (q, k_pages, v_pages, table, lens) + \
-        ((k_scale, v_scale) if quant else ())
+    ts = (q, k_pages, v_pages, table, lens)
     if not all(t.is_cuda and t.device == q.device for t in ts):
         raise ValueError("paged_cuda needs every operand on q's CUDA device")
     if not all(t.is_contiguous() for t in ts):
         raise ValueError("paged_cuda needs contiguous operands")
-    if any(t.data_ptr() % 16 for t in ts[1:3] + ts[5:]):
+    if any(t.data_ptr() % 16 for t in ts[1:3]):
         raise ValueError("paged_cuda: cp.async needs 16-byte aligned pools")
     max_pages = table.shape[1]
     groups, splits = launch_plan(B, H, KH, D, max_pages)
@@ -330,15 +518,6 @@ def paged_cuda(q, k_pages, v_pages, table, lens, k_scale=None,
                          f"{D}, page {page}, table width {max_pages}")
     out = torch.empty_like(q)
     if B == 0:
-        return out
-    if quant:
-        code = _build.function("paged_attention", "pa_forward_int8",
-                               _INT8_ARGS)(
-            _build.ptr(q), _build.ptr(k_pages), _build.ptr(v_pages),
-            _build.ptr(k_scale), _build.ptr(v_scale), _build.ptr(table),
-            _build.ptr(lens), _build.ptr(out), B, H, KH, groups, D, page,
-            max_pages, splits, n_walk, _build.stream(q.device))
-        _build.check(code, "paged_attention_int8")
         return out
     code = _build.function("paged_attention", "pa_forward", _ARGS)(
         _DTYPES[q.dtype], _build.ptr(q), _build.ptr(k_pages),

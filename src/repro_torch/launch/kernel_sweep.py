@@ -1,7 +1,7 @@
 """Sweep the launch plans of the kernels on the card.
 
     python -m repro_torch.launch.kernel_sweep
-        [--only gemm|grouped|flash|paged] [--out PATH] [--reps N]
+        [--only gemm|grouped|flash|paged|int8] [--out PATH] [--reps N]
 
 For every main-path shape of qwen2-0.5b (GEMM at decode M = 8 and
 prefill M = 256; causal prefill attention at 64-512 tokens; paged decode
@@ -31,7 +31,12 @@ columns, scale 1/√192) at 8 x 272, a ragged mix up to 1,024 and 1 x
 latent rows.  Each paged shape whose head dim the int8 form takes is
 swept again over int8 pools (the same values quantized, with their fp16
 scales; the INT8 KV cache), its yardstick SDPA over a contiguous
-dequantized copy.
+dequantized copy.  ``--only int8`` sweeps the int8 kernel's plan at the
+decode shape of every arch whose cache turns int8 (8 sequences of
+16-token pages, a 64-page table, 8 x 272 and a ragged mix of 64-1,024):
+every grouping of a KV head's query heads into equal groups of at most
+8 (each at the least heads tier that holds it) at every split S, two
+ring slots a warp, beside the choice of ``int8_plan``.
 The expert-grouped GEMM runs at
 qwen2-moe-a2.7b's (60 experts, 2,048 <-> 1,408) and deepseek-v3's (256
 experts, 7,168 <-> 2,048) gate/up and down products, at decode (8
@@ -41,7 +46,8 @@ SMs, beside ``torch.bmm`` over the whole (E, C, K) buffer.
 
 This is the tool that chose the rules of ``streaming_gemm.plan``,
 ``grouped_gemm.plan_grouped``, ``flash_attention.plan``,
-``paged_attention.plan`` and ``paged_attention.latent_plan``; it needs a
+``paged_attention.plan``, ``paged_attention.latent_plan`` and
+``paged_attention.int8_plan``; it needs a
 card and exits without one.
 """
 from __future__ import annotations
@@ -68,6 +74,11 @@ GRANITE_KN = ((6144, 6144), (6144, 128), (6144, 24576), (24576, 6144),
 ZAMBA_KN = ((3584, 14576), (7168, 3584), (3584, 14336), (14336, 3584),
             (3584, 3584), (3584, 32000))
 LM_HEAD_N = (152064, 49152, 32000)      # run at decode only
+# (arch, H, KH, D) of every arch whose cache turns int8
+INT8_ARCHS = (("qwen1.5-32b", 40, 40, 128), ("qwen2-0.5b", 14, 2, 64),
+              ("granite-20b", 48, 1, 128), ("chatglm3-6b", 32, 2, 128),
+              ("internvl2-2b", 16, 8, 128), ("qwen2-moe-a2.7b", 16, 16, 128),
+              ("whisper-tiny", 6, 6, 64))
 
 
 def _device_ms(fn, flush, reps):
@@ -124,7 +135,8 @@ def _gemm_plans(M, K):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--only", choices=("gemm", "grouped", "flash", "paged"),
+    ap.add_argument("--only",
+                    choices=("gemm", "grouped", "flash", "paged", "int8"),
                     help="sweep one kernel (default: all)")
     ap.add_argument("--out", default="build/kernel_sweep.json")
     ap.add_argument("--reps", type=int, default=10)
@@ -152,7 +164,7 @@ def main(argv=None):
     ).stdout.strip()
     print(f"[card] {card}", flush=True)
     result = {"card": card, "gemm": [], "grouped": [], "flash": [],
-              "paged": []}
+              "paged": [], "int8": []}
     if args.only in (None, "gemm"):
         _sweep_gemm(result, randn, dms, main_fn)
     if args.only in (None, "grouped"):
@@ -161,6 +173,8 @@ def main(argv=None):
         _sweep_flash(result, randn, dms, F)
     if args.only in (None, "paged"):
         _sweep_paged(result, randn, dms, F, g, dev)
+    if args.only in (None, "int8"):
+        _sweep_int8(result, randn, dms, g, dev)
     Path(args.out).parent.mkdir(parents=True, exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(result, f, indent=1)
@@ -350,6 +364,62 @@ def _sweep_latent(result, randn, dms, F, g, dev, H=128, D=576, dv=512):
         print("[paged_latent] " + json.dumps(row), flush=True)
 
 
+def _sweep_int8(result, randn, dms, g, dev):
+    """The int8 kernel at every head grouping and split of each
+    ``INT8_ARCHS`` decode shape, each checked against its plain version;
+    one row a shape with every (tier, groups, S)'s device ms, the plan's
+    and the best."""
+    B, page, mp = 8, 16, 64
+    P = B * mp + 16
+    for arch, H, KH, D in INT8_ARCHS:
+        mixed = torch.randint(64, 1025, (B,), generator=g, device=dev)
+        mixed[0] = 1024
+        table = torch.randperm(P, generator=g, device=dev)[:B * mp] \
+            .reshape(B, mp).to(torch.int32)
+        q = randn(B, H, D)
+        (kc, ks), (vc, vs) = (ref.kv_quantize_ref(randn(P, page, KH, D))
+                              for _ in range(2))
+        pools = (kc, vc, ks.permute(0, 2, 1).contiguous(),
+                 vs.permute(0, 2, 1).contiguous())
+        G = H // KH
+        chosen = PA.int8_plan(B, H, KH, D, mp, page)
+        cap = max(1, min(PA.MAX_SPLITS, -(-mp // 2)))
+        for what, lens in (("8 x 272", [272] * B), ("mixed", mixed.tolist())):
+            ln = torch.tensor(lens, dtype=torch.int32, device=dev)
+            want = ref.paged_ref(q, kc, vc, table, ln, k_scale=pools[2],
+                                 v_scale=pools[3]).float()
+            times, plan = {}, PA.int8_plan
+            try:
+                for n in (n for n in range(1, G + 1)
+                          if G % n == 0 and G // n <= PA.INT8_TIERS[-1]):
+                    tier = next(t for t in PA.INT8_TIERS if t >= G // n)
+                    for s in range(1, cap + 1):
+                        PA.int8_plan = (
+                            lambda *a, n=n, s=s, tier=tier, **k:
+                            plan(*a, **k)._replace(tier=tier, groups=n,
+                                                   splits=s, ring=2))
+                        out = ops.paged_attention(q, *pools[:2], table, ln,
+                                                  *pools[2:]).float()
+                        err = (out - want).abs().max().item()
+                        if err > 2e-2 + 2e-2 * want.abs().max().item():
+                            raise AssertionError(
+                                f"int8 {arch} {what} {tier}/{n}/{s}: {err}")
+                        t = dms(lambda: ops.paged_attention(
+                            q, *pools[:2], table, ln, *pools[2:]))
+                        if t > 0:   # a window the profiler dropped reads 0
+                            times[f"{tier}/{n}/{s}"] = t
+            finally:
+                PA.int8_plan = plan
+            key = f"{chosen.tier}/{chosen.groups}/{chosen.splits}"
+            best = min(times, key=times.get)
+            row = {"arch": arch, "what": what, "heads": [H, KH, D],
+                   "lens": lens, "plan": chosen._asdict(),
+                   "plan_ms": times.get(key), "best": best,
+                   "best_ms": times[best], "ms_by_tier_groups_splits": times}
+            result["int8"].append(row)
+            print("[int8] " + json.dumps(row), flush=True)
+
+
 def _sweep_paged_heads(result, randn, dms, F, g, dev, H, KH, D):
     """One head shape's paged entries over bf16 pools, then (where the
     int8 form takes the head dim) over the same values quantized into
@@ -379,7 +449,8 @@ def _sweep_paged_heads(result, randn, dms, F, g, dev, H, KH, D):
 
 def _paged_row(dms, F, dev, q, pools, table, what, lens):
     """Every cluster size at one paged shape; ``pools`` is (k, v) or,
-    int8, (k, v, k_scale, v_scale)."""
+    int8, (k, v, k_scale, v_scale), whose kernel takes ``int8_plan``
+    with the split forced."""
     kp, vp = pools[:2]
     H, D = q.shape[1:]
     page, KH = kp.shape[1:3]
@@ -389,11 +460,21 @@ def _paged_row(dms, F, dev, q, pools, table, what, lens):
     qq, tt = q[:n].contiguous(), table[:n].contiguous()
     scales = dict(zip(("k_scale", "v_scale"), pools[2:]))
     want = ref.paged_ref(qq, kp, vp, tt, ln, **scales).float()
-    groups, chosen = PA.launch_plan(n, H, KH, D, mp)
-    times, plan = {}, PA.plan
+    int8 = bool(scales)
+    if int8:
+        int8_plan = PA.int8_plan(n, H, KH, D, mp, page)
+        groups, chosen = int8_plan.groups, int8_plan.splits
+    else:
+        groups, chosen = PA.launch_plan(n, H, KH, D, mp)
+    name = "int8_plan" if int8 else "plan"
+    times, plan = {}, getattr(PA, name)
     try:
         for s in range(1, PA.MAX_SPLITS + 1):
-            PA.plan = lambda *_, s=s: s
+            if int8:
+                PA.int8_plan = (lambda *a, s=s, **k:
+                                plan(*a, **k)._replace(splits=s))
+            else:
+                PA.plan = lambda *_, s=s: s
             out = ops.paged_attention(qq, *pools[:2], tt, ln,
                                       *pools[2:]).float()
             err = (out - want).abs().max().item()
@@ -404,7 +485,7 @@ def _paged_row(dms, F, dev, q, pools, table, what, lens):
             if t > 0:         # a window the profiler dropped reads 0
                 times[s] = t
     finally:
-        PA.plan = plan
+        setattr(PA, name, plan)
 
     def contiguous(pool, sc):
         x = pool[tt.long()]
@@ -418,6 +499,7 @@ def _paged_row(dms, F, dev, q, pools, table, what, lens):
     mask = (torch.arange(mp * page, device=dev)[None]
             < ln[:, None])[:, None, None, :]
     return {"what": what, "heads": [H, KH, D], "groups": groups,
+            **({"int8_plan": int8_plan._asdict()} if int8 else {}),
             "b": n, "lens": lens, "plan": chosen,
             "plan_ms": times.get(chosen), "splits_ms": times,
             "contiguous_sdpa_ms": dms(

@@ -286,18 +286,22 @@ def attention_decode(p, x, cfg: ModelConfig, pools, view):
     their (P, KH, page) fp16 scales, else scales None); ``view``: the
     step's ``DecodeView`` (positions, write slots, table, new lens).
 
-    The token's K/V is written into its page first (over int8 pools,
-    quantized per (token, KV head) and written by one kernel, as the
-    reference quantizes after RoPE), then decode attention reads the
-    pool through the page table."""
-    k_pool, v_pool, k_scale, v_scale = pools
+    The token's K/V is written into its page, then decode attention reads
+    the pool through the page table.  Over int8 pools both are one kernel
+    (``ops.paged_attention_append``), which quantizes the row per (token,
+    KV head) as the reference does after RoPE; over float pools the row
+    is scattered first (``ops.kv_write``)."""
+    k_pool, v_pool = pools[:2]
     q, k, v = qkv_proj(p, x, cfg)
     pos = view.positions                                   # (n,)
     q = apply_rope(q[:, None], pos[:, None], cfg)[:, 0]
     k = apply_rope(k[:, None], pos[:, None], cfg)[:, 0]
-    ops.kv_write(pools, view.write_index, k, v)
-    out = ops.paged_attention(q, k_pool, v_pool, view.table, view.lens,
-                              k_scale, v_scale)
+    if k_pool.dtype == torch.int8:
+        out = ops.paged_attention_append(q, k, v, view.write_index, pools,
+                                         view.table, view.lens)
+    else:
+        ops.kv_write(pools, view.write_index, k, v)
+        out = ops.paged_attention(q, k_pool, v_pool, view.table, view.lens)
     return out_proj(p, out)
 
 

@@ -36,13 +36,16 @@ flash at ragged Tq / Tk, causal and full, bf16 and fp32; paged at every
 split S with edge lengths at 8-, 16- and 32-token pages, fp32 and bf16,
 its shared-memory estimate, and its decode shape bitwise repeatable
 and one launch per call; and the reduced zamba2 on the card against
-the CPU.  Then the INT8 KV cache: the int8-pool paged kernel at every
-split S with edge lengths (lens 0 included) at D 16, 32, 64 and 128, in
-query-head groups and at qwen1.5-32b's 40 / 40 heads, its decode shapes
-bitwise repeatable and one launch per call, its shared-memory estimate;
-the quantize-and-append kernel bit for bit against its plain version;
-and the reduced qwen1.5-32b under the flag on the card against the CPU,
-one int8 paged and one quantize launch a layer.
+the CPU.  Then the INT8 KV cache: the int8 kernel (``paged_int8_fwd``)
+at every split S and ring depth with edge lengths (lens 0 included) at
+D 16, 32, 64 and 128, at every heads tier (1, 2, 4, 8) and in head
+groups, its decode shapes bitwise repeatable and one launch per call,
+its shared-memory estimate; its fused append at every split, the codes
+and scales it writes bit for bit equal to the quantize kernel's and the
+plain version's; the quantize-and-append kernel bit for bit against its
+plain version; and the reduced qwen1.5-32b under the flag on the card
+against the CPU, one fused int8 launch a layer at decode and no
+quantize launch.
 Every "one launch per call" count reads the kernel nodes of a captured
 CUDA graph, not a profiler window (which now and then loses launches).
 Tolerances: int8 exact; fp32 GEMM 2e-4 and fp32 attention 3e-5 (fp32
@@ -1039,13 +1042,22 @@ def test_cuda_mla_prefill_and_decode_match_the_cpu():
 
 # --------------------------------------------------- INT8 KV cache
 # (H, KH, D, page, max_pages): D 16, 32, 64 and 128 (8-, 16- and 32-token
-# pages: a lane's int8 slice is read 4, 8 or 16 bytes at a time),
-# granite-20b's MQA in 3 query-head groups, qwen1.5-32b's 40 / 40 heads
-# and whisper-tiny's 6 / 6 heads of 64
+# pages: a lane's int8 slice is read 4, 8 or 16 bytes at a time), heads
+# tiers 8 (G 7), 4, 2 and 1, granite-20b's MQA in 6 head groups of 8,
+# G 16 and 32 in 2 and 4 groups, qwen1.5-32b's 40 / 40 heads and
+# whisper-tiny's 6 / 6 heads of 64
 PAGED_INT8_SHAPES = [(14, 2, 64, 16, 8), (8, 2, 32, 8, 12),
                      (16, 1, 128, 32, 6), (4, 4, 16, 8, 7),
                      (48, 1, 128, 16, 6), (40, 40, 128, 16, 5),
-                     (6, 6, 64, 16, 5), (64, 2, 128, 8, 5)]
+                     (6, 6, 64, 16, 5), (64, 2, 128, 8, 5),
+                     (16, 8, 128, 16, 4), (12, 1, 32, 16, 4)]
+
+
+def _forced_int8_plan(monkeypatch, **fields):
+    """Force fields of ``int8_plan`` (the split, the ring depth)."""
+    orig = PA.int8_plan
+    monkeypatch.setattr(PA, "int8_plan",
+                        lambda *a, **k: orig(*a, **k)._replace(**fields))
 
 
 def _paged_int8_card(shape, lens, dev, seed=0):
@@ -1069,21 +1081,23 @@ def _paged_int8_card(shape, lens, dev, seed=0):
 @pytest.mark.cuda
 @pytest.mark.parametrize("splits", range(1, 9))
 def test_cuda_paged_int8_every_split_at_edge_lengths(splits, monkeypatch):
-    """The int8-pool kernel at every cluster size S = 1..8 forced through
-    ``plan``, lengths 0, 1, page - 1, page, page + 1 and the full table,
-    within 2e-2 of its plain version (bf16 output; P in fp32 on both)."""
+    """The int8 kernel at every cluster size S = 1..8 and ring depth 2 and
+    4 forced through ``int8_plan``, lengths 0, 1, page - 1, page, page + 1
+    and the full table, within 2e-2 of its plain version (bf16 output; P
+    in fp32 on both)."""
     dev = _card()
-    monkeypatch.setattr(PA, "plan", lambda *_: splits)
-    for shape in PAGED_INT8_SHAPES:
-        page, mp = shape[3], shape[4]
-        lens = [0, 1, page - 1, page, page + 1, page * mp]
-        args = _paged_int8_card(shape, lens, dev, seed=splits)
-        got = ops.paged_attention(*args)
-        want = ref.paged_ref(*args[:5], k_scale=args[5], v_scale=args[6])
-        np.testing.assert_allclose(got.cpu().float().numpy(),
-                                   want.cpu().float().numpy(), rtol=2e-2,
-                                   atol=2e-2, err_msg=str(shape))
-        assert not got[0].float().abs().max().item()
+    for ring in (2, 4):
+        _forced_int8_plan(monkeypatch, splits=splits, ring=ring)
+        for shape in PAGED_INT8_SHAPES:
+            page, mp = shape[3], shape[4]
+            lens = [0, 1, page - 1, page, page + 1, page * mp]
+            args = _paged_int8_card(shape, lens, dev, seed=splits)
+            got = ops.paged_attention(*args)
+            want = ref.paged_ref(*args[:5], k_scale=args[5], v_scale=args[6])
+            np.testing.assert_allclose(got.cpu().float().numpy(),
+                                       want.cpu().float().numpy(), rtol=2e-2,
+                                       atol=2e-2, err_msg=f"{shape} {ring}")
+            assert not got[0].float().abs().max().item()
 
 
 @pytest.mark.cuda
@@ -1110,18 +1124,88 @@ def test_cuda_paged_int8_decode_shape_deterministic_one_launch(h, kh, d):
 
 @pytest.mark.cuda
 def test_cuda_paged_int8_shared_memory_estimate_matches_the_kernel():
-    """``smem_bytes`` at element size 1 (int8 rows plus each slot's K and
-    V scales) computes what the int8 kernel launches with."""
+    """``int8_smem_bytes`` (heads tier, D, page, table width, ring)
+    computes what the int8 kernel's ``layout`` launches with, at every
+    tier, head dim, page and ring depth."""
     import ctypes
     from repro_torch.kernels import _build
     _card()
-    fn = _build.function("paged_attention", "pa_smem_bytes",
-                         [ctypes.c_int] * 6)
-    for case in ((7, 64, 16, 64, 4, 1), (1, 128, 16, 64, 4, 1),
-                 (16, 128, 16, 64, 4, 1), (16, 128, 32, 6, 4, 1),
-                 (4, 16, 8, 7, 4, 1), (16, 128, 16, 4096, 2, 1)):
-        assert fn(*case) == PA.smem_bytes(*case)
-    assert PA.walkers(16, 128, 32, 64, 1) == 4
+    fn = _build.function("paged_int8", "pa_int8_smem_bytes",
+                         [ctypes.c_int] * 5)
+    for tier in PA.INT8_TIERS:
+        for d in PA.INT8_HEAD_DIMS:
+            for page in PA.PAGE_SIZES:
+                for mp, ring in ((64, 2), (7, 3), (4096, 4)):
+                    case = (tier, d, page, mp, ring)
+                    assert fn(*case) == PA.int8_smem_bytes(*case), case
+
+
+@pytest.mark.cuda
+def test_cuda_paged_int8_plan_wave_is_what_the_card_holds():
+    """``int8_ctas_per_sm``, the CTAs an SM that ``int8_plan``'s wave
+    counts on, is at most what the card holds at once of each tier's
+    kernel at the ring depth the plan takes on a full grid
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    import ctypes
+    from repro_torch.kernels import _build
+    _card()
+    fn = _build.function("paged_int8", "pa_int8_resident_ctas",
+                         [ctypes.c_int] * 5)
+    for tier in PA.INT8_TIERS:
+        for d in PA.INT8_HEAD_DIMS:
+            for page in PA.PAGE_SIZES:
+                for mp in (64, 128):
+                    n = fn(tier, d, page, mp, 2)
+                    assert n >= PA.int8_ctas_per_sm(tier, d, page, mp, 2), \
+                        (tier, d, page, mp, n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("splits", range(1, 9))
+def test_cuda_paged_int8_append_writes_the_quantize_kernels_bits(
+        splits, monkeypatch):
+    """The fused append (``ops.paged_attention_append``) at every split S:
+    the codes and scales it stores equal, bit for bit, those of the
+    quantize kernel (``kv_quantize_append`` on the card) and of the plain
+    version, every other row untouched; its output is within 2e-2 of the
+    plain version's (the plain quantize-and-append, then ``paged_ref``);
+    one kernel launch per call (graph nodes), counted as
+    ``paged_attention_int8_append``."""
+    dev = _card()
+    _forced_int8_plan(monkeypatch, splits=splits)
+    for shape in PAGED_INT8_SHAPES:
+        h, kh, d, page, mp = shape
+        lens = [1, page - 1, page, page + 1, page * mp, 2 * page + 3]
+        q, kp, vp, table, ln, ks, vs = _paged_int8_card(shape, lens, dev,
+                                                        seed=splits)
+        rng = np.random.default_rng(splits + d)
+        b = len(lens)
+        k = _bf16(rng, (b, kh, d), dev, scale=3.0)
+        v = _bf16(rng, (b, kh, d), dev)
+        k[0, 0] = 0
+        v[-1, 0] = 0
+        v[-1, 0, 0] = 2.75          # 2.75 / bf16(2.75 / 127) rounds to 128
+        pos = ln.long() - 1
+        rows = table.long()[torch.arange(b, device=dev), pos // page] \
+            * page + pos % page
+        got = [t.clone() for t in (kp, vp, ks, vs)]
+        by_kernel = [t.clone() for t in (kp, vp, ks, vs)]
+        plain = [t.clone() for t in (kp, vp, ks, vs)]
+        ops.reset_launches()
+        out = ops.paged_attention_append(q, k, v, rows, got, table, ln)
+        assert ops.LAUNCHES["paged_attention_int8_append"] == 1
+        ops.kv_quantize_append(k, v, rows, *by_kernel)
+        ref.kv_quantize_append_ref(k, v, rows, *plain)
+        for a, bk, bp in zip(got, by_kernel, plain):
+            assert torch.equal(a, bk) and torch.equal(a, bp), shape
+        want = ref.paged_ref(q, plain[0], plain[1], table, ln,
+                             k_scale=plain[2], v_scale=plain[3])
+        np.testing.assert_allclose(out.cpu().float().numpy(),
+                                   want.cpu().float().numpy(), rtol=2e-2,
+                                   atol=2e-2, err_msg=str(shape))
+    groups = KN.captured_groups(lambda: ops.paged_attention_append(
+        q, k, v, rows, got, table, ln), reps=3)
+    assert groups == ["paged_attention_int8"] * 3, groups
 
 
 @pytest.mark.cuda
@@ -1167,9 +1251,9 @@ def test_cuda_int8_kv_decode_matches_the_cpu_one_launch_a_layer():
     prefill of 2 x 40 tokens and 3 decode steps on the card against the
     same weights on the CPU, logits within 5e-2 of their largest
     magnitude (bf16 rounding after fp32 sums in another order); one more
-    step with its wrapper calls captured into CUDA graphs makes one int8
-    paged and one quantize launch a layer, each one kernel node, and no
-    bf16 paged launch."""
+    step with its wrapper calls captured into CUDA graphs makes one fused
+    int8 launch a layer (``paged_attention_int8_append``, one kernel node
+    each), and no quantize, read-only int8 or bf16 paged launch."""
     from repro_torch.configs import get_reduced
     from repro_torch.models import tuning as TU
     from repro_torch.models.model import Model
@@ -1205,9 +1289,9 @@ def test_cuda_int8_kv_decode_matches_the_cpu_one_launch_a_layer():
     cpu, _ = run("cpu", params)
     err = (card - cpu).abs().max().item()
     assert err <= 5e-2 * max(1.0, cpu.abs().max().item()), err
-    assert len(calls["paged_attention_int8"]) == cfg.n_layers
-    assert len(calls["kv_quantize"]) == cfg.n_layers
-    assert "paged_attention" not in calls
+    assert len(calls["paged_attention_int8_append"]) == cfg.n_layers
+    assert not {"kv_quantize", "paged_attention_int8",
+                "paged_attention"} & set(calls), calls
     assert ops.LAUNCHES["paged_attention"] == 0
     assert all(len(nodes) == 1 for v in calls.values() for nodes in v), calls
     assert KN.strays(calls) == []

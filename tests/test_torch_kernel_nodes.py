@@ -24,9 +24,8 @@ NAMES = [
     ("void (anonymous namespace)::paged_fwd<__nv_bfloat16, __nv_bfloat16, "
      "128, 8>(__nv_bfloat16 const*, __nv_bfloat16 const*, __nv_bfloat16 "
      "const*, __half const*, __half const*)", "paged_attention"),
-    ("void (anonymous namespace)::paged_fwd<__nv_bfloat16, signed char, "
-     "128, 8>(__nv_bfloat16 const*, signed char const*, signed char "
-     "const*, __half const*, __half const*)", "paged_attention_int8"),
+    ("void (anonymous namespace)::paged_int8_fwd<128, 16, 1>(CUtensorMap, "
+     "CUtensorMap, (anonymous namespace)::Args)", "paged_attention_int8"),
     ("void (anonymous namespace)::paged_latent_tc<6>(__nv_bfloat16 const*)",
      "paged_latent_attention"),
     ("void (anonymous namespace)::kv_quant_append<128>(__nv_bfloat16 "
@@ -46,8 +45,9 @@ def test_kernel_group_maps_each_kernel_to_its_counter(name, group):
 
 
 def test_every_counter_has_a_kernel_and_every_group_a_counter():
-    groups = {g for _, g in KN.KERNEL_GROUPS} | {"paged_attention_int8"}
+    groups = {g for _, g in KN.KERNEL_GROUPS} | set(KN.SHARED_KERNELS)
     assert groups == set(ops.LAUNCHES)
+    assert set(KN.SHARED_KERNELS.values()) <= groups
     for name in KN.OPS_WRAPPERS:
         assert callable(getattr(ops, name))
 
@@ -64,3 +64,7 @@ def test_strays_are_the_nodes_not_of_the_counter_that_moved():
                                 ("paged_attention", NAMES[10][0]),
                                 ("paged_attention", int8)]
     assert KN.strays({"streaming_gemm": [[gemm]]}) == []
+    # the append entry launches the int8 kernel itself: no stray
+    assert KN.strays({"paged_attention_int8_append": [[int8]]}) == []
+    assert KN.strays({"paged_attention_int8_append": [[gemm]]}) == [
+        ("paged_attention_int8_append", gemm)]
