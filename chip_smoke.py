@@ -291,13 +291,36 @@ Phases, in order; any failure raises and exits non-zero:
    split into 2-D forward, 2-D backward, grouped forward and grouped
    backward; no ``gemm_simt`` kernel, and no ``aten::bmm`` / ``mm`` /
    ``matmul`` inside an expert product.
-17. Print the ``kernels`` JSON line (each kernel's launches from its own
+17. Training of the MLA family (deepseek-v3-671b); seconds per
+   sub-phase.  (a) The streaming GEMM at the products the MLA path
+   adds, M = 4,096 tokens: the forward x·W, dA = dC·Wᵀ and dB = xᵀ·dC
+   of ``wdq``, ``wuq``, ``wdkv``, ``wkr`` (N = 64), ``wuk`` / ``wuv``,
+   ``wo``, the MTP head's ``proj`` and the untied lm_head (7,168 x
+   129,280), each against its plain version within BF16_TOL, timed
+   beside the plain version, ``torch.matmul`` and the bound (the GEMM
+   row's ``mla_train_path``).  (b) deepseek-v3-671b at full width cut
+   to 1 layer (one dense MLA layer and the MTP head), 1 x 128 tokens,
+   the same seeded weights on the card and on the CPU: ce, mtp and the
+   loss within 1e-3 relative, every gradient leaf of the reference's
+   tree within 5e-2 relative L2, the CPU's seconds.  (c) The Trainer on
+   ``deepseek-v3-671b-3l`` (the 3 dense layers and the MTP head at full
+   width, ~2,880.8 M values), random bf16 weights from ``--seed``,
+   AdamW (lr 3e-5), ``remat="full"``, 8 x 512 tokens, 20 steps: ce and
+   mtp per step (both must fall), the median step, tokens/s, the model
+   FLOP share of 989 TFLOP/s, peak memory (below 80 GB); then one step
+   more under the profiler: device ms of the streaming GEMM, the
+   attention's torch ops (between marker kernels), the optimizer and
+   the rest, the busy share, the GEMM's launches (43 forward products a
+   pass, 30 more recomputed by remat, 86 backward; asserted); the
+   absorbed copies equal to the permuted trained ``wuk`` / ``wuv`` bit
+   for bit, and no derived key in the AdamW state.
+18. Print the ``kernels`` JSON line (each kernel's launches from its own
    path's serving run, the int8 kernels' from phase 8e's (the int8
    kernel's under both its counters), the grouped
    backward kernels' from 16c's profiled step, every path's counts
    beside, the GEMM's forward and backward launches of a training step
-   as ``train_launches``), the card line, and last the result line
-   ``{"ok": true, "device": {...}}``.
+   as ``train_launches``, of 17c's as ``mla_train_launches``), the card
+   line, and last the result line ``{"ok": true, "device": {...}}``.
 """
 import argparse
 import json
@@ -4410,6 +4433,399 @@ def phase_moe_training(torch, args, rows, card, dev):
     return {**res, "launches": launches}
 
 
+# ---------------------------------------------------------------- phase 17
+MLA_ARCH = "deepseek-v3-671b"
+MLA_TRAIN_CHECK_TOKENS = 128     # 17b's 1 x 128 tokens (its docstring)
+# 17a: the products the MLA training path adds, (weight, K, N) at M =
+# 4,096 tokens: the MLA projections, the MTP head's proj and the untied
+# lm_head (the MLP's 7,168 <-> 2,048 ran in 12a at M <= 256)
+MLA_TRAIN_GEMMS = (("wdq", 7168, 1536), ("wuq", 1536, 24576),
+                   ("wdkv", 7168, 512), ("wkr", 7168, 64),
+                   ("wuk / wuv", 512, 16384), ("wo", 16384, 7168),
+                   ("mtp proj", 14336, 7168), ("lm_head", 7168, 129280))
+MLA_GEMMS_A_LAYER = 10           # wdq, wuq, wdkv, wkr, wuk, wuv, wo, MLP 3
+# 17c's schedule: AdamW's near-sign steps on the 7,168-wide lm_head move a
+# logit by about lr x 7,168 x rms(input), and the MTP head feeds it its
+# block's output unnormed (rms ~7 at the reference's init); from 1e-4 up
+# the mtp loss climbs, at 3e-5 both losses fall
+MLA_TRAIN_LR = dict(lr_base=3e-5, lr_warmup=10, lr_total=100)
+
+
+def _mla_train_gemms(torch, args, dev, timer, rows):
+    """17a. The streaming GEMM at the MLA training path's new shapes, M =
+    4,096 tokens: for each weight the forward x·W, dA = dC·Wᵀ (a
+    K-contiguous B) and dB = xᵀ·dC (an M-contiguous A), each on the
+    kernel against its plain version, timed beside the plain version,
+    ``torch.matmul`` and the bound (``_bwd_entry``), kept as the GEMM
+    row's ``mla_train_path``.  Operands are scaled so that every output
+    is O(1) (as 15a)."""
+    g = torch.Generator(device=dev).manual_seed(args.seed + 17)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device=dev)
+                * scale).to(torch.bfloat16)
+
+    M = TRAIN_TOKENS
+    per_shape = []
+    for name, K, N in MLA_TRAIN_GEMMS:
+        x, w = randn(M, K), randn(K, N, scale=K ** -0.5)
+        per_shape.append(_bwd_entry(torch, timer, x, w, f"{name} x·W"))
+        del x, w
+        dc, w = randn(M, N), randn(K, N, scale=N ** -0.5)
+        per_shape.append(_bwd_entry(torch, timer, dc, w.t(), f"{name} dA"))
+        del w
+        x = randn(M, K, scale=M ** -0.5)
+        per_shape.append(_bwd_entry(torch, timer, x.t(), dc, f"{name} dB"))
+        del x, dc
+        torch.cuda.empty_cache()
+    _add_path(rows["streaming_gemm"], per_shape, "mla_train_path")
+    return per_shape
+
+
+def _mla_train_card_vs_cpu(torch, args, dev):
+    """17b. deepseek-v3-671b at full width cut to 1 layer (one dense MLA
+    layer and the MTP head), 1 x 128 tokens, the same seeded weights
+    (drawn on the card, copied to the host) on the card and on the CPU:
+    ce, mtp and the loss within 1e-3 relative and every gradient leaf
+    (the reference's tree: no derived copy) within 5e-2 relative L2, the
+    limits of 15b and 16b."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import depth_cut
+    from repro_torch.launch.steps import loss_and_grads
+    from repro_torch.models.model import Model
+    from repro_torch.models.params import params_to
+
+    cfg = depth_cut(get_config(MLA_ARCH), 1)
+    params = Model(cfg, device=dev).init(
+        torch.Generator(device=dev).manual_seed(args.seed))
+    rng = np.random.default_rng(args.seed + 17)
+    toks = rng.integers(1, cfg.vocab_size - 1,
+                        (1, MLA_TRAIN_CHECK_TOKENS + 1))
+    batch = {"tokens": torch.from_numpy(toks[:, :-1]).to(torch.int32),
+             "labels": torch.from_numpy(toks[:, 1:]).to(torch.int32)}
+    t = time.perf_counter()
+    (loss, card_m), grads = loss_and_grads(
+        Model(cfg, device=dev, remat="none"), params,
+        {k: v.to(dev) for k, v in batch.items()})
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t
+    grads = params_to(grads, "cpu")
+    params = params_to(params, "cpu")
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    (want, cpu_m), want_g = loss_and_grads(
+        Model(cfg, device="cpu", remat="none"), params, batch)
+    cpu_s = time.perf_counter() - t
+    rel = {k: abs(a.item() - b.item()) / abs(b.item()) for k, (a, b) in {
+        "loss": (loss, want), "ce": (card_m["ce"], cpu_m["ce"]),
+        "mtp": (card_m["mtp"], cpu_m["mtp"])}.items()}
+    errs = _leaf_errors(torch, grads, want_g)
+    worst = max(errs, key=errs.get)
+    res = {"config": cfg.name, "tokens": MLA_TRAIN_CHECK_TOKENS,
+           "card": {"loss": loss.item(), **{k: v.item()
+                                            for k, v in card_m.items()}},
+           "cpu": {"loss": want.item(), **{k: v.item()
+                                           for k, v in cpu_m.items()}},
+           "rel_diff": rel, "loss_rtol": TRAIN_LOSS_RTOL,
+           "leaves": len(errs), "grad_rel_l2": errs,
+           "grad_rel_l2_max": errs[worst], "grad_rel_l2_max_leaf": worst,
+           "grad_rel_l2_limit": TRAIN_GRAD_REL_L2, "card_s": card_s,
+           "cpu_s": cpu_s}
+    print("[mla_train_card_vs_cpu] " + json.dumps(res), flush=True)
+    require(set(card_m) == {"ce", "aux", "mtp"}, f"metrics {set(card_m)}")
+    require(max(rel.values()) <= TRAIN_LOSS_RTOL,
+            f"MLA train card vs CPU: {rel}")
+    require(errs[worst] <= TRAIN_GRAD_REL_L2,
+            f"MLA train card vs CPU: gradient {worst} off by {errs[worst]}")
+    return res
+
+
+def _mla_train_flops(cfg, tokens, seq):
+    """Model FLOPs of one MLA training step: 6 per weight per token for
+    every GEMM a token runs through (each MLA layer's seven projections
+    and MLP, the MTP head's proj and block, the lm_head twice: the main
+    and the MTP cross-entropy) and the attention's QKᵀ (192 wide) and
+    PV (128) at 3 times their forward over every (query, key) pair the
+    chunked attention computes."""
+    m, d, H = cfg.mla, cfg.d_model, cfg.n_heads
+    qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+    per_layer = (d * m.q_lora_rank + m.q_lora_rank * H * qk
+                 + d * (m.kv_lora_rank + m.qk_rope_head_dim)
+                 + m.kv_lora_rank * H * (m.qk_nope_head_dim + m.v_head_dim)
+                 + H * m.v_head_dim * d + 3 * d * cfg.d_ff)
+    layers = cfg.n_layers + 1                            # + the MTP block
+    weights = layers * per_layer + 2 * d * d + 2 * d * cfg.padded_vocab
+    attn = layers * 3 * 2 * tokens * seq * H * (qk + m.v_head_dim)
+    return 6 * weights * tokens + attn, weights
+
+
+class _Marks:
+    """Marker kernels (``torch.cuda._sleep(1)``, one cycle) around every
+    call of ``layers.chunked_attention``, forward and backward: one
+    before and one after the forward (the recompute of ``remat="full"``
+    too), and in the backward one when the output's gradient arrives
+    and one when the inputs' gradients leave (an identity autograd
+    Function at each end).  The device kernels between a pair are the
+    attention's torch ops."""
+
+    NAME = re.compile(r"spin|sleep", re.I)
+
+    def __init__(self, torch):
+        self.torch = torch
+
+        class Mark(torch.autograd.Function):
+            @staticmethod
+            def forward(ctx, *xs):
+                return tuple(x.view_as(x) for x in xs)
+
+            @staticmethod
+            def backward(ctx, *gs):
+                torch.cuda._sleep(1)
+                return gs
+        self.mark = Mark
+
+    def __enter__(self):
+        from repro_torch.models import layers as L
+        self.L, self.orig = L, L.chunked_attention
+        orig, mark, torch = self.orig, self.mark, self.torch
+
+        def marked(q, k, v, **kw):
+            torch.cuda._sleep(1)
+            q, k, v = mark.apply(q, k, v)
+            (out,) = mark.apply(orig(q, k, v, **kw))
+            torch.cuda._sleep(1)
+            return out
+        L.chunked_attention = marked
+        return self
+
+    def __exit__(self, *exc):
+        self.L.chunked_attention = self.orig
+
+
+def _profile_mla_train_step(torch, step, state, batch, n_layers):
+    """One MLA training step under ``torch.profiler`` with the attention
+    marked (``_Marks``) and the optimizer's update inside a
+    ``record_function`` range: device ms split into the streaming GEMM
+    (``kernel_nodes.kernel_group``), the attention's torch ops, the
+    optimizer (the kernels that start inside its range on the device's
+    timeline) and the rest; the GEMM's launches from the counters
+    (forward, the recompute of ``remat="full"`` among them, and
+    backward) beside its kernels in the profile."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.kernels import kernel_nodes as KN
+    from repro_torch.kernels import ops
+    from repro_torch.optim import optimizers as OPT
+
+    orig_update = OPT.AdamW.update
+
+    def update(self, *a, **kw):
+        with record_function("optimizer_update"):
+            return orig_update(self, *a, **kw)
+
+    OPT.AdamW.update = update
+    try:
+        with _Marks(torch):
+            for window in range(1, 4):
+                ops.reset_launches()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    state, _ = step(state, batch)
+                    torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+                launches, gemm_bwd = dict(ops.LAUNCHES), dict(ops.GEMM_BWD)
+                events = prof.events()
+                dev_ev = [ev for ev in events
+                          if ev.device_type == DeviceType.CUDA
+                          and ev.time_range.elapsed_us() > 0]
+                kern = sorted((ev.time_range.start,
+                               ev.time_range.elapsed_us(), ev.name)
+                              for ev in dev_ev
+                              if ev.name != "optimizer_update")
+                if kern:
+                    break
+                print(f"[mla_train_profile] window {window}: the profiler "
+                      "recorded no device kernel", flush=True)
+    finally:
+        OPT.AdamW.update = orig_update
+    require(kern, "MLA train profile: 3 windows held no device kernel")
+    opt_ranges = [(ev.time_range.start, ev.time_range.end) for ev in dev_ev
+                  if ev.name == "optimizer_update"]
+    split = {"gemm": 0.0, "attention": 0.0, "optimizer": 0.0, "other": 0.0}
+    counts = {k: 0 for k in split}
+    marks, inside = 0, False
+    for start, us, name in kern:
+        if _Marks.NAME.search(name):
+            marks += 1
+            inside = not inside
+            continue
+        if KN.kernel_group(name) == "streaming_gemm":
+            part = "gemm"
+        elif inside:
+            part = "attention"
+        elif any(s <= start <= e for s, e in opt_ranges):
+            part = "optimizer"
+        else:
+            part = "other"
+        split[part] += us / 1e3
+        counts[part] += 1
+    simt = sum("gemm_simt" in n for _, _, n in kern)
+    busy_ms = sum(split.values())
+    n_fwd = MLA_GEMMS_A_LAYER * (n_layers + 1) + 1 + 2
+    return state, {
+        "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+        "device_busy_share": busy_ms / wall_ms, "device_ms": split,
+        "device_kernels": counts, "attention_marks": marks,
+        "optimizer_ranges": len(opt_ranges),
+        "launches": {"forward": launches["streaming_gemm"]
+                     - gemm_bwd["launches"],
+                     "backward": gemm_bwd["launches"]},
+        "forward_products_a_pass": n_fwd,
+        "remat_recomputes": MLA_GEMMS_A_LAYER * n_layers,
+        "profiler_gemm_kernels": counts["gemm"], "gemm_simt": simt,
+        "bwd_dc_copies": gemm_bwd["dc_copies"],
+        "profiler_windows": window}, launches
+
+
+def _absorbed_equal(torch, params, cfg):
+    """Whether every MLA layer's absorbed copies equal its permuted
+    ``wuk`` / ``wuv``, bit for bit."""
+    from repro_torch.models import transformer as T
+    return all(torch.equal(lp["attn"]["wuk_hkr"],
+                           lp["attn"]["wuk"].permute(1, 2, 0))
+               and torch.equal(lp["attn"]["wuv_hrv"],
+                               lp["attn"]["wuv"].permute(1, 0, 2))
+               for lp, _ in T.layer_stack(params, cfg))
+
+
+def _mla_train_full(torch, args, card, ckpt_root, dev):
+    """17c. The Trainer on ``deepseek-v3-671b-3l``
+    (``configs.deepseek_v3_671b.TRAINING``: the 3 dense MLA layers and
+    the MTP head at full width), random bf16 weights from ``--seed``,
+    AdamW at ``MLA_TRAIN_LR``, ``remat="full"``, 8 x 512 tokens a step,
+    20 steps (no checkpoint: the CPU tests hold the MLA tree's round
+    trip), then one step more, profiled; the absorbed copies held
+    against the trained weights after it."""
+    import shutil
+    from repro_torch.configs.base import RunConfig, ShapeConfig
+    from repro_torch.configs.deepseek_v3_671b import TRAINING
+    from repro_torch.checkpoint.checkpoint import _flatten
+    from repro_torch.data.pipeline import make_loader
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import n_elements
+    from repro_torch.runtime.train_loop import Trainer, TrainerConfig
+
+    cfg = TRAINING
+    run = RunConfig(model=cfg, shape=ShapeConfig(
+        "train", "train", TRAIN_SEQ, TRAIN_BATCH), remat="full")
+    d = ckpt_root / "mla"
+    shutil.rmtree(d, ignore_errors=True)
+    tr = Trainer(run, TrainerConfig(ckpt_dir=str(d),
+                                    ckpt_every=TRAIN_STEPS + 1,
+                                    seed=args.seed, **MLA_TRAIN_LR),
+                 device=dev)
+    last, inner = {}, tr.step_fn
+
+    def step_fn(state, batch):
+        last["state"], m = inner(state, batch)
+        return last["state"], m
+
+    tr.step_fn = step_fn
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    out = tr.train(TRAIN_STEPS)
+    train_s = time.perf_counter() - t
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses, log = out["losses"], tr.metrics_log
+    step_ms = [m["s"] * 1e3 for m in log]
+    med = statistics.median(step_ms[1:])
+    tokens = TRAIN_SEQ * TRAIN_BATCH
+    flops, weights = _mla_train_flops(cfg, tokens, TRAIN_SEQ)
+    bound_ms = flops / BF16_FLOP_PER_S * 1e3
+    require(len(losses) == TRAIN_STEPS, f"MLA train: {len(losses)} steps")
+    require(all(x == x and abs(x) < float("inf") for x in losses),
+            f"MLA train: non-finite loss {losses}")
+    state = last.pop("state")
+    absorbed_trained = _absorbed_equal(torch, state["params"], cfg)
+
+    loader = make_loader(cfg, run.shape, dev, start_step=TRAIN_STEPS,
+                         seed=args.seed)
+    _, batch = next(loader)
+    loader.close()
+    state, prof, launches = _profile_mla_train_step(
+        torch, inner, state, batch, cfg.n_layers)
+    absorbed = absorbed_trained and _absorbed_equal(torch, state["params"],
+                                                    cfg)
+    opt_derived = ["/".join(p) for p, _ in _flatten(state["opt"])
+                   if p[-1] in T.DERIVED]
+    del state
+    shutil.rmtree(d, ignore_errors=True)
+    prof["device_busy_share_of_median_step"] = prof["device_busy_ms"] / med
+    res = {"config": cfg.name, "params": n_elements(
+               tr.model.abstract_params()),
+           "gemm_weights_a_pass": weights, "steps": TRAIN_STEPS,
+           "tokens_per_step": tokens, "remat": run.remat,
+           "losses": losses, "ce": [m["ce"] for m in log],
+           "mtp": [m["mtp"] for m in log],
+           "step_ms": step_ms, "median_step_ms": med,
+           "tokens_per_s": tokens / med * 1e3,
+           "model_tflop_per_step": flops / 1e12,
+           "flop_bound_ms": bound_ms, "bf16_peak_share": bound_ms / med,
+           "peak_mem_gb": peak_gb, "train_s": train_s,
+           "absorbed_copies_equal_trained_weights": absorbed,
+           "derived_keys_in_adamw_state": opt_derived,
+           "profiled_step": prof, "card": card}
+    print("[mla_train_full] " + json.dumps(res), flush=True)
+    require(log[-1]["ce"] < log[0]["ce"] and log[-1]["mtp"] < log[0]["mtp"],
+            f"MLA train: ce {log[0]['ce']} -> {log[-1]['ce']}, mtp "
+            f"{log[0]['mtp']} -> {log[-1]['mtp']}")
+    require(peak_gb < 80, f"MLA train: peak {peak_gb} GB")
+    require(absorbed and not opt_derived,
+            "MLA train: the absorbed copies left the trained weights")
+    n_fwd = prof["forward_products_a_pass"]
+    require(prof["launches"] == {"forward": n_fwd + prof["remat_recomputes"],
+                                 "backward": 2 * n_fwd},
+            f"MLA train: GEMM launches {prof['launches']}")
+    require(prof["gemm_simt"] == 0,
+            "MLA train: the profiled step ran the scalar GEMM kernel")
+    # a mark pair per attention call: forward and backward of every layer
+    # and of the MTP block, and the recompute of every remat layer
+    require(prof["attention_marks"] == 2 * (3 * cfg.n_layers + 2),
+            f"MLA train: {prof['attention_marks']} attention marks")
+    return res, launches
+
+
+def phase_mla_training(torch, args, rows, card, dev):
+    """17. Training of the MLA family on the card (see the module
+    docstring); prints each sub-phase's line and its seconds."""
+    ckpt_root = Path(__file__).resolve().parent / "build" / "train_smoke"
+    secs, res = {}, {}
+    t = time.perf_counter()
+    timer = Timer(torch, dev)
+    res["gemms"] = _mla_train_gemms(torch, args, dev, timer, rows)
+    del timer
+    torch.cuda.empty_cache()
+    secs["gemms"] = time.perf_counter() - t
+    t = time.perf_counter()
+    res["card_vs_cpu"] = _mla_train_card_vs_cpu(torch, args, dev)
+    torch.cuda.empty_cache()
+    secs["card_vs_cpu"] = time.perf_counter() - t
+    t = time.perf_counter()
+    res["full"], launches = _mla_train_full(torch, args, card, ckpt_root,
+                                            dev)
+    torch.cuda.empty_cache()
+    secs["full"] = time.perf_counter() - t
+    print(f"[mla_train] seconds {json.dumps(secs)}", flush=True)
+    res["seconds"] = secs
+    rows["streaming_gemm"]["mla_train_launches"] = res["full"][
+        "profiled_step"]["launches"]
+    return {**res, "launches": launches}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4462,6 +4878,8 @@ def main():
     train = phase_training(torch, args, rows, card, dev)
     torch.cuda.empty_cache()
     moe_train = phase_moe_training(torch, args, rows, card, dev)
+    torch.cuda.empty_cache()
+    mla_train = phase_mla_training(torch, args, rows, card, dev)
 
     # launches: each kernel's count from its own main path's serving run
     # (the grouped GEMM's is the MoE path, the latent paged kernel's
@@ -4480,6 +4898,8 @@ def main():
     paths[int8_path] = variants[INT8_ARCH]["int8"]["serving"]["launches"]
     moe_train_path = f"{MOE_ARCH} train step"
     paths[moe_train_path] = moe_train["launches"]
+    paths[f"{mla_train['full']['config']} train step"] = \
+        mla_train["launches"]
     own = {"streaming_gemm_grouped": MOE_ARCH,
            "paged_latent_attention": deepseek["config"],
            "paged_attention_int8": int8_path, "kv_quantize": int8_path,

@@ -16,6 +16,11 @@ template's tree on the template's device (or ``device``) with the
 template's dtypes; it also reads the reference's stacked layer leaves
 (``params/layers/attn/wq`` of (L, ...)), taking layer i for the port's
 ``params/layers/i/attn/wq``.
+
+Only the reference's leaves are written (``transformer.trainable``): an
+MLA model's absorbed copies of ``wuk`` / ``wuv``
+(``transformer.DERIVED``) are no parameters; ``restore`` makes them
+again from the restored weights wherever the template holds them.
 """
 from __future__ import annotations
 
@@ -28,6 +33,8 @@ from typing import Optional
 
 import numpy as np
 import torch
+
+from repro_torch.models import transformer as T
 
 SEP = "/"
 
@@ -72,7 +79,7 @@ class CheckpointManager:
         same storage), since the optimizers update the state in place
         while the write is in flight."""
         host = {SEP.join(path): leaf.detach().to("cpu", copy=True)
-                for path, leaf in _flatten(state)}
+                for path, leaf in _flatten(T.trainable(state))}
         if self._pool is not None:
             self.wait()
             self._pending = self._pool.submit(self._write, host, step)
@@ -130,14 +137,17 @@ class CheckpointManager:
         """(state, step): checkpoint ``step`` (default the latest) in the
         structure, shapes and dtypes of ``template_state``, a tree of
         tensors (``meta``-device ones will do, with ``device`` given),
-        on ``device`` or else each template leaf's device."""
+        on ``device`` or else each template leaf's device.  The derived
+        copies the template holds are made from the restored weights."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.dir}")
+        saved = T.trainable(template_state)
         with np.load(self.dir / f"step_{step:08d}" / "arrays.npz") as data:
             leaves = [self._leaf(data, path, t, device)
-                      for path, t in _flatten(template_state)]
-        return _rebuild(template_state, iter(leaves)), step
+                      for path, t in _flatten(saved)]
+        return T.remake_derived(_rebuild(saved, iter(leaves)),
+                                template_state), step
 
     @staticmethod
     def _leaf(data, path, template: torch.Tensor, device) -> torch.Tensor:

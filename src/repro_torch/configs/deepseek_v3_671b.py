@@ -41,6 +41,16 @@ simplifies three things, and the port keeps them (ROADMAP Queue C):
 # heads, experts, vocabulary and the MLA ranks stay published.
 SERVING = depth_cut(CONFIG, 5)
 
+# The training cut the H100 holds: depth only, the 3 dense layers (MLA
+# attention, the 2,048-wide MLP) and the MTP head, at full width
+# (``deepseek-v3-671b-3l``).  Values: embed and the untied lm_head
+# 926.7 M each, 231.2 M a layer, the MTP head 333.9 M: about 2,880.8 M,
+# 34.6 GB of bf16 weights and gradients and fp32 AdamW moments (12 bytes
+# a value) before activations.  No MoE layer fits beside them: one holds
+# 256 x 3 x 7,168 x 2,048 = 11.27 G expert values, about 135 GB at 12
+# bytes a value.
+TRAINING = depth_cut(CONFIG, 3)
+
 
 def reduced() -> ModelConfig:
     return ModelConfig(

@@ -7,12 +7,18 @@ the card.
         --reduced --device cpu --steps 30 --seq 128 --batch 8
     PYTHONPATH=src python -m repro_torch.launch.train \
         --arch qwen2-moe-a2.7b --layers 4 --steps 20 --seq 512 --batch 8
+    PYTHONPATH=src python -m repro_torch.launch.train \
+        --arch deepseek-v3-671b --layers 3 --steps 20 --seq 512 --batch 8 \
+        --remat full
 
 Trains the dense and vlm families (qwen2-0.5b, internvl2-2b,
 chatglm3-6b, granite-20b, qwen1.5-32b) and the MoE family with GQA
 (qwen2-moe-a2.7b; its aux loss is printed beside the loss; at full
 width 4 layers, ~2.9 G values and ~35 GB of weights, gradients and
-AdamW moments, fit one 80 GB card); deepseek-v3 (MLA), rwkv6, zamba2
+AdamW moments, fit one 80 GB card) or MLA (deepseek-v3-671b, whose
+multi-token-prediction loss is printed too; at full width its 3 dense
+layers and the MTP head, ``configs.deepseek_v3_671b.TRAINING``, ~2.9 G
+values, fit one card; a MoE layer beside them does not); rwkv6, zamba2
 and whisper raise ``NotImplementedError`` (ROADMAP Queue A item 13b).
 Weights are random,
 drawn from ``--seed``.  A run resumes from the latest checkpoint in
@@ -65,10 +71,11 @@ def main(argv=None) -> None:
         print(f"[{cfg.name}] nothing to run: {args.ckpt_dir} is at step "
               f"{tr.ckpt.latest_step()} of {args.steps}")
         return
-    aux = tr.metrics_log[-1]["aux"]
+    last = tr.metrics_log[-1]
+    mtp = f", mtp {last['mtp']:.4f}" if "mtp" in last else ""
     print(f"[{cfg.name}] {len(out['losses'])} steps on {tr.device}, "
           f"loss {out['losses'][0]:.4f} -> {out['final_loss']:.4f} "
-          f"(aux {aux:.6f}), "
+          f"(aux {last['aux']:.6f}{mtp}), "
           f"stragglers={len(out['stragglers'])}, "
           f"checkpoints={tr.ckpt.all_steps()}")
 

@@ -16,7 +16,8 @@ promotes, so casts are explicit.
 
 ``chunked_attention`` and ``decode_attention`` are the reference's
 plain XLA attention paths.  Training runs ``chunked_attention`` as
-torch ops differentiated by autograd (``attention_train_chunked``), as
+torch ops differentiated by autograd (``attention_train_chunked``,
+``mla_train_chunked``), as
 the reference trains through XLA; the flash kernel, like the reference's
 Pallas kernel, has no backward.  ``decode_attention`` is kept for the
 tests.
@@ -364,12 +365,11 @@ def _mla_latent(p, x, cfg: ModelConfig, positions):
     return ckv, kr
 
 
-def mla_prefill(p, x, cfg: ModelConfig, positions):
-    """The reference's ``mla_train``: x (B, T, d), positions (B, T).
-    Queries and keys of nope + rope = 192 columns (the rope half of k
-    shared by every head), values of ``v_head_dim`` (128), causal flash
-    attention at scale 1/√192.  Returns (out (B, T, d), (ckv (B, T, r),
-    kr (B, T, rope))), the latents the cache keeps."""
+def _mla_qkv(p, x, cfg: ModelConfig, positions):
+    """x (B, T, d) -> q, k (B, T, H, nope + rope), v (B, T, H, v) and the
+    latents (ckv, kr): k_nope = ckv·W_uk and v = ckv·W_uv per head, the
+    rope half of k one head shared by every head (``expand``, so that
+    autograd sums its gradient over the heads)."""
     H, rope = cfg.n_heads, cfg.mla.qk_rope_head_dim
     q_nope, q_rope = _mla_q(p, x, cfg, positions)
     ckv, kr = _mla_latent(p, x, cfg, positions)
@@ -378,8 +378,28 @@ def mla_prefill(p, x, cfg: ModelConfig, positions):
     k = torch.cat([k_nope, kr[..., None, :].expand(*kr.shape[:-1], H, rope)],
                   dim=-1)
     q = torch.cat([q_nope, q_rope], dim=-1)
+    return q, k, v, (ckv, kr)
+
+
+def mla_prefill(p, x, cfg: ModelConfig, positions):
+    """The reference's ``mla_train``: x (B, T, d), positions (B, T).
+    Queries and keys of nope + rope = 192 columns (the rope half of k
+    shared by every head), values of ``v_head_dim`` (128), causal flash
+    attention at scale 1/√192.  Returns (out (B, T, d), (ckv (B, T, r),
+    kr (B, T, rope))), the latents the cache keeps."""
+    q, k, v, latents = _mla_qkv(p, x, cfg, positions)
     out = ops.flash_attention(q, k, v, causal=True)
-    return out_proj(p, out), (ckv, kr)
+    return out_proj(p, out), latents
+
+
+def mla_train_chunked(p, x, cfg: ModelConfig, positions):
+    """MLA of training, the reference's ``mla_train``: ``mla_prefill``'s
+    projections through the streaming GEMM (whose backward products run
+    on the same kernel) and ``chunked_attention`` as torch ops, which
+    autograd differentiates (the flash kernel has no backward).  x (B,
+    T, d); positions (B, T).  Returns (B, T, d)."""
+    q, k, v, _ = _mla_qkv(p, x, cfg, positions)
+    return out_proj(p, chunked_attention(q, k, v, causal=True))
 
 
 def mla_decode(p, x, cfg: ModelConfig, pool, view):

@@ -10,7 +10,8 @@ the audio encoder-decoder (whisper), which only this API serves.
     prefill(params, tokens, cache, slots, embeddings=None,
             audio_frames=None) -> logits
     decode_step(params, cache, tokens, slots) -> logits
-    loss(params, batch) -> (loss, {"ce", "aux"})   (dense, vlm, MoE)
+    loss(params, batch) -> (loss, {"ce", "aux"[, "mtp"]})
+                                             (dense, vlm, MoE, MLA)
     abstract_params() -> the parameter tree on the ``meta`` device
 
 ``input_specs(cfg, shape)`` gives ``meta``-device stand-ins of every
@@ -67,12 +68,19 @@ class Model:
         """Mean next-token cross-entropy of ``batch`` (``tokens`` or
         ``embeddings``, and ``labels``; ``-1`` ignored) plus the aux
         loss (the MoE layers' load-balancing loss summed; zero for the
-        dense and vlm families).  Returns (loss, {"ce", "aux"}), float32
-        scalars."""
+        dense and vlm families), plus 0.3 times the multi-token-prediction
+        loss for a config with ``mtp`` (``transformer.mtp_loss``).
+        Returns (loss, {"ce", "aux"} and "mtp" with ``mtp``), float32
+        scalars.  ``params`` need not hold the decode path's derived
+        copies (``transformer.DERIVED``): training reads none."""
         cfg = self.cfg
         h, aux, _ = T.forward_train(params, cfg, batch, self.remat)
         ce = T.chunked_ce_loss(params, cfg, h, batch["labels"])
-        return ce + aux, {"ce": ce, "aux": aux}
+        total, metrics = ce + aux, {"ce": ce, "aux": aux}
+        if cfg.mtp:
+            metrics["mtp"] = T.mtp_loss(params, cfg, h, batch)
+            total = total + 0.3 * metrics["mtp"]
+        return total, metrics
 
     def init_cache(self, slots: int, max_seq: int, page_tokens: int = 8,
                    n_pages: Optional[int] = None,

@@ -105,13 +105,14 @@ def _conv(tree):
 def _split_stacks(tree_np, cfg) -> dict:
     """A tree in the reference's parameter layout (numpy leaves) -> the
     port's: each layer stack's leading ``L`` axis split into a list of
-    per-layer trees, every other key kept whole."""
+    per-layer trees (an empty list for a stack of no layer: an MoE
+    model cut to its dense layers), every other key kept whole."""
     nd = cfg.moe.first_dense_layers if cfg.family == "moe" else 0
     stacks = {"dense_layers": nd, "enc_layers": cfg.n_encoder_layers,
               "layers": cfg.n_layers - nd}
     out = {k: _conv(v) for k, v in tree_np.items() if k not in stacks}
     for name, n in stacks.items():
-        if n:
+        if name in tree_np:
             layers = _conv(tree_np[name])
             out[name] = [tree_map(lambda a, i=i: a[i].clone(), layers)
                          for i in range(n)]

@@ -19,23 +19,29 @@ loops over a list of per-layer trees.  An MoE model may start with
 ``first_dense_layers`` dense layers (a ``dense_layers`` stack before
 ``layers``), as in the reference.
 
-Training (``forward_train``, ``chunked_ce_loss``) covers the dense, vlm
-and MoE (GQA, not MLA) families: each layer's attention is
-``layers.attention_train_chunked`` (chunked attention as torch ops);
-every projection, the MLP, the router, the shared experts and the
-lm_head run through the streaming GEMM, whose backward products run on
-the same kernel, and the expert products through the grouped GEMM,
-whose backward products run on kernels of their own.  An MoE model runs
-its ``dense_layers`` first and sums its layers' aux losses.
+Training (``forward_train``, ``chunked_ce_loss``, ``mtp_loss``) covers
+the dense, vlm and MoE families, GQA or MLA: each layer's attention is
+``layers.attention_train_chunked`` or ``layers.mla_train_chunked``
+(chunked attention as torch ops); every projection, the MLP, the
+router, the shared experts, the MTP head's ``proj`` and the lm_head run
+through the streaming GEMM, whose backward products run on the same
+kernel, and the expert products through the grouped GEMM, whose
+backward products run on kernels of their own.  An MoE model runs its
+``dense_layers`` first (its ``layers`` may be empty, as in a depth cut
+to the dense layers) and sums its layers' aux losses.
 ``remat="full"`` recomputes each layer in the backward pass
-(``torch.utils.checkpoint``).  The ssm, hybrid and audio families' and
-MLA's training, and ``mtp_loss``, are ROADMAP Queue A item 13b.
+(``torch.utils.checkpoint``).  The ssm, hybrid and audio families'
+training is ROADMAP Queue A item 13b.
 
 A config with ``mla`` (deepseek-v3) runs multi-head latent attention
 in place of GQA in every layer (``layers.mla_prefill``,
-``layers.mla_decode``), and with ``mtp`` carries the reference's
-multi-token-prediction head (``mtp``: ``proj``, a dense ``block``,
-``norm_h``, ``norm_e``), which serving builds but never runs.
+``layers.mla_decode``, ``layers.mla_train_chunked``), and with ``mtp``
+carries the reference's multi-token-prediction head (``mtp``: ``proj``,
+a dense ``block``, ``norm_h``, ``norm_e``), which training runs
+(``mtp_loss``) and serving builds but never runs.  The absorbed decode's
+per-head copies of ``wuk`` / ``wuv`` (``DERIVED``) are no parameters:
+``trainable`` leaves them out of what the optimizer, the gradients and
+the checkpoints hold, and ``add_derived`` remakes them.
 """
 from __future__ import annotations
 
@@ -142,16 +148,52 @@ def lm_pspecs(cfg: ModelConfig):
     return p
 
 
+# the copies the decode path reads in another layout than the
+# reference's tree (``layers.mla_absorbed``): no parameters
+DERIVED = ("wuk_hkr", "wuv_hrv")
+
+
 def add_derived(params, cfg: ModelConfig):
     """Add to ``params`` (in place, and return it) the copies that the
     decode path reads in another layout than the reference's tree: for
     every MLA layer, ``attn["wuk_hkr"]`` and ``attn["wuv_hrv"]``
-    (``layers.mla_absorbed``), made once here.  Other configs have
-    none."""
+    (``layers.mla_absorbed``), made here when the weights are loaded and
+    made again from the updated ``wuk`` / ``wuv`` after every optimizer
+    update.  Other configs have none."""
     if cfg.mla:
         for lp, _ in layer_stack(params, cfg):
             lp["attn"].update(L.mla_absorbed(lp["attn"]))
     return params
+
+
+def remake_derived(tree, template):
+    """``tree``, a tree without the derived copies (``trainable``), with
+    them made from its weights in every dict whose counterpart in
+    ``template`` holds them (a checkpoint restored into a template made
+    by ``Model.init``).  In place; returns ``tree``."""
+    if isinstance(template, dict):
+        if any(k in template for k in DERIVED):
+            tree.update(L.mla_absorbed(tree))
+        for k, v in tree.items():
+            if k in template:
+                remake_derived(v, template[k])
+    elif isinstance(template, list):
+        for v, t in zip(tree, template):
+            remake_derived(v, t)
+    return tree
+
+
+def trainable(tree):
+    """``tree`` (parameters, or a train state holding them) without the
+    derived copies (``DERIVED``): the reference's leaves, which the
+    gradients, the optimizer state, gradient compression and the
+    checkpoints hold.  The tensors are shared, not copied."""
+    if isinstance(tree, dict):
+        return {k: trainable(v) for k, v in tree.items()
+                if k not in DERIVED}
+    if isinstance(tree, list):
+        return [trainable(v) for v in tree]
+    return tree
 
 
 def layer_stack(params, cfg: ModelConfig) -> list:
@@ -278,7 +320,7 @@ def lm_head(params, cfg: ModelConfig, h):
 
 
 # =====================================================================
-# training: dense, vlm and MoE
+# training: dense, vlm and MoE (GQA or MLA)
 # =====================================================================
 NOT_TRAINED = ("training of the {what} is not ported yet "
                "(ROADMAP Queue A item 13b)")
@@ -299,11 +341,19 @@ def _remat(fn, mode: str):
     raise ValueError(f"remat {mode!r}: none | dots | full")
 
 
+def _attn_train(p, h, cfg: ModelConfig, positions):
+    """Training attention, MLA or GQA as the config says (the
+    reference's ``_attn_block``)."""
+    if cfg.mla:
+        return L.mla_train_chunked(p, h, cfg, positions)
+    return L.attention_train_chunked(p, h, cfg, positions)
+
+
 def dense_layer_train(lp, x, cfg: ModelConfig, positions):
     """Training body of one dense layer (the reference's
     ``dense_layer_fwd``): x + attention(norm(x)), then x + mlp(norm(x))."""
     h = L.apply_norm(lp["ln1"], x, cfg)
-    x = x + L.attention_train_chunked(lp["attn"], h, cfg, positions)
+    x = x + _attn_train(lp["attn"], h, cfg, positions)
     h = L.apply_norm(lp["ln2"], x, cfg)
     return x + L.apply_mlp(lp["mlp"], h, cfg)
 
@@ -313,7 +363,7 @@ def moe_layer_train(lp, x, cfg: ModelConfig, positions):
     ``moe_layer_fwd``): x + attention(norm(x)), then x + moe(norm(x)).
     Returns (x', the layer's aux loss)."""
     h = L.apply_norm(lp["ln1"], x, cfg)
-    x = x + L.attention_train_chunked(lp["attn"], h, cfg, positions)
+    x = x + _attn_train(lp["attn"], h, cfg, positions)
     h = L.apply_norm(lp["ln2"], x, cfg)
     y, aux = MOE.apply_moe(lp["moe"], h, cfg)
     return x + y, aux
@@ -325,10 +375,9 @@ def forward_train(params, cfg: ModelConfig, batch, remat: str = "full"):
     final normed hidden states.  Returns (hidden (B, T, d), aux loss (the
     sum over the MoE layers; a float32 zero for the dense and vlm
     families), extras {})."""
-    if cfg.family not in ("dense", "vlm", "moe") or cfg.mla is not None:
+    if cfg.family not in ("dense", "vlm", "moe"):
         raise NotImplementedError(NOT_TRAINED.format(
-            what=f"{cfg.family} family ({cfg.name})"
-            + (" with MLA" if cfg.mla is not None else "")))
+            what=f"{cfg.family} family ({cfg.name})"))
     if cfg.embedding_inputs and "embeddings" in batch:
         x = batch["embeddings"].to(torch.bfloat16)
     else:
@@ -384,6 +433,27 @@ def chunked_ce_loss(params, cfg: ModelConfig, h, labels, t_chunk: int = 0):
 
 
 def mtp_loss(params, cfg: ModelConfig, h, batch):
-    """DeepSeek-V3's multi-token-prediction loss: not ported yet."""
-    raise NotImplementedError(NOT_TRAINED.format(
-        what=f"multi-token-prediction head ({cfg.name})"))
+    """DeepSeek-V3's multi-token prediction (depth 1), the reference's
+    ``mtp_loss``: predict token t+2 from [norm_h(h_t) | norm_e(embed(token
+    t+1))] (the last position's next token is token 0) through ``proj``
+    (2d x d) and one dense layer (``mtp.block``, MLA attention), then the
+    chunked cross-entropy against the labels shifted left by one (the
+    last column ``-1``), with no final norm, as the reference.  h: (B, T,
+    d), the final normed hidden states.  A config without ``mtp`` raises
+    ``ValueError`` (the reference fails on the missing ``mtp`` key)."""
+    if not cfg.mtp:
+        raise ValueError(f"{cfg.name} has no multi-token-prediction head "
+                         "(cfg.mtp is off)")
+    mp = params["mtp"]
+    tokens, labels = batch["tokens"], batch["labels"]
+    B, T = tokens.shape
+    nxt = torch.cat([tokens[:, 1:], torch.zeros_like(tokens[:, :1])], dim=1)
+    e = embed_tokens(params, cfg, nxt)
+    hh = torch.cat([L.apply_norm(mp["norm_h"], h, cfg),
+                    L.apply_norm(mp["norm_e"], e, cfg)], dim=-1)
+    x = L._gemm(hh, mp["proj"])
+    positions = torch.arange(T, device=x.device).expand(B, T)
+    x = dense_layer_train(mp["block"], x, cfg, positions)
+    lbl2 = torch.cat([labels[:, 1:], torch.full_like(labels[:, :1], -1)],
+                     dim=1)
+    return chunked_ce_loss(params, cfg, x, lbl2)

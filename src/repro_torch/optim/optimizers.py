@@ -52,6 +52,8 @@ def stacked(tree):
 
 
 def _zip_layers(layers):
+    if not layers:           # a stack of no layer holds no leaf
+        return {}
     if isinstance(layers[0], dict):
         return {k: _zip_layers([lp[k] for lp in layers]) for k in layers[0]}
     return tuple(layers)

@@ -4,7 +4,10 @@ device (no mesh).
 Composes the substrate: deterministic data (resume = pure function of
 step), atomic + async checkpoints, a step watchdog (straggler
 detection), and optional INT8 + error-feedback gradient compression in
-the step (the state then carries ``ef``).
+the step (the state then carries ``ef``).  The optimizer state, the
+error feedback and the checkpoints hold the reference's leaves only
+(``transformer.trainable``); an MLA model's absorbed copies are made
+again after every update and after a restore.
 
 Failure model:
   * crash/restart — a new trainer restores the latest checkpoint and
@@ -31,6 +34,7 @@ from repro_torch.configs.base import RunConfig
 from repro_torch.data.pipeline import make_loader
 from repro_torch.device import resolve_device
 from repro_torch.launch.steps import build_train_step
+from repro_torch.models import transformer as T
 from repro_torch.models.model import Model
 from repro_torch.optim import get_optimizer
 from repro_torch.runtime import compression as GC
@@ -67,9 +71,10 @@ class Trainer:
 
     # ------------------------------------------------------------ state
     def _state(self, params):
-        state = {"params": params, "opt": self.opt.init(params)}
+        weights = T.trainable(params)
+        state = {"params": params, "opt": self.opt.init(weights)}
         if self.run.gradient_compression:
-            state["ef"] = GC.init_ef(params)
+            state["ef"] = GC.init_ef(weights)
         return state
 
     def init_state(self):
@@ -85,6 +90,7 @@ class Trainer:
             return self.init_state(), 0
         template = self._state(self.model.abstract_params())
         state, step = self.ckpt.restore(template, device=self.device)
+        T.add_derived(state["params"], self.run.model)
         return state, step + 1
 
     # ------------------------------------------------------------- run
@@ -108,7 +114,7 @@ class Trainer:
                 losses.append(loss)
                 self.metrics_log.append({
                     "step": step, "loss": loss, "s": dt,
-                    **{k: float(metrics[k]) for k in ("ce", "aux")
+                    **{k: float(metrics[k]) for k in ("ce", "aux", "mtp")
                        if k in metrics}})
                 # --------------- straggler watchdog
                 if len(durations) >= 5:

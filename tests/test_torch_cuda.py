@@ -45,7 +45,9 @@ and scales it writes bit for bit equal to the quantize kernel's and the
 plain version's; the quantize-and-append kernel bit for bit against its
 plain version; and the reduced qwen1.5-32b under the flag on the card
 against the CPU, one fused int8 launch a layer at decode and no
-quantize launch.
+quantize launch.  Then the GEMM's forward and both backward products at
+the MLA training path's new weights (``wkr``, ``wuq``, ``wo``, the MTP
+head's ``proj`` and a column slice of the untied lm_head) at M = 512.
 Every "one launch per call" count reads the kernel nodes of a captured
 CUDA graph, not a profiler window (which now and then loses launches).
 Tolerances: int8 exact; fp32 GEMM 2e-4 and fp32 attention 3e-5 (fp32
@@ -1409,6 +1411,54 @@ def test_cuda_gemm_backward_products_match_plain_version(m, k, n, tied):
         got.float().cpu().numpy(),
         ref.gemm_ref(cols.contiguous(), b.detach().t()).float().cpu().numpy(),
         rtol=2e-2, atol=2e-2)
+
+
+# (weight, K, N, columns taken) of the MLA training path's new products
+# at M = 512: ``wkr``, whose dB has N = 64; ``wuq``; ``wo`` (K 16,384);
+# the MTP head's ``proj`` (K 14,336); and a column slice of the untied
+# lm_head (7,168 x 129,280), a B whose rows are 129,280 values apart
+MLA_TRAIN_SHAPES = [("wkr", 7168, 64, None), ("wuq", 1536, 24576, None),
+                    ("wo", 16384, 7168, None),
+                    ("mtp_proj", 14336, 7168, None),
+                    ("lm_head", 7168, 129280, 8192)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,k,n,cols", MLA_TRAIN_SHAPES,
+                         ids=[s[0] for s in MLA_TRAIN_SHAPES])
+def test_cuda_gemm_mla_train_shapes_match_plain_version(name, k, n, cols):
+    """The forward, dA = dC·Bᵀ and dB = Aᵀ·dC of ``ops.streaming_gemm``
+    under autograd at the MLA training path's weights, M = 512: each one
+    ``gemm_bf16`` launch (no scalar kernel), within one bf16 ulp of the
+    plain products."""
+    dev = _card()
+    m = 512
+    g = torch.Generator(device=dev).manual_seed(k + n)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device=dev)
+                * scale).to(torch.bfloat16)
+
+    a = randn(m, k).requires_grad_(True)
+    w = randn(k, n, scale=k ** -0.5).requires_grad_(True)
+    b = w[:, :cols] if cols else w
+    dc = randn(m, b.shape[1])
+    ops.reset_launches()
+    c = ops.streaming_gemm(a, b)
+    da, db = torch.autograd.grad(c, (a, b), dc)
+    assert ops.LAUNCHES["streaming_gemm"] == 3
+    assert ops.GEMM_BWD == {"launches": 2, "dc_copies": 0}
+    ad, bd = a.detach(), b.detach()
+    for got, want in ((c, ref.gemm_ref(ad, bd)),
+                      (da, ref.gemm_ref(dc, bd.t())),
+                      (db, ref.gemm_ref(ad.t(), dc))):
+        assert got.shape == want.shape and got.dtype == torch.bfloat16
+        err = (got.float() - want.float()).abs()
+        assert bool((err <= 2e-2 + 2e-2 * want.float().abs()).all()), \
+            float(err.max())
+    for x, y in ((ad, bd), (dc, bd.t()), (ad.t(), dc)):
+        nodes = KN.captured_nodes(lambda: ops._gemm_bwd(x, y))
+        assert len(nodes) == 1 and "gemm_bf16<" in nodes[0], nodes
 
 
 @pytest.mark.cuda

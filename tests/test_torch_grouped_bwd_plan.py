@@ -113,8 +113,10 @@ def test_bwd_operand_strides_for_the_tensor_maps(shape, strides, want):
     broadcast over the experts (stride 0, which a map cannot take) is
     copied once, and any other layout passes as it is."""
     base = torch.arange(4 * 6 * 64 * 4, dtype=torch.float32)
-    t = torch.empty(shape) if strides is None else \
-        base.as_strided(shape, strides)
+    # defined values only: uninitialised memory may hold NaN, which
+    # ``torch.equal`` never finds equal to itself
+    t = base[:torch.Size(shape).numel()].reshape(shape) if strides is None \
+        else base.as_strided(shape, strides)
     got, ld, se = GG._strides(t)
     assert (ld, se) == want
     assert torch.equal(got, t)

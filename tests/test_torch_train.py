@@ -21,7 +21,9 @@ chatglm3-6b, granite-20b and qwen1.5-32b, reduced.
 - ``remat="full"`` against ``"none"``: the same loss and gradients, bit
   for bit (the recomputation repeats the same CPU ops).
 - The families whose training is not ported raise, naming the ROADMAP
-  (the MoE family trains: ``tests/test_torch_train_moe.py``).
+  (the MoE family trains, GQA in ``tests/test_torch_train_moe.py`` and
+  MLA in ``tests/test_torch_train_mla.py``); ``mtp_loss`` refuses a
+  config without an MTP head.
 """
 import dataclasses
 
@@ -189,17 +191,29 @@ def test_chunked_ce_ragged_chunks_ignored_labels_padded_vocab():
                                   "deepseek_v3_671b"])
 def test_untrained_families_raise_naming_the_roadmap(arch):
     """``forward_train`` raises for the families it does not train yet;
-    qwen2-moe trains (``tests/test_torch_train_moe.py``), and every
-    config's ``mtp_loss`` raises."""
+    qwen2-moe and deepseek-v3 (MLA) train (``tests/test_torch_train_moe.py``,
+    ``tests/test_torch_train_mla.py``).  ``mtp_loss`` runs deepseek-v3's
+    head and raises ``ValueError`` for a config without one."""
     cfg = get_reduced(arch)
-    params = Model(cfg, device="cpu").abstract_params()
-    if arch != "qwen2_moe_a2_7b":
+    batch = {"tokens": torch.zeros((1, 4), dtype=torch.int32),
+             "labels": torch.zeros((1, 4), dtype=torch.int32)}
+    h = None
+    if arch in ("qwen2_moe_a2_7b", "deepseek_v3_671b"):
+        params = Model(cfg, device="cpu").init(
+            torch.Generator().manual_seed(0))
+        h, _, _ = T.forward_train(params, cfg, batch)
+        assert h.shape == (1, 4, cfg.d_model)
+    else:
+        params = Model(cfg, device="cpu").abstract_params()
         with pytest.raises(NotImplementedError,
                            match="ROADMAP Queue A item 13b"):
-            T.forward_train(params, cfg, {"tokens": torch.zeros(
-                (1, 4), dtype=torch.int32)})
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 13b"):
-        T.mtp_loss(params, cfg, None, {})
+            T.forward_train(params, cfg, batch)
+    if cfg.mtp:
+        assert bool(T.mtp_loss(params, cfg, h, batch).isfinite())
+    else:
+        with pytest.raises(ValueError,
+                           match="no multi-token-prediction head"):
+            T.mtp_loss(params, cfg, h, batch)
 
 
 def test_remat_dots_raises_naming_the_roadmap():

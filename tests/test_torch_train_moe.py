@@ -25,8 +25,9 @@ capacity factor 1.25, so that some assignments are dropped (asserted).
   their last two dimensions) against the reference's.
 - A checkpoint round trip of the MoE train state, and a Trainer that
   fails and resumes replaying the same losses bit for bit.
-- MLA, ssm, hybrid and audio training, and ``remat="dots"``, still
-  raise, naming ROADMAP 13b.
+- ssm, hybrid and audio training, and ``remat="dots"``, still raise,
+  naming ROADMAP 13b; MLA trains (``tests/test_torch_train_mla.py``),
+  and ``mtp_loss`` refuses a config without an MTP head.
 """
 import contextlib
 import dataclasses
@@ -381,11 +382,18 @@ def test_trainer_restart_replays_the_same_steps(tmp_path):
 @pytest.mark.parametrize("arch", ["deepseek_v3_671b", "rwkv6_7b",
                                   "zamba2_7b", "whisper_tiny"])
 def test_untrained_configs_still_raise_naming_13b(arch):
+    """The families not trained yet raise; deepseek-v3 (MLA) trains."""
     cfg = get_reduced(arch)
+    tokens = {"tokens": torch.zeros((1, 4), dtype=torch.int32)}
+    if cfg.mla:
+        params = Model(cfg, device="cpu").init(
+            torch.Generator().manual_seed(0))
+        h, aux, _ = T.forward_train(params, cfg, tokens)
+        assert h.shape == (1, 4, cfg.d_model) and bool(aux > 0)
+        return
     params = Model(cfg, device="cpu").abstract_params()
     with pytest.raises(NotImplementedError, match="Queue A item 13b"):
-        T.forward_train(params, cfg, {"tokens": torch.zeros(
-            (1, 4), dtype=torch.int32)})
+        T.forward_train(params, cfg, tokens)
 
 
 def test_moe_remat_dots_and_mtp_still_raise():
@@ -394,5 +402,5 @@ def test_moe_remat_dots_and_mtp_still_raise():
     with pytest.raises(NotImplementedError, match="Queue A item 13b"):
         T.forward_train(params, cfg, {"tokens": torch.zeros(
             (1, 4), dtype=torch.int32)}, remat="dots")
-    with pytest.raises(NotImplementedError, match="Queue A item 13b"):
+    with pytest.raises(ValueError, match="no multi-token-prediction head"):
         T.mtp_loss(params, cfg, None, {})
