@@ -308,19 +308,55 @@ Phases, in order; any failure raises and exits non-zero:
    AdamW (lr 3e-5), ``remat="full"``, 8 x 512 tokens, 20 steps: ce and
    mtp per step (both must fall), the median step, tokens/s, the model
    FLOP share of 989 TFLOP/s, peak memory (below 80 GB); then one step
-   more under the profiler: device ms of the streaming GEMM, the
-   attention's torch ops (between marker kernels), the optimizer and
-   the rest, the busy share, the GEMM's launches (43 forward products a
-   pass, 30 more recomputed by remat, 86 backward; asserted); the
+   more under the profiler: device ms of the streaming GEMM (forward;
+   backward with remat's recompute), the attention's torch ops (between
+   marker kernels), the optimizer and the rest, the busy share, the
+   GEMM's launches (43 forward products a pass, 30 more recomputed by
+   remat, 86 backward; asserted); the
    absorbed copies equal to the permuted trained ``wuk`` / ``wuv`` bit
    for bit, and no derived key in the AdamW state.
-18. Print the ``kernels`` JSON line (each kernel's launches from its own
+18. Training of the ssm, hybrid and audio families (rwkv6-7b, zamba2-7b,
+   whisper-tiny); seconds per sub-phase.  (a) The streaming GEMM at the
+   products these paths add, M = 4,096 tokens: the forward x·W, dA =
+   dC·Wᵀ and dB = xᵀ·dC of rwkv6's 4,096 x 4,096 (time r, k, v, g, w,
+   o; channel r), 4,096 x 14,336, 14,336 x 4,096 and lm_head 4,096 x
+   65,536, zamba2's ``in_proj`` 3,584 x 14,576, ``out_proj`` 7,168 x
+   3,584, shared 3,584 x 3,584 and lm_head 3,584 x 32,000, whisper's
+   384 x 1,536 and lm_head 384 x 51,968, each against its plain version
+   within BF16_TOL, timed beside the plain version, ``torch.matmul`` and
+   the bound (the GEMM row's ``ssm_train_path``, ``hybrid_train_path``,
+   ``audio_train_path``).  (b) rwkv6-7b and zamba2-7b (with its shared
+   block) cut to 1 layer and whole whisper-tiny, at full width, 1 x 128
+   tokens (whisper: 128 frames and 128 tokens), the same seeded weights
+   on the card and on the CPU: the loss within 1e-3 relative, every
+   gradient leaf within 5e-2 relative L2, the worst leaf printed.  (c)
+   20 AdamW steps of 8 x 512 tokens at ``remat="none"``: the Trainer on
+   ``rwkv6-7b-10l`` and ``zamba2-7b-7l`` (``configs.*.TRAINING``; lr
+   3e-4), ``build_train_step`` on whisper-tiny with the synthetic
+   corpus's tokens and labels and (8, 512, 384) frames drawn from
+   ``--seed`` (lr 3e-3); for each the losses (they must fall), the
+   median step, tokens/s, the model-FLOP share of 989 TFLOP/s
+   (``_ssm_train_flops``), the peak memory (below 80 GB); then one step
+   more under the profiler: the busy share, device ms of the streaming
+   GEMM's forward and backward, the scan's torch ops, the attention's
+   torch ops, the optimizer and the rest, and the GEMM's launches (91 /
+   44 / 65 forward, twice as many backward) and no ``gemm_simt``,
+   asserted.  (d) ``rwkv6-7b-10l`` from fresh weights, one forward and
+   backward pass each under ``remat`` none, full and dots, after a
+   warm-up pass: the loss (within 1e-3 of none's; bit for bit or
+   not), the gradients bit for bit or not, peak memory, ms, and the
+   GEMM's forward launches during the backward pass, 0 / 90 / 0,
+   asserted.
+19. Print each phase's seconds (a ``[phases]`` line), the ``kernels``
+   JSON line (each kernel's launches from its own
    path's serving run, the int8 kernels' from phase 8e's (the int8
    kernel's under both its counters), the grouped
    backward kernels' from 16c's profiled step, every path's counts
    beside, the GEMM's forward and backward launches of a training step
-   as ``train_launches``, of 17c's as ``mla_train_launches``), the card
-   line, and last the result line ``{"ok": true, "device": {...}}``.
+   as ``train_launches``, of 17c's as ``mla_train_launches``, of 18c's
+   as ``ssm_train_launches``, ``hybrid_train_launches`` and
+   ``audio_train_launches``), the card line, and last the result line
+   ``{"ok": true, "device": {...}}``.
 """
 import argparse
 import json
@@ -4560,74 +4596,152 @@ def _mla_train_flops(cfg, tokens, seq):
     return 6 * weights * tokens + attn, weights
 
 
-class _Marks:
-    """Marker kernels (``torch.cuda._sleep(1)``, one cycle) around every
-    call of ``layers.chunked_attention``, forward and backward: one
-    before and one after the forward (the recompute of ``remat="full"``
-    too), and in the backward one when the output's gradient arrives
-    and one when the inputs' gradients leave (an identity autograd
-    Function at each end).  The device kernels between a pair are the
-    attention's torch ops."""
+class _LabelledMarks:
+    """Marker kernels (``torch.cuda._sleep``) around every call of the
+    functions ``fns`` ({label: (module, name)}), forward and backward:
+    one before and one after the forward (a recompute's too), and in the
+    backward one when the first output's gradient arrives and one when
+    the inputs' gradients leave (an identity autograd Function at each
+    end); the device kernels between a label's pair are that function's
+    torch ops.  Each marker names itself by how long it spins
+    (``MARK_CYCLES``: a (label, end) pair a power of two apart from the
+    next, 10-650 us at the H100's ~2 GHz), so a marker the profiler
+    loses costs only the attribution of its own region, never the
+    pairing of the others.  ``now(label, end)`` launches one more
+    (``loss``: the forward's end; ``optimizer``: around the update);
+    ``labels`` keeps every (label, end) launched, in order."""
 
     NAME = re.compile(r"spin|sleep", re.I)
+    MARK_CYCLES = {("scan", False): 20_000, ("scan", True): 40_000,
+                   ("attention", False): 80_000,
+                   ("attention", True): 160_000, ("loss", False): 320_000,
+                   ("optimizer", False): 640_000,
+                   ("optimizer", True): 1_280_000}
 
-    def __init__(self, torch):
-        self.torch = torch
+    def __init__(self, torch, fns):
+        self.torch, self.fns, self.labels = torch, fns, []
+        marks = self
 
         class Mark(torch.autograd.Function):
             @staticmethod
-            def forward(ctx, *xs):
+            def forward(ctx, label, end, *xs):
+                ctx.label, ctx.end = label, end
                 return tuple(x.view_as(x) for x in xs)
 
             @staticmethod
             def backward(ctx, *gs):
-                torch.cuda._sleep(1)
-                return gs
+                marks.now(ctx.label, ctx.end)
+                return (None, None, *gs)
         self.mark = Mark
 
-    def __enter__(self):
-        from repro_torch.models import layers as L
-        self.L, self.orig = L, L.chunked_attention
-        orig, mark, torch = self.orig, self.mark, self.torch
+    def now(self, label, end=False):
+        self.torch.cuda._sleep(self.MARK_CYCLES[label, end])
+        self.labels.append((label, end))
 
-        def marked(q, k, v, **kw):
-            torch.cuda._sleep(1)
-            q, k, v = mark.apply(q, k, v)
-            (out,) = mark.apply(orig(q, k, v, **kw))
-            torch.cuda._sleep(1)
+    @classmethod
+    def classify(cls, us, cycles_per_us=1980.0):
+        """The (label, end) whose spin is nearest, on a log scale, to a
+        marker kernel of ``us`` microseconds."""
+        import math
+        est = math.log(max(us, 1e-3) * cycles_per_us)
+        return min(cls.MARK_CYCLES,
+                   key=lambda k: abs(math.log(cls.MARK_CYCLES[k]) - est))
+
+    def _wrap(self, label, orig):
+        torch, mark = self.torch, self.mark
+
+        def grad(a):
+            return torch.is_tensor(a) and a.requires_grad
+
+        def marked(*args, **kw):
+            self.now(label)
+            args = list(args)
+            pos = [i for i, a in enumerate(args) if grad(a)]
+            keys = [k for k, a in kw.items() if grad(a)]
+            ins = mark.apply(label, True, *(args[i] for i in pos),
+                             *(kw[k] for k in keys))
+            for i, x in zip(pos, ins):
+                args[i] = x
+            for k, x in zip(keys, ins[len(pos):]):
+                kw[k] = x
+            out = orig(*args, **kw)
+            if isinstance(out, tuple):
+                (first,) = mark.apply(label, False, out[0])
+                out = (first, *out[1:])
+            else:
+                (out,) = mark.apply(label, False, out)
+            self.now(label, True)
             return out
-        L.chunked_attention = marked
+        return marked
+
+    def __enter__(self):
+        self.saved = []
+        for label, (mod, name) in self.fns.items():
+            orig = getattr(mod, name)
+            self.saved.append((mod, name, orig))
+            setattr(mod, name, self._wrap(label, orig))
         return self
 
     def __exit__(self, *exc):
-        self.L.chunked_attention = self.orig
+        for mod, name, orig in self.saved:
+            setattr(mod, name, orig)
 
 
-def _profile_mla_train_step(torch, step, state, batch, n_layers):
-    """One MLA training step under ``torch.profiler`` with the attention
-    marked (``_Marks``) and the optimizer's update inside a
-    ``record_function`` range: device ms split into the streaming GEMM
-    (``kernel_nodes.kernel_group``), the attention's torch ops, the
-    optimizer (the kernels that start inside its range on the device's
-    timeline) and the rest; the GEMM's launches from the counters
-    (forward, the recompute of ``remat="full"`` among them, and
-    backward) beside its kernels in the profile."""
+def _device_kernels(torch, prof):
+    """(start us, us, demangled name) of every device activity a profile
+    recorded, in the card's order, read from the profiler's raw events
+    (``prof.events()`` builds a tree of every host op too, which takes
+    tens of seconds for a step of ~43,000 kernels)."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, record_function
-    from repro_torch.kernels import kernel_nodes as KN
+    names = {}
+    out = []
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CUDA or e.duration_ns() <= 0:
+            continue
+        raw = e.name()
+        if raw not in names:
+            names[raw] = torch._C._demangle(raw) if len(raw) > 1 else raw
+        out.append((e.start_ns() / 1e3, e.duration_ns() / 1e3, names[raw]))
+    return sorted(out)
+
+
+def _profile_marked_step(torch, step, state, batch, name, tries=3):
+    """One training step of config ``name`` under ``torch.profiler`` (17c,
+    18c): the scan (``ssm.chunked_linear_attention``), the attention
+    (``layers.chunked_attention``) and AdamW's update marked
+    (``_LabelledMarks``), and a marker at the end of the forward
+    (``Model.loss`` returned).  Device ms split by
+    ``_marked_kernel_split``; the GEMM's launches from the counters.  The
+    markers the profiler lost (it drops a few of the ~43,000 kernels of
+    an rwkv6 step) are counted beside the split.  Returns (state, the
+    split, the step's launch counts)."""
+    from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels import ops
+    from repro_torch.models import layers as L
+    from repro_torch.models import ssm as SSM
+    from repro_torch.models.model import Model
     from repro_torch.optim import optimizers as OPT
 
-    orig_update = OPT.AdamW.update
+    orig_update, orig_loss = OPT.AdamW.update, Model.loss
+    fns = {"scan": (SSM, "chunked_linear_attention"),
+           "attention": (L, "chunked_attention")}
+    for window in range(1, tries + 1):
+        marks = _LabelledMarks(torch, fns)
 
-    def update(self, *a, **kw):
-        with record_function("optimizer_update"):
-            return orig_update(self, *a, **kw)
+        def update(self, *a, **kw):
+            marks.now("optimizer")
+            out = orig_update(self, *a, **kw)
+            marks.now("optimizer", True)
+            return out
 
-    OPT.AdamW.update = update
-    try:
-        with _Marks(torch):
-            for window in range(1, 4):
+        def loss(self, *a, **kw):
+            out = orig_loss(self, *a, **kw)
+            marks.now("loss")
+            return out
+
+        OPT.AdamW.update, Model.loss = update, loss
+        try:
+            with marks:
                 ops.reset_launches()
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
@@ -4636,58 +4750,68 @@ def _profile_mla_train_step(torch, step, state, batch, n_layers):
                     state, _ = step(state, batch)
                     torch.cuda.synchronize()
                 wall_ms = (time.perf_counter() - t0) * 1e3
-                launches, gemm_bwd = dict(ops.LAUNCHES), dict(ops.GEMM_BWD)
-                events = prof.events()
-                dev_ev = [ev for ev in events
-                          if ev.device_type == DeviceType.CUDA
-                          and ev.time_range.elapsed_us() > 0]
-                kern = sorted((ev.time_range.start,
-                               ev.time_range.elapsed_us(), ev.name)
-                              for ev in dev_ev
-                              if ev.name != "optimizer_update")
-                if kern:
-                    break
-                print(f"[mla_train_profile] window {window}: the profiler "
-                      "recorded no device kernel", flush=True)
-    finally:
-        OPT.AdamW.update = orig_update
-    require(kern, "MLA train profile: 3 windows held no device kernel")
-    opt_ranges = [(ev.time_range.start, ev.time_range.end) for ev in dev_ev
-                  if ev.name == "optimizer_update"]
-    split = {"gemm": 0.0, "attention": 0.0, "optimizer": 0.0, "other": 0.0}
-    counts = {k: 0 for k in split}
-    marks, inside = 0, False
-    for start, us, name in kern:
-        if _Marks.NAME.search(name):
-            marks += 1
-            inside = not inside
-            continue
-        if KN.kernel_group(name) == "streaming_gemm":
-            part = "gemm"
-        elif inside:
-            part = "attention"
-        elif any(s <= start <= e for s, e in opt_ranges):
-            part = "optimizer"
-        else:
-            part = "other"
-        split[part] += us / 1e3
-        counts[part] += 1
-    simt = sum("gemm_simt" in n for _, _, n in kern)
+        finally:
+            OPT.AdamW.update, Model.loss = orig_update, orig_loss
+        launches, gemm_bwd = dict(ops.LAUNCHES), dict(ops.GEMM_BWD)
+        kern = _device_kernels(torch, prof)
+        if kern:
+            break
+        print(f"[train_profile] {name} window {window}: the profiler "
+              "recorded no device kernel", flush=True)
+    require(kern, f"{name} train profile: {tries} windows held no device "
+            "kernel")
+    split, counts, seen = _marked_kernel_split(kern)
     busy_ms = sum(split.values())
-    n_fwd = MLA_GEMMS_A_LAYER * (n_layers + 1) + 1 + 2
     return state, {
         "wall_ms": wall_ms, "device_busy_ms": busy_ms,
         "device_busy_share": busy_ms / wall_ms, "device_ms": split,
-        "device_kernels": counts, "attention_marks": marks,
-        "optimizer_ranges": len(opt_ranges),
+        "device_kernels": counts,
+        "marks_launched": {k: sum(lb == k for lb, _ in marks.labels)
+                           for k in seen},
+        "marks_recorded": seen,
+        "marks_lost": len(marks.labels) - sum(seen.values()),
+        "device_kernels_recorded": len(kern),
         "launches": {"forward": launches["streaming_gemm"]
                      - gemm_bwd["launches"],
                      "backward": gemm_bwd["launches"]},
-        "forward_products_a_pass": n_fwd,
-        "remat_recomputes": MLA_GEMMS_A_LAYER * n_layers,
-        "profiler_gemm_kernels": counts["gemm"], "gemm_simt": simt,
+        "gemm_simt": sum("gemm_simt" in n for _, _, n in kern),
         "bwd_dc_copies": gemm_bwd["dc_copies"],
         "profiler_windows": window}, launches
+
+
+def _marked_kernel_split(kern):
+    """Device ms and kernel counts of a profiled training step's kernels
+    ``kern`` ((start us, us, name), in the card's order) by part, and the
+    markers recorded by label: each marker kernel names itself
+    (``_LabelledMarks.classify``); GEMM kernels before the ``loss``
+    marker are the forward's, after it the backward's (with a remat's
+    recomputed forward products); kernels between a label's start and
+    end markers are that label's (``scan``, ``attention``,
+    ``optimizer``); the rest ``other``."""
+    from repro_torch.kernels import kernel_nodes as KN
+    parts = ("gemm_forward", "gemm_backward", "scan", "attention",
+             "optimizer", "other")
+    split, counts = dict.fromkeys(parts, 0.0), dict.fromkeys(parts, 0)
+    seen = {"scan": 0, "attention": 0, "loss": 0, "optimizer": 0}
+    inside, backward = None, False
+    for _, us, name in kern:
+        if _LabelledMarks.NAME.search(name):
+            label, end = _LabelledMarks.classify(us)
+            seen[label] += 1
+            if label == "loss":
+                backward = True
+            elif not end:
+                inside = label
+            elif inside == label:
+                inside = None
+            continue
+        if KN.kernel_group(name) == "streaming_gemm":
+            part = "gemm_backward" if backward else "gemm_forward"
+        else:
+            part = inside or "other"
+        split[part] += us / 1e3
+        counts[part] += 1
+    return split, counts, seen
 
 
 def _absorbed_equal(torch, params, cfg):
@@ -4756,8 +4880,8 @@ def _mla_train_full(torch, args, card, ckpt_root, dev):
                          seed=args.seed)
     _, batch = next(loader)
     loader.close()
-    state, prof, launches = _profile_mla_train_step(
-        torch, inner, state, batch, cfg.n_layers)
+    state, prof, launches = _profile_marked_step(torch, inner, state,
+                                                 batch, cfg.name)
     absorbed = absorbed_trained and _absorbed_equal(torch, state["params"],
                                                     cfg)
     opt_derived = ["/".join(p) for p, _ in _flatten(state["opt"])
@@ -4765,10 +4889,14 @@ def _mla_train_full(torch, args, card, ckpt_root, dev):
     del state
     shutil.rmtree(d, ignore_errors=True)
     prof["device_busy_share_of_median_step"] = prof["device_busy_ms"] / med
+    n_fwd = MLA_GEMMS_A_LAYER * (cfg.n_layers + 1) + 1 + 2
+    recomputes = MLA_GEMMS_A_LAYER * cfg.n_layers
     res = {"config": cfg.name, "params": n_elements(
                tr.model.abstract_params()),
            "gemm_weights_a_pass": weights, "steps": TRAIN_STEPS,
            "tokens_per_step": tokens, "remat": run.remat,
+           "forward_products_a_pass": n_fwd,
+           "remat_recomputes": recomputes,
            "losses": losses, "ce": [m["ce"] for m in log],
            "mtp": [m["mtp"] for m in log],
            "step_ms": step_ms, "median_step_ms": med,
@@ -4786,16 +4914,16 @@ def _mla_train_full(torch, args, card, ckpt_root, dev):
     require(peak_gb < 80, f"MLA train: peak {peak_gb} GB")
     require(absorbed and not opt_derived,
             "MLA train: the absorbed copies left the trained weights")
-    n_fwd = prof["forward_products_a_pass"]
-    require(prof["launches"] == {"forward": n_fwd + prof["remat_recomputes"],
+    require(prof["launches"] == {"forward": n_fwd + recomputes,
                                  "backward": 2 * n_fwd},
             f"MLA train: GEMM launches {prof['launches']}")
     require(prof["gemm_simt"] == 0,
             "MLA train: the profiled step ran the scalar GEMM kernel")
-    # a mark pair per attention call: forward and backward of every layer
-    # and of the MTP block, and the recompute of every remat layer
-    require(prof["attention_marks"] == 2 * (3 * cfg.n_layers + 2),
-            f"MLA train: {prof['attention_marks']} attention marks")
+    # a marker pair per attention call: forward and backward of every
+    # layer and of the MTP block, and the recompute of every remat layer
+    marks = prof["marks_launched"]["attention"]
+    require(marks == 2 * (3 * cfg.n_layers + 2),
+            f"MLA train: {marks} attention markers")
     return res, launches
 
 
@@ -4826,6 +4954,412 @@ def phase_mla_training(torch, args, rows, card, dev):
     return {**res, "launches": launches}
 
 
+# ---------------------------------------------------------------- phase 18
+SSM_TRAIN_CHECK_TOKENS = 128     # 18b's 1 x 128 tokens (its docstring)
+# 18a: the products the ssm, hybrid and audio training paths add, (the
+# GEMM row's key, weight, K, N) at M = 4,096 tokens
+SSM_TRAIN_GEMMS = (
+    ("ssm_train_path", "rwkv6 time r/k/v/g/w/o, channel r", 4096, 4096),
+    ("ssm_train_path", "rwkv6 channel k", 4096, 14336),
+    ("ssm_train_path", "rwkv6 channel v", 14336, 4096),
+    ("ssm_train_path", "rwkv6 lm_head", 4096, 65536),
+    ("hybrid_train_path", "zamba2 in_proj", 3584, 14576),
+    ("hybrid_train_path", "zamba2 out_proj", 7168, 3584),
+    ("hybrid_train_path", "zamba2 shared q/k/v/o", 3584, 3584),
+    ("hybrid_train_path", "zamba2 lm_head", 3584, 32000),
+    ("audio_train_path", "whisper wi", 384, 1536),
+    ("audio_train_path", "whisper lm_head", 384, 51968))
+# 18c's schedules: whisper-tiny at 15c's; the 4,096- and 3,584-wide
+# models an order lower (AdamW's near-sign steps move a logit by about
+# lr x d x rms(input) a step, 17c)
+SSM_TRAIN_LR = dict(lr_base=3e-4, lr_warmup=10, lr_total=100)
+
+
+def _ssm_train_gemms(torch, args, dev, timer, rows):
+    """18a. The streaming GEMM at the products the ssm, hybrid and audio
+    training paths add, M = 4,096 tokens: for each weight the forward
+    x·W, dA = dC·Wᵀ and dB = xᵀ·dC, each on the kernel against its plain
+    version, timed beside the plain version, ``torch.matmul`` and the
+    bound (``_bwd_entry``), kept as the GEMM row's ``ssm_train_path``,
+    ``hybrid_train_path`` and ``audio_train_path``.  Operands scaled so
+    that every output is O(1), as 17a."""
+    g = torch.Generator(device=dev).manual_seed(args.seed + 18)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device=dev)
+                * scale).to(torch.bfloat16)
+
+    M = TRAIN_TOKENS
+    paths = {}
+    for key, name, K, N in SSM_TRAIN_GEMMS:
+        per_shape = paths.setdefault(key, [])
+        x, w = randn(M, K), randn(K, N, scale=K ** -0.5)
+        per_shape.append(_bwd_entry(torch, timer, x, w, f"{name} x·W"))
+        del x, w
+        dc, w = randn(M, N), randn(K, N, scale=N ** -0.5)
+        per_shape.append(_bwd_entry(torch, timer, dc, w.t(), f"{name} dA"))
+        del w
+        x = randn(M, K, scale=M ** -0.5)
+        per_shape.append(_bwd_entry(torch, timer, x.t(), dc, f"{name} dB"))
+        del x, dc
+        torch.cuda.empty_cache()
+    for key, per_shape in paths.items():
+        _add_path(rows["streaming_gemm"], per_shape, key)
+    return paths
+
+
+def _ssm_train_check_batch(torch, cfg, seed):
+    """18b's batch: 1 x 128 token ids and labels from a numpy seed, and
+    for the audio model 1 x 128 frames N(0, 1) in bf16."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    n = SSM_TRAIN_CHECK_TOKENS
+    toks = rng.integers(1, cfg.vocab_size - 1, (1, n + 1))
+    batch = {"tokens": torch.from_numpy(toks[:, :-1]).to(torch.int32),
+             "labels": torch.from_numpy(toks[:, 1:]).to(torch.int32)}
+    if cfg.family == "audio":
+        batch["audio_frames"] = torch.from_numpy(rng.standard_normal(
+            (1, n, cfg.d_model)).astype(np.float32)).to(torch.bfloat16)
+    return batch
+
+
+def _ssm_train_card_vs_cpu(torch, args, dev):
+    """18b. rwkv6-7b cut to 1 layer, zamba2-7b cut to 1 layer (with its
+    shared block) and whole whisper-tiny, at full width, 1 x 128 tokens
+    (whisper: 128 frames and 128 tokens), the same seeded weights (drawn
+    on the card, copied to the host) on the card and on the CPU: the
+    loss within 1e-3 relative and every gradient leaf within 5e-2
+    relative L2, the limits of 15b-17b; the worst leaf of each."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import depth_cut
+    from repro_torch.launch.steps import loss_and_grads
+    from repro_torch.models.model import Model
+    from repro_torch.models.params import params_to
+
+    out = {}
+    for arch, layers in ((RWKV_ARCH, 1), (ZAMBA_ARCH, 1),
+                         (WHISPER_ARCH, None)):
+        cfg = get_config(arch)
+        cfg = depth_cut(cfg, layers) if layers else cfg
+        params = Model(cfg, device=dev).init(
+            torch.Generator(device=dev).manual_seed(args.seed))
+        batch = _ssm_train_check_batch(torch, cfg, args.seed + 18)
+        t = time.perf_counter()
+        (loss, _), grads = loss_and_grads(
+            Model(cfg, device=dev, remat="none"), params,
+            {k: v.to(dev) for k, v in batch.items()})
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t
+        grads = params_to(grads, "cpu")
+        params = params_to(params, "cpu")
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        (want, _), want_g = loss_and_grads(
+            Model(cfg, device="cpu", remat="none"), params, batch)
+        cpu_s = time.perf_counter() - t
+        rel = abs(loss.item() - want.item()) / abs(want.item())
+        errs = _leaf_errors(torch, grads, want_g)
+        worst = max(errs, key=errs.get)
+        res = {"config": cfg.name, "tokens": SSM_TRAIN_CHECK_TOKENS,
+               "card_loss": loss.item(), "cpu_loss": want.item(),
+               "loss_rel_diff": rel, "loss_rtol": TRAIN_LOSS_RTOL,
+               "leaves": len(errs), "grad_rel_l2_max": errs[worst],
+               "grad_rel_l2_max_leaf": worst,
+               "grad_rel_l2_top5": dict(sorted(errs.items(),
+                                               key=lambda kv: -kv[1])[:5]),
+               "grad_rel_l2_limit": TRAIN_GRAD_REL_L2, "card_s": card_s,
+               "cpu_s": cpu_s}
+        print("[ssm_train_card_vs_cpu] " + json.dumps(res), flush=True)
+        require(rel <= TRAIN_LOSS_RTOL,
+                f"{cfg.name} train card vs CPU: loss {loss.item()} vs "
+                f"{want.item()}")
+        require(errs[worst] <= TRAIN_GRAD_REL_L2,
+                f"{cfg.name} train card vs CPU: gradient {worst} off by "
+                f"{errs[worst]}")
+        out[cfg.family] = res
+        del params, grads, want_g
+    return out
+
+
+def _ssm_train_gemms_a_pass(cfg):
+    """The streaming GEMM's forward products in one pass of a training
+    step: rwkv6 9 a layer (time r, k, v, g, w, o; channel k, v, r),
+    zamba2 5 a layer (``in_proj``, ``out_proj``, the MLP's 3) and 4 a
+    shared invocation (q, k, v, o), whisper 6 an encoder layer and 10 a
+    decoder layer (self q, k, v, o, cross q, o, the cross K / V over the
+    encoder, the MLP's 2); and the lm_head once (one chunk of
+    ``ce_chunk`` 512)."""
+    from repro_torch.models import transformer as T
+    if cfg.family == "ssm":
+        return 9 * cfg.n_layers + 1
+    if cfg.family == "hybrid":
+        return 5 * cfg.n_layers + 4 * T.n_shared_invocations(cfg) + 1
+    return 6 * cfg.n_encoder_layers + 10 * cfg.n_layers + 1
+
+
+def _ssm_train_flops(cfg, tokens, seq):
+    """Model FLOPs of one training step: 6 per weight per token for every
+    GEMM a token runs through (rwkv6's time and channel mix; zamba2's
+    ``in_proj``, ``out_proj``, MLP and each invocation of the shared
+    q/k/v/o; whisper's encoder and decoder layers, whose frames and
+    tokens are as many; the lm_head), and the attention's QKᵀ and PV at
+    3 times their forward over every (query, key) pair the chunked
+    attention computes (zamba2's shared block; whisper's encoder,
+    decoder and cross-attention, all T x T at Te = Td).  The scan's chunk
+    products are not counted: under 0.3% of the GEMMs' at these widths.
+    Returns (FLOPs, GEMM weights a token runs through)."""
+    from repro_torch.models import transformer as T
+    d, V, f, L = cfg.d_model, cfg.padded_vocab, cfg.d_ff, cfg.n_layers
+    H, hd = cfg.n_heads, cfg.resolved_head_dim
+    pair = 3 * 2 * 2 * tokens * seq * H * hd
+    if cfg.family == "ssm":
+        weights, attn = L * (7 * d * d + 2 * d * f) + d * V, 0
+    elif cfg.family == "hybrid":
+        s = cfg.ssm
+        d_in = s.expand * d
+        nh = d_in // s.head_dim
+        layer = d * (2 * d_in + 2 * s.d_state + nh) + d_in * d + 3 * d * f
+        inv = T.n_shared_invocations(cfg)
+        weights = L * layer + inv * 4 * d * H * hd + d * V
+        attn = inv * pair
+    else:
+        Le = cfg.n_encoder_layers
+        weights = Le * (4 * d * d + 2 * d * f) + \
+            L * (8 * d * d + 2 * d * f) + d * V
+        attn = (Le + 2 * L) * pair
+    return 6 * weights * tokens + attn, weights
+
+
+def _ssm_train_run(torch, args, card, cfg, ckpt_root, dev):
+    """One of 18c's runs: 20 AdamW steps of 8 x 512 tokens at
+    ``remat="none"`` (the Trainer for rwkv6 and zamba2, whose synthetic
+    corpus has no frames; ``build_train_step`` for whisper, with the
+    corpus's tokens and labels and (8, 512, 384) frames drawn from
+    ``--seed``), then one step more, profiled."""
+    import shutil
+    from repro_torch.configs.base import RunConfig, ShapeConfig
+    from repro_torch.data.pipeline import make_loader
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.models import transformer as T
+    from repro_torch.models.model import Model
+    from repro_torch.models.params import n_elements
+    from repro_torch.optim import get_optimizer
+    from repro_torch.runtime.train_loop import Trainer, TrainerConfig
+
+    run = RunConfig(model=cfg, shape=ShapeConfig(
+        "train", "train", TRAIN_SEQ, TRAIN_BATCH), remat="none")
+    lr = TRAIN_LR if cfg.family == "audio" else SSM_TRAIN_LR
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    if cfg.family == "audio":
+        g = torch.Generator(device=dev).manual_seed(args.seed + 18)
+
+        def with_frames(batch):
+            frames = torch.randn((TRAIN_BATCH, TRAIN_SEQ, cfg.d_model),
+                                 generator=g, device=dev)
+            return {**batch, "audio_frames": frames.to(torch.bfloat16)}
+
+        step = build_train_step(run, dev, **lr)
+        params = Model(cfg, device=dev).init(
+            torch.Generator(device=dev).manual_seed(args.seed))
+        state = {"params": params,
+                 "opt": get_optimizer("adamw").init(T.trainable(params))}
+        loader = make_loader(cfg, run.shape, dev, seed=args.seed)
+        losses, step_ms = [], []
+        for i, batch in loader:
+            batch = with_frames(batch)
+            if i == TRAIN_STEPS:        # the profiled step's batch
+                break
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            losses.append(m["loss"].item())
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        loader.close()
+        inner, n_params = step, n_elements(T.trainable(params))
+    else:
+        d = ckpt_root / cfg.name
+        shutil.rmtree(d, ignore_errors=True)
+        tr = Trainer(run, TrainerConfig(ckpt_dir=str(d),
+                                        ckpt_every=TRAIN_STEPS + 1,
+                                        seed=args.seed, **lr), device=dev)
+        last, inner = {}, tr.step_fn
+
+        def step_fn(state, batch):
+            last["state"], m = inner(state, batch)
+            return last["state"], m
+
+        tr.step_fn = step_fn
+        out = tr.train(TRAIN_STEPS)
+        losses = out["losses"]
+        step_ms = [m["s"] * 1e3 for m in tr.metrics_log]
+        state = last.pop("state")
+        loader = make_loader(cfg, run.shape, dev, start_step=TRAIN_STEPS,
+                             seed=args.seed)
+        _, batch = next(loader)
+        loader.close()
+        n_params = n_elements(tr.model.abstract_params())
+        shutil.rmtree(d, ignore_errors=True)
+    train_s = time.perf_counter() - t
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    require(len(losses) == TRAIN_STEPS, f"{cfg.name}: {len(losses)} steps")
+    require(all(x == x and abs(x) < float("inf") for x in losses),
+            f"{cfg.name} train: non-finite loss {losses}")
+    med = statistics.median(step_ms[1:])
+    tokens = TRAIN_SEQ * TRAIN_BATCH
+    flops, weights = _ssm_train_flops(cfg, tokens, TRAIN_SEQ)
+    bound_ms = flops / BF16_FLOP_PER_S * 1e3
+    state, prof, launches = _profile_marked_step(torch, inner, state,
+                                                 batch, cfg.name)
+    del state
+    prof["device_busy_share_of_median_step"] = prof["device_busy_ms"] / med
+    n_fwd = _ssm_train_gemms_a_pass(cfg)
+    res = {"config": cfg.name, "params": n_params,
+           "gemm_weights_a_pass": weights, "steps": TRAIN_STEPS,
+           "tokens_per_step": tokens, "remat": run.remat,
+           "lr": lr["lr_base"], "losses": losses, "step_ms": step_ms,
+           "median_step_ms": med, "tokens_per_s": tokens / med * 1e3,
+           "model_tflop_per_step": flops / 1e12,
+           "flop_bound_ms": bound_ms, "bf16_peak_share": bound_ms / med,
+           "peak_mem_gb": peak_gb, "train_s": train_s,
+           "forward_products_a_pass": n_fwd, "profiled_step": prof,
+           "card": card}
+    print("[ssm_train_full] " + json.dumps(res), flush=True)
+    require(losses[-1] < losses[0],
+            f"{cfg.name} train: loss did not fall ({losses[0]} -> "
+            f"{losses[-1]})")
+    require(peak_gb < 80, f"{cfg.name} train: peak {peak_gb} GB")
+    require(prof["launches"] == {"forward": n_fwd, "backward": 2 * n_fwd},
+            f"{cfg.name} train: GEMM launches {prof['launches']}, expected "
+            f"{n_fwd} forward and {2 * n_fwd} backward")
+    require(prof["gemm_simt"] == 0,
+            f"{cfg.name} train: the profiled step ran the scalar GEMM kernel")
+    return res, launches
+
+
+def _ssm_train_remat(torch, args, dev):
+    """18d. ``rwkv6-7b-10l``, fresh weights from ``--seed`` and one batch
+    of 8 x 512 tokens: the loss and its gradients (a forward and a
+    backward pass, no optimizer update, so all three start from the same
+    weights) under ``remat`` none, full and dots in turn, after one
+    untimed pass under none (the allocator warm): the loss
+    beside ``"none"``'s (within 1e-3, and whether bit for bit), the
+    gradients bit for bit or not, the peak memory, the GEMM's forward
+    launches made during the backward pass (0, 90 and 0), and the
+    outputs ``"dots"`` kept and handed back."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.rwkv6_7b import TRAINING as cfg
+    from repro_torch.data.pipeline import make_loader
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.models.model import Model
+    from repro_torch.models.params import tree_leaves, tree_map
+
+    params = T.trainable(Model(cfg, device=dev).init(
+        torch.Generator(device=dev).manual_seed(args.seed)))
+    loader = make_loader(cfg, ShapeConfig("train", "train", TRAIN_SEQ,
+                                          TRAIN_BATCH), dev, seed=args.seed)
+    _, batch = next(loader)
+    loader.close()
+
+    def grads_of(mode):
+        """(loss, grads, ms, forward launches) of one pass under
+        ``mode``, the counters reset just before it."""
+        leaves = []
+
+        def watch(p):
+            p = p.detach().requires_grad_(True)
+            leaves.append(p)
+            return p
+
+        tree = tree_map(watch, params)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        t = time.perf_counter()
+        loss, _ = Model(cfg, device=dev, remat=mode).loss(tree, batch)
+        fwd = ops.LAUNCHES["streaming_gemm"]
+        grads = torch.autograd.grad(loss, leaves)
+        torch.cuda.synchronize()
+        return loss.item(), grads, (time.perf_counter() - t) * 1e3, fwd
+
+    warm_ms = grads_of("none")[2]
+    res, want = {"warm_up_pass_ms": warm_ms}, None
+    for mode in ("none", "full", "dots"):
+        loss, grads, ms, fwd = grads_of(mode)
+        in_bwd = ops.LAUNCHES["streaming_gemm"] - fwd - \
+            ops.GEMM_BWD["launches"]
+        r = {"loss": loss, "ms": ms,
+             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+             "forward_launches": fwd, "backward_launches":
+             ops.GEMM_BWD["launches"], "forward_launches_in_backward": in_bwd,
+             "dots": dict(ops.GEMM_DOTS)}
+        grads = [x.cpu() for x in grads]
+        if want is None:
+            want, want_loss = grads, loss
+        else:
+            r["loss_rel_diff_to_none"] = abs(loss - want_loss) / \
+                abs(want_loss)
+            r["loss_bitwise"] = loss == want_loss
+            r["grads_bitwise"] = all(torch.equal(a, b)
+                                     for a, b in zip(grads, want))
+        res[mode] = r
+        del grads
+    res["config"], res["leaves"] = cfg.name, len(tree_leaves(params))
+    print("[ssm_train_remat] " + json.dumps(res), flush=True)
+    recomputed = 9 * cfg.n_layers
+    in_bwd = [res[m]["forward_launches_in_backward"]
+              for m in ("none", "full", "dots")]
+    require(in_bwd == [0, recomputed, 0],
+            f"remat none / full / dots: forward launches in the backward "
+            f"pass {in_bwd}, expected [0, {recomputed}, 0]")
+    require(res["dots"]["dots"] == {"saved": recomputed,
+                                    "replayed": recomputed},
+            f"remat dots: {res['dots']['dots']}")
+    for m in ("full", "dots"):
+        rel = res[m]["loss_rel_diff_to_none"]
+        require(rel <= TRAIN_REMAT_RTOL, f"remat {m}: loss differs by {rel}")
+    return res
+
+
+def phase_ssm_training(torch, args, rows, card, dev):
+    """18. Training of the ssm, hybrid and audio families on the card
+    (see the module docstring); prints each sub-phase's line and its
+    seconds."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.rwkv6_7b import TRAINING as RWKV_TRAINING
+    from repro_torch.configs.zamba2_7b import TRAINING as ZAMBA_TRAINING
+
+    ckpt_root = Path(__file__).resolve().parent / "build" / "train_smoke"
+    secs, res = {}, {"full": {}, "launches": {}}
+    t = time.perf_counter()
+    timer = Timer(torch, dev)
+    res["gemms"] = _ssm_train_gemms(torch, args, dev, timer, rows)
+    del timer
+    torch.cuda.empty_cache()
+    secs["gemms"] = time.perf_counter() - t
+    t = time.perf_counter()
+    res["card_vs_cpu"] = _ssm_train_card_vs_cpu(torch, args, dev)
+    torch.cuda.empty_cache()
+    secs["card_vs_cpu"] = time.perf_counter() - t
+    for cfg in (RWKV_TRAINING, ZAMBA_TRAINING, get_config(WHISPER_ARCH)):
+        t = time.perf_counter()
+        res["full"][cfg.family], res["launches"][cfg.family] = \
+            _ssm_train_run(torch, args, card, cfg, ckpt_root, dev)
+        torch.cuda.empty_cache()
+        secs[f"full {cfg.name}"] = time.perf_counter() - t
+    t = time.perf_counter()
+    res["remat"] = _ssm_train_remat(torch, args, dev)
+    torch.cuda.empty_cache()
+    secs["remat"] = time.perf_counter() - t
+    print(f"[ssm_train] seconds {json.dumps(secs)}", flush=True)
+    res["seconds"] = secs
+    for fam in ("ssm", "hybrid", "audio"):
+        rows["streaming_gemm"][f"{fam}_train_launches"] = res["full"][fam][
+            "profiled_step"]["launches"]
+    return res
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4847,9 +5381,19 @@ def main():
     card = card_line()
     print(f"[card] {card}", flush=True)
 
+    laps, t_lap = {"build": time.perf_counter() - t0}, [time.perf_counter()]
+
+    def lap(name):
+        """The seconds since the last lap, as phase ``name``'s; the card's
+        cache emptied for the next phase."""
+        torch.cuda.empty_cache()
+        now = time.perf_counter()
+        laps[name], t_lap[0] = now - t_lap[0], now
+
     timer = Timer(torch, dev)
     rows = phase_kernels(torch, args, dev, timer)
     del timer
+    lap("2 kernels")
 
     cfg = get_config("qwen2-0.5b")
     g = torch.Generator(device=dev).manual_seed(args.seed)
@@ -4857,29 +5401,35 @@ def main():
     serving = phase_serving(torch, args, cfg, params, DENSE_KERNELS)
     phase_profile(torch, args, cfg, params)
     phase_card_vs_cpu(torch, args, cfg, params)
+    lap("3-5 serving")
     phase_streaming(torch, args, cfg, params)
     del params
-    torch.cuda.empty_cache()
+    lap("6 streaming")
     moe = phase_moe(torch, args, rows)
-    torch.cuda.empty_cache()
+    lap("7 moe")
     variants = phase_dense_variants(torch, args, rows)
-    torch.cuda.empty_cache()
+    lap("8 dense variants")
     whisper = phase_whisper(torch, args, rows)
-    torch.cuda.empty_cache()
+    lap("9 whisper")
     rwkv = phase_rwkv(torch, args, rows)
-    torch.cuda.empty_cache()
+    lap("10 rwkv")
     zamba = phase_zamba(torch, args, rows)
-    torch.cuda.empty_cache()
+    lap("11 zamba")
     deepseek = phase_deepseek(torch, args, rows)
-    torch.cuda.empty_cache()
+    lap("12 deepseek")
     simulator = phase_simulator(torch, args, card)
+    lap("13 simulator")
     phase_open_loop(torch, args, card, simulator["serving"])
-    torch.cuda.empty_cache()
+    lap("14 open loop")
     train = phase_training(torch, args, rows, card, dev)
-    torch.cuda.empty_cache()
+    lap("15 train")
     moe_train = phase_moe_training(torch, args, rows, card, dev)
-    torch.cuda.empty_cache()
+    lap("16 moe train")
     mla_train = phase_mla_training(torch, args, rows, card, dev)
+    lap("17 mla train")
+    ssm_train = phase_ssm_training(torch, args, rows, card, dev)
+    lap("18 ssm train")
+    print(f"[phases] seconds {json.dumps(laps)}", flush=True)
 
     # launches: each kernel's count from its own main path's serving run
     # (the grouped GEMM's is the MoE path, the latent paged kernel's
@@ -4900,6 +5450,8 @@ def main():
     paths[moe_train_path] = moe_train["launches"]
     paths[f"{mla_train['full']['config']} train step"] = \
         mla_train["launches"]
+    for fam, launches in ssm_train["launches"].items():
+        paths[f"{ssm_train['full'][fam]['config']} train step"] = launches
     own = {"streaming_gemm_grouped": MOE_ARCH,
            "paged_latent_attention": deepseek["config"],
            "paged_attention_int8": int8_path, "kv_quantize": int8_path,

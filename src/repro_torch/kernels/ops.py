@@ -15,11 +15,16 @@ kernel) and again in ``GEMM_BWD["launches"]``, so a run can tell them
 apart; ``GEMM_BWD["dc_copies"]`` counts the copies the backward made
 of an output gradient the kernel could not read in place.  The grouped
 GEMM's backward launches count under ``streaming_gemm_grouped`` and
-again in ``GROUPED_BWD`` (``da``, ``db``).  The TPU-only knobs of the reference wrappers (block sizes,
-``interpret``) have no counterpart: the kernels pick their own tiles
-and mask ragged edges themselves, so nothing is padded here.
+again in ``GROUPED_BWD`` (``da``, ``db``).  Under ``remat="dots"``
+(``GemmTape``) ``GEMM_DOTS`` counts the forward outputs kept for the
+backward pass (``saved``) and handed back to its recompute in place of
+a launch (``replayed``).  The TPU-only knobs of the reference wrappers
+(block sizes, ``interpret``) have no counterpart: the kernels pick their
+own tiles and mask ragged edges themselves, so nothing is padded here.
 """
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -40,12 +45,66 @@ LAUNCHES = {"streaming_gemm": 0, "streaming_gemm_grouped": 0,
             "paged_attention_int8_append": 0, "kv_quantize": 0}
 GEMM_BWD = {"launches": 0, "dc_copies": 0}
 GROUPED_BWD = {"da": 0, "db": 0}
+GEMM_DOTS = {"saved": 0, "replayed": 0}
 
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, GEMM_BWD, GROUPED_BWD):
+    for counts in (LAUNCHES, GEMM_BWD, GROUPED_BWD, GEMM_DOTS):
         for name in counts:
             counts[name] = 0
+
+
+# the tape the streaming GEMM's autograd Function writes to or reads
+# from, and how: (GemmTape, "record" | "replay"), or None
+_TAPE = None
+
+
+class GemmTape:
+    """The streaming GEMM's outputs in one region of ``remat="dots"``
+    (the reference's ``dots_with_no_batch_dims_saveable``: keep the
+    output of every 2-D product, recompute the rest).
+
+    ``contexts()`` gives the pair of context managers that
+    ``torch.utils.checkpoint``'s ``context_fn`` takes.  Under the first,
+    the region's forward, every ``_StreamingGemm`` forward appends its
+    output to the tape; under the second, the region's recompute in the
+    backward pass, each hands back the next recorded output without a
+    launch or the plain version.  The Function's node and saved inputs
+    are made as before, so both backward products run unchanged.  The
+    tape is emptied when the recompute ends, which may be early: the
+    checkpoint stops recomputing once it has what the backward needs.
+    The grouped GEMM, the attention and the scans are recomputed."""
+
+    def __init__(self):
+        self.outs: list = []
+        self.next = 0
+
+    @contextlib.contextmanager
+    def _use(self, mode: str):
+        global _TAPE
+        prev, _TAPE = _TAPE, (self, mode)
+        try:
+            yield
+        finally:
+            _TAPE = prev
+            if mode == "replay":
+                self.outs.clear()
+
+    def contexts(self):
+        return self._use("record"), self._use("replay")
+
+    def replay(self, shape) -> torch.Tensor:
+        if self.next >= len(self.outs):
+            raise RuntimeError("remat='dots': the recompute ran more GEMMs "
+                               f"than the forward recorded ({len(self.outs)})")
+        out = self.outs[self.next]
+        if tuple(out.shape) != tuple(shape):
+            raise RuntimeError(f"remat='dots': GEMM {self.next} recorded "
+                               f"{tuple(out.shape)}, recompute asks "
+                               f"{tuple(shape)}")
+        self.next += 1
+        GEMM_DOTS["replayed"] += 1
+        return out.detach()
 
 
 def _gemm_bwd(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -74,15 +133,23 @@ class _StreamingGemm(torch.autograd.Function):
     themselves.  ``dC`` is read in place where its rows are contiguous
     and at least 4-byte aligned (the router's 60-wide rows are), else
     copied once into rows padded to 16 bytes (counted in
-    ``GEMM_BWD["dc_copies"]``)."""
+    ``GEMM_BWD["dc_copies"]``).  Under a ``GemmTape`` the forward
+    records its output, or hands back the recorded one."""
 
     @staticmethod
     def forward(ctx, a, b):
         ctx.save_for_backward(a, b)
+        tape, mode = _TAPE or (None, None)
+        if mode == "replay":
+            return tape.replay((a.shape[0], b.shape[1]))
         if not a.is_cuda:
-            return ref.gemm_ref(a, b)
-        out = gemm_cuda(a, b, mma_only=a.dtype == torch.bfloat16)
-        LAUNCHES["streaming_gemm"] += 1
+            out = ref.gemm_ref(a, b)
+        else:
+            out = gemm_cuda(a, b, mma_only=a.dtype == torch.bfloat16)
+            LAUNCHES["streaming_gemm"] += 1
+        if mode == "record":
+            tape.outs.append(out.detach())
+            GEMM_DOTS["saved"] += 1
         return out
 
     @staticmethod

@@ -10,6 +10,10 @@ the card.
     PYTHONPATH=src python -m repro_torch.launch.train \
         --arch deepseek-v3-671b --layers 3 --steps 20 --seq 512 --batch 8 \
         --remat full
+    PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6-7b \
+        --layers 10 --steps 20 --seq 512 --batch 8
+    PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-7b \
+        --layers 7 --steps 20 --seq 512 --batch 8
 
 Trains the dense and vlm families (qwen2-0.5b, internvl2-2b,
 chatglm3-6b, granite-20b, qwen1.5-32b) and the MoE family with GQA
@@ -18,10 +22,16 @@ width 4 layers, ~2.9 G values and ~35 GB of weights, gradients and
 AdamW moments, fit one 80 GB card) or MLA (deepseek-v3-671b, whose
 multi-token-prediction loss is printed too; at full width its 3 dense
 layers and the MTP head, ``configs.deepseek_v3_671b.TRAINING``, ~2.9 G
-values, fit one card; a MoE layer beside them does not); rwkv6, zamba2
-and whisper raise ``NotImplementedError`` (ROADMAP Queue A item 13b).
-Weights are random,
-drawn from ``--seed``.  A run resumes from the latest checkpoint in
+values, fit one card; a MoE layer beside them does not), the ssm family
+(rwkv6-7b; at full width 10 layers, ``configs.rwkv6_7b.TRAINING``,
+~2.9 G values) and the hybrid family (zamba2-7b; 7 layers,
+``configs.zamba2_7b.TRAINING``, ~1.9 G values, the shared block run
+twice).  The audio family (whisper-tiny) raises ``ValueError``: the
+synthetic corpus yields token ids and labels and no ``audio_frames``
+(the reference's Trainer fails on it with a ``KeyError``); it trains
+through ``launch.steps.build_train_step`` with batches that carry
+frames.  ``--remat`` is ``none``, ``dots`` or ``full``.  Weights are
+random, drawn from ``--seed``.  A run resumes from the latest checkpoint in
 ``--ckpt-dir``.  ``--layers N`` keeps the first N layers of the config
 at full width.  ``--device cpu`` runs the plain PyTorch versions of the
 kernels on the host (use ``--reduced`` there); without a card and
@@ -55,6 +65,11 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
 
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
+    if cfg.family == "audio":
+        raise ValueError(
+            f"{cfg.name}: the data loader yields token ids and labels, no "
+            "audio_frames; train it through launch.steps.build_train_step "
+            "with batches that carry frames")
     if args.layers:
         cfg = depth_cut(cfg, args.layers)
     run = RunConfig(model=cfg,

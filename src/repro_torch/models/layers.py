@@ -268,16 +268,26 @@ def attention_train(p, x, cfg: ModelConfig, positions, causal=True,
     return out_proj(p, out), (k, v)
 
 
-def attention_train_chunked(p, x, cfg: ModelConfig, positions):
-    """Causal self-attention of training, the reference's
-    ``attention_train``: the projections through the streaming GEMM
-    (whose backward products run on the same kernel), RoPE, and
-    ``chunked_attention`` as torch ops, which autograd differentiates.
-    x: (B, T, d); positions: (B, T).  Returns (B, T, d)."""
-    q, k, v = qkv_proj(p, x, cfg)
-    q = apply_rope(q, positions, cfg)
-    k = apply_rope(k, positions, cfg)
-    return out_proj(p, chunked_attention(q, k, v, causal=True))
+def attention_train_chunked(p, x, cfg: ModelConfig, positions, causal=True,
+                            kv=None):
+    """Attention of training, the reference's ``attention_train``: the
+    projections through the streaming GEMM (whose backward products run
+    on the same kernel), RoPE, and ``chunked_attention`` as torch ops,
+    which autograd differentiates.  x: (B, T, d); positions: (B, T).
+    ``causal=False``: full attention (an encoder layer's, and
+    cross-attention's).  ``kv``: external (k, v) (B, Tk, KH, hd) for
+    cross-attention (the whisper decoder over its encoder): q comes from
+    ``wq`` (plus ``bq``), no RoPE.  Returns (B, T, d)."""
+    if kv is None:
+        q, k, v = qkv_proj(p, x, cfg)
+        q = apply_rope(q, positions, cfg)
+        k = apply_rope(k, positions, cfg)
+    else:
+        q = head_proj(p["wq"], x)
+        if cfg.qkv_bias:
+            q = q + p["bq"]
+        k, v = kv
+    return out_proj(p, chunked_attention(q, k, v, causal=causal))
 
 
 def attention_decode(p, x, cfg: ModelConfig, pools, view):

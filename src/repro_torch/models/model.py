@@ -10,8 +10,7 @@ the audio encoder-decoder (whisper), which only this API serves.
     prefill(params, tokens, cache, slots, embeddings=None,
             audio_frames=None) -> logits
     decode_step(params, cache, tokens, slots) -> logits
-    loss(params, batch) -> (loss, {"ce", "aux"[, "mtp"]})
-                                             (dense, vlm, MoE, MLA)
+    loss(params, batch) -> (loss, {"ce", "aux"[, "mtp"]})  (every family)
     abstract_params() -> the parameter tree on the ``meta`` device
 
 ``input_specs(cfg, shape)`` gives ``meta``-device stand-ins of every
@@ -40,8 +39,8 @@ from repro_torch.serving.state_cache import RecurrentStateCache
 
 class Model:
     def __init__(self, cfg: ModelConfig, device="cuda", remat: str = "full"):
-        """``remat`` is training's recomputation policy (``"none"`` or
-        ``"full"``, ``transformer._remat``)."""
+        """``remat`` is training's recomputation policy (``"none"``,
+        ``"dots"`` or ``"full"``, ``transformer._remat``)."""
         self.cfg = cfg
         self.device = resolve_device(device)
         self.remat = remat
@@ -66,10 +65,12 @@ class Model:
 
     def loss(self, params, batch):
         """Mean next-token cross-entropy of ``batch`` (``tokens`` or
-        ``embeddings``, and ``labels``; ``-1`` ignored) plus the aux
-        loss (the MoE layers' load-balancing loss summed; zero for the
-        dense and vlm families), plus 0.3 times the multi-token-prediction
-        loss for a config with ``mtp`` (``transformer.mtp_loss``).
+        ``embeddings``, and ``labels``; ``-1`` ignored; an audio model
+        takes the decoder's ``tokens`` and ``labels`` with (B, Te, d)
+        ``audio_frames``) plus the aux loss (the MoE layers'
+        load-balancing loss summed; zero for the other families), plus
+        0.3 times the multi-token-prediction loss for a config with
+        ``mtp`` (``transformer.mtp_loss``).
         Returns (loss, {"ce", "aux"} and "mtp" with ``mtp``), float32
         scalars.  ``params`` need not hold the decode path's derived
         copies (``transformer.DERIVED``): training reads none."""

@@ -31,6 +31,10 @@ the gated RMSNorm (with its fp32 ``norm_scale``) are fp32.  B and C are
 one group, broadcast to every head; the scan is the inclusive form of
 ``chunked_linear_attention``, and a decode step is the same forward
 over one token (``mamba2_step``), as in the reference.
+
+Training runs the same sequence forwards under autograd, each layer
+from a zero state (``transformer.forward_train``), so the scan's torch
+ops are differentiated by autograd as the reference's XLA ops are.
 """
 from __future__ import annotations
 
@@ -247,7 +251,8 @@ def rwkv_channel_mix(p, x, state_shift):
 def init_rwkv_state(cfg: ModelConfig, batch: int, dtype=torch.float32,
                     device=None):
     """A zero state: the scan's ``s`` in fp32, the two token shifts in
-    ``dtype``."""
+    ``dtype``.  Training and serving pass the activations' dtype (bf16):
+    an fp32 shift would promote every lerp of the token shift to fp32."""
     H = cfg.n_heads
     N = cfg.d_model // H
     return {

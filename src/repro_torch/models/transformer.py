@@ -20,18 +20,21 @@ loops over a list of per-layer trees.  An MoE model may start with
 ``layers``), as in the reference.
 
 Training (``forward_train``, ``chunked_ce_loss``, ``mtp_loss``) covers
-the dense, vlm and MoE families, GQA or MLA: each layer's attention is
-``layers.attention_train_chunked`` or ``layers.mla_train_chunked``
-(chunked attention as torch ops); every projection, the MLP, the
-router, the shared experts, the MTP head's ``proj`` and the lm_head run
-through the streaming GEMM, whose backward products run on the same
-kernel, and the expert products through the grouped GEMM, whose
-backward products run on kernels of their own.  An MoE model runs its
-``dense_layers`` first (its ``layers`` may be empty, as in a depth cut
-to the dense layers) and sums its layers' aux losses.
-``remat="full"`` recomputes each layer in the backward pass
-(``torch.utils.checkpoint``).  The ssm, hybrid and audio families'
-training is ROADMAP Queue A item 13b.
+every family: each layer's attention is ``layers.attention_train_chunked``
+(causal, or non-causal in whisper's encoder and cross-attention) or
+``layers.mla_train_chunked`` (chunked attention as torch ops), and the
+ssm and hybrid layers run the chunked scan (``models.ssm``) as torch
+ops from a zero state; every projection, the MLP, the router, the
+shared experts, the MTP head's ``proj`` and the lm_head run through the
+streaming GEMM, whose backward products run on the same kernel, and the
+expert products through the grouped GEMM, whose backward products run
+on kernels of their own.  An MoE model runs its ``dense_layers`` first
+(its ``layers`` may be empty, as in a depth cut to the dense layers)
+and sums its layers' aux losses.  A hybrid model runs its shared block
+inside the body of every layer whose index is a multiple of
+``attn_every``.  ``remat`` picks what the backward pass recomputes
+(``_remat``: ``"none"``, ``"dots"`` or ``"full"``, through
+``torch.utils.checkpoint``).
 
 A config with ``mla`` (deepseek-v3) runs multi-head latent attention
 in place of GQA in every layer (``layers.mla_prefill``,
@@ -320,40 +323,44 @@ def lm_head(params, cfg: ModelConfig, h):
 
 
 # =====================================================================
-# training: dense, vlm and MoE (GQA or MLA)
+# training: every family
 # =====================================================================
-NOT_TRAINED = ("training of the {what} is not ported yet "
-               "(ROADMAP Queue A item 13b)")
-
-
 def _remat(fn, mode: str):
     """``fn`` as the layer body of training: ``"none"`` keeps every
     activation for the backward pass, ``"full"`` keeps only the layer's
-    inputs and recomputes the rest in the backward pass."""
+    inputs and recomputes the rest in the backward pass, ``"dots"``
+    keeps the layer's inputs and every streaming-GEMM output and
+    recomputes the rest (the grouped GEMM, the attention, the scans and
+    the elementwise ops), as the reference's
+    ``dots_with_no_batch_dims_saveable``: its 2-D projections are the
+    port's streaming GEMM, and its batched einsums are what the port
+    recomputes."""
     if mode == "none":
         return fn
     if mode == "full":
         return lambda *args: checkpoint(fn, *args, use_reentrant=False)
-    if mode == "dots":
-        raise NotImplementedError(
-            "remat='dots' (save the GEMM outputs, recompute the rest) is "
-            "not ported yet (ROADMAP Queue A item 13b)")
+    if mode == "dots":      # the recompute replays the GEMM's outputs
+        return lambda *args: checkpoint(
+            fn, *args, use_reentrant=False,
+            context_fn=lambda: ops.GemmTape().contexts())
     raise ValueError(f"remat {mode!r}: none | dots | full")
 
 
-def _attn_train(p, h, cfg: ModelConfig, positions):
-    """Training attention, MLA or GQA as the config says (the
+def _attn_train(p, h, cfg: ModelConfig, positions, causal=True):
+    """Training attention, MLA (causal) or GQA as the config says (the
     reference's ``_attn_block``)."""
     if cfg.mla:
         return L.mla_train_chunked(p, h, cfg, positions)
-    return L.attention_train_chunked(p, h, cfg, positions)
+    return L.attention_train_chunked(p, h, cfg, positions, causal)
 
 
-def dense_layer_train(lp, x, cfg: ModelConfig, positions):
+def dense_layer_train(lp, x, cfg: ModelConfig, positions, causal=True):
     """Training body of one dense layer (the reference's
-    ``dense_layer_fwd``): x + attention(norm(x)), then x + mlp(norm(x))."""
+    ``dense_layer_fwd``, or with ``causal=False`` an encoder layer,
+    ``dense_layer_fwd_nocausal``): x + attention(norm(x)), then
+    x + mlp(norm(x))."""
     h = L.apply_norm(lp["ln1"], x, cfg)
-    x = x + _attn_train(lp["attn"], h, cfg, positions)
+    x = x + _attn_train(lp["attn"], h, cfg, positions, causal)
     h = L.apply_norm(lp["ln2"], x, cfg)
     return x + L.apply_mlp(lp["mlp"], h, cfg)
 
@@ -369,15 +376,51 @@ def moe_layer_train(lp, x, cfg: ModelConfig, positions):
     return x + y, aux
 
 
+def hybrid_layer_train(lp, shared, x, cfg: ModelConfig, positions, state,
+                       with_attn: bool):
+    """Training body of one hybrid layer (the reference's scanned body):
+    with ``with_attn`` (the layer's index a multiple of ``attn_every``)
+    the shared block first, x + attention(norm(x)) through ``shared``,
+    then the Mamba2 layer from the zero ``state``.  The shared block's
+    leaves are the same tensors at every invocation, so autograd sums
+    their gradients."""
+    if with_attn:
+        h = L.apply_norm(shared["ln"], x, cfg)
+        x = x + L.attention_train_chunked(shared["attn"], h, cfg, positions)
+    return mamba_layer_fwd(lp, x, cfg, state)[0]
+
+
+def cross_layer_train(lp, x, enc, cfg: ModelConfig, positions):
+    """Training body of an encoder-decoder's decoder layer (the
+    reference's ``dec_body``): causal self-attention, then ``ln_x`` and
+    non-causal cross-attention over enc·``wk``, enc·``wv`` (no bias, no
+    RoPE), then ``ln2`` and the MLP."""
+    h = L.apply_norm(lp["ln1"], x, cfg)
+    x = x + L.attention_train_chunked(lp["attn"], h, cfg, positions)
+    h = L.apply_norm(lp["ln_x"], x, cfg)
+    xa = lp["xattn"]
+    kv = L.head_proj(xa["wk"], enc), L.head_proj(xa["wv"], enc)
+    x = x + L.attention_train_chunked(xa, h, cfg, positions, causal=False,
+                                      kv=kv)
+    h = L.apply_norm(lp["ln2"], x, cfg)
+    return x + L.apply_mlp(lp["mlp"], h, cfg)
+
+
 def forward_train(params, cfg: ModelConfig, batch, remat: str = "full"):
-    """Token ids ``batch["tokens"]`` (B, T), or (B, T, d)
-    ``batch["embeddings"]`` for a config with ``embedding_inputs``, to the
-    final normed hidden states.  Returns (hidden (B, T, d), aux loss (the
-    sum over the MoE layers; a float32 zero for the dense and vlm
-    families), extras {})."""
-    if cfg.family not in ("dense", "vlm", "moe"):
-        raise NotImplementedError(NOT_TRAINED.format(
-            what=f"{cfg.family} family ({cfg.name})"))
+    """A batch to the final normed hidden states.  Returns (hidden (B,
+    T, d), aux loss, extras).
+
+    The input is token ids ``batch["tokens"]`` (B, T), or (B, T, d)
+    ``batch["embeddings"]`` for a config with ``embedding_inputs``; an
+    audio model takes (B, Te, d) ``batch["audio_frames"]`` and the
+    decoder's token ids (``_forward_train_encdec``) and returns the
+    encoder's output as extras ``{"encoder_out": enc}``, the others
+    ``{}``.  The aux loss is the sum over the MoE layers, a float32 zero
+    for the other families.  Each layer runs from the zero state of an
+    ssm (``ssm.init_rwkv_state`` with the activations' dtype) or hybrid
+    (``ssm.init_mamba_state``) model, as the reference's does."""
+    if cfg.family == "audio":
+        return _forward_train_encdec(params, cfg, batch, remat)
     if cfg.embedding_inputs and "embeddings" in batch:
         x = batch["embeddings"].to(torch.bfloat16)
     else:
@@ -385,21 +428,65 @@ def forward_train(params, cfg: ModelConfig, batch, remat: str = "full"):
     B, T = x.shape[:2]
     positions = torch.arange(T, device=x.device).expand(B, T)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    body = _remat(lambda lp, x: dense_layer_train(lp, x, cfg, positions),
-                  remat)
-    if cfg.family == "moe":
+    if cfg.family == "ssm":
+        state = SSM.init_rwkv_state(cfg, B, x.dtype, x.device)
+        body = _remat(lambda lp, x: rwkv_layer_fwd(lp, x, cfg, state)[0],
+                      remat)
+        for lp in params["layers"]:
+            x = body(lp, x)
+    elif cfg.family == "hybrid":
+        state = SSM.init_mamba_state(cfg, B, device=x.device)
+        shared, every = params["shared_attn"], cfg.ssm.attn_every
+        body = _remat(lambda lp, x, attn: hybrid_layer_train(
+            lp, shared, x, cfg, positions, state, attn), remat)
+        for i, lp in enumerate(params["layers"]):
+            x = body(lp, x, i % every == 0)
+    else:
+        body = _remat(lambda lp, x: dense_layer_train(lp, x, cfg,
+                                                      positions), remat)
         for lp in params.get("dense_layers", []):
             x = body(lp, x)
-        moe_body = _remat(
-            lambda lp, x: moe_layer_train(lp, x, cfg, positions), remat)
-        for lp in params["layers"]:
-            x, a = moe_body(lp, x)
-            aux = aux + a
-    else:
-        for lp in params["layers"]:
-            x = body(lp, x)
+        if cfg.family == "moe":
+            moe_body = _remat(
+                lambda lp, x: moe_layer_train(lp, x, cfg, positions), remat)
+            for lp in params["layers"]:
+                x, a = moe_body(lp, x)
+                aux = aux + a
+        else:
+            for lp in params["layers"]:
+                x = body(lp, x)
     x = L.apply_norm(params["final_norm"], x, cfg)
     return x, aux, {}
+
+
+def _forward_train_encdec(params, cfg: ModelConfig, batch, remat):
+    """The audio family's training forward (the reference's
+    ``_forward_train_encdec``): the non-causal encoder over
+    ``batch["audio_frames"]`` (cast to bf16) and ``enc_norm``, then the
+    decoder over the token ids plus ``pos_embed[:Td]``, each decoder
+    layer attending over the encoder's output.  Returns (hidden (B, Td,
+    d), a float32 zero, {"encoder_out": enc})."""
+    x = batch["audio_frames"].to(torch.bfloat16)
+    B, Te = x.shape[:2]
+    pos_e = torch.arange(Te, device=x.device).expand(B, Te)
+    enc_body = _remat(lambda lp, x: dense_layer_train(
+        lp, x, cfg, pos_e, causal=False), remat)
+    for lp in params["enc_layers"]:
+        x = enc_body(lp, x)
+    enc = L.apply_norm(params["enc_norm"], x, cfg)
+
+    tokens = batch["tokens"]
+    Td = tokens.shape[1]
+    x = embed_tokens(params, cfg, tokens)
+    x = x + params["pos_embed"][:Td].to(x.dtype)
+    pos_d = torch.arange(Td, device=x.device).expand(tokens.shape[0], Td)
+    dec_body = _remat(lambda lp, x, enc: cross_layer_train(
+        lp, x, enc, cfg, pos_d), remat)
+    for lp in params["layers"]:
+        x = dec_body(lp, x, enc)
+    x = L.apply_norm(params["final_norm"], x, cfg)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device), \
+        {"encoder_out": enc}
 
 
 def chunked_ce_loss(params, cfg: ModelConfig, h, labels, t_chunk: int = 0):

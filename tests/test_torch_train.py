@@ -18,12 +18,15 @@ chatglm3-6b, granite-20b and qwen1.5-32b, reduced.
 - ``chunked_ce_loss`` at a T that ``ce_chunk`` does not divide, with
   ``-1`` labels and a padded vocabulary, against the reference's and
   against the whole-logit cross-entropy.
-- ``remat="full"`` against ``"none"``: the same loss and gradients, bit
-  for bit (the recomputation repeats the same CPU ops).
-- The families whose training is not ported raise, naming the ROADMAP
-  (the MoE family trains, GQA in ``tests/test_torch_train_moe.py`` and
-  MLA in ``tests/test_torch_train_mla.py``); ``mtp_loss`` refuses a
-  config without an MTP head.
+- ``remat="full"`` and ``"dots"`` against ``"none"``: the same loss and
+  gradients, bit for bit (the recomputation repeats the same CPU ops),
+  and under ``"dots"`` no GEMM forward product in the backward pass
+  (``gemm_forwards_in_backward``, which the other training tests use
+  too).
+- Every other family trains (the parity of each in
+  ``tests/test_torch_train_{moe,mla,ssm,hybrid,audio}.py``), and
+  ``mtp_loss`` refuses a config without an MTP head.
+- The reference's ``test_train_smoke`` over all ten arch ids.
 """
 import dataclasses
 
@@ -38,14 +41,14 @@ import jax.numpy as jnp  # noqa: E402
 from repro.configs import get_reduced as ref_reduced  # noqa: E402
 from repro.models import transformer as RT  # noqa: E402
 from repro.models.model import Model as RefModel  # noqa: E402
-from repro_torch.configs import get_reduced  # noqa: E402
+from repro_torch.configs import ARCH_IDS, get_reduced  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.launch.steps import loss_and_grads  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.models import tuning as TU  # noqa: E402
 from repro_torch.models.model import Model  # noqa: E402
 from repro_torch.models.params import from_reference, to_torch  # noqa: E402
-from repro_torch.models.params import tree_leaves  # noqa: E402
+from repro_torch.models.params import tree_leaves, tree_map  # noqa: E402
 
 ARCHS = ["qwen2_0_5b", "internvl2_2b", "chatglm3_6b", "granite_20b",
          "qwen1_5_32b"]
@@ -186,28 +189,39 @@ def test_chunked_ce_ragged_chunks_ignored_labels_padded_vocab():
     torch.testing.assert_close(got, whole, rtol=1e-5, atol=0)
 
 
+def _tiny_batch(cfg, B=1, T=4):
+    """Zero token ids and labels (B, T), and for an audio model seeded
+    (B, 6, d) bf16 frames."""
+    batch = {"tokens": torch.zeros((B, T), dtype=torch.int32),
+             "labels": torch.zeros((B, T), dtype=torch.int32)}
+    if cfg.family == "audio":
+        batch["audio_frames"] = (torch.randn(
+            (B, 6, cfg.d_model), generator=torch.Generator().manual_seed(0))
+            * 0.02).to(torch.bfloat16)
+    return batch
+
+
 @pytest.mark.parametrize("arch", ["qwen2_moe_a2_7b", "rwkv6_7b",
                                   "zamba2_7b", "whisper_tiny",
                                   "deepseek_v3_671b"])
-def test_untrained_families_raise_naming_the_roadmap(arch):
-    """``forward_train`` raises for the families it does not train yet;
-    qwen2-moe and deepseek-v3 (MLA) train (``tests/test_torch_train_moe.py``,
-    ``tests/test_torch_train_mla.py``).  ``mtp_loss`` runs deepseek-v3's
-    head and raises ``ValueError`` for a config without one."""
+def test_other_families_train_and_mtp_loss_needs_its_head(arch):
+    """``forward_train`` trains every family beside the dense ones (the
+    reference parity of each: ``tests/test_torch_train_{moe,mla,ssm,
+    hybrid,audio}.py``): hidden states (B, T, d), a finite loss, a
+    positive aux loss for the MoE configs.  ``mtp_loss`` runs
+    deepseek-v3's head and raises ``ValueError`` for a config without
+    one."""
     cfg = get_reduced(arch)
-    batch = {"tokens": torch.zeros((1, 4), dtype=torch.int32),
-             "labels": torch.zeros((1, 4), dtype=torch.int32)}
-    h = None
-    if arch in ("qwen2_moe_a2_7b", "deepseek_v3_671b"):
-        params = Model(cfg, device="cpu").init(
-            torch.Generator().manual_seed(0))
-        h, _, _ = T.forward_train(params, cfg, batch)
-        assert h.shape == (1, 4, cfg.d_model)
-    else:
-        params = Model(cfg, device="cpu").abstract_params()
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP Queue A item 13b"):
-            T.forward_train(params, cfg, batch)
+    batch = _tiny_batch(cfg)
+    model = Model(cfg, device="cpu", remat="none")
+    params = model.init(torch.Generator().manual_seed(0))
+    h, aux, extras = T.forward_train(params, cfg, batch, "none")
+    assert h.shape == (1, 4, cfg.d_model) and h.dtype == torch.bfloat16
+    assert bool(aux > 0) == (cfg.family == "moe")
+    assert set(extras) == ({"encoder_out"} if cfg.family == "audio"
+                           else set())
+    loss, _ = model.loss(params, batch)
+    assert bool(loss.isfinite())
     if cfg.mtp:
         assert bool(T.mtp_loss(params, cfg, h, batch).isfinite())
     else:
@@ -216,12 +230,110 @@ def test_untrained_families_raise_naming_the_roadmap(arch):
             T.mtp_loss(params, cfg, h, batch)
 
 
-def test_remat_dots_raises_naming_the_roadmap():
+def test_remat_dots_trains_and_an_unknown_mode_raises():
     cfg = get_reduced("qwen2_0_5b")
-    params = Model(cfg, device="cpu").abstract_params()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.forward_train(params, cfg, {"tokens": torch.zeros(
-            (1, 4), dtype=torch.int32)}, remat="dots")
+    params = Model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    h, _, _ = T.forward_train(params, cfg, _tiny_batch(cfg), remat="dots")
+    assert h.shape == (1, 4, cfg.d_model) and bool(h.isfinite().all())
+    with pytest.raises(ValueError, match="none | dots | full"):
+        T.forward_train(params, cfg, _tiny_batch(cfg), remat="some")
+
+
+def gemm_forwards_in_backward(cfg, params, batch, remat):
+    """``loss_and_grads`` on the CPU under ``remat``, counting the
+    streaming GEMM's products: returns ((loss, metrics), grads, the
+    forward products computed during the backward pass, ``GEMM_DOTS``).
+    A product is a call of ``ref.gemm_ref``, the plain version both the
+    autograd Function's forward and its backward (``ops._gemm_bwd``)
+    run on the CPU."""
+    calls = {"ref": 0, "bwd": 0}
+    gemm_ref, gemm_bwd = ref.gemm_ref, ops._gemm_bwd
+
+    def counted_ref(*args, **kw):
+        calls["ref"] += 1
+        return gemm_ref(*args, **kw)
+
+    def counted_bwd(a, b):
+        calls["bwd"] += 1
+        return gemm_bwd(a, b)
+
+    model = Model(cfg, device="cpu", remat=remat)
+    leaves = []
+
+    def watch(p):
+        p = p.detach().requires_grad_(True)
+        leaves.append(p)
+        return p
+
+    tree = tree_map(watch, T.trainable(params))
+    ops.reset_launches()
+    ref.gemm_ref, ops._gemm_bwd = counted_ref, counted_bwd
+    try:
+        loss, metrics = model.loss(tree, batch)
+        forward = calls["ref"]
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    finally:
+        ref.gemm_ref, ops._gemm_bwd = gemm_ref, gemm_bwd
+    in_bwd = calls["ref"] - forward - calls["bwd"]
+    it = iter(torch.zeros_like(p) if g is None else g
+              for p, g in zip(leaves, grads))
+    return (loss.detach(), metrics), tree_map(lambda _: next(it), tree), \
+        in_bwd, dict(ops.GEMM_DOTS)
+
+
+def assert_remat_modes_equal(cfg, params, batch):
+    """``remat="full"`` and ``"dots"`` against ``"none"``: the loss,
+    the metrics and every gradient leaf bit for bit; ``"none"`` and
+    ``"dots"`` compute no GEMM forward product in the backward pass
+    (``"dots"`` hands each recorded output back, one per product the
+    remat'd layers ran), ``"full"`` computes again every one of the
+    layers' products."""
+    (l0, m0), g0, n0, d0 = gemm_forwards_in_backward(cfg, params, batch,
+                                                     "none")
+    assert n0 == 0 and d0 == {"saved": 0, "replayed": 0}
+    res = {}
+    for mode in ("full", "dots"):
+        (l1, m1), g1, n1, d1 = gemm_forwards_in_backward(cfg, params, batch,
+                                                         mode)
+        assert torch.equal(l0, l1), mode
+        assert all(torch.equal(m0[k], m1[k]) for k in m0), mode
+        got, want = tree_leaves(g1), tree_leaves(g0)
+        assert len(got) == len(want)
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), mode
+        res[mode] = n1, d1
+    (n_full, d_full), (n_dots, d_dots) = res["full"], res["dots"]
+    assert d_full == {"saved": 0, "replayed": 0}
+    assert n_dots == 0 and d_dots["saved"] == d_dots["replayed"] == n_full
+    assert n_full > 0
+    return n_full
+
+
+def test_remat_dots_equals_none(case):
+    """``remat="dots"`` on the dense and vlm configs: bit for bit equal
+    to ``"none"`` and ``"full"``, with no GEMM forward in the backward
+    pass (every product of the layers recorded and handed back: q, k, v,
+    o and the MLP's 3, or 2 where it is not gated)."""
+    cfg, params, batch, _, _ = case
+    assert assert_remat_modes_equal(cfg, params, _torch_batch(batch)) == \
+        (4 + (3 if cfg.glu else 2)) * cfg.n_layers
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_train_smoke(arch):
+    """The port's ``test_train_smoke`` of the reference
+    (``tests/test_models.py``): every arch id of the registry, reduced,
+    ``remat="none"``, a 2 x 64 batch from ``make_concrete_batch``: a
+    finite loss between 2 and 20."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models.model import make_concrete_batch
+    cfg = get_reduced(arch)
+    model = Model(cfg, device="cpu", remat="none")
+    params = model.init(torch.Generator().manual_seed(0))
+    batch = make_concrete_batch(cfg, ShapeConfig("t", "train", 64, 2),
+                                device="cpu")
+    loss, _ = model.loss(params, batch)
+    assert bool(loss.isfinite())
+    assert 2.0 < float(loss) < 20.0
 
 
 @pytest.mark.parametrize("arch", ["qwen2_0_5b", "internvl2_2b",

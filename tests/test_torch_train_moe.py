@@ -25,12 +25,15 @@ capacity factor 1.25, so that some assignments are dropped (asserted).
   their last two dimensions) against the reference's.
 - A checkpoint round trip of the MoE train state, and a Trainer that
   fails and resumes replaying the same losses bit for bit.
-- ssm, hybrid and audio training, and ``remat="dots"``, still raise,
-  naming ROADMAP 13b; MLA trains (``tests/test_torch_train_mla.py``),
-  and ``mtp_loss`` refuses a config without an MTP head.
+- ``remat="dots"`` against ``"none"``: bit for bit, no 2-D GEMM forward
+  in the backward pass.
+- The MLA, ssm, hybrid and audio families train (their parity in
+  ``tests/test_torch_train_{mla,ssm,hybrid,audio}.py``), and
+  ``mtp_loss`` refuses a config without an MTP head.
 """
 import contextlib
 import dataclasses
+import importlib
 
 import numpy as np
 import pytest
@@ -62,6 +65,8 @@ from repro_torch.models.params import (from_reference,  # noqa: E402
 from repro_torch.optim import Adafactor, AdamW  # noqa: E402
 from repro_torch.runtime import compression as GC  # noqa: E402
 from repro_torch.runtime.train_loop import Trainer, TrainerConfig  # noqa: E402,E501
+
+TT = importlib.import_module("test_torch_train")
 
 ARCH = "qwen2_moe_a2_7b"
 LOSS_RTOL = 1e-3
@@ -381,26 +386,40 @@ def test_trainer_restart_replays_the_same_steps(tmp_path):
 
 @pytest.mark.parametrize("arch", ["deepseek_v3_671b", "rwkv6_7b",
                                   "zamba2_7b", "whisper_tiny"])
-def test_untrained_configs_still_raise_naming_13b(arch):
-    """The families not trained yet raise; deepseek-v3 (MLA) trains."""
+def test_other_families_train(arch):
+    """The families trained beside the MoE one: hidden states (B, T, d)
+    and a finite loss; deepseek-v3 (MLA, MoE) a positive aux loss, the
+    others a zero one."""
     cfg = get_reduced(arch)
-    tokens = {"tokens": torch.zeros((1, 4), dtype=torch.int32)}
-    if cfg.mla:
-        params = Model(cfg, device="cpu").init(
-            torch.Generator().manual_seed(0))
-        h, aux, _ = T.forward_train(params, cfg, tokens)
-        assert h.shape == (1, 4, cfg.d_model) and bool(aux > 0)
-        return
-    params = Model(cfg, device="cpu").abstract_params()
-    with pytest.raises(NotImplementedError, match="Queue A item 13b"):
-        T.forward_train(params, cfg, tokens)
+    batch = TT._tiny_batch(cfg)
+    model = Model(cfg, device="cpu", remat="none")
+    params = model.init(torch.Generator().manual_seed(0))
+    h, aux, _ = T.forward_train(params, cfg, batch, "none")
+    assert h.shape == (1, 4, cfg.d_model)
+    assert bool(aux > 0) == (cfg.family == "moe")
+    assert bool(model.loss(params, batch)[0].isfinite())
 
 
-def test_moe_remat_dots_and_mtp_still_raise():
+def test_moe_remat_dots_trains_and_mtp_still_raises():
     cfg = get_reduced(ARCH)
     params = Model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="Queue A item 13b"):
-        T.forward_train(params, cfg, {"tokens": torch.zeros(
-            (1, 4), dtype=torch.int32)}, remat="dots")
+    h, aux, _ = T.forward_train(params, cfg, TT._tiny_batch(cfg),
+                                remat="dots")
+    assert h.shape == (1, 4, cfg.d_model) and bool(aux > 0)
     with pytest.raises(ValueError, match="no multi-token-prediction head"):
         T.mtp_loss(params, cfg, None, {})
+
+
+@pytest.mark.parametrize("variant", ["global", "dense+moe"])
+def test_remat_dots_equals_none(variant):
+    """``remat="dots"`` on the MoE model: bit for bit equal to
+    ``"none"`` and ``"full"``, no 2-D GEMM forward in the backward pass
+    (q, k, v, o, the router and the shared expert's 3 of every MoE
+    layer, 7 of a dense one, recorded and handed back; the grouped
+    GEMM is recomputed)."""
+    _, cfg = _cfgs(variant)
+    params = Model(cfg, device="cpu").init(torch.Generator().manual_seed(3))
+    batch = _torch_batch(_batch(cfg, seed=3))
+    nd = cfg.moe.first_dense_layers
+    assert TT.assert_remat_modes_equal(cfg, params, batch) == \
+        7 * nd + 8 * (cfg.n_layers - nd)
