@@ -347,7 +347,29 @@ Phases, in order; any failure raises and exits non-zero:
    not), the gradients bit for bit or not, peak memory, ms, and the
    GEMM's forward launches during the backward pass, 0 / 90 / 0,
    asserted.
-19. Print each phase's seconds (a ``[phases]`` line), the ``kernels``
+19. The mesh (``launch.mesh``, ``launch.steps``): a one-rank NCCL mesh
+   (``make_host_mesh(1, 1)``; NCCL cannot put two ranks on one card, so
+   multi-rank meshes are held on the CPU through gloo by
+   ``tests/test_torch_mesh.py``).  A batch split over one rank runs no
+   collective.  (a) qwen2-0.5b at full width and depth, 20 AdamW steps
+   of 8 x 512 tokens, 15c's seed and learning rate, by a ``Trainer`` on
+   the mesh and then one with no mesh (the local one-rank layout, no
+   process group): the mesh's losses equal the local ones bit for bit;
+   each run's median step, peak memory, and one step more under the
+   profiler (device ms; the collective calls on the host and the NCCL
+   kernels, none in either run).  (b)
+   ``compressed_psum`` over the mesh's ``data`` axis on the tied
+   embedding's gradient (152,064 x 896, from one step of the model):
+   equal bit for bit to its codes times its scale; its median ms (an
+   axis of one rank: the int8 codes and the scale, no all-reduce).  (c)
+   ``build_prefill_step`` / ``build_decode_step`` on the mesh: 8 slots,
+   256-token prompts from ``--seed``, 16 greedy steps; the tokens equal
+   ``Model.prefill`` / ``decode_step``'s on the card; the GEMM, flash
+   and paged launches of the mesh steps go into the ``kernels`` line as
+   their own path.  (d) The production plans' per-rank bytes of bf16
+   weights plus AdamW state for every arch id at full width, on (16, 16)
+   and (2, 16, 16): host arithmetic over the placements, a plan.
+20. Print each phase's seconds (a ``[phases]`` line), the ``kernels``
    JSON line (each kernel's launches from its own
    path's serving run, the int8 kernels' from phase 8e's (the int8
    kernel's under both its counters), the grouped
@@ -5360,6 +5382,229 @@ def phase_ssm_training(torch, args, rows, card, dev):
     return res
 
 
+# ---------------------------------------------------------------- phase 19
+MESH_SERVE = (8, 256, 16)       # 19c: slots, prompt tokens, greedy steps
+
+
+COLLECTIVE_OPS = re.compile(r"^c10d::(allreduce|allgather)", re.I)
+
+
+def _collectives(torch, prof, kern):
+    """(collective calls on the host, NCCL kernels, their device ms) of
+    a profile."""
+    from torch.autograd import DeviceType
+    calls = sum(1 for e in prof.profiler.kineto_results.events()
+                if e.device_type() == DeviceType.CPU
+                and COLLECTIVE_OPS.match(e.name()))
+    nccl = [us for _, us, name in kern if "nccl" in name.lower()]
+    return calls, len(nccl), sum(nccl) / 1e3
+
+
+def _mesh_train(torch, args, card, dev, mesh):
+    """19a. The Trainer on the mesh and on no mesh (the local one-rank
+    layout) on 15c's run, in that order; then one profiled step of each
+    from fresh weights, after one unprofiled."""
+    import shutil
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RunConfig, ShapeConfig
+    from repro_torch.data.pipeline import make_loader
+    from repro_torch.runtime.train_loop import Trainer, TrainerConfig
+
+    cfg = get_config(TRAIN_ARCH)
+    run = RunConfig(model=cfg, shape=ShapeConfig(
+        "train", "train", TRAIN_SEQ, TRAIN_BATCH), remat="none")
+    root = Path(__file__).resolve().parent / "build" / "mesh_smoke"
+    res = {}
+    for name, m in (("mesh", mesh), ("meshless", None)):
+        shutil.rmtree(root, ignore_errors=True)
+        tr = Trainer(run, TrainerConfig(
+            ckpt_dir=str(root), ckpt_every=TRAIN_STEPS + 1, keep=1,
+            seed=args.seed, **TRAIN_LR), device=dev, mesh=m)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        out = tr.train(TRAIN_STEPS)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        step_ms = [r["s"] * 1e3 for r in tr.metrics_log]
+        state = tr.init_state()
+        loader = make_loader(cfg, run.shape, dev, seed=args.seed,
+                             mesh=tr.mesh, placement=tr.placement[1])
+        _, batch = next(loader)
+        loader.close()
+        state, _ = tr.step_fn(state, batch)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            state, _ = tr.step_fn(state, batch)
+            torch.cuda.synchronize()
+        kern = _device_kernels(torch, prof)
+        calls, n_coll, coll_ms = _collectives(torch, prof, kern)
+        res[name] = {"losses": out["losses"], "step_ms": step_ms,
+                     "median_step_ms": statistics.median(step_ms[1:]),
+                     "peak_mem_gb": peak,
+                     "profiled_device_ms": sum(us for _, us, _ in kern) / 1e3,
+                     "profiled_kernels": len(kern),
+                     "collective_calls": calls,
+                     "collective_kernels": n_coll,
+                     "collective_device_ms": coll_ms}
+        del tr, state, batch
+        torch.cuda.empty_cache()
+    shutil.rmtree(root, ignore_errors=True)
+    res["losses_equal"] = res["mesh"]["losses"] == res["meshless"]["losses"]
+    res["card"] = card
+    print("[mesh_train] " + json.dumps(res), flush=True)
+    require(len(res["mesh"]["losses"]) == TRAIN_STEPS,
+            f"mesh train: {len(res['mesh']['losses'])} steps")
+    require(res["losses_equal"], "mesh train: the one-rank mesh's losses "
+            "differ from the local Trainer's")
+    for name in ("mesh", "meshless"):
+        require(res[name]["collective_calls"] == 0,
+                f"mesh train: the {name} step made a collective call on "
+                "one rank")
+    return res
+
+
+def _mesh_psum(torch, args, card, dev, mesh):
+    """19b. ``compressed_psum`` on the tied embedding's gradient of one
+    step of qwen2-0.5b from ``--seed``'s weights."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import make_loader
+    from repro_torch.launch.steps import loss_and_grads
+    from repro_torch.models.model import Model
+    from repro_torch.runtime.compression import _q, compressed_psum
+
+    cfg = get_config(TRAIN_ARCH)
+    model = Model(cfg, device=dev, remat="none")
+    g = torch.Generator(device=dev).manual_seed(args.seed)
+    params = model.init(g)
+    loader = make_loader(cfg, ShapeConfig("t", "train", TRAIN_SEQ,
+                                          TRAIN_BATCH), dev, seed=args.seed)
+    _, batch = next(loader)
+    loader.close()
+    _, grads = loss_and_grads(model, params, batch)
+    x = grads["embed"].float()
+    del params, grads
+    torch.cuda.empty_cache()
+    y = compressed_psum(x, "data", mesh)
+    q, scale = _q(x)
+    exact = bool(torch.equal(y, q.to(torch.int32).float() * scale))
+    ms = Timer(torch, dev)(lambda: compressed_psum(x, "data", mesh))
+    res = {"shape": list(x.shape), "exact": exact, "ms": ms,
+           "max_abs_err_vs_fp32": float((y - x).abs().max()), "card": card}
+    print("[mesh_psum] " + json.dumps(res), flush=True)
+    require(list(x.shape) == [cfg.padded_vocab, cfg.d_model],
+            f"mesh psum: the embedding gradient is {list(x.shape)}")
+    require(exact, "mesh psum: compressed_psum differs from its codes "
+            "times its scale")
+    return res
+
+
+def _mesh_serving(torch, args, card, dev, mesh):
+    """19c. The mesh's prefill and decode steps against ``Model``'s."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RunConfig, ShapeConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import (SERVE_PAGE_TOKENS,
+                                          build_decode_step,
+                                          build_prefill_step)
+    from repro_torch.models.model import Model
+
+    B, T, n = MESH_SERVE
+    cfg = get_config(TRAIN_ARCH)
+    model = Model(cfg, device=dev)
+    g = torch.Generator(device=dev).manual_seed(args.seed)
+    params = model.init(g)
+    prompts = torch.randint(1, cfg.vocab_size, (B, T), generator=g,
+                            device=dev, dtype=torch.int32)
+
+    def greedy(logits):
+        return torch.argmax(logits[..., :cfg.vocab_size], -1).to(
+            torch.int32)
+
+    def shape(kind):
+        return RunConfig(model=cfg, shape=ShapeConfig(kind, kind, T + n, B))
+
+    pre = build_prefill_step(shape("prefill"), mesh)
+    dec = build_decode_step(shape("decode"), mesh)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    cache, logits = pre.fn(params, {"tokens": prompts})
+    got = [greedy(logits)]
+    for _ in range(n):
+        cache, tok = dec.fn(params, cache, got[-1])
+        got.append(tok)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    del cache
+
+    cache = model.init_cache(B, T + n, SERVE_PAGE_TOKENS)
+    for slot in range(B):
+        cache.alloc_seq(slot, T)
+    want = [greedy(model.prefill(params, prompts, cache, list(range(B))))]
+    for _ in range(n):
+        want.append(greedy(model.decode_step(params, cache, want[-1],
+                                             list(range(B)))))
+    equal = all(bool(torch.equal(a, b)) for a, b in zip(got, want))
+    res = {"config": cfg.name, "slots": B, "prompt_tokens": T,
+           "greedy_steps": n, "tokens_equal": equal, "seconds": seconds,
+           "launches": launches, "card": card}
+    print("[mesh_serving] " + json.dumps(res), flush=True)
+    require(equal, "mesh serving: the mesh steps' tokens differ from "
+            "Model.prefill / decode_step's")
+    for name in DENSE_KERNELS:
+        require(launches.get(name, 0) > 0,
+                f"mesh serving: {name} was not launched")
+    return res
+
+
+def _mesh_plans():
+    """19d. Per-rank bytes of bf16 weights plus AdamW state on the
+    production plans (host arithmetic over the placements)."""
+    from repro_torch.configs import ARCH_IDS, get_config
+    from repro_torch.configs.base import SHAPES, RunConfig
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.launch.steps import build_train_step, per_rank_bytes
+
+    res = {}
+    for arch in ARCH_IDS:
+        run = RunConfig(model=get_config(arch), shape=SHAPES["train_4k"])
+        res[arch] = {
+            name: per_rank_bytes(build_train_step(
+                run, make_production_mesh(multi_pod=multi))) / 1e9
+            for name, multi in (("16x16", False), ("2x16x16", True))}
+    print("[mesh_plan] per-rank GB of bf16 weights + AdamW state (a plan, "
+          "no card) " + json.dumps(res), flush=True)
+    return res
+
+
+def phase_mesh(torch, args, card, dev):
+    """19. The one-rank NCCL mesh (module docstring); prints each
+    sub-phase's line and its seconds, and destroys the process group."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+
+    mesh = make_host_mesh(1, 1, device="cuda")
+    secs, res = {}, {}
+    try:
+        for name, fn in (
+                ("train", lambda: _mesh_train(torch, args, card, dev, mesh)),
+                ("psum", lambda: _mesh_psum(torch, args, card, dev, mesh)),
+                ("serving", lambda: _mesh_serving(torch, args, card, dev,
+                                                  mesh)),
+                ("plans", _mesh_plans)):
+            t = time.perf_counter()
+            res[name] = fn()
+            torch.cuda.empty_cache()
+            secs[name] = time.perf_counter() - t
+    finally:
+        dist.destroy_process_group()
+    print(f"[mesh] seconds {json.dumps(secs)}", flush=True)
+    return res
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5429,6 +5674,8 @@ def main():
     lap("17 mla train")
     ssm_train = phase_ssm_training(torch, args, rows, card, dev)
     lap("18 ssm train")
+    mesh = phase_mesh(torch, args, card, dev)
+    lap("19 mesh")
     print(f"[phases] seconds {json.dumps(laps)}", flush=True)
 
     # launches: each kernel's count from its own main path's serving run
@@ -5452,6 +5699,7 @@ def main():
         mla_train["launches"]
     for fam, launches in ssm_train["launches"].items():
         paths[f"{ssm_train['full'][fam]['config']} train step"] = launches
+    paths[f"{cfg.name} mesh serving steps"] = mesh["serving"]["launches"]
     own = {"streaming_gemm_grouped": MOE_ARCH,
            "paged_latent_attention": deepseek["config"],
            "paged_attention_int8": int8_path, "kv_quantize": int8_path,

@@ -21,6 +21,14 @@ Only the reference's leaves are written (``transformer.trainable``): an
 MLA model's absorbed copies of ``wuk`` / ``wuv``
 (``transformer.DERIVED``) are no parameters; ``restore`` makes them
 again from the restored weights wherever the template holds them.
+
+On a mesh (``mesh`` and the state's ``placement``, ``launch.steps``),
+``save`` gathers the whole leaves from every rank's blocks (every rank
+calls it) and rank 0 alone writes them, in the same layout; ``restore``
+reads whole leaves, makes the derived copies from them (never split),
+and keeps this rank's blocks under the *current* mesh's placement, so a
+checkpoint saved on one mesh restores onto another and back (the
+reference's elastic restore).
 """
 from __future__ import annotations
 
@@ -35,6 +43,7 @@ import numpy as np
 import torch
 
 from repro_torch.models import transformer as T
+from repro_torch.sharding import blocks as BL
 
 SEP = "/"
 
@@ -72,14 +81,20 @@ class CheckpointManager:
         self._pending: Optional[cf.Future] = None
 
     # ------------------------------------------------------------ save
-    def save(self, state, step: int):
+    def save(self, state, step: int, mesh=BL.ONE_RANK, placement=None):
         """Copy ``state`` (a tree of tensors) to the host now and write it
         as checkpoint ``step``, on the writer thread in async mode.  The
         copy is made even for host tensors (``.cpu()`` would return the
         same storage), since the optimizers update the state in place
-        while the write is in flight."""
+        while the write is in flight.  On a ``mesh`` the whole leaves are
+        gathered first and rank 0 writes (module docstring)."""
+        state = T.trainable(state)
+        if placement is not None:
+            state = BL.gather_tree(state, T.trainable(placement), mesh)
+        if BL.mesh_rank(mesh) != 0:
+            return
         host = {SEP.join(path): leaf.detach().to("cpu", copy=True)
-                for path, leaf in _flatten(T.trainable(state))}
+                for path, leaf in _flatten(state)}
         if self._pool is not None:
             self.wait()
             self._pending = self._pool.submit(self._write, host, step)
@@ -133,24 +148,34 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     def restore(self, template_state, step: Optional[int] = None,
-                device=None):
+                device=None, mesh=BL.ONE_RANK, placement=None):
         """(state, step): checkpoint ``step`` (default the latest) in the
         structure, shapes and dtypes of ``template_state``, a tree of
-        tensors (``meta``-device ones will do, with ``device`` given),
-        on ``device`` or else each template leaf's device.  The derived
-        copies the template holds are made from the restored weights."""
+        whole tensors (``meta``-device ones will do, with ``device``
+        given), on ``device`` or else each template leaf's device.  The
+        derived copies the template holds are made from the restored
+        weights.  With a ``placement`` (a tree congruent with the
+        template), each leaf is this rank's block under it on ``mesh``."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.dir}")
         saved = T.trainable(template_state)
         with np.load(self.dir / f"step_{step:08d}" / "arrays.npz") as data:
-            leaves = [self._leaf(data, path, t, device)
-                      for path, t in _flatten(saved)]
-        return T.remake_derived(_rebuild(saved, iter(leaves)),
-                                template_state), step
+            host = [self._leaf(data, path, t) for path, t in _flatten(saved)]
+        whole = dict(_flatten(T.remake_derived(_rebuild(saved, iter(host)),
+                                               template_state)))
+        specs = dict(_flatten(placement)) if placement is not None else {}
+        leaves = []
+        for path, t in _flatten(template_state):
+            block = BL.local_slice(whole.pop(path), specs.get(path, ()),
+                                   mesh)
+            leaves.append(block.to(device or t.device, copy=True))
+        return _rebuild(template_state, iter(leaves)), step
 
     @staticmethod
-    def _leaf(data, path, template: torch.Tensor, device) -> torch.Tensor:
+    def _leaf(data, path, template: torch.Tensor) -> torch.Tensor:
+        """The whole leaf at ``path`` on the host, in the template's
+        dtype."""
         key = "__".join(path)
         if key in data:
             arr = data[key]
@@ -164,5 +189,4 @@ class CheckpointManager:
         if tuple(arr.shape) != tuple(template.shape):
             raise ValueError(f"{SEP.join(path)}: checkpoint shape "
                              f"{arr.shape}, template {tuple(template.shape)}")
-        t = torch.from_numpy(np.array(arr))
-        return t.to(device=device or template.device, dtype=template.dtype)
+        return torch.from_numpy(np.array(arr)).to(dtype=template.dtype)

@@ -138,12 +138,13 @@ class RunConfig:
     and the chunk knobs (``q_chunk``, ``kv_chunk``, ``ce_chunk``,
     ``ssm_chunk``), which ``launch.steps`` puts into the model's
     ``Tuning`` together with ``kv_cache_quant`` and
-    ``moe_local_dispatch``.  ``multi_pod``, ``fsdp``, ``moe_cap_axis``
-    and ``shard_cache_seq`` are read only by mesh code, which the port
-    does not have yet (ROADMAP Queue A item 14): they are kept and
-    inert.  ``scan_layers``, ``param_dtype``, ``memory_mode``,
-    ``page_bytes``, ``double_buffer`` and ``use_flash`` are carried as
-    the reference carries them."""
+    ``moe_local_dispatch``.  The mesh code (``launch.steps.make_rules``)
+    reads ``fsdp`` and ``moe_cap_axis`` (the latter also goes into the
+    ``Tuning``, where it is inert: no activation is split).
+    ``multi_pod``, ``shard_cache_seq``, ``scan_layers``,
+    ``param_dtype``, ``memory_mode``, ``page_bytes``, ``double_buffer``
+    and ``use_flash`` are carried as the reference carries them (its
+    ``make_rules`` reads the mesh's axes, not ``multi_pod``)."""
     model: ModelConfig
     shape: ShapeConfig
     # distribution

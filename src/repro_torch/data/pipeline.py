@@ -4,8 +4,12 @@
   numpy, bit for bit the reference's batches: after a restart the stream
   resumes from the checkpointed step with no loader state to save.
 - ``DeviceLoader`` makes the batches ahead on a host thread and puts each
-  on the trainer's device (the reference's ``ShardedLoader`` places them
-  on a mesh, which the port does not have yet).
+  on the trainer's device.  With a mesh and its batch placement
+  (``launch.steps``; the reference's ``ShardedLoader``) each rank takes
+  its block of every array: its rows, over the ``batch`` axes
+  ``("pod", "data")``; the ``model`` ranks of one data index take the
+  same rows, and a batch that the placement does not split (a batch the
+  data extent does not divide) is whole on every rank, not padded.
 
 The corpus is a Zipf-distributed token stream with injected
 (copy/induction) structure so that small models learn something
@@ -22,6 +26,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
+from repro_torch.sharding.blocks import ONE_RANK, local_slice
 
 
 @dataclasses.dataclass
@@ -57,14 +62,16 @@ class SyntheticCorpus:
 
 class DeviceLoader:
     """Iterates ``(step, batch)`` from ``start_step`` on, each batch's
-    arrays as tensors on ``device``; a host thread keeps up to
+    arrays as tensors on ``device`` (with a ``placement``, {key: spec},
+    this rank's blocks of them on ``mesh``); a host thread keeps up to
     ``prefetch`` batches ready, and an error it meets is raised by the
     next ``next()``.  ``close()`` stops the thread."""
 
     def __init__(self, corpus: SyntheticCorpus, device, start_step: int = 0,
-                 prefetch: int = 2):
+                 prefetch: int = 2, mesh=ONE_RANK, placement=None):
         self.corpus = corpus
         self.device = torch.device(device)
+        self.mesh, self.placement = mesh, placement
         self._q: "queue.Queue" = queue.Queue(maxsize=max(prefetch, 1))
         self._stop = threading.Event()
         self._thread = threading.Thread(target=self._fill, args=(start_step,),
@@ -75,6 +82,10 @@ class DeviceLoader:
         while not self._stop.is_set():
             try:
                 host = self.corpus.batch(step)
+                if self.placement is not None:
+                    host = {k: np.ascontiguousarray(local_slice(
+                        v, self.placement[k], self.mesh))
+                        for k, v in host.items()}
                 item = (step, {k: torch.from_numpy(v).to(self.device)
                                for k, v in host.items()})
             except Exception as e:     # raised again by __next__
@@ -102,8 +113,10 @@ class DeviceLoader:
 
 
 def make_loader(model_cfg: ModelConfig, shape: ShapeConfig, device,
-                start_step: int = 0, seed: int = 1234) -> DeviceLoader:
+                start_step: int = 0, seed: int = 1234, mesh=ONE_RANK,
+                placement=None) -> DeviceLoader:
     corpus = SyntheticCorpus(DataConfig(
         vocab_size=model_cfg.vocab_size, seq_len=shape.seq_len,
         global_batch=shape.global_batch, seed=seed))
-    return DeviceLoader(corpus, device, start_step)
+    return DeviceLoader(corpus, device, start_step, mesh=mesh,
+                        placement=placement)

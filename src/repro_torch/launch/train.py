@@ -36,11 +36,26 @@ random, drawn from ``--seed``.  A run resumes from the latest checkpoint in
 at full width.  ``--device cpu`` runs the plain PyTorch versions of the
 kernels on the host (use ``--reduced`` there); without a card and
 without it, the launcher raises.
+
+``--mesh host`` (the default) trains on ``make_host_mesh(1, 1)``: the
+mesh train step of ``launch.steps`` on one rank (NCCL on the card, gloo
+with ``--device cpu``), which computes what the meshless step does, bit
+for bit.  A mesh of more ranks is built
+by ranks that start their own process group and call ``Trainer`` with
+``make_host_mesh``; ``--mesh production`` and ``production-multi`` (the
+reference's 256- and 512-rank meshes) raise ``ValueError`` naming the
+ranks they need and the world size there is.
 """
 import argparse
+import statistics
+
+import torch
+import torch.distributed as dist
 
 from repro_torch.configs import get_config, get_reduced
 from repro_torch.configs.base import RunConfig, ShapeConfig, depth_cut
+from repro_torch.launch.mesh import (make_host_mesh, make_production_mesh,
+                                     mesh_shape_dict)
 from repro_torch.runtime.train_loop import Trainer, TrainerConfig
 
 
@@ -62,7 +77,16 @@ def main(argv=None) -> None:
     ap.add_argument("--lr", type=float, default=3e-3)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--mesh", default="host",
+                    choices=["host", "production", "production-multi"])
     args = ap.parse_args(argv)
+
+    if args.mesh.startswith("production"):
+        plan = make_production_mesh(multi_pod=args.mesh.endswith("multi"))
+        world = dist.get_world_size() if dist.is_initialized() else 1
+        raise ValueError(
+            f"--mesh {args.mesh} is a {plan.shape} mesh of {plan.size} "
+            f"ranks; this launch has a world size of {world}")
 
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
     if cfg.family == "audio":
@@ -77,10 +101,11 @@ def main(argv=None) -> None:
                                       args.batch),
                     remat=args.remat, optimizer=args.optimizer,
                     gradient_compression=args.compress_grads)
+    mesh = make_host_mesh(1, 1, device=args.device)
     tr = Trainer(run, TrainerConfig(
         ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every, seed=args.seed,
         lr_base=args.lr, lr_warmup=max(args.steps // 10, 2),
-        lr_total=max(args.steps, 100)), device=args.device)
+        lr_total=max(args.steps, 100)), device=args.device, mesh=mesh)
     out = tr.train(args.steps)
     if not out["losses"]:
         print(f"[{cfg.name}] nothing to run: {args.ckpt_dir} is at step "
@@ -88,11 +113,14 @@ def main(argv=None) -> None:
         return
     last = tr.metrics_log[-1]
     mtp = f", mtp {last['mtp']:.4f}" if "mtp" in last else ""
+    step_ms = statistics.median(r["s"] for r in tr.metrics_log) * 1e3
+    peak = f", peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB" \
+        if tr.device.type == "cuda" else ""
     print(f"[{cfg.name}] {len(out['losses'])} steps on {tr.device}, "
           f"loss {out['losses'][0]:.4f} -> {out['final_loss']:.4f} "
-          f"(aux {last['aux']:.6f}{mtp}), "
-          f"stragglers={len(out['stragglers'])}, "
-          f"checkpoints={tr.ckpt.all_steps()}")
+          f"(aux {last['aux']:.6f}{mtp}), median step {step_ms:.1f} ms"
+          f"{peak}, stragglers={len(out['stragglers'])}, "
+          f"checkpoints={tr.ckpt.all_steps()}, mesh {mesh_shape_dict(mesh)}")
 
 
 if __name__ == "__main__":

@@ -58,6 +58,68 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
 from repro_torch.models import transformer as T
+from repro_torch.models import tuning as TU
+
+
+# =====================================================================
+# the cache's logical axes
+# =====================================================================
+def quantized_cache(cfg: ModelConfig) -> bool:
+    """True when ``Model.init_cache`` under the active ``Tuning`` makes
+    int8 K/V pools: dense, vlm, MoE (not MLA) and audio (its
+    self-attention), with ``kv_cache_quant``."""
+    return TU.get().kv_cache_quant and cfg.mla is None and \
+        cfg.family in ("dense", "vlm", "moe", "audio")
+
+
+def _attn_cache_axes(cfg: ModelConfig, quantized: bool = False):
+    """The pools of every layer, (L, P, page, KH, hd) (and their (L, P,
+    KH, page) scales), as ``PagedKVCache`` holds them: ``layers`` before
+    one layer's axes (``layers.cache_axes`` / ``mla_cache_axes``)."""
+    per = L.mla_cache_axes(cfg) if cfg.mla else \
+        L.cache_axes(cfg, quantized)
+    names = {"k": "k_pages", "v": "v_pages", "k_scale": "k_scale",
+             "v_scale": "v_scale"}
+    return {names[k]: ("layers",) + a for k, a in per.items()}
+
+
+def cache_axes(cfg: ModelConfig):
+    """Logical axes of the tensors of ``Model.init_cache``'s cache
+    (``cache_tree``), under the active ``Tuning``.  The reference's cache
+    is contiguous, (L, B, S, KH, hd); the port's is paged, (L, P, page,
+    KH, hd) pools with one page table, so the leaves differ: every dim
+    that means what a reference dim means keeps its name (``layers``,
+    ``kv_heads``, ``head_dim``, the latent ``lora``, the state dims,
+    ``cache_batch`` for a state store's slot), the page and in-page
+    token dims are ``None``.  The page tables and lengths live on the
+    host and have no axes."""
+    fam = cfg.family
+    if fam == "ssm":
+        st = SSM.rwkv_state_axes(cfg)
+        flat = {**st["time"], "channel_shift": st["channel_shift"]}
+        return {k: ("layers",) + a for k, a in flat.items()}
+    ax = _attn_cache_axes(cfg, quantized_cache(cfg))
+    if fam == "hybrid":
+        ax["state"] = {k: ("layers",) + a
+                       for k, a in SSM.mamba_state_axes(cfg).items()}
+    elif fam == "audio":
+        ax["cross"] = _attn_cache_axes(cfg)
+    return ax
+
+
+def cache_tree(cache) -> dict:
+    """The tensors of a ``PagedKVCache`` or ``RecurrentStateCache``, in
+    ``cache_axes``' structure."""
+    if not hasattr(cache, "k_pages"):
+        return {n: getattr(cache, n) for n in cache.names}
+    out = {n: getattr(cache, n) for n in ("k_pages", "v_pages", "k_scale",
+                                          "v_scale")
+           if getattr(cache, n) is not None}
+    if cache.state is not None:
+        out["state"] = cache_tree(cache.state)
+    if cache.cross is not None:
+        out["cross"] = cache_tree(cache.cross)
+    return out
 
 
 def prefill(params, cfg: ModelConfig, tokens, cache, slots, *,

@@ -316,6 +316,19 @@ def attention_decode(p, x, cfg: ModelConfig, pools, view):
     return out_proj(p, out)
 
 
+def cache_axes(cfg: ModelConfig, quantized: bool = False):
+    """Logical axes of one layer's paged K/V pools, (P, page, KH, hd):
+    the page and in-page token dims have no counterpart in the
+    reference's contiguous (B, S, KH, hd) cache and are ``None``; KH and
+    hd keep its ``kv_heads`` and ``head_dim``.  With ``quantized`` the
+    INT8 cache's fp16 scales (P, KH, page) too."""
+    ax = (None, None, "kv_heads", "head_dim")
+    out = {"k": ax, "v": ax}
+    if quantized:
+        out["k_scale"] = out["v_scale"] = (None, "kv_heads", None)
+    return out
+
+
 def cross_attention_decode(p, x, k_pool, v_pool, view):
     """One token per sequence against its encoder K/V, which prefill
     wrote and nothing changes.  x: (n, d); ``view``: the cross cache's
@@ -344,6 +357,15 @@ def mla_pspecs(cfg: ModelConfig):
                      ("lora", "heads", "head_dim")),
         "wo": PSpec((H, m.v_head_dim, d), ("heads", "head_dim", "embed")),
     }
+
+
+def mla_cache_axes(cfg: ModelConfig):
+    """Logical axes of one layer's latent pool, (P, page, 1, r + rope):
+    page and in-page token ``None``, the one KV head (the reference's
+    latent cache has no head dim) ``None``, the [ckv | kr] row ``lora``
+    (the reference names ckv ``lora`` and kr ``head_dim``; both are
+    replicated by every rule table)."""
+    return {"k": (None, None, None, "lora")}
 
 
 def mla_absorbed(p) -> dict:

@@ -12,10 +12,11 @@ the audio encoder-decoder (whisper), which only this API serves.
     decode_step(params, cache, tokens, slots) -> logits
     loss(params, batch) -> (loss, {"ce", "aux"[, "mtp"]})  (every family)
     abstract_params() -> the parameter tree on the ``meta`` device
+    param_axes() / cache_axes() -> logical axes of those trees
 
 ``input_specs(cfg, shape)`` gives ``meta``-device stand-ins of every
-model input of a shape cell, and ``make_concrete_batch`` a small random
-batch of those shapes.
+model input of a shape cell, ``batch_axes`` their logical axes, and
+``make_concrete_batch`` a small random batch of those shapes.
 
 The device defaults to ``"cuda"``; without a card the constructor
 raises unless the caller passes ``device="cpu"``, where every kernel
@@ -31,8 +32,7 @@ from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import decoding as D
 from repro_torch.models import transformer as T
-from repro_torch.models import tuning as TU
-from repro_torch.models.params import init_tree, tree_map
+from repro_torch.models.params import axes_tree, init_tree, tree_map
 from repro_torch.serving.kv_cache import PagedCacheConfig, PagedKVCache
 from repro_torch.serving.state_cache import RecurrentStateCache
 
@@ -62,6 +62,16 @@ class Model:
             lambda p: torch.empty(p.shape, device="meta", dtype=getattr(
                 torch, p.dtype) if p.dtype else torch.bfloat16),
             self._pspecs)
+
+    def param_axes(self):
+        """Logical axes of every parameter leaf, per layer (the
+        reference's without its leading ``"layers"``)."""
+        return axes_tree(self._pspecs)
+
+    def cache_axes(self):
+        """Logical axes of ``init_cache``'s tensors
+        (``decoding.cache_axes``)."""
+        return D.cache_axes(self.cfg)
 
     def loss(self, params, batch):
         """Mean next-token cross-entropy of ``batch`` (``tokens`` or
@@ -116,10 +126,8 @@ class Model:
         if (cfg.family == "audio") != (enc_seq > 0):
             raise ValueError(f"{cfg.name}: enc_seq is the encoder length "
                              "of an audio model, and only of one")
-        quant = TU.get().kv_cache_quant and cfg.mla is None and \
-            cfg.family in ("dense", "vlm", "moe", "audio")
         cache = self._paged(slots, max_seq, page_tokens, n_pages,
-                            "int8" if quant else "bfloat16")
+                            "int8" if D.quantized_cache(cfg) else "bfloat16")
         if enc_seq:
             cache.cross = self._paged(slots, enc_seq, page_tokens, None)
         if cfg.family == "hybrid":
@@ -178,6 +186,26 @@ def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict:
             return {"embeddings": sds((B, S, cfg.d_model), bf16)}
         return {"tokens": sds((B, S), i32)}
     return {"tokens": sds((B,), i32)}
+
+
+def batch_axes(cfg: ModelConfig, shape: ShapeConfig) -> dict:
+    """Logical axes of each ``input_specs`` input, the reference's."""
+    if shape.kind == "train":
+        if cfg.family == "audio":
+            return {"audio_frames": ("batch", "seq", "embed_act"),
+                    "tokens": ("batch", "seq"), "labels": ("batch", "seq")}
+        if cfg.embedding_inputs:
+            return {"embeddings": ("batch", "seq", "embed_act"),
+                    "labels": ("batch", "seq")}
+        return {"tokens": ("batch", "seq"), "labels": ("batch", "seq")}
+    if shape.kind == "prefill":
+        if cfg.family == "audio":
+            return {"audio_frames": ("batch", "seq", "embed_act"),
+                    "tokens": ("batch", "seq")}
+        if cfg.embedding_inputs:
+            return {"embeddings": ("batch", "seq", "embed_act")}
+        return {"tokens": ("batch", "seq")}
+    return {"tokens": ("batch",)}
 
 
 def make_concrete_batch(cfg: ModelConfig, shape: ShapeConfig,

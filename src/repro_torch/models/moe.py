@@ -39,16 +39,28 @@ the card, pass through elementwise ops (``_act``, ``gate·up``) in both
 directions but never into a kept value or a weight gradient.  The
 zeroed (E-1, C-1) cell passes no gradient to the row it replaced, as
 the reference's ``mode="drop"`` scatter (whose last write wins) does.
+
+On a mesh whose train step splits the batch rows over ranks
+(``sharding.context.batch_group``), each rank holds only its rows: the
+row-local dispatch (``Tuning.moe_local_dispatch``) is the one that runs
+there, since a row's capacity and drops do not depend on other rows.
+Global dispatch sizes its capacity and drop order over all B·T tokens,
+which no rank holds, and raises.  The load-balancing loss takes its
+``me`` and ``ce`` means over the whole batch: the rank's sums are
+all-reduced over the batch ranks, and the gradient of ``me`` reaches
+the rank's own router probabilities.
 """
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models import tuning as TU
 from repro_torch.models.params import PSpec
+from repro_torch.sharding import context as SC
 
 
 def routed_capacity(n_assignments: int, n_experts: int,
@@ -102,8 +114,19 @@ def _route(p, x, cfg: ModelConfig):
     top_p, top_e = top_p[..., :k], top_e[..., :k]
     top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
     # load-balancing aux loss (Switch-style)
-    me = probs.reshape(-1, E).mean(0)
-    ce = _count(top_e, E, torch.float32) / top_e.numel()
+    group = SC.batch_group()
+    if group is None:
+        me = probs.reshape(-1, E).mean(0)
+        ce = _count(top_e, E, torch.float32) / top_e.numel()
+    else:       # means over the whole batch (module docstring)
+        flat = probs.reshape(-1, E)
+        local = flat.sum(0)
+        stats = torch.cat([local.detach(), _count(top_e, E, torch.float32),
+                           local.new_tensor([flat.shape[0]])])
+        dist.all_reduce(stats, group=group)
+        n = stats[-1]
+        me = (stats[:E] + (local - local.detach())) / n
+        ce = stats[E:2 * E] / (n * k)
     aux = E * torch.sum(me * ce) * m.router_aux_coef
     return top_p, top_e, aux
 
@@ -159,6 +182,11 @@ def apply_moe(p, x, cfg: ModelConfig, capacity_factor: float = 1.25,
     row-local one for T > 1, as in the reference."""
     if TU.get().moe_local_dispatch and x.shape[1] > 1:
         return _apply_moe_local(p, x, cfg, capacity_factor, capacity)
+    if SC.batch_group() is not None:
+        raise ValueError(
+            f"{cfg.name}: global MoE dispatch sizes capacity and drops over "
+            "all B*T tokens, and this rank holds only its rows of the "
+            "batch: train on a batch split with moe_local_dispatch=True")
     m = cfg.moe
     B, T, d = x.shape
     E, k = m.n_routed_experts, m.top_k
@@ -204,7 +232,8 @@ def apply_moe(p, x, cfg: ModelConfig, capacity_factor: float = 1.25,
 def _apply_moe_local(p, x, cfg: ModelConfig, capacity_factor: float,
                      capacity):
     """Row-local dispatch: tokens compete for capacity within their own
-    batch row (the reference's collective-free variant).  The (B, E, C,
+    batch row (the reference's collective-free variant, and the dispatch
+    a batch split over ranks runs: module docstring).  The (B, E, C,
     d) buffer is held expert-major as (E, B·C, d), so each expert's rows
     of all batch rows are one grouped-GEMM operand; its row count is the
     end of its last non-empty batch row (rows between are zeros)."""

@@ -37,6 +37,13 @@ def stack(tree, n: int) -> list:
     return [tree for _ in range(n)]
 
 
+def axes_tree(tree):
+    """The logical axes of every ``PSpec`` leaf: per layer, without the
+    reference's leading ``"layers"`` (which no rule shards)."""
+    return tree_map(lambda p: p.axes, tree)
+
+
+
 def tree_map(fn, tree, *rest):
     """Map ``fn`` over the leaves of a tree of dicts and lists (and of
     the trees in ``rest``, of the same structure, leaf by leaf)."""

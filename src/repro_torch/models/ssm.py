@@ -265,6 +265,15 @@ def init_rwkv_state(cfg: ModelConfig, batch: int, dtype=torch.float32,
     }
 
 
+def rwkv_state_axes(cfg: ModelConfig):
+    """Logical axes of ``init_rwkv_state``'s tree, the reference's."""
+    return {
+        "time": {"s": ("cache_batch", "heads", "head_dim", "head_dim"),
+                 "shift": ("cache_batch", "embed_act")},
+        "channel_shift": ("cache_batch", "embed_act"),
+    }
+
+
 # ------------------------------------------------------------------
 # Mamba2 block (zamba2)
 # ------------------------------------------------------------------
@@ -360,3 +369,9 @@ def init_mamba_state(cfg: ModelConfig, batch: int, dtype=torch.bfloat16,
         "conv": torch.zeros((batch, K - 1, d_in + 2 * N), dtype=dtype,
                             device=device),
     }
+
+
+def mamba_state_axes(cfg: ModelConfig):
+    """Logical axes of ``init_mamba_state``'s tree, the reference's."""
+    return {"s": ("cache_batch", "heads", "state", "head_dim"),
+            "conv": ("cache_batch", "conv", "qkv")}

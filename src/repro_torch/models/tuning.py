@@ -5,7 +5,14 @@ T page of the chunked cross-entropy of training
 (``transformer.chunked_ce_loss``).
 
 ``moe_local_dispatch`` picks the row-local MoE dispatch
-(``models.moe._apply_moe_local``).
+(``models.moe._apply_moe_local``), the one a batch split over ranks
+runs.
+
+``moe_cap_axis`` names the mesh axis the reference shards the MoE
+capacity dim over (``launch.steps._ctx_wrap`` sets it from
+``RunConfig.moe_cap_axis``).  It is carried and inert: the port splits
+no activation across ranks (``sharding.context``), so no MoE buffer is
+sharded by it.
 
 ``kv_cache_quant`` makes ``Model.init_cache`` build int8 K/V pools with
 fp16 per-(token, KV head) scales for the families the reference
@@ -18,6 +25,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import threading
+from typing import Optional
 
 _STATE = threading.local()
 
@@ -29,7 +37,8 @@ class Tuning:
     ce_chunk: int = 512            # chunked cross-entropy T page
     ssm_chunk: int = 16            # linear-attention chunk
     kv_cache_quant: bool = False   # INT8 paged KV (per-token scales)
-    moe_local_dispatch: bool = False   # row-local MoE dispatch
+    moe_cap_axis: Optional[str] = None   # shard the MoE capacity dim
+    moe_local_dispatch: bool = False     # row-local (batch-split) dispatch
 
 
 DEFAULT = Tuning()

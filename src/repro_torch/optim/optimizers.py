@@ -4,6 +4,7 @@ moment), with the reference's arithmetic.
 API, as in the reference:
     opt.init(params) -> state
     opt.update(grads, state, params, lr) -> (params, state, {"grad_norm"})
+    opt.state_axes(param_axes) -> logical-axes tree congruent with state
 Global-norm clipping is fused into ``update``.  The update runs under
 ``torch.no_grad()`` and writes the parameters and the state in place
 (JAX's are immutable; in place, a step holds no second copy of either)
@@ -16,6 +17,14 @@ the leaf's RMS) are defined on that stacked leaf; so Adafactor keeps the
 reference's stacked slots, one per (stack, leaf path), and updates each
 group of per-layer tensors as one stacked tensor.  AdamW is elementwise
 and keeps per-layer moments congruent with the parameters.
+
+On a mesh (``launch.steps``) each rank holds a block of every
+parameter and state leaf.  AdamW is ``elementwise``: a rank updates its
+blocks in place from its block of the whole reduced gradient, with the
+clipping factor taken over the whole gradient (``clip_scale``, passed
+as ``clip``).  Adafactor is not: its factored statistics and its update
+clipping reduce over whole stacked leaves, so a rank updates whole
+leaves (its state gathered) and keeps its blocks.
 """
 from __future__ import annotations
 
@@ -80,7 +89,7 @@ def _global_norm(grads) -> torch.Tensor:
                           for g in tree_leaves(grads)))
 
 
-def _clip_scale(grads, max_norm: float):
+def clip_scale(grads, max_norm: float):
     """(scale, norm): the reference's ``_clip_by_global_norm`` factor."""
     norm = _global_norm(grads)
     return torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0), norm
@@ -93,6 +102,7 @@ class AdamW:
     eps: float = 1e-8
     weight_decay: float = 0.1
     clip_norm: float = 1.0
+    elementwise = True
 
     def init(self, params):
         def zeros(p):
@@ -102,8 +112,11 @@ class AdamW:
                 "step": torch.zeros((), dtype=torch.int32, device=dev)}
 
     @torch.no_grad()
-    def update(self, grads, state, params, lr):
-        scale, gnorm = _clip_scale(grads, self.clip_norm)
+    def update(self, grads, state, params, lr, clip=None):
+        """``clip``: (factor, norm) of ``clip_scale`` over the whole
+        gradient, when ``grads``, ``state`` and ``params`` are one rank's
+        blocks; else taken from ``grads``."""
+        scale, gnorm = clip or clip_scale(grads, self.clip_norm)
         step = state["step"] + 1
         t = step.float()
         bc1 = 1 - self.b1 ** t
@@ -120,6 +133,9 @@ class AdamW:
         state["step"] = step
         return params, state, {"grad_norm": gnorm}
 
+    def state_axes(self, param_axes):
+        return {"m": param_axes, "v": param_axes, "step": ()}
+
 
 @dataclasses.dataclass(frozen=True)
 class Adafactor:
@@ -132,6 +148,7 @@ class Adafactor:
     clip_norm: float = 1.0
     weight_decay: float = 0.0
     min_dim_factored: int = 2
+    elementwise = False
 
     def _factored(self, shape) -> bool:
         return len(shape) >= self.min_dim_factored
@@ -152,7 +169,7 @@ class Adafactor:
 
     @torch.no_grad()
     def update(self, grads, state, params, lr):
-        scale, gnorm = _clip_scale(grads, self.clip_norm)
+        scale, gnorm = clip_scale(grads, self.clip_norm)
         step = state["step"] + 1
         beta = 1.0 - (step.float() + 1.0) ** (-self.decay)
 
@@ -189,6 +206,36 @@ class Adafactor:
             upd(pair)
         state["step"] = step
         return params, state, {"grad_norm": gnorm}
+
+    def state_axes(self, param_axes):
+        """The slots' axes over the reference's stacked leaves (a layer
+        stack's per-layer axes behind a leading ``"layers"``), factored
+        as ``init`` factors them."""
+        def ax(a):
+            if len(a) >= self.min_dim_factored:
+                return {"vr": a[:-1], "vc": a[:-2] + a[-1:]}
+            return {"v": a}
+        return {"slots": stacked_map(ax, stacked_axes(param_axes)),
+                "step": ()}
+
+
+def stacked_axes(axes):
+    """A per-layer axes tree (``Model.param_axes``) in ``stacked``'s
+    structure, each layer stack's leaf the reference's stacked axes:
+    ``("layers",)`` before the per-layer axes."""
+    if isinstance(axes, dict):
+        return {k: stacked_axes(v) for k, v in axes.items()}
+    if isinstance(axes, list):
+        return _zip_axes(axes)
+    return axes
+
+
+def _zip_axes(layers):
+    if not layers:
+        return {}
+    if isinstance(layers[0], dict):
+        return {k: _zip_axes([lp[k] for lp in layers]) for k in layers[0]}
+    return ("layers",) + layers[0]
 
 
 def _zip_slots(g, p, slots):

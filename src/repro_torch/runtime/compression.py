@@ -8,16 +8,26 @@ tensor's scale is max|x| / 127 + 1e-12 over the reference's leaf, which
 for a layer stack is the whole stack (``optim.optimizers.stacked``):
 the port takes one scale per stacked group of per-layer tensors, so its
 int8 codes equal the reference's.  ``torch.round`` rounds half to even,
-as ``jnp.round`` does.  ``compressed_psum`` (an int8 all-reduce over a
-process group) waits for the port's multi-card training (ROADMAP Queue
-A item 14).
+as ``jnp.round`` does.
+
+``compressed_psum(x, axis, mesh)`` is the reference's hand-scheduled
+int8 all-reduce over a named mesh axis: each rank quantizes its tensor
+with its own scale (``_q``), the int8 codes are summed as int32 and the
+scales reduced by max over the axis's ranks, and the result is the
+summed codes times the largest scale.  The codes are widened to int32
+before the sum, as the reference's ``psum`` widens them (an int8 sum
+would overflow), so the wire carries four bytes a value, not one.  Over
+an axis of one rank no collective runs: the sum is the rank's own
+codes times its scale.
 """
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.models.params import tree_map
 from repro_torch.optim.optimizers import stacked, stacked_map
+from repro_torch.sharding.blocks import axis_group
 
 
 def init_ef(params):
@@ -64,3 +74,26 @@ def apply_compression(grads, ef):
     gradients being exactly what another worker would receive."""
     qs, scales, new_ef = compress(grads, ef)
     return decompress(qs, scales), new_ef
+
+
+def _q(x):
+    """(int8 codes, scale) of one tensor, the reference's ``_q``: scale =
+    max|x| / 127 + 1e-12, codes round(x / scale) clipped to +-127."""
+    scale = x.abs().max() / 127.0 + 1e-12
+    return torch.clamp(torch.round(x / scale), -127, 127) \
+        .to(torch.int8), scale
+
+
+def compressed_psum(x, axis, mesh):
+    """The int8-compressed sum of ``x`` over the ranks of the mesh axis
+    ``axis`` (a name or a tuple of names; module docstring), float32,
+    the same on every rank of the axis.  Every rank of the axis must
+    call it."""
+    group = axis_group(mesh, axis)
+    q, scale = _q(x.float())
+    qsum = q.to(torch.int32)
+    smax = scale.reshape(1).clone()
+    if group is not None:
+        dist.all_reduce(qsum, group=group)
+        dist.all_reduce(smax, op=dist.ReduceOp.MAX, group=group)
+    return qsum.float() * smax[0]

@@ -113,3 +113,37 @@ def test_example_runs_on_the_cpu_and_loads_no_jax(name, tmp_path):
                          capture_output=True, text=True, timeout=600)
     assert out.returncode == 0, out.stderr[-3000:]
     assert out.stdout.strip().splitlines()[-1] == "loaded:", out.stdout
+
+
+def test_distribution_modules_are_ported():
+    """The mesh layer's modules are in the port (and so are imported,
+    without JAX, by ``test_port_imports_no_jax``), as are the helpers
+    the reference's step builders and trainer read."""
+    assert {"repro_torch.sharding", "repro_torch.sharding.context",
+            "repro_torch.sharding.blocks",
+            "repro_torch.core", "repro_torch.launch.mesh",
+            "repro_torch.launch.steps"} <= set(_port_modules())
+    code = (
+        "from repro_torch.launch import mesh, steps\n"
+        "from repro_torch.sharding.context import current, mesh_context,"
+        " shard\n"
+        "from repro_torch.runtime.compression import compressed_psum\n"
+        "from repro_torch.models import decoding, layers, ssm\n"
+        "from repro_torch.models.model import Model, batch_axes\n"
+        "from repro_torch.models.params import axes_tree\n"
+        "from repro_torch.optim import AdamW, Adafactor\n"
+        "for f in (mesh.make_host_mesh, mesh.make_production_mesh,"
+        " mesh.mesh_shape_dict, steps.build_train_step,"
+        " steps.build_prefill_step, steps.build_decode_step,"
+        " steps.build_step, steps.make_rules, decoding.cache_axes,"
+        " layers.cache_axes, layers.mla_cache_axes, ssm.rwkv_state_axes,"
+        " ssm.mamba_state_axes, Model.param_axes, Model.cache_axes,"
+        " AdamW.state_axes, Adafactor.state_axes):\n"
+        "    assert callable(f), f\n"
+        "import sys\n"
+        "print(sorted(m for m in sys.modules if m == 'jax' or"
+        " m.startswith(('jax.', 'repro.'))))\n")
+    env = {**os.environ, "PYTHONPATH": str(SRC)}
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, check=True)
+    assert out.stdout.strip() == "[]", out.stdout
