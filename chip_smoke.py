@@ -369,8 +369,33 @@ Phases, in order; any failure raises and exits non-zero:
    their own path.  (d) The production plans' per-rank bytes of bf16
    weights plus AdamW state for every arch id at full width, on (16, 16)
    and (2, 16, 16): host arithmetic over the placements, a plan.
-20. Print each phase's seconds (a ``[phases]`` line), the ``kernels``
-   JSON line (each kernel's launches from its own
+20. The dry run and the roofline on the card (``launch.hlo_analysis``,
+   ``launch.roofline``, ``launch.dryrun``); seconds per sub-phase.
+   ``roofline.HBM_BYTES`` must be the card's ``total_memory``.  (a)
+   15c's qwen2-0.5b train step (24 layers, 8 x 512 tokens, AdamW,
+   ``remat="none"``), an 8 x 256-token prefill and one decode step over
+   phase 3's serving geometry (8 slots of 1,024 tokens, 16-token pages),
+   built by ``launch.steps`` on the local one-rank layout, each counted
+   under ``hlo_analysis.analyze`` on the card and again on ``meta``
+   tensors: flops, bytes and the collective fields must be equal, and
+   each wrapper's op count its ``LAUNCHES`` increment (the GEMM in all
+   three, flash in the prefill, paged attention in the decode).  (b)
+   Each step's roofline terms (``compute_s``, ``memory_s``,
+   ``step_time_s``, ``bottleneck``, ``useful_ratio``) beside the median
+   of 5 timed steps (CUDA events, after a warm-up, not under the
+   counter) and their ratio; ``model_flops_for`` beside 15c's
+   ``_train_flops``.  (c) The train step's ``peak_bytes`` on ``meta``
+   against ``torch.cuda.max_memory_allocated()`` over one card step
+   from the same state (the arguments' bytes added to the rise): within
+   10%.  (d) ``dryrun.run_cell`` at full width on the production plans
+   for ``qwen2-0.5b.train_4k`` on (16, 16) and ``qwen2-moe-a2.7b
+   .train_4k`` on (2, 16, 16) (``DRY_CELLS``), each by the dry run's CLI
+   in a process of its own started beside phase 1's build (host work
+   that needs no card, ~25 s each): each record's roofline and its
+   seconds.
+21. Print each phase's seconds (a ``[phases]`` line), the ``kernels``
+   JSON line (20a's counted steps among the paths; each kernel's
+   launches from its own
    path's serving run, the int8 kernels' from phase 8e's (the int8
    kernel's under both its counters), the grouped
    backward kernels' from 16c's profiled step, every path's counts
@@ -381,7 +406,9 @@ Phases, in order; any failure raises and exits non-zero:
    ``{"ok": true, "device": {...}}``.
 """
 import argparse
+import atexit
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -391,8 +418,11 @@ from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
-HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
-BF16_FLOP_PER_S = 989e12        # H100 SXM dense bf16 tensor cores
+from repro_torch.launch import roofline as RL  # noqa: E402
+
+# the H100 80GB HBM3's datasheet peaks at 700 W (one place: the roofline)
+HBM_BYTES_PER_S = RL.HBM_BW
+BF16_FLOP_PER_S = RL.PEAK_FLOPS_BF16
 FP32_FLOP_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
 BF16_TOL = 2e-2                 # one bf16 ulp of O(1) outputs, with margin
 # card vs CPU, full width: bf16 activations through 24 layers rounded
@@ -5580,6 +5610,180 @@ def _mesh_plans():
     return res
 
 
+# ---------------------------------------------------------------- phase 20
+DRY_SERVE = (8, 256, 1024)      # 20a: slots, prompt tokens, room a slot
+DRY_TIMED_STEPS = 5
+DRY_PEAK_RTOL = 0.10
+# 20d: full-width cells on the production plans (the deepseek-v3 cell
+# takes 74-89 s of host time alone, over this phase's budget: PERF.md)
+DRY_CELLS = (("qwen2_0_5b", "train_4k", "single"),
+             ("qwen2_moe_a2_7b", "train_4k", "multi"))
+DRY_OUT = Path(__file__).resolve().parent / "build" / "dryrun_smoke"
+
+
+def start_dry_cells():
+    """20d's cells, each counted by ``python -m repro_torch.launch.dryrun``
+    in a process of its own on the host (one thread, no card), started
+    beside the kernels' build, which leaves cores idle; phase 20 reads
+    their records.  The processes are stopped at exit."""
+    import shutil
+    shutil.rmtree(DRY_OUT, ignore_errors=True)
+    env = {**os.environ, "PYTHONPATH": str(DRY_OUT.parents[1] / "src"),
+           "CUDA_VISIBLE_DEVICES": "", "OMP_NUM_THREADS": "1"}
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", shape, "--mesh", mesh, "--out", str(DRY_OUT)],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for arch, shape, mesh in DRY_CELLS]
+    atexit.register(lambda: [p.kill() for p in procs if p.poll() is None])
+    return procs
+
+
+def _dry_steps(torch, cfg, dev, seed):
+    """20a's steps on ``dev``: (name, fn, args, model FLOPs) built
+    lazily, in order (train, prefill, decode; the decode's cache is the
+    prefill's)."""
+    from repro_torch.configs.base import RunConfig, ShapeConfig
+    from repro_torch.launch import dryrun, steps
+    from repro_torch.sharding.blocks import ONE_RANK
+
+    B, T, room = DRY_SERVE
+
+    def run(kind, seq, batch, **kw):
+        return RunConfig(model=cfg, shape=ShapeConfig(kind, kind, seq,
+                                                      batch), **kw)
+
+    train = run("train", TRAIN_SEQ, TRAIN_BATCH, remat="none")
+    fn, targs, _ = dryrun.cell_step(train, ONE_RANK, dev)
+    yield "train", fn, targs, RL.model_flops_for(cfg, train.shape)
+    del targs
+    pre = steps.build_prefill_step(run("prefill", room, B), ONE_RANK,
+                                   device=dev)
+    params = dryrun.zeros_tree(pre.abstract_inputs[0], dev)
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    prompts = torch.randint(1, cfg.vocab_size, (B, T), generator=g,
+                            dtype=torch.int32).to(dev)
+    yield ("prefill", pre.fn, (params, {"tokens": prompts}),
+           RL.model_flops_for(cfg, run("prefill", T, B).shape))
+    dec = steps.build_decode_step(run("decode", room, B), ONE_RANK,
+                                  device=dev)
+    cache, _ = pre.fn(params, {"tokens": prompts})
+    yield ("decode", dec.fn, (params, cache, prompts[:, -1]),
+           RL.model_flops_for(cfg, run("decode", room, B).shape))
+
+
+def _dry_count_key(c):
+    return {"flops": c.flops, "bytes": c.bytes, "coll_bytes": c.coll_bytes,
+            "coll_effective": c.coll_effective, "coll_count": c.coll_count,
+            "kernel_ops": c.kernel_ops}
+
+
+def _dry_counts(torch, args, cfg, dev):
+    """20a-c: each step counted on the card and on ``meta``; its roofline
+    beside the median of timed steps; the train step's peak memory."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import hlo_analysis as HA
+
+    res = {}
+    meta = {name: HA.analyze(fn, *a)[1] for name, fn, a, _
+            in _dry_steps(torch, cfg, torch.device("meta"), args.seed)}
+    for name, fn, a, mf in _dry_steps(torch, cfg, dev, args.seed):
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        _, card = HA.analyze(fn, *a)
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+        m = meta[name]
+        r = {"card": _dry_count_key(card), "meta": _dry_count_key(m),
+             "launches": launches}
+        r["equal"] = r["card"] == r["meta"]
+        r["launches_equal"] = launches == card.kernel_ops
+        if name == "train":      # 20c: one step more, not counted
+            args_bytes = sum(HA.storage_bytes(a).values())
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            fn(*a)
+            torch.cuda.synchronize()
+            card_peak = torch.cuda.max_memory_allocated() - before \
+                + args_bytes
+            r["peak_bytes"] = {"meta": m.peak_bytes, "card": card_peak,
+                               "rel_diff": abs(m.peak_bytes - card_peak)
+                               / card_peak}
+        times = []
+        for i in range(DRY_TIMED_STEPS + 1):       # the first a warm-up
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            fn(*a)
+            e.record()
+            e.synchronize()
+            if i:
+                times.append(s.elapsed_time(e) / 1e3)
+        rl = RL.compute_roofline(m, 1, mf)
+        r["roofline"] = {k: getattr(rl, k) for k in (
+            "compute_s", "memory_s", "step_time_s", "bottleneck",
+            "useful_ratio", "model_flops")}
+        r["measured_s"] = statistics.median(times)
+        r["measured_over_roofline"] = r["measured_s"] / rl.step_time_s
+        res[name] = r
+        del a
+        torch.cuda.empty_cache()
+        print(f"[dryrun_count] {name} " + json.dumps(r), flush=True)
+        require(r["equal"], f"dry run: the {name} step counts "
+                f"{r['card']} on the card, {r['meta']} on meta")
+        require(r["launches_equal"], f"dry run: the {name} step's wrapper "
+                f"ops {card.kernel_ops} differ from its launches "
+                f"{launches}")
+    for name, kernel in (("train", "streaming_gemm"),
+                         ("prefill", "flash_attention"),
+                         ("decode", "paged_attention")):
+        require(res[name]["launches"].get(kernel, 0) > 0,
+                f"dry run: the {name} step launched no {kernel}")
+    peak = res["train"]["peak_bytes"]
+    require(peak["rel_diff"] <= DRY_PEAK_RTOL,
+            f"dry run: the train step's peak {peak['meta']} B on meta, "
+            f"{peak['card']} B on the card")
+    return res
+
+
+def phase_dryrun(torch, args, card, dev, cells):
+    """20. The dry run and the roofline on the card (module docstring);
+    prints each sub-phase's line and its seconds; ``cells`` are
+    ``start_dry_cells``' processes."""
+    from repro_torch.configs import get_config
+
+    total = torch.cuda.get_device_properties(0).total_memory
+    require(RL.HBM_BYTES == total, f"roofline.HBM_BYTES {RL.HBM_BYTES} is "
+            f"not the card's total_memory {total}")
+    cfg = get_config(TRAIN_ARCH)
+    secs, res = {}, {}
+    t = time.perf_counter()
+    res["counts"] = _dry_counts(torch, args, cfg, dev)
+    secs["counts"] = time.perf_counter() - t
+    mine, _ = _train_flops(cfg, TRAIN_SEQ * TRAIN_BATCH, TRAIN_SEQ)
+    flops = {"model_flops_for": res["counts"]["train"]["roofline"][
+        "model_flops"], "_train_flops": mine, "card": card}
+    print("[dryrun_model_flops] 15c's step " + json.dumps(flops),
+          flush=True)
+    t = time.perf_counter()
+    for (arch, shape, mesh), p in zip(DRY_CELLS, cells):
+        log, _ = p.communicate(timeout=900)
+        require(p.returncode == 0, f"dry run: {arch}.{shape}.{mesh} "
+                f"exited {p.returncode}: {log[-2000:]}")
+        name = f"{arch}.{shape}.{mesh}"
+        rec = json.loads((DRY_OUT / f"{name}.baseline.json").read_text())
+        print(f"[dryrun_cell] {name} " + json.dumps(
+            {**rec, "seconds": rec["build_s"] + rec["count_s"],
+             "card": card}), flush=True)
+        require(rec["status"] == "ok", f"dry run: {name} {rec['status']}")
+        res[name] = rec
+    secs["cells (waited)"] = time.perf_counter() - t
+    print(f"[dryrun] seconds {json.dumps(secs)} total_memory {total}",
+          flush=True)
+    return res
+
+
 def phase_mesh(torch, args, card, dev):
     """19. The one-rank NCCL mesh (module docstring); prints each
     sub-phase's line and its seconds, and destroys the process group."""
@@ -5615,11 +5819,12 @@ def main():
         sys.exit("chip_smoke: no CUDA device; this script measures the "
                  "card and has no CPU mode")
     from repro_torch.configs import get_config
-    from repro_torch.kernels import _build
+    from repro_torch.kernels import _build, ops
     from repro_torch.models.model import Model
 
     dev = torch.device("cuda")
     t0 = time.perf_counter()
+    dry_cells = start_dry_cells()
     _build.build_all(verbose=True)
     print(f"[build] {time.perf_counter() - t0:.1f} s; torch "
           f"{torch.__version__} cuda {torch.version.cuda}", flush=True)
@@ -5676,6 +5881,8 @@ def main():
     lap("18 ssm train")
     mesh = phase_mesh(torch, args, card, dev)
     lap("19 mesh")
+    dry = phase_dryrun(torch, args, card, dev, dry_cells)
+    lap("20 dry run")
     print(f"[phases] seconds {json.dumps(laps)}", flush=True)
 
     # launches: each kernel's count from its own main path's serving run
@@ -5700,6 +5907,9 @@ def main():
     for fam, launches in ssm_train["launches"].items():
         paths[f"{ssm_train['full'][fam]['config']} train step"] = launches
     paths[f"{cfg.name} mesh serving steps"] = mesh["serving"]["launches"]
+    paths[f"{cfg.name} counted steps"] = {
+        k: sum(r["launches"].get(k, 0) for r in dry["counts"].values())
+        for k in ops.LAUNCHES}
     own = {"streaming_gemm_grouped": MOE_ARCH,
            "paged_latent_attention": deepseek["config"],
            "paged_attention_int8": int8_path, "kv_quantize": int8_path,

@@ -10,7 +10,17 @@ from __future__ import annotations
 
 import importlib
 
-from repro_torch.configs.base import ModelConfig, MoEConfig  # noqa: F401
+from repro_torch.configs.base import (  # noqa: F401
+    MLAConfig,
+    ModelConfig,
+    MoEConfig,
+    RunConfig,
+    SHAPES,
+    ShapeConfig,
+    SSMConfig,
+    shapes_for,
+    skip_reason,
+)
 
 # in the reference registry's order: the simulator's registry and its
 # smoke matrix (one scenario per family, the first arch of each) follow it

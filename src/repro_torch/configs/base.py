@@ -108,6 +108,57 @@ class ModelConfig:
     def is_encoder_decoder(self) -> bool:
         return self.n_encoder_layers > 0
 
+    def n_params(self) -> int:
+        """Analytic parameter count (embedding + blocks + head), the
+        reference's formula for formula.
+
+        Two of its counts are known to be wrong, and are kept so that
+        the roofline's model FLOPs equal the reference's: zamba2-7b
+        comes to 6.68 G against the 19.08 G of its parameter tree (the
+        hybrid branch replaces the per-layer sum and leaves out the
+        Mamba2 layers' other weights), and deepseek-v3-671b to
+        703,796,805,632 against the tree's 670,302,339,072 (ROADMAP
+        Queue C, "Properties of the reference that the port copies")."""
+        d, h = self.d_model, self.resolved_head_dim
+        n_q = self.n_heads * h
+        n_kv = self.n_kv_heads * h
+        emb = self.padded_vocab * d
+        head = 0 if self.tie_embeddings else self.padded_vocab * d
+        per_layer = 0
+        if self.family == "ssm":                      # rwkv6-style
+            per_layer += 6 * d * d                    # r,k,v,g,o + decay proj
+            per_layer += d * self.d_ff + self.d_ff * d
+        else:
+            if self.mla is not None:
+                m = self.mla
+                per_layer += d * m.q_lora_rank + m.q_lora_rank * self.n_heads * (
+                    m.qk_nope_head_dim + m.qk_rope_head_dim)
+                per_layer += d * (m.kv_lora_rank + m.qk_rope_head_dim)
+                per_layer += m.kv_lora_rank * self.n_heads * (
+                    m.qk_nope_head_dim + m.v_head_dim)
+                per_layer += self.n_heads * m.v_head_dim * d
+            else:
+                per_layer += d * (n_q + 2 * n_kv) + n_q * d
+            ff_mult = 3 if self.glu else 2
+            if self.moe is not None:
+                moe_ff = ff_mult * d * self.moe.d_ff_expert
+                per_layer += self.moe.n_routed_experts * moe_ff
+                per_layer += self.moe.n_shared_experts * moe_ff
+                per_layer += d * self.moe.n_routed_experts  # router
+            else:
+                per_layer += ff_mult * d * self.d_ff
+        shared = 0
+        if self.family == "hybrid" and self.ssm is not None:
+            d_inner = self.ssm.expand * d
+            per_layer = 2 * d * d_inner + d_inner * d + d_inner * self.ssm.d_conv
+            # zamba2: ONE shared attention+MLP block reused every attn_every
+            # layers (weights counted once).
+            shared = d * (n_q + 2 * n_kv) + n_q * d + 3 * d * self.d_ff
+        total = emb + head + self.n_layers * per_layer + shared
+        if self.is_encoder_decoder:
+            total += self.n_encoder_layers * per_layer
+        return int(total)
+
 
 @dataclass(frozen=True)
 class ShapeConfig:

@@ -99,6 +99,14 @@ def check(code: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA launch failed with error {code}")
 
 
+def on_device(*ts) -> bool:
+    """Every tensor on one CUDA device, or every one on ``meta``: a dry
+    run, for which a launcher makes its checks and its allocations and
+    launches nothing."""
+    dev = ts[0].device
+    return dev.type in ("cuda", "meta") and all(t.device == dev for t in ts)
+
+
 def ptr(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 

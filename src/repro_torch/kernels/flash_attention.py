@@ -96,7 +96,7 @@ def flash_cuda(q, k, v, causal: bool = True) -> torch.Tensor:
                          f"{HEAD_DIMS}")
     if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPES:
         raise TypeError(f"flash dtypes {q.dtype}, {k.dtype}, {v.dtype}")
-    if not (q.is_cuda and q.device == k.device == v.device):
+    if not _build.on_device(q, k, v):
         raise ValueError("flash_cuda needs q, k, v on one CUDA device")
     if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
         raise ValueError("flash_cuda needs unit stride on the head dim")
@@ -106,6 +106,8 @@ def flash_cuda(q, k, v, causal: bool = True) -> torch.Tensor:
     if q.dtype == torch.bfloat16:       # cp.async moves 16-byte rows
         q, k, v = (t if _rows_aligned16(t) else t.contiguous()
                    for t in (q, k, v))
+    if out.is_meta:
+        return out
     strides = (ctypes.c_int64 * 9)(
         q.stride(0), q.stride(1), q.stride(2), k.stride(0), k.stride(1),
         k.stride(2), v.stride(0), v.stride(1), v.stride(2))

@@ -151,8 +151,7 @@ def grouped_gemm_cuda(a: torch.Tensor, b: torch.Tensor,
     if counts.dtype != torch.int32 or tuple(counts.shape) != (E,) \
             or not counts.is_contiguous():
         raise ValueError("counts must be a contiguous (E,) int32 tensor")
-    if not (a.is_cuda and b.is_cuda and counts.is_cuda
-            and a.device == b.device == counts.device):
+    if not _build.on_device(a, b, counts):
         raise ValueError("grouped_gemm_cuda needs every operand on one "
                          "CUDA device")
     strides = a.stride()[:2] + b.stride()[:2]
@@ -165,7 +164,7 @@ def grouped_gemm_cuda(a: torch.Tensor, b: torch.Tensor,
             "rows, N-contiguous experts, 16-byte aligned, at most "
             f"{MAX_EXPERTS} experts)")
     out = torch.empty((E, C, N), dtype=a.dtype, device=a.device)
-    if E == 0 or C == 0 or N == 0:
+    if E == 0 or C == 0 or N == 0 or out.is_meta:
         return out
     grid, stages, nt_max = plan_grouped(E, C, N, K)
     fn = _build.function("grouped_gemm", "gg_grouped_gemm", _ARGS)
@@ -281,8 +280,7 @@ def _check_bwd(what, x, y, counts, E, extent):
     if counts.dtype != torch.int32 or tuple(counts.shape) != (E,) \
             or not counts.is_contiguous():
         raise ValueError("counts must be a contiguous (E,) int32 tensor")
-    if not (x.is_cuda and y.is_cuda and counts.is_cuda
-            and x.device == y.device == counts.device):
+    if not _build.on_device(x, y, counts):
         raise ValueError(f"{what} needs every operand on one CUDA device")
     if not (_aligned(x) and _aligned(y)) or extent % 8 or E > MAX_EXPERTS:
         raise ValueError(
@@ -324,6 +322,8 @@ def grouped_bwd_a_cuda(dc: torch.Tensor, b: torch.Tensor,
     if not launches(dc, b):
         return out
     (dc, ldx, sx), (b, ldw, sw) = _strides(dc), _strides(b)
+    if out.is_meta:
+        return out
     plan = plan_bwd_da(E, C, N, K)
     fn = _build.function("grouped_gemm", "gg_grouped_bwd_da", _DA_ARGS)
     code = fn(_build.ptr(dc), _build.ptr(b), _build.ptr(out),
@@ -351,6 +351,8 @@ def grouped_bwd_b_cuda(a: torch.Tensor, dc: torch.Tensor,
         return torch.zeros((E, K, N), dtype=a.dtype, device=a.device)
     out = torch.empty((E, K, N), dtype=a.dtype, device=a.device)
     (a, lda, sa), (dc, ldx, sx) = _strides(a), _strides(dc)
+    if out.is_meta:
+        return out
     plan = plan_bwd_db(E, C, K, N)
     fn = _build.function("grouped_gemm", "gg_grouped_bwd_db", _DB_ARGS)
     code = fn(_build.ptr(a), _build.ptr(dc), _build.ptr(out),

@@ -55,13 +55,15 @@ def kv_quant_cuda(k, v, rows, k_pages, v_pages, k_scale, v_scale) -> None:
         raise TypeError("kv quant takes bf16 k/v, int64 rows, int8 pools "
                         "and fp16 scale pools")
     ts = (k, v, rows, k_pages, v_pages, k_scale, v_scale)
-    if not all(t.is_cuda and t.device == k.device for t in ts):
+    if not _build.on_device(*ts):
         raise ValueError("kv_quant_cuda needs every operand on k's CUDA "
                          "device")
     if not all(t.is_contiguous() for t in ts):
         raise ValueError("kv_quant_cuda needs contiguous operands")
     if k.data_ptr() % 16 or v.data_ptr() % 16:
         raise ValueError("kv_quant_cuda: 16-byte loads need aligned k, v")
+    if k.is_meta:
+        return
     code = _build.function("kv_quant", "kvq_append", _ARGS)(
         _build.ptr(k), _build.ptr(v), _build.ptr(rows), _build.ptr(k_pages),
         _build.ptr(v_pages), _build.ptr(k_scale), _build.ptr(v_scale), n, KH,

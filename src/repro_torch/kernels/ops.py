@@ -21,6 +21,15 @@ backward pass (``saved``) and handed back to its recompute in place of
 a launch (``replayed``).  The TPU-only knobs of the reference wrappers
 (block sizes, ``interpret``) have no counterpart: the kernels pick their
 own tiles and mask ragged edges themselves, so nothing is padded here.
+
+A ``meta`` tensor is a dry run: it goes through the kernel's launcher,
+which checks the operands and makes every allocation the launch makes
+(its output, a copy of an operand it cannot read in place), launches
+nothing and leaves ``LAUNCHES`` as it is.  Under the cost counter
+(``launch.hlo_analysis.analyze``) each wrapper records its kernel's
+work from its operands' shapes where it launches (or would), and the
+ops it dispatches inside are not counted, so a step counts the same on
+the card, the CPU and ``meta``.
 """
 from __future__ import annotations
 
@@ -29,6 +38,7 @@ import contextlib
 import torch
 
 from repro_torch.kernels import ref
+from repro_torch.launch import hlo_analysis as HA
 from repro_torch.kernels.flash_attention import flash_cuda
 from repro_torch.kernels.grouped_gemm import (grouped_bwd_a_cuda,
                                               grouped_bwd_b_cuda,
@@ -52,6 +62,28 @@ def reset_launches() -> None:
     for counts in (LAUNCHES, GEMM_BWD, GROUPED_BWD, GEMM_DOTS):
         for name in counts:
             counts[name] = 0
+
+
+def _kernel_path(t: torch.Tensor) -> bool:
+    """True where a wrapper takes its kernel's launcher: a CUDA tensor,
+    or a ``meta`` one (a dry run: module docstring)."""
+    return t.is_cuda or t.is_meta
+
+
+def _op(name: str, cost, *args):
+    """A context for one wrapper op of an active cost count:
+    ``cost(*args)`` (flops, bytes) recorded under ``name``, the ops
+    dispatched inside not counted; nothing outside a count."""
+    if not HA.counting():
+        return HA.NULL
+    HA.kernel(name, *cost(*args))
+    return HA.quiet()
+
+
+def _launched(name: str, t: torch.Tensor) -> None:
+    """Count one launch of ``name``'s kernel: on the card only."""
+    if t.is_cuda:
+        LAUNCHES[name] += 1
 
 
 # the tape the streaming GEMM's autograd Function writes to or reads
@@ -107,14 +139,24 @@ class GemmTape:
         return out.detach()
 
 
+def _gemm(a: torch.Tensor, b: torch.Tensor,
+          mma_only: bool = False) -> torch.Tensor:
+    """One streaming GEMM launch (or its plain version on the CPU), one
+    op of a cost count."""
+    with _op("streaming_gemm", HA.gemm_cost, a, b):
+        if not _kernel_path(a):
+            return ref.gemm_ref(a, b)
+        out = gemm_cuda(a, b, mma_only=mma_only)
+    _launched("streaming_gemm", a)
+    return out
+
+
 def _gemm_bwd(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """One backward product on the tensor-core kernel (raising where it
     cannot read an operand), or its plain version on the CPU."""
-    if not a.is_cuda:
-        return ref.gemm_ref(a, b)
-    out = gemm_cuda(a, b, mma_only=a.dtype == torch.bfloat16)
-    LAUNCHES["streaming_gemm"] += 1
-    GEMM_BWD["launches"] += 1
+    out = _gemm(a, b, mma_only=a.dtype == torch.bfloat16)
+    if a.is_cuda:
+        GEMM_BWD["launches"] += 1
     return out
 
 
@@ -142,11 +184,7 @@ class _StreamingGemm(torch.autograd.Function):
         tape, mode = _TAPE or (None, None)
         if mode == "replay":
             return tape.replay((a.shape[0], b.shape[1]))
-        if not a.is_cuda:
-            out = ref.gemm_ref(a, b)
-        else:
-            out = gemm_cuda(a, b, mma_only=a.dtype == torch.bfloat16)
-            LAUNCHES["streaming_gemm"] += 1
+        out = _gemm(a, b, mma_only=a.dtype == torch.bfloat16)
         if mode == "record":
             tape.outs.append(out.detach())
             GEMM_DOTS["saved"] += 1
@@ -154,9 +192,14 @@ class _StreamingGemm(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dc):
+        with HA.quiet():
+            return _StreamingGemm._backward(ctx, dc)
+
+    @staticmethod
+    def _backward(ctx, dc):
         a, b = ctx.saved_tensors
-        if dc.is_cuda and (dc.stride(1) != 1
-                           or not copy_width(dc, dc.stride(0))):
+        if _kernel_path(dc) and (dc.stride(1) != 1
+                                 or not copy_width(dc, dc.stride(0))):
             M, N = dc.shape
             padded = torch.empty((M, -(-N // 8) * 8), dtype=dc.dtype,
                                  device=dc.device)
@@ -182,18 +225,17 @@ def streaming_gemm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     products run on the same kernel (``_StreamingGemm``)."""
     if a.requires_grad or b.requires_grad:
         return _StreamingGemm.apply(a, b)
-    if not a.is_cuda:
-        return ref.gemm_ref(a, b)
-    out = gemm_cuda(a, b)
-    LAUNCHES["streaming_gemm"] += 1
-    return out
+    return _gemm(a, b)
 
 
 def _grouped(a, b, counts):
-    if not a.is_cuda:
-        return ref.grouped_gemm_ref(a, b, counts)
-    out = grouped_gemm_cuda(a, b, counts)
-    LAUNCHES["streaming_gemm_grouped"] += 1
+    E, C, K = a.shape
+    with _op("streaming_gemm_grouped", HA.grouped_cost, a, b,
+             (E, C, b.shape[2]), K, counts):
+        if not _kernel_path(a):
+            return ref.grouped_gemm_ref(a, b, counts)
+        out = grouped_gemm_cuda(a, b, counts)
+    _launched("streaming_gemm_grouped", a)
     return out
 
 
@@ -201,12 +243,21 @@ def _grouped_bwd(which: str, x, y, counts):
     """One backward product of the grouped GEMM (``"da"``: dC·Bᵀ, x = dC,
     y = B; ``"db"``: Aᵀ·dC, x = A, y = dC) on its kernel, or its plain
     version on the CPU; kept rows only."""
-    if not x.is_cuda:
+    if _kernel_path(x):
+        fn = grouped_bwd_a_cuda if which == "da" else grouped_bwd_b_cuda
+    else:
         fn = ref.grouped_bwd_a_ref if which == "da" else ref.grouped_bwd_b_ref
+    if not launches(x, y):
         return fn(x, y, counts)
-    fn = grouped_bwd_a_cuda if which == "da" else grouped_bwd_b_cuda
-    out = fn(x, y, counts)
-    if launches(x, y):
+    E, C = x.shape[:2]
+    if which == "da":       # dC (E, C, N) · B (E, K, N)ᵀ -> (E, C, K)
+        shape, contracted = (E, C, y.shape[1]), x.shape[2]
+    else:                   # A (E, C, K)ᵀ · dC (E, C, N) -> (E, K, N)
+        shape, contracted = (E, x.shape[2], y.shape[2]), C
+    with _op("streaming_gemm_grouped", HA.grouped_cost, x, y, shape,
+             contracted, counts):
+        out = fn(x, y, counts)
+    if x.is_cuda:
         LAUNCHES["streaming_gemm_grouped"] += 1
         GROUPED_BWD[which] += 1
     return out
@@ -234,8 +285,13 @@ class _GroupedGemm(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dc):
+        with HA.quiet():
+            return _GroupedGemm._backward(ctx, dc)
+
+    @staticmethod
+    def _backward(ctx, dc):
         a, b, counts = ctx.saved_tensors
-        if dc.is_cuda:
+        if _kernel_path(dc):
             dc = dc.contiguous()
         da = db = None
         if ctx.needs_input_grad[0]:
@@ -272,11 +328,12 @@ def flash_attention(q, k, v, causal: bool = True,
     bk_ = min(bk, Tk)
     if not causal and Tk % bk_:
         raise NotImplementedError("pad-free Tk required for non-causal")
-    if q.is_cuda:
+    with _op("flash_attention", HA.flash_cost, q, k, v, causal):
+        if not _kernel_path(q):     # contiguous, as the kernel's output
+            return ref.flash_gqa_ref(q, k, v, causal).contiguous()
         out = flash_cuda(q, k, v, causal=causal)
-        LAUNCHES["flash_attention"] += 1
-        return out
-    return ref.flash_gqa_ref(q, k, v, causal)
+    _launched("flash_attention", q)
+    return out
 
 
 def paged_attention(q, k_pages, v_pages, table, lens, k_scale=None,
@@ -288,12 +345,16 @@ def paged_attention(q, k_pages, v_pages, table, lens, k_scale=None,
     come with fp16 scale pools ``k_scale`` / ``v_scale`` of (P, KH,
     page) and launch the int8 form, counted as
     ``paged_attention_int8``."""
-    if not q.is_cuda:
-        return ref.paged_ref(q, k_pages, v_pages, table, lens,
-                             k_scale=k_scale, v_scale=v_scale)
-    out = paged_cuda(q, k_pages, v_pages, table, lens, k_scale, v_scale)
-    LAUNCHES["paged_attention_int8" if k_pages.dtype == torch.int8
-             else "paged_attention"] += 1
+    name = "paged_attention_int8" if k_pages.dtype == torch.int8 \
+        else "paged_attention"
+    with _op(name, HA.paged_cost, q, k_pages, v_pages, table, lens,
+             k_scale, v_scale):
+        if not _kernel_path(q):
+            return ref.paged_ref(q, k_pages, v_pages, table, lens,
+                                 k_scale=k_scale, v_scale=v_scale)
+        out = paged_cuda(q, k_pages, v_pages, table, lens, k_scale,
+                         v_scale)
+    _launched(name, q)
     return out
 
 
@@ -304,13 +365,15 @@ def kv_quantize_append(k, v, rows, k_pages, v_pages, k_scale,
     at the flat pool ``rows`` (n,) int64 of the (P, page, KH, D) int8
     pools and the fp16 scales in the (P, KH, page) scale pools, in
     place, K and V in one launch."""
-    if not k.is_cuda:
-        ref.kv_quantize_append_ref(k, v, rows, k_pages, v_pages, k_scale,
-                                   v_scale)
+    if not k.shape[0]:
         return
-    if k.shape[0]:
+    with _op("kv_quantize", HA.append_cost, k, v, rows, k_pages, k_scale):
+        if not _kernel_path(k):
+            ref.kv_quantize_append_ref(k, v, rows, k_pages, v_pages,
+                                       k_scale, v_scale)
+            return
         kv_quant_cuda(k, v, rows, k_pages, v_pages, k_scale, v_scale)
-        LAUNCHES["kv_quantize"] += 1
+    _launched("kv_quantize", k)
 
 
 def kv_write(pools, rows, k, v) -> None:
@@ -343,14 +406,22 @@ def paged_attention_append(q, k, v, rows, pools, table,
     version is ``kv_quantize_append_ref`` followed by ``paged_ref``."""
     k_pages, v_pages, k_scale, v_scale = pools
     k, v = k.contiguous(), v.contiguous()
-    if not q.is_cuda:
-        ref.kv_quantize_append_ref(k, v, rows, k_pages, v_pages, k_scale,
-                                   v_scale)
-        return ref.paged_ref(q, k_pages, v_pages, table, lens,
-                             k_scale=k_scale, v_scale=v_scale)
-    out = paged_int8_cuda(q, k_pages, v_pages, table, lens, k_scale,
-                          v_scale, append=(k, v, rows))
-    LAUNCHES["paged_attention_int8_append"] += 1
+
+    def cost():
+        pf, pb = HA.paged_cost(q, k_pages, v_pages, table, lens, k_scale,
+                               v_scale)
+        af, ab = HA.append_cost(k, v, rows, k_pages, k_scale)
+        return pf + af, pb + ab
+
+    with _op("paged_attention_int8_append", cost):
+        if not _kernel_path(q):
+            ref.kv_quantize_append_ref(k, v, rows, k_pages, v_pages,
+                                       k_scale, v_scale)
+            return ref.paged_ref(q, k_pages, v_pages, table, lens,
+                                 k_scale=k_scale, v_scale=v_scale)
+        out = paged_int8_cuda(q, k_pages, v_pages, table, lens, k_scale,
+                              v_scale, append=(k, v, rows))
+    _launched("paged_attention_int8_append", q)
     return out
 
 
@@ -360,8 +431,11 @@ def paged_latent_attention(q, pool, table, lens, dv: int,
     one latent pool (P, page, 1, D) whose first ``dv`` columns are V,
     through table (B, max_pages) int32 and lens (B,) int32; scores
     scaled by ``scale``.  Returns (B, H, dv) in ``q.dtype``."""
-    if not q.is_cuda:
-        return ref.paged_ref(q, pool, pool, table, lens, dv=dv, scale=scale)
-    out = paged_latent_cuda(q, pool, table, lens, dv, scale)
-    LAUNCHES["paged_latent_attention"] += 1
+    with _op("paged_latent_attention", HA.latent_cost, q, pool, table, lens,
+             dv):
+        if not _kernel_path(q):
+            return ref.paged_ref(q, pool, pool, table, lens, dv=dv,
+                                 scale=scale)
+        out = paged_latent_cuda(q, pool, table, lens, dv, scale)
+    _launched("paged_latent_attention", q)
     return out

@@ -320,7 +320,7 @@ def paged_int8_cuda(q, k_pages, v_pages, table, lens, k_scale, v_scale,
             raise ValueError("paged int8 append: 16-byte loads need "
                              "aligned k, v")
         ts += [k, v, rows]
-    if not all(t.is_cuda and t.device == q.device for t in ts):
+    if not _build.on_device(*ts):
         raise ValueError("paged_int8_cuda needs every operand on q's CUDA "
                          "device")
     if not all(t.is_contiguous() for t in ts):
@@ -335,7 +335,7 @@ def paged_int8_cuda(q, k_pages, v_pages, table, lens, k_scale, v_scale,
         raise ValueError(f"paged int8: {smem} B of shared memory for D "
                          f"{D}, page {page}, table width {max_pages}")
     out = torch.empty_like(q)
-    if B == 0:
+    if B == 0 or out.is_meta:
         return out
     dims = (B, H, KH, plan.groups, plan.tier, D, P, page, max_pages,
             plan.splits, plan.ring, _build.stream(q.device))
@@ -444,7 +444,7 @@ def paged_latent_cuda(q, pool, table, lens, dv: int,
     if table.dtype != torch.int32 or lens.dtype != torch.int32:
         raise TypeError("paged table and lens must be int32")
     ts = (q, pool, table, lens)
-    if not all(t.is_cuda and t.device == q.device for t in ts):
+    if not _build.on_device(*ts):
         raise ValueError("paged_latent_cuda needs every operand on q's "
                          "CUDA device")
     if not all(t.is_contiguous() for t in ts):
@@ -458,7 +458,7 @@ def paged_latent_cuda(q, pool, table, lens, dv: int,
         raise ValueError(f"paged latent: {smem} B of shared memory for "
                          f"page {page}, table width {max_pages}")
     out = torch.empty((B, H, dv), dtype=q.dtype, device=q.device)
-    if B == 0:
+    if B == 0 or out.is_meta:
         return out
     code = _build.function("paged_attention", "pa_latent_forward",
                            _LATENT_ARGS)(
@@ -501,7 +501,7 @@ def paged_cuda(q, k_pages, v_pages, table, lens, k_scale=None,
     if table.dtype != torch.int32 or lens.dtype != torch.int32:
         raise TypeError("paged table and lens must be int32")
     ts = (q, k_pages, v_pages, table, lens)
-    if not all(t.is_cuda and t.device == q.device for t in ts):
+    if not _build.on_device(*ts):
         raise ValueError("paged_cuda needs every operand on q's CUDA device")
     if not all(t.is_contiguous() for t in ts):
         raise ValueError("paged_cuda needs contiguous operands")
@@ -517,7 +517,7 @@ def paged_cuda(q, k_pages, v_pages, table, lens, k_scale=None,
         raise ValueError(f"paged: {smem} B of shared memory for G {G}, D "
                          f"{D}, page {page}, table width {max_pages}")
     out = torch.empty_like(q)
-    if B == 0:
+    if B == 0 or out.is_meta:
         return out
     code = _build.function("paged_attention", "pa_forward", _ARGS)(
         _DTYPES[q.dtype], _build.ptr(q), _build.ptr(k_pages),

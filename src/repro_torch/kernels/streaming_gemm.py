@@ -173,16 +173,24 @@ def gemm_cuda(a: torch.Tensor, b: torch.Tensor,
     if a.dtype != b.dtype or a.dtype not in _DTYPES:
         raise TypeError(f"gemm dtypes {a.dtype}, {b.dtype}: need one of "
                         f"{list(_DTYPES)} for both")
-    if not (a.is_cuda and b.is_cuda and a.device == b.device):
+    if not _build.on_device(a, b):
         raise ValueError("gemm_cuda needs both operands on one CUDA device")
     M, K = a.shape
     N = b.shape[1]
     out = torch.empty((M, N), dtype=a.dtype, device=a.device)
     if M == 0 or N == 0:
         return out
-    st = _build.stream(a.device)
     layout = mma_layout(a, b)
     mcontig = None if layout is not None else mcontig_layout(a, b)
+    if layout is None and mcontig is None and mma_only:
+        raise ValueError(
+            f"gemm_cuda: the tensor-core kernel cannot read a {a.dtype} "
+            f"{tuple(a.shape)} A of strides {a.stride()} with a "
+            f"{tuple(b.shape)} B of strides {b.stride()} (needs bf16, a "
+            "row-major or M-contiguous A, rows 4-byte aligned)")
+    if out.is_meta:
+        return out
+    st = _build.stream(a.device)
     if layout is not None or mcontig is not None:
         if layout is not None:
             (kcontig, ldb), lda = layout, a.stride(0)
@@ -195,12 +203,6 @@ def gemm_cuda(a: torch.Tensor, b: torch.Tensor,
         code = fn(_build.ptr(a), _build.ptr(b), _build.ptr(out), M, N, K,
                   lda, ldb, int(mcontig is not None), int(kcontig), N, bm,
                   bn, bk, splits, a_vb, b_vb, st)
-    elif mma_only:
-        raise ValueError(
-            f"gemm_cuda: the tensor-core kernel cannot read a {a.dtype} "
-            f"{tuple(a.shape)} A of strides {a.stride()} with a "
-            f"{tuple(b.shape)} B of strides {b.stride()} (needs bf16, a "
-            "row-major or M-contiguous A, rows 4-byte aligned)")
     else:
         fn = _build.function("streaming_gemm", "sg_gemm_simt", _SIMT_ARGS)
         code = fn(_DTYPES[a.dtype], _build.ptr(a), _build.ptr(b),

@@ -68,7 +68,6 @@ import math
 from typing import Any, Callable
 
 import torch
-import torch.distributed as dist
 
 from repro_torch.configs.base import RunConfig
 from repro_torch.device import resolve_device
@@ -253,12 +252,11 @@ def build_train_step(run: RunConfig, mesh=None, lr_base: float = 3e-4,
         b_axes["tokens"] = ("batch", "seq")
     batch_pl = placements(b_axes, shapes_of(ainputs), rules, mesh)
     split = _batch_split(batch_pl)
-    group = BL.axis_group(mesh, split) \
-        if BL.is_live(mesh) and split else None
+    group = BL.axis_group(mesh, split) if split else None
     w_pl = T.trainable(state_pl["params"])
 
     def train_step(state, batch):
-        BL.require_runnable(mesh, "train step")
+        BL.require_runnable(mesh, "train step", tree_leaves(state)[0])
         weights = T.trainable(state["params"])
         whole = BL.gather_tree(weights, w_pl, mesh)
         if group is None:
@@ -329,7 +327,7 @@ def _split_loss_and_grads(model, whole, batch, group):
     counts = torch.stack([(labels >= 0).sum(),
                           (labels[:, 1:] >= 0).sum()]).float()
     local = counts.clone()
-    dist.all_reduce(counts, group=group)
+    BL.all_reduce(counts, group)
     share = local / torch.clamp(counts, min=1.0)
 
     def objective(_, m):
@@ -345,7 +343,7 @@ def _split_loss_and_grads(model, whole, batch, group):
     if "mtp" in metrics:
         parts.append(metrics["mtp"] * share[1])
     parts = torch.stack(parts)
-    dist.all_reduce(parts, group=group)
+    BL.all_reduce(parts, group)
     metrics = {**metrics, "ce": parts[0]}
     loss = parts[0] + metrics["aux"]
     if "mtp" in metrics:
@@ -358,7 +356,7 @@ def _flat_all_reduce(tensors, group):
     """fp32 copies of ``tensors`` summed over ``group`` (one
     ``all_reduce`` of one flat buffer); views into that buffer."""
     flat = torch.cat([t.float().reshape(-1) for t in tensors])
-    dist.all_reduce(flat, group=group)
+    BL.all_reduce(flat, group)
     out, at = [], 0
     for t in tensors:
         out.append(flat[at:at + t.numel()].view(t.shape))
@@ -417,15 +415,16 @@ def _serve_placements(model, run, mesh, rules, enc_seq):
     return p_pl, placements(c_ax, shapes_of(acache), rules, mesh), aparams
 
 
-def build_prefill_step(run: RunConfig, mesh) -> BuiltStep:
+def build_prefill_step(run: RunConfig, mesh, device=None) -> BuiltStep:
     """``fn(params, batch) -> (cache, last-token logits (B, padded
     vocab))``: a paged cache with room for ``shape.seq_len`` tokens in
     each of B slots, slots ``arange(B)`` prefilled with the batch's
     prompts (``tokens``, or ``embeddings`` for a vlm config, or an audio
     config's ``audio_frames`` and decoder ``tokens``; a prompt may be
-    shorter than ``seq_len``)."""
+    shorter than ``seq_len``).  ``device`` picks where a one-rank mesh
+    runs (``mesh_device``)."""
     cfg, shape = run.model, run.shape
-    model = Model(cfg, device=mesh_device(mesh), remat=run.remat)
+    model = Model(cfg, device=mesh_device(mesh, device), remat=run.remat)
     rules = make_rules(run, mesh)
     enc_seq = max(shape.seq_len, 16) if cfg.family == "audio" else 0
 
@@ -454,12 +453,13 @@ def build_prefill_step(run: RunConfig, mesh) -> BuiltStep:
                      abstract_inputs=(aparams, ainputs), mesh=mesh)
 
 
-def build_decode_step(run: RunConfig, mesh) -> BuiltStep:
+def build_decode_step(run: RunConfig, mesh, device=None) -> BuiltStep:
     """``fn(params, cache, tokens) -> (cache, next tokens (B,) int32)``:
     one decode step of slots ``arange(B)`` of the prefill step's cache,
-    the next token the argmax over ``[..., :vocab_size]``."""
+    the next token the argmax over ``[..., :vocab_size]``; ``device`` as
+    in ``build_prefill_step``."""
     cfg, shape = run.model, run.shape
-    model = Model(cfg, device=mesh_device(mesh), remat=run.remat)
+    model = Model(cfg, device=mesh_device(mesh, device), remat=run.remat)
     rules = make_rules(run, mesh)
     B, S = shape.global_batch, shape.seq_len
     enc_seq = max(S // 8, 16) if cfg.family == "audio" else 0

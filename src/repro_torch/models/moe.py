@@ -22,9 +22,13 @@ JAX semantics the port keeps by hand:
   probabilities; the port takes the top k of a stable descending sort.
 - The reference scatters every dropped assignment as zeros into cell
   (E-1, C-1) in sorted order, after expert E-1's own kept row there;
-  the port writes the kept rows only and then zeroes that cell when
-  expert E-1 overflowed, which is the same result without a scatter of
-  duplicate indices (whose order CUDA does not fix).
+  the port writes the kept rows into the buffer and the dropped ones
+  into one spare row after it (sliced away, never read: no scatter of
+  duplicate indices into a cell that is read, whose order CUDA does not
+  fix) and then zeroes that cell when expert E-1 overflowed, which is
+  the same result.  The dispatch needs no value on the host (no
+  boolean-mask index, which ``nonzero`` would need), so it also runs on
+  ``meta`` tensors.
 - The combine adds each token's k contributions in bf16 one by one, in
   the order of their expert ids, as the reference's scatter-add does,
   without atomics.
@@ -53,13 +57,13 @@ the rank's own router probabilities.
 from __future__ import annotations
 
 import torch
-import torch.distributed as dist
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models import tuning as TU
 from repro_torch.models.params import PSpec
+from repro_torch.sharding import blocks as BL
 from repro_torch.sharding import context as SC
 
 
@@ -123,7 +127,7 @@ def _route(p, x, cfg: ModelConfig):
         local = flat.sum(0)
         stats = torch.cat([local.detach(), _count(top_e, E, torch.float32),
                            local.new_tensor([flat.shape[0]])])
-        dist.all_reduce(stats, group=group)
+        BL.all_reduce(stats, group)
         n = stats[-1]
         me = (stats[:E] + (local - local.detach())) / n
         ce = stats[E:2 * E] / (n * k)
@@ -206,12 +210,11 @@ def apply_moe(p, x, cfg: ModelConfig, capacity_factor: float = 1.25,
     C = routed_capacity(n * k, E, capacity, capacity_factor)
     keep = pos_in_e < C
 
-    # dispatch: (E, C, d); only kept rows are written
-    buf = torch.zeros((E, C, d), dtype=x.dtype, device=dev)
-    if C >= n:          # no expert can overflow (a token picks it once)
-        buf[e_sorted, pos_in_e] = xt[tok_sorted]
-    else:
-        buf[e_sorted[keep], pos_in_e[keep]] = xt[tok_sorted[keep]]
+    # dispatch: (E, C, d), the dropped rows to the spare row E·C
+    flat = torch.zeros((E * C + 1, d), dtype=x.dtype, device=dev)
+    flat[torch.where(keep, e_sorted * C + pos_in_e, E * C)] = xt[tok_sorted]
+    buf = flat[:E * C].view(E, C, d)
+    if C < n:           # else no expert can overflow (a token picks it once)
         # the reference's dropped zeros land on (E-1, C-1) last
         buf[E - 1, C - 1] = torch.where(counts[E - 1] > C, 0.0,
                                         buf[E - 1, C - 1])
@@ -259,8 +262,11 @@ def _apply_moe_local(p, x, cfg: ModelConfig, capacity_factor: float,
 
     bidx = torch.arange(B, device=dev)[:, None].expand(B, nk)
     x_sorted = x[bidx, tok_sorted]                            # (B, nk, d)
-    buf = torch.zeros((E, B, C, d), dtype=x.dtype, device=dev)
-    buf[e_sorted[keep], bidx[keep], pos_in_e[keep]] = x_sorted[keep]
+    # the dropped rows to the spare row E·B·C
+    flat = torch.zeros((E * B * C + 1, d), dtype=x.dtype, device=dev)
+    flat[torch.where(keep, (e_sorted * B + bidx) * C + pos_in_e,
+                     E * B * C)] = x_sorted
+    buf = flat[:E * B * C].view(E, B, C, d)
     if C < T:           # the reference's dropped zeros land on each
         # row's (E-1, C-1) cell after its kept row there
         over = counts[:, E - 1] > C                           # (B,)

@@ -27,7 +27,7 @@ import torch.distributed as dist
 
 from repro_torch.models.params import tree_map
 from repro_torch.optim.optimizers import stacked, stacked_map
-from repro_torch.sharding.blocks import axis_group
+from repro_torch.sharding.blocks import all_reduce, axis_group
 
 
 def init_ef(params):
@@ -94,6 +94,6 @@ def compressed_psum(x, axis, mesh):
     qsum = q.to(torch.int32)
     smax = scale.reshape(1).clone()
     if group is not None:
-        dist.all_reduce(qsum, group=group)
-        dist.all_reduce(smax, op=dist.ReduceOp.MAX, group=group)
+        all_reduce(qsum, group)
+        all_reduce(smax, group, op=dist.ReduceOp.MAX)
     return qsum.float() * smax[0]

@@ -3,10 +3,15 @@ the process groups of the mesh's axes.
 
 A mesh is a ``torch.distributed.device_mesh.DeviceMesh`` (``launch.mesh.
 make_host_mesh``: ranks behind it) or a ``MeshPlan`` (a shape and axis
-names, with no process group).  A plan of more than one rank is only
-for placements and byte counts.  A plan of one rank (``ONE_RANK``) is
-local: it runs in this process with no process group, nothing split and
-no collective, and is what a step built without a mesh runs on.
+names, with no process group).  A plan of more than one rank is for
+placements and byte counts, and for a dry run of its rank 0 on ``meta``
+tensors (``launch.dryrun``): its blocks, and each collective recorded by
+the cost counter (``launch.hlo_analysis``) over a ``PlanGroup`` of the
+size the plan's axes give, its result a ``meta`` tensor of the gathered
+or reduced shape, with no process group; real tensors on such a plan
+raise.  A plan of one rank (``ONE_RANK``) is local: it runs in this
+process with no process group, nothing split and no collective, and is
+what a step built without a mesh runs on.
 
 A leaf's placement is ``sharding.logical.spec_for``'s tuple: per dim
 None, a mesh axis name, or a tuple of names (the first the major).  A
@@ -14,7 +19,8 @@ rank holds the block of each dim at its coordinates on those axes
 (``local_slice``); ``gather`` rebuilds whole leaves from every rank's
 blocks with one ``all_gather`` of their bytes.  A leaf that a placement
 splits over no axis of more than one rank is whole on every rank, and
-``gather`` returns it as it is.
+``gather`` returns it as it is.  Every collective goes through
+``all_reduce`` or ``gather``, which record it.
 """
 from __future__ import annotations
 
@@ -25,6 +31,7 @@ from typing import Mapping
 import torch
 import torch.distributed as dist
 
+from repro_torch.launch import hlo_analysis as HA
 from repro_torch.models.params import tree_leaves, tree_map
 
 
@@ -40,6 +47,31 @@ class MeshPlan:
 
 
 ONE_RANK = MeshPlan((1, 1), ("data", "model"))
+
+
+@dataclasses.dataclass(frozen=True)
+class PlanGroup:
+    """The ranks a collective over a plan's axes spans, with no process
+    group behind them: a collective over it is recorded and moves
+    nothing."""
+    size: int
+
+
+def group_size(group) -> int:
+    return group.size if isinstance(group, PlanGroup) \
+        else dist.get_world_size(group)
+
+
+def all_reduce(t, group, op=dist.ReduceOp.SUM):
+    """``t`` summed (or reduced by ``op``) in place over ``group``'s ranks
+    (``dist.all_reduce``; nothing moves over a ``PlanGroup``), recorded
+    as one all-reduce of ``t``'s bytes.  Every rank of the group must
+    call it."""
+    HA.collective("all-reduce", t.numel() * t.element_size(),
+                  group_size(group))
+    if not isinstance(group, PlanGroup):
+        dist.all_reduce(t, op=op, group=group)
+    return t
 
 
 def mesh_shape_dict(mesh) -> dict:
@@ -62,8 +94,11 @@ def is_local(mesh) -> bool:
     return isinstance(mesh, MeshPlan) and mesh.size == 1
 
 
-def require_runnable(mesh, what: str) -> None:
-    """Raise for a plan of more than one rank (or a mapping)."""
+def require_runnable(mesh, what: str, tensor=None) -> None:
+    """Raise for a plan of more than one rank (or a mapping), unless
+    ``tensor`` lies on ``meta``: a dry run of the plan's rank 0."""
+    if tensor is not None and tensor.is_meta and isinstance(mesh, MeshPlan):
+        return
     if not (is_live(mesh) or is_local(mesh)):
         ms = mesh_shape_dict(mesh)
         raise ValueError(
@@ -85,7 +120,13 @@ def barrier(mesh) -> None:
 
 def coordinate(mesh, rank=None) -> dict:
     """{axis name: index} of ``rank`` (default: this process's) on a live
-    mesh."""
+    mesh, or on a plan (default rank 0; ranks in row-major order)."""
+    if not is_live(mesh):
+        ms, at = mesh_shape_dict(mesh), {}
+        rank = rank or 0
+        for a in reversed(ms):
+            rank, at[a] = divmod(rank, ms[a])
+        return {a: at[a] for a in ms}
     rank = dist.get_rank() if rank is None else rank
     at = (mesh.mesh == rank).nonzero()
     if len(at) != 1:
@@ -107,6 +148,8 @@ def axis_group(mesh, axes):
         raise ValueError(f"no axis {unknown} on a mesh of {tuple(ms)}")
     if math.prod(ms[a] for a in axes) == 1:
         return None
+    if not is_live(mesh):
+        return PlanGroup(math.prod(ms[a] for a in axes))
     cache = mesh.__dict__.setdefault("_axis_groups", {})
     if axes not in cache:
         ranks = mesh.mesh.permute(
@@ -160,18 +203,14 @@ def local_slice(t, spec, mesh, rank=None):
     return t[_block(spec, tuple(t.shape), ms, coordinate(mesh, rank))]
 
 
-def whole_shape(spec, shape, ms) -> tuple:
-    """The shape of the whole leaf of which a block has ``shape``."""
-    return tuple(n * math.prod(ms[a] for a in dim_axes(e))
-                 for e, n in zip(spec, shape))
-
-
 def gather(leaves, specs, mesh) -> list:
     """Whole leaves from each rank's blocks ``leaves`` under ``specs``
-    (lists, in one order on every rank): one ``all_gather`` of
-    the split leaves' bytes over the mesh, each block then copied to its
-    place from one rank of the ranks that hold it.  A leaf that is not
-    split is returned as it is.  Every rank must call it."""
+    (lists, in one order on every rank): one ``all_gather`` of the split
+    leaves' bytes over the mesh into an (ranks, bytes) buffer (recorded;
+    on a plan nothing moves), then each leaf's blocks put in their
+    places by one copy, from the ranks at index 0 of the axes its
+    placement does not use (the others hold replicas).  A leaf that is
+    not split is returned as it is.  Every rank must call it."""
     ms = mesh_shape_dict(mesh)
     split = [i for i, s in enumerate(specs) if splits(s, ms)]
     out = list(leaves)
@@ -179,24 +218,37 @@ def gather(leaves, specs, mesh) -> list:
         return out
     flat = [leaves[i].contiguous().view(-1).view(torch.uint8) for i in split]
     buf = torch.cat(flat)
-    n = mesh.mesh.numel()
-    parts = [torch.empty_like(buf) for _ in range(n)]
-    dist.all_gather(parts, buf)
-    coords = [coordinate(mesh, r) for r in range(n)]
+    n = math.prod(ms.values())
+    parts = buf.new_empty((n, buf.numel()))
+    HA.collective("all-gather", parts.numel(), n)
+    if is_live(mesh):
+        dist.all_gather(list(parts.unbind(0)), buf)
     at = 0
     for i, f in zip(split, flat):
-        spec, local = specs[i], leaves[i]
-        shape = whole_shape(spec, tuple(local.shape), ms)
-        used = {a for e in spec for a in dim_axes(e)}
-        whole = torch.empty(shape, dtype=local.dtype, device=local.device)
-        for r, c in enumerate(coords):
-            if any(c[a] for a in ms if a not in used):
-                continue        # a replica of a block another rank gives
-            whole[_block(spec, shape, ms, c)] = parts[r][at:at + f.numel()] \
-                .view(local.dtype).view(local.shape)
-        out[i] = whole
+        local = leaves[i]
+        # bytes: the last dim counted in bytes, so one view fits every
+        # dtype wherever its bytes start in the buffer
+        shape = (*local.shape[:-1], local.shape[-1] * local.element_size())
+        blocks = parts[:, at:at + f.numel()].view(*ms.values(), *shape)
+        out[i] = _assemble(blocks, specs[i], ms).view(local.dtype)
         at += f.numel()
     return out
+
+
+def _assemble(blocks, spec, ms):
+    """The whole leaf from ``blocks`` (the mesh's dims, then one block's):
+    index 0 on the axes ``spec`` does not use, then each dim of the leaf
+    after the axes that split it, major first, in one copy."""
+    names = list(ms)
+    used = [a for a in names if any(a in dim_axes(e) for e in spec)]
+    blocks = blocks[tuple(slice(None) if a in used else 0 for a in names)]
+    order, shape = [], []
+    for d, e in enumerate(spec):
+        order += [used.index(a) for a in dim_axes(e)]
+        order.append(len(used) + d)
+        shape.append(blocks.shape[len(used) + d]
+                     * math.prod(ms[a] for a in dim_axes(e)))
+    return blocks.permute(order).reshape(shape).contiguous()
 
 
 # ---------------------------------------------------------------- trees

@@ -1796,3 +1796,34 @@ def test_cuda_moe_train_step_runs_only_hand_written_gemms():
                              "aten::addmm", "aten::baddbmm")
               and any(a <= ev.time_range.start <= b for a, b in ranges)]
     assert not inside, inside
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch, kind", [
+    ("qwen2_0_5b", "train"), ("qwen2_moe_a2_7b", "train"),
+    ("zamba2_7b", "train"), ("qwen2_0_5b", "prefill"),
+    ("qwen2_0_5b", "decode"), ("qwen2_moe_a2_7b", "decode")])
+def test_cuda_step_counts_as_on_meta(arch, kind):
+    """One step of a reduced config counted on the card
+    (``launch.hlo_analysis``) equals its count on ``meta`` (flops, bytes,
+    collectives, wrapper ops), and each wrapper op is one launch."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.configs.base import RunConfig, ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.sharding.blocks import ONE_RANK
+    dev = _card()
+    run = RunConfig(model=get_reduced(arch),
+                    shape=ShapeConfig(kind, kind, 32, 2))
+    got = {}
+    for d in (dev, torch.device("meta")):
+        fn, args, donated = dryrun.cell_step(run, ONE_RANK, d)
+        ops.reset_launches()
+        _, c, _ = dryrun.count(fn, args, donated)
+        got[d.type] = (c, {k: v for k, v in ops.LAUNCHES.items() if v})
+    (card, launches), (meta, none) = got["cuda"], got["meta"]
+
+    def key(c):
+        return (c.flops, c.bytes, c.coll_bytes, c.coll_count, c.kernel_ops)
+
+    assert key(card) == key(meta)
+    assert launches == card.kernel_ops and none == {}
