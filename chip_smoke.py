@@ -351,10 +351,12 @@ Phases, in order; any failure raises and exits non-zero:
    (``make_host_mesh(1, 1)``; NCCL cannot put two ranks on one card, so
    multi-rank meshes are held on the CPU through gloo by
    ``tests/test_torch_mesh.py``).  A batch split over one rank runs no
-   collective.  (a) qwen2-0.5b at full width and depth, 20 AdamW steps
+   collective.  (a) qwen2-0.5b at full width and depth, 10 AdamW steps
    of 8 x 512 tokens, 15c's seed and learning rate, by a ``Trainer`` on
-   the mesh and then one with no mesh (the local one-rank layout, no
-   process group): the mesh's losses equal the local ones bit for bit;
+   the mesh (through the tensor-parallel step, whose ``model`` of one
+   rank splits nothing: ``tensor_parallel`` 1, no collective) and then
+   one with no mesh (the local one-rank layout, no process group): the
+   mesh's losses equal the local ones bit for bit;
    each run's median step, peak memory, and one step more under the
    profiler (device ms; the collective calls on the host and the NCCL
    kernels, none in either run).  (b)
@@ -392,8 +394,32 @@ Phases, in order; any failure raises and exits non-zero:
    .train_4k`` on (2, 16, 16) (``DRY_CELLS``), each by the dry run's CLI
    in a process of its own started beside phase 1's build (host work
    that needs no card, ~25 s each): each record's roofline and its
-   seconds.
-21. Print each phase's seconds (a ``[phases]`` line), the ``kernels``
+   seconds; the qwen2-0.5b cell runs tensor-parallel (its MLP and
+   vocabulary split over ``model``'s 16, ``tensor_parallel`` 16,
+   asserted; ``DRY_TP``).
+21. Tensor parallelism on one card (``sharding.tensor_parallel``): two
+   spawned processes on a (1, 2) mesh of gloo ranks sharing the card
+   (``make_host_mesh(..., backend="gloo")``: NCCL cannot put two ranks
+   on one card; gloo stages each all-reduce of CUDA tensors through the
+   host).  qwen2-0.5b at full width and depth, every split leaf's heads,
+   columns or vocabulary halved (H 14, KH 2, f 4,864, V 152,064), 5
+   AdamW steps of 8 x 512 tokens from 15c's seed and learning rate: the
+   losses equal on both ranks and within 1e-3 relative of the one-rank
+   step's on the same weights and batches (run first, in this
+   process); every forward product of the first step reads its leaf at
+   half N (q, k, v, gate, up, the tied lm_head's ``embed`` block) or
+   half K (both ``wo``), asserted, with the (M, N, K) of the forward
+   and backward products; the GEMM's launches (169 forward and 338
+   backward a step); the all-reduces a step (101, asserted); each
+   rank's peak memory (both below 80 GB together); each rank's median
+   step ms, staged through the host by gloo and no tensor-parallel speed
+   figure.  Then one step more, rank 0's under the profiler with each
+   GEMM product in a range of its own: no device kernel named
+   ``gemm_simt``, and no library GEMM op (``aten::mm``, ``bmm`` and the
+   like) dispatched inside a product's range, asserted (the attention's
+   torch ops run their own library GEMMs, outside those ranges).  Its
+   GEMM launches join the ``kernels`` line as ``tp_train_launches``.
+22. Print each phase's seconds (a ``[phases]`` line), the ``kernels``
    JSON line (20a's counted steps among the paths; each kernel's
    launches from its own
    path's serving run, the int8 kernels' from phase 8e's (the int8
@@ -402,7 +428,8 @@ Phases, in order; any failure raises and exits non-zero:
    beside, the GEMM's forward and backward launches of a training step
    as ``train_launches``, of 17c's as ``mla_train_launches``, of 18c's
    as ``ssm_train_launches``, ``hybrid_train_launches`` and
-   ``audio_train_launches``), the card line, and last the result line
+   ``audio_train_launches``, of 21's rank 0 as ``tp_train_launches``),
+   the card line, and last the result line
    ``{"ok": true, "device": {...}}``.
 """
 import argparse
@@ -5414,6 +5441,7 @@ def phase_ssm_training(torch, args, rows, card, dev):
 
 # ---------------------------------------------------------------- phase 19
 MESH_SERVE = (8, 256, 16)       # 19c: slots, prompt tokens, greedy steps
+MESH_TRAIN_STEPS = 10           # 19a: steps a run (bit for bit needs few)
 
 
 COLLECTIVE_OPS = re.compile(r"^c10d::(allreduce|allgather)", re.I)
@@ -5449,11 +5477,11 @@ def _mesh_train(torch, args, card, dev, mesh):
     for name, m in (("mesh", mesh), ("meshless", None)):
         shutil.rmtree(root, ignore_errors=True)
         tr = Trainer(run, TrainerConfig(
-            ckpt_dir=str(root), ckpt_every=TRAIN_STEPS + 1, keep=1,
+            ckpt_dir=str(root), ckpt_every=MESH_TRAIN_STEPS + 1, keep=1,
             seed=args.seed, **TRAIN_LR), device=dev, mesh=m)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        out = tr.train(TRAIN_STEPS)
+        out = tr.train(MESH_TRAIN_STEPS)
         peak = torch.cuda.max_memory_allocated() / 1e9
         step_ms = [r["s"] * 1e3 for r in tr.metrics_log]
         state = tr.init_state()
@@ -5469,6 +5497,8 @@ def _mesh_train(torch, args, card, dev, mesh):
             torch.cuda.synchronize()
         kern = _device_kernels(torch, prof)
         calls, n_coll, coll_ms = _collectives(torch, prof, kern)
+        if m is not None:
+            tr_extent = tr.built.tensor_parallel
         res[name] = {"losses": out["losses"], "step_ms": step_ms,
                      "median_step_ms": statistics.median(step_ms[1:]),
                      "peak_mem_gb": peak,
@@ -5481,10 +5511,13 @@ def _mesh_train(torch, args, card, dev, mesh):
         torch.cuda.empty_cache()
     shutil.rmtree(root, ignore_errors=True)
     res["losses_equal"] = res["mesh"]["losses"] == res["meshless"]["losses"]
+    res["tensor_parallel"] = tr_extent
     res["card"] = card
     print("[mesh_train] " + json.dumps(res), flush=True)
-    require(len(res["mesh"]["losses"]) == TRAIN_STEPS,
+    require(len(res["mesh"]["losses"]) == MESH_TRAIN_STEPS,
             f"mesh train: {len(res['mesh']['losses'])} steps")
+    require(tr_extent == 1, f"mesh train: a model extent of {tr_extent} on "
+            "one rank")
     require(res["losses_equal"], "mesh train: the one-rank mesh's losses "
             "differ from the local Trainer's")
     for name in ("mesh", "meshless"):
@@ -5619,6 +5652,9 @@ DRY_PEAK_RTOL = 0.10
 DRY_CELLS = (("qwen2_0_5b", "train_4k", "single"),
              ("qwen2_moe_a2_7b", "train_4k", "multi"))
 DRY_OUT = Path(__file__).resolve().parent / "build" / "dryrun_smoke"
+# the cells whose layers split over ``model`` (the dense family: the MLP
+# and the vocabulary over 16; its 14 heads do not divide), and the extent
+DRY_TP = {"qwen2_0_5b.train_4k.single": 16}
 
 
 def start_dry_cells():
@@ -5777,6 +5813,10 @@ def phase_dryrun(torch, args, card, dev, cells):
             {**rec, "seconds": rec["build_s"] + rec["count_s"],
              "card": card}), flush=True)
         require(rec["status"] == "ok", f"dry run: {name} {rec['status']}")
+        if name in DRY_TP:
+            require(rec.get("tensor_parallel") == DRY_TP[name],
+                    f"dry run: {name} ran with a model extent of "
+                    f"{rec.get('tensor_parallel')}, not {DRY_TP[name]}")
         res[name] = rec
     secs["cells (waited)"] = time.perf_counter() - t
     print(f"[dryrun] seconds {json.dumps(secs)} total_memory {total}",
@@ -5806,6 +5846,303 @@ def phase_mesh(torch, args, card, dev):
     finally:
         dist.destroy_process_group()
     print(f"[mesh] seconds {json.dumps(secs)}", flush=True)
+    return res
+
+
+# ---------------------------------------------------------------- phase 21
+TP_RANKS = 2
+TP_STEPS = 5
+TP_LOSS_RTOL = 1e-3
+TP_DIR = Path(__file__).resolve().parent / "build" / "tp_smoke"
+TP_GB = 80.0                    # the two ranks' peaks together, at most
+
+
+def _tp_batches(torch, cfg, seed):
+    """21's batches: the corpus's first ``TP_STEPS`` at 15c's shape and
+    seed, on the host."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticCorpus
+    corpus = SyntheticCorpus(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+        global_batch=TRAIN_BATCH, seed=seed))
+    return [{k: torch.from_numpy(v) for k, v in corpus.batch(i).items()}
+            for i in range(TP_STEPS)]
+
+
+def _tp_run(torch, step, state, batches, dev, each=None):
+    """(the state after, losses, seconds a step) of ``step`` over
+    ``batches``; ``each(i)`` is called before step i."""
+    losses, secs = [], []
+    for i, b in enumerate(batches):
+        if each is not None:
+            each(i)
+        b = {k: v.to(dev) for k, v in b.items()}
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, m = step(state, b)
+        losses.append(float(m["loss"]))
+        secs.append(time.perf_counter() - t)
+    return state, losses, secs
+
+
+def _tp_widths(cfg, m):
+    """{leaf name within a layer, or ``embed``: (K, N) of the B operand
+    its forward product reads} over a model extent of ``m``: N / m for a
+    column-parallel leaf, K / m for a row-parallel one, where the
+    leaf's heads, columns or vocabulary divide over ``m``."""
+    d, H, KH = cfg.d_model, cfg.n_heads, cfg.n_kv_heads
+    hd, f, V = cfg.resolved_head_dim, cfg.d_ff, cfg.padded_vocab
+
+    def local(n, count):
+        return n // m if count % m == 0 else n
+
+    q, kv = local(H * hd, H), local(KH * hd, KH)
+    return {"attn/wq": (d, q), "attn/wk": (d, kv), "attn/wv": (d, kv),
+            "attn/wo": (q, d), "mlp/wi_gate": (d, local(f, f)),
+            "mlp/wi_up": (d, local(f, f)), "mlp/wo": (local(f, f), d),
+            "embed": (d, local(V, V))}
+
+
+TP_RANGE = "tp_streaming_gemm"  # 21's profiler range around a product
+
+
+def _tp_profiled_step(torch, step, state, batch):
+    """21's step more on rank 0, under ``torch.profiler``, each streaming
+    GEMM product (forward, dA, dB) inside a ``TP_RANGE`` range: the
+    device kernels by the launch counter their names belong to
+    (``kernel_nodes.kernel_group``), those named ``gemm_simt``, the
+    library GEMM ops (``LIBRARY_OPS``) the host dispatched inside a
+    range (none may), the ranges and the step's launches, read from the
+    profiler's raw events."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.kernels import kernel_nodes as KN
+    from repro_torch.kernels import ops
+
+    fwd, bwd = ops._StreamingGemm.forward, ops._gemm_bwd
+
+    def ranged_fwd(ctx, a, b):
+        with record_function(TP_RANGE):
+            return fwd(ctx, a, b)
+
+    def ranged_bwd(a, b):
+        with record_function(TP_RANGE):
+            return bwd(a, b)
+
+    ops._StreamingGemm.forward = staticmethod(ranged_fwd)
+    ops._gemm_bwd = ranged_bwd
+    try:
+        ops.reset_launches()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            state, _ = step(state, batch)
+            torch.cuda.synchronize()
+        launches, gemm_bwd = dict(ops.LAUNCHES), dict(ops.GEMM_BWD)
+    finally:
+        ops._StreamingGemm.forward, ops._gemm_bwd = staticmethod(fwd), bwd
+    groups, simt, ranges, host = {}, 0, [], []
+    for e in prof.profiler.kineto_results.events():
+        name = e.name()
+        if e.device_type() == DeviceType.CUDA:
+            if e.duration_ns() <= 0 or name == TP_RANGE:
+                continue
+            name = torch._C._demangle(name)
+            grp = KN.kernel_group(name)
+            groups[grp] = groups.get(grp, 0) + 1
+            simt += "gemm_simt" in name
+        elif name == TP_RANGE:
+            ranges.append((e.start_ns(), e.start_ns() + e.duration_ns()))
+        elif name in LIBRARY_OPS:
+            host.append((e.start_ns(), name))
+    inside = sorted({n for t, n in host
+                     if any(a <= t <= b for a, b in ranges)})
+    return state, {"device_kernels": groups, "gemm_simt_kernels": simt,
+                   "gemm_ranges": len(ranges),
+                   "library_ops_in_gemm_ranges": inside,
+                   "library_ops_elsewhere": len(host),
+                   "launches": {"forward": launches["streaming_gemm"]
+                                - gemm_bwd["launches"],
+                                "backward": gemm_bwd["launches"]}}
+
+
+def _tp_rank(rank, seed, out):
+    """One rank of phase 21, a spawned process: the (1, 2) gloo mesh's
+    train step on the shared card, its first step's GEMMs recorded by
+    the leaf they read, its all-reduces counted a step, its launches,
+    losses, step seconds and peak memory saved for the parent; then one
+    step more, on rank 0 under the profiler (``_tp_profiled_step``)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.checkpoint.checkpoint import _flatten
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RunConfig, ShapeConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps as S
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.models.model import Model
+    from repro_torch.sharding import blocks as BL
+
+    out = Path(out)
+    dist.init_process_group("gloo", store=dist.FileStore(
+        str(out / "store"), TP_RANKS), rank=rank, world_size=TP_RANKS)
+    try:
+        mesh = make_host_mesh(1, TP_RANKS, device="cuda", backend="gloo")
+        dev = torch.device("cuda", torch.cuda.current_device())
+        cfg = get_config(TRAIN_ARCH)
+        run = RunConfig(model=cfg, shape=ShapeConfig(
+            "train", "train", TRAIN_SEQ, TRAIN_BATCH), remat="none")
+        built = S.build_train_step(run, mesh, **TRAIN_LR)
+        g = torch.Generator(device=dev).manual_seed(seed)
+        state = S.init_sharded_state(built, Model(cfg, device=dev).init(g))
+        torch.cuda.empty_cache()
+        leaf = {t.untyped_storage().data_ptr(): "/".join(p)
+                for p, t in _flatten(T.trainable(state["params"]))}
+        log = {"fwd": [], "bwd": [], "all_reduces": [], "on": False}
+        fwd, bwd, ar = (ops._StreamingGemm.forward, ops._gemm_bwd,
+                        BL.all_reduce)
+
+        def rec_fwd(ctx, a, b):
+            if log["on"]:
+                log["fwd"].append((leaf.get(b.untyped_storage().data_ptr(),
+                                            "?"), a.shape[0], b.shape[1],
+                                   a.shape[1]))
+            return fwd(ctx, a, b)
+
+        def rec_bwd(a, b):
+            if log["on"]:
+                log["bwd"].append((a.shape[0], b.shape[1], a.shape[1]))
+            return bwd(a, b)
+
+        def rec_ar(t, group, *op):
+            log["all_reduces"][-1] += 1
+            return ar(t, group, *op)
+
+        def each(i):
+            log["on"] = i == 0
+            log["all_reduces"].append(0)
+
+        ops._StreamingGemm.forward = staticmethod(rec_fwd)
+        ops._gemm_bwd, BL.all_reduce = rec_bwd, rec_ar
+        ops.reset_launches()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        batches = _tp_batches(torch, cfg, seed)
+        state, losses, secs = _tp_run(torch, built.fn, state, batches, dev,
+                                      each)
+        res = {"losses": losses, "step_s": secs,
+               "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "launches": dict(ops.LAUNCHES), "gemm_bwd": dict(ops.GEMM_BWD),
+               "fwd": log["fwd"], "bwd": log["bwd"],
+               "all_reduces": log["all_reduces"],
+               "tensor_parallel": built.tensor_parallel}
+        ops._StreamingGemm.forward = staticmethod(fwd)
+        ops._gemm_bwd, BL.all_reduce = bwd, ar
+        batch = {k: v.to(dev) for k, v in batches[0].items()}
+        if rank == 0:
+            res["profile"] = _tp_profiled_step(torch, built.fn, state,
+                                               batch)[1]
+        else:
+            built.fn(state, batch)
+        torch.cuda.synchronize()
+        torch.save(res, out / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_tp(torch, args, card, dev, rows):
+    """21. Tensor parallelism on one card (module docstring); prints its
+    line and its seconds."""
+    import shutil
+    import torch.multiprocessing as mp
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RunConfig, ShapeConfig
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.models import transformer as T
+    from repro_torch.models.model import Model
+    from repro_torch.optim import get_optimizer
+
+    secs = {}
+    t = time.perf_counter()
+    cfg = get_config(TRAIN_ARCH)
+    batches = _tp_batches(torch, cfg, args.seed)
+    run = RunConfig(model=cfg, shape=ShapeConfig(
+        "train", "train", TRAIN_SEQ, TRAIN_BATCH), remat="none")
+    g = torch.Generator(device=dev).manual_seed(args.seed)
+    params = T.trainable(Model(cfg, device=dev).init(g))
+    state = {"params": params, "opt": get_optimizer("adamw").init(params)}
+    _, want, _ = _tp_run(torch, build_train_step(run, dev, **TRAIN_LR),
+                         state, batches, dev)
+    del state, params
+    torch.cuda.empty_cache()
+    secs["one rank"] = time.perf_counter() - t
+
+    t = time.perf_counter()
+    shutil.rmtree(TP_DIR, ignore_errors=True)
+    TP_DIR.mkdir(parents=True)
+    mp.start_processes(_tp_rank, args=(args.seed, str(TP_DIR)),
+                       nprocs=TP_RANKS, join=True, start_method="spawn")
+    ranks = [torch.load(TP_DIR / f"rank{r}.pt", weights_only=False)
+             for r in range(TP_RANKS)]
+    shutil.rmtree(TP_DIR, ignore_errors=True)
+    secs["two ranks"] = time.perf_counter() - t
+    r0 = ranks[0]
+    widths = _tp_widths(cfg, TP_RANKS)
+    got = {}
+    for path, M, N, K in r0["fwd"]:
+        key = path.split("/", 2)[2] if path.startswith("layers/") else path
+        got.setdefault(key, set()).add((K, N))
+    fwd = r0["launches"]["streaming_gemm"] - r0["gemm_bwd"]["launches"]
+    res = {"config": cfg.name, "mesh": [1, TP_RANKS], "backend": "gloo",
+           "tensor_parallel": r0["tensor_parallel"],
+           "tokens_a_step": TRAIN_SEQ * TRAIN_BATCH, "steps": TP_STEPS,
+           "losses": r0["losses"], "one_rank_losses": want,
+           "max_loss_rel": max(abs(a - b) / abs(b)
+                               for a, b in zip(r0["losses"], want)),
+           "peak_gb": [r["peak_gb"] for r in ranks],
+           "gemm_launches": {"forward": fwd,
+                             "backward": r0["gemm_bwd"]["launches"]},
+           "forward_mnk": sorted({(M, N, K) for _, M, N, K in r0["fwd"]}),
+           "backward_mnk": sorted(set(r0["bwd"])),
+           "leaf_kn": {k: sorted(v) for k, v in sorted(got.items())},
+           "profiled_step_rank0": r0["profile"],
+           "all_reduces_a_step": r0["all_reduces"],
+           "median_step_ms_gloo_staged": [
+               statistics.median(r["step_s"][1:]) * 1e3 for r in ranks],
+           "note": "step ms: every all-reduce staged through the host by "
+                   "gloo; not a tensor-parallel speed figure",
+           "seconds": secs, "card": card}
+    print("[tp_train] " + json.dumps(res), flush=True)
+    require(res["tensor_parallel"] == TP_RANKS,
+            f"tp: the step split over {res['tensor_parallel']} ranks")
+    require(all(r["losses"] == r0["losses"] for r in ranks),
+            "tp: the ranks' losses differ")
+    require(len(want) == TP_STEPS and res["max_loss_rel"] <= TP_LOSS_RTOL,
+            f"tp: losses {r0['losses']} against one rank's {want}")
+    require(got == {k: {v} for k, v in widths.items()},
+            f"tp: forward GEMM widths {res['leaf_kn']}, want {widths}")
+    per = cfg.n_layers * 7 + 1
+    require(fwd == per * TP_STEPS
+            and r0["gemm_bwd"]["launches"] == 2 * per * TP_STEPS,
+            f"tp: GEMM launches {res['gemm_launches']}")
+    prof = r0["profile"]
+    require(prof["device_kernels"].get("streaming_gemm", 0) > 0,
+            f"tp: the profiled step recorded no GEMM kernel {prof}")
+    require(prof["gemm_simt_kernels"] == 0,
+            f"tp: {prof['gemm_simt_kernels']} kernels on gemm_simt")
+    require(prof["gemm_ranges"] == 3 * per
+            and prof["launches"] == {"forward": per, "backward": 2 * per}
+            and not prof["library_ops_in_gemm_ranges"],
+            f"tp: the profiled step's products {prof}")
+    # per layer two forward sums and two input-gradient sums; the lookup;
+    # the cross-entropy's max, (sum, gold) and hidden-state gradient a
+    # chunk; the clipping norm
+    ar = 4 * cfg.n_layers + 1 + 3 * (TRAIN_SEQ // run.ce_chunk) + 1
+    require(all(n == ar for n in r0["all_reduces"]),
+            f"tp: all-reduces a step {r0['all_reduces']}, want {ar}")
+    require(sum(res["peak_gb"]) < TP_GB, f"tp: peaks {res['peak_gb']} GB")
+    rows["streaming_gemm"]["tp_train_launches"] = res["gemm_launches"]
+    res["launches"] = r0["launches"]
     return res
 
 
@@ -5883,6 +6220,8 @@ def main():
     lap("19 mesh")
     dry = phase_dryrun(torch, args, card, dev, dry_cells)
     lap("20 dry run")
+    tp = phase_tp(torch, args, card, dev, rows)
+    lap("21 tensor parallel")
     print(f"[phases] seconds {json.dumps(laps)}", flush=True)
 
     # launches: each kernel's count from its own main path's serving run
@@ -5910,6 +6249,7 @@ def main():
     paths[f"{cfg.name} counted steps"] = {
         k: sum(r["launches"].get(k, 0) for r in dry["counts"].values())
         for k in ops.LAUNCHES}
+    paths[f"{cfg.name} tp train (1, 2) rank 0"] = tp["launches"]
     own = {"streaming_gemm_grouped": MOE_ARCH,
            "paged_latent_attention": deepseek["config"],
            "paged_attention_int8": int8_path, "kv_quantize": int8_path,

@@ -20,7 +20,11 @@ def gemm_ref(a, b, out_dtype=None):
     wrap like the reference's ``astype``)."""
     out_dtype = out_dtype or a.dtype
     if a.dtype.is_floating_point:
-        return (a.float() @ b.float()).to(out_dtype)
+        # both operands in one layout: a strided view (``embed.T``) and
+        # its contiguous copy give the same bits on any BLAS, which picks
+        # its kernel by the operands' strides
+        return (a.float().contiguous() @ b.float().contiguous()).to(
+            out_dtype)
     # int64 products of int8 values sum exactly, like the reference's
     # int32 accumulator at these sizes; CUDA has no integer matmul, so
     # this plain version always sums on the host

@@ -24,10 +24,13 @@ of ops the step dispatches.
 Cells:
 
 - ``train``: as the reference, a model over 3e10 parameters defaults to
-  Adafactor.  On a mesh that splits the batch rows over more than one
-  rank an MoE model runs the row-local dispatch (``moe_local_dispatch``,
-  recorded as ``moe_dispatch``): the global one raises there (ROADMAP
-  14g).
+  Adafactor.  ``tensor_parallel`` is the ``model`` extent over which the
+  dense and vlm families' layers split their leaves
+  (``steps.tensor_parallel_leaves``), or 1: the counts are then rank
+  0's, computing with its ``model`` blocks.  On a mesh that splits the
+  batch rows over more than one rank an MoE model runs the row-local
+  dispatch (``moe_local_dispatch``, recorded as ``moe_dispatch``): the
+  global one raises there (ROADMAP 14g).
 - ``prefill`` / ``decode``: the port serves on one rank only (ROADMAP
   14f), so on a mesh of more ranks these cells are recorded as
   skipped with that reason.  On one rank the prefill step is counted
@@ -107,16 +110,22 @@ def cell_step(run, mesh, device="meta"):
     weights and the prompts (prefill), the weights, a prefilled cache and
     one token a slot (decode); ``args[donated]`` is donated."""
     if run.shape.kind == "train":
-        built = steps.build_train_step(run, mesh, device=device)
-        (astate, abatch), (s_pl, b_pl) = built.abstract_inputs, \
-            built.in_shardings
-        return built.fn, (BL.local_zeros(astate, s_pl, mesh, device),
-                          BL.local_zeros(abatch, b_pl, mesh, device)), 0
+        built, args = _train_cell(run, mesh, device)
+        return built.fn, args, 0
     if run.shape.kind == "prefill":
         built = steps.build_prefill_step(run, mesh, device=device)
         return built.fn, tuple(zeros_tree(t, device)
                                for t in built.abstract_inputs), 0
     return _decode(run, mesh, device)
+
+
+def _train_cell(run, mesh, device):
+    """(the train step's ``BuiltStep``, its arguments on rank 0)."""
+    built = steps.build_train_step(run, mesh, device=device)
+    (astate, abatch), (s_pl, b_pl) = built.abstract_inputs, \
+        built.in_shardings
+    return built, (BL.local_zeros(astate, s_pl, mesh, device),
+                   BL.local_zeros(abatch, b_pl, mesh, device))
 
 
 def _decode(run, mesh, device):
@@ -176,7 +185,12 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
                     **overrides)
 
     t0 = time.time()
-    fn, args, donated = cell_step(run, mesh)
+    if shape.kind == "train":
+        built, args = _train_cell(run, mesh, "meta")
+        fn, donated = built.fn, 0
+        rec["tensor_parallel"] = built.tensor_parallel
+    else:
+        fn, args, donated = cell_step(run, mesh)
     build_s = time.time() - t0
     t0 = time.time()
     _, costs, mem = count(fn, args, donated)

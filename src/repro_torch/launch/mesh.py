@@ -9,7 +9,10 @@ its own process group when the process has none (an in-process
 (``torch.distributed.init_process_group`` with an address, a world size
 and a rank), whose world size must equal the mesh's rank count.  NCCL
 cannot put two ranks on one card, so a one-card machine runs a one-rank
-mesh; meshes of more ranks run on the CPU through gloo.
+mesh; meshes of more ranks run on the CPU through gloo.  ``backend=
+"gloo"`` on the card is the one exception: several processes sharing
+one card, their collectives staged through the host (a correctness
+check of tensor parallelism on one card, not a speed figure).
 
 ``make_production_mesh`` is a plan only (``sharding.blocks.MeshPlan``):
 the reference's (16, 16) and (2, 16, 16) shapes and axis names, with no
@@ -37,16 +40,19 @@ def make_production_mesh(multi_pod: bool = False) -> MeshPlan:
 
 
 def make_host_mesh(data: int = 1, model: int = 1, pod: int = 0,
-                   device="cuda"):
+                   device="cuda", backend=None):
     """A ``DeviceMesh`` of (pod,) data x model ranks on ``device``'s
-    backend (module docstring).  Raises without a card unless
-    ``device="cpu"``, and when the process group's world size is not
-    the mesh's rank count."""
+    backend (module docstring): ``backend`` None takes NCCL on the card
+    and gloo on the CPU; ``"gloo"`` takes gloo on either.  Raises
+    without a card unless ``device="cpu"``, and when the process group's
+    world size is not the mesh's rank count."""
     dev = resolve_device(device)
     shape, names = ((pod, data, model), ("pod", "data", "model")) if pod \
         else ((data, model), ("data", "model"))
     n = math.prod(shape)
-    backend = "nccl" if dev.type == "cuda" else "gloo"
+    if backend not in (None, "gloo"):
+        raise ValueError(f"backend {backend!r}: None or 'gloo'")
+    backend = backend or ("nccl" if dev.type == "cuda" else "gloo")
     if not dist.is_initialized():
         if n != 1:
             raise ValueError(

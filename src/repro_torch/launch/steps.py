@@ -13,16 +13,29 @@ device instead of a mesh, ``build_train_step(run, device)`` returns the
 bare ``fn`` of the same step on the local one-rank layout
 (``sharding.blocks.ONE_RANK``: nothing split, no process group).
 
-The train step is sharded data parallelism over the placements: each
+The train step is sharded data parallelism over the placements, with
+tensor parallelism over ``model`` in the dense and vlm families: each
 rank holds its block of every parameter, optimizer-state and
 error-feedback leaf (``state = {"params", "opt"}``, and ``"ef"`` with
 gradient compression), and its rows of the batch (split over the axes
 the ``batch`` placement gives, ``("pod", "data")`` by default; the
-``model`` ranks of one data index take the same rows and compute the
-same).  A step
+``model`` ranks of one data index take the same rows).
 
-1. gathers the whole bf16 weights on each rank (``blocks.gather``; a
-   leaf no placement splits is used as it is);
+In the dense and vlm families a weight leaf whose placement splits a
+dim over a ``model`` of more than one rank (``heads`` / ``kv_heads`` of
+the attention, ``mlp``, ``vocab``) is read by a tensor-parallel layer
+(``sharding.tensor_parallel``): the rank computes with its ``model``
+block, and the layers' all-reduces over ``model`` make the activations
+and the loss those of the whole model on every rank
+(``tensor_parallel_leaves``).  A layer whose leaves no placement splits
+over ``model`` (14 heads on 16 ranks) runs whole on every rank.  Every
+other family gathers every leaf whole, and every rank runs every GEMM
+whole.  A step
+
+1. gathers the bf16 weights on each rank (``blocks.gather``; a leaf no
+   placement splits is used as it is): with AdamW a tensor-parallel
+   leaf over the placement's other axes only (its ``model`` block,
+   whole over ``data`` / ``pod``), every other leaf whole;
 2. takes the loss and its gradients by autograd (``loss_and_grads``;
    every GEMM's backward products on the streaming GEMM kernel).  When
    the batch rows are split over more than one rank, what is
@@ -32,14 +45,24 @@ same).  A step
    take over the whole batch (``models.moe``); the gradients are then
    summed over the batch ranks in fp32 (one ``all_reduce`` of one flat
    buffer), which gives the gradient of the whole batch.  On one rank
-   no collective runs and the gradients stay in the weights' dtypes;
+   no collective runs and the gradients stay in the weights' dtypes.
+   The K/V leaves of an attention whose query heads ``model`` splits
+   and whose KV heads it does not (``partial_kv_leaves``) get each
+   rank's share of their gradient, summed over ``model`` in fp32 (one
+   more ``all_reduce``);
 3. runs INT8 compression with error feedback, when
    ``run.gradient_compression``, on the whole gradient with the gathered
-   error feedback, so its codes are those of one device;
+   error feedback, so its codes are those of one device (the
+   tensor-parallel leaves' gradients gathered whole over ``model``
+   before the batch ranks' sum, one ``all_gather``);
 4. updates: AdamW each rank's blocks in place, with the clipping factor
-   of the whole gradient; Adafactor whole leaves from the gathered
-   slots (its factored statistics and update clipping reduce over whole
-   stacked leaves), each rank keeping its blocks;
+   of the whole gradient (the squares of ``model`` blocks summed over
+   ``model``); Adafactor whole leaves from the gathered slots (its
+   factored statistics and update clipping reduce over whole stacked
+   leaves; the weights are gathered whole at step 1 and a
+   tensor-parallel layer reads its ``model`` block as a view, the
+   gradients gathered whole over ``model`` as for compression), each
+   rank keeping its blocks;
 5. makes an MLA model's absorbed copies of ``wuk`` / ``wuv``
    (``transformer.DERIVED``) again from the gathered updated weights,
    so that a model trained and then served decodes with its trained
@@ -50,9 +73,9 @@ same).  A step
 ``metrics`` holds ``ce``, ``aux`` (and ``mtp`` for a config with an MTP
 head), ``loss``, ``lr`` and ``grad_norm`` as scalar tensors on the
 device, the global values on every rank.  The run's chunk knobs are the
-model's ``Tuning`` while the step runs.  The compute along ``model`` is
-replicated in this slice: every rank runs every GEMM whole.  What the
-mesh shards is the state.
+model's ``Tuning`` while the step runs.  The state's placements are the
+same with and without tensor parallelism, so checkpoints and their
+restore onto another mesh do not change.
 
 The prefill and decode steps run ``Model.prefill`` / ``decode_step``
 over a paged cache the prefill step makes (slots ``arange(B)``, room
@@ -95,6 +118,9 @@ class BuiltStep:
     donate_argnums: tuple = ()
     mesh: Any = None
     cfg: Any = None              # the model's config
+    # the model extent a tensor-parallel layer splits its leaves over
+    # (``tensor_parallel_leaves``), or 1
+    tensor_parallel: int = 1
 
 
 def run_tuning(run: RunConfig) -> TU.Tuning:
@@ -189,6 +215,54 @@ def per_rank_bytes(built: BuiltStep) -> int:
 # =====================================================================
 # train
 # =====================================================================
+TP_FAMILIES = ("dense", "vlm")
+
+
+def tensor_parallel_leaves(cfg, w_pl, mesh):
+    """Per leaf of the trainable weights' placement ``w_pl``: True where a
+    tensor-parallel layer reads the leaf's ``model`` block (module
+    docstring): a dense or vlm model, a ``model`` of more than one rank,
+    and a placement that splits a dim over it."""
+    on = cfg.family in TP_FAMILIES and \
+        BL.mesh_shape_dict(mesh).get("model", 1) > 1
+    return tree_map(lambda spec: on and any(
+        "model" in BL.dim_axes(e) for e in spec), w_pl)
+
+
+def partial_kv_leaves(tp):
+    """Per leaf of ``tensor_parallel_leaves``' tree: True for the K/V
+    leaves (``wk``, ``wv``, ``bk``, ``bv``) of an attention whose query
+    heads are split and whose KV heads are not: each rank's gradient of
+    them is its query heads' share."""
+    if isinstance(tp, list):
+        return [partial_kv_leaves(t) for t in tp]
+    if not isinstance(tp, dict):
+        return False
+    out = {k: partial_kv_leaves(v) for k, v in tp.items()}
+    if tp.get("wq") is True and tp.get("wk") is False:
+        out.update({k: True for k in ("wk", "wv", "bk", "bv") if k in tp})
+    return out
+
+
+def _gather_split(tree, flags, placement, mesh, axes, rest_whole=False):
+    """``tree`` with the leaves where ``flags`` is True gathered over
+    ``axes`` and, with ``rest_whole``, the others whole over every axis
+    (``blocks.gather``; one call for each set)."""
+    leaves, marks = tree_leaves(tree), BL.tree_leaves_of(flags, tree)
+    specs = BL.tree_leaves_of(placement, tree)
+    out = list(leaves)
+    for want, ax in ((True, axes), (False, None)):
+        if not (want or rest_whole):
+            continue
+        at = [i for i, m in enumerate(marks) if m is want]
+        got = BL.gather([leaves[i] for i in at], [specs[i] for i in at],
+                        mesh, ax)
+        for i, g in zip(at, got):
+            out[i] = g
+    it = iter(out)
+    return tree_map(lambda _: next(it), tree)
+
+
 def loss_and_grads(model: Model, params, batch, objective=None):
     """((loss, metrics), grads): the gradients congruent with
     ``transformer.trainable(params)`` (the reference's leaves, without
@@ -254,16 +328,38 @@ def build_train_step(run: RunConfig, mesh=None, lr_base: float = 3e-4,
     split = _batch_split(batch_pl)
     group = BL.axis_group(mesh, split) if split else None
     w_pl = T.trainable(state_pl["params"])
+    tp = tensor_parallel_leaves(cfg, w_pl, mesh)
+    tp_on = any(tree_leaves(tp))
+    ms = BL.mesh_shape_dict(mesh)
+    rest = tuple(a for a in ms if a != "model")
+    m_group = BL.axis_group(mesh, "model") if tp_on else None
+    partial = partial_kv_leaves(tp)
+    gather_grads = run.gradient_compression or not opt.elementwise
 
     def train_step(state, batch):
         BL.require_runnable(mesh, "train step", tree_leaves(state)[0])
         weights = T.trainable(state["params"])
-        whole = BL.gather_tree(weights, w_pl, mesh)
+        if tp_on and opt.elementwise:
+            whole = _gather_split(weights, tp, w_pl, mesh, rest, True)
+        else:       # whole for the update; a layer reads its model block
+            whole = full = BL.gather_tree(weights, w_pl, mesh)
+            if tp_on:
+                whole = tree_map(lambda w, spec, t: BL.local_slice(
+                    w, spec, mesh, axes=("model",)) if t else w,
+                    full, w_pl, tp)
+        # the split gradients gathered whole over ``model`` (before the
+        # batch ranks' sum, in the weights' dtype) where the update or the
+        # compression reads whole leaves
+        whole_grads = (lambda g: _gather_split(g, tp, w_pl, mesh, (
+            "model",))) if tp_on and gather_grads else (lambda g: g)
         if group is None:
             (loss, metrics), grads = loss_and_grads(model, whole, batch)
+            grads = whole_grads(grads)
         else:
-            loss, metrics, grads = _split_loss_and_grads(model, whole,
-                                                         batch, group)
+            loss, metrics, grads = _split_loss_and_grads(
+                model, whole, batch, group, whole_grads)
+        if tp_on:
+            grads = _sum_partial(grads, partial, m_group)
         new_state = dict(state)
         if run.gradient_compression:
             ef = BL.gather_tree(state["ef"], state_pl["ef"], mesh)
@@ -271,17 +367,20 @@ def build_train_step(run: RunConfig, mesh=None, lr_base: float = 3e-4,
             new_state["ef"] = BL.shard_tree(ef, state_pl["ef"], mesh)
         lr = lr_fn(state["opt"]["step"])
         if opt.elementwise:
-            clip = clip_scale(grads, opt.clip_norm)
-            mine = tree_map(lambda g, spec: BL.local_slice(g, spec, mesh),
-                            grads, w_pl)
+            local = tp_on and not gather_grads
+            clip = clip_scale(grads, opt.clip_norm,
+                              (tp, m_group) if local else None)
+            mine = tree_map(lambda g, spec, t: BL.local_slice(
+                g, spec, mesh, axes=rest if local and t else None),
+                grads, w_pl, tp)
             _, new_state["opt"], om = opt.update(mine, state["opt"],
                                                  weights, lr, clip=clip)
         else:
             o_pl = state_pl["opt"]
             whole_opt = {**state["opt"], "slots": BL.gather_tree(
                 state["opt"]["slots"], o_pl["slots"], mesh)}
-            _, whole_opt, om = opt.update(grads, whole_opt, whole, lr)
-            _keep_blocks(weights, whole, w_pl, mesh)
+            _, whole_opt, om = opt.update(grads, whole_opt, full, lr)
+            _keep_blocks(weights, full, w_pl, mesh)
             _keep_blocks(state["opt"]["slots"], whole_opt["slots"],
                          o_pl["slots"], mesh)
             new_state["opt"] = {**state["opt"], "step": whole_opt["step"]}
@@ -294,7 +393,8 @@ def build_train_step(run: RunConfig, mesh=None, lr_base: float = 3e-4,
         in_shardings=(state_pl, batch_pl),
         out_shardings=(state_pl, None),
         abstract_inputs=(astate, ainputs), donate_argnums=(0,), mesh=mesh,
-        cfg=cfg)
+        cfg=cfg,
+        tensor_parallel=ms.get("model", 1) if tp_on else 1)
 
 
 def mesh_device(mesh, device=None) -> torch.device:
@@ -319,10 +419,11 @@ def _batch_split(pl_batch):
     return BL.dim_axes(pl_batch["labels"][0])
 
 
-def _split_loss_and_grads(model, whole, batch, group):
+def _split_loss_and_grads(model, whole, batch, group, prepare):
     """(loss, metrics, grads) of the whole batch from this rank's rows,
     the batch rows split over the ranks of ``group`` (module docstring,
-    step 2): the gradients fp32, the metrics the global ones."""
+    step 2): the gradients fp32 (``prepare(grads)`` summed), the metrics
+    the global ones."""
     labels = batch["labels"]
     counts = torch.stack([(labels >= 0).sum(),
                           (labels[:, 1:] >= 0).sum()]).float()
@@ -337,6 +438,7 @@ def _split_loss_and_grads(model, whole, batch, group):
         return out
 
     (_, metrics), grads = loss_and_grads(model, whole, batch, objective)
+    grads = prepare(grads)
     it = iter(_flat_all_reduce(tree_leaves(grads), group))
     grads = tree_map(lambda _: next(it), grads)
     parts = [metrics["ce"] * share[0]]
@@ -362,6 +464,20 @@ def _flat_all_reduce(tensors, group):
         out.append(flat[at:at + t.numel()].view(t.shape))
         at += t.numel()
     return out
+
+
+def _sum_partial(grads, partial, group):
+    """``grads`` with the leaves where ``partial`` is True summed over
+    ``group`` in fp32 (one ``all_reduce`` of one flat buffer), when
+    there are any."""
+    leaves, marks = tree_leaves(grads), BL.tree_leaves_of(partial, grads)
+    at = [i for i, m in enumerate(marks) if m]
+    if not at:
+        return grads
+    for i, g in zip(at, _flat_all_reduce([leaves[i] for i in at], group)):
+        leaves[i] = g
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), grads)
 
 
 def _keep_blocks(local, whole, placement, mesh):

@@ -14,6 +14,15 @@ RoPE compute in fp32 and cast back, GEMMs accumulate in fp32 and return
 the activation dtype.  PyTorch refuses mixed-dtype arithmetic where JAX
 promotes, so casts are explicit.
 
+Under a mesh whose ``model`` axis splits a layer's leaves (the train
+step of the dense and vlm families, ``launch.steps``), ``qkv_proj``,
+``out_proj``'s callers in training and ``apply_mlp`` run on this
+rank's blocks, as ``sharding.tensor_parallel`` sets out: the heads or
+the MLP columns of the rank, the input through ``copy_to_model``, the
+output through ``reduce_from_model`` (a bias of the output added once,
+after it).  A layer whose leaves are whole (the head count does not
+divide over ``model``) runs whole on every rank, with no collective.
+
 ``chunked_attention`` and ``decode_attention`` are the reference's
 plain XLA attention paths.  Training runs ``chunked_attention`` as
 torch ops differentiated by autograd (``attention_train_chunked``,
@@ -34,6 +43,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import tuning as TU
 from repro_torch.models.params import PSpec
+from repro_torch.sharding import tensor_parallel as TP
 
 NEG_INF = -1e30
 
@@ -197,13 +207,19 @@ def _gemm(x, w):
 
 def apply_mlp(p, x, cfg: ModelConfig, act=None):
     """The MLP; ``act`` replaces ``apply_act`` (a function of one
-    tensor)."""
+    tensor).  Over this rank's block of the ``d_ff`` columns where
+    ``model`` splits them (module docstring)."""
     act = act or (lambda y: apply_act(y, cfg))
+    tp = TP.parallel(p["wo"].shape[0], cfg.d_ff)
+    if tp:
+        x = TP.copy_to_model(x)
     if cfg.glu:
         h = act(_gemm(x, p["wi_gate"])) * _gemm(x, p["wi_up"])
-        return _gemm(h, p["wo"])
+        y = _gemm(h, p["wo"])
+        return TP.reduce_from_model(y) if tp else y
     h = act(_gemm(x, p["wi"]) + p["bi"])
-    return _gemm(h, p["wo"]) + p["bo"]
+    y = _gemm(h, p["wo"])
+    return (TP.reduce_from_model(y) if tp else y) + p["bo"]
 
 
 # ------------------------------------------------------- GQA attention
@@ -229,11 +245,26 @@ def head_proj(w, x):
     return _gemm(x, w.reshape(x.shape[-1], -1)).unflatten(-1, w.shape[1:])
 
 
+def heads_split(p, cfg: ModelConfig) -> bool:
+    """True where ``model`` splits the attention's query heads
+    (``p["wq"]`` holds this rank's)."""
+    return TP.parallel(p["wq"].shape[1], cfg.n_heads)
+
+
 def qkv_proj(p, x, cfg: ModelConfig):
-    """x: (..., d) -> q (..., H, hd), k and v (..., KH, hd)."""
+    """x: (..., d) -> q (..., H, hd), k and v (..., KH, hd).  Where
+    ``model`` splits the query heads, q holds this rank's and k, v the
+    KV heads they read (``tensor_parallel.kv_for_heads`` where the K/V
+    leaves are whole), from x through ``copy_to_model``."""
+    tp = heads_split(p, cfg)
+    if tp:
+        x = TP.copy_to_model(x)
     q, k, v = (head_proj(p[n], x) for n in ("wq", "wk", "wv"))
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    if tp and not TP.parallel(p["wk"].shape[1], cfg.n_kv_heads):
+        k, v = TP.kv_for_heads(k, v, q.shape[-2], cfg.n_heads,
+                               cfg.n_kv_heads)
     return q, k, v
 
 
@@ -277,7 +308,9 @@ def attention_train_chunked(p, x, cfg: ModelConfig, positions, causal=True,
     ``causal=False``: full attention (an encoder layer's, and
     cross-attention's).  ``kv``: external (k, v) (B, Tk, KH, hd) for
     cross-attention (the whisper decoder over its encoder): q comes from
-    ``wq`` (plus ``bq``), no RoPE.  Returns (B, T, d)."""
+    ``wq`` (plus ``bq``), no RoPE.  Returns (B, T, d).  Where ``model``
+    splits the query heads, over this rank's (``qkv_proj``), the output
+    projection's partials summed over ``model``."""
     if kv is None:
         q, k, v = qkv_proj(p, x, cfg)
         q = apply_rope(q, positions, cfg)
@@ -287,7 +320,8 @@ def attention_train_chunked(p, x, cfg: ModelConfig, positions, causal=True,
         if cfg.qkv_bias:
             q = q + p["bq"]
         k, v = kv
-    return out_proj(p, chunked_attention(q, k, v, causal=causal))
+    out = out_proj(p, chunked_attention(q, k, v, causal=causal))
+    return TP.reduce_from_model(out) if heads_split(p, cfg) else out
 
 
 def attention_decode(p, x, cfg: ModelConfig, pools, view):

@@ -59,6 +59,7 @@ from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
 from repro_torch.models import tuning as TU
 from repro_torch.models.params import PSpec, stack
+from repro_torch.sharding import tensor_parallel as TP
 
 
 def dense_layer_pspecs(cfg: ModelConfig, cross: bool = False):
@@ -209,7 +210,20 @@ def layer_stack(params, cfg: ModelConfig) -> list:
 
 
 def embed_tokens(params, cfg: ModelConfig, tokens):
-    return params["embed"][tokens].to(torch.bfloat16)
+    """The rows of ``tokens``, in bf16; from the vocabulary split over
+    ``model`` where ``params["embed"]`` holds this rank's block of rows
+    (``tensor_parallel.embedding``)."""
+    emb = params["embed"]
+    if TP.parallel(emb.shape[0], cfg.padded_vocab):
+        return TP.embedding(emb, tokens)
+    return emb[tokens].to(torch.bfloat16)
+
+
+def _vocab_split(params, cfg: ModelConfig) -> bool:
+    """True where ``model`` splits the lm_head's vocabulary (the tied
+    ``embed``'s rows, or ``lm_head``'s columns)."""
+    w = params["embed"] if cfg.tie_embeddings else params["lm_head"].t()
+    return TP.parallel(w.shape[0], cfg.padded_vocab)
 
 
 def _attn_fwd(p, h, cfg: ModelConfig, positions, causal=True):
@@ -496,22 +510,30 @@ def chunked_ce_loss(params, cfg: ModelConfig, h, labels, t_chunk: int = 0):
     in fp32, never (B, T, V); a T that ``t_chunk`` does not divide ends
     with a shorter chunk (the reference pads it with ignored labels,
     which add nothing).  Logits of the vocabulary's padding columns are
-    masked out."""
+    masked out.  Where ``model`` splits the vocabulary, each rank makes
+    the logits of its block, from h through ``copy_to_model``, and the
+    softmax is taken over the blocks
+    (``tensor_parallel.cross_entropy``)."""
     B, T, d = h.shape
     V = cfg.padded_vocab
     t_chunk = min(t_chunk or TU.get().ce_chunk, T)
+    split = _vocab_split(params, cfg)
     pad = None
-    if V != cfg.vocab_size:
+    if V != cfg.vocab_size and not split:
         pad = torch.arange(V, device=h.device) >= cfg.vocab_size
     losses, counts = [], []
     for t0 in range(0, T, t_chunk):
         hb = h[:, t0:t0 + t_chunk].reshape(-1, d)
         lb = labels[:, t0:t0 + t_chunk].reshape(-1).long()
-        logits = lm_head(params, cfg, hb).float()
-        if pad is not None:
-            logits = logits.masked_fill(pad, L.NEG_INF)
-        lse = torch.logsumexp(logits, dim=-1)
-        gold = logits.gather(-1, lb.clamp(min=0)[:, None])[:, 0]
+        if split:
+            logits = lm_head(params, cfg, TP.copy_to_model(hb)).float()
+            lse, gold = TP.cross_entropy(logits, lb, cfg.vocab_size)
+        else:
+            logits = lm_head(params, cfg, hb).float()
+            if pad is not None:
+                logits = logits.masked_fill(pad, L.NEG_INF)
+            lse = torch.logsumexp(logits, dim=-1)
+            gold = logits.gather(-1, lb.clamp(min=0)[:, None])[:, 0]
         valid = (lb >= 0).float()
         losses.append(((lse - gold) * valid).sum())
         counts.append(valid.sum())

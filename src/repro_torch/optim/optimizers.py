@@ -22,7 +22,9 @@ On a mesh (``launch.steps``) each rank holds a block of every
 parameter and state leaf.  AdamW is ``elementwise``: a rank updates its
 blocks in place from its block of the whole reduced gradient, with the
 clipping factor taken over the whole gradient (``clip_scale``, passed
-as ``clip``).  Adafactor is not: its factored statistics and its update
+as ``clip``; where a tensor-parallel step holds only its ``model``
+block of some gradients, their squares are summed over ``model``).
+Adafactor is not: its factored statistics and its update
 clipping reduce over whole stacked leaves, so a rank updates whole
 leaves (its state gathered) and keeps its blocks.
 """
@@ -34,6 +36,7 @@ import math
 import torch
 
 from repro_torch.models.params import tree_leaves, tree_map
+from repro_torch.sharding import blocks as BL
 
 
 def cosine_schedule(base_lr: float, warmup: int, total: int):
@@ -84,14 +87,35 @@ def group_shape(leaf) -> tuple:
     return tuple(leaf.shape)
 
 
-def _global_norm(grads) -> torch.Tensor:
-    return torch.sqrt(sum(g.float().square().sum()
-                          for g in tree_leaves(grads)))
+def _global_norm(grads, split=None) -> torch.Tensor:
+    """The L2 norm of every leaf of ``grads`` together.  ``split``:
+    (a tree of bools congruent with ``grads``, a process group), where
+    a True leaf is this rank's block of one split over the group's
+    ranks: the squares of those blocks are summed over the group (one
+    all-reduce; every rank of it must call), the other leaves, whole and
+    alike on every rank, counted once."""
+    if split is None:
+        return torch.sqrt(sum(g.float().square().sum()
+                              for g in tree_leaves(grads)))
+    flags, group = split
+    pairs = []
+    tree_map(lambda g, f: pairs.append((g, f)), grads, flags)
+    whole = mine = torch.zeros((), dtype=torch.float32,
+                               device=pairs[0][0].device)
+    for g, f in pairs:
+        if f:
+            mine = mine + g.float().square().sum()
+        else:
+            whole = whole + g.float().square().sum()
+    mine = mine.reshape(1)
+    BL.all_reduce(mine, group)
+    return torch.sqrt(mine[0] + whole)
 
 
-def clip_scale(grads, max_norm: float):
-    """(scale, norm): the reference's ``_clip_by_global_norm`` factor."""
-    norm = _global_norm(grads)
+def clip_scale(grads, max_norm: float, split=None):
+    """(scale, norm): the reference's ``_clip_by_global_norm`` factor;
+    ``split`` as in ``_global_norm``."""
+    norm = _global_norm(grads, split)
     return torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0), norm
 
 

@@ -19,7 +19,12 @@ rank holds the block of each dim at its coordinates on those axes
 (``local_slice``); ``gather`` rebuilds whole leaves from every rank's
 blocks with one ``all_gather`` of their bytes.  A leaf that a placement
 splits over no axis of more than one rank is whole on every rank, and
-``gather`` returns it as it is.  Every collective goes through
+``gather`` returns it as it is.  Both take the axes to work over
+(default: every axis of the mesh): ``gather(..., axes=("data",))``
+undoes only a leaf's split over ``data``, through the group of the
+ranks that share this rank's other coordinates, and hands back the
+rank's block over the rest (its ``model`` block, which a
+tensor-parallel layer reads).  Every collective goes through
 ``all_reduce`` or ``gather``, which record it.
 """
 from __future__ import annotations
@@ -172,6 +177,25 @@ def dim_axes(entry) -> tuple:
     return (entry,) if isinstance(entry, str) else tuple(entry)
 
 
+def restrict(spec, axes) -> tuple:
+    """``spec`` with only the mesh ``axes`` kept (None keeps every axis):
+    the split that working over ``axes`` undoes or makes.  A dim split
+    over kept and dropped axes must name the dropped ones first (the
+    major ones), so that the rank's block over them is one run."""
+    if axes is None:
+        return tuple(spec)
+    out = []
+    for e in spec:
+        names = dim_axes(e)
+        kept = tuple(a for a in names if a in axes)
+        if kept and names[len(names) - len(kept):] != kept:
+            raise ValueError(f"spec {spec}: axes {axes} are not the minor "
+                             f"ones of {e}")
+        out.append(None if not kept else kept[0] if len(kept) == 1
+                   else kept)
+    return tuple(out)
+
+
 def splits(spec, ms) -> bool:
     """True when ``spec`` splits some dim over more than one rank."""
     return any(ms[a] > 1 for e in spec for a in dim_axes(e))
@@ -194,43 +218,50 @@ def _block(spec, shape, ms, coord) -> tuple:
     return tuple(out)
 
 
-def local_slice(t, spec, mesh, rank=None):
-    """This rank's block of the whole leaf ``t`` (a view; numpy arrays
-    too)."""
+def local_slice(t, spec, mesh, rank=None, axes=None):
+    """This rank's block over ``axes`` (default: all) of the leaf ``t``,
+    whole over them (a view; numpy arrays too)."""
     ms = mesh_shape_dict(mesh)
+    spec = restrict(spec, axes)
     if not splits(spec, ms):
         return t
     return t[_block(spec, tuple(t.shape), ms, coordinate(mesh, rank))]
 
 
-def gather(leaves, specs, mesh) -> list:
-    """Whole leaves from each rank's blocks ``leaves`` under ``specs``
-    (lists, in one order on every rank): one ``all_gather`` of the split
-    leaves' bytes over the mesh into an (ranks, bytes) buffer (recorded;
-    on a plan nothing moves), then each leaf's blocks put in their
-    places by one copy, from the ranks at index 0 of the axes its
-    placement does not use (the others hold replicas).  A leaf that is
-    not split is returned as it is.  Every rank must call it."""
+def gather(leaves, specs, mesh, axes=None) -> list:
+    """Leaves whole over ``axes`` (default: every axis of the mesh) from
+    each rank's blocks ``leaves`` under ``specs`` (lists, in one order on
+    every rank): one ``all_gather`` of the split leaves' bytes over the
+    ranks that share this rank's coordinates off ``axes`` into an
+    (ranks, bytes) buffer (recorded; on a plan nothing moves), then each
+    leaf's blocks put in their places by one copy, from the ranks at
+    index 0 of the axes its placement does not use (the others hold
+    replicas).  A leaf that is not split over ``axes`` is returned as it
+    is.  Every rank must call it."""
     ms = mesh_shape_dict(mesh)
+    whole = axes is None or set(axes) >= set(ms)
+    sub = {a: n for a, n in ms.items() if whole or a in axes}
+    specs = [restrict(s, None if whole else axes) for s in specs]
     split = [i for i, s in enumerate(specs) if splits(s, ms)]
     out = list(leaves)
     if not split:
         return out
     flat = [leaves[i].contiguous().view(-1).view(torch.uint8) for i in split]
     buf = torch.cat(flat)
-    n = math.prod(ms.values())
+    n = math.prod(sub.values())
     parts = buf.new_empty((n, buf.numel()))
     HA.collective("all-gather", parts.numel(), n)
     if is_live(mesh):
-        dist.all_gather(list(parts.unbind(0)), buf)
+        group = None if whole else axis_group(mesh, tuple(sub))
+        dist.all_gather(list(parts.unbind(0)), buf, group=group)
     at = 0
     for i, f in zip(split, flat):
         local = leaves[i]
         # bytes: the last dim counted in bytes, so one view fits every
         # dtype wherever its bytes start in the buffer
         shape = (*local.shape[:-1], local.shape[-1] * local.element_size())
-        blocks = parts[:, at:at + f.numel()].view(*ms.values(), *shape)
-        out[i] = _assemble(blocks, specs[i], ms).view(local.dtype)
+        blocks = parts[:, at:at + f.numel()].view(*sub.values(), *shape)
+        out[i] = _assemble(blocks, specs[i], sub).view(local.dtype)
         at += f.numel()
     return out
 
@@ -261,10 +292,11 @@ def shard_tree(tree, placement, mesh):
                     if splits(spec, ms) else t, placement, tree)
 
 
-def gather_tree(tree, placement, mesh):
-    """Whole leaves from every rank's blocks of ``tree`` (``gather``)."""
+def gather_tree(tree, placement, mesh, axes=None):
+    """Leaves whole over ``axes`` from every rank's blocks of ``tree``
+    (``gather``)."""
     it = iter(gather(tree_leaves(tree), tree_leaves_of(placement, tree),
-                     mesh))
+                     mesh, axes))
     return tree_map(lambda _: next(it), tree)
 
 

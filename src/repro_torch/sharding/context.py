@@ -13,7 +13,10 @@ itself.  Outside a context it is a no-op, as in the reference.
 ``batch_group()`` is what the port adds: the process group over which
 the active train step splits the batch rows (None when the rows are
 not split over more than one rank).  The MoE load-balancing loss
-reads it to take its means over the whole batch.
+reads it to take its means over the whole batch.  ``model_group()``
+and ``model_index()`` are the ``model`` axis's group and this rank's
+coordinate on it, which the tensor-parallel layers
+(``sharding.tensor_parallel``) reduce over and take their blocks by.
 """
 from __future__ import annotations
 
@@ -21,7 +24,8 @@ import contextlib
 import threading
 
 from repro_torch.sharding import logical as LG
-from repro_torch.sharding.blocks import mesh_shape_dict
+from repro_torch.sharding.blocks import axis_group, coordinate, \
+    mesh_shape_dict
 
 _STATE = threading.local()
 
@@ -66,3 +70,22 @@ def batch_group():
     more than one rank, else None."""
     ctx = current()
     return None if ctx is None else ctx[3]
+
+
+def model_group():
+    """The active mesh's ``model`` group when ``model`` spans more than
+    one rank, else None (``blocks.axis_group``: made at the first call,
+    which every rank of the mesh makes, by the first layer ``model``
+    splits)."""
+    ctx = current()
+    if ctx is None or "model" not in ctx[2]:
+        return None
+    return axis_group(ctx[0], "model")
+
+
+def model_index() -> int:
+    """This rank's coordinate on ``model`` (0 outside a context)."""
+    ctx = current()
+    if ctx is None or ctx[2].get("model", 1) == 1:
+        return 0
+    return coordinate(ctx[0])["model"]

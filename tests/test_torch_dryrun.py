@@ -30,6 +30,7 @@ from repro.configs.base import skip_reason as ref_skip_reason  # noqa: E402
 from repro_torch.configs import get_reduced  # noqa: E402
 from repro_torch.configs.base import RunConfig, ShapeConfig  # noqa: E402
 from repro_torch.launch import dryrun  # noqa: E402
+from repro_torch.launch import hlo_analysis as HA  # noqa: E402
 from repro_torch.launch import report  # noqa: E402
 from repro_torch.launch import steps  # noqa: E402
 from repro_torch.launch.mesh import MeshPlan  # noqa: E402
@@ -47,6 +48,25 @@ def _one_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+def count_by_group(fn, args, donated):
+    """``dryrun.count(fn, args, donated)`` and the collectives it
+    counted by (op, group size): (count, bytes), read through
+    ``hlo_analysis.collective``."""
+    seen, orig = {}, HA.collective
+
+    def record(op, nbytes, group_size):
+        if HA._ACTIVE is not None and group_size > 1:
+            n, b = seen.get((op, group_size), (0, 0.0))
+            seen[(op, group_size)] = (n + 1, b + nbytes)
+        orig(op, nbytes, group_size)
+
+    HA.collective = record
+    try:
+        return dryrun.count(fn, args, donated), seen
+    finally:
+        HA.collective = orig
 
 
 def _cell(arch, shape_name="train_4k", shape=TRAIN, mesh=PLAN):
@@ -72,22 +92,51 @@ def test_collectives_and_arguments_are_the_steps_own():
     run = RunConfig(model=cfg, shape=TRAIN)
     built = steps.build_train_step(run, PLAN)
     fn, args, donated = dryrun.cell_step(run, PLAN)
-    _, costs, mem = dryrun.count(fn, args, donated)
+    (_, costs, mem), groups = count_by_group(fn, args, donated)
     ms = BL.mesh_shape_dict(PLAN)
-    # one all-gather: every rank's blocks of the split weights
+    # ``model`` (4) splits the query heads, the MLP and the vocabulary:
+    # those leaves are gathered over the 2 data ranks only, the others
+    # over all 8 ranks
     w_pl = T.trainable(built.in_shardings[0]["params"])
     w = T.trainable(args[0]["params"])
-    split = sum(t.numel() * t.element_size() for t, s in zip(
-        tree_leaves(w), BL.tree_leaves_of(w_pl, w)) if BL.splits(s, ms))
-    # three all-reduces over the 2 data ranks: the label counts, the
-    # flat fp32 gradients, the cross-entropy share
-    grads = 4 * sum(t.numel() for t in tree_leaves(T.trainable(
-        built.abstract_inputs[0]["params"])))
-    assert costs.coll_count == 4
-    assert costs.coll_by_op == {"all-gather": 8.0 * split,
-                                "all-reduce": 8 + grads + 4}
-    assert costs.coll_effective == 8 * split * 7 / 8 \
-        + 2 * (8 + grads + 4) * 1 / 2
+    tp = BL.tree_leaves_of(steps.tensor_parallel_leaves(cfg, w_pl, PLAN),
+                           w)
+    leaves = list(zip(tree_leaves(w), BL.tree_leaves_of(w_pl, w), tp))
+    assert built.tensor_parallel == 4 and any(tp) and not all(tp)
+
+    def nbytes(t):
+        return t.numel() * t.element_size()
+
+    whole = sum(nbytes(t) for t, s, p in leaves
+                if not p and BL.splits(s, ms))
+    over_data = sum(nbytes(t) for t, s, p in leaves
+                    if p and BL.splits(BL.restrict(s, ("data",)), ms))
+    # over the 2 data ranks: the label counts, the flat fp32 gradients
+    # (a split leaf's ``model`` block), the cross-entropy share
+    grads = 4 * sum(t.numel() * (2 if BL.splits(BL.restrict(
+        s, ("data",)), ms) else 1) for t, s, _ in leaves)
+    # over the 4 model ranks, in fp32: per layer the attention's and the
+    # MLP's output sums and their inputs' gradient sums, the attention's
+    # sum again in remat="full"'s recompute; the lookup; the
+    # cross-entropy's max, (sum of exp, gold) and hidden-state gradient;
+    # the K/V gradient shares (the 2 KV heads do not split over 4); the
+    # clipping norm's split squares
+    rows = TRAIN.global_batch // 2 * TRAIN.seq_len
+    act = rows * cfg.d_model * 4
+    kv = 4 * sum(lp["attn"][k].numel()
+                 for lp in built.abstract_inputs[0]["params"]["layers"]
+                 for k in ("wk", "wv", "bk", "bv"))
+    model = [act] * (5 * cfg.n_layers + 1) + [rows * 4, rows * 8, act, kv,
+                                              4]
+    data = [8, grads, 4]
+    assert groups == {
+        ("all-gather", 8): (1, 8.0 * whole),
+        ("all-gather", 2): (1, 2.0 * over_data),
+        ("all-reduce", 2): (3, float(sum(data))),
+        ("all-reduce", 4): (len(model), float(sum(model)))}
+    assert costs.coll_count == 5 + len(model)
+    assert costs.coll_effective == 8 * whole * 7 / 8 + 2 * over_data / 2 \
+        + 2 * sum(data) / 2 + 2 * sum(model) * 3 / 4
     batch = sum(t.numel() * t.element_size() for t in tree_leaves(args[1]))
     assert batch == 2 * (8 // 2) * 64 * 4       # tokens and labels rows
     assert mem["argument_bytes"] == steps.per_rank_bytes(built) + batch
@@ -202,7 +251,13 @@ def test_full_width_cell_on_the_production_plan():
     rl = rec["roofline"]
     assert rec["status"] == "ok" and rec["n_devices"] == 256
     assert rl["compute_s"] > 0 and rl["bytes_per_device"] > 0
-    assert rl["collective_count"] == 4
+    # ``model`` splits the MLP and the vocabulary (14 heads do not divide
+    # over 16): two all-gathers, the batch split's three all-reduces, and
+    # over ``model`` each layer's MLP output and input-gradient sums
+    # (the recompute stops before the output's), the lookup, three for
+    # each of the 8 cross-entropy chunks and the clipping norm's
+    assert rec["tensor_parallel"] == 16
+    assert rl["collective_count"] == 2 + 3 + 24 * 2 + 1 + 8 * 3 + 1
 
 
 def test_every_reference_module_has_its_counterpart():

@@ -245,7 +245,14 @@ def test_mamba2_step_matches_reference(dtype):
 def test_mamba_chunked_equals_step_by_step():
     """Within the port, in fp32 (the reference's
     ``test_ssm.py::test_mamba_chunked_vs_step``): the chunked forward's
-    outputs and final state equal a replay of the single-token step."""
+    outputs and final state equal a replay of the single-token step.
+
+    The convolution state is, by definition, the convolution inputs
+    ([x | B | C] of ``in_proj``) of the last d_conv - 1 tokens: it is
+    held bit for bit against the chunked pass's own ``in_proj`` rows.
+    The replay computes those rows in products of B rows instead of
+    B·T, which a BLAS may block differently (a last-bit change on some
+    hosts), so against the replay it is held at ``s``'s 3e-3."""
     cfg = get_reduced(ARCH)
     rng = np.random.default_rng(7)
     p = {}
@@ -269,7 +276,11 @@ def test_mamba_chunked_equals_step_by_step():
                                rtol=3e-3, atol=3e-3)
     np.testing.assert_allclose(st_c["s"].numpy(), st_s["s"].numpy(),
                                rtol=3e-3, atol=3e-3)
-    assert torch.equal(st_c["conv"], st_s["conv"])
+    d_in, _, N = PS._mamba_split(cfg)
+    rows = PL._gemm(x, p["in_proj"])[:, T - (cfg.ssm.d_conv - 1):]
+    assert torch.equal(st_c["conv"], rows[..., d_in:2 * d_in + 2 * N])
+    np.testing.assert_allclose(st_c["conv"].numpy(), st_s["conv"].numpy(),
+                               rtol=3e-3, atol=3e-3)
 
 
 def test_init_mamba_state_shapes_and_dtypes():

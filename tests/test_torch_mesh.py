@@ -13,7 +13,29 @@ same weights and batches.
    step, the clipped gradient norm within 1e-2, the learning rate
    equal, and each leaf's update (the whole weights after the step less
    before the run) within 0.3 of the witness's update in relative L2,
-   all leaves together within 0.1.
+   all leaves together within 0.1.  The gradient of the first batch the
+   mesh reduced (read from an AdamW step's first moment, also for an
+   Adafactor run: ``torch_mesh_ranks._first_gradients``) is held
+   against the one-rank step's, each leaf within 5e-2 relative L2.
+   On a mesh whose ``model`` axis splits the layers (tensor
+   parallelism, which rounds its row-parallel partials to bf16 where
+   one rank rounds the whole product once), a leaf whose update that
+   rounding decides is held by its size instead (its update's L2 norm
+   within 0.3 of the witness's) and left out of the total: those whose
+   first AdamW step, g / (|g| + eps) a value, differs by more than
+   ``NOISE_REL`` (0.2) relative L2 between the two gradients of the
+   first batch, which agree at 5e-2.  Adam's per-value normalisation
+   turns a gradient value at the level of round-off into a full-size
+   step whose sign rounding sets: the key bias ``bk`` in the head dims
+   of RoPE's slowest frequencies, where softmax's indifference to a
+   shift of every key's score leaves a gradient near 1e-6 beside 1e-3
+   in the others (up to 1.22 in the tensor-parallel cases; a 64-value
+   norm scale or a 32-value bias with one sign flipped 0.25 or 0.35;
+   the weight matrices 0.15 at most).  The bound is below the update's
+   0.3 because the update held is that of up to four steps, over which
+   rounding's share grows (qwen2 with compression on (1, 2): ``bk``'s
+   first step 0.21 apart, its update after four 0.31).  On every other
+   mesh each leaf is held by its direction.
 2. The reference's first step (``torch_mesh_reference``: its jitted
    loss and gradients without XLA's excess precision, compression as
    its ``Trainer`` applies it, from ``PRNGKey(0)``), computed in two
@@ -103,6 +125,7 @@ MOE_ARCHS = ("qwen2_moe_a2_7b", "deepseek_v3_671b")
 LOSS_RTOL, NORM_RTOL = 1e-3, 1e-2
 LEAF_REL, TOTAL_REL = 0.3, 0.1
 GRAD_REL_L2 = 5e-2
+NOISE_REL = 0.2
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -156,10 +179,11 @@ def _hold_metrics(got, want):
         assert g["lr"] == w["lr"]
 
 
-def _hold(got, got_p, want, want_p, before):
+def _hold(got, got_p, want, want_p, before, rounding=frozenset()):
     """The measure of the module docstring: per-step metrics ``got``
     against ``want``, and the weights after the last of them against
-    ``want_p``'s, as updates from ``before``."""
+    ``want_p``'s, as updates from ``before``; the leaves at the paths in
+    ``rounding`` by their size."""
     _hold_metrics(got, want)
     off = total = 0.0
     got_p, want_p = _by_path(got_p), _by_path(want_p)
@@ -167,18 +191,41 @@ def _hold(got, got_p, want, want_p, before):
         got_d = got_p[path].float() - old.float()
         want_d = want_p[path].float() - old.float()
         err, size = float((got_d - want_d).norm()), float(want_d.norm())
+        if path in rounding:
+            assert abs(float(got_d.norm()) - size) <= LEAF_REL * size, path
+            continue
         assert err <= LEAF_REL * size, path
         off, total = off + err ** 2, total + size ** 2
     assert off ** 0.5 <= TOTAL_REL * total ** 0.5
 
 
+def _rounding_leaves(res) -> set:
+    """The paths of the leaves whose update the rounding of a
+    tensor-parallel mesh decides (module docstring), from the two
+    gradients of the first batch; none on any other mesh.  Each
+    gradient is held against the other at ``GRAD_REL_L2``."""
+    mesh, one = (_by_path(g) for g in res["grad0"])
+    out = set()
+    for path, w in one.items():
+        g, size = mesh[path], float(w.norm())
+        assert g.shape == w.shape, path
+        assert float((g - w).norm()) <= GRAD_REL_L2 * size, path
+        step_g, step_w = (t / (t.abs() + AdamW.eps) for t in (g, w))
+        apart = float((step_g - step_w).norm())
+        if res["tensor_parallel"] > 1 and \
+                apart > NOISE_REL * float(step_w.norm()):
+            out.add(path)
+    return out
+
+
 def _check_run(res, ref, before, steps, arch=None):
     """A result of ``train_against_meshless`` over its first ``steps``
-    steps against the one-rank port, and its first step against the
-    reference's ``ref`` (module docstring); each rank held its blocks'
-    bytes."""
+    steps against the one-rank port, its first batch's gradient against
+    the one-rank port's, and its first step against the reference's
+    ``ref`` (module docstring); each rank held its blocks' bytes."""
     _hold(res["got"][:steps], res["params"][steps - 1],
-          res["want"][:steps], res["meshless"][steps - 1], before)
+          res["want"][:steps], res["meshless"][steps - 1], before,
+          _rounding_leaves(res))
     _hold_metrics(res["got"][:1], [ref["metrics"]])
     if "m" in res["opt0"]:      # AdamW: m = (1 - b1) g clip after step 0
         clip = min(1.0, AdamW.clip_norm / res["got"][0]["grad_norm"])

@@ -8,7 +8,20 @@
   L2, all leaves together within 0.1.  The bf16 rounding of the
   gradients and of the parameters moves a small leaf's update by up to
   about 0.25 (Adafactor's 32-element biases), the whole by about 0.03;
-  a skipped update is off by 1, a half-applied one by 0.5.
+  a skipped update is off by 1, a half-applied one by 0.5.  A leaf whose
+  update the reference's own rounding decides is held by its size (its
+  L2 norm within 0.3 of the reference's), not its direction, and is
+  left out of the total: those whose reference update moves by more
+  than ``NOISE_REL`` when the reference's gradient is taken op by op
+  instead of jitted (only its rounding differs).  Those are the
+  ``ln1`` scales: their values lie near 1, where bf16 steps by 2^-8 or
+  2^-7, so an update of lr (3e-3) times an RMS-normalised step moves
+  each value by no step or one, and the last bits of the gradient
+  decide which (the reference's own two gradients give updates 0.41 and
+  0.44 apart under Adafactor, 0.12 under AdamW).  The key bias ``bk``
+  is no such leaf: its gradient is of ``bq``'s order, since RoPE
+  rotates it with the key's position, and the port's matches the
+  reference's as closely as any leaf's.
 - The loss falls over a few steps; a crash at step 7 and a fresh
   trainer on the same directory resume from the step-4 checkpoint and
   give the uninterrupted run's losses bit for bit; the straggler
@@ -49,6 +62,31 @@ from repro_torch.runtime.train_loop import Trainer, TrainerConfig  # noqa: E402,
 
 ARCH = "qwen2_0_5b"
 EXAMPLES = Path(__file__).resolve().parents[1] / "examples"
+NOISE_REL = 0.1
+
+
+def _noise_leaves(rcfg, opt, state, batch, lr) -> set:
+    """Indices (in ``tree_leaves`` order of the port's parameters) of the
+    leaves whose reference update is round-off (module docstring): the
+    reference's optimizer fed its gradient jitted and op by op."""
+    model = RefModel(rcfg, remat="none")
+    b = {k: jnp.asarray(v) for k, v in batch.items()}
+    grad = jax.grad(lambda q: model.loss(q, b)[0])
+    with jax.disable_jit():
+        slow = grad(state["params"])
+    news = [ref_optimizer(opt).update(g, state["opt"], state["params"],
+                                      lr)[0]
+            for g in (jax.jit(grad)(state["params"]), slow)]
+    cfg = get_reduced(ARCH)
+    old, fast, slow = (tree_leaves(from_reference(
+        jax.tree.map(np.asarray, t), cfg))
+        for t in (state["params"], *news))
+    out = set()
+    for i, (o, f, s) in enumerate(zip(old, fast, slow)):
+        d_f, d_s = f.float() - o.float(), s.float() - o.float()
+        if float((d_f - d_s).norm()) > NOISE_REL * float(d_f.norm()):
+            out.add(i)
+    return out
 
 
 @pytest.mark.parametrize("opt", ["adamw", "adafactor"])
@@ -84,13 +122,18 @@ def test_one_step_matches_reference(opt):
     assert abs(float(got["grad_norm"]) - float(want["grad_norm"])) <= \
         1e-2 * float(want["grad_norm"])
     assert float(got["lr"]) == float(want["lr"]) > 0
+    noise = _noise_leaves(rcfg, opt, st, batch, want["lr"])
+    assert len(noise) < len(before) // 4
     off = total = 0.0
-    for old, a, w in zip(before, tree_leaves(new["params"]),
-                         tree_leaves(from_reference(to_np(st2["params"]),
-                                                    cfg))):
+    for i, (old, a, w) in enumerate(zip(
+            before, tree_leaves(new["params"]),
+            tree_leaves(from_reference(to_np(st2["params"]), cfg)))):
         got_d, want_d = a.float() - old.float(), w.float() - old.float()
         err, size = (got_d - want_d).norm(), want_d.norm()
         assert size > 0
+        if i in noise:
+            assert abs(got_d.norm() - size) <= 0.3 * size
+            continue
         assert err <= 0.3 * size
         off, total = off + float(err) ** 2, total + float(size) ** 2
     assert off ** 0.5 <= 0.1 * total ** 0.5

@@ -70,10 +70,10 @@ def spawn(job, world: int, tmp: Path, inputs: dict,
 
 # ------------------------------------------------------------- helpers
 def _run(cfg, opt="adamw", compression=False, local=False, seq=32,
-         batch=4):
+         batch=4, remat="none"):
     from repro_torch.configs.base import RunConfig, ShapeConfig
     return RunConfig(model=cfg, shape=ShapeConfig("t", "train", seq, batch),
-                     remat="none", optimizer=opt,
+                     remat=remat, optimizer=opt,
                      gradient_compression=compression,
                      moe_local_dispatch=local)
 
@@ -111,12 +111,48 @@ def _expected_bytes(built) -> tuple:
             _bytes(T.trainable(built.abstract_inputs[0])))
 
 
+def _adamw_gradient(opt, grad_norm):
+    """The gradient an AdamW step reduced, read from its state ``opt``
+    after its first step: the first moment over (1 - b1) times the
+    clipping factor of ``grad_norm``."""
+    from repro_torch.models.params import tree_map
+    from repro_torch.optim import AdamW
+    clip = min(1.0, AdamW.clip_norm / grad_norm)
+    return tree_map(lambda m: m / ((1 - AdamW.b1) * clip), opt["m"])
+
+
+def _first_gradients(rank, run, mesh, params, batch):
+    """(the whole gradient the mesh's step reduced, on rank 0 the
+    one-rank step's) of ``batch`` from ``params``, each read from an
+    AdamW step's state (``_adamw_gradient``): the gradient does not
+    depend on the optimizer, which an Adafactor run's state does not
+    show."""
+    import dataclasses
+    from repro_torch.launch import steps as S
+    from repro_torch.sharding.blocks import gather_tree
+    run = dataclasses.replace(run, optimizer="adamw")
+    built = S.build_train_step(run, mesh, **LR)
+    state, m = built.fn(S.init_sharded_state(built, _clone(params)),
+                        _local_batch(batch, built))
+    got = _adamw_gradient(gather_tree(
+        state["opt"], built.in_shardings[0]["opt"], mesh),
+        float(m["grad_norm"]))
+    if rank != 0:
+        return got, None
+    state, m = S.build_train_step(run, "cpu", **LR)(
+        _meshless_state(run, _clone(params)), batch)
+    return got, _adamw_gradient(state["opt"], float(m["grad_norm"]))
+
+
 def train_against_meshless(rank, cfg, shape, params, batches, run_kw):
     """Steps of the train step on a ``shape`` mesh and, on rank 0, of the
     one-rank step, from the same weights and batches.  Returns the
     per-step metrics of both, the whole weights after each step of both
-    runs, the whole optimizer state after the mesh's first step, and
-    each rank's state bytes beside its blocks' due bytes."""
+    runs, the whole optimizer state after the mesh's first step, the
+    gradient of the first batch the mesh reduced and the one-rank
+    step's (``_first_gradients``), the ``model`` extent the step split
+    its layers over, and each rank's state bytes beside its blocks' due
+    bytes."""
     from repro_torch.launch import steps as S
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models import transformer as T
@@ -136,6 +172,7 @@ def train_against_meshless(rank, cfg, shape, params, batches, run_kw):
             opt0 = _clone(gather_tree(state["opt"],
                                       built.in_shardings[0]["opt"], mesh))
     mine = (_bytes(T.trainable(state)),) + _expected_bytes(built)
+    grads = _first_gradients(rank, run, mesh, params, batches[0])
     sizes = [None] * dist.get_world_size()
     dist.all_gather_object(sizes, mine)
     if rank != 0:
@@ -148,7 +185,8 @@ def train_against_meshless(rank, cfg, shape, params, batches, run_kw):
         want.append({k: float(v) for k, v in m.items()})
         meshless.append(_clone(T.trainable(ref_state["params"])))
     return {"got": got, "want": want, "sizes": sizes, "params": whole,
-            "meshless": meshless, "opt0": opt0}
+            "meshless": meshless, "opt0": opt0, "grad0": grads,
+            "tensor_parallel": built.tensor_parallel}
 
 
 def _clone(tree):

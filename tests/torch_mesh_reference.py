@@ -2,7 +2,9 @@
 process of its own that runs while the test's gloo ranks do.
 
 ``start(tmp, cases)`` saves ``cases`` ({name: (arch, batch, run
-settings)}, the batch as torch tensors) into ``tmp`` and starts
+settings)}, the batch as torch tensors; the settings' ``overrides``, a
+dict, replace fields of the reduced config on both sides) into ``tmp``
+and starts
 ``python -m torch_mesh_reference <tmp>`` with
 ``XLA_FLAGS=--xla_allow_excess_precision=false``, one XLA thread and the
 CPU platform; ``result()`` waits for it (with a timeout) and returns
@@ -73,6 +75,8 @@ def _to_jax(v):
 
 
 def main(tmp: Path) -> None:
+    import dataclasses
+
     import jax
     import jax.numpy as jnp
     import numpy as np
@@ -94,13 +98,15 @@ def main(tmp: Path) -> None:
     grads, out = {}, {}
     for name, (arch, batch, kw) in torch.load(
             tmp / "reference_inputs.pt", weights_only=False).items():
-        rcfg = ref_reduced(arch)
+        overrides = kw.get("overrides", {})
+        rcfg = dataclasses.replace(ref_reduced(arch), **overrides)
         run = RunConfig(model=rcfg, shape=ShapeConfig(
             "t", "train", kw.get("seq", 32), kw.get("batch", 4)),
             remat="none", optimizer=kw.get("opt", "adamw"),
             gradient_compression=kw.get("compression", False),
             moe_local_dispatch=kw.get("local", False))
-        key = (arch, run.moe_local_dispatch,
+        key = (arch, tuple(sorted(overrides.items())),
+               run.moe_local_dispatch,
                tuple((k, tuple(v.shape)) for k, v in batch.items()))
         if key not in grads:
             model = Model(rcfg, remat="none")
@@ -116,8 +122,9 @@ def main(tmp: Path) -> None:
             "metrics": {k: float(v) for k, v in {
                 **metrics, "loss": loss, "lr": lr0,
                 "grad_norm": _global_norm(g)}.items()},
-            "grad": T.trainable(from_reference(jax.tree.map(np.asarray, g),
-                                               get_reduced(arch)))}
+            "grad": T.trainable(from_reference(
+                jax.tree.map(np.asarray, g),
+                dataclasses.replace(get_reduced(arch), **overrides)))}
     torch.save(out, tmp / "reference.pt")
 
 
