@@ -419,7 +419,39 @@ Phases, in order; any failure raises and exits non-zero:
    like) dispatched inside a product's range, asserted (the attention's
    torch ops run their own library GEMMs, outside those ranges).  Its
    GEMM launches join the ``kernels`` line as ``tp_train_launches``.
-22. Print each phase's seconds (a ``[phases]`` line), the ``kernels``
+22. Tensor parallelism of the moe family on one card (``models/moe.py``,
+   MLA in ``models/layers.py``), on 21's machinery.  (k) The grouped
+   forward, dA and dB at a rank's shapes (``TPM_GROUPED``: qwen2-moe's
+   (1, 2) expert split, 30 experts at C 344, 2,048 <-> 1,408; the
+   (16, 16) plan's column split, 60 experts, 2,048 <-> 88; deepseek-v3's
+   (16, 16) expert split, 16 experts, 7,168 <-> 2,048), each against its
+   plain version and beside ``torch.bmm`` and its bound; 21's 2-D
+   products at qwen2-0.5b's (1, 2) widths (q 448, gate / up 2,432, o
+   and down at K / 2), forward, dA and dB at M = 4,096.  Then two runs
+   of 4 AdamW steps of 8 x 512 tokens on the (1, 2) gloo mesh against
+   one rank on the same weights and batches: (a) qwen2-moe-a2.7b at 16c's
+   4 layers and full width (the expert split, 30 of 60 experts a rank;
+   8 of 16 heads, the shared expert's columns and the vocabulary
+   halved), (b) deepseek-v3-671b-3l, 17c's run (3 dense MLA layers and
+   the MTP block, ``remat="full"``; 64 of 128 heads, 1,024 of 2,048
+   MLP columns, 64,640 vocabulary columns).  A route (a token's k
+   experts) is a top-k over bf16 logits, and the split rounds a layer's
+   output apart from one rank, so (a) is held against the one-rank step
+   forced to the ranks' routes each step and layer
+   (``_tpm_forced_route``), whose losses must be within 1e-3 relative
+   every step, and against one rank on its own routes within 1e-3 on
+   the two steps that run on the first weights (``TPM_FREE_STEPS``); the
+   tokens whose own route differs are counted a step and layer.  (b)
+   has no MoE layer and is held within 1e-4 relative every step.  Each
+   run, asserted: both ranks' losses and routes equal; every forward
+   product of the first step at its local width, the grouped ones too;
+   the GEMM's and the grouped kernels' launches a step; the all-reduces
+   and all-gathers a step (each collective records itself through
+   ``hlo_analysis.collective``); both peaks together below 80 GB.  Rank
+   0 of (a) takes one step more under the profiler: no ``gemm_simt``
+   kernel and no library GEMM op inside a product's range.  Both
+   runs' lines print before any of these checks.
+23. Print each phase's seconds (a ``[phases]`` line), the ``kernels``
    JSON line (20a's counted steps among the paths; each kernel's
    launches from its own
    path's serving run, the int8 kernels' from phase 8e's (the int8
@@ -428,12 +460,15 @@ Phases, in order; any failure raises and exits non-zero:
    beside, the GEMM's forward and backward launches of a training step
    as ``train_launches``, of 17c's as ``mla_train_launches``, of 18c's
    as ``ssm_train_launches``, ``hybrid_train_launches`` and
-   ``audio_train_launches``, of 21's rank 0 as ``tp_train_launches``),
-   the card line, and last the result line
+   ``audio_train_launches``, of 21's rank 0 as ``tp_train_launches``,
+   of 22's as ``tp_moe_train_launches``; 22's two runs are paths of
+   their own, the grouped backward kernels' launches among them), the
+   card line, and last the result line
    ``{"ok": true, "device": {...}}``.
 """
 import argparse
 import atexit
+import gc
 import json
 import os
 import re
@@ -5857,15 +5892,16 @@ TP_DIR = Path(__file__).resolve().parent / "build" / "tp_smoke"
 TP_GB = 80.0                    # the two ranks' peaks together, at most
 
 
-def _tp_batches(torch, cfg, seed):
-    """21's batches: the corpus's first ``TP_STEPS`` at 15c's shape and
-    seed, on the host."""
+def _tp_batches(torch, cfg, seed, which=None):
+    """21's (or a run of 22's) batches: the corpus's first ``TP_STEPS``
+    (``TPM_STEPS``) at 15c's shape and seed, on the host."""
     from repro_torch.data.pipeline import DataConfig, SyntheticCorpus
+    n = TP_STEPS if which is None else TPM_STEPS
     corpus = SyntheticCorpus(DataConfig(
         vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
         global_batch=TRAIN_BATCH, seed=seed))
     return [{k: torch.from_numpy(v) for k, v in corpus.batch(i).items()}
-            for i in range(TP_STEPS)]
+            for i in range(n)]
 
 
 def _tp_run(torch, step, state, batches, dev, each=None):
@@ -5906,8 +5942,9 @@ TP_RANGE = "tp_streaming_gemm"  # 21's profiler range around a product
 
 
 def _tp_profiled_step(torch, step, state, batch):
-    """21's step more on rank 0, under ``torch.profiler``, each streaming
-    GEMM product (forward, dA, dB) inside a ``TP_RANGE`` range: the
+    """21's (or 22's) step more on rank 0, under ``torch.profiler``, each
+    streaming GEMM product (forward, dA, dB) and each grouped product
+    inside a ``TP_RANGE`` range: the
     device kernels by the launch counter their names belong to
     (``kernel_nodes.kernel_group``), those named ``gemm_simt``, the
     library GEMM ops (``LIBRARY_OPS``) the host dispatched inside a
@@ -5919,17 +5956,17 @@ def _tp_profiled_step(torch, step, state, batch):
     from repro_torch.kernels import ops
 
     fwd, bwd = ops._StreamingGemm.forward, ops._gemm_bwd
+    gfwd, gbwd = ops._grouped, ops._grouped_bwd
 
-    def ranged_fwd(ctx, a, b):
-        with record_function(TP_RANGE):
-            return fwd(ctx, a, b)
+    def ranged(f):
+        def call(*a):
+            with record_function(TP_RANGE):
+                return f(*a)
+        return call
 
-    def ranged_bwd(a, b):
-        with record_function(TP_RANGE):
-            return bwd(a, b)
-
-    ops._StreamingGemm.forward = staticmethod(ranged_fwd)
-    ops._gemm_bwd = ranged_bwd
+    ops._StreamingGemm.forward = staticmethod(ranged(fwd))
+    ops._gemm_bwd, ops._grouped = ranged(bwd), ranged(gfwd)
+    ops._grouped_bwd = ranged(gbwd)
     try:
         ops.reset_launches()
         torch.cuda.synchronize()
@@ -5940,6 +5977,7 @@ def _tp_profiled_step(torch, step, state, batch):
         launches, gemm_bwd = dict(ops.LAUNCHES), dict(ops.GEMM_BWD)
     finally:
         ops._StreamingGemm.forward, ops._gemm_bwd = staticmethod(fwd), bwd
+        ops._grouped, ops._grouped_bwd = gfwd, gbwd
     groups, simt, ranges, host = {}, 0, [], []
     for e in prof.profiler.kineto_results.events():
         name = e.name()
@@ -5962,26 +6000,34 @@ def _tp_profiled_step(torch, step, state, batch):
                    "library_ops_elsewhere": len(host),
                    "launches": {"forward": launches["streaming_gemm"]
                                 - gemm_bwd["launches"],
-                                "backward": gemm_bwd["launches"]}}
+                                "backward": gemm_bwd["launches"]},
+                   "grouped_launches": launches["streaming_gemm_grouped"]}
 
 
-def _tp_rank(rank, seed, out):
-    """One rank of phase 21, a spawned process: the (1, 2) gloo mesh's
-    train step on the shared card, its first step's GEMMs recorded by
-    the leaf they read, its all-reduces counted a step, its launches,
-    losses, step seconds and peak memory saved for the parent; then one
-    step more, on rank 0 under the profiler (``_tp_profiled_step``)."""
+def _tp_case(which):
+    """(config, remat, learning-rate schedule) of phase 21's run
+    (``which`` None) or of one of 22's (``"a"``, ``"b"``), each of 8 x 512
+    tokens a step (15c's, 16c's and 17c's)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import depth_cut
+    if which is None:
+        return get_config(TRAIN_ARCH), "none", TRAIN_LR
+    if which == "a":
+        return (depth_cut(get_config(MOE_ARCH), MOE_TRAIN_LAYERS), "none",
+                TRAIN_LR)
+    from repro_torch.configs.deepseek_v3_671b import TRAINING
+    return TRAINING, "full", MLA_TRAIN_LR
+
+
+def _tp_rank(rank, seed, out, runs=(None,), profiled=(None,)):
+    """One rank of phase 21 (``runs`` (None,)) or 22 (``("a", "b")``), a
+    spawned process: each run in turn on the (1, 2) gloo mesh's train
+    step on the shared card (``_tp_rank_run``), its result saved for the
+    parent under its key; the runs in ``profiled`` take one step more,
+    rank 0's under the profiler."""
     import torch
     import torch.distributed as dist
-    from repro_torch.checkpoint.checkpoint import _flatten
-    from repro_torch.configs import get_config
-    from repro_torch.configs.base import RunConfig, ShapeConfig
-    from repro_torch.kernels import ops
-    from repro_torch.launch import steps as S
     from repro_torch.launch.mesh import make_host_mesh
-    from repro_torch.models import transformer as T
-    from repro_torch.models.model import Model
-    from repro_torch.sharding import blocks as BL
 
     out = Path(out)
     dist.init_process_group("gloo", store=dist.FileStore(
@@ -5989,55 +6035,116 @@ def _tp_rank(rank, seed, out):
     try:
         mesh = make_host_mesh(1, TP_RANKS, device="cuda", backend="gloo")
         dev = torch.device("cuda", torch.cuda.current_device())
-        cfg = get_config(TRAIN_ARCH)
-        run = RunConfig(model=cfg, shape=ShapeConfig(
-            "train", "train", TRAIN_SEQ, TRAIN_BATCH), remat="none")
-        built = S.build_train_step(run, mesh, **TRAIN_LR)
-        g = torch.Generator(device=dev).manual_seed(seed)
-        state = S.init_sharded_state(built, Model(cfg, device=dev).init(g))
-        torch.cuda.empty_cache()
-        leaf = {t.untyped_storage().data_ptr(): "/".join(p)
-                for p, t in _flatten(T.trainable(state["params"]))}
-        log = {"fwd": [], "bwd": [], "all_reduces": [], "on": False}
-        fwd, bwd, ar = (ops._StreamingGemm.forward, ops._gemm_bwd,
-                        BL.all_reduce)
+        res = {}
+        for which in runs:
+            res[which] = _tp_rank_run(torch, rank, seed, which, mesh, dev,
+                                      which in profiled)
+            gc.collect()
+            torch.cuda.empty_cache()
+            print(f"[tp rank {rank}] run {which}: peak "
+                  f"{res[which]['peak_gb']:.2f} GB, "
+                  f"{torch.cuda.memory_allocated() / 1e9:.2f} GB left",
+                  flush=True)
+        torch.save(res, out / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
 
-        def rec_fwd(ctx, a, b):
-            if log["on"]:
-                log["fwd"].append((leaf.get(b.untyped_storage().data_ptr(),
-                                            "?"), a.shape[0], b.shape[1],
-                                   a.shape[1]))
-            return fwd(ctx, a, b)
 
-        def rec_bwd(a, b):
-            if log["on"]:
-                log["bwd"].append((a.shape[0], b.shape[1], a.shape[1]))
-            return bwd(a, b)
+def _tp_rank_run(torch, rank, seed, which, mesh, dev, profiled):
+    """One run of a rank: its first step's streaming and grouped GEMMs
+    recorded by the leaf they read, its all-reduces and all-gathers
+    counted a step (every collective records itself through
+    ``hlo_analysis.collective``), the routes its MoE layers took each step
+    (``moe._route``'s expert ids, on the host), its launches, losses, step
+    seconds and peak memory; then, with ``profiled``, one step more, on
+    rank 0 under the profiler (``_tp_profiled_step``)."""
+    from repro_torch.checkpoint.checkpoint import _flatten
+    from repro_torch.configs.base import RunConfig, ShapeConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch import hlo_analysis as HA
+    from repro_torch.launch import steps as S
+    from repro_torch.models import moe as MOE
+    from repro_torch.models import transformer as T
+    from repro_torch.models.model import Model
 
-        def rec_ar(t, group, *op):
-            log["all_reduces"][-1] += 1
-            return ar(t, group, *op)
+    cfg, remat, lr = _tp_case(which)
+    run = RunConfig(model=cfg, shape=ShapeConfig(
+        "train", "train", TRAIN_SEQ, TRAIN_BATCH), remat=remat)
+    built = S.build_train_step(run, mesh, **lr)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    state = S.init_sharded_state(built, Model(cfg, device=dev).init(g))
+    torch.cuda.empty_cache()
+    leaf = {t.untyped_storage().data_ptr(): "/".join(p)
+            for p, t in _flatten(T.trainable(state["params"]))}
+    log = {"fwd": [], "bwd": [], "grouped": [], "collectives": [],
+           "routes": [], "on": False}
+    fwd, bwd, gfwd = (ops._StreamingGemm.forward, ops._gemm_bwd,
+                      ops._GroupedGemm.forward)
+    coll, route = HA.collective, MOE._route
 
-        def each(i):
-            log["on"] = i == 0
-            log["all_reduces"].append(0)
+    def name(b):
+        return leaf.get(b.untyped_storage().data_ptr(), "?")
 
-        ops._StreamingGemm.forward = staticmethod(rec_fwd)
-        ops._gemm_bwd, BL.all_reduce = rec_bwd, rec_ar
+    def rec_fwd(ctx, a, b):
+        if log["on"]:
+            log["fwd"].append((name(b), a.shape[0], b.shape[1], a.shape[1]))
+        return fwd(ctx, a, b)
+
+    def rec_gfwd(ctx, a, b, counts):
+        if log["on"]:
+            log["grouped"].append((name(b), tuple(a.shape), tuple(b.shape)))
+        return gfwd(ctx, a, b, counts)
+
+    def rec_bwd(a, b):
+        if log["on"]:
+            log["bwd"].append((a.shape[0], b.shape[1], a.shape[1]))
+        return bwd(a, b)
+
+    def rec_coll(op, nbytes, group_size):
+        if group_size > 1:      # every collective records itself here
+            n = log["collectives"][-1]
+            n[op] = n.get(op, 0) + 1
+        return coll(op, nbytes, group_size)
+
+    def rec_route(p, x, cfg):
+        out = route(p, x, cfg)
+        log["routes"][-1].append(out[1].detach().clone())
+        return out
+
+    def each(i):
+        log["on"] = i == 0
+        log["collectives"].append({})
+        log["routes"].append([])
+
+    ops._StreamingGemm.forward = staticmethod(rec_fwd)
+    ops._GroupedGemm.forward = staticmethod(rec_gfwd)
+    ops._gemm_bwd, HA.collective = rec_bwd, rec_coll
+    MOE._route = rec_route
+    try:
         ops.reset_launches()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        batches = _tp_batches(torch, cfg, seed)
+        batches = _tp_batches(torch, cfg, seed, which)
         state, losses, secs = _tp_run(torch, built.fn, state, batches, dev,
                                       each)
         res = {"losses": losses, "step_s": secs,
                "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
                "launches": dict(ops.LAUNCHES), "gemm_bwd": dict(ops.GEMM_BWD),
-               "fwd": log["fwd"], "bwd": log["bwd"],
-               "all_reduces": log["all_reduces"],
-               "tensor_parallel": built.tensor_parallel}
+               "grouped_bwd": dict(ops.GROUPED_BWD),
+               "fwd": log["fwd"], "bwd": log["bwd"], "grouped": log["grouped"],
+               "all_reduces": [n.get("all-reduce", 0)
+                               for n in log["collectives"]],
+               "all_gathers": [n.get("all-gather", 0)
+                               for n in log["collectives"]],
+               "routes": [[t.cpu() for t in r] for r in log["routes"]],
+               "tensor_parallel": built.tensor_parallel, "config": cfg.name,
+               "ce_chunks": -(-TRAIN_SEQ // run.ce_chunk)}
+    finally:
         ops._StreamingGemm.forward = staticmethod(fwd)
-        ops._gemm_bwd, BL.all_reduce = bwd, ar
+        ops._GroupedGemm.forward = staticmethod(gfwd)
+        ops._gemm_bwd, HA.collective = bwd, coll
+        MOE._route = route
+    if profiled:
         batch = {k: v.to(dev) for k, v in batches[0].items()}
         if rank == 0:
             res["profile"] = _tp_profiled_step(torch, built.fn, state,
@@ -6045,9 +6152,7 @@ def _tp_rank(rank, seed, out):
         else:
             built.fn(state, batch)
         torch.cuda.synchronize()
-        torch.save(res, out / f"rank{rank}.pt")
-    finally:
-        dist.destroy_process_group()
+    return res
 
 
 def phase_tp(torch, args, card, dev, rows):
@@ -6082,7 +6187,7 @@ def phase_tp(torch, args, card, dev, rows):
     TP_DIR.mkdir(parents=True)
     mp.start_processes(_tp_rank, args=(args.seed, str(TP_DIR)),
                        nprocs=TP_RANKS, join=True, start_method="spawn")
-    ranks = [torch.load(TP_DIR / f"rank{r}.pt", weights_only=False)
+    ranks = [torch.load(TP_DIR / f"rank{r}.pt", weights_only=False)[None]
              for r in range(TP_RANKS)]
     shutil.rmtree(TP_DIR, ignore_errors=True)
     secs["two ranks"] = time.perf_counter() - t
@@ -6144,6 +6249,391 @@ def phase_tp(torch, args, card, dev, rows):
     rows["streaming_gemm"]["tp_train_launches"] = res["gemm_launches"]
     res["launches"] = r0["launches"]
     return res
+
+
+# ---------------------------------------------------------------- phase 22
+TPM_STEPS = 4
+TPM_RUNS = ("a", "b")
+# losses against one rank, relative, every step (PERF.md, phase 22): (a)
+# where the routing decides, against one rank on the ranks' routes (a
+# top-k near tie may take another expert set on the split), (b) as 21's
+TPM_LOSS_RTOL = {"a": 1e-3, "b": 1e-4}
+# 22(a)'s steps on the first weights (TRAIN_LR warms up from a rate of 0
+# at step 0), where the losses are held against one rank's own routes too
+TPM_FREE_STEPS = 2
+TPM_DIR = Path(__file__).resolve().parent / "build" / "tp_moe_smoke"
+# 22k: the grouped GEMM at a rank's shapes, (what, E, C, rows an expert,
+# d, d_ff, on the path): qwen2-moe's (1, 2) expert split (30 of 60
+# experts, 22a's), the (16, 16) plan's column split (60 experts, 88 of
+# 1,408 columns) and deepseek-v3's (16, 16) expert split (16 of 256)
+TPM_GROUPED = (("qwen2-moe (1, 2) experts", 30, MOE_TRAIN_C, MOE_TRAIN_ROWS,
+                2048, 1408, True),
+               ("qwen2-moe (16, 16) columns", 60, MOE_TRAIN_C,
+                MOE_TRAIN_ROWS, 2048, 88, False),
+               ("deepseek-v3 (16, 16) experts", 16, DEEPSEEK_TRAIN[1],
+                DEEPSEEK_TRAIN[2], 7168, 2048, False))
+# 22k: 21's 2-D products at qwen2-0.5b's (1, 2) local widths, M = 4,096
+TPM_2D = (("q (1, 2)", 896, 448), ("gate / up (1, 2)", 896, 2432),
+          ("o (1, 2)", 448, 896), ("down (1, 2)", 2432, 896))
+
+
+def _tpm_widths(cfg, m):
+    """{leaf key within a layer (or ``mtp/block/...``, ``mtp/proj``,
+    ``lm_head``): (K, N) of a 2-D product's B operand, or (E, K, N) of a
+    grouped one} of an MoE-family config over a model extent of ``m``
+    (the placements: a block where the heads, columns, experts or
+    vocabulary divide, the experts split by expert before by column)."""
+    d, H, V = cfg.d_model, cfg.n_heads, cfg.padded_vocab
+
+    def local(n, count):
+        return n // m if count % m == 0 else n
+
+    def attn(pre):
+        if cfg.mla:
+            a = cfg.mla
+            qk = a.qk_nope_head_dim + a.qk_rope_head_dim
+            return {pre + "wdq": (d, a.q_lora_rank),
+                    pre + "wuq": (a.q_lora_rank, local(H * qk, H)),
+                    pre + "wdkv": (d, a.kv_lora_rank),
+                    pre + "wkr": (d, a.qk_rope_head_dim),
+                    pre + "wuk": (a.kv_lora_rank,
+                                  local(H * a.qk_nope_head_dim, H)),
+                    pre + "wuv": (a.kv_lora_rank, local(H * a.v_head_dim, H)),
+                    pre + "wo": (local(H * a.v_head_dim, H), d)}
+        hd, KH = cfg.resolved_head_dim, cfg.n_kv_heads
+        q, kv = local(H * hd, H), local(KH * hd, KH)
+        return {pre + "wq": (d, q), pre + "wk": (d, kv), pre + "wv": (d, kv),
+                pre + "wo": (q, d)}
+
+    def mlp(pre, f):
+        return {pre + "wi_gate": (d, local(f, f)),
+                pre + "wi_up": (d, local(f, f)), pre + "wo": (local(f, f), d)}
+
+    mo = cfg.moe
+    out = {**attn("attn/"), "lm_head": (d, local(V, V))}
+    if cfg.n_layers > mo.first_dense_layers:
+        E, f = mo.n_routed_experts, mo.d_ff_expert
+        El = local(E, E)
+        fl = f if El < E else local(f, f)
+        out.update({"moe/router": (d, El), "moe/wi_gate": (El, d, fl),
+                    "moe/wi_up": (El, d, fl), "moe/wo": (El, fl, d)})
+        if mo.n_shared_experts:
+            out.update({k.replace("mlp/", "moe/shared_"): v for k, v in
+                        mlp("mlp/", f * mo.n_shared_experts).items()})
+    if mo.first_dense_layers:
+        out.update(mlp("mlp/", cfg.d_ff))
+    if cfg.mtp:
+        out["mtp/proj"] = (2 * d, d)
+        out.update({"mtp/block/" + k: v for k, v in
+                    {**attn("attn/"), **mlp("mlp/", cfg.d_ff)}.items()})
+    return out
+
+
+def _tpm_kernels(torch, args, dev, timer, rows):
+    """22k. The grouped forward, dA and dB at a rank's shapes
+    (``TPM_GROUPED``), each against its plain version and timed beside
+    it, ``torch.bmm`` and the bound (the grouped rows' ``tp_moe_path``;
+    on the path: 22a's expert split); and 21's 2-D products at
+    qwen2-0.5b's (1, 2) local widths, forward, dA and dB at M = 4,096
+    (the GEMM row's ``tp_path``)."""
+    g = torch.Generator(device=dev).manual_seed(args.seed + 22)
+    bf16 = torch.bfloat16
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device=dev, dtype=bf16) \
+            * scale
+
+    fwd, bwd = [], {"da": [], "db": []}
+    for what, E, C, mean, d, f, on_path in TPM_GROUPED:
+        counts = _train_counts(torch, dev, g, E, C, mean)
+        past = torch.arange(C, device=dev)[None, :] >= counts[:, None]
+        for K, N in ((d, f), (f, d)):
+            name = f"{what} {K}->{N}"
+            w = randn(E, K, N, scale=N ** -0.5)
+            a = randn(E, C, K)
+            a[past] = 0
+            fwd.append(_grouped_entry(torch, timer, name, a,
+                                      w * (N ** 0.5 * K ** -0.5), counts,
+                                      on_path))
+            dc = randn(E, C, N)
+            dc[past] = float("nan")
+            bwd["da"].append(_grouped_bwd_entry(
+                torch, timer, name, "da", dc, w, counts, on_path))
+            a = randn(E, C, K, scale=mean ** -0.5)
+            a[past] = float("nan")
+            bwd["db"].append(_grouped_bwd_entry(
+                torch, timer, name, "db", a, dc, counts, on_path))
+            del w, a, dc
+            torch.cuda.empty_cache()
+    _add_path(rows["streaming_gemm_grouped"], fwd, "tp_moe_path")
+    for which, name in GROUPED_BWD_NAMES.items():
+        _add_path(rows[name], bwd[which], "tp_moe_path")
+    M, flat = TRAIN_TOKENS, []
+    for what, K, N in TPM_2D:
+        x = randn(M, K, scale=M ** -0.5)
+        b = randn(K, N, scale=N ** -0.5)
+        dc = randn(M, N)
+        flat += [_bwd_entry(torch, timer, randn(M, K), b * (
+                     N ** 0.5 * K ** -0.5), f"{what} x·W"),
+                 _bwd_entry(torch, timer, dc, b.t(), f"{what} dA"),
+                 _bwd_entry(torch, timer, x.t(), dc, f"{what} dB")]
+        del x, b, dc
+    _add_path(rows["streaming_gemm"], flat, "tp_path")
+    return {"grouped_forward": fwd, **bwd, "gemm": flat}
+
+
+def _tpm_forced_route(torch, p, x, cfg, top_e):
+    """``moe._route`` on one rank with the expert ids ``top_e`` given:
+    the same logits and softmax, the given experts' weights
+    renormalised, the aux loss over their counts; and the tokens whose
+    own top-k (the free route) is another expert set."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe as MOE
+    m = cfg.moe
+    E, k = m.n_routed_experts, m.top_k
+    probs = torch.softmax(L._gemm(x, p["router"]).float(), dim=-1)
+    top_e = top_e.to(x.device).view(*probs.shape[:-1], k)
+    top_p = probs.gather(-1, top_e)
+    top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
+    me = probs.reshape(-1, E).mean(0)
+    ce = MOE._count(top_e, E, torch.float32) / top_e.numel()
+    free = torch.sort(probs.detach(), dim=-1, descending=True,
+                      stable=True).indices[..., :k]
+    flips = (free.sort(-1).values != top_e.sort(-1).values).any(-1).sum()
+    return (top_p, top_e, E * torch.sum(me * ce) * m.router_aux_coef), flips
+
+
+def _tpm_one_rank(torch, args, dev, which, routes=None):
+    """22's one-rank run ``which`` in this process, on the weights and
+    batches the ranks take (``_tp_case``): with ``routes`` (the ranks'
+    expert ids a step and MoE layer) each MoE layer takes the ranks'
+    route (``_tpm_forced_route``), and the tokens whose own route
+    differs are counted a step and layer."""
+    from repro_torch.configs.base import RunConfig, ShapeConfig
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.models import moe as MOE
+    from repro_torch.models import transformer as T
+    from repro_torch.models.model import Model
+    from repro_torch.optim import get_optimizer
+
+    cfg, remat, lr = _tp_case(which)
+    run = RunConfig(model=cfg, shape=ShapeConfig(
+        "train", "train", TRAIN_SEQ, TRAIN_BATCH), remat=remat)
+    g = torch.Generator(device=dev).manual_seed(args.seed)
+    params = T.add_derived(T.trainable(Model(cfg, device=dev).init(g)), cfg)
+    state = {"params": params,
+             "opt": get_optimizer("adamw").init(T.trainable(params))}
+    flips, route = [], MOE._route
+
+    def forced(p, x, cfg):
+        out, n = _tpm_forced_route(torch, p, x, cfg,
+                                   routes[len(flips) - 1][len(flips[-1])])
+        flips[-1].append(n)
+        return out
+
+    def each(i):
+        flips.append([])
+
+    if routes is not None:
+        MOE._route = forced
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        state, losses, secs = _tp_run(
+            torch, build_train_step(run, dev, **lr), state,
+            _tp_batches(torch, cfg, args.seed, which), dev, each)
+    finally:
+        MOE._route = route
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del state, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"losses": losses, "peak_gb": peak,
+           "median_step_ms": statistics.median(secs[1:]) * 1e3,
+           "left_gb": torch.cuda.memory_allocated() / 1e9}
+    if routes is not None:
+        out["own_route_differs"] = [[int(n) for n in f] for f in flips]
+    on = " on the ranks' routes" if routes is not None else ""
+    print(f"[tp_moe] one rank {which}{on} ({cfg.name}, {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ} tokens): {json.dumps(out)}", flush=True)
+    return out
+
+
+def _tpm_check(torch, which, ranks, want, card, free=None):
+    """22(a) / (b)'s line, printed, and its checks, a list of (holds,
+    message) (module docstring): ``want`` the one-rank run on the ranks'
+    routes, ``free`` (for (a)) the one-rank run on its own."""
+    import math
+    r0 = ranks[0]
+    checks = []
+
+    def check(ok, msg):
+        checks.append((bool(ok), msg))
+
+    cfg = _tp_case(which)[0]
+    m = TP_RANKS
+    widths = _tpm_widths(cfg, m)
+    got = {}
+
+    def key(path):
+        parts = path.split("/")
+        return "/".join(parts[2:]) if parts[0] in ("layers",
+                                                   "dense_layers") else path
+
+    for path, M, N, K in r0["fwd"]:
+        got.setdefault(key(path), set()).add((K, N))
+    for path, a, b in r0["grouped"]:
+        got.setdefault(key(path), set()).add(tuple(b))
+    fwd = r0["launches"]["streaming_gemm"] - r0["gemm_bwd"]["launches"]
+    rel = [abs(a - b) / abs(b) for a, b in zip(r0["losses"],
+                                               want["losses"])]
+    res = {"run": which, "config": r0["config"], "mesh": [1, m],
+           "backend": "gloo", "tensor_parallel": r0["tensor_parallel"],
+           "tokens_a_step": TRAIN_SEQ * TRAIN_BATCH, "steps": TPM_STEPS,
+           "losses": r0["losses"], "one_rank_losses": want["losses"],
+           "loss_rel": rel, "max_loss_rel": max(rel),
+           "loss_rtol": TPM_LOSS_RTOL[which],
+           "peak_gb": [r["peak_gb"] for r in ranks],
+           "one_rank_peak_gb": want["peak_gb"],
+           "one_rank_median_step_ms": want["median_step_ms"],
+           "gemm_launches": {"forward": fwd,
+                             "backward": r0["gemm_bwd"]["launches"]},
+           "grouped_launches": {
+               "forward": r0["launches"]["streaming_gemm_grouped"]
+               - sum(r0["grouped_bwd"].values()), **r0["grouped_bwd"]},
+           "forward_mnk": sorted({(M, N, K) for _, M, N, K in r0["fwd"]}),
+           "grouped_shapes": sorted({(a, b) for _, a, b in r0["grouped"]}),
+           "leaf_widths": {k: sorted(v) for k, v in sorted(got.items())},
+           "all_reduces_a_step": r0["all_reduces"],
+           "all_gathers_a_step": r0["all_gathers"],
+           "median_step_ms_gloo_staged": [
+               statistics.median(r["step_s"][1:]) * 1e3 for r in ranks],
+           "note": "step ms: every collective staged through the host by "
+                   "gloo; not a tensor-parallel speed figure",
+           "card": card}
+    if free is not None:
+        free_rel = [abs(a - b) / abs(b) for a, b in zip(r0["losses"],
+                                                        free["losses"])]
+        res.update({"one_rank_on": "the ranks' routes",
+                    "own_route_differs": want["own_route_differs"],
+                    "tokens_a_layer": TRAIN_SEQ * TRAIN_BATCH,
+                    "free_one_rank_losses": free["losses"],
+                    "free_loss_rel": free_rel,
+                    "free_held_steps": TPM_FREE_STEPS})
+    if "profile" in r0:
+        res["profiled_step_rank0"] = r0["profile"]
+    print("[tp_moe_train] " + json.dumps(res), flush=True)
+    check(all(len(r["routes"]) == len(r0["routes"]) and all(
+        torch.equal(a, b) for ra, rb in zip(r["routes"], r0["routes"])
+        for a, b in zip(ra, rb)) for r in ranks),
+        f"tp {which}: the ranks routed apart")
+    if free is not None:
+        check(all(x <= TPM_LOSS_RTOL[which]
+                  for x in free_rel[:TPM_FREE_STEPS]),
+              f"tp {which}: losses {r0['losses']} against one rank's "
+              f"own {free['losses']} on the first weights")
+    check(res["tensor_parallel"] == m,
+          f"tp {which}: the step split over {res['tensor_parallel']} ranks")
+    check(all(r["losses"] == r0["losses"] for r in ranks),
+          f"tp {which}: the ranks' losses differ")
+    check(all(x <= TPM_LOSS_RTOL[which] for x in rel)
+          and all(math.isfinite(x) for x in r0["losses"]),
+          f"tp {which}: losses {r0['losses']} against one rank's "
+          f"{want['losses']}")
+    check(got == {k: {v} for k, v in widths.items()},
+          f"tp {which}: GEMM widths {res['leaf_widths']}, want {widths}")
+    # a step's products (16c's and 17c's counts) and collectives: (a)
+    # every layer MoE, 4 attention products, the router and 3 shared
+    # expert ones, the lm_head a CE chunk; 5 all-reduces a layer (the
+    # attention's and the MoE's output sums, the input-gradient sums of
+    # both and the routing weights' gradient sum), the lookup, the CE's
+    # 3 a chunk, the clipping norm; the logits gathered once a layer.
+    # (b) every layer dense MLA, 10 products a layer and the MTP block,
+    # its proj, the lm_head twice, the 3 layers' 30 recomputed under
+    # remat="full"; 4 all-reduces a block and the attention's replayed
+    # in each layer's recompute, 2 lookups, the two CEs' 3 a chunk, the
+    # norm; the one gather of wuk / wuv whole for the absorbed copies
+    L, chunks = cfg.n_layers, r0["ce_chunks"]
+    if which == "a":
+        per, back, ar, ag = 8 * L + chunks, 8 * L + chunks, \
+            5 * L + 1 + 3 * chunks + 1, L
+        check(res["grouped_launches"] == {
+            "forward": 3 * L * TPM_STEPS, "da": 3 * L * TPM_STEPS,
+            "db": 3 * L * TPM_STEPS},
+            f"tp {which}: grouped launches {res['grouped_launches']}")
+    else:
+        per, back, ar, ag = 20 * L + 11 + 2 * chunks, \
+            10 * L + 11 + 2 * chunks, 5 * L + 4 + 2 + 6 * chunks + 1, 1
+    check(res["gemm_launches"] == {"forward": per * TPM_STEPS,
+                                   "backward": 2 * back * TPM_STEPS},
+          f"tp {which}: GEMM launches {res['gemm_launches']}")
+    check(all(n == ar for n in r0["all_reduces"])
+          and all(n == ag for n in r0["all_gathers"]),
+          f"tp {which}: all-reduces / all-gathers a step "
+          f"{r0['all_reduces']} / {r0['all_gathers']}, want {ar} / {ag}")
+    prof = res.get("profiled_step_rank0")
+    if prof is not None:
+        check(prof["gemm_simt_kernels"] == 0,
+              f"tp {which}: {prof['gemm_simt_kernels']} kernels on "
+              "gemm_simt")
+        check(prof["gemm_ranges"] > 0
+              and not prof["library_ops_in_gemm_ranges"],
+              f"tp {which}: the profiled step's products {prof}")
+    check(sum(res["peak_gb"]) < TP_GB, f"tp {which}: peaks "
+          f"{res['peak_gb']} GB")
+    res["launches"] = {**r0["launches"], **{
+        name: r0["grouped_bwd"][w] for w, name in GROUPED_BWD_NAMES.items()}}
+    return res, checks
+
+
+def phase_tp_moe(torch, args, card, dev, rows):
+    """22. Tensor parallelism of the moe family on one card (module
+    docstring); prints its lines and its seconds."""
+    import shutil
+    import torch.multiprocessing as mp
+
+    secs = {}
+    t = time.perf_counter()
+    kern = _tpm_kernels(torch, args, dev, Timer(torch, dev), rows)
+    torch.cuda.empty_cache()
+    secs["kernels"] = time.perf_counter() - t
+    want = {}
+    for which in TPM_RUNS:
+        t = time.perf_counter()
+        want[which] = _tpm_one_rank(torch, args, dev, which)
+        secs[f"one rank {which}"] = time.perf_counter() - t
+    free = {"a": want.pop("a")}
+
+    t = time.perf_counter()
+    card_free, card_total = torch.cuda.mem_get_info()
+    print(f"[tp_moe] before the ranks: this process holds "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB "
+          f"({torch.cuda.memory_reserved() / 1e9:.2f} reserved); the card "
+          f"{card_free / 1e9:.2f} of {card_total / 1e9:.2f} GB free",
+          flush=True)
+    shutil.rmtree(TPM_DIR, ignore_errors=True)
+    TPM_DIR.mkdir(parents=True)
+    mp.start_processes(_tp_rank, args=(args.seed, str(TPM_DIR),
+                                       TPM_RUNS, ("a",)),
+                       nprocs=TP_RANKS, join=True, start_method="spawn")
+    ranks = [torch.load(TPM_DIR / f"rank{r}.pt", weights_only=False)
+             for r in range(TP_RANKS)]
+    shutil.rmtree(TPM_DIR, ignore_errors=True)
+    secs["two ranks"] = time.perf_counter() - t
+    t = time.perf_counter()
+    want["a"] = _tpm_one_rank(torch, args, dev, "a", ranks[0]["a"]["routes"])
+    secs["one rank a on the ranks' routes"] = time.perf_counter() - t
+    res, checks = {}, []
+    for which in TPM_RUNS:
+        res[which], c = _tpm_check(torch, which, [r[which] for r in ranks],
+                                   want[which], card, free.get(which))
+        checks += c
+    print(f"[tp_moe] seconds {json.dumps(secs)}", flush=True)
+    for ok, msg in checks:
+        require(ok, msg)
+    rows["streaming_gemm"]["tp_moe_train_launches"] = {
+        w: r["gemm_launches"] for w, r in res.items()}
+    return {**res, "kernels": kern}
 
 
 def main():
@@ -6222,6 +6712,8 @@ def main():
     lap("20 dry run")
     tp = phase_tp(torch, args, card, dev, rows)
     lap("21 tensor parallel")
+    tpm = phase_tp_moe(torch, args, card, dev, rows)
+    lap("22 tensor parallel moe")
     print(f"[phases] seconds {json.dumps(laps)}", flush=True)
 
     # launches: each kernel's count from its own main path's serving run
@@ -6250,6 +6742,9 @@ def main():
         k: sum(r["launches"].get(k, 0) for r in dry["counts"].values())
         for k in ops.LAUNCHES}
     paths[f"{cfg.name} tp train (1, 2) rank 0"] = tp["launches"]
+    for which in TPM_RUNS:
+        paths[f"{tpm[which]['config']} tp train (1, 2) rank 0"] = \
+            tpm[which]["launches"]
     own = {"streaming_gemm_grouped": MOE_ARCH,
            "paged_latent_attention": deepseek["config"],
            "paged_attention_int8": int8_path, "kv_quantize": int8_path,

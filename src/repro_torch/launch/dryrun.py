@@ -25,9 +25,12 @@ Cells:
 
 - ``train``: as the reference, a model over 3e10 parameters defaults to
   Adafactor.  ``tensor_parallel`` is the ``model`` extent over which the
-  dense and vlm families' layers split their leaves
+  dense, vlm and moe families' layers split their leaves
   (``steps.tensor_parallel_leaves``), or 1: the counts are then rank
-  0's, computing with its ``model`` blocks.  On a mesh that splits the
+  0's, computing with its ``model`` blocks (an MoE layer's grouped
+  products over its E / m experts, or over every expert's d_ff / m
+  columns where E does not divide, each recorded at those operand
+  shapes; the router's logits gathered by one all-gather a forward).  On a mesh that splits the
   batch rows over more than one rank an MoE model runs the row-local
   dispatch (``moe_local_dispatch``, recorded as ``moe_dispatch``): the
   global one raises there (ROADMAP 14g).

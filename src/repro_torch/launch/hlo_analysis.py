@@ -62,9 +62,10 @@ than these counts; a shape-only count is what the reference's static HLO
 counts are too.
 
 Collectives record themselves (``collective``) where the port makes
-them (``sharding.blocks.all_reduce`` / ``gather``): the result's bytes,
-the group's size and the reference's ring model (``ring_bytes``).  A
-collective over one rank makes no call and records nothing.
+them (``sharding.blocks.all_reduce`` / ``all_gather`` / ``gather``):
+the result's bytes, the group's size and the reference's ring model
+(``ring_bytes``).  A collective over one rank makes no call and records
+nothing.
 
 Memory: the bytes of live storages.  The arguments' storages are live
 from the start; each storage an op makes is counted once when it

@@ -14,23 +14,27 @@ bare ``fn`` of the same step on the local one-rank layout
 (``sharding.blocks.ONE_RANK``: nothing split, no process group).
 
 The train step is sharded data parallelism over the placements, with
-tensor parallelism over ``model`` in the dense and vlm families: each
+tensor parallelism over ``model`` in the dense, vlm and moe families
+(``TP_FAMILIES``): each
 rank holds its block of every parameter, optimizer-state and
 error-feedback leaf (``state = {"params", "opt"}``, and ``"ef"`` with
 gradient compression), and its rows of the batch (split over the axes
 the ``batch`` placement gives, ``("pod", "data")`` by default; the
 ``model`` ranks of one data index take the same rows).
 
-In the dense and vlm families a weight leaf whose placement splits a
-dim over a ``model`` of more than one rank (``heads`` / ``kv_heads`` of
-the attention, ``mlp``, ``vocab``) is read by a tensor-parallel layer
+In those families a weight leaf whose placement splits a dim over a
+``model`` of more than one rank (``heads`` / ``kv_heads`` of the
+attention and MLA's ``wuq`` / ``wuk`` / ``wuv`` / ``wo``, ``mlp``,
+``vocab``, and the MoE's ``expert``, or its ``mlp`` where the experts
+do not divide) is read by a tensor-parallel layer
 (``sharding.tensor_parallel``): the rank computes with its ``model``
-block, and the layers' all-reduces over ``model`` make the activations
+block, and the layers' collectives over ``model`` make the activations
 and the loss those of the whole model on every rank
 (``tensor_parallel_leaves``).  A layer whose leaves no placement splits
-over ``model`` (14 heads on 16 ranks) runs whole on every rank.  Every
-other family gathers every leaf whole, and every rank runs every GEMM
-whole.  A step
+over ``model`` (14 heads on 16 ranks; MLA's latent weights) runs whole
+on every rank, and its gradient comes out whole on every rank.  The
+ssm, hybrid and audio families gather every leaf whole, and every rank
+runs every GEMM whole.  A step
 
 1. gathers the bf16 weights on each rank (``blocks.gather``; a leaf no
    placement splits is used as it is): with AdamW a tensor-parallel
@@ -215,14 +219,15 @@ def per_rank_bytes(built: BuiltStep) -> int:
 # =====================================================================
 # train
 # =====================================================================
-TP_FAMILIES = ("dense", "vlm")
+TP_FAMILIES = ("dense", "vlm", "moe")
 
 
 def tensor_parallel_leaves(cfg, w_pl, mesh):
     """Per leaf of the trainable weights' placement ``w_pl``: True where a
     tensor-parallel layer reads the leaf's ``model`` block (module
-    docstring): a dense or vlm model, a ``model`` of more than one rank,
-    and a placement that splits a dim over it."""
+    docstring): a model of ``TP_FAMILIES``, a ``model`` of more than one
+    rank, and a placement that splits a dim over it (an MoE's expert
+    leaves by expert or by column, its router by expert)."""
     on = cfg.family in TP_FAMILIES and \
         BL.mesh_shape_dict(mesh).get("model", 1) > 1
     return tree_map(lambda spec: on and any(

@@ -15,13 +15,18 @@ the activation dtype.  PyTorch refuses mixed-dtype arithmetic where JAX
 promotes, so casts are explicit.
 
 Under a mesh whose ``model`` axis splits a layer's leaves (the train
-step of the dense and vlm families, ``launch.steps``), ``qkv_proj``,
-``out_proj``'s callers in training and ``apply_mlp`` run on this
-rank's blocks, as ``sharding.tensor_parallel`` sets out: the heads or
-the MLP columns of the rank, the input through ``copy_to_model``, the
-output through ``reduce_from_model`` (a bias of the output added once,
-after it).  A layer whose leaves are whole (the head count does not
-divide over ``model``) runs whole on every rank, with no collective.
+step of the dense, vlm and moe families, ``launch.steps``),
+``qkv_proj``, ``out_proj``'s callers in training, ``apply_mlp`` and
+``mla_train_chunked`` run on this rank's blocks, as
+``sharding.tensor_parallel`` sets out: the heads or the MLP columns of
+the rank, the input through ``copy_to_model``, the output through
+``reduce_from_model`` (a bias of the output added once, after it).
+MLA's latent path (``wdq``, ``q_norm``, ``wdkv``, ``kv_norm``, ``wkr``)
+is whole and runs on every rank; its outputs, not x, go through
+``copy_to_model``, so the whole latent weights' gradients come out
+whole on every rank.  A layer whose leaves are whole (the head count
+does not divide over ``model``) runs whole on every rank, with no
+collective.
 
 ``chunked_attention`` and ``decode_attention`` are the reference's
 plain XLA attention paths.  Training runs ``chunked_attention`` as
@@ -411,15 +416,22 @@ def mla_absorbed(p) -> dict:
             "wuv_hrv": p["wuv"].permute(1, 0, 2).contiguous()}
 
 
-def _mla_q(p, x, cfg: ModelConfig, positions):
+def _mla_q(p, x, cfg: ModelConfig, positions, cq=None):
     """x (..., d) -> q_nope (..., H, nope), q_rope (..., H, rope) after
-    RoPE at ``positions`` (x's leading dims)."""
+    RoPE at ``positions`` (x's leading dims); ``cq``, when given, is the
+    normed query latent, and x is not read."""
     m = cfg.mla
-    cq = apply_norm(p["q_norm"], _gemm(x, p["wdq"]), cfg)
+    if cq is None:
+        cq = _mla_cq(p, x, cfg)
     q = head_proj(p["wuq"], cq)
     q_nope, q_rope = q[..., :m.qk_nope_head_dim], q[..., m.qk_nope_head_dim:]
     return q_nope, apply_rope(q_rope, positions, cfg,
                               dim=m.qk_rope_head_dim)
+
+
+def _mla_cq(p, x, cfg: ModelConfig):
+    """x (..., d) -> the normed query latent (..., q_lora_rank)."""
+    return apply_norm(p["q_norm"], _gemm(x, p["wdq"]), cfg)
 
 
 def _mla_latent(p, x, cfg: ModelConfig, positions):
@@ -431,14 +443,25 @@ def _mla_latent(p, x, cfg: ModelConfig, positions):
     return ckv, kr
 
 
+def mla_heads_split(p, cfg: ModelConfig) -> bool:
+    """True where ``model`` splits MLA's heads (``p["wuq"]`` holds this
+    rank's)."""
+    return TP.parallel(p["wuq"].shape[1], cfg.n_heads)
+
+
 def _mla_qkv(p, x, cfg: ModelConfig, positions):
     """x (B, T, d) -> q, k (B, T, H, nope + rope), v (B, T, H, v) and the
     latents (ckv, kr): k_nope = ckv·W_uk and v = ckv·W_uv per head, the
     rope half of k one head shared by every head (``expand``, so that
-    autograd sums its gradient over the heads)."""
-    H, rope = cfg.n_heads, cfg.mla.qk_rope_head_dim
-    q_nope, q_rope = _mla_q(p, x, cfg, positions)
+    autograd sums its gradient over the heads).  Where ``model`` splits
+    the heads, H is the rank's, from the whole latents through one
+    ``copy_to_model`` (module docstring)."""
+    H, rope = p["wuq"].shape[1], cfg.mla.qk_rope_head_dim
+    cq = _mla_cq(p, x, cfg)
     ckv, kr = _mla_latent(p, x, cfg, positions)
+    if mla_heads_split(p, cfg):
+        cq, ckv, kr = TP.copy_to_model(cq, ckv, kr)
+    q_nope, q_rope = _mla_q(p, x, cfg, positions, cq)
     k_nope = head_proj(p["wuk"], ckv)
     v = head_proj(p["wuv"], ckv)
     k = torch.cat([k_nope, kr[..., None, :].expand(*kr.shape[:-1], H, rope)],
@@ -463,9 +486,12 @@ def mla_train_chunked(p, x, cfg: ModelConfig, positions):
     projections through the streaming GEMM (whose backward products run
     on the same kernel) and ``chunked_attention`` as torch ops, which
     autograd differentiates (the flash kernel has no backward).  x (B,
-    T, d); positions (B, T).  Returns (B, T, d)."""
+    T, d); positions (B, T).  Returns (B, T, d).  Where ``model`` splits
+    the heads, over this rank's (``_mla_qkv``), ``wo``'s partials summed
+    over ``model``."""
     q, k, v, _ = _mla_qkv(p, x, cfg, positions)
-    return out_proj(p, chunked_attention(q, k, v, causal=True))
+    out = out_proj(p, chunked_attention(q, k, v, causal=True))
+    return TP.reduce_from_model(out) if mla_heads_split(p, cfg) else out
 
 
 def mla_decode(p, x, cfg: ModelConfig, pool, view):

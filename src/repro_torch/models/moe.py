@@ -53,6 +53,50 @@ which no rank holds, and raises.  The load-balancing loss takes its
 ``me`` and ``ce`` means over the whole batch: the rank's sums are
 all-reduced over the batch ranks, and the gradient of ``me`` reaches
 the rank's own router probabilities.
+
+Under a train step that splits the layer's leaves over ``model``
+(``launch.steps``; ``sharding.tensor_parallel``), the leaves' shapes
+give one of two forms, as the reference's placements (``expert``
+outranks ``mlp`` for ``model``):
+
+- **Expert split** (``wi_gate`` holds E / m of the E experts: rank r
+  those of ``model_range``).  The router holds their E / m columns and
+  reads the input through ``copy_to_model``; its logits are gathered
+  whole (``gather_from_model``) before the softmax, so the top-k, the
+  aux loss, the sort, the capacity and the drops are those of one rank
+  on every rank.  Each rank builds only its experts' rows of the
+  buffer (the assignments to other experts go to the spare row, as the
+  dropped ones do), the (E-1, C-1) cell zeroed by the rank that holds
+  expert E-1, and runs the three grouped GEMMs over its experts; the
+  combine sums each token's contributions from them (zeros for the
+  experts held elsewhere).
+- **Column split** (every expert, its ``d_ff_expert`` / m columns of
+  the rank: E does not divide over ``model``).  The router is whole and
+  reads the input itself, not through ``copy_to_model``, since its
+  gradient of the input is then whole on every rank; the gate and up
+  products are column-parallel and ``wo`` row-parallel inside the
+  grouped GEMM.
+
+The shared experts split by columns, as the dense MLP.  The experts'
+and the shared experts' input goes through one ``copy_to_model``, and
+their partial outputs are added in fp32 and summed by one
+``reduce_from_model``: one all-reduce forward and one backward a layer
+for the input, plus, in the expert split, the logits' all-gather.  The
+routing weights enter the combine through ``copy_to_model``, since a
+rank's combine reads only its experts' weights (expert split) or
+scales its partial outputs by them (column split): one more all-reduce
+backward, of B·T·k fp32 values.  With these, every rank's gradient of
+whatever is whole (the router in the column split, the norms) is the
+whole one.
+
+Rounding: a token's contributions are summed in bf16 over the rank's
+experts only, and the ranks' partials in fp32, rounded once, where one
+rank sums all k in bf16; in the column split each expert's output is
+also a sum of bf16-rounded partials.  Against one rank that moves a
+layer's output by about one bf16 rounding, and a route whose top-k is a
+near tie can change with it: the CPU tests hold a split run's losses
+within 1e-3 relative of one rank's every step and its gradients within
+5e-2 relative L2 (``tests/test_torch_tensor_parallel_moe.py``).
 """
 from __future__ import annotations
 
@@ -65,6 +109,7 @@ from repro_torch.models import tuning as TU
 from repro_torch.models.params import PSpec
 from repro_torch.sharding import blocks as BL
 from repro_torch.sharding import context as SC
+from repro_torch.sharding import tensor_parallel as TP
 
 
 def routed_capacity(n_assignments: int, n_experts: int,
@@ -110,10 +155,15 @@ def _count(idx, n: int, dtype=torch.int64):
 def _route(p, x, cfg: ModelConfig):
     """x (..., d) -> (top_p (..., k) fp32, top_e (..., k) int64, aux
     loss).  Logits are rounded to the activation dtype before the fp32
-    softmax, as the reference's ``(x @ router).astype(f32)``."""
+    softmax, as the reference's ``(x @ router).astype(f32)``; a router
+    of the rank's experts' columns makes theirs, gathered whole over
+    ``model`` (module docstring)."""
     m = cfg.moe
     E, k = m.n_routed_experts, m.top_k
-    probs = torch.softmax(L._gemm(x, p["router"]).float(), dim=-1)
+    logits = L._gemm(x, p["router"])
+    if TP.parallel(p["router"].shape[1], E):
+        logits = TP.gather_from_model(logits)
+    probs = torch.softmax(logits.float(), dim=-1)
     top_p, top_e = torch.sort(probs, dim=-1, descending=True, stable=True)
     top_p, top_e = top_p[..., :k], top_e[..., :k]
     top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
@@ -162,6 +212,54 @@ def _shared(p, x, cfg: ModelConfig):
     return L._gemm(h, p["shared_wo"])
 
 
+class _Split:
+    """How ``model`` splits an MoE layer's leaves (module docstring):
+    ``experts`` and ``shared`` tell whether the routed and the shared
+    experts are split; ``lo`` / ``hi`` bound the experts the rank holds
+    (all of them unless the split is by expert)."""
+
+    def __init__(self, p, cfg: ModelConfig):
+        m = cfg.moe
+        E, f = m.n_routed_experts, m.d_ff_expert
+        by_expert = TP.parallel(p["wi_gate"].shape[0], E)
+        self.experts = by_expert or TP.parallel(p["wi_gate"].shape[2], f)
+        self.lo, self.hi = TP.model_range(p["wi_gate"].shape[0]) \
+            if by_expert else (0, E)
+        self.shared = bool(m.n_shared_experts) and TP.parallel(
+            p["shared_wo"].shape[0], f * m.n_shared_experts)
+        self.by_expert = by_expert
+
+    def inputs(self, x):
+        """(the router's input, the routed experts', the shared
+        experts'): x, or x through one ``copy_to_model`` where the work
+        that reads it is split."""
+        xc = TP.copy_to_model(x) if self.experts or self.shared else x
+        return (xc if self.by_expert else x,
+                xc if self.experts else x, xc if self.shared else x)
+
+    def weights(self, top_p):
+        """The routing weights as the combine reads them."""
+        return TP.copy_to_model(top_p) if self.experts else top_p
+
+    def output(self, p, y, xs, cfg: ModelConfig, dtype):
+        """The layer's output from the routed experts' ``y`` and the
+        shared experts over ``xs``: the split partials added in fp32 and
+        summed over ``model`` in one all-reduce, rounded to ``dtype``
+        once."""
+        s = _shared(p, xs, cfg) if cfg.moe.n_shared_experts else None
+        if not (self.experts or self.shared):
+            return (y if s is None else y + s).to(dtype)
+        part = y.float() if self.experts else None
+        if self.shared:
+            part = s.float() if part is None else part + s.float()
+        out = TP.reduce_from_model(part).to(dtype)
+        if not self.experts:
+            out = out + y.to(dtype)
+        elif s is not None and not self.shared:
+            out = out + s
+        return out
+
+
 def _combine(contrib, order, n: int, k: int):
     """Sum each token's k contributions (rows of ``contrib``, in sorted
     order ``order``) in the activation dtype, one add at a time in the
@@ -195,12 +293,15 @@ def apply_moe(p, x, cfg: ModelConfig, capacity_factor: float = 1.25,
     B, T, d = x.shape
     E, k = m.n_routed_experts, m.top_k
     n = B * T
-    xt = x.reshape(n, d)
     dev = x.device
+    sp = _Split(p, cfg)
+    lo, hi = sp.lo, sp.hi
+    El = hi - lo
+    x_router, xt, xs = (t.reshape(n, d) for t in sp.inputs(x))
 
-    top_p, top_e, aux = _route(p, xt, cfg)
+    top_p, top_e, aux = _route(p, x_router, cfg)
     flat_e = top_e.reshape(-1)                                # (n*k,)
-    flat_p = top_p.reshape(-1)
+    flat_p = sp.weights(top_p).reshape(-1)
     order = torch.argsort(flat_e, stable=True)
     e_sorted = flat_e[order]
     tok_sorted = order // k                                   # token ids
@@ -209,27 +310,30 @@ def apply_moe(p, x, cfg: ModelConfig, capacity_factor: float = 1.25,
     pos_in_e = torch.arange(n * k, device=dev) - starts[e_sorted]
     C = routed_capacity(n * k, E, capacity, capacity_factor)
     keep = pos_in_e < C
+    if El < E:          # the rank's experts only
+        keep = keep & (e_sorted >= lo) & (e_sorted < hi)
 
-    # dispatch: (E, C, d), the dropped rows to the spare row E·C
-    flat = torch.zeros((E * C + 1, d), dtype=x.dtype, device=dev)
-    flat[torch.where(keep, e_sorted * C + pos_in_e, E * C)] = xt[tok_sorted]
-    buf = flat[:E * C].view(E, C, d)
-    if C < n:           # else no expert can overflow (a token picks it once)
-        # the reference's dropped zeros land on (E-1, C-1) last
-        buf[E - 1, C - 1] = torch.where(counts[E - 1] > C, 0.0,
-                                        buf[E - 1, C - 1])
-    kept = torch.clamp(counts, max=C).to(torch.int32)
-    y_e = _experts(p, buf, kept, cfg)                         # (E, C, d)
+    # dispatch: (El, C, d), the dropped rows (and those of experts held
+    # elsewhere) to the spare row El·C
+    flat = torch.zeros((El * C + 1, d), dtype=x.dtype, device=dev)
+    flat[torch.where(keep, (e_sorted - lo) * C + pos_in_e, El * C)] = \
+        xt[tok_sorted]
+    buf = flat[:El * C].view(El, C, d)
+    if C < n and hi == E:   # else no expert can overflow (a token picks
+        # it once), or the rank does not hold expert E-1; the reference's
+        # dropped zeros land on (E-1, C-1) last
+        buf[El - 1, C - 1] = torch.where(counts[E - 1] > C, 0.0,
+                                         buf[El - 1, C - 1])
+    kept = torch.clamp(counts[lo:hi], max=C).to(torch.int32)
+    y_e = _experts(p, buf, kept, cfg)                         # (El, C, d)
 
     # combine: gather expert outputs back to token order, weight by probs
-    gathered = y_e[e_sorted, torch.clamp(pos_in_e, max=C - 1)]
+    gathered = y_e[torch.clamp(e_sorted - lo, 0, El - 1),
+                   torch.clamp(pos_in_e, max=C - 1)]
     gathered = torch.where(keep[:, None], gathered, 0.0)
     contrib = gathered * flat_p[order][:, None].to(gathered.dtype)
     y = _combine(contrib, order, n, k)
-
-    if m.n_shared_experts:
-        y = y + _shared(p, xt, cfg)
-    return y.reshape(B, T, d).to(x.dtype), aux
+    return sp.output(p, y, xs, cfg, x.dtype).reshape(B, T, d), aux
 
 
 def _apply_moe_local(p, x, cfg: ModelConfig, capacity_factor: float,
@@ -244,11 +348,15 @@ def _apply_moe_local(p, x, cfg: ModelConfig, capacity_factor: float,
     B, T, d = x.shape
     E, k = m.n_routed_experts, m.top_k
     dev = x.device
+    sp = _Split(p, cfg)
+    lo, hi = sp.lo, sp.hi
+    El = hi - lo
+    x_router, x, xs = sp.inputs(x)
 
-    top_p, top_e, aux = _route(p, x, cfg)                    # (B, T, k)
+    top_p, top_e, aux = _route(p, x_router, cfg)             # (B, T, k)
     nk = T * k
     flat_e = top_e.reshape(B, nk)
-    flat_p = top_p.reshape(B, nk)
+    flat_p = sp.weights(top_p).reshape(B, nk)
     order = torch.argsort(flat_e, dim=-1, stable=True)        # (B, nk)
     e_sorted = torch.gather(flat_e, -1, order)
     tok_sorted = order // k
@@ -259,33 +367,34 @@ def _apply_moe_local(p, x, cfg: ModelConfig, capacity_factor: float,
         - torch.gather(starts, -1, e_sorted)
     C = routed_capacity(nk, E, capacity, capacity_factor, multiple=4)
     keep = pos_in_e < C
+    if El < E:          # the rank's experts only
+        keep = keep & (e_sorted >= lo) & (e_sorted < hi)
 
     bidx = torch.arange(B, device=dev)[:, None].expand(B, nk)
     x_sorted = x[bidx, tok_sorted]                            # (B, nk, d)
-    # the dropped rows to the spare row E·B·C
-    flat = torch.zeros((E * B * C + 1, d), dtype=x.dtype, device=dev)
-    flat[torch.where(keep, (e_sorted * B + bidx) * C + pos_in_e,
-                     E * B * C)] = x_sorted
-    buf = flat[:E * B * C].view(E, B, C, d)
-    if C < T:           # the reference's dropped zeros land on each
+    # the dropped rows (and those of experts held elsewhere) to the
+    # spare row El·B·C
+    flat = torch.zeros((El * B * C + 1, d), dtype=x.dtype, device=dev)
+    flat[torch.where(keep, ((e_sorted - lo) * B + bidx) * C + pos_in_e,
+                     El * B * C)] = x_sorted
+    buf = flat[:El * B * C].view(El, B, C, d)
+    if C < T and hi == E:   # the reference's dropped zeros land on each
         # row's (E-1, C-1) cell after its kept row there
         over = counts[:, E - 1] > C                           # (B,)
-        buf[E - 1, :, C - 1] = torch.where(over[:, None], 0.0,
-                                           buf[E - 1, :, C - 1])
-    kept_row = torch.clamp(counts, max=C)                     # (B, E)
+        buf[El - 1, :, C - 1] = torch.where(over[:, None], 0.0,
+                                            buf[El - 1, :, C - 1])
+    kept_row = torch.clamp(counts[:, lo:hi], max=C)           # (B, El)
     ends = (torch.arange(B, device=dev)[:, None] * C + kept_row) \
         * (kept_row > 0)
-    kept = ends.amax(0).to(torch.int32)                       # (E,)
-    y_e = _experts(p, buf.view(E, B * C, d), kept, cfg).view(E, B, C, d)
+    kept = ends.amax(0).to(torch.int32)                       # (El,)
+    y_e = _experts(p, buf.view(El, B * C, d), kept, cfg).view(El, B, C, d)
 
-    gathered = y_e[e_sorted, bidx, torch.clamp(pos_in_e, max=C - 1)]
+    gathered = y_e[torch.clamp(e_sorted - lo, 0, El - 1), bidx,
+                   torch.clamp(pos_in_e, max=C - 1)]
     gathered = torch.where(keep[..., None], gathered, 0.0)   # (B, nk, d)
     contrib = gathered * torch.gather(flat_p, -1, order)[..., None] \
         .to(gathered.dtype)
     flat_order = (order + torch.arange(B, device=dev)[:, None] * nk)
     y = _combine(contrib.reshape(B * nk, d), flat_order.reshape(-1),
                  B * T, k).reshape(B, T, d)
-
-    if m.n_shared_experts:
-        y = y + _shared(p, x, cfg)
-    return y.to(x.dtype), aux
+    return sp.output(p, y, xs, cfg, x.dtype), aux

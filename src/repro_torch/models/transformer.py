@@ -36,6 +36,17 @@ inside the body of every layer whose index is a multiple of
 (``_remat``: ``"none"``, ``"dots"`` or ``"full"``, through
 ``torch.utils.checkpoint``).
 
+Under a train step that splits leaves over ``model`` (the dense, vlm
+and moe families, ``launch.steps``), each layer learns from its leaves'
+shapes what is split and runs on this rank's blocks
+(``sharding.tensor_parallel``): GQA or MLA attention by heads, the MLP
+and the shared experts by columns, the routed experts by expert or by
+column (``models.moe``), the embedding and the lm_head by vocabulary.
+Activations and the loss are those of the whole model on every rank.
+The MTP head's ``proj`` is whole (its placement splits nothing over
+``model``); its ``block`` splits as a dense layer does, and its loss
+reads the vocabulary-parallel lm_head through ``chunked_ce_loss``.
+
 A config with ``mla`` (deepseek-v3) runs multi-head latent attention
 in place of GQA in every layer (``layers.mla_prefill``,
 ``layers.mla_decode``, ``layers.mla_train_chunked``), and with ``mtp``
@@ -48,6 +59,8 @@ the checkpoints hold, and ``add_derived`` remakes them.
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 from torch.utils.checkpoint import checkpoint
 
@@ -59,6 +72,7 @@ from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
 from repro_torch.models import tuning as TU
 from repro_torch.models.params import PSpec, stack
+from repro_torch.sharding import context as SC
 from repro_torch.sharding import tensor_parallel as TP
 
 
@@ -348,16 +362,36 @@ def _remat(fn, mode: str):
     the elementwise ops), as the reference's
     ``dots_with_no_batch_dims_saveable``: its 2-D projections are the
     port's streaming GEMM, and its batched einsums are what the port
-    recomputes."""
+    recomputes.
+
+    The recompute re-enters the mesh and tuning contexts the forward ran
+    under (``_remat_contexts``): autograd runs the backward pass of CUDA
+    tensors, and with it the recompute, on a thread of its own, which
+    does not see the calling thread's contexts."""
     if mode == "none":
         return fn
-    if mode == "full":
-        return lambda *args: checkpoint(fn, *args, use_reentrant=False)
-    if mode == "dots":      # the recompute replays the GEMM's outputs
-        return lambda *args: checkpoint(
-            fn, *args, use_reentrant=False,
-            context_fn=lambda: ops.GemmTape().contexts())
-    raise ValueError(f"remat {mode!r}: none | dots | full")
+    if mode not in ("full", "dots"):
+        raise ValueError(f"remat {mode!r}: none | dots | full")
+    return lambda *args: checkpoint(
+        fn, *args, use_reentrant=False,
+        context_fn=lambda: _remat_contexts(mode))
+
+
+def _remat_contexts(mode: str):
+    """``checkpoint``'s (forward, recompute) contexts: under ``"dots"``
+    the GEMM tape's record and replay (``ops.GemmTape``: the recompute
+    replays the GEMM's outputs); the recompute within the mesh context
+    and the ``Tuning`` active now."""
+    mesh, tuning = SC.current(), TU.get()
+    fwd, rec = ops.GemmTape().contexts() if mode == "dots" else \
+        (contextlib.nullcontext(), contextlib.nullcontext())
+    return fwd, _reentered(rec, mesh, tuning)
+
+
+@contextlib.contextmanager
+def _reentered(rec, mesh, tuning):
+    with SC.restored(mesh), TU.tuning_context(tuning), rec:
+        yield
 
 
 def _attn_train(p, h, cfg: ModelConfig, positions, causal=True):
@@ -382,7 +416,9 @@ def dense_layer_train(lp, x, cfg: ModelConfig, positions, causal=True):
 def moe_layer_train(lp, x, cfg: ModelConfig, positions):
     """Training body of one MoE layer (the reference's
     ``moe_layer_fwd``): x + attention(norm(x)), then x + moe(norm(x)).
-    Returns (x', the layer's aux loss)."""
+    Returns (x', the layer's aux loss).  Where ``model`` splits the
+    layer, the attention by heads and the MoE by expert or by column,
+    each ending in one all-reduce (module docstring)."""
     h = L.apply_norm(lp["ln1"], x, cfg)
     x = x + _attn_train(lp["attn"], h, cfg, positions)
     h = L.apply_norm(lp["ln2"], x, cfg)
@@ -548,7 +584,9 @@ def mtp_loss(params, cfg: ModelConfig, h, batch):
     (2d x d) and one dense layer (``mtp.block``, MLA attention), then the
     chunked cross-entropy against the labels shifted left by one (the
     last column ``-1``), with no final norm, as the reference.  h: (B, T,
-    d), the final normed hidden states.  A config without ``mtp`` raises
+    d), the final normed hidden states.  Where ``model`` splits the
+    leaves, ``block`` runs on the rank's heads and MLP columns, ``proj``
+    whole, and the loss over the vocabulary blocks (module docstring).  A config without ``mtp`` raises
     ``ValueError`` (the reference fails on the missing ``mtp`` key)."""
     if not cfg.mtp:
         raise ValueError(f"{cfg.name} has no multi-token-prediction head "

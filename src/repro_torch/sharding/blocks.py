@@ -25,7 +25,9 @@ undoes only a leaf's split over ``data``, through the group of the
 ranks that share this rank's other coordinates, and hands back the
 rank's block over the rest (its ``model`` block, which a
 tensor-parallel layer reads).  Every collective goes through
-``all_reduce`` or ``gather``, which record it.
+``all_reduce``, ``all_gather`` (one tensor from every rank of a group,
+as the router's logits are gathered over ``model``) or ``gather``,
+which record it.
 """
 from __future__ import annotations
 
@@ -77,6 +79,21 @@ def all_reduce(t, group, op=dist.ReduceOp.SUM):
     if not isinstance(group, PlanGroup):
         dist.all_reduce(t, op=op, group=group)
     return t
+
+
+def all_gather(t, group):
+    """(ranks, *t.shape): every rank's ``t`` (one shape and dtype on all)
+    in rank order over ``group`` (``dist.all_gather`` of ``t``'s bytes;
+    nothing moves over a ``PlanGroup``, whose result holds no values),
+    recorded as one all-gather of the result's bytes.  Every rank of the
+    group must call it."""
+    n = group_size(group)
+    flat = t.contiguous().view(-1).view(torch.uint8)
+    parts = flat.new_empty((n, flat.numel()))
+    HA.collective("all-gather", parts.numel(), n)
+    if not isinstance(group, PlanGroup):
+        dist.all_gather(list(parts.unbind(0)), flat, group=group)
+    return parts.view(t.dtype).view(n, *t.shape)
 
 
 def mesh_shape_dict(mesh) -> dict:

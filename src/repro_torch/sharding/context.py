@@ -49,6 +49,20 @@ def mesh_context(mesh, rules, batch_group=None):
         _STATE.ctx = prev
 
 
+@contextlib.contextmanager
+def restored(ctx):
+    """``ctx`` (what ``current`` gave, maybe None) active again, on this
+    thread: a recompute in the backward pass, which autograd may run on
+    another thread than the forward's, runs under the forward's
+    context."""
+    prev = current()
+    _STATE.ctx = ctx
+    try:
+        yield
+    finally:
+        _STATE.ctx = prev
+
+
 def shard(x, axes):
     """``x`` under the logical ``axes`` of the active mesh context: the
     spec is resolved (``len(axes)`` must equal ``x.ndim``) and ``x`` is

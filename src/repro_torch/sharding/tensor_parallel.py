@@ -1,7 +1,7 @@
 """Tensor parallelism over the mesh's ``model`` axis: the port's
 counterpart of what GSPMD inserts where the reference's placements split
-a weight over ``model`` (``sharding/logical.py``: ``heads``,
-``kv_heads``, ``mlp`` and ``vocab`` go to ``model``).
+a weight over ``model`` (``sharding/logical.py``: ``expert``,
+``heads``, ``kv_heads``, ``mlp`` and ``vocab`` go to ``model``).
 
 A layer reads its leaves as this rank's blocks and learns from their
 shapes whether they are split (``parallel``): a dim of ``local`` extent
@@ -9,10 +9,16 @@ where the model has ``whole`` is this rank's block over ``model`` when
 the two differ, and then ``local`` x the model extent must be ``whole``.
 
 - A column-parallel product (q, k, v; the MLP's gate and up or ``wi``;
-  the lm_head over its vocabulary block) reads its replicated input
-  through ``copy_to_model``: the identity forward, the input's gradient
-  summed over ``model`` backward (each rank's holds only its columns'
-  share).
+  the lm_head over its vocabulary block; MLA's ``wuq`` / ``wuk`` /
+  ``wuv`` over the rank's heads; the router over its experts' columns;
+  the experts' gate and up over their columns) reads its replicated
+  input through ``copy_to_model``: the identity forward, the input's
+  gradient summed over ``model`` backward (each rank's holds only its
+  columns' share).  Given several tensors, ``copy_to_model`` sums all
+  their gradients in one all-reduce (MLA's three latents).  A
+  replicated value that a rank's share of the work reads only in part
+  goes through it too: the MoE's routing weights, of which each rank's
+  combine reads its experts' (or scales its partial outputs by them).
 - A row-parallel product (attention's ``wo`` over the rank's heads, the
   MLP's ``wo`` over its columns) ends in ``reduce_from_model``: the
   partial outputs summed over ``model`` forward, the identity backward.
@@ -20,6 +26,13 @@ the two differ, and then ``local`` x the model extent must be ``whole``.
   rounded to bf16 once, then the partials are summed in fp32 and the sum
   rounded to bf16 once (``_sum``): against the whole product rounded
   once, an error of at most one bf16 rounding of each partial.
+- ``gather_from_model``: the rank's last-dim blocks of a value that
+  everything after it computes alike on every rank (the router's
+  logits over the rank's experts, before the softmax), concatenated in
+  rank order by one all-gather forward; backward, the rank's slice of
+  the gradient, not summed, since every rank's gradient of the whole
+  is the same.  ``model_range(n)`` is the rank's ``[start, stop)`` of a
+  dim split in blocks of ``n`` (the experts it holds).
 - ``embedding``: the rows of the rank's vocabulary block, zero for ids
   outside it, summed over ``model``.
 - ``cross_entropy``: the softmax over the vocabulary split in blocks:
@@ -29,7 +42,8 @@ the two differ, and then ``local`` x the model extent must be ``whole``.
   global index.
 
 Every collective, backward ones too, goes through
-``sharding.blocks.all_reduce``, which records it with its group's size
+``sharding.blocks.all_reduce`` (the gather through
+``sharding.blocks.all_gather``), which records it with its group's size
 for the cost counter.  Outside a mesh context, or with ``model`` of one
 rank, nothing is split and none of these is called.
 """
@@ -63,22 +77,42 @@ def parallel(local: int, whole: int) -> bool:
     return True
 
 
-def _sum(t: torch.Tensor, op=dist.ReduceOp.SUM) -> torch.Tensor:
-    """``t`` reduced over the ``model`` group in fp32 (a copy; ``t`` is
-    left as it is), rounded to ``t``'s dtype once."""
+def _sum(t: torch.Tensor, op=dist.ReduceOp.SUM, group=None) -> torch.Tensor:
+    """``t`` reduced over the ``model`` group (or ``group``) in fp32 (a
+    copy; ``t`` is left as it is), rounded to ``t``'s dtype once."""
     s = t.to(torch.float32, copy=True)
-    BL.all_reduce(s, C.model_group(), op)
+    BL.all_reduce(s, group or C.model_group(), op)
     return s.to(t.dtype)
+
+
+def model_range(n: int) -> tuple:
+    """This rank's ``[start, stop)`` of a dim split over ``model`` in
+    blocks of ``n``."""
+    i = C.model_index()
+    return i * n, (i + 1) * n
 
 
 class _Copy(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x):
-        return x.view_as(x)
+    def forward(ctx, *xs):
+        # the backward pass may run on another thread (a CUDA device's),
+        # which does not see the mesh context: keep the group
+        ctx.group = C.model_group()
+        return tuple(x.view_as(x) for x in xs)
 
     @staticmethod
-    def backward(ctx, g):
-        return _sum(g)
+    def backward(ctx, *gs):
+        """Every gradient summed over ``model`` in one fp32 all-reduce
+        (one rounding to each gradient's dtype); a missing one is 0."""
+        if len(gs) == 1:
+            return (_sum(gs[0], group=ctx.group),)
+        flat = torch.cat([g.reshape(-1).float() for g in gs])
+        BL.all_reduce(flat, ctx.group)
+        out, at = [], 0
+        for g in gs:
+            out.append(flat[at:at + g.numel()].view(g.shape).to(g.dtype))
+            at += g.numel()
+        return tuple(out)
 
 
 class _Reduce(torch.autograd.Function):
@@ -91,9 +125,33 @@ class _Reduce(torch.autograd.Function):
         return g
 
 
-def copy_to_model(x: torch.Tensor) -> torch.Tensor:
-    """The input of a column-parallel product (module docstring)."""
-    return _Copy.apply(x) if C.model_group() is not None else x
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        ctx.range = model_range(x.shape[-1])
+        parts = BL.all_gather(x, C.model_group())       # (m, ..., n)
+        return parts.movedim(0, -2).flatten(-2)
+
+    @staticmethod
+    def backward(ctx, g):
+        start, stop = ctx.range
+        return g[..., start:stop]
+
+
+def copy_to_model(*xs: torch.Tensor):
+    """The input of a column-parallel product (module docstring); given
+    several tensors, a tuple of them, whose gradients are summed in one
+    all-reduce."""
+    if C.model_group() is not None:
+        xs = _Copy.apply(*xs)
+    return xs[0] if len(xs) == 1 else tuple(xs)
+
+
+def gather_from_model(x: torch.Tensor) -> torch.Tensor:
+    """x (..., n), this rank's block of the last dim, -> (..., n x the
+    model extent), every rank's blocks in rank order (module
+    docstring)."""
+    return _Gather.apply(x) if C.model_group() is not None else x
 
 
 def reduce_from_model(x: torch.Tensor) -> torch.Tensor:

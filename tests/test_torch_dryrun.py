@@ -149,12 +149,20 @@ def test_moe_cell_on_a_plan_takes_the_row_local_dispatch(remat):
                           {"remat": remat}, PLAN, config=cfg, shape=TRAIN)
     assert rec["status"] == "ok" and rec["moe_dispatch"] == "row-local"
     assert rec["kernel_ops"]["streaming_gemm_grouped"] > 0
-    # the dense arch's four, and one all-reduce each time a MoE layer's
-    # forward runs (its load-balancing sums over the batch ranks): again
-    # in the backward pass under remat="full"
+    assert rec["tensor_parallel"] == 4
+    # the batch split's three all-reduces, the gather of the split
+    # leaves' data blocks, the clipping norm's sum over ``model``, the
+    # vocabulary-parallel lookup and the CE's three (one chunk); and an
+    # MoE layer's seven (its load-balancing sums over the batch ranks,
+    # the attention's output sum and input-gradient sum, the router
+    # logits' all-gather, the MoE's output sum and the sums of its
+    # input's and routing weights' gradients), of which the recompute
+    # under remat="full" runs the load-balancing sums, the attention's
+    # output sum and the gather again
     runs = 2 if remat == "full" else 1
     assert rec["roofline"]["collective_count"] == \
-        4 + runs * (cfg.n_layers - cfg.moe.first_dense_layers)
+        9 + (7 + 3 * (runs - 1)) * (cfg.n_layers
+                                    - cfg.moe.first_dense_layers)
 
 
 def test_mla_cell_on_a_plan():

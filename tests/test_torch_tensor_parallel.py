@@ -40,7 +40,9 @@ jobs and two reference processes at once in one module fixture.
   whole for a replicated one), and every all-reduce is over 4 ranks, the
   tensor-parallel ones counted; the non-dense families' records equal
   those the step made before it split any layer over ``model``
-  (``NON_DENSE``), with ``tensor_parallel`` 1.
+  (``NON_DENSE``: the ssm, hybrid and audio families), with
+  ``tensor_parallel`` 1; the moe family splits since it too is in
+  ``steps.TP_FAMILIES`` (``tests/test_torch_tensor_parallel_moe.py``).
 """
 import dataclasses
 
@@ -304,7 +306,7 @@ def test_tensor_parallel_extent_per_case():
         assert built.tensor_parallel == (mesh[1] if splits else 1), name
     moe = R._run(get_reduced("qwen2_moe_a2_7b"), local=True)
     assert S.build_train_step(moe, MeshPlan((1, 2), ("data", "model"))
-                              ).tensor_parallel == 1
+                              ).tensor_parallel == 2
 
 
 # ---------------------------------------------------------- the pieces
@@ -432,8 +434,6 @@ def test_dry_run_gemm_flops_follow_the_placements(arch, remat):
 # (reduced configs, remat "full"): flops, bytes, collective bytes and
 # count, temporary bytes
 NON_DENSE = {
-    "qwen2_moe_a2_7b": (196796213.0, 66023742.0, 3144426.0, 8, 4787236),
-    "deepseek_v3_671b": (162137475.0, 66765244.0, 1800708.0, 7, 2442804),
     "rwkv6_7b": (118350385.0, 59446106.0, 980370.0, 4, 1690408),
     "zamba2_7b": (302797505.0, 138760618.0, 2050074.0, 4, 3308016),
     "whisper_tiny": (249651627.0, 420293482.0, 58189074.0, 4, 52711972),
@@ -453,8 +453,7 @@ def test_dry_run_of_the_other_families_is_unchanged(arch):
 
 
 def test_tp_leaves_of_every_family():
-    for arch in ("qwen2_moe_a2_7b", "deepseek_v3_671b", "rwkv6_7b",
-                 "zamba2_7b", "whisper_tiny"):
+    for arch in ("rwkv6_7b", "zamba2_7b", "whisper_tiny"):
         run = RunConfig(model=get_reduced(arch), shape=TRAIN)
         built = S.build_train_step(run, PLAN)
         w_pl = T.trainable(built.in_shardings[0]["params"])
