@@ -189,6 +189,10 @@ Phases, in order; any failure raises and exits non-zero:
 13. The timing simulator (``repro_torch.accesys``, the Scenario API,
    ``serving/sim_report``), a numpy model of the paper's MatrixFlow
    accelerator behind PCIe that runs on the host; seconds per sub-phase.
+   (a) and (b), like 14's (a) and (b), need no card: each runs in a
+   process of its own (``--host-job``, one thread) started after
+   phase 1's build, beside phases 2-12, and the phase prints its lines
+   and reads its record.
    (a) Each row of ``BENCH_replay.json`` lowered again and replayed in
    DM, DC and DevMem by the compiled and the event engine: engine parity
    (``assert_parity``), the artifact's event count, each mode's
@@ -451,7 +455,31 @@ Phases, in order; any failure raises and exits non-zero:
    0 of (a) takes one step more under the profiler: no ``gemm_simt``
    kernel and no library GEMM op inside a product's range.  Both
    runs' lines print before any of these checks.
-23. Print each phase's seconds (a ``[phases]`` line), the ``kernels``
+23. Tensor parallelism of the ssm, hybrid and audio families on one card
+   (``models/ssm.py``; the attention and MLPs of ``models/layers.py``),
+   on 21's machinery: three runs of 3 AdamW steps of 8 x 512 tokens on
+   the (1, 2) gloo mesh against one rank on the same weights and
+   batches (run first, in this process): (a) rwkv6-7b at full width
+   cut to 4 layers (32 of 64 heads, 2,048 of the time mix's 4,096
+   columns, 7,168 of d_ff 14,336, 32,768 vocabulary rows a rank), (b)
+   ``zamba2-7b-7l``, 18c's config (56 of 112 Mamba2 heads, 7,288 of
+   ``in_proj``'s 14,576 columns, 16 of the shared block's 32 heads,
+   run twice), (c) whisper-tiny whole through ``build_train_step`` with
+   (8, 512, 384) frames from the seed (3 of 6 heads, 768 MLP columns,
+   25,984 vocabulary rows a rank); 18c's learning rates.  Each run,
+   asserted: both ranks' losses equal and within 1e-3 relative of one
+   rank's every step; every forward product of the first step at its
+   local width; the GEMM's launches a step; the all-reduces and
+   all-gathers a step (``_tps_counts``); both peaks together below 80
+   GB; one step more, rank 0's under the profiler: no ``gemm_simt``
+   kernel and no library GEMM op inside a product's range.  The lines
+   print before the checks; each run's launches are a path of its own
+   in the ``kernels`` line.  First (k), zamba2-7b's ``in_proj`` block on
+   the (16, 16) plan (3,584 x 911, bf16 rows of odd length) at M = 4,096
+   through the streaming GEMM's Function, its B and dC read through
+   copies in padded rows: forward, dA and dB on the tensor-core kernel
+   within 2e-2 of the fp32 product.
+24. Print each phase's seconds (a ``[phases]`` line), the ``kernels``
    JSON line (20a's counted steps among the paths; each kernel's
    launches from its own
    path's serving run, the int8 kernels' from phase 8e's (the int8
@@ -461,8 +489,9 @@ Phases, in order; any failure raises and exits non-zero:
    as ``train_launches``, of 17c's as ``mla_train_launches``, of 18c's
    as ``ssm_train_launches``, ``hybrid_train_launches`` and
    ``audio_train_launches``, of 21's rank 0 as ``tp_train_launches``,
-   of 22's as ``tp_moe_train_launches``; 22's two runs are paths of
-   their own, the grouped backward kernels' launches among them), the
+   of 22's as ``tp_moe_train_launches``, of 23's as
+   ``tp_ssm_train_launches``; 22's and 23's runs are paths of their own,
+   the grouped backward kernels' launches among them), the
    card line, and last the result line
    ``{"ok": true, "device": {...}}``.
 """
@@ -3316,15 +3345,71 @@ def _sim_workers(torch):
     return {"points": one["n_points"], "start_method": method}
 
 
-def phase_simulator(torch, args, card):
+# host work of phases 13 and 14 that needs no card, each run by
+# ``python3 chip_smoke.py --host-job NAME`` in a process of its own
+# started after the build (``start_host_jobs``); the phases read their
+# records (``_host_result``)
+HOST_DIR = Path(__file__).resolve().parent / "build" / "host_jobs"
+
+
+def run_host_job(torch, name):
+    """One host job in this process: its lines printed, its result and
+    seconds written to ``HOST_DIR``.  The sweep initialises CUDA first:
+    its workers must start by spawn with CUDA live."""
+    t = time.perf_counter()
+    if name == "sweep":
+        torch.cuda.init()
+    res = {"replay": lambda: _sim_replay(card_line(), host_line()),
+           "scorecard": _sim_scorecard, "bench": _open_loop_bench,
+           "sweep": lambda: _open_loop_sweep(torch)}[name]()
+    (HOST_DIR / f"{name}.json").write_text(json.dumps(
+        {"result": res, "seconds": time.perf_counter() - t}))
+
+
+def start_host_jobs():
+    """Start every host job of phases 13 and 14 (one thread each); the
+    processes are stopped at exit."""
+    import shutil
+    shutil.rmtree(HOST_DIR, ignore_errors=True)
+    HOST_DIR.mkdir(parents=True)
+    env = {**os.environ, "OMP_NUM_THREADS": "1"}
+    procs = {name: subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--host-job", name],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for name in ("replay", "scorecard", "bench", "sweep")}
+    atexit.register(lambda: [p.kill() for p in procs.values()
+                             if p.poll() is None])
+    return procs
+
+
+def _host_result(jobs, name):
+    """A host job's result, waited for: its printed lines printed here,
+    its exit code 0 required, its own seconds printed."""
+    log, _ = jobs[name].communicate(timeout=900)
+    print(log, end="", flush=True)
+    require(jobs[name].returncode == 0,
+            f"host job {name} exited {jobs[name].returncode}")
+    rec = json.loads((HOST_DIR / f"{name}.json").read_text())
+    print(f"[host job] {name} seconds {rec['seconds']:.1f}", flush=True)
+    return rec["result"]
+
+
+def phase_simulator(torch, args, card, jobs=None):
     """13. The timing simulator (``repro_torch.accesys`` and the
     Scenario API): (a) ``BENCH_replay.json``'s rows, (b) the paper-claim
     scorecard, (c) a trace the card records, priced in DM, DC and
-    DevMem, (d) the worker pool after CUDA.  Seconds per sub-phase."""
+    DevMem, (d) the worker pool after CUDA.  Seconds per sub-phase.
+    With ``jobs`` (``start_host_jobs``), (a) and (b) are read from
+    their host jobs' records (their seconds here: the wait)."""
     host = host_line()
     res, secs = {}, {}
-    for name, fn in (("replay", lambda: _sim_replay(card, host)),
-                     ("scorecard", _sim_scorecard),
+
+    def job(name, fn):
+        return (lambda: _host_result(jobs, name)) if jobs else fn
+
+    for name, fn in (("replay", job("replay",
+                                    lambda: _sim_replay(card, host))),
+                     ("scorecard", job("scorecard", _sim_scorecard)),
                      ("serving", lambda: _sim_serving(torch, args, card)),
                      ("workers", lambda: _sim_workers(torch))):
         t = time.perf_counter()
@@ -3571,15 +3656,20 @@ def _open_loop_card(torch, args, card, serving_13c):
     return out
 
 
-def phase_open_loop(torch, args, card, serving_13c):
+def phase_open_loop(torch, args, card, serving_13c, jobs=None):
     """14. Plan-only open-loop serving, on the host: (a)
     ``BENCH_serving_scale.json`` reproduced, (b) ``load_sweep_200`` at
     one and two spawned workers with CUDA live, (c) full width on the
-    card's clock.  Prints one ``{"open_loop": ...}`` line."""
+    card's clock.  Prints one ``{"open_loop": ...}`` line.  With
+    ``jobs``, (a) and (b) are read from their host jobs' records."""
     host = host_line()
     res, secs = {}, {}
-    for name, fn in (("bench", _open_loop_bench),
-                     ("sweep", lambda: _open_loop_sweep(torch)),
+
+    def job(name, fn):
+        return (lambda: _host_result(jobs, name)) if jobs else fn
+
+    for name, fn in (("bench", job("bench", _open_loop_bench)),
+                     ("sweep", job("sweep", lambda: _open_loop_sweep(torch))),
                      ("card_clock", lambda: _open_loop_card(
                          torch, args, card, serving_13c))):
         t = time.perf_counter()
@@ -5893,15 +5983,26 @@ TP_GB = 80.0                    # the two ranks' peaks together, at most
 
 
 def _tp_batches(torch, cfg, seed, which=None):
-    """21's (or a run of 22's) batches: the corpus's first ``TP_STEPS``
-    (``TPM_STEPS``) at 15c's shape and seed, on the host."""
+    """21's (or a run of 22's or 23's) batches: the corpus's first
+    ``TP_STEPS`` (``TPM_STEPS``, ``TPS_STEPS``) at 15c's shape and seed,
+    on the host; whisper's with (8, 512, 384) bf16 frames N(0, 1) from
+    the seed."""
+    import numpy as np
     from repro_torch.data.pipeline import DataConfig, SyntheticCorpus
-    n = TP_STEPS if which is None else TPM_STEPS
+    n = TP_STEPS if which is None else \
+        TPS_STEPS if which in TPS_RUNS else TPM_STEPS
     corpus = SyntheticCorpus(DataConfig(
         vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
         global_batch=TRAIN_BATCH, seed=seed))
-    return [{k: torch.from_numpy(v) for k, v in corpus.batch(i).items()}
-            for i in range(n)]
+    out = [{k: torch.from_numpy(v) for k, v in corpus.batch(i).items()}
+           for i in range(n)]
+    if cfg.family == "audio":
+        rng = np.random.default_rng(seed + 23)
+        for b in out:
+            b["audio_frames"] = torch.from_numpy(rng.standard_normal(
+                (TRAIN_BATCH, TRAIN_SEQ, cfg.d_model)).astype(
+                    np.float32)).to(torch.bfloat16)
+    return out
 
 
 def _tp_run(torch, step, state, batches, dev, each=None):
@@ -6006,8 +6107,9 @@ def _tp_profiled_step(torch, step, state, batch):
 
 def _tp_case(which):
     """(config, remat, learning-rate schedule) of phase 21's run
-    (``which`` None) or of one of 22's (``"a"``, ``"b"``), each of 8 x 512
-    tokens a step (15c's, 16c's and 17c's)."""
+    (``which`` None), of one of 22's (``"a"``, ``"b"``) or of 23's
+    (``TPS_RUNS``), each of 8 x 512 tokens a step (15c's, 16c's, 17c's
+    and 18c's)."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import depth_cut
     if which is None:
@@ -6015,6 +6117,12 @@ def _tp_case(which):
     if which == "a":
         return (depth_cut(get_config(MOE_ARCH), MOE_TRAIN_LAYERS), "none",
                 TRAIN_LR)
+    if which in TPS_RUNS:       # 23's: 18c's configs, rwkv6-7b cut deeper
+        from repro_torch.configs import zamba2_7b
+        cfg = {"rwkv": depth_cut(get_config(RWKV_ARCH), TPS_RWKV_LAYERS),
+               "zamba": zamba2_7b.TRAINING,
+               "whisper": get_config(WHISPER_ARCH)}[which]
+        return cfg, "none", TRAIN_LR if which == "whisper" else SSM_TRAIN_LR
     from repro_torch.configs.deepseek_v3_671b import TRAINING
     return TRAINING, "full", MLA_TRAIN_LR
 
@@ -6130,6 +6238,7 @@ def _tp_rank_run(torch, rank, seed, which, mesh, dev, profiled):
         res = {"losses": losses, "step_s": secs,
                "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
                "launches": dict(ops.LAUNCHES), "gemm_bwd": dict(ops.GEMM_BWD),
+               "gemm_fwd": dict(ops.GEMM_FWD),
                "grouped_bwd": dict(ops.GROUPED_BWD),
                "fwd": log["fwd"], "bwd": log["bwd"], "grouped": log["grouped"],
                "all_reduces": [n.get("all-reduce", 0)
@@ -6403,12 +6512,12 @@ def _tpm_forced_route(torch, p, x, cfg, top_e):
     return (top_p, top_e, E * torch.sum(me * ce) * m.router_aux_coef), flips
 
 
-def _tpm_one_rank(torch, args, dev, which, routes=None):
-    """22's one-rank run ``which`` in this process, on the weights and
-    batches the ranks take (``_tp_case``): with ``routes`` (the ranks'
-    expert ids a step and MoE layer) each MoE layer takes the ranks'
-    route (``_tpm_forced_route``), and the tokens whose own route
-    differs are counted a step and layer."""
+def _tpm_one_rank(torch, args, dev, which, routes=None, tag="tp_moe"):
+    """22's (or 23's) one-rank run ``which`` in this process, on the
+    weights and batches the ranks take (``_tp_case``): with ``routes``
+    (the ranks' expert ids a step and MoE layer) each MoE layer takes the
+    ranks' route (``_tpm_forced_route``), and the tokens whose own route
+    differs are counted a step and layer.  ``tag`` names its line."""
     from repro_torch.configs.base import RunConfig, ShapeConfig
     from repro_torch.launch.steps import build_train_step
     from repro_torch.models import moe as MOE
@@ -6454,7 +6563,7 @@ def _tpm_one_rank(torch, args, dev, which, routes=None):
     if routes is not None:
         out["own_route_differs"] = [[int(n) for n in f] for f in flips]
     on = " on the ranks' routes" if routes is not None else ""
-    print(f"[tp_moe] one rank {which}{on} ({cfg.name}, {TRAIN_BATCH} x "
+    print(f"[{tag}] one rank {which}{on} ({cfg.name}, {TRAIN_BATCH} x "
           f"{TRAIN_SEQ} tokens): {json.dumps(out)}", flush=True)
     return out
 
@@ -6636,15 +6745,256 @@ def phase_tp_moe(torch, args, card, dev, rows):
     return {**res, "kernels": kern}
 
 
+# ---------------------------------------------------------------- phase 23
+TPS_RUNS = ("rwkv", "zamba", "whisper")
+TPS_STEPS = 3
+TPS_RWKV_LAYERS = 4             # rwkv6-7b's depth in 23(a): full width
+# losses against one rank, relative, every step (PERF.md, phase 23)
+TPS_LOSS_RTOL = 1e-3
+TPS_DIR = Path(__file__).resolve().parent / "build" / "tp_ssm_smoke"
+
+
+def _tps_widths(cfg, m):
+    """{leaf key (the path without a layer's index): (K, N) of the B
+    operand its forward product reads} of an ssm, hybrid or audio config
+    over a model extent of ``m``: N / m for a column-parallel leaf, K /
+    m for a row-parallel one, where its heads, columns or vocabulary
+    divide over m."""
+    d, V, f = cfg.d_model, cfg.padded_vocab, cfg.d_ff
+
+    def local(n, count):
+        return n // m if count % m == 0 else n
+
+    def attn(pre):
+        H, KH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+        q, kv = local(H * hd, H), local(KH * hd, KH)
+        return {pre + "wq": (d, q), pre + "wk": (d, kv),
+                pre + "wv": (d, kv), pre + "wo": (q, d)}
+
+    def mlp(pre):
+        names = ("wi_gate", "wi_up") if cfg.glu else ("wi",)
+        return {**{pre + n: (d, local(f, f)) for n in names},
+                pre + "wo": (local(f, f), d)}
+
+    out = {"lm_head": (d, local(V, V))}
+    if cfg.family == "ssm":
+        c = local(d, d)
+        out.update({f"layers/time/{n}": (d, c)
+                    for n in ("wr", "wk", "wv", "wg", "ww")})
+        out.update({"layers/time/wo": (c, d),
+                    "layers/channel/wk": (d, local(f, f)),
+                    "layers/channel/wv": (local(f, f), d),
+                    "layers/channel/wr": (d, c)})
+    elif cfg.family == "hybrid":
+        s = cfg.ssm
+        d_in = s.expand * d
+        cols = 2 * d_in + 2 * s.d_state + d_in // s.head_dim
+        out.update({"layers/mamba/in_proj": (d, local(cols, cols)),
+                    "layers/mamba/out_proj": (local(d_in, d_in), d),
+                    **mlp("layers/mlp/"), **attn("shared_attn/attn/")})
+    else:
+        out.update({**attn("enc_layers/attn/"), **mlp("enc_layers/mlp/"),
+                    **attn("layers/attn/"), **attn("layers/xattn/"),
+                    **mlp("layers/mlp/")})
+    return out
+
+
+def _tps_counts(cfg, chunks):
+    """(forward GEMM launches, all-reduces, all-gathers) of one step of
+    23's run of ``cfg`` on (1, 2), where every split divides: (a) a
+    layer's 9 products (time r, k, v, g, w, o; channel k, r, v), 4
+    all-reduces (the lerps' gradient sums of both mixes, the sums of
+    ``wo`` and ``wv``) and the channel gate's all-gather; (b) a Mamba2
+    layer's 5 (``in_proj``, ``out_proj``, the MLP's 3) and 9 (the input's
+    and the gathered ``in_proj`` output's and ``conv_w``'s gradient
+    sums, ``norm_scale``'s, the sum of squares both ways, the
+    ``out_proj`` and MLP output sums, the MLP input's gradient sum) and
+    2 all-gathers (``in_proj``'s output and ``conv_w``), the shared
+    block's 4 and 2 at each invocation; (c) an encoder layer's 6 and 4,
+    a decoder layer's 10 and 6 (the cross-attention's query input and
+    output), the encoder output's gradient sum once; and the lm_head
+    each CE chunk with 3 all-reduces (its input's gradient, the max, the
+    sum), the lookup's sum and the clipping norm's."""
+    from repro_torch.models import transformer as T
+    L = cfg.n_layers
+    if cfg.family == "ssm":
+        return 9 * L + chunks, 4 * L + 3 * chunks + 2, L
+    if cfg.family == "hybrid":
+        inv = T.n_shared_invocations(cfg)
+        return 5 * L + 4 * inv + chunks, \
+            9 * L + 2 * inv + 3 * chunks + 2, 2 * L
+    E = cfg.n_encoder_layers
+    return 6 * E + 10 * L + chunks, 4 * E + 6 * L + 1 + 3 * chunks + 2, 0
+
+
+def _tps_check(torch, which, ranks, want, card):
+    """23(a) / (b) / (c)'s line, printed, and its checks, a list of
+    (holds, message) (module docstring)."""
+    import math
+    r0 = ranks[0]
+    checks = []
+
+    def check(ok, msg):
+        checks.append((bool(ok), msg))
+
+    cfg = _tp_case(which)[0]
+    m = TP_RANKS
+    widths = _tps_widths(cfg, m)
+    got = {}
+    for path, M, N, K in r0["fwd"]:
+        parts = path.split("/")
+        key = "/".join(parts[:1] + parts[2:]) \
+            if parts[0] in ("layers", "enc_layers") else path
+        got.setdefault(key, set()).add((K, N))
+    fwd = r0["launches"]["streaming_gemm"] - r0["gemm_bwd"]["launches"]
+    rel = [abs(a - b) / abs(b) for a, b in zip(r0["losses"],
+                                               want["losses"])]
+    res = {"run": which, "config": r0["config"], "mesh": [1, m],
+           "backend": "gloo", "tensor_parallel": r0["tensor_parallel"],
+           "tokens_a_step": TRAIN_SEQ * TRAIN_BATCH, "steps": TPS_STEPS,
+           "losses": r0["losses"], "one_rank_losses": want["losses"],
+           "loss_rel": rel, "max_loss_rel": max(rel),
+           "loss_rtol": TPS_LOSS_RTOL,
+           "peak_gb": [r["peak_gb"] for r in ranks],
+           "one_rank_peak_gb": want["peak_gb"],
+           "one_rank_median_step_ms": want["median_step_ms"],
+           "gemm_launches": {"forward": fwd,
+                             "backward": r0["gemm_bwd"]["launches"]},
+           "b_copies": r0["gemm_fwd"]["b_copies"],
+           "forward_mnk": sorted({(M, N, K) for _, M, N, K in r0["fwd"]}),
+           "leaf_widths": {k: sorted(v) for k, v in sorted(got.items())},
+           "all_reduces_a_step": r0["all_reduces"],
+           "all_gathers_a_step": r0["all_gathers"],
+           "median_step_ms_gloo_staged": [
+               statistics.median(r["step_s"][1:]) * 1e3 for r in ranks],
+           "note": "step ms: every collective staged through the host by "
+                   "gloo; not a tensor-parallel speed figure",
+           "card": card}
+    if "profile" in r0:
+        res["profiled_step_rank0"] = r0["profile"]
+    print("[tp_ssm_train] " + json.dumps(res), flush=True)
+    check(res["tensor_parallel"] == m,
+          f"tp {which}: the step split over {res['tensor_parallel']} ranks")
+    check(all(r["losses"] == r0["losses"] for r in ranks),
+          f"tp {which}: the ranks' losses differ")
+    check(all(x <= TPS_LOSS_RTOL for x in rel)
+          and all(math.isfinite(x) for x in r0["losses"]),
+          f"tp {which}: losses {r0['losses']} against one rank's "
+          f"{want['losses']}")
+    check(got == {k: {v} for k, v in widths.items()},
+          f"tp {which}: GEMM widths {res['leaf_widths']}, want {widths}")
+    per, ar, ag = _tps_counts(cfg, r0["ce_chunks"])
+    check(res["gemm_launches"] == {"forward": per * TPS_STEPS,
+                                   "backward": 2 * per * TPS_STEPS},
+          f"tp {which}: GEMM launches {res['gemm_launches']}, want "
+          f"{per} forward a step")
+    check(all(n == ar for n in r0["all_reduces"])
+          and all(n == ag for n in r0["all_gathers"]),
+          f"tp {which}: all-reduces / all-gathers a step "
+          f"{r0['all_reduces']} / {r0['all_gathers']}, want {ar} / {ag}")
+    prof = res.get("profiled_step_rank0")
+    check(prof is not None and prof["gemm_simt_kernels"] == 0
+          and prof["device_kernels"].get("streaming_gemm", 0) > 0,
+          f"tp {which}: the profiled step's GEMM kernels {prof}")
+    check(prof is not None and prof["gemm_ranges"] == 3 * per
+          and not prof["library_ops_in_gemm_ranges"],
+          f"tp {which}: the profiled step's products {prof}")
+    check(sum(res["peak_gb"]) < TP_GB, f"tp {which}: peaks "
+          f"{res['peak_gb']} GB")
+    res["launches"] = r0["launches"]
+    return res, checks
+
+
+def _tps_odd_block(torch, args, dev):
+    """23k. zamba2-7b's ``in_proj`` block on the (16, 16) plan, 3,584 x 911
+    (a bf16 row of odd length), at M = 4,096 through the streaming GEMM's
+    Function: its B and dC read through copies in padded rows (one each),
+    the forward, dA and dB on the tensor-core kernel, each against the
+    fp32 product of the same bf16 operands."""
+    from repro_torch.kernels import ops
+    g = torch.Generator(device=dev).manual_seed(args.seed + 23)
+    M, K, N = TRAIN_TOKENS, 3584, 911
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(
+            torch.bfloat16)
+
+    a = randn(M, K).requires_grad_(True)
+    w = randn(K, N, scale=K ** -0.5).requires_grad_(True)
+    dc = randn(M, N)
+    ops.reset_launches()
+    y = ops.streaming_gemm(a, w)
+    y.backward(dc)
+    torch.cuda.synchronize()
+    af, wf, dcf = a.detach().float(), w.detach().float(), dc.float()
+    res = {"shape": [M, K, N], "launches": ops.LAUNCHES["streaming_gemm"],
+           "b_copies": ops.GEMM_FWD["b_copies"],
+           "dc_copies": ops.GEMM_BWD["dc_copies"]}
+    for what, got, want in (("forward", y, af @ wf),
+                            ("da", a.grad, dcf @ wf.t()),
+                            ("db", w.grad, af.t() @ dcf)):
+        res[f"{what}_rel_err"] = float((got.float() - want).abs().max()
+                                       / want.abs().max())
+    print("[tp_ssm] odd block " + json.dumps(res), flush=True)
+    require(res["launches"] == 3 and res["b_copies"] == 1
+            and res["dc_copies"] == 1, f"tp odd block: {res}")
+    require(all(res[f"{w}_rel_err"] <= BF16_TOL for w in ("forward", "da",
+                                                          "db")),
+            f"tp odd block: {res}")
+    return res
+
+
+def phase_tp_ssm(torch, args, card, dev, rows):
+    """23. Tensor parallelism of the ssm, hybrid and audio families on one
+    card (module docstring); prints its lines and its seconds."""
+    import shutil
+    import torch.multiprocessing as mp
+
+    secs, want = {}, {}
+    t = time.perf_counter()
+    odd = _tps_odd_block(torch, args, dev)
+    secs["odd block"] = time.perf_counter() - t
+    for which in TPS_RUNS:
+        t = time.perf_counter()
+        want[which] = _tpm_one_rank(torch, args, dev, which, tag="tp_ssm")
+        secs[f"one rank {which}"] = time.perf_counter() - t
+    t = time.perf_counter()
+    shutil.rmtree(TPS_DIR, ignore_errors=True)
+    TPS_DIR.mkdir(parents=True)
+    mp.start_processes(_tp_rank, args=(args.seed, str(TPS_DIR), TPS_RUNS,
+                                       TPS_RUNS),
+                       nprocs=TP_RANKS, join=True, start_method="spawn")
+    ranks = [torch.load(TPS_DIR / f"rank{r}.pt", weights_only=False)
+             for r in range(TP_RANKS)]
+    shutil.rmtree(TPS_DIR, ignore_errors=True)
+    secs["two ranks"] = time.perf_counter() - t
+    res, checks = {}, []
+    for which in TPS_RUNS:
+        res[which], c = _tps_check(torch, which, [r[which] for r in ranks],
+                                   want[which], card)
+        checks += c
+    print(f"[tp_ssm] seconds {json.dumps(secs)}", flush=True)
+    for ok, msg in checks:
+        require(ok, msg)
+    rows["streaming_gemm"]["tp_ssm_train_launches"] = {
+        w: r["gemm_launches"] for w, r in res.items()}
+    return {**res, "odd_block": odd}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--host-job", choices=("replay", "scorecard", "bench",
+                                           "sweep"),
+                    help=argparse.SUPPRESS)
     args = ap.parse_args()
 
     import torch
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; this script measures the "
                  "card and has no CPU mode")
+    if args.host_job:
+        return run_host_job(torch, args.host_job)
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build, ops
     from repro_torch.models.model import Model
@@ -6655,6 +7005,7 @@ def main():
     _build.build_all(verbose=True)
     print(f"[build] {time.perf_counter() - t0:.1f} s; torch "
           f"{torch.__version__} cuda {torch.version.cuda}", flush=True)
+    host_jobs = start_host_jobs()
     card = card_line()
     print(f"[card] {card}", flush=True)
 
@@ -6694,9 +7045,9 @@ def main():
     lap("11 zamba")
     deepseek = phase_deepseek(torch, args, rows)
     lap("12 deepseek")
-    simulator = phase_simulator(torch, args, card)
+    simulator = phase_simulator(torch, args, card, host_jobs)
     lap("13 simulator")
-    phase_open_loop(torch, args, card, simulator["serving"])
+    phase_open_loop(torch, args, card, simulator["serving"], host_jobs)
     lap("14 open loop")
     train = phase_training(torch, args, rows, card, dev)
     lap("15 train")
@@ -6714,6 +7065,8 @@ def main():
     lap("21 tensor parallel")
     tpm = phase_tp_moe(torch, args, card, dev, rows)
     lap("22 tensor parallel moe")
+    tps = phase_tp_ssm(torch, args, card, dev, rows)
+    lap("23 tensor parallel ssm, hybrid, audio")
     print(f"[phases] seconds {json.dumps(laps)}", flush=True)
 
     # launches: each kernel's count from its own main path's serving run
@@ -6745,6 +7098,9 @@ def main():
     for which in TPM_RUNS:
         paths[f"{tpm[which]['config']} tp train (1, 2) rank 0"] = \
             tpm[which]["launches"]
+    for which in TPS_RUNS:
+        paths[f"{tps[which]['config']} tp train (1, 2) rank 0"] = \
+            tps[which]["launches"]
     own = {"streaming_gemm_grouped": MOE_ARCH,
            "paged_latent_attention": deepseek["config"],
            "paged_attention_int8": int8_path, "kv_quantize": int8_path,

@@ -13,7 +13,10 @@ streaming GEMM's launches for the backward products of
 training count under ``streaming_gemm`` like the forward ones (the same
 kernel) and again in ``GEMM_BWD["launches"]``, so a run can tell them
 apart; ``GEMM_BWD["dc_copies"]`` counts the copies the backward made
-of an output gradient the kernel could not read in place.  The grouped
+of an output gradient the kernel could not read in place, and
+``GEMM_FWD["b_copies"]`` those the Function's forward made of a weight
+(a rank's block of 911 of zamba2-7b's 14,576 ``in_proj`` columns: bf16
+rows of odd length are not 4-byte aligned).  The grouped
 GEMM's backward launches count under ``streaming_gemm_grouped`` and
 again in ``GROUPED_BWD`` (``da``, ``db``).  Under ``remat="dots"``
 (``GemmTape``) ``GEMM_DOTS`` counts the forward outputs kept for the
@@ -54,12 +57,13 @@ LAUNCHES = {"streaming_gemm": 0, "streaming_gemm_grouped": 0,
             "paged_latent_attention": 0, "paged_attention_int8": 0,
             "paged_attention_int8_append": 0, "kv_quantize": 0}
 GEMM_BWD = {"launches": 0, "dc_copies": 0}
+GEMM_FWD = {"b_copies": 0}
 GROUPED_BWD = {"da": 0, "db": 0}
 GEMM_DOTS = {"saved": 0, "replayed": 0}
 
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, GEMM_BWD, GROUPED_BWD, GEMM_DOTS):
+    for counts in (LAUNCHES, GEMM_BWD, GEMM_FWD, GROUPED_BWD, GEMM_DOTS):
         for name in counts:
             counts[name] = 0
 
@@ -175,11 +179,18 @@ class _StreamingGemm(torch.autograd.Function):
     themselves.  ``dC`` is read in place where its rows are contiguous
     and at least 4-byte aligned (the router's 60-wide rows are), else
     copied once into rows padded to 16 bytes (counted in
-    ``GEMM_BWD["dc_copies"]``).  Under a ``GemmTape`` the forward
-    records its output, or hands back the recorded one."""
+    ``GEMM_BWD["dc_copies"]``); so is a row-major bf16 B on the kernel's
+    path whose rows are not (counted in ``GEMM_FWD["b_copies"]``), and
+    the copy is what the forward and both backward products read.
+    Under a ``GemmTape`` the forward records its output, or hands back
+    the recorded one."""
 
     @staticmethod
     def forward(ctx, a, b):
+        if _kernel_path(b) and b.dtype == torch.bfloat16 \
+                and b.stride(1) == 1 and not copy_width(b, b.stride(0)):
+            b = _padded_rows(b)
+            GEMM_FWD["b_copies"] += 1
         ctx.save_for_backward(a, b)
         tape, mode = _TAPE or (None, None)
         if mode == "replay":
@@ -200,11 +211,7 @@ class _StreamingGemm(torch.autograd.Function):
         a, b = ctx.saved_tensors
         if _kernel_path(dc) and (dc.stride(1) != 1
                                  or not copy_width(dc, dc.stride(0))):
-            M, N = dc.shape
-            padded = torch.empty((M, -(-N // 8) * 8), dtype=dc.dtype,
-                                 device=dc.device)
-            padded[:, :N] = dc
-            dc = padded[:, :N]
+            dc = _padded_rows(dc)
             GEMM_BWD["dc_copies"] += 1
         da = db = None
         if ctx.needs_input_grad[0]:
@@ -215,6 +222,15 @@ class _StreamingGemm(torch.autograd.Function):
             else:
                 db = _gemm_bwd(a.t(), dc)
         return da, db
+
+
+def _padded_rows(t: torch.Tensor) -> torch.Tensor:
+    """A copy of (M, N) ``t`` in rows padded to 16 bytes, viewed at its
+    N columns."""
+    M, N = t.shape
+    padded = torch.empty((M, -(-N // 8) * 8), dtype=t.dtype, device=t.device)
+    padded[:, :N] = t
+    return padded[:, :N]
 
 
 def streaming_gemm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -25,12 +25,18 @@ Cells:
 
 - ``train``: as the reference, a model over 3e10 parameters defaults to
   Adafactor.  ``tensor_parallel`` is the ``model`` extent over which the
-  dense, vlm and moe families' layers split their leaves
+  layers of every family split their leaves
   (``steps.tensor_parallel_leaves``), or 1: the counts are then rank
   0's, computing with its ``model`` blocks (an MoE layer's grouped
   products over its E / m experts, or over every expert's d_ff / m
   columns where E does not divide, each recorded at those operand
-  shapes; the router's logits gathered by one all-gather a forward).  On a mesh that splits the
+  shapes; the router's logits gathered by one all-gather a forward;
+  RWKV6's and Mamba2's scans over the rank's heads, their torch ops
+  counted at that width; Mamba2's ``in_proj`` output and ``conv_w``
+  gathered by one all-gather each a forward, RWKV6's channel gate by
+  one; a Mamba2 ``in_proj`` block of odd width, 911 of zamba2-7b's
+  14,576 columns on (16, 16), read through a copy in padded rows,
+  counted as the copy's op and bytes).  On a mesh that splits the
   batch rows over more than one rank an MoE model runs the row-local
   dispatch (``moe_local_dispatch``, recorded as ``moe_dispatch``): the
   global one raises there (ROADMAP 14g).

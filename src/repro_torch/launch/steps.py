@@ -14,27 +14,32 @@ bare ``fn`` of the same step on the local one-rank layout
 (``sharding.blocks.ONE_RANK``: nothing split, no process group).
 
 The train step is sharded data parallelism over the placements, with
-tensor parallelism over ``model`` in the dense, vlm and moe families
-(``TP_FAMILIES``): each
+tensor parallelism over ``model`` in every family: each
 rank holds its block of every parameter, optimizer-state and
 error-feedback leaf (``state = {"params", "opt"}``, and ``"ef"`` with
 gradient compression), and its rows of the batch (split over the axes
 the ``batch`` placement gives, ``("pod", "data")`` by default; the
 ``model`` ranks of one data index take the same rows).
 
-In those families a weight leaf whose placement splits a dim over a
-``model`` of more than one rank (``heads`` / ``kv_heads`` of the
-attention and MLA's ``wuq`` / ``wuk`` / ``wuv`` / ``wo``, ``mlp``,
-``vocab``, and the MoE's ``expert``, or its ``mlp`` where the experts
-do not divide) is read by a tensor-parallel layer
-(``sharding.tensor_parallel``): the rank computes with its ``model``
-block, and the layers' collectives over ``model`` make the activations
-and the loss those of the whole model on every rank
-(``tensor_parallel_leaves``).  A layer whose leaves no placement splits
-over ``model`` (14 heads on 16 ranks; MLA's latent weights) runs whole
-on every rank, and its gradient comes out whole on every rank.  The
-ssm, hybrid and audio families gather every leaf whole, and every rank
-runs every GEMM whole.  A step
+A weight leaf whose placement splits a dim over a ``model`` of more
+than one rank (``heads`` / ``kv_heads`` of the attention, the hybrid's
+shared block and whisper's self- and cross-attention, and MLA's
+``wuq`` / ``wuk`` / ``wuv`` / ``wo``; ``mlp``; ``vocab``; the MoE's
+``expert``, or its ``mlp`` where the experts do not divide; ``qkv`` of
+RWKV6's time mix and channel ``wr`` and of Mamba2's ``in_proj`` /
+``conv_w`` / ``out_proj``, and ``heads`` of their per-head leaves) is
+read by a tensor-parallel layer (``sharding.tensor_parallel``,
+``models.ssm``): the rank computes with its ``model`` block, and the
+layers' collectives over ``model`` make the activations and the loss
+those of the whole model on every rank (``tensor_parallel_leaves``).
+A layer whose leaves no placement splits over ``model`` (14 heads on
+16 ranks; MLA's latent weights) runs whole on every rank, and its
+gradient comes out whole on every rank.  A whole leaf that a split
+layer reads in part gets its gradient summed over ``model``: the K/V
+leaves of query heads split over KV heads that are not, in the step
+(``partial_kv_leaves``); Mamba2's ``norm_scale`` (and RWKV6's ``u`` /
+``w_bias`` or Mamba2's per-head leaves where the heads do not divide
+the extent), in the layer, through ``copy_to_model``.  A step
 
 1. gathers the bf16 weights on each rank (``blocks.gather``; a leaf no
    placement splits is used as it is): with AdamW a tensor-parallel
@@ -219,17 +224,13 @@ def per_rank_bytes(built: BuiltStep) -> int:
 # =====================================================================
 # train
 # =====================================================================
-TP_FAMILIES = ("dense", "vlm", "moe")
-
-
-def tensor_parallel_leaves(cfg, w_pl, mesh):
+def tensor_parallel_leaves(w_pl, mesh):
     """Per leaf of the trainable weights' placement ``w_pl``: True where a
     tensor-parallel layer reads the leaf's ``model`` block (module
-    docstring): a model of ``TP_FAMILIES``, a ``model`` of more than one
-    rank, and a placement that splits a dim over it (an MoE's expert
-    leaves by expert or by column, its router by expert)."""
-    on = cfg.family in TP_FAMILIES and \
-        BL.mesh_shape_dict(mesh).get("model", 1) > 1
+    docstring): a ``model`` of more than one rank, and a placement that
+    splits a dim over it (an MoE's expert leaves by expert or by column,
+    its router by expert), in every family."""
+    on = BL.mesh_shape_dict(mesh).get("model", 1) > 1
     return tree_map(lambda spec: on and any(
         "model" in BL.dim_axes(e) for e in spec), w_pl)
 
@@ -333,7 +334,7 @@ def build_train_step(run: RunConfig, mesh=None, lr_base: float = 3e-4,
     split = _batch_split(batch_pl)
     group = BL.axis_group(mesh, split) if split else None
     w_pl = T.trainable(state_pl["params"])
-    tp = tensor_parallel_leaves(cfg, w_pl, mesh)
+    tp = tensor_parallel_leaves(w_pl, mesh)
     tp_on = any(tree_leaves(tp))
     ms = BL.mesh_shape_dict(mesh)
     rest = tuple(a for a in ms if a != "model")

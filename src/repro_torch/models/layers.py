@@ -15,7 +15,7 @@ the activation dtype.  PyTorch refuses mixed-dtype arithmetic where JAX
 promotes, so casts are explicit.
 
 Under a mesh whose ``model`` axis splits a layer's leaves (the train
-step of the dense, vlm and moe families, ``launch.steps``),
+step, ``launch.steps``),
 ``qkv_proj``, ``out_proj``'s callers in training, ``apply_mlp`` and
 ``mla_train_chunked`` run on this rank's blocks, as
 ``sharding.tensor_parallel`` sets out: the heads or the MLP columns of
@@ -314,19 +314,24 @@ def attention_train_chunked(p, x, cfg: ModelConfig, positions, causal=True,
     cross-attention's).  ``kv``: external (k, v) (B, Tk, KH, hd) for
     cross-attention (the whisper decoder over its encoder): q comes from
     ``wq`` (plus ``bq``), no RoPE.  Returns (B, T, d).  Where ``model``
-    splits the query heads, over this rank's (``qkv_proj``), the output
-    projection's partials summed over ``model``."""
+    splits the query heads, over this rank's (``qkv_proj``; with ``kv``,
+    q from x through ``copy_to_model`` and the given K/V those heads
+    read), the output projection's partials summed over ``model``."""
+    tp = heads_split(p, cfg)
     if kv is None:
         q, k, v = qkv_proj(p, x, cfg)
         q = apply_rope(q, positions, cfg)
         k = apply_rope(k, positions, cfg)
     else:
-        q = head_proj(p["wq"], x)
+        q = head_proj(p["wq"], TP.copy_to_model(x) if tp else x)
         if cfg.qkv_bias:
             q = q + p["bq"]
         k, v = kv
+        if tp and not TP.parallel(k.shape[-2], cfg.n_kv_heads):
+            k, v = TP.kv_for_heads(k, v, q.shape[-2], cfg.n_heads,
+                                   cfg.n_kv_heads)
     out = out_proj(p, chunked_attention(q, k, v, causal=causal))
-    return TP.reduce_from_model(out) if heads_split(p, cfg) else out
+    return TP.reduce_from_model(out) if tp else out
 
 
 def attention_decode(p, x, cfg: ModelConfig, pools, view):

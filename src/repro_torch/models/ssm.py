@@ -35,6 +35,56 @@ over one token (``mamba2_step``), as in the reference.
 Training runs the same sequence forwards under autograd, each layer
 from a zero state (``transformer.forward_train``), so the scan's torch
 ops are differentiated by autograd as the reference's XLA ops are.
+
+Tensor parallelism (the train step on a ``model`` of more than one
+rank, ``sharding.tensor_parallel``): each layer reads its leaves as the
+rank's blocks and learns from their shapes what the placements split
+(``qkv``, ``heads`` and ``mlp`` over ``model``, each where it divides).
+
+- RWKV6's time mix: the five lerps pass one ``copy_to_model`` (forward
+  nothing; backward one all-reduce of their five gradients, so ``mix``'s
+  gradient comes out whole); ``wr`` / ``wk`` / ``wv`` / ``wg`` / ``ww``
+  column-parallel over the rank's d/m columns, which are its H/m heads
+  where m divides H; ``w_bias`` / ``u`` its rows; the scan over those
+  heads (the zero state sliced to them); ``wo`` row-parallel, ending in
+  ``reduce_from_model`` (one all-reduce forward).  Where the columns
+  split and the heads do not (a block cuts a head), r / k / v / w are
+  gathered whole (``gather_from_model`` then ``copy_to_model``: an
+  all-gather forward, an all-reduce of the whole gradient backward, of
+  which the rank keeps its block) and ``u`` / ``w_bias`` pass the same
+  ``copy_to_model``; each rank scans every head and feeds ``wo`` its own
+  columns of the output.
+- RWKV6's channel mix: ``lk`` / ``lr`` pass one ``copy_to_model``;
+  ``wk`` column-parallel and ``wv`` row-parallel over the rank's d_ff/m
+  columns, ending in ``reduce_from_model``; ``r = sigmoid(lr·wr)`` over
+  the rank's d/m columns is gathered whole by ``gather_from_model``
+  (one all-gather forward; backward the rank's slice, since what reads
+  r, ``r * (k·wv)``, is alike on every rank).
+- Mamba2: the rank's heads where m divides nh.  The fused ``in_proj``'s
+  even column blocks do not follow its z / x / B / C / dt segments, so
+  the product runs column-parallel from ``copy_to_model(x)`` and is
+  gathered whole (``gather_from_model`` then ``copy_to_model``); so is
+  ``conv_w``'s block.  The rank takes its heads' z, x and dt channels,
+  B and C whole, and its conv taps; the conv and the scan run on those
+  (B and C's conv on every rank); ``A_log`` / ``D`` / ``dt_bias`` are
+  its rows.  The gated RMSNorm's mean over the whole d_in is the ranks'
+  fp32 sums of squares summed both ways (``copy_to_model(
+  reduce_from_model(s))``: forward the sum; backward the sum of every
+  rank's gradient of it, each rank's normed values depending on it),
+  divided by d_in.  ``norm_scale`` (whole) passes ``copy_to_model``
+  before the rank slices it, so its gradient comes out whole on every
+  rank (a whole leaf read in part gets its summed gradient in the
+  layer, not in the step).  ``out_proj`` row-parallel over the rank's
+  d_in/m rows, ending in ``reduce_from_model``.  Where ``out_proj``
+  splits and the heads do not, every rank runs every head, the whole
+  leaves pass ``copy_to_model`` (each rank's gradient of them a share),
+  and ``out_proj`` reads the rank's rows of the gated output.
+
+Forward a split layer rounds once more than one rank: each rank's
+bf16 GEMM partial of the row-parallel output, summed in fp32 and
+rounded once (``reduce_from_model``), and the fp32 sum of squares
+summed in another order; its gradients are summed in fp32 and rounded
+once to the leaf's dtype.
 """
 from __future__ import annotations
 
@@ -44,6 +94,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import tuning as TU
 from repro_torch.models.params import PSpec
+from repro_torch.sharding import tensor_parallel as TP
 
 # Per-token log-decay clamp: keeps exp(±Σ logw) inside fp32 range for the
 # factored chunk products (chunk 16 × 5.0 = 80 < log(fp32_max) ≈ 88).
@@ -200,22 +251,38 @@ def _lerps(x, xs, mix):
 
 def rwkv_time_mix(p, x, cfg: ModelConfig, state, chunk: int = 0):
     """x: (B, T, d); state: {"s": (B, H, N, N) fp32, "shift": (B, d)}.
-    Returns (out (B, T, d), final state)."""
+    Returns (out (B, T, d), final state).  Where ``model`` splits the
+    projections' columns (module docstring), over this rank's heads;
+    the returned scan state is then theirs."""
     chunk = chunk or TU.get().ssm_chunk
     B, T, d = x.shape
-    H = cfg.n_heads
-    N = d // H
-    lr, lk, lv, lg, lw = _lerps(x, _token_shift(x, state["shift"]),
-                                p["mix"])
-    r = L._gemm(lr, p["wr"]).reshape(B, T, H, N)
-    k = L._gemm(lk, p["wk"]).reshape(B, T, H, N)
-    v = L._gemm(lv, p["wv"]).reshape(B, T, H, N)
+    N = d // cfg.n_heads
+    cols = p["wr"].shape[1]
+    split = TP.parallel(cols, d)
+    heads = TP.parallel(p["u"].shape[0], cfg.n_heads)
+    lerps = _lerps(x, _token_shift(x, state["shift"]), p["mix"])
+    lr, lk, lv, lg, lw = TP.copy_to_model(*lerps) if split else lerps
+    r, k, v, w = (L._gemm(t, p[n]) for t, n in ((lr, "wr"), (lk, "wk"),
+                                                (lv, "wv"), (lw, "ww")))
     g = _silu(L._gemm(lg, p["wg"]))
-    logw = -torch.exp(L._gemm(lw, p["ww"]).reshape(B, T, H, N).float()
-                      + p["w_bias"].float())
-    out, s = chunked_linear_attention(r, k, v, logw, state["s"],
-                                      u=p["u"].float(), chunk=chunk)
-    out = L._gemm(out.reshape(B, T, d) * g, p["wo"])
+    u, w_bias, s0 = p["u"], p["w_bias"], state["s"]
+    if heads:
+        s0 = s0[:, slice(*TP.model_range(u.shape[0]))]
+    elif split:     # column blocks that cut heads: every head, whole
+        *rkvw, u, w_bias = TP.copy_to_model(
+            *(TP.gather_from_model(t) for t in (r, k, v, w)), u, w_bias)
+        r, k, v, w = rkvw
+    H = u.shape[0]
+    r, k, v = (t.reshape(B, T, H, N) for t in (r, k, v))
+    logw = -torch.exp(w.reshape(B, T, H, N).float() + w_bias.float())
+    out, s = chunked_linear_attention(r, k, v, logw, s0, u=u.float(),
+                                      chunk=chunk)
+    out = out.reshape(B, T, H * N)
+    if split and not heads:
+        out = out[..., slice(*TP.model_range(cols))]
+    out = L._gemm(out * g, p["wo"])
+    if split:
+        out = TP.reduce_from_model(out)
     return out, {"s": s, "shift": x[:, -1]}
 
 
@@ -237,15 +304,25 @@ def rwkv_time_mix_step(p, x, cfg: ModelConfig, state):
     return out, {"s": s, "shift": x}
 
 
-def rwkv_channel_mix(p, x, state_shift):
+def rwkv_channel_mix(p, x, state_shift, cfg: ModelConfig = None):
     """x: (B, T, d) with the previous tail ``state_shift`` (B, d), or a
-    single token (B, d).  Returns (out, new shift)."""
+    single token (B, d).  Returns (out, new shift).  With ``cfg``, over
+    the rank's blocks of ``wk`` / ``wv`` and ``wr`` where ``model``
+    splits them (module docstring)."""
     xs = _token_shift(x, state_shift) if x.ndim == 3 else state_shift
     lk, lr = _lerps(x, xs, p["mix"])
+    mlp = cfg is not None and TP.parallel(p["wk"].shape[1], cfg.d_ff)
+    gate = TP.parallel(p["wr"].shape[1], x.shape[-1])
+    lk, lr = _copy_where((lk, lr), (mlp, gate))
     k = torch.relu(L._gemm(lk, p["wk"])) ** 2
     r = L.sigmoid_op_by_op(L._gemm(lr, p["wr"]))
+    if gate:
+        r = TP.gather_from_model(r)
+    kv = L._gemm(k, p["wv"])
+    if mlp:
+        kv = TP.reduce_from_model(kv)
     new_shift = x[:, -1] if x.ndim == 3 else x
-    return r * L._gemm(k, p["wv"]), new_shift
+    return r * kv, new_shift
 
 
 def init_rwkv_state(cfg: ModelConfig, batch: int, dtype=torch.float32,
@@ -322,33 +399,98 @@ def _softplus(x):
 
 def mamba2_forward(p, x, cfg: ModelConfig, state, chunk: int = DEFAULT_CHUNK):
     """x: (B, T, d); state: {"s": (B, nh, N, hd) fp32, "conv": (B, K - 1,
-    d_in + 2N)}.  Returns (out (B, T, d), the final state)."""
+    d_in + 2N)}.  Returns (out (B, T, d), the final state).  Where
+    ``model`` splits the leaves (module docstring), the scan runs over
+    this rank's heads, and the returned state holds theirs (the conv
+    state their x channels and B / C)."""
     B, T, d = x.shape
     d_in, nh, N = _mamba_split(cfg)
     hd = cfg.ssm.head_dim
-    zxbcdt = L._gemm(x, p["in_proj"])
-    z, xin, Bc, Cc, dt = torch.split(zxbcdt, [d_in, d_in, N, N, nh], dim=-1)
+    proj, conv_w = p["in_proj"], p["conv_w"]
+    # a layer whose out-projection is row-parallel: each rank's gradient
+    # of what it computes whole is a share, summed over ``model``
+    share = TP.parallel(p["out_proj"].shape[0], d_in)
+    heads = TP.parallel(p["A_log"].shape[0], nh)
+    if TP.parallel(proj.shape[1], 2 * d_in + 2 * N + nh):
+        zxbcdt = _whole(L._gemm(TP.copy_to_model(x), proj), share)
+    else:
+        zxbcdt = L._gemm(x, proj)
+        if share:
+            zxbcdt = TP.copy_to_model(zxbcdt)
+    conv_split = TP.parallel(conv_w.shape[1], d_in + 2 * N)
+    if conv_split:
+        conv_w = _whole(conv_w, share)
+    # with ``share``, the whole leaves (a rank reads them in part, or
+    # through its share) pass ``copy_to_model``: their gradients summed
+    a_log, D, dt_bias, scale, conv_w = _copy_where(
+        [p["A_log"], p["D"], p["dt_bias"], p["norm_scale"], conv_w],
+        [share and not s for s in (heads, heads, heads, False, conv_split)])
+    h0, h1 = TP.model_range(a_log.shape[0]) if heads else (0, nh)
+    lo, hi = h0 * hd, h1 * hd
+    dl, s0, c0 = hi - lo, state["s"], state["conv"]
+    if heads:       # the rank's heads' x channels, B and C whole
+        keep = torch.cat([torch.arange(lo, hi, device=x.device),
+                          torch.arange(d_in, d_in + 2 * N, device=x.device)])
+        zxbcdt = torch.cat([zxbcdt[..., lo:hi],
+                            zxbcdt[..., d_in + lo:d_in + hi],
+                            zxbcdt[..., 2 * d_in:2 * d_in + 2 * N],
+                            zxbcdt[..., 2 * d_in + 2 * N + h0:
+                                   2 * d_in + 2 * N + h1]], dim=-1)
+        conv_w, c0 = conv_w[:, keep], c0[..., keep]
+        s0 = s0[:, h0:h1]
+    nhl = h1 - h0
+    z, xin, Bc, Cc, dt = torch.split(zxbcdt, [dl, dl, N, N, nhl], dim=-1)
     conv_out, conv_state = _causal_conv(torch.cat([xin, Bc, Cc], dim=-1),
-                                        p["conv_w"], state["conv"])
-    xin, Bc, Cc = torch.split(_silu(conv_out), [d_in, N, N], dim=-1)
-    dt = _softplus(dt.float() + p["dt_bias"].float())          # (B, T, nh)
-    a = -torch.exp(p["A_log"].float())                          # (nh,)
-    logw = (dt * a)[..., None].expand(B, T, nh, N)
-    xheads = xin.reshape(B, T, nh, hd)
+                                        conv_w, c0)
+    xin, Bc, Cc = torch.split(_silu(conv_out), [dl, N, N], dim=-1)
+    dt = _softplus(dt.float() + dt_bias.float())               # (B, T, nh)
+    a = -torch.exp(a_log.float())                               # (nh,)
+    logw = (dt * a)[..., None].expand(B, T, nhl, N)
+    xheads = xin.reshape(B, T, nhl, hd)
     xh = xheads * dt[..., None].to(xheads.dtype)
     # r = C (queries), k = B (keys): the state is (B, nh, N, hd)
-    r = Cc[:, :, None, :].expand(B, T, nh, N)
-    k = Bc[:, :, None, :].expand(B, T, nh, N)
-    out, s = chunked_linear_attention(r, k, xh, logw, state["s"],
+    r = Cc[:, :, None, :].expand(B, T, nhl, N)
+    k = Bc[:, :, None, :].expand(B, T, nhl, N)
+    out, s = chunked_linear_attention(r, k, xh, logw, s0,
                                       chunk=chunk, inclusive=True)
-    out = out + xheads * p["D"].to(xheads.dtype)[:, None]
-    out = out.reshape(B, T, d_in)
-    # gated RMSNorm, then the out-projection
+    out = out + xheads * D.to(xheads.dtype)[:, None]
+    out = out.reshape(B, T, dl)
+    # gated RMSNorm over the whole d_in, then the out-projection
     of = out.float()
-    var = of.square().mean(-1, keepdim=True)
-    out = (of * torch.rsqrt(var + 1e-5) * p["norm_scale"]).to(x.dtype)
+    if heads:       # the ranks' sums of squares, summed both ways
+        var = TP.copy_to_model(TP.reduce_from_model(
+            of.square().sum(-1, keepdim=True))) / d_in
+    else:
+        var = of.square().mean(-1, keepdim=True)
+    out = (of * torch.rsqrt(var + 1e-5) * scale[lo:hi]).to(x.dtype)
     out = out * _silu(z)
-    return L._gemm(out, p["out_proj"]), {"s": s, "conv": conv_state}
+    if share and not heads:
+        out = out[..., slice(*TP.model_range(p["out_proj"].shape[0]))]
+    out = L._gemm(out, p["out_proj"])
+    if share:
+        out = TP.reduce_from_model(out)
+    return out, {"s": s, "conv": conv_state}
+
+
+def _copy_where(xs, flags) -> list:
+    """``xs`` with those whose flag is set through one ``copy_to_model``
+    (their gradients summed over ``model`` in one all-reduce)."""
+    at = [i for i, f in enumerate(flags) if f]
+    xs = list(xs)
+    if at:
+        got = TP.copy_to_model(*(xs[i] for i in at))
+        for i, g in zip(at, got if len(at) > 1 else (got,)):
+            xs[i] = g
+    return xs
+
+
+def _whole(block, share: bool):
+    """A rank's last-dim block gathered whole (``gather_from_model``);
+    with ``share`` (the rank computes a share of what reads it) through
+    ``copy_to_model`` too, so that its gradient, summed over ``model``,
+    comes back sliced to the rank's block (module docstring)."""
+    y = TP.gather_from_model(block)
+    return TP.copy_to_model(y) if share else y
 
 
 def mamba2_step(p, x, cfg: ModelConfig, state):

@@ -36,13 +36,22 @@ inside the body of every layer whose index is a multiple of
 (``_remat``: ``"none"``, ``"dots"`` or ``"full"``, through
 ``torch.utils.checkpoint``).
 
-Under a train step that splits leaves over ``model`` (the dense, vlm
-and moe families, ``launch.steps``), each layer learns from its leaves'
-shapes what is split and runs on this rank's blocks
-(``sharding.tensor_parallel``): GQA or MLA attention by heads, the MLP
-and the shared experts by columns, the routed experts by expert or by
-column (``models.moe``), the embedding and the lm_head by vocabulary.
-Activations and the loss are those of the whole model on every rank.
+Under a train step that splits leaves over ``model`` (every family,
+``launch.steps``), each layer learns from its leaves' shapes what is
+split and runs on this rank's blocks (``sharding.tensor_parallel``):
+GQA or MLA attention by heads (the hybrid's shared block, whisper's
+encoder, decoder and cross-attention too), the MLP and the shared
+experts by columns, the routed experts by expert or by column
+(``models.moe``), RWKV6's time mix and Mamba2 by heads and the channel
+mix by columns (``models.ssm``), the embedding and the lm_head by
+vocabulary.  Activations and the loss are those of the whole model on
+every rank.  The hybrid's shared block reads its leaves' blocks at
+every invocation, so autograd sums their gradients over the
+invocations.  Whisper's encoder output, whole on every rank, passes one
+``copy_to_model`` before the decoder (where the cross-attention's heads
+split), so the cross K/V products, column-parallel, sum its gradient
+in one all-reduce for the whole decoder; ``pos_embed`` and ``enc_norm``
+stay whole.
 The MTP head's ``proj`` is whole (its placement splits nothing over
 ``model``); its ``block`` splits as a dense layer does, and its loss
 reads the vocabulary-parallel lm_head through ``chunked_ce_loss``.
@@ -313,7 +322,7 @@ def rwkv_layer_fwd(lp, x, cfg: ModelConfig, state):
     x = x + t
     h = L.apply_norm(lp["ln2"], x, cfg)
     c, cshift = SSM.rwkv_channel_mix(lp["channel"], h,
-                                     state["channel_shift"])
+                                     state["channel_shift"], cfg)
     return x + c, {"time": tstate, "channel_shift": cshift}
 
 
@@ -433,7 +442,8 @@ def hybrid_layer_train(lp, shared, x, cfg: ModelConfig, positions, state,
     the shared block first, x + attention(norm(x)) through ``shared``,
     then the Mamba2 layer from the zero ``state``.  The shared block's
     leaves are the same tensors at every invocation, so autograd sums
-    their gradients."""
+    their gradients (the rank's blocks' where ``model`` splits them:
+    module docstring)."""
     if with_attn:
         h = L.apply_norm(shared["ln"], x, cfg)
         x = x + L.attention_train_chunked(shared["attn"], h, cfg, positions)
@@ -444,7 +454,9 @@ def cross_layer_train(lp, x, enc, cfg: ModelConfig, positions):
     """Training body of an encoder-decoder's decoder layer (the
     reference's ``dec_body``): causal self-attention, then ``ln_x`` and
     non-causal cross-attention over enc·``wk``, enc·``wv`` (no bias, no
-    RoPE), then ``ln2`` and the MLP."""
+    RoPE), then ``ln2`` and the MLP.  Where ``model`` splits the heads,
+    the K/V products are column-parallel over ``enc``, which the caller
+    passed through ``copy_to_model`` once for every decoder layer."""
     h = L.apply_norm(lp["ln1"], x, cfg)
     x = x + L.attention_train_chunked(lp["attn"], h, cfg, positions)
     h = L.apply_norm(lp["ln_x"], x, cfg)
@@ -514,8 +526,10 @@ def _forward_train_encdec(params, cfg: ModelConfig, batch, remat):
     ``_forward_train_encdec``): the non-causal encoder over
     ``batch["audio_frames"]`` (cast to bf16) and ``enc_norm``, then the
     decoder over the token ids plus ``pos_embed[:Td]``, each decoder
-    layer attending over the encoder's output.  Returns (hidden (B, Td,
-    d), a float32 zero, {"encoder_out": enc})."""
+    layer attending over the encoder's output (through one
+    ``copy_to_model`` where ``model`` splits the cross-attention's
+    heads: module docstring).  Returns (hidden (B, Td, d), a float32
+    zero, {"encoder_out": enc})."""
     x = batch["audio_frames"].to(torch.bfloat16)
     B, Te = x.shape[:2]
     pos_e = torch.arange(Te, device=x.device).expand(B, Te)
@@ -524,6 +538,9 @@ def _forward_train_encdec(params, cfg: ModelConfig, batch, remat):
     for lp in params["enc_layers"]:
         x = enc_body(lp, x)
     enc = L.apply_norm(params["enc_norm"], x, cfg)
+    dec_enc = enc
+    if params["layers"] and L.heads_split(params["layers"][0]["xattn"], cfg):
+        dec_enc = TP.copy_to_model(enc)
 
     tokens = batch["tokens"]
     Td = tokens.shape[1]
@@ -533,7 +550,7 @@ def _forward_train_encdec(params, cfg: ModelConfig, batch, remat):
     dec_body = _remat(lambda lp, x, enc: cross_layer_train(
         lp, x, enc, cfg, pos_d), remat)
     for lp in params["layers"]:
-        x = dec_body(lp, x, enc)
+        x = dec_body(lp, x, dec_enc)
     x = L.apply_norm(params["final_norm"], x, cfg)
     return x, torch.zeros((), dtype=torch.float32, device=x.device), \
         {"encoder_out": enc}

@@ -33,6 +33,33 @@ the two differ, and then ``local`` x the model extent must be ``whole``.
   the gradient, not summed, since every rank's gradient of the whole
   is the same.  ``model_range(n)`` is the rank's ``[start, stop)`` of a
   dim split in blocks of ``n`` (the experts it holds).
+- Two compositions of these, which the ssm and hybrid layers use
+  (``models.ssm``):
+
+  - the sum-then-slice gather, ``copy_to_model(gather_from_model(y))``:
+    forward, the rank's last-dim blocks gathered whole (one all-gather);
+    backward, the whole gradient summed over ``model`` (one all-reduce,
+    fp32, rounded once) and the rank's slice of it taken, which is a
+    reduce-scatter.  It is right where the ranks read *different* parts
+    of the gathered value (Mamba2's fused ``in_proj`` output, of which
+    each rank takes its heads' channels; ``conv_w``'s taps; RWKV6's
+    projections where a column block cuts a head): each rank's gradient
+    of the whole is then only its share.  ``gather_from_model`` alone is
+    right only where everything after it is computed alike on every
+    rank (RWKV6's channel gate, multiplied by a row-parallel output
+    already summed; the router's logits).
+  - the two-way sum, ``copy_to_model(reduce_from_model(s))``: forward,
+    ``s`` summed over ``model``; backward, its gradient summed over
+    ``model`` too, since every rank's share of the layer reads the sum
+    (Mamba2's gated RMSNorm: each rank's fp32 sum of squares over its
+    d_in / m channels, the mean over the whole d_in).  An fp32 ``s``
+    stays fp32 both ways (``_sum`` rounds to the input's dtype).
+
+  A whole leaf that a rank reads in part, or whose use feeds a rank's
+  share only (Mamba2's ``norm_scale``; its per-head leaves and RWKV6's
+  ``u`` / ``w_bias`` where the heads do not divide the extent), passes
+  ``copy_to_model`` in the layer: its gradient comes out summed, whole
+  on every rank.
 - ``embedding``: the rows of the rank's vocabulary block, zero for ids
   outside it, summed over ``model``.
 - ``cross_entropy``: the softmax over the vocabulary split in blocks:

@@ -99,7 +99,7 @@ def test_collectives_and_arguments_are_the_steps_own():
     # over all 8 ranks
     w_pl = T.trainable(built.in_shardings[0]["params"])
     w = T.trainable(args[0]["params"])
-    tp = BL.tree_leaves_of(steps.tensor_parallel_leaves(cfg, w_pl, PLAN),
+    tp = BL.tree_leaves_of(steps.tensor_parallel_leaves(w_pl, PLAN),
                            w)
     leaves = list(zip(tree_leaves(w), BL.tree_leaves_of(w_pl, w), tp))
     assert built.tensor_parallel == 4 and any(tp) and not all(tp)

@@ -3,7 +3,8 @@ process of its own that runs while the test's gloo ranks do.
 
 ``start(tmp, cases)`` saves ``cases`` ({name: (arch, batch, run
 settings)}, the batch as torch tensors; the settings' ``overrides``, a
-dict, replace fields of the reduced config on both sides) into ``tmp``
+dict, replace fields of the reduced config on both sides, a nested
+config's through a dict: ``with_overrides``) into ``tmp``
 and starts
 ``python -m torch_mesh_reference <tmp>`` with
 ``XLA_FLAGS=--xla_allow_excess_precision=false``, one XLA thread and the
@@ -67,6 +68,16 @@ def start(tmp: Path, cases: dict, timeout: float = 240.0) -> Reference:
     return Reference(proc, tmp, timeout)
 
 
+def with_overrides(cfg, overrides: dict):
+    """``cfg`` with the fields of ``overrides`` replaced; a dict value
+    replaces fields of the nested config it names (``{"ssm":
+    {"head_dim": 128}}``)."""
+    import dataclasses
+    return dataclasses.replace(cfg, **{
+        k: dataclasses.replace(getattr(cfg, k), **v) if isinstance(v, dict)
+        else v for k, v in overrides.items()})
+
+
 def _to_jax(v):
     import jax.numpy as jnp
     if v.dtype == torch.bfloat16:
@@ -99,13 +110,13 @@ def main(tmp: Path) -> None:
     for name, (arch, batch, kw) in torch.load(
             tmp / "reference_inputs.pt", weights_only=False).items():
         overrides = kw.get("overrides", {})
-        rcfg = dataclasses.replace(ref_reduced(arch), **overrides)
+        rcfg = with_overrides(ref_reduced(arch), overrides)
         run = RunConfig(model=rcfg, shape=ShapeConfig(
             "t", "train", kw.get("seq", 32), kw.get("batch", 4)),
             remat="none", optimizer=kw.get("opt", "adamw"),
             gradient_compression=kw.get("compression", False),
             moe_local_dispatch=kw.get("local", False))
-        key = (arch, tuple(sorted(overrides.items())),
+        key = (arch, repr(sorted(overrides.items())),
                run.moe_local_dispatch,
                tuple((k, tuple(v.shape)) for k, v in batch.items()))
         if key not in grads:
@@ -124,7 +135,7 @@ def main(tmp: Path) -> None:
                 "grad_norm": _global_norm(g)}.items()},
             "grad": T.trainable(from_reference(
                 jax.tree.map(np.asarray, g),
-                dataclasses.replace(get_reduced(arch), **overrides)))}
+                with_overrides(get_reduced(arch), overrides)))}
     torch.save(out, tmp / "reference.pt")
 
 
